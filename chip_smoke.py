@@ -6,8 +6,9 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. identity: the card's name and power limit (nvidia-smi), torch, CUDA
    and nvcc versions.  Without a CUDA device the script exits 2.
-2. build: every CUDA kernel of the port, compiled by nvcc from
-   ``tf_operator_tpu_torch/csrc``, with ptxas's register report.
+2. build: every CUDA source of the port under
+   ``tf_operator_tpu_torch/csrc``, one nvcc process each, all started
+   together, with ptxas's register report per source.
 3. the paged-attention kernel (K4) against its plain PyTorch version on
    the card: 7B decode shapes (S=8, H=Hkv=32, D=128, bs=16, MB=128,
    lengths 1..2048), GQA (Hkv=8), K=1 and K=4, bf16 and float32, plus
@@ -18,7 +19,31 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel's, the plain version's and scaled_dot_product_attention's
    times (the last on the gathered view, a yardstick the port never
    calls) beside the bound: live K/V bytes over 3.35 TB/s.
-4. the main path at full width: ``llama_7b_shape`` with seeded bf16
+4. the flash-attention kernels K1 (forward), K2 (dq) and K3 (dk, dv)
+   against their plain versions: the wide training shape (B 4, H 16,
+   Hkv 8, S 2048, D 128, bf16, causal), non-causal, a window of 256 at
+   S 1024, Sq != Sk (causal and not), S = 1000, D 64, MHA and float32.
+   Kernel by kernel on the same inputs, per row; and the gradients
+   through ``FlashAttention`` against autograd through the plain
+   versions.  At the wide shape: each kernel's time (CUDA events, 20
+   launches after 3 warm-ups), its bound (the causal products at the
+   dense bf16 peak, or its bytes at 3.35 TB/s, whichever is larger),
+   the plain version's time and SDPA's forward and backward times.
+5. the training main path: ``llama_pretrain`` at llama-wide (full
+   depth, 12 layers), seq 2048 x batch 4, 30 steps on the byte corpus
+   generated in a temporary directory.  The counts are zeroed just
+   before and read just after: K1, K2 and K3 must each have launched
+   12 x 30 times, no plain attention may have run, and the loss must
+   fall.  Prints step ms, tokens/s, model TFLOP/s and their share of
+   the 989 TFLOPS peak, and peak memory.
+6. train -> export -> serve: the exported artifact behind the port's
+   ``serve_lm`` (K4 at Hkv 8) answers one greedy request with the
+   bytes ``generate`` gives on the trained parameters in the process;
+   then one training step under torch.profiler (busy share, top
+   kernels), and the one-step parity: the first step's loss and grad
+   norm through the kernels against the same step with the plain
+   attention, same weights and batch.
+7. serving at full width: ``llama_7b_shape`` with seeded bf16
    weights, the paged pool (8 slots, max_len 2048, bs 16, 8 steps per
    sync) behind ``serve_lm``'s HTTP server on 127.0.0.1:0; 8 concurrent
    greedy requests (prompts of 64..1500 bytes, two sharing a 512-byte
@@ -27,13 +52,14 @@ Phases, in order; any failure exits non-zero before the result line:
    have launched 32 layers x the decode steps run.
    Then one decode window of the same pool runs under torch.profiler:
    the device's busy share of the window and each kernel's share.
-5. end to end: on ``llama_tiny`` (float32) the pool's greedy tokens
+8. end to end: on ``llama_tiny`` (float32) the pool's greedy tokens
    through the kernel equal the plain contiguous ``generate`` on the
    card; at 7B width the first decode step's logits through the kernel
    are within a bf16 tolerance, and share their argmax, with the same
    paged step under the plain attention on the same arena (only the
    attention differs) and with the contiguous (plain) path.
-6. the kernels line, the card line, and last
+9. the kernels line (K1, K2, K3 from the training path, K4 from the
+   serving path), the card line, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -96,14 +122,19 @@ def time_ms(fn, iters=20, warmup=3):
 
 
 def phase_build():
+    """Every source at once (one nvcc each, started together), then
+    each library loaded; prints ptxas's report per source."""
+
     from tf_operator_tpu_torch.ops import _build
 
-    for name in sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu")):
-        t0 = time.perf_counter()
-        out = _build.build(name)
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    log(f"built {sorted(logs)} together in {time.perf_counter() - t0:.1f} s")
+    for name in _build.sources():
         _build.load(name)
-        regs = [ln.strip() for ln in out.splitlines() if "registers" in ln or "spill" in ln]
-        log(f"built {name}.cu in {time.perf_counter() - t0:.1f} s; " + " | ".join(regs))
+        report = [ln.strip() for ln in logs.get(name, "").splitlines()
+                  if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        log(f"ptxas {name}.cu: " + " | ".join(report))
 
 
 def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed):
@@ -399,11 +430,348 @@ def phase_end_to_end(model7b):
         raise AssertionError(f"7B paged prefill's token off the contiguous one: {rec}")
 
 
+#: flash kernels (K1-K3) against their plain versions: kernel by kernel
+#: on the same inputs (K2, K3 get the plain forward's lse and delta),
+#: per row of D values over the row's largest |plain| (floored at 1e-3
+#: of the tensor's largest); through autograd (FlashAttention against
+#: autograd through the plain versions) over the tensor's largest
+#: |plain|, because the kernel's out, a bf16 ulp off the plain out in
+#: places, reaches every gradient through delta = rowsum(dO * O), and a
+#: dq row that cancels to near zero then differs by more than its own
+#: size.  bf16: the kernels round p and ds to bf16 as tensor-core
+#: operands where the plain versions keep float32; readings on the card
+#: were under 1e-2.  float32: another summation order
+FLASH_RTOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+FLASH_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+#: causal work in units of one product over the visible pairs
+#: (2 * D flops per pair): K1 QK^T and PV; K2 QK^T, dO V^T and dS K;
+#: K3 QK^T, dO V^T, P^T dO and dS^T Q
+FLASH_UNITS = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 3,
+               "flash_attention_bwd_dkv": 4}
+
+
+def _visible_pairs(sq, sk, causal, window):
+    qpos = torch.arange(sq)[:, None]
+    kpos = torch.arange(sk)[None, :]
+    vis = torch.ones(sq, sk, dtype=torch.bool)
+    if causal:
+        vis = qpos >= kpos
+        if window is not None:
+            vis &= qpos - kpos < window
+    return int(vis.sum())
+
+
+def _row_rel(got, want):
+    got, want = got.float(), want.float()
+    floor = 1e-3 * want.abs().max().clamp_min(1e-30)
+    return ((got - want).abs().amax(-1) / want.abs().amax(-1).maximum(floor)).max().item()
+
+
+def _tensor_rel(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def flash_case(name, *, b, h, hkv, sq, sk, d, dtype, causal, window=None, seed=0,
+               timed=False):
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, hkv, sk, d), generator=g, device=dev).to(dtype)
+    do = torch.randn((b, h, sq, d), generator=g, device=dev).to(dtype)
+    out, lse = fa.flash_forward_cuda(q, k, v, causal, window)
+    p_out, p_lse = fa.flash_forward_plain(q, k, v, causal, window)
+    delta = (do.float() * p_out.float()).sum(-1)
+    args = (q, k, v, do, p_lse, delta, causal, window)
+    dq = fa.flash_backward_dq_cuda(*args)
+    dk, dv = fa.flash_backward_dkv_cuda(*args)
+    p_dq = fa.flash_backward_dq_plain(*args)
+    p_dk, p_dv = fa.flash_backward_dkv_plain(*args)
+    torch.cuda.synchronize()
+    rec = {"case": name, "shape": [b, h, hkv, sq, sk, d], "dtype": str(dtype),
+           "causal": causal, "window": window, "tol": FLASH_RTOL[dtype], "row_rel": {}}
+    for n, a, ref in (("out", out, p_out), ("lse", lse[..., None], p_lse[..., None]),
+                      ("dq", dq, p_dq), ("dk", dk, p_dk), ("dv", dv, p_dv)):
+        rec["row_rel"][n] = _row_rel(a, ref)
+    rec["max_abs_err"] = {"fwd": (out.float() - p_out.float()).abs().max().item(),
+                          "dq": (dq.float() - p_dq.float()).abs().max().item(),
+                          "dkv": max((dk.float() - p_dk.float()).abs().max().item(),
+                                     (dv.float() - p_dv.float()).abs().max().item())}
+    # gradients through autograd: FlashAttention (kernels) against the
+    # plain versions
+    grads = {}
+    for impl in ("cuda", "plain"):
+        qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+        o = fa.flash_attention(qq, kk, vv, causal, window, impl=impl)
+        grads[impl] = (o, *torch.autograd.grad(o, (qq, kk, vv), do))
+    rec["autograd_rel"] = {n: _tensor_rel(a, ref) for n, a, ref in
+                           zip(("out", "dq", "dk", "dv"), grads["cuda"], grads["plain"])}
+    del grads
+    bad = {n: e for n, e in {**rec["row_rel"], **{f"autograd_{k2}": e2 for k2, e2 in
+                                                 rec["autograd_rel"].items()}}.items()
+           if not (math.isfinite(e) and e <= FLASH_RTOL[dtype])}
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        pairs = b * h * _visible_pairs(sq, sk, causal, window)
+        unit = 2 * d * pairs
+        qb, kb = q.numel() * elem, k.numel() * elem
+        rows = b * h * sq * 4
+        n_bytes = {"flash_attention_fwd": qb + 2 * kb + qb + rows,
+                   "flash_attention_bwd_dq": 2 * qb + 2 * kb + 2 * rows + qb,
+                   "flash_attention_bwd_dkv": 2 * qb + 2 * kb + 2 * rows + 2 * kb}
+        kernel_fn = {"flash_attention_fwd": lambda: fa.flash_forward_cuda(q, k, v, causal, window),
+                     "flash_attention_bwd_dq": lambda: fa.flash_backward_dq_cuda(*args),
+                     "flash_attention_bwd_dkv": lambda: fa.flash_backward_dkv_cuda(*args)}
+        plain_fn = {"flash_attention_fwd": lambda: fa.flash_forward_plain(q, k, v, causal, window),
+                    "flash_attention_bwd_dq": lambda: fa.flash_backward_dq_plain(*args),
+                    "flash_attention_bwd_dkv": lambda: fa.flash_backward_dkv_plain(*args)}
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        sq_, sk_, sv_ = (t.clone().requires_grad_() for t in (q, k, v))
+        so = sdpa(sq_, sk_, sv_, is_causal=causal, enable_gqa=hkv != h)
+        library = {"fwd": time_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=hkv != h)),
+                   "bwd": time_ms(lambda: torch.autograd.grad(so, (sq_, sk_, sv_), do,
+                                                              retain_graph=True))}
+        rec["timing"] = {}
+        for kname in FLASH_KERNELS:
+            t_ops = FLASH_UNITS[kname] * unit / PEAK_OPS[dtype] * 1e3
+            t_bytes = n_bytes[kname] / HBM_BYTES_PER_S * 1e3
+            ms = time_ms(kernel_fn[kname])
+            rec["timing"][kname] = {
+                "ms": ms, "plain_ms": time_ms(plain_fn[kname], iters=5),
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": library["fwd" if kname == "flash_attention_fwd" else "bwd"],
+                "flops": FLASH_UNITS[kname] * unit,
+            }
+            rec["timing"][kname]["share_of_bound"] = rec["timing"][kname]["bound_ms"] / ms
+        rec["sdpa_ms"] = library
+    log("flash " + json.dumps(rec))
+    if bad:
+        raise AssertionError(f"flash {name}: errors over the tolerance {FLASH_RTOL[dtype]}: {bad}")
+    return rec
+
+
+def phase_flash():
+    wide = dict(b=4, h=16, hkv=8, sq=2048, sk=2048, d=128, dtype=torch.bfloat16, causal=True)
+    small = dict(b=1, h=8, hkv=4, sq=1024, sk=1024, d=128, dtype=torch.bfloat16, causal=True)
+    cases = [
+        ("wide_causal_bf16", dict(wide, timed=True)),
+        ("noncausal_bf16", dict(small, causal=False)),
+        ("window256_s1024_bf16", dict(small, window=256)),
+        ("cross_sq512_sk1024_bf16", dict(small, sq=512)),
+        ("cross_noncausal_sq1024_sk700_bf16", dict(small, sk=700, causal=False)),
+        ("s1000_bf16", dict(small, sq=1000, sk=1000)),
+        ("d64_bf16", dict(small, d=64)),
+        ("mha_bf16", dict(small, hkv=8)),
+        ("f32_causal_gqa", dict(small, sq=512, sk=512, dtype=torch.float32)),
+    ]
+    return [flash_case(n, seed=i, **kw) for i, (n, kw) in enumerate(cases)]
+
+
+def training_flops_per_token(cfg, seq_len):
+    """Model flops of one trained token (forward + backward = 3x the
+    forward): 6 x the matmul parameters (every kernel but the embedding
+    gather) plus the causal attention products, 6 * L * H * D * S (two
+    products of 2 * D flops over S/2 positions on average, x3)."""
+
+    e, h, hkv, d, m = cfg.hidden, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.mlp_dim
+    per_layer = e * h * d + 2 * e * hkv * d + h * d * e + 3 * e * m
+    matmul = cfg.n_layers * per_layer + e * cfg.vocab_size
+    return 6.0 * matmul + 6 * cfg.n_layers * h * d * seq_len
+
+
+def _steady_step_s(resolved_at):
+    """Seconds per step between the first and the last loss resolve
+    (the first window, which holds the warm-up, is left out)."""
+
+    (n0, t0), (n1, t1) = resolved_at[0], resolved_at[-1]
+    return (t1 - t0) / (n1 - n0)
+
+
+def phase_train(data_dir, export_dir, steps):
+    """The training main path: ``llama_pretrain`` at llama-wide, full
+    depth, seq 2048 x batch 4, through its own entry point.  Counts are
+    zeroed just before and read just after: K1, K2 and K3 must each
+    launch 12 layers x steps times, and no plain attention may run."""
+
+    from tf_operator_tpu_torch import llama_pretrain
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    args = llama_pretrain.parse_args([
+        "--model", "llama-wide", "--seq-len", "2048", "--batch", "4",
+        "--steps", str(steps), "--steps-per-sync", "5", "--data-dir", data_dir,
+        "--export-dir", export_dir, "--generate", "0"])
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fa.plain_calls.clear()
+    out = llama_pretrain.run(args)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    plain = dict(fa.plain_calls)
+    trainer, losses = out["trainer"], out["losses"]
+    cfg = trainer.model.cfg
+    step_s = _steady_step_s(out["resolved_at"])
+    tokens = args.batch * args.seq_len
+    flops_tok = training_flops_per_token(cfg, args.seq_len)
+    stats = {
+        "model": "llama-wide", "layers": cfg.n_layers, "steps": steps,
+        "params": sum(p.numel() for p in trainer.params),
+        "loss_first": losses[0], "loss_last5": sum(losses[-5:]) / 5,
+        "losses": [round(x, 4) for x in losses],
+        "launches": launches, "plain_calls": plain,
+        "wall_s": out["wall_s"], "step_ms": step_s * 1e3,
+        "tokens_per_s": tokens / step_s,
+        "model_tflops": flops_tok * tokens / step_s / 1e12,
+        "flops_per_token": flops_tok,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    stats["peak_share"] = stats["model_tflops"] * 1e12 / PEAK_OPS[torch.bfloat16]
+    log("train " + json.dumps(stats))
+    want = cfg.n_layers * steps
+    for kname in FLASH_KERNELS:
+        if launches.get(kname, 0) != want:
+            raise AssertionError(f"{kname} launched {launches.get(kname, 0)} times; "
+                                 f"{cfg.n_layers} layers x {steps} steps = {want}")
+    if sum(plain.values()):
+        raise AssertionError(f"plain attention ran on the card during training: {plain}")
+    if not stats["loss_last5"] < stats["loss_first"]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    return stats, trainer, args
+
+
+def phase_train_profile(trainer, batch):
+    """One training step under torch.profiler: the device's busy share
+    of the step's wall and the top kernels by device time."""
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    trainer.train_step(batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.key.startswith("aten::")]
+    busy = sum(e.self_device_time_total for e in events)
+    if busy == 0:
+        log("train step profile: the profiler recorded no device time")
+        return None
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    flash = sum(e.self_device_time_total for e in events if "flash_" in e.key)
+    rec = {"profiled_step_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+           "device_busy_share": busy / wall_us, "flash_share_of_device": flash / busy,
+           "top_kernels": [[e.key[:60], round(e.self_device_time_total / busy, 4), e.count]
+                           for e in top]}
+    log("train step profile " + json.dumps(rec))
+    return rec
+
+
+#: one-step parity at the wide config: the first step's loss and grad
+#: norm through the kernels against the same step with the plain
+#: attention (same weights, same batch; only the attention differs).
+#: Relative bounds from the readings on an H100 at seed 0 (loss
+#: 4.2e-6 to 1.7e-5, grad norm 9.5e-7 to 6.0e-5 across the kernel
+#: versions measured), which leave room for another rounding of p and
+#: for cuBLAS's choice of algorithms, and no room for a wrong gradient
+PARITY_RTOL = {"loss": 5e-5, "grad_norm": 5e-4}
+
+
+def phase_parity(args, batch):
+    from tf_operator_tpu_torch.llama_pretrain import INIT_SEED, model_config
+    from tf_operator_tpu_torch.models.llama import LlamaLM, llama_loss
+    from tf_operator_tpu_torch.models.weights import init_params
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    cfg = model_config(args.model, args.seq_len)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, INIT_SEED, dev, trainable=True),
+                                    dev, trainable=True)
+    tcfg = TrainerConfig(learning_rate=args.learning_rate, warmup_steps=10)
+    fa.plain_calls.clear()
+    got = Trainer(model, tcfg, llama_loss).compute_grads(batch)
+    want = Trainer(model.variant(plain_attention=True), tcfg, llama_loss).compute_grads(batch)
+    if fa.plain_calls[fa.KERNEL_FWD] != cfg.n_layers:
+        raise AssertionError(f"the plain step did not run the plain attention: {fa.plain_calls}")
+    rec = {}
+    for key in PARITY_RTOL:
+        a, b = float(got[key]), float(want[key])
+        rec[key] = {"kernels": a, "plain": b, "rel": abs(a - b) / abs(b), "tol": PARITY_RTOL[key]}
+    log("one-step parity " + json.dumps(rec))
+    for key, r in rec.items():
+        if not (math.isfinite(r["rel"]) and r["rel"] <= r["tol"]):
+            raise AssertionError(f"one-step parity: {key} off the plain step: {rec}")
+    return rec
+
+
+def phase_serve_artifact(trainer, export_dir):
+    """Train -> export -> serve: the port's serve_lm on the exported
+    artifact (K4 at Hkv 8) answers one greedy request with the tokens
+    ``generate`` gives on the trained parameters in this process."""
+
+    from tf_operator_tpu_torch.data.text import decode_bytes
+    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
+    from tf_operator_tpu_torch.models.decode import generate
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.serve_lm import Server, load_model
+
+    prompt, n_new = "the sharded ", 32
+    model = load_model(torch.device("cuda"), max_len=2048,
+                       weights=os.path.join(export_dir, "params.npz"),
+                       model_json=os.path.join(export_dir, "model.json"))
+    pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=8, kv_block_size=16)
+    server = Server(pool).start()
+    try:
+        _build.launches.clear()
+        status, body, _ = _post(server.port, {"prompt": prompt, "max_new_tokens": n_new})
+        k4 = _build.launches.get("paged_attention", 0)
+    finally:
+        server.close()
+    ids = torch.tensor([list(prompt.encode())], device="cuda")
+    want = generate(trainer.model, ids, n_new)[0, len(prompt):].tolist()
+    # the server answers bytes: the in-process tokens, decoded the same
+    # way, must give the same text, and are all bytes (< 256), so that
+    # equal text is equal tokens
+    got = body.get("sample") if status == 200 else None
+    rec = {"status": status, "served_sample": got, "generate_sample": decode_bytes(want),
+           "generate_tokens": want, "k4_launches": k4}
+    log("train->export->serve " + json.dumps(rec))
+    if (status != 200 or got != rec["generate_sample"] or max(want) >= 256
+            or k4 == 0):
+        raise AssertionError(f"served artifact off in-process generate: {rec}")
+    del pool, model
+    return rec
+
+
+#: training steps of the main path (the loss-decrease guard of
+#: train_loop needs 20 or more)
+TRAIN_STEPS = 30
+
+
+def _kernel_entry(name, source, replaces, launches, err, timing):
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": timing["ms"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
         return 2
+    import shutil
+    import tempfile
+
     from tf_operator_tpu_torch import resolve_device
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
     from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape
     from tf_operator_tpu_torch.models.weights import init_params
     from tf_operator_tpu_torch.ops.paged_attention import KERNEL
@@ -420,6 +788,24 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     k4 = phase_k4()
+    flash = phase_flash()
+    log(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        data_dir, export_dir = os.path.join(tmp, "text"), os.path.join(tmp, "artifact")
+        train_stats, trainer, args = phase_train(data_dir, export_dir, TRAIN_STEPS)
+        batch = next(iter(as_lm_batches(TextBatches(data_dir, args.batch, seed=1))))
+        phase_serve_artifact(trainer, export_dir)
+        phase_train_profile(trainer, batch)
+        del trainer
+        torch.cuda.empty_cache()
+        phase_parity(args, batch)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"training phases done at {time.perf_counter() - t0:.1f} s")
+
     dev = resolve_device()
     cfg = llama_7b_shape(max_len=2048)
     t_init = time.perf_counter()
@@ -432,19 +818,21 @@ def main():
     del pool
     phase_end_to_end(model)
     head = k4[0]
-    kernels = [{
-        "name": "paged_attention",
-        "route": "cuda",
-        "source": "tf_operator_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "tf_operator_tpu/ops/paged_attention.py:195",
-        "launches": main_stats["launches"].get(KERNEL, 0),
-        "max_abs_err": head["max_abs_err"],
-        "ms": head["kernel_ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    }]
+    kernels = [_kernel_entry(
+        "paged_attention", "tf_operator_tpu_torch/csrc/paged_attention.cu",
+        "tf_operator_tpu/ops/paged_attention.py:195", main_stats["launches"].get(KERNEL, 0),
+        head["max_abs_err"], dict(head, ms=head["kernel_ms"]))]
+    wide = flash[0]
+    replaces = {"flash_attention_fwd": "tf_operator_tpu/ops/flash_attention.py:165",
+                "flash_attention_bwd_dq": "tf_operator_tpu/ops/flash_attention.py:297",
+                "flash_attention_bwd_dkv": "tf_operator_tpu/ops/flash_attention.py:343"}
+    errs = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
+            "flash_attention_bwd_dkv": "dkv"}
+    for kname in FLASH_KERNELS:
+        kernels.insert(-1, _kernel_entry(
+            kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
+            train_stats["launches"].get(kname, 0), wide["max_abs_err"][errs[kname]],
+            wide["timing"][kname]))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,7 +5,8 @@
   that imports every module and then looks at ``sys.modules``);
 - ``chip_smoke.py`` refuses to run without a CUDA device and prints no
   result line;
-- the CUDA kernel's source is in the package and is built for sm_90a.
+- the CUDA kernels' sources are in the package, name the TPU kernels
+  they replace and are built for sm_90a, every source together.
 """
 
 import ast
@@ -58,7 +59,9 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    assert "tf_operator_tpu_torch.models.batching" in mods
+    for m in ("models.batching", "ops.flash_attention", "parallel.trainer",
+              "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain"):
+        assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -99,3 +102,16 @@ def test_kernel_source_and_build_target():
     assert _build.BUILD_DIR.endswith(os.path.join("build", "torch_kernels"))
     with open(os.path.join(ROOT, ".gitignore")) as f:
         assert "build/" in f.read().split()
+
+
+def test_flash_kernel_source_and_entry_points():
+    src = os.path.join(PKG, "csrc", "flash_attention.cu")
+    with open(src) as f:
+        text = f.read()
+    for entry in ("flash_fwd_launch", "flash_bwd_dq_launch", "flash_bwd_dkv_launch"):
+        assert f'extern "C" int {entry}' in text
+    for tpu_kernel in ("_flash_kernel", "_flash_bwd_dq_kernel", "_flash_bwd_dkv_kernel"):
+        assert tpu_kernel in text  # names the TPU kernel it replaces
+    assert "mma.sync.aligned.m16n8k16" in text
+    # every source is built at first use, all nvcc processes together
+    assert _build.sources() == ["flash_attention", "paged_attention"]

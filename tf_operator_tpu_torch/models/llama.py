@@ -1,14 +1,17 @@
-"""Llama-style decoder: rope + RMSNorm + SwiGLU + GQA, untied head (the
-port of ``tf_operator_tpu/models/llama.py``)."""
+"""Llama-style decoder: rope + RMSNorm + SwiGLU + GQA, untied head, and
+its next-token losses (the port of ``tf_operator_tpu/models/llama.py``
+and of ``models/gpt.py``'s ``lm_loss``)."""
 
 from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch.models.transformer import (
     DecodeCache,
@@ -26,29 +29,36 @@ class LlamaLM(nn.Module):
 
     Parameter names follow the flax tree (``tok_embed.embedding``,
     ``layers.{i}.self_attn.query.kernel``, ..., ``lm_head.kernel``);
-    models/weights.py maps them to and from flax paths."""
+    models/weights.py maps them to and from flax paths.
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    ``trainable=True`` builds float32 master parameters that take
+    gradients (models/transformer.py: the two storage modes)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.tok_embed = Embed(cfg, device)
+        self.tok_embed = Embed(cfg, device, trainable)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device) for _ in range(cfg.n_layers)
+            DecoderLayer(cfg, device, trainable) for _ in range(cfg.n_layers)
         )
-        self.ln_final = RMSNorm(cfg, device)
+        self.ln_final = RMSNorm(cfg, device, trainable)
         self.lm_head = DenseGeneral(
-            (cfg.hidden,), (cfg.vocab_size,), cfg, False, device
+            (cfg.hidden,), (cfg.vocab_size,), cfg, False, device, trainable
         )
 
     @classmethod
     def from_state_dict(cls, cfg: TransformerConfig,
-                        state: Mapping[str, object], device) -> "LlamaLM":
+                        state: Mapping[str, object], device, *,
+                        trainable: bool = False) -> "LlamaLM":
         """Build the model around ``state`` (name -> tensor or array),
         each entry moved to ``device`` and cast to its parameter's
-        storage dtype.  Entries already in place are adopted without a
-        copy, so 7B-width weights are never held twice."""
+        storage dtype.  A serving model adopts entries already in place
+        without a copy, so 7B-width weights are never held twice, and is
+        returned in eval mode; a trainable model copies every entry (the
+        optimizer updates its parameters in place) and is returned in
+        train mode."""
 
-        model = cls(cfg, device="meta")
+        model = cls(cfg, device="meta", trainable=trainable)
         expected = dict(model.named_parameters())
         if set(state) != set(expected):
             missing = sorted(set(expected) - set(state))
@@ -65,9 +75,9 @@ class LlamaLM(nn.Module):
                 raise ValueError(
                     f"{name}: shape {tuple(t.shape)} != {tuple(p.shape)}"
                 )
-            placed[name] = t.to(device=device, dtype=p.dtype)
+            placed[name] = t.to(device=device, dtype=p.dtype, copy=trainable)
         model.load_state_dict(placed, strict=True, assign=True)
-        return model.eval()
+        return model.train(trainable)
 
     def variant(self, **changes) -> "LlamaLM":
         """The same weights under a config with ``changes`` (e.g.
@@ -105,9 +115,13 @@ class LlamaLM(nn.Module):
             raise ValueError(
                 f"paged={cfg.paged} does not match a {type(cache).__name__}"
             )
+        if self.training and cfg.dropout > 0:
+            raise NotImplementedError(
+                f"dropout {cfg.dropout} in training is not ported; use dropout=0"
+            )
         x = self.tok_embed(input_ids)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache, i)
+            x = layer(x, cache, i, cfg.plain_attention)
         s_new = input_ids.shape[1]
         if isinstance(cache, DecodeCache):
             cache.index += s_new
@@ -140,3 +154,72 @@ def llama_7b_shape(vocab_size: int = 32000, max_len: int = 4096,
         n_layers=32, mlp_dim=11008, max_len=max_len, rope=True,
         attn_bias=False, **kw,
     )
+
+
+def llama_wide(vocab_size: int = 32000, max_len: int = 2048,
+               window: Optional[int] = None, **kw) -> TransformerConfig:
+    """The ~700M wide-llama training config (hidden 2048, 12 layers, GQA
+    16 query heads : 8 KV heads of 128, SwiGLU 5632, no dropout): the
+    port's copy of ``bench.py``'s ``llama_wide_config``."""
+
+    return TransformerConfig(
+        vocab_size=vocab_size, hidden=2048, n_heads=16, head_dim=128,
+        n_layers=12, mlp_dim=5632, max_len=max_len, dropout=0.0, rope=True,
+        attn_bias=False, n_kv_heads=8, window=window, **kw,
+    )
+
+
+Batch = Mapping[str, torch.Tensor]
+
+
+def _next_token(logits: torch.Tensor, targets: torch.Tensor, reduction: str):
+    v = logits.shape[-1]
+    return F.cross_entropy(logits.reshape(-1, v), targets.reshape(-1).long(),
+                           reduction=reduction)
+
+
+def llama_loss(model: LlamaLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token loss on ``batch["input_ids"]`` [B, S]: float32
+    cross-entropy of the head's logits (cast to float32), averaged over
+    the B * (S - 1) targets, and the token accuracy (the counterpart of
+    ``lm_loss``).  Returns (loss, {"token_accuracy": ...})."""
+
+    ids = batch["input_ids"]
+    logits = model(ids)[:, :-1]
+    targets = ids[:, 1:]
+    loss = _next_token(logits, targets, "mean")
+    acc = (logits.detach().argmax(-1) == targets).float().mean()
+    return loss, {"token_accuracy": acc}
+
+
+def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
+                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """:func:`llama_loss` with the head and the cross-entropy streamed
+    over sequence chunks, each under ``torch.utils.checkpoint``: only a
+    chunk's hidden states are kept for the backward and the full
+    [B, S, V] float32 logits never exist.  The chunk count is the
+    largest count <= ``n_chunks`` that divides S - 1 (the JAX rule).
+    The same math up to summation order."""
+
+    ids = batch["input_ids"]
+    h = model(ids, mode="hidden")[:, :-1]
+    tgt = ids[:, 1:]
+    b, s, _ = h.shape
+    c = max(1, min(n_chunks, s))
+    while s % c:
+        c -= 1
+    w = s // c
+
+    def one(hc, tc):
+        logits = model(hc, mode="head")
+        return _next_token(logits, tc, "sum"), (logits.argmax(-1) == tc).sum()
+
+    loss = h.new_zeros((), dtype=torch.float32)
+    hits = torch.zeros((), dtype=torch.long, device=h.device)
+    for i in range(c):
+        part, n_hit = checkpoint(one, h[:, i * w:(i + 1) * w], tgt[:, i * w:(i + 1) * w],
+                                 use_reentrant=False)
+        loss = loss + part
+        hits = hits + n_hit
+    denom = b * s
+    return loss / denom, {"token_accuracy": hits.float() / denom}

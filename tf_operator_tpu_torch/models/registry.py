@@ -1,5 +1,7 @@
-"""Rebuild a model's config from its ``model.json`` description (the
-port of ``tf_operator_tpu/models/registry.py``, llama family only)."""
+"""Describe a model as a ``model.json`` and rebuild its config from one
+(the port of ``tf_operator_tpu/models/registry.py``, llama family
+only).  A description the port writes has the keys the JAX package's
+``describe_model`` writes, so either side can read the other's."""
 
 from __future__ import annotations
 
@@ -11,9 +13,28 @@ import torch
 from tf_operator_tpu_torch.models.transformer import TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-#: description keys that only shape training or the JAX runtime, or
-#: that the serving code sets itself (decode, paged)
-_IGNORED = ("dropout", "sp_impl", "paged", "decode")
+#: description keys that only shape the JAX runtime, or that the port
+#: sets itself when it serves (decode, paged, plain_attention)
+_IGNORED = ("sp_impl", "paged", "decode", "plain_attention")
+#: config fields of the port that a description leaves out
+_PORT_ONLY = ("decode", "paged", "plain_attention")
+
+
+def describe_model(model) -> Dict[str, Any]:
+    """JSON-safe ``{"family": "llama", "config": {...}}`` of a LlamaLM."""
+
+    from tf_operator_tpu_torch.models.llama import LlamaLM
+
+    if not isinstance(model, LlamaLM):
+        raise ValueError(f"only the llama family is ported, got {type(model).__name__}")
+    cfg = {k: v for k, v in dataclasses.asdict(model.cfg).items() if k not in _PORT_ONLY}
+    names = {v: k for k, v in _DTYPES.items()}
+    cfg["dtype"] = names[model.cfg.dtype]
+    # the JAX config's fields the port does not have, at their values
+    # for a single-device llama
+    cfg["sp_impl"] = "ring"
+    cfg["paged"] = None
+    return {"family": "llama", "config": cfg}
 
 
 def model_from_description(d: Dict[str, Any],

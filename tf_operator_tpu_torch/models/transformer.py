@@ -5,13 +5,23 @@ Parameters keep the flax layout — a dense kernel is [in..., out...],
 the attention projections are [E, H, D] and the output projection is
 [H, D, E] — so the weight bridge (models/weights.py) is a renaming.
 ``QDenseGeneral`` casts both x and the kernel to ``cfg.dtype`` before
-each product; the port stores the kernels and the embedding in
-``cfg.dtype`` from the start (the same numbers, cast once) and casts x
-at each product.  Norm scales stay float32, as flax applies them.
+each product.  Two storage modes, chosen when a model is built:
+
+- serving (``trainable=False``, the default): kernels and the embedding
+  are stored in ``cfg.dtype`` from the start (the same numbers, cast
+  once) and take no gradients;
+- training (``trainable=True``): every parameter is a float32 master
+  copy that takes gradients and is cast to ``cfg.dtype`` at each use,
+  as flax does.
+
+Norm scales are float32 in both, as flax applies them.
 
 Attention has three branches, chosen by the cache passed in:
 
-- no cache: the causal forward over the whole sequence;
+- no cache: the causal forward over the whole sequence, through
+  ``ops/flash_attention.attention`` (the flash kernels on the card,
+  their plain versions on the CPU; ``cfg.plain_attention`` asks for
+  the plain versions on the card too);
 - a :class:`DecodeCache`: the contiguous decode branch — new K/V are
   written at the running index, queries attend to every filled slot;
 - a :class:`PagedCache`: the paged decode branch — each seat's new K/V
@@ -32,6 +42,7 @@ import torch
 from torch import nn
 
 from tf_operator_tpu_torch.ops.attention import dot_product_attention
+from tf_operator_tpu_torch.ops.flash_attention import attention
 from tf_operator_tpu_torch.ops.paged_attention import paged_attention_multi
 from tf_operator_tpu_torch.ops.rotary import apply_rope
 
@@ -48,6 +59,9 @@ class TransformerConfig:
     n_layers: int = 12
     mlp_dim: int = 3072
     max_len: int = 512
+    #: training dropout; only 0 is ported (a model in training mode
+    #: with dropout > 0 raises)
+    dropout: float = 0.0
     dtype: torch.dtype = torch.bfloat16
     #: grouped-query attention: number of K/V heads (None = MHA)
     n_kv_heads: Optional[int] = None
@@ -60,6 +74,10 @@ class TransformerConfig:
     decode: bool = False
     #: paged decode: the cache is the block arena (needs decode=True)
     paged: bool = False
+    #: the full-sequence branch's attention: False = the flash kernels
+    #: for CUDA tensors and their plain versions for CPU ones; True =
+    #: the plain versions everywhere (the reference on the card)
+    plain_attention: bool = False
 
     def __post_init__(self):
         if self.paged:
@@ -107,9 +125,14 @@ class PagedCache:
     impl: Optional[str] = None
 
 
-def _param(shape, dtype, device) -> nn.Parameter:
+def _param(shape, dtype, device, trainable: bool) -> nn.Parameter:
+    """A serving parameter stored in ``dtype`` without gradients, or a
+    trainable float32 master parameter."""
+
+    if trainable:
+        dtype = torch.float32
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+                        requires_grad=trainable)
 
 
 class DenseGeneral(nn.Module):
@@ -118,13 +141,14 @@ class DenseGeneral(nn.Module):
     the JAX package's ``QDenseGeneral``."""
 
     def __init__(self, in_shape, features, cfg: TransformerConfig,
-                 use_bias: bool, device=None):
+                 use_bias: bool, device=None, trainable: bool = False):
         super().__init__()
         self.in_shape = tuple(in_shape)
         self.features = tuple(features)
         self.dtype = cfg.dtype
-        self.kernel = _param(self.in_shape + self.features, cfg.dtype, device)
-        self.bias = _param(self.features, cfg.dtype, device) if use_bias else None
+        self.kernel = _param(self.in_shape + self.features, cfg.dtype, device, trainable)
+        self.bias = (_param(self.features, cfg.dtype, device, trainable)
+                     if use_bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n_in = len(self.in_shape)
@@ -133,10 +157,10 @@ class DenseGeneral(nn.Module):
         for d in self.in_shape:
             k_in *= d
         out = torch.matmul(x.to(self.dtype).reshape(*lead, k_in),
-                           self.kernel.reshape(k_in, -1))
+                           self.kernel.to(self.dtype).reshape(k_in, -1))
         out = out.reshape(*lead, *self.features)
         if self.bias is not None:
-            out = out + self.bias
+            out = out + self.bias.to(self.dtype)
         return out
 
 
@@ -144,10 +168,10 @@ class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm``: float32 statistics, eps 1e-6, the float32
     scale folded into the reciprocal, one cast to ``cfg.dtype``."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         self.dtype = cfg.dtype
-        self.scale = _param((cfg.hidden,), torch.float32, device)
+        self.scale = _param((cfg.hidden,), torch.float32, device, trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
@@ -157,29 +181,33 @@ class RMSNorm(nn.Module):
 
 
 class Embed(nn.Module):
-    """Token embedding [V, E]."""
+    """Token embedding [V, E], looked up and then cast to ``cfg.dtype``
+    (the same numbers as flax's cast of the whole table)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
-        self.embedding = _param((cfg.vocab_size, cfg.hidden), cfg.dtype, device)
+        self.dtype = cfg.dtype
+        self.embedding = _param((cfg.vocab_size, cfg.hidden), cfg.dtype, device, trainable)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embedding[ids.long()]
+        return self.embedding[ids.long()].to(self.dtype)
 
 
 class MultiHeadAttention(nn.Module):
     """Causal self-attention with rope and GQA."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         h, hkv, d, e = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.hidden
-        self.query = DenseGeneral((e,), (h, d), cfg, cfg.attn_bias, device)
-        self.key = DenseGeneral((e,), (hkv, d), cfg, cfg.attn_bias, device)
-        self.value = DenseGeneral((e,), (hkv, d), cfg, cfg.attn_bias, device)
-        self.out = DenseGeneral((h, d), (e,), cfg, cfg.attn_bias, device)
+        bias = cfg.attn_bias
+        self.query = DenseGeneral((e,), (h, d), cfg, bias, device, trainable)
+        self.key = DenseGeneral((e,), (hkv, d), cfg, bias, device, trainable)
+        self.value = DenseGeneral((e,), (hkv, d), cfg, bias, device, trainable)
+        self.out = DenseGeneral((h, d), (e,), cfg, bias, device, trainable)
 
-    def forward(self, x: torch.Tensor, cache=None, layer: int = 0) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
+                plain_attention: bool = False) -> torch.Tensor:
         cfg = self.cfg
         # [B, S, H, D] -> [B, H, S, D]
         q, k, v = (m(x).transpose(1, 2) for m in (self.query, self.key, self.value))
@@ -189,7 +217,8 @@ class MultiHeadAttention(nn.Module):
             return self._decode(q, k, v, cache, layer)
         if cfg.rope:
             q, k = apply_rope(q, k, theta=cfg.rope_theta)
-        out = dot_product_attention(q, k, v, causal=True, window=cfg.window)
+        out = attention(q, k, v, causal=True, window=cfg.window,
+                        impl="plain" if plain_attention else None)
         return self.out(out.transpose(1, 2))
 
     def _decode(self, q, k, v, cache: DecodeCache, layer: int):
@@ -257,12 +286,12 @@ class MultiHeadAttention(nn.Module):
 class MlpBlock(nn.Module):
     """llama's gated MLP: silu(gate) * up, no biases."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         e, m = cfg.hidden, cfg.mlp_dim
-        self.wi_gate = DenseGeneral((e,), (m,), cfg, False, device)
-        self.wi_up = DenseGeneral((e,), (m,), cfg, False, device)
-        self.wo = DenseGeneral((m,), (e,), cfg, False, device)
+        self.wi_gate = DenseGeneral((e,), (m,), cfg, False, device, trainable)
+        self.wi_up = DenseGeneral((e,), (m,), cfg, False, device, trainable)
+        self.wo = DenseGeneral((m,), (e,), cfg, False, device, trainable)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.wo(nn.functional.silu(self.wi_gate(x)) * self.wi_up(x))
@@ -271,13 +300,14 @@ class MlpBlock(nn.Module):
 class DecoderLayer(nn.Module):
     """Pre-norm decoder block: causal self-attention, then the MLP."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
-        self.ln_self = RMSNorm(cfg, device)
-        self.self_attn = MultiHeadAttention(cfg, device)
-        self.ln_mlp = RMSNorm(cfg, device)
-        self.mlp = MlpBlock(cfg, device)
+        self.ln_self = RMSNorm(cfg, device, trainable)
+        self.self_attn = MultiHeadAttention(cfg, device, trainable)
+        self.ln_mlp = RMSNorm(cfg, device, trainable)
+        self.mlp = MlpBlock(cfg, device, trainable)
 
-    def forward(self, x: torch.Tensor, cache=None, layer: int = 0) -> torch.Tensor:
-        x = x + self.self_attn(self.ln_self(x), cache, layer)
+    def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
+                plain_attention: bool = False) -> torch.Tensor:
+        x = x + self.self_attn(self.ln_self(x), cache, layer, plain_attention)
         return x + self.mlp(self.ln_mlp(x))

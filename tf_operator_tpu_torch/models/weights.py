@@ -13,14 +13,18 @@ Flax paths (as ``llama_tiny`` produces them) and port names:
     lm_head/kernel                           lm_head.kernel
 
 Shapes are unchanged (the port keeps the flax layout), so the bridge is
-a renaming; ``LlamaLM.from_state_dict`` casts each entry to its storage
-dtype on the device.  Flax params are float32 and cast to ``cfg.dtype``
-at use; the port casts them once at load, which gives the same numbers.
+a renaming, both ways at float32: a flax tree becomes a state_dict that
+``LlamaLM.from_state_dict`` loads into a serving model (each entry cast
+once to its storage dtype, which gives the numbers flax's cast at use
+gives) or into a trainable one (float32 masters); a state_dict becomes
+a flat flax-path npz (:func:`save_npz`), the artifact ``serve_lm
+--weights`` reads.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -86,6 +90,16 @@ def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     return tree
 
 
+def save_npz(state: Mapping[str, torch.Tensor], path: str) -> None:
+    """Write ``state`` as an npz of flat flax-path keys (float32),
+    through a temporary file so a reader never sees half of it."""
+
+    tmp = f"{path}.tmp.npz"
+    np.savez(tmp, **{name_to_flax_path(name): t.detach().to("cpu", torch.float32).numpy()
+                     for name, t in state.items()})
+    os.replace(tmp, path)
+
+
 def load_npz(path: str) -> Dict[str, torch.Tensor]:
     """A state_dict from an npz of flat flax-path keys (numpy only)."""
 
@@ -101,19 +115,21 @@ def _lecun_fan_in(shape) -> int:
     return shape[-2] * receptive
 
 
-def init_params(cfg: TransformerConfig, seed: int, device) -> Dict[str, torch.Tensor]:
+def init_params(cfg: TransformerConfig, seed: int, device, *,
+                trainable: bool = False) -> Dict[str, torch.Tensor]:
     """A seeded state_dict made directly on ``device`` at the flax
     init scales: normal(0.02) for the embedding and lm_head,
     lecun-normal (truncated at 2 sigma) for the projections, ones for
     the norm scales, zeros for biases.  Draws in float32, stores in the
     parameter's dtype.  The numbers differ from flax's (another
-    generator); the scales do not."""
+    generator); the scales do not.  ``trainable``: float32 everywhere,
+    for a trainable model."""
 
     from tf_operator_tpu_torch.models.llama import LlamaLM
 
     g = torch.Generator(device=device).manual_seed(int(seed))
     state = {}
-    for name, p in LlamaLM(cfg, device="meta").named_parameters():
+    for name, p in LlamaLM(cfg, device="meta", trainable=trainable).named_parameters():
         shape = tuple(p.shape)
         if name.endswith(".scale"):
             t = torch.ones(shape, dtype=torch.float32, device=device)

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` exposes a plain C entry point.  At first use it
-is compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``) and loaded with ``ctypes``.  The library's file name
-carries a hash of the source and the flags, so an edited source builds
-anew and an unchanged one is reused.
+Each ``csrc/<name>.cu`` exposes plain C entry points.  At first use
+every source is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library under ``build/torch_kernels/`` at the repository root (listed
+in ``.gitignore``), one nvcc process per source, all started together,
+and the asked-for library is loaded with ``ctypes``.  A library's file
+name carries a hash of its source and the flags, so an edited source
+builds anew and an unchanged one is reused.
 
 ``launches`` counts kernel launches by kernel name: each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
@@ -21,7 +22,7 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, List
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -49,42 +50,58 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> List[str]:
+    """Names of every ``csrc/<name>.cu``."""
+
+    return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
+
+
 def _library_path(name: str) -> str:
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library exists.  Returns
-    nvcc's output (the ptxas register and shared-memory report; "" when
-    the library was reused) and raises with it when nvcc fails."""
+def build_all() -> Dict[str, str]:
+    """Compile every source whose library does not exist yet, one nvcc
+    process per source, all started together.  Returns nvcc's output by
+    name (the ptxas register and shared-memory report) for the sources
+    it compiled, and raises with the output of each that failed."""
 
-    out = _library_path(name)
-    if os.path.exists(out):
-        return ""
+    todo = [n for n in sources() if not os.path.exists(_library_path(n))]
+    if not todo:
+        return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
-        capture_output=True, text=True,
-    )
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"CUDA kernel build failed: {name}.cu (nvcc exit {proc.returncode}):\n{log}"
-        )
-    os.replace(tmp, out)
-    return log
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = f"{_library_path(name)}.{os.getpid()}.tmp"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
+        else:
+            os.replace(tmp, _library_path(name))
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return logs
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>.cu``; the first call whose
+    library is missing builds every source (:func:`build_all`)."""
 
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            build(name)
-            lib = ctypes.CDLL(_library_path(name))
+            path = _library_path(name)
+            if not os.path.exists(path):
+                build_all()
+            lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
