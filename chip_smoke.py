@@ -602,7 +602,7 @@ def phase_train(data_dir, export_dir, steps):
     from tf_operator_tpu_torch.ops import flash_attention as fa
 
     args = llama_pretrain.parse_args([
-        "--model", "llama-wide", "--seq-len", "2048", "--batch", "4",
+        "--model", "llama-wide", "--seq-len", "2048", "--batch-per-device", "4",
         "--steps", str(steps), "--steps-per-sync", "5", "--data-dir", data_dir,
         "--export-dir", export_dir, "--generate", "0"])
     torch.cuda.reset_peak_memory_stats()
@@ -615,7 +615,7 @@ def phase_train(data_dir, export_dir, steps):
     trainer, losses = out["trainer"], out["losses"]
     cfg = trainer.model.cfg
     step_s = _steady_step_s(out["resolved_at"])
-    tokens = args.batch * args.seq_len
+    tokens = args.batch_per_device * args.seq_len
     flops_tok = training_flops_per_token(cfg, args.seq_len)
     stats = {
         "model": "llama-wide", "layers": cfg.n_layers, "steps": steps,
@@ -724,9 +724,7 @@ def phase_serve_artifact(trainer, export_dir):
     from tf_operator_tpu_torch.serve_lm import Server, load_model
 
     prompt, n_new = "the sharded ", 32
-    model = load_model(torch.device("cuda"), max_len=2048,
-                       weights=os.path.join(export_dir, "params.npz"),
-                       model_json=os.path.join(export_dir, "model.json"))
+    model = load_model(torch.device("cuda"), max_len=2048, artifact=export_dir)
     pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=8, kv_block_size=16)
     server = Server(pool).start()
     try:
@@ -795,7 +793,7 @@ def main():
     try:
         data_dir, export_dir = os.path.join(tmp, "text"), os.path.join(tmp, "artifact")
         train_stats, trainer, args = phase_train(data_dir, export_dir, TRAIN_STEPS)
-        batch = next(iter(as_lm_batches(TextBatches(data_dir, args.batch, seed=1))))
+        batch = next(iter(as_lm_batches(TextBatches(data_dir, args.batch_per_device, seed=1))))
         phase_serve_artifact(trainer, export_dir)
         phase_train_profile(trainer, batch)
         del trainer

@@ -9,7 +9,11 @@ pool handler.
 """
 
 import json
+import os
+import subprocess
+import sys
 import threading
+import types
 import urllib.error
 import urllib.request
 from http.server import ThreadingHTTPServer
@@ -33,6 +37,7 @@ from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
 from tf_operator_tpu_torch.models.decode import generate
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_tiny
 from tf_operator_tpu_torch.models.weights import from_flax_params
+from tf_operator_tpu_torch.parallel.checkpoint import export_params
 from tf_operator_tpu_torch import serve_lm
 
 torch.set_num_threads(2)
@@ -155,10 +160,10 @@ def test_pool_refuses_what_could_never_fit(tiny):
         PagedContinuousBatchingDecoder(model, kv_block_size=7)
 
 
-def _post(port, payload):
+def _post(port, payload, headers=None):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate", data=json.dumps(payload).encode(),
-        method="POST",
+        method="POST", headers=headers or {},
     )
     try:
         with urllib.request.urlopen(req, timeout=120) as resp:
@@ -184,10 +189,8 @@ def test_serve_lm_matches_the_jax_server(tiny, tmp_path):
     jserver = ThreadingHTTPServer(("127.0.0.1", 0), handler)
     threading.Thread(target=jserver.serve_forever, daemon=True).start()
 
-    model = serve_lm.load_model(
-        resolve_device("cpu"), max_len=MAX_LEN,
-        weights=str(npz), model_json=str(tmp_path / "model.json"),
-    )
+    model = serve_lm.load_model(resolve_device("cpu"), max_len=MAX_LEN,
+                                artifact=str(tmp_path))
     pool = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=16)
     server = serve_lm.Server(pool).start()
     try:
@@ -200,18 +203,83 @@ def test_serve_lm_matches_the_jax_server(tiny, tmp_path):
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{server.port}/healthz", timeout=30) as resp:
             assert json.loads(resp.read()) == {"ok": True}
-        for bad in ({"prompt": "", "max_new_tokens": 4},
-                    {"prompt": "x" * 60, "max_new_tokens": 8},
-                    {"prompt": "x", "temperature": -1},
-                    {"prompt": "x", "stop": 3}):
-            code, got = _post(server.port, bad)
-            jcode, want = _post(jserver.server_address[1], bad)
+        bad_tier = {"error": "tier must be 'interactive' or 'batch'"}
+        for bad, headers in (({"prompt": "", "max_new_tokens": 4}, None),
+                             ({"prompt": "x" * 60, "max_new_tokens": 8}, None),
+                             ({"prompt": "x", "temperature": -1}, None),
+                             ({"prompt": "x", "stop": 3}, None),
+                             ({"prompt": "x", "tier": "gold"}, None),
+                             # a falsy body tier is validated, not replaced
+                             ({"prompt": "x", "tier": ""}, {"x-slo-tier": "batch"}),
+                             ({"prompt": "x"}, {"x-slo-tier": "interactiv"}),
+                             ({"prompt": "x", "tier": "platinum"}, {"x-slo-tier": "batch"})):
+            code, got = _post(server.port, bad, headers)
+            jcode, want = _post(jserver.server_address[1], bad, headers)
             assert code == jcode == 400
             assert got == want
+            if "tier" in bad or headers:
+                assert got == bad_tier
+        # the body's valid tier wins over a bad header, in both servers
+        body = {"prompt": "the sharded tensor ", "max_new_tokens": 12, "tier": "batch"}
+        code, got = _post(server.port, body, {"x-slo-tier": "gold"})
+        jcode, want = _post(jserver.server_address[1], body, {"x-slo-tier": "gold"})
+        assert code == jcode == 200 and got["sample"] == want["sample"]
     finally:
         server.close()
         jserver.shutdown()
         jserver.server_close()
+
+
+def test_interactive_tier_is_refused_until_slo_tiers_are_ported(tiny):
+    """A deliberate difference: the JAX server serves ``interactive``
+    with priority admission; the port has no SLO tiers yet and answers
+    a 400 that says so, from the body or the header, rather than serve
+    the request as batch."""
+
+    _, _, model = tiny
+    pool = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=16)
+    server = serve_lm.Server(pool).start()
+    try:
+        for body, headers in (({"prompt": "x", "tier": "interactive"}, None),
+                              ({"prompt": "x"}, {"x-slo-tier": "interactive"})):
+            code, got = _post(server.port, body, headers)
+            assert code == 400
+            assert got == {"error": serve_lm.INTERACTIVE_REFUSED}
+            assert "not ported" in got["error"]
+        code, got = _post(server.port, {"prompt": "x", "max_new_tokens": 2},
+                          {"x-slo-tier": "batch"})
+        assert code == 200 and len(got["sample"]) == 2
+        assert pool.dispatches["admission"] == 1
+    finally:
+        server.close()
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_serve_lm_cli_serves_an_export_params_artifact(tiny, tmp_path):
+    """``python -m tf_operator_tpu_torch.serve_lm --artifact DIR``, the
+    JAX server's flag, serves the directory ``export_params`` wrote."""
+
+    _, _, model = tiny
+    export_params(types.SimpleNamespace(model=model), str(tmp_path))
+    prompt = "the sharded tensor "
+    want = generate(model, torch.as_tensor([list(prompt.encode())]), 12)[0, len(prompt):]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "tf_operator_tpu_torch.serve_lm", "--artifact", str(tmp_path),
+         "--device", "cpu", "--port", "0", "--max-len", str(MAX_LEN), "--batching", "2"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on 127.0.0.1:"), line + proc.stdout.read()
+        port = int(line.split(":")[1].split()[0])
+        code, got = _post(port, {"prompt": prompt, "max_new_tokens": 12})
+        assert code == 200
+        assert got["sample"] == bytes(want.tolist()).decode("ascii", "replace")
+    finally:
+        proc.kill()
+        proc.communicate(timeout=60)
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():

@@ -60,6 +60,8 @@ from tf_operator_tpu_torch.serve_lm import load_model
 
 torch.set_num_threads(2)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 VOCAB, SEQ, BATCH = 256, 32, 4
 PARAM_SHAPES = {"embedding": (16, 8), "kernel3": (8, 2, 4), "scale": (8,), "bias": (3,)}
 
@@ -265,8 +267,7 @@ def test_export_serves_what_training_left(tmp_path):
     with open(tmp_path / "model.json") as f:
         desc = json.load(f)
     assert model_from_description(desc) == cfg
-    served = load_model(torch.device("cpu"), max_len=64, weights=str(tmp_path / "params.npz"),
-                        model_json=str(tmp_path / "model.json"))
+    served = load_model(torch.device("cpu"), max_len=64, artifact=str(tmp_path))
     flat = np.load(tmp_path / "params.npz")
     assert "layer_0/self_attn/query/kernel" in flat.files
     assert all(flat[k].dtype == np.float32 for k in flat.files)
@@ -315,8 +316,8 @@ def test_corpus_matches_jax(tmp_path):
 
 
 def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
-    argv = ["--device", "cpu", "--model", "llama-tiny", "--seq-len", "32", "--batch", "8",
-            "--steps", "20", "--steps-per-sync", "4", "--data-dir", str(tmp_path / "data"),
+    argv = ["--device", "cpu", "--model", "llama-tiny", "--seq-len", "32",
+            "--batch-per-device", "8", "--steps", "20", "--steps-per-sync", "4", "--data-dir", str(tmp_path / "data"),
             "--export-dir", str(tmp_path / "art"), "--generate", "8"]
     assert llama_pretrain.main(argv) == 0
     out = capsys.readouterr().out
@@ -325,6 +326,21 @@ def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
     for bad in (["--sp", "2"], ["--family", "moe"]):
         with pytest.raises(SystemExit):
             llama_pretrain.parse_args(argv + bad)
+
+
+def test_the_reference_manifest_argv_parses():
+    """The job manifest's command line for the JAX llama_pretrain, with
+    the JAX harness's flag names, parses on the port's entry point."""
+
+    import yaml
+
+    with open(os.path.join(ROOT, "examples", "manifests", "llama_pretrain.yaml")) as f:
+        spec = yaml.safe_load(f)["spec"]["tpuReplicaSpecs"]["Worker"]["template"]["spec"]
+    command = spec["containers"][0]["command"]
+    assert command[:2] == ["python3", "examples/llama_pretrain.py"]
+    args = llama_pretrain.parse_args(command[2:])
+    assert command[command.index("--batch-per-device") + 1] == "4"
+    assert (args.batch_per_device, args.steps, args.seq_len, args.generate) == (4, 40, 128, 32)
 
 
 def test_eval_step_and_benchmark():

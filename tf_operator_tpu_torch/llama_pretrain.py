@@ -2,15 +2,15 @@
 of ``examples/llama_pretrain.py``).
 
     python -m tf_operator_tpu_torch.llama_pretrain --model llama-wide \\
-        --seq-len 2048 --batch 4 --steps 30
+        --seq-len 2048 --batch-per-device 4 --steps 30
     python -m tf_operator_tpu_torch.llama_pretrain --device cpu \\
-        --model llama-tiny --seq-len 128 --batch 8 --steps 30
+        --model llama-tiny --seq-len 128 --batch-per-device 8 --steps 30
 
 The corpus (data/text.py) is generated once under ``--data-dir``; the
 trainer (parallel/trainer.py) runs AdamW with a 10-update warmup on
 float32 master weights, computing in bf16; attention runs the flash
 kernels on the card.  ``--export-dir`` writes a serving artifact
-(``params.npz`` + ``model.json``) that ``serve_lm --weights`` serves;
+(``params.npz`` + ``model.json``) that ``serve_lm --artifact`` serves;
 ``--generate N`` samples N greedy bytes after training.
 
 Weights are random from seed 0.  The moe family (``--family``) and
@@ -50,7 +50,8 @@ PROMPT = "the sharded "
 
 
 def parser() -> argparse.ArgumentParser:
-    p = standard_parser(__doc__.split("\n")[0], steps=60, batch=8, learning_rate=3e-3)
+    p = standard_parser(__doc__.split("\n")[0], steps=60, batch_per_device=8,
+                        learning_rate=3e-3)
     p.add_argument("--model", choices=MODELS, default="llama-tiny",
                    help="llama-tiny (vocab 256) or llama-wide (~700M, vocab 32000)")
     p.add_argument("--seq-len", type=int, default=128)
@@ -68,8 +69,8 @@ def parser() -> argparse.ArgumentParser:
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p = parser()
     args = p.parse_args(argv)
-    if args.steps < 1 or args.batch < 1 or args.seq_len < 2:
-        p.error("--steps, --batch must be >= 1 and --seq-len >= 2")
+    if args.steps < 1 or args.batch_per_device < 1 or args.seq_len < 2:
+        p.error("--steps, --batch-per-device must be >= 1 and --seq-len >= 2")
     return args
 
 
@@ -93,11 +94,11 @@ def run(args: argparse.Namespace) -> Dict:
     trainer = Trainer(model, TrainerConfig(learning_rate=args.learning_rate, warmup_steps=10),
                       loss_fn)
     ensure_text(args.data_dir, seq_len=args.seq_len)
-    batches = as_lm_batches(TextBatches(args.data_dir, args.batch, seed=INIT_SEED))
+    batches = as_lm_batches(TextBatches(args.data_dir, args.batch_per_device, seed=INIT_SEED))
     stats: Dict = {}
     t0 = time.perf_counter()
     losses = train_loop(trainer, batches, args.steps, steps_per_sync=args.steps_per_sync,
-                        tag=f"{args.model} bytes seq={args.seq_len} batch={args.batch}",
+                        tag=f"{args.model} bytes seq={args.seq_len} batch={args.batch_per_device}",
                         stats=stats)
     wall = time.perf_counter() - t0
     out = {"trainer": trainer, "losses": losses, "wall_s": wall,

@@ -17,8 +17,8 @@ a renaming, both ways at float32: a flax tree becomes a state_dict that
 ``LlamaLM.from_state_dict`` loads into a serving model (each entry cast
 once to its storage dtype, which gives the numbers flax's cast at use
 gives) or into a trainable one (float32 masters); a state_dict becomes
-a flat flax-path npz (:func:`save_npz`), the artifact ``serve_lm
---weights`` reads.
+a flat flax-path npz (:func:`save_npz`), the ``params.npz`` of the
+artifact ``serve_lm --artifact`` reads.
 """
 
 from __future__ import annotations

@@ -7,8 +7,7 @@ checkpoint; the port has no orbax and writes npz), and ``model.json``,
 the model's description (models/registry.describe_model), so that the
 serving side rebuilds the exact architecture:
 
-    python -m tf_operator_tpu_torch.serve_lm --weights DIR/params.npz \\
-        --model-json DIR/model.json
+    python -m tf_operator_tpu_torch.serve_lm --artifact DIR
 """
 
 from __future__ import annotations

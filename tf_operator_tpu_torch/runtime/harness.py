@@ -14,13 +14,15 @@ import torch
 
 
 def standard_parser(description: str, **defaults) -> argparse.ArgumentParser:
-    """The flags every training entry point shares.  ``defaults``
-    overrides any of: steps, batch, learning_rate, steps_per_sync."""
+    """The flags every training entry point shares, under the JAX
+    harness's names.  ``defaults`` overrides any of: steps,
+    batch_per_device, learning_rate, steps_per_sync."""
 
     p = argparse.ArgumentParser(description=description)
     p.add_argument("--steps", type=int, default=defaults.get("steps", 30))
-    p.add_argument("--batch", type=int, default=defaults.get("batch", 32),
-                   help="examples per step (one device)")
+    p.add_argument("--batch-per-device", type=int,
+                   default=defaults.get("batch_per_device", 32),
+                   help="examples per step (one device, so the whole batch)")
     p.add_argument("--learning-rate", type=float,
                    default=defaults.get("learning_rate", 0.1))
     p.add_argument(

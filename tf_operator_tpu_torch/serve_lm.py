@@ -2,19 +2,23 @@
 mode of ``examples/serve_lm.py``).
 
     python -m tf_operator_tpu_torch.serve_lm --model llama-7b --init-seed 0 --batching 8
-    python -m tf_operator_tpu_torch.serve_lm --weights params.npz --model-json model.json
+    python -m tf_operator_tpu_torch.serve_lm --artifact DIR
     curl -s localhost:8600/generate -d '{"prompt": "the sharded ", "max_new_tokens": 32}'
 
 ``POST /generate`` takes ``prompt``, ``max_new_tokens`` (default 32),
-``temperature`` (quantised to a 0.05 grid), ``top_k``, ``seed`` and
-``stop`` and answers ``{"prompt", "sample", "seed"}``; prompts are
-byte-level ids.  ``GET /healthz`` answers ``{"ok": true}``.  Client
-errors are 400s with the JAX server's messages.
+``temperature`` (quantised to a 0.05 grid), ``top_k``, ``seed``,
+``stop`` and ``tier`` and answers ``{"prompt", "sample", "seed"}``;
+prompts are byte-level ids.  ``GET /healthz`` answers ``{"ok": true}``.
+Client errors are 400s with the JAX server's messages.  The SLO tier
+(the body's ``tier``, else the ``x-slo-tier`` header, else ``batch``)
+is validated as the JAX server does; ``interactive`` is refused with a
+400 until SLO tiers are ported, rather than served as batch.
 
 The weights come from a seed (``--model llama-7b|llama-tiny
---init-seed N``, made on the device) or from an npz of flat flax-path
-keys with its ``model.json`` (``--weights``/``--model-json``, read with
-numpy).  The server runs on CUDA unless ``--device cpu``.
+--init-seed N``, made on the device) or from an ``export_params``
+directory (``--artifact DIR``: ``params.npz`` of flat flax-path keys,
+read with numpy, and ``model.json``).  The server runs on CUDA unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -39,6 +43,13 @@ from tf_operator_tpu_torch.models.batching import (
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape, llama_tiny
 from tf_operator_tpu_torch.models.registry import model_from_description
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
+from tf_operator_tpu_torch.parallel.checkpoint import MODEL_FILE, PARAMS_FILE
+
+
+#: the answer to an interactive request: the pool has no SLO tiers yet,
+#: and serving one as batch would drop its priority without saying so
+INTERACTIVE_REFUSED = ("tier 'interactive' is not served: SLO tiers are not ported "
+                       "yet; send tier 'batch'")
 
 
 def decode_bytes(arr) -> str:
@@ -96,6 +107,16 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                 stop = req.get("stop")
                 if stop is not None and not isinstance(stop, str):
                     return self._reply(400, {"error": "stop must be a string"})
+                # the body's tier wins over the header; an explicit
+                # `is None`, so a falsy body value is validated too
+                tier = req.get("tier")
+                if tier is None:
+                    tier = self.headers.get("x-slo-tier") or "batch"
+                if tier not in ("interactive", "batch"):
+                    return self._reply(400, {
+                        "error": "tier must be 'interactive' or 'batch'"})
+                if tier == "interactive":
+                    return self._reply(400, {"error": INTERACTIVE_REFUSED})
                 if not text:
                     return self._reply(400, {"error": "empty prompt"})
                 if n_new < 1:
@@ -179,18 +200,17 @@ class Server:
 
 
 def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
-               init_seed: int = 0, weights: Optional[str] = None,
-               model_json: Optional[str] = None) -> LlamaLM:
-    """The model the flags name: an npz of flax paths with its
-    model.json when ``weights`` is given, else ``model``'s shape with
-    weights made from ``init_seed`` on ``device``."""
+               init_seed: int = 0, artifact: Optional[str] = None) -> LlamaLM:
+    """The model the flags name: the ``export_params`` directory
+    ``artifact`` (``params.npz`` + ``model.json``) when given, else
+    ``model``'s shape with weights made from ``init_seed`` on
+    ``device``."""
 
-    if weights:
-        if not model_json:
-            raise ValueError("--weights needs --model-json")
-        with open(model_json) as f:
+    if artifact:
+        with open(os.path.join(artifact, MODEL_FILE)) as f:
             cfg = model_from_description(json.load(f), max_len=max_len)
-        return LlamaLM.from_state_dict(cfg, load_npz(weights), device)
+        return LlamaLM.from_state_dict(
+            cfg, load_npz(os.path.join(artifact, PARAMS_FILE)), device)
     if model == "llama-7b":
         cfg = llama_7b_shape(max_len=max_len)
     elif model == "llama-tiny":
@@ -205,8 +225,9 @@ def main(argv: Optional[list] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=["llama-7b", "llama-tiny"], default="llama-tiny")
     ap.add_argument("--init-seed", type=int, default=0)
-    ap.add_argument("--weights", default=None, help="npz of flat flax-path keys")
-    ap.add_argument("--model-json", default=None, help="model.json of --weights")
+    ap.add_argument("--artifact", default=None,
+                    help="export_params directory (params.npz + model.json); "
+                    "overrides --model")
     ap.add_argument("--port", type=int, default=8600)
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--batching", type=int, default=8, metavar="SLOTS")
@@ -220,7 +241,7 @@ def main(argv: Optional[list] = None) -> int:
     device = resolve_device(args.device)
     model = load_model(
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
-        weights=args.weights, model_json=args.model_json,
+        artifact=args.artifact,
     )
     pool = PagedContinuousBatchingDecoder(
         model, slots=args.batching, steps_per_sync=args.steps_per_sync,
