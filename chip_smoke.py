@@ -29,6 +29,24 @@ Phases, in order; any failure exits non-zero before the result line:
    launches after 3 warm-ups), its bound (the causal products at the
    dense bf16 peak, or its bytes at 3.35 TB/s, whichever is larger),
    the plain version's time and SDPA's forward and backward times.
+4b. the int8 matmul kernel (K7) against its plain version: M = 1, 8 and
+   64 rows at each 7B projection shape (4096 x 4096, 4096 x 11008,
+   11008 x 4096, 4096 x 32000) in bf16, small shapes at each JAX block
+   width (N = 384, 640, 768, 1024, K = 96) and float32 x, per output row
+   (max |kernel - plain| over the row's largest |plain|: bf16 8e-3,
+   float32 1e-5).  At the 7B shapes: the kernel's device time (CUDA
+   events over 20 launches after 3 warm-ups, queued behind a device
+   sleep so that the host's cost per call is not what is timed, cycling
+   through copies of the weight that together exceed the 50 MB L2, as a
+   decode step finds them cold), the plain version's, the bound (the
+   bytes at 3.35 TB/s, or the products at the dense peak, whichever is
+   larger) and, as the library yardstick, ``torch.matmul`` on a bf16
+   weight of the same shape: the product the int8 path replaces; at
+   M = 8 also the host microseconds per call of the wrapper and of
+   ``torch.matmul``.  The kernels line gives K7's numbers per launch
+   over one 7B decode step's mix of shapes (225 launches at M = 8).
+   Then the routes: M > 64, K % 32 != 0 and N not a multiple of 128
+   take the GEMM route, a strided weight raises.
 5. the training main path: ``llama_pretrain`` at llama-wide (full
    depth, 12 layers), seq 2048 x batch 4, 30 steps on the byte corpus
    generated in a temporary directory.  The counts are zeroed just
@@ -58,11 +76,27 @@ Phases, in order; any failure exits non-zero before the result line:
    are within a bf16 tolerance, and share their argmax, with the same
    paged step under the plain attention on the same arena (only the
    attention differs) and with the contiguous (plain) path.
-9. the kernels line (K1, K2, K3 from the training path, K4 from the
-   serving path), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+9. int8 serving at full width: ``serve_lm.load_model(..., quantize=
+   "int8")`` (what ``--quantize int8`` runs) quantizes the same seeded
+   float32 weights as they are made, and the same pool and requests as
+   phase 7 run behind the HTTP server.  Counts zeroed just before and
+   read just after: K7 must have launched 225 (7 projections x 32
+   layers + the head) x (decode steps + prefills of <= 64 rows), the
+   GEMM route 225 x the longer prefills, K4 32 x the decode steps, and
+   no plain version may have run.  Prints the weight bytes bf16 ->
+   int8, decode tokens/s and TTFT beside phase 7's, peak memory and one
+   profiled decode window (busy share, K7's share of device time).
+10. int8 end to end: ``llama_tiny`` (float32, int8 kernels) pool tokens
+   through K7 equal the contiguous ``generate`` with the plain int8
+   matmul; at 7B width the first paged decode step through K7 is within
+   a stated bound of the same step with the plain int8 matmul (K4 in
+   both), with the same argmax.
+11. the kernels line (K1, K2, K3 from the training path, K4 from the
+   serving path, K7 from the int8 serving path), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 """
 
+import gc
 import json
 import math
 import os
@@ -93,10 +127,33 @@ ROW_RTOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 #: of random weights.  Both read about 0.045 on an H100 at seed 0; the
 #: bounds are twice that
 LOGITS_REL_TOL = {"paged_plain": 0.09, "contiguous": 0.09}
+#: K7 per output row: max |kernel - plain| over the row's largest
+#: |plain|.  bf16: both round one float32 sum per element once and the
+#: sums run in another order, so an element may land one bf16 ulp
+#: (2^-8 to 2^-7 of the row's largest) away; 8e-3 is about two of them.
+#: float32: FMA sums in another order
+QM_RTOL = {torch.bfloat16: 8e-3, torch.float32: 1e-5}
+#: the 7B int8 first paged decode step through K7 against the same step
+#: with the plain int8 matmul (K4 in both), as max |diff| over max
+#: |logit|: one bf16 rounding apart per projection, amplified through 32
+#: layers of random weights (the bound of the attention check above)
+INT8_LOGITS_REL_TOL = 0.09
+#: the 7B projections of one decode step: (K, N) -> launches per step
+#: (query, key, value, out; gate, up; down; the head)
+PROJ_7B = {(4096, 4096): 4 * 32, (4096, 11008): 2 * 32, (11008, 4096): 32,
+           (4096, 32000): 1}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def free_device_memory():
+    """Collect what ``del`` left in reference cycles, then hand the
+    cached blocks back, so the next phase's peak is its own."""
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line():
@@ -248,7 +305,7 @@ def _post(port, body):
         return resp.status, out, time.perf_counter() - t0
 
 
-def phase_main_path(model):
+def phase_main_path(model, tag="main path"):
     from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.serve_lm import Server
@@ -305,7 +362,7 @@ def phase_main_path(model):
             "prefix_hit_rid": hits[0]["rid"],
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
         }
-        log("main path " + json.dumps(stats))
+        log(f"{tag} " + json.dumps(stats))
         log(f"seeded sample: {results[-1][1]['sample']!r}")
         return stats, pool
     finally:
@@ -353,6 +410,7 @@ def phase_decode_profile(pool):
         "window_steps": pool.steps_per_sync, "profiled_window_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
         "k4_share_of_device": sum(dev_us(e) for e in events if "paged_attention" in e.key) / busy,
+        "k7_share_of_device": sum(dev_us(e) for e in events if "quant_matmul" in e.key) / busy,
         "top_kernels": [[e.key[:60], round(dev_us(e) / busy, 4), e.count] for e in top],
     }
     log("decode window profile " + json.dumps(rec))
@@ -571,6 +629,146 @@ def phase_flash():
     return [flash_case(n, seed=i, **kw) for i, (n, kw) in enumerate(cases)]
 
 
+def time_ms_cold(fn, copies, iters=20, warmup=3):
+    """Device ms per call of ``fn(c)``, over the copies ``c`` of its
+    weight in turn, so no launch finds its weight in L2 from the launch
+    before.  The timed launches are queued behind a device sleep, so
+    that a call whose host side takes longer than its kernel (K7 at the
+    decode shapes) is timed on the device, not on the host."""
+
+    for i in range(warmup):
+        fn(copies[i % len(copies)])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~30 ms: the host queues every launch meanwhile
+    start.record()
+    for i in range(iters):
+        fn(copies[i % len(copies)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls=200):
+    """Host microseconds per call of ``fn``, its launches left to run."""
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
+
+
+def k7_case(name, *, m, k, n, dtype, seed, timed=False):
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+    from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    qt = quantize_array(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    got = qm.quant_matmul(x, qt, dtype)
+    torch.cuda.synchronize()
+    want = qm.quant_matmul(x, qt, dtype, impl="plain")
+    err = (got.float() - want.float()).abs().max().item()
+    row_rel = _row_rel(got, want)
+    rec = {"case": name, "m": m, "k": k, "n": n, "dtype": str(dtype), "max_abs_err": err,
+           "max_row_rel_err": row_rel, "row_rtol": QM_RTOL[dtype]}
+    if timed:
+        # enough copies of the weight to exceed the 50 MB L2 twice over
+        n_copies = max(2, min(16, -(-100_000_000 // (k * n))))
+        qs = [qt] + [QTensor(qt.q.clone(), qt.scale.clone()) for _ in range(n_copies - 1)]
+        ws = [q.q.to(torch.bfloat16) for q in qs]
+        elem = torch.finfo(dtype).bits // 8
+        n_bytes = k * n + 4 * n + (m * k + m * n) * elem
+        t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 2 * m * k * n / PEAK_OPS[dtype] * 1e3
+        rec.update({
+            "ms": time_ms_cold(lambda q: qm.quant_matmul(x, q, dtype), qs),
+            "plain_ms": time_ms_cold(lambda q: qm.quant_matmul(x, q, dtype, impl="plain"), qs,
+                                     iters=5),
+            "library_ms": time_ms_cold(lambda w: torch.matmul(x, w), ws),
+            "library": "torch.matmul(x, bf16 weight of the same shape)",
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "weight_copies": n_copies,
+        })
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        if m == 8:
+            # the host side of one call: K7's wrapper against torch.matmul
+            rec["host_us"] = {"quant_matmul": host_us(lambda: qm.quant_matmul(x, qt, dtype)),
+                              "torch.matmul": host_us(lambda: torch.matmul(x, ws[0]))}
+        del qs, ws
+    log("K7 " + json.dumps(rec))
+    if not (math.isfinite(row_rel) and row_rel <= QM_RTOL[dtype]):
+        raise AssertionError(f"K7 {name}: row-relative error {row_rel} over {QM_RTOL[dtype]}")
+    return rec
+
+
+def phase_k7():
+    """K7 against its plain version; the routes of the wrapper."""
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+    from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
+
+    recs = []
+    for (k, n) in PROJ_7B:
+        for m in (1, 8, 64):
+            recs.append(k7_case(f"7b_m{m}_k{k}_n{n}_bf16", m=m, k=k, n=n,
+                                dtype=torch.bfloat16, seed=len(recs), timed=True))
+    for m, n in ((8, 384), (33, 640), (8, 768), (64, 1024)):
+        recs.append(k7_case(f"m{m}_k96_n{n}_bf16", m=m, k=96, n=n, dtype=torch.bfloat16,
+                            seed=len(recs)))
+    for m, k, n in ((8, 96, 384), (64, 4096, 4096)):
+        recs.append(k7_case(f"m{m}_k{k}_n{n}_f32", m=m, k=k, n=n, dtype=torch.float32,
+                            seed=len(recs)))
+    # the routes: out of range takes the GEMM route; a weight the kernel
+    # cannot take raises; neither runs the plain version
+    dev = torch.device("cuda")
+    routes = {}
+    qm.plain_calls.clear()
+    for m, k, n in ((65, 4096, 4096), (8, 100, 384), (8, 96, 320)):
+        x = torch.randn((m, k), device=dev).to(torch.bfloat16)
+        qt = quantize_array(torch.randn((k, n), device=dev))
+        _build.launches.clear()
+        qm.quant_matmul(x, qt)
+        routes[f"m{m}_k{k}_n{n}"] = dict(_build.launches)
+        if dict(_build.launches) != {qm.GEMM: 1}:
+            raise AssertionError(f"K7 route for M={m} K={k} N={n}: {dict(_build.launches)}")
+    x = torch.randn((8, 96), device=dev).to(torch.bfloat16)
+    qt = quantize_array(torch.randn((96, 512), device=dev))
+    try:
+        qm.quant_matmul(x, QTensor(qt.q[:, ::2], qt.scale[..., ::2]))
+        raise AssertionError("K7 took a strided weight")
+    except ValueError as exc:
+        routes["strided_q"] = str(exc)
+    if qm.plain_calls:
+        raise AssertionError(f"a K7 route ran the plain version: {dict(qm.plain_calls)}")
+    log("K7 routes " + json.dumps(routes))
+    return recs
+
+
+def k7_decode_step(recs):
+    """K7's per-launch numbers over one 7B decode step's mix of shapes at
+    M = 8 (225 launches), and the step's totals."""
+
+    by_shape = {(r["k"], r["n"]): r for r in recs if r["m"] == 8 and "ms" in r}
+    launches = sum(PROJ_7B.values())
+    step = {key: sum(PROJ_7B[s] * by_shape[s][key] for s in PROJ_7B)
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    rec = {key: v / launches for key, v in step.items()}
+    rec.update({"bound_by": "bytes", "launches_per_step": launches,
+                "step_totals_ms": step,
+                "max_abs_err": max(r["max_abs_err"] for r in recs
+                                   if r["case"].startswith("7b_"))})
+    log("K7 decode step (M = 8) " + json.dumps(rec))
+    return rec
+
+
 def training_flops_per_token(cfg, seq_len):
     """Model flops of one trained token (forward + backward = 3x the
     forward): 6 x the matmul parameters (every kernel but the embedding
@@ -698,7 +896,7 @@ def phase_parity(args, batch):
     tcfg = TrainerConfig(learning_rate=args.learning_rate, warmup_steps=10)
     fa.plain_calls.clear()
     got = Trainer(model, tcfg, llama_loss).compute_grads(batch)
-    want = Trainer(model.variant(plain_attention=True), tcfg, llama_loss).compute_grads(batch)
+    want = Trainer(model.variant(plain_kernels=True), tcfg, llama_loss).compute_grads(batch)
     if fa.plain_calls[fa.KERNEL_FWD] != cfg.n_layers:
         raise AssertionError(f"the plain step did not run the plain attention: {fa.plain_calls}")
     rec = {}
@@ -749,6 +947,125 @@ def phase_serve_artifact(trainer, export_dir):
     return rec
 
 
+def phase_int8_serving(bf16_stats):
+    """Phase 9: the 7B int8 model through ``load_model(quantize="int8")``
+    behind the server; K7, GEMM-route and K4 counts; no plain calls."""
+
+    from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+    from tf_operator_tpu_torch.ops.quant import state_bytes
+    from tf_operator_tpu_torch.serve_lm import load_model
+
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = load_model(dev, max_len=2048, model="llama-7b", init_seed=0, quantize="int8")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    weights = {"bf16_bytes": state_bytes(LlamaLM(llama_7b_shape(max_len=2048),
+                                                 device="meta").state_dict()),
+               "int8_bytes": state_bytes(model.state_dict()),
+               "load_and_quantize_s": load_s,
+               "peak_during_load_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log("int8 weights " + json.dumps(weights))
+    qm.plain_calls.clear()
+    stats, pool = phase_main_path(model, tag="int8 main path")
+    plain = dict(qm.plain_calls)
+    n_proj = 7 * model.cfg.n_layers + 1
+    rows = [r["prompt_tokens"] - r["prefix_tokens"] for r in pool.recent]
+    short = sum(1 for r in rows if r <= qm.MAX_GEMV_ROWS)
+    k7, gemm = stats["launches"].get(qm.KERNEL, 0), stats["launches"].get(qm.GEMM, 0)
+    want = {"k7": n_proj * (stats["decode_steps"] + short),
+            "gemm": n_proj * (len(rows) - short)}
+    compare = {
+        "k7_launches": k7, "gemm_launches": gemm, "expected": want,
+        "prefill_rows": rows, "plain_calls": plain,
+        "decode_tokens_per_s": {"int8": stats["decode_tokens_per_s"],
+                                "bf16": bf16_stats["decode_tokens_per_s"]},
+        "mean_ttft_s": {"int8": sum(stats["ttft_s"].values()) / len(stats["ttft_s"]),
+                        "bf16": sum(bf16_stats["ttft_s"].values()) / len(bf16_stats["ttft_s"])},
+        "max_memory_allocated_gib": {"int8": stats["max_memory_allocated_gib"],
+                                     "bf16": bf16_stats["max_memory_allocated_gib"]},
+    }
+    log("int8 vs bf16 serving " + json.dumps(compare))
+    if k7 != want["k7"] or gemm != want["gemm"]:
+        raise AssertionError(f"int8 serving launches off: {compare}")
+    if sum(plain.values()):
+        raise AssertionError(f"the plain int8 matmul ran on the card: {plain}")
+    phase_decode_profile(pool)
+    del pool
+    return stats, model
+
+
+def phase_int8_end_to_end(model7b):
+    """Phase 10: int8 token identity on llama_tiny, and the 7B first
+    paged decode step through K7 against the plain int8 matmul."""
+
+    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
+    from tf_operator_tpu_torch.models.decode import (
+        decode_variant,
+        gather_block_view,
+        generate,
+        paged_arena,
+        paged_decode_variant,
+        scatter_block_view,
+    )
+    from tf_operator_tpu_torch.models.llama import LlamaLM, llama_tiny
+    from tf_operator_tpu_torch.models.transformer import PagedCache
+    from tf_operator_tpu_torch.models.weights import init_params
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+
+    dev = model7b.device
+    cfg = llama_tiny(vocab_size=256, max_len=128, dtype=torch.float32)
+    tiny = LlamaLM.from_state_dict(cfg, init_params(cfg, 7, dev, quantize=True), dev)
+    pool = PagedContinuousBatchingDecoder(tiny, slots=3, steps_per_sync=4, kv_block_size=16)
+    g = torch.Generator().manual_seed(4)
+    prompts = [torch.randint(0, 256, (n,), generator=g) for n in (5, 16, 17, 40, 33)]
+    _build.launches.clear()
+    rids = [pool.submit(p.numpy(), 20) for p in prompts]
+    pool.run()
+    k7 = _build.launches.get(qm.KERNEL, 0)
+    plain = tiny.variant(plain_kernels=True)
+    for p, rid in zip(prompts, rids):
+        got = pool.result(rid)
+        want = generate(plain, p[None].to(dev), 20)[0].cpu().numpy()
+        if not (got == want).all():
+            raise AssertionError(f"tiny int8 pool through K7 != plain generate: {got} vs {want}")
+    if k7 == 0:
+        raise AssertionError("the tiny int8 pool launched no K7")
+    log(f"e2e tiny f32 int8: pool tokens through K7 ({k7} launches) == generate with the "
+        f"plain int8 matmul for {len(prompts)} requests")
+
+    dmodel, pmodel = decode_variant(model7b), paged_decode_variant(model7b)
+    ids = torch.randint(0, model7b.cfg.vocab_size, (1, 300), generator=g).to(dev)
+    with torch.inference_mode():
+        bs, mb = 16, 128
+        arena = paged_arena(model7b, 21, bs)
+        row = torch.zeros(mb, dtype=torch.int32, device=dev)
+        row[:20] = torch.arange(1, 21, dtype=torch.int32)
+        view = gather_block_view(arena, row[:19], 0)
+        tok = dmodel(ids, cache=view)[:, -1].argmax(-1)
+        scatter_block_view(arena, view, row, 0, 19)
+        tables = row[None].contiguous()
+        lengths = torch.tensor([300], dtype=torch.int32, device=dev)
+        _build.launches.clear()
+        kernel = pmodel(tok[:, None], cache=PagedCache(arena, tables, lengths))[0, 0]
+        launches = dict(_build.launches)
+        ref = pmodel.variant(plain_kernels=True)(
+            tok[:, None], cache=PagedCache(arena, tables, lengths))[0, 0]
+    err = (kernel - ref).abs().max().item()
+    rec = {"max_abs_err": err, "max_abs_logit": ref.abs().max().item(),
+           "rel": err / ref.abs().max().item(), "tol_rel": INT8_LOGITS_REL_TOL,
+           "same_argmax": bool(kernel.argmax() == ref.argmax()), "kernel_step_launches": launches}
+    log("e2e 7b int8 first-step logits, K7 vs plain int8 matmul " + json.dumps(rec))
+    if launches.get(qm.KERNEL, 0) != 7 * model7b.cfg.n_layers + 1:
+        raise AssertionError(f"the 7B int8 step did not run K7 on every projection: {rec}")
+    if not (math.isfinite(rec["rel"]) and rec["rel"] <= INT8_LOGITS_REL_TOL
+            and rec["same_argmax"]):
+        raise AssertionError(f"7B int8 logits through K7 off the plain int8 matmul: {rec}")
+
+
 #: training steps of the main path (the loss-decrease guard of
 #: train_loop needs 20 or more)
 TRAIN_STEPS = 30
@@ -787,6 +1104,7 @@ def main():
     phase_build()
     k4 = phase_k4()
     flash = phase_flash()
+    k7 = phase_k7()
     log(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -797,11 +1115,11 @@ def main():
         phase_serve_artifact(trainer, export_dir)
         phase_train_profile(trainer, batch)
         del trainer
-        torch.cuda.empty_cache()
+        free_device_memory()
         phase_parity(args, batch)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    torch.cuda.empty_cache()
+    free_device_memory()
     log(f"training phases done at {time.perf_counter() - t0:.1f} s")
 
     dev = resolve_device()
@@ -815,6 +1133,16 @@ def main():
     phase_decode_profile(pool)
     del pool
     phase_end_to_end(model)
+    # the pool holds reference cycles (the prefix cache's callbacks), so
+    # the bf16 weights and arena go only with a collection
+    del model
+    free_device_memory()
+    log(f"bf16 serving phases done at {time.perf_counter() - t0:.1f} s")
+
+    int8_stats, model = phase_int8_serving(main_stats)
+    phase_int8_end_to_end(model)
+    del model
+    free_device_memory()
     head = k4[0]
     kernels = [_kernel_entry(
         "paged_attention", "tf_operator_tpu_torch/csrc/paged_attention.cu",
@@ -831,6 +1159,11 @@ def main():
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
             train_stats["launches"].get(kname, 0), wide["max_abs_err"][errs[kname]],
             wide["timing"][kname]))
+    step = k7_decode_step(k7)
+    kernels.append(_kernel_entry(
+        "quant_matmul", "tf_operator_tpu_torch/csrc/quant_matmul.cu",
+        "tf_operator_tpu/ops/quant_matmul.py:60", int8_stats["launches"].get("quant_matmul", 0),
+        step["max_abs_err"], step))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,6 +21,12 @@ near zero (a causal row that sees one or two keys) then differs by more
 than its own size.  float32 2e-5 (another summation order); bf16 2e-2
 (the kernels round p and ds to bf16 as tensor-core operands, the plain
 versions keep them in float32; readings on the card are under 1e-2).
+
+The int8 matmul kernel (K7) is held against its plain version per
+output row, max |kernel - plain| over the row's largest |plain|: bf16
+8e-3, about two bf16 ulps (both round one float32 sum per element once;
+the sums run in another order); float32 1e-5 (float32 FMA sums in
+another order).
 """
 
 import numpy as np
@@ -33,7 +39,9 @@ from tf_operator_tpu_torch.models.llama import LlamaLM, llama_tiny
 from tf_operator_tpu_torch.models.weights import init_params
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import quant_matmul as qm
 from tf_operator_tpu_torch.ops.paged_attention import KERNEL, paged_attention_multi
+from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
 
 pytestmark = pytest.mark.cuda
 
@@ -227,3 +235,73 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
         with pytest.raises(ValueError):
             fa.flash_forward_cuda(*args)
     assert sum(_build.launches.values()) == 0
+
+
+QM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+#: (M, K, N, x dtype): the 7B decode shapes, the small N widths of each
+#: JAX block width, every row count a tile boundary can cut, float32
+QM_CASES = [
+    (1, 4096, 4096, torch.bfloat16), (8, 4096, 11008, torch.bfloat16),
+    (64, 11008, 4096, torch.bfloat16), (8, 4096, 32000, torch.bfloat16),
+    (3, 96, 384, torch.bfloat16), (17, 96, 640, torch.bfloat16),
+    (40, 96, 768, torch.bfloat16), (64, 96, 1024, torch.bfloat16),
+    (8, 96, 384, torch.float32), (57, 352, 256, torch.float32),
+]
+
+
+def _qm_inputs(dev, seed, m, k, n, dtype):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, k), generator=g, device=dev).to(dtype)
+    qt = quantize_array(torch.randn((k, n), generator=g, device=dev) * 0.02)
+    return x, qt
+
+
+@pytest.mark.parametrize("case", range(len(QM_CASES)))
+def test_quant_matmul_kernel_matches_plain(dev, case):
+    m, k, n, dtype = QM_CASES[case]
+    x, qt = _qm_inputs(dev, case, m, k, n, dtype)
+    _build.launches.clear()
+    got = qm.quant_matmul(x, qt, dtype)
+    torch.cuda.synchronize()
+    assert _build.launches == {qm.KERNEL: 1}
+    want = qm.quant_matmul(x, qt, dtype, impl="plain")
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert _row_rel(got, want) <= QM_RTOL[dtype]
+
+
+def test_quant_matmul_routes_on_the_card(dev):
+    """Out of the kernel's range (M > 64, K % 32 != 0, N not a multiple
+    of 128) a CUDA call takes the GEMM route, counted under its own name;
+    an in-range call the kernel cannot take raises."""
+
+    for m, k, n in ((65, 96, 384), (8, 100, 384), (8, 96, 320)):
+        x, qt = _qm_inputs(dev, m + k + n, m, k, n, torch.bfloat16)
+        _build.launches.clear()
+        got = qm.quant_matmul(x, qt)
+        assert _build.launches == {qm.GEMM: 1}
+        want = qm.quant_matmul(x, qt, impl="plain")
+        # torch.matmul rounds its sums to bf16 before the scale: two ulps
+        assert _row_rel(got, want) <= QM_RTOL[torch.bfloat16]
+    x, qt = _qm_inputs(dev, 0, 8, 96, 256, torch.bfloat16)
+    _build.launches.clear()
+    wide = QTensor(torch.cat([qt.q, qt.q], 1)[:, ::2], qt.scale)  # strided q
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.quant_matmul(x, wide)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        qm.quant_matmul(x.half(), qt, torch.float16)
+    assert not _build.launches
+
+
+def test_tiny_int8_pool_through_the_kernel_matches_plain_generate(dev):
+    cfg = llama_tiny(vocab_size=256, max_len=64, dtype=torch.float32)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 2, dev, quantize=True), dev)
+    pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=4, kv_block_size=8)
+    prompts = [np.arange(n) % 256 for n in (7, 9, 20)]
+    _build.launches.clear()
+    rids = [pool.submit(p, 10) for p in prompts]
+    pool.run()
+    assert _build.launches[qm.KERNEL] > 0 and _build.launches[qm.GEMM] > 0
+    plain = model.variant(plain_kernels=True)
+    for p, rid in zip(prompts, rids):
+        want = generate(plain, torch.as_tensor(p[None]).to(dev), 10)[0].cpu().numpy()
+        np.testing.assert_array_equal(pool.result(rid), want)

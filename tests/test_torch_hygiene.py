@@ -59,7 +59,8 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
-    for m in ("models.batching", "ops.flash_attention", "parallel.trainer",
+    for m in ("models.batching", "ops.flash_attention", "ops.quant", "ops.quant_matmul",
+              "parallel.trainer",
               "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
@@ -114,4 +115,14 @@ def test_flash_kernel_source_and_entry_points():
         assert tpu_kernel in text  # names the TPU kernel it replaces
     assert "mma.sync.aligned.m16n8k16" in text
     # every source is built at first use, all nvcc processes together
-    assert _build.sources() == ["flash_attention", "paged_attention"]
+    assert _build.sources() == ["flash_attention", "paged_attention", "quant_matmul"]
+
+
+def test_quant_matmul_kernel_source_and_entry_point():
+    src = os.path.join(PKG, "csrc", "quant_matmul.cu")
+    with open(src) as f:
+        text = f.read()
+    assert 'extern "C" int quant_matmul_launch' in text
+    # names the TPU kernel it replaces, and runs on the tensor cores
+    assert "tf_operator_tpu/ops/quant_matmul.py::_kernel" in text
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text

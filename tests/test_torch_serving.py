@@ -36,7 +36,8 @@ from tf_operator_tpu_torch import resolve_device
 from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
 from tf_operator_tpu_torch.models.decode import generate
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_tiny
-from tf_operator_tpu_torch.models.weights import from_flax_params
+from tf_operator_tpu_torch.models.weights import from_flax_params, load_npz
+from tf_operator_tpu_torch.ops.quant import quantize_state
 from tf_operator_tpu_torch.parallel.checkpoint import export_params
 from tf_operator_tpu_torch import serve_lm
 
@@ -257,23 +258,35 @@ def test_interactive_tier_is_refused_until_slo_tiers_are_ported(tiny):
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def test_serve_lm_cli_serves_an_export_params_artifact(tiny, tmp_path):
+@pytest.mark.parametrize("quantize", [None, "int8"], ids=["float", "int8"])
+def test_serve_lm_cli_serves_an_export_params_artifact(tiny, tmp_path, quantize):
     """``python -m tf_operator_tpu_torch.serve_lm --artifact DIR``, the
-    JAX server's flag, serves the directory ``export_params`` wrote."""
+    JAX server's flag, serves the directory ``export_params`` wrote; with
+    ``--quantize int8`` it serves the int8 model (the greedy bytes of the
+    same model quantized in this process)."""
 
     _, _, model = tiny
     export_params(types.SimpleNamespace(model=model), str(tmp_path))
     prompt = "the sharded tensor "
-    want = generate(model, torch.as_tensor([list(prompt.encode())]), 12)[0, len(prompt):]
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "tf_operator_tpu_torch.serve_lm", "--artifact", str(tmp_path),
-         "--device", "cpu", "--port", "0", "--max-len", str(MAX_LEN), "--batching", "2"],
-        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-    )
+    ids = torch.as_tensor([list(prompt.encode())])
+    ref = model
+    if quantize:
+        ref = LlamaLM.from_state_dict(model.cfg, quantize_state(load_npz(
+            str(tmp_path / "params.npz"))), "cpu")
+    want = generate(ref, ids, 12)[0, len(prompt):]
+    argv = [sys.executable, "-m", "tf_operator_tpu_torch.serve_lm", "--artifact", str(tmp_path),
+            "--device", "cpu", "--port", "0", "--max-len", str(MAX_LEN), "--batching", "2"]
+    if quantize:
+        argv += ["--quantize", quantize]
+    proc = subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
     try:
-        line = proc.stdout.readline()
-        assert line.startswith("serving on 127.0.0.1:"), line + proc.stdout.read()
-        port = int(line.split(":")[1].split()[0])
+        lines = [proc.stdout.readline()]
+        if quantize:
+            assert lines[0].startswith("int8 weights-only quantization: params "), lines
+            lines.append(proc.stdout.readline())
+        assert lines[-1].startswith("serving on 127.0.0.1:"), lines + [proc.stdout.read()]
+        port = int(lines[-1].split(":")[1].split()[0])
         code, got = _post(port, {"prompt": prompt, "max_new_tokens": 12})
         assert code == 200
         assert got["sample"] == bytes(want.tolist()).decode("ascii", "replace")

@@ -22,6 +22,7 @@ from tf_operator_tpu_torch.models.transformer import (
     RMSNorm,
     TransformerConfig,
 )
+from tf_operator_tpu_torch.ops.quant import QTensor
 
 
 class LlamaLM(nn.Module):
@@ -32,7 +33,9 @@ class LlamaLM(nn.Module):
     models/weights.py maps them to and from flax paths.
 
     ``trainable=True`` builds float32 master parameters that take
-    gradients (models/transformer.py: the two storage modes)."""
+    gradients (models/transformer.py: the two storage modes).  A serving
+    model built from a state whose kernels are QTensors holds them as
+    int8 (the JAX package's ``quantize_tree`` -> ``apply``)."""
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
@@ -50,13 +53,15 @@ class LlamaLM(nn.Module):
     def from_state_dict(cls, cfg: TransformerConfig,
                         state: Mapping[str, object], device, *,
                         trainable: bool = False) -> "LlamaLM":
-        """Build the model around ``state`` (name -> tensor or array),
-        each entry moved to ``device`` and cast to its parameter's
-        storage dtype.  A serving model adopts entries already in place
-        without a copy, so 7B-width weights are never held twice, and is
-        returned in eval mode; a trainable model copies every entry (the
-        optimizer updates its parameters in place) and is returned in
-        train mode."""
+        """Build the model around ``state`` (name -> tensor, array or
+        QTensor), each entry moved to ``device`` and cast to its
+        parameter's storage dtype.  A serving model adopts entries already
+        in place without a copy, so 7B-width weights are never held
+        twice, holds a QTensor kernel as int8
+        (``DenseGeneral.hold_int8``), and is returned in eval mode; a
+        trainable model copies every entry (the optimizer updates its
+        parameters in place), refuses QTensors, and is returned in train
+        mode."""
 
         model = cls(cfg, device="meta", trainable=trainable)
         expected = dict(model.named_parameters())
@@ -67,21 +72,34 @@ class LlamaLM(nn.Module):
                 f"state does not match the model: missing {missing[:4]}, "
                 f"unexpected {extra[:4]}"
             )
-        placed = {}
+        placed, held = {}, set()
         for name, value in state.items():
             p = expected[name]
-            t = torch.as_tensor(value)
-            if tuple(t.shape) != tuple(p.shape):
+            if not isinstance(value, QTensor):
+                value = torch.as_tensor(value)
+            if tuple(value.shape) != tuple(p.shape):
                 raise ValueError(
-                    f"{name}: shape {tuple(t.shape)} != {tuple(p.shape)}"
+                    f"{name}: shape {tuple(value.shape)} != {tuple(p.shape)}"
                 )
-            placed[name] = t.to(device=device, dtype=p.dtype, copy=trainable)
-        model.load_state_dict(placed, strict=True, assign=True)
+            if isinstance(value, QTensor):
+                module, leaf = name.rsplit(".", 1)
+                dense = model.get_submodule(module)
+                if leaf != "kernel" or not isinstance(dense, DenseGeneral):
+                    raise ValueError(f"{name}: only dense kernels are held as int8")
+                dense.hold_int8(QTensor(value.q.to(device), value.scale.to(device)))
+                held.update(f"{module}.{b}" for b in ("kernel_q", "kernel_scale"))
+                continue
+            placed[name] = value.to(device=device, dtype=p.dtype, copy=trainable)
+        missing, unexpected = model.load_state_dict(placed, strict=False, assign=True)
+        if unexpected or set(missing) != held:
+            raise ValueError(f"state does not load: missing {sorted(set(missing) - held)[:4]}, "
+                             f"unexpected {unexpected[:4]}")
         return model.train(trainable)
 
     def variant(self, **changes) -> "LlamaLM":
         """The same weights under a config with ``changes`` (e.g.
-        decode=True): a shallow copy, so no parameter is duplicated."""
+        decode=True): a shallow copy, so no parameter or int8 kernel is
+        duplicated (the pool's decode views share the int8 modules)."""
 
         v = copy.copy(self)
         v.cfg = dataclasses.replace(self.cfg, **changes)
@@ -89,7 +107,7 @@ class LlamaLM(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.lm_head.kernel.device
+        return self.ln_final.scale.device
 
     def forward(self, input_ids: torch.Tensor, *, mode: str = "full",
                 cache=None) -> torch.Tensor:
@@ -105,7 +123,7 @@ class LlamaLM(nn.Module):
             raise ValueError(f"mode must be full|hidden|head, got {mode!r}")
         cfg = self.cfg
         if mode == "head":
-            return self.lm_head(input_ids).float()
+            return self.lm_head(input_ids, cfg.plain_kernels).float()
         if cfg.decode != (cache is not None):
             raise ValueError(
                 "a decode config needs a cache and a cache needs a decode "
@@ -121,7 +139,7 @@ class LlamaLM(nn.Module):
             )
         x = self.tok_embed(input_ids)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache, i, cfg.plain_attention)
+            x = layer(x, cache, i, cfg.plain_kernels)
         s_new = input_ids.shape[1]
         if isinstance(cache, DecodeCache):
             cache.index += s_new
@@ -130,7 +148,7 @@ class LlamaLM(nn.Module):
         x = self.ln_final(x)
         if mode == "hidden":
             return x
-        return self.lm_head(x).float()
+        return self.lm_head(x, cfg.plain_kernels).float()
 
 
 def llama_tiny(vocab_size: int = 1024, max_len: int = 256,

@@ -14,10 +14,10 @@ from tf_operator_tpu_torch.models.transformer import TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: description keys that only shape the JAX runtime, or that the port
-#: sets itself when it serves (decode, paged, plain_attention)
-_IGNORED = ("sp_impl", "paged", "decode", "plain_attention")
+#: sets itself when it serves (decode, paged, plain_kernels)
+_IGNORED = ("sp_impl", "paged", "decode", "plain_kernels")
 #: config fields of the port that a description leaves out
-_PORT_ONLY = ("decode", "paged", "plain_attention")
+_PORT_ONLY = ("decode", "paged", "plain_kernels")
 
 
 def describe_model(model) -> Dict[str, Any]:

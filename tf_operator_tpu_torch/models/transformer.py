@@ -9,10 +9,14 @@ each product.  Two storage modes, chosen when a model is built:
 
 - serving (``trainable=False``, the default): kernels and the embedding
   are stored in ``cfg.dtype`` from the start (the same numbers, cast
-  once) and take no gradients;
+  once) and take no gradients.  A serving kernel may instead be held as
+  int8 (:meth:`DenseGeneral.hold_int8`, ops/quant.py): its products then
+  go through ``ops/quant_matmul`` (the CUDA kernel K7 on the card), as
+  the JAX package's ``QDenseGeneral`` does with a ``QTensor`` kernel;
 - training (``trainable=True``): every parameter is a float32 master
   copy that takes gradients and is cast to ``cfg.dtype`` at each use,
-  as flax does.
+  as flax does.  It is never quantized (the JAX package quantizes for
+  serving only).
 
 Norm scales are float32 in both, as flax applies them.
 
@@ -20,14 +24,18 @@ Attention has three branches, chosen by the cache passed in:
 
 - no cache: the causal forward over the whole sequence, through
   ``ops/flash_attention.attention`` (the flash kernels on the card,
-  their plain versions on the CPU; ``cfg.plain_attention`` asks for
-  the plain versions on the card too);
+  their plain versions on the CPU);
 - a :class:`DecodeCache`: the contiguous decode branch — new K/V are
   written at the running index, queries attend to every filled slot;
 - a :class:`PagedCache`: the paged decode branch — each seat's new K/V
   are appended in place to its block in the arena, and attention reads
   the arena through ``ops/paged_attention`` (the CUDA kernel on the
   card).
+
+``cfg.plain_kernels`` asks for the plain versions of the flash attention
+and of the int8 matmul on the card too (the reference the kernels are
+held against); the paged branch's attention follows ``PagedCache.impl``,
+so that a paged step can differ from another in one kernel only.
 
 Caches are updated in place (PyTorch tensors are mutable; the JAX
 package returns new ones).
@@ -36,6 +44,7 @@ package returns new ones).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -44,6 +53,8 @@ from torch import nn
 from tf_operator_tpu_torch.ops.attention import dot_product_attention
 from tf_operator_tpu_torch.ops.flash_attention import attention
 from tf_operator_tpu_torch.ops.paged_attention import paged_attention_multi
+from tf_operator_tpu_torch.ops.quant import QTensor
+from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul
 from tf_operator_tpu_torch.ops.rotary import apply_rope
 
 #: flax's RMSNorm epsilon
@@ -74,10 +85,11 @@ class TransformerConfig:
     decode: bool = False
     #: paged decode: the cache is the block arena (needs decode=True)
     paged: bool = False
-    #: the full-sequence branch's attention: False = the flash kernels
+    #: False = the flash attention and the int8 matmul run their kernels
     #: for CUDA tensors and their plain versions for CPU ones; True =
-    #: the plain versions everywhere (the reference on the card)
-    plain_attention: bool = False
+    #: their plain versions everywhere (the reference on the card).  The
+    #: paged attention follows PagedCache.impl
+    plain_kernels: bool = False
 
     def __post_init__(self):
         if self.paged:
@@ -137,8 +149,9 @@ def _param(shape, dtype, device, trainable: bool) -> nn.Parameter:
 
 class DenseGeneral(nn.Module):
     """Contracts x's trailing ``len(in_shape)`` axes with a kernel of
-    shape ``in_shape + features`` (the flax layout): the dense path of
-    the JAX package's ``QDenseGeneral``."""
+    shape ``in_shape + features`` (the flax layout): the JAX package's
+    ``QDenseGeneral``, with a float kernel or, after :meth:`hold_int8`,
+    an int8 one."""
 
     def __init__(self, in_shape, features, cfg: TransformerConfig,
                  use_bias: bool, device=None, trainable: bool = False):
@@ -150,14 +163,49 @@ class DenseGeneral(nn.Module):
         self.bias = (_param(self.features, cfg.dtype, device, trainable)
                      if use_bias else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def int8(self) -> bool:
+        return "kernel_q" in self._buffers
+
+    def hold_int8(self, qt: QTensor) -> None:
+        """Hold ``qt`` (``quantize_array`` of this kernel) in place of the
+        float kernel, which is dropped so the weights are never held
+        twice: the int8 values as a [K, N] buffer ``kernel_q`` (K and N
+        the flattened in and out axes, a view of the kernel's layout)
+        and the per-output-channel scale repeated over the flattened out
+        axes as an [N] float32 buffer ``kernel_scale`` (the same numbers:
+        an [E, H, D] kernel keeps its per-D scale, shared across heads).
+        A trainable model refuses: the JAX package quantizes for serving
+        only."""
+
+        if self.kernel.requires_grad:
+            raise ValueError(
+                "a trainable (float32 master) model is not quantized: the JAX package "
+                "quantizes a model for serving only"
+            )
+        shape = self.in_shape + self.features
+        if tuple(qt.q.shape) != shape or qt.q.dtype != torch.int8:
+            raise ValueError(f"int8 kernel {tuple(qt.q.shape)} {qt.q.dtype} does not "
+                             f"match the kernel {shape}")
+        if qt.scale.numel() != self.features[-1]:
+            raise ValueError(f"scale {tuple(qt.scale.shape)} is not per output channel "
+                             f"of the kernel {shape}")
+        k_in, n = math.prod(self.in_shape), math.prod(self.features)
+        scale = qt.scale.reshape(-1).expand(self.features).reshape(n)
+        del self.kernel
+        self.register_buffer("kernel_q", qt.q.reshape(k_in, n))
+        self.register_buffer("kernel_scale", scale.to(torch.float32).contiguous())
+
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
         n_in = len(self.in_shape)
         lead = x.shape[: x.ndim - n_in]
-        k_in = 1
-        for d in self.in_shape:
-            k_in *= d
-        out = torch.matmul(x.to(self.dtype).reshape(*lead, k_in),
-                           self.kernel.to(self.dtype).reshape(k_in, -1))
+        k_in = math.prod(self.in_shape)
+        x2 = x.to(self.dtype).reshape(*lead, k_in)
+        if self.int8:
+            out = quant_matmul(x2, QTensor(self.kernel_q, self.kernel_scale), self.dtype,
+                               impl="plain" if plain else None)
+        else:
+            out = torch.matmul(x2, self.kernel.to(self.dtype).reshape(k_in, -1))
         out = out.reshape(*lead, *self.features)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)
@@ -207,21 +255,21 @@ class MultiHeadAttention(nn.Module):
         self.out = DenseGeneral((h, d), (e,), cfg, bias, device, trainable)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
-                plain_attention: bool = False) -> torch.Tensor:
+                plain: bool = False) -> torch.Tensor:
         cfg = self.cfg
         # [B, S, H, D] -> [B, H, S, D]
-        q, k, v = (m(x).transpose(1, 2) for m in (self.query, self.key, self.value))
+        q, k, v = (m(x, plain).transpose(1, 2) for m in (self.query, self.key, self.value))
         if isinstance(cache, PagedCache):
-            return self._paged(q, k, v, cache, layer)
+            return self._paged(q, k, v, cache, layer, plain)
         if isinstance(cache, DecodeCache):
-            return self._decode(q, k, v, cache, layer)
+            return self._decode(q, k, v, cache, layer, plain)
         if cfg.rope:
             q, k = apply_rope(q, k, theta=cfg.rope_theta)
         out = attention(q, k, v, causal=True, window=cfg.window,
-                        impl="plain" if plain_attention else None)
-        return self.out(out.transpose(1, 2))
+                        impl="plain" if plain else None)
+        return self.out(out.transpose(1, 2), plain)
 
-    def _decode(self, q, k, v, cache: DecodeCache, layer: int):
+    def _decode(self, q, k, v, cache: DecodeCache, layer: int, plain: bool):
         cfg = self.cfg
         if cfg.window is not None and cfg.window < cfg.max_len:
             raise NotImplementedError(
@@ -249,9 +297,9 @@ class MultiHeadAttention(nn.Module):
         out = dot_product_attention(
             q, ck[:, :, :end], cv[:, :, :end], mask=vis[None, None]
         )
-        return self.out(out.transpose(1, 2))
+        return self.out(out.transpose(1, 2), plain)
 
-    def _paged(self, q, k, v, cache: PagedCache, layer: int):
+    def _paged(self, q, k, v, cache: PagedCache, layer: int, plain: bool):
         cfg = self.cfg
         ak, av = cache.arena[layer]
         tables, lengths = cache.tables, cache.lengths
@@ -280,7 +328,7 @@ class MultiHeadAttention(nn.Module):
             q.transpose(1, 2).contiguous(), ak, av, tables, lengths + s_new,
             impl=cache.impl,
         )  # [S, K, H, D]
-        return self.out(out)
+        return self.out(out, plain)
 
 
 class MlpBlock(nn.Module):
@@ -293,8 +341,8 @@ class MlpBlock(nn.Module):
         self.wi_up = DenseGeneral((e,), (m,), cfg, False, device, trainable)
         self.wo = DenseGeneral((m,), (e,), cfg, False, device, trainable)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.wo(nn.functional.silu(self.wi_gate(x)) * self.wi_up(x))
+    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+        return self.wo(nn.functional.silu(self.wi_gate(x, plain)) * self.wi_up(x, plain), plain)
 
 
 class DecoderLayer(nn.Module):
@@ -308,6 +356,6 @@ class DecoderLayer(nn.Module):
         self.mlp = MlpBlock(cfg, device, trainable)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
-                plain_attention: bool = False) -> torch.Tensor:
-        x = x + self.self_attn(self.ln_self(x), cache, layer, plain_attention)
-        return x + self.mlp(self.ln_mlp(x))
+                plain: bool = False) -> torch.Tensor:
+        x = x + self.self_attn(self.ln_self(x), cache, layer, plain)
+        return x + self.mlp(self.ln_mlp(x), plain)

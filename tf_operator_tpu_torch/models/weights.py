@@ -13,7 +13,9 @@ Flax paths (as ``llama_tiny`` produces them) and port names:
     lm_head/kernel                           lm_head.kernel
 
 Shapes are unchanged (the port keeps the flax layout), so the bridge is
-a renaming, both ways at float32: a flax tree becomes a state_dict that
+a renaming, both ways at float32 (and one way for a tree that
+``quantize_tree`` made: its ``QTensor`` leaves become the port's): a
+flax tree becomes a state_dict that
 ``LlamaLM.from_state_dict`` loads into a serving model (each entry cast
 once to its storage dtype, which gives the numbers flax's cast at use
 gives) or into a trainable one (float32 masters); a state_dict becomes
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 
 from tf_operator_tpu_torch.models.transformer import TransformerConfig
+from tf_operator_tpu_torch.ops.quant import QTensor, eligible, quantize_array
 
 _NORM = "RMSNorm_0"
 
@@ -65,15 +68,22 @@ def name_to_flax_path(name: str) -> str:
     return "/".join(parts)
 
 
-def from_flax_params(tree) -> Dict[str, torch.Tensor]:
-    """Flax params (nested dicts of arrays, boxed or not, or one flat
-    dict keyed by "/" paths, as an npz holds them) -> the port's
-    state_dict of float tensors on the CPU."""
+def _from_leaf(value):
+    # a JAX QTensor (quantize_tree's leaf) is known by its fields, with no
+    # import of the JAX package
+    if hasattr(value, "q") and hasattr(value, "scale"):
+        return QTensor(torch.tensor(np.asarray(value.q)), torch.tensor(np.asarray(value.scale)))
+    return torch.tensor(np.asarray(value))
 
-    return {
-        flax_path_to_name(path): torch.tensor(np.asarray(value))
-        for path, value in _flatten(tree).items()
-    }
+
+def from_flax_params(tree) -> Dict[str, object]:
+    """Flax params (nested dicts of arrays, boxed or not, or one flat
+    dict keyed by "/" paths, as an npz holds them; quantized leaves
+    allowed) -> the port's state_dict of float tensors and QTensors on
+    the CPU."""
+
+    return {flax_path_to_name(path): _from_leaf(value)
+            for path, value in _flatten(tree).items()}
 
 
 def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
@@ -100,11 +110,19 @@ def save_npz(state: Mapping[str, torch.Tensor], path: str) -> None:
     os.replace(tmp, path)
 
 
-def load_npz(path: str) -> Dict[str, torch.Tensor]:
-    """A state_dict from an npz of flat flax-path keys (numpy only)."""
+def load_npz(path: str, *, quantize: bool = False) -> Dict[str, object]:
+    """A state_dict from an npz of flat flax-path keys (numpy only).
+    ``quantize``: each eligible kernel becomes a QTensor as it is read,
+    from its float32 values (ops/quant.py), so the float32 tree is never
+    held whole."""
 
+    state = {}
     with np.load(path) as f:
-        return from_flax_params({k: f[k] for k in f.files})
+        for key in f.files:
+            name = flax_path_to_name(key)
+            t = torch.from_numpy(f[key])
+            state[name] = quantize_array(t) if quantize and eligible(name, t.shape) else t
+    return state
 
 
 def _lecun_fan_in(shape) -> int:
@@ -116,17 +134,23 @@ def _lecun_fan_in(shape) -> int:
 
 
 def init_params(cfg: TransformerConfig, seed: int, device, *,
-                trainable: bool = False) -> Dict[str, torch.Tensor]:
+                trainable: bool = False, quantize: bool = False) -> Dict[str, object]:
     """A seeded state_dict made directly on ``device`` at the flax
     init scales: normal(0.02) for the embedding and lm_head,
     lecun-normal (truncated at 2 sigma) for the projections, ones for
     the norm scales, zeros for biases.  Draws in float32, stores in the
     parameter's dtype.  The numbers differ from flax's (another
     generator); the scales do not.  ``trainable``: float32 everywhere,
-    for a trainable model."""
+    for a trainable model.  ``quantize``: each eligible kernel becomes a
+    QTensor quantized from its float32 draw, before any storage cast
+    (the draws, and so the float weights, are those of the unquantized
+    call); a trainable model is never quantized."""
 
     from tf_operator_tpu_torch.models.llama import LlamaLM
 
+    if trainable and quantize:
+        raise ValueError("a trainable (float32 master) model is not quantized: the JAX "
+                         "package quantizes a model for serving only")
     g = torch.Generator(device=device).manual_seed(int(seed))
     state = {}
     for name, p in LlamaLM(cfg, device="meta", trainable=trainable).named_parameters():
@@ -144,5 +168,6 @@ def init_params(cfg: TransformerConfig, seed: int, device, *,
             std = math.sqrt(1.0 / _lecun_fan_in(shape)) / 0.87962566103423978
             t = torch.empty(shape, dtype=torch.float32, device=device)
             torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
-        state[name] = t.to(p.dtype)
+        state[name] = (quantize_array(t) if quantize and eligible(name, shape)
+                       else t.to(p.dtype))
     return state

@@ -3,6 +3,7 @@ mode of ``examples/serve_lm.py``).
 
     python -m tf_operator_tpu_torch.serve_lm --model llama-7b --init-seed 0 --batching 8
     python -m tf_operator_tpu_torch.serve_lm --artifact DIR
+    python -m tf_operator_tpu_torch.serve_lm --artifact DIR --quantize int8
     curl -s localhost:8600/generate -d '{"prompt": "the sharded ", "max_new_tokens": 32}'
 
 ``POST /generate`` takes ``prompt``, ``max_new_tokens`` (default 32),
@@ -17,8 +18,12 @@ is validated as the JAX server does; ``interactive`` is refused with a
 The weights come from a seed (``--model llama-7b|llama-tiny
 --init-seed N``, made on the device) or from an ``export_params``
 directory (``--artifact DIR``: ``params.npz`` of flat flax-path keys,
-read with numpy, and ``model.json``).  The server runs on CUDA unless
-``--device cpu``.
+read with numpy, and ``model.json``).  ``--quantize int8`` holds the
+projection kernels (every ``kernel`` of >= 4096 elements; the embedding
+stays bf16) as int8 with per-output-channel scales, quantized from the
+float32 weights as they are made or read (ops/quant.py); their products
+then run the int8 matmul (the CUDA kernel K7 on the card).  The server
+runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from tf_operator_tpu_torch.models.batching import (
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape, llama_tiny
 from tf_operator_tpu_torch.models.registry import model_from_description
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
+from tf_operator_tpu_torch.ops.quant import state_bytes
 from tf_operator_tpu_torch.parallel.checkpoint import MODEL_FILE, PARAMS_FILE
 
 
@@ -200,25 +206,38 @@ class Server:
 
 
 def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
-               init_seed: int = 0, artifact: Optional[str] = None) -> LlamaLM:
+               init_seed: int = 0, artifact: Optional[str] = None,
+               quantize: Optional[str] = None) -> LlamaLM:
     """The model the flags name: the ``export_params`` directory
     ``artifact`` (``params.npz`` + ``model.json``) when given, else
     ``model``'s shape with weights made from ``init_seed`` on
-    ``device``."""
+    ``device``.  ``quantize="int8"`` holds the eligible kernels as int8,
+    quantized from float32, and prints the weight bytes before and after
+    (before: the bf16 storage of the unquantized model; the JAX server
+    counts its float32 tree)."""
 
+    if quantize not in (None, "int8"):
+        raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
+    int8 = quantize == "int8"
     if artifact:
         with open(os.path.join(artifact, MODEL_FILE)) as f:
             cfg = model_from_description(json.load(f), max_len=max_len)
-        return LlamaLM.from_state_dict(
-            cfg, load_npz(os.path.join(artifact, PARAMS_FILE)), device)
-    if model == "llama-7b":
-        cfg = llama_7b_shape(max_len=max_len)
-    elif model == "llama-tiny":
-        # byte-level prompts: the tiny model's vocab is the 256 bytes
-        cfg = llama_tiny(vocab_size=256, max_len=max_len)
+        state = load_npz(os.path.join(artifact, PARAMS_FILE), quantize=int8)
     else:
-        raise ValueError(f"model must be llama-7b or llama-tiny, got {model!r}")
-    return LlamaLM.from_state_dict(cfg, init_params(cfg, init_seed, device), device)
+        if model == "llama-7b":
+            cfg = llama_7b_shape(max_len=max_len)
+        elif model == "llama-tiny":
+            # byte-level prompts: the tiny model's vocab is the 256 bytes
+            cfg = llama_tiny(vocab_size=256, max_len=max_len)
+        else:
+            raise ValueError(f"model must be llama-7b or llama-tiny, got {model!r}")
+        state = init_params(cfg, init_seed, device, quantize=int8)
+    lm = LlamaLM.from_state_dict(cfg, state, device)
+    if int8:
+        before = state_bytes(LlamaLM(cfg, device="meta").state_dict())
+        print(f"int8 weights-only quantization: params {before / 1e6:.1f} MB -> "
+              f"{state_bytes(lm.state_dict()) / 1e6:.1f} MB", flush=True)
+    return lm
 
 
 def main(argv: Optional[list] = None) -> int:
@@ -228,6 +247,9 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--artifact", default=None,
                     help="export_params directory (params.npz + model.json); "
                     "overrides --model")
+    ap.add_argument("--quantize", choices=["int8"], default=None,
+                    help="weights-only int8 for the projection kernels (ops/quant.py); "
+                    "the embedding stays bf16")
     ap.add_argument("--port", type=int, default=8600)
     ap.add_argument("--max-len", type=int, default=2048)
     ap.add_argument("--batching", type=int, default=8, metavar="SLOTS")
@@ -241,7 +263,7 @@ def main(argv: Optional[list] = None) -> int:
     device = resolve_device(args.device)
     model = load_model(
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
-        artifact=args.artifact,
+        artifact=args.artifact, quantize=args.quantize,
     )
     pool = PagedContinuousBatchingDecoder(
         model, slots=args.batching, steps_per_sync=args.steps_per_sync,
