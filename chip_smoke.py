@@ -698,9 +698,13 @@ def k7_case(name, *, m, k, n, dtype, seed, timed=False):
         })
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         if m == 8:
-            # the host side of one call: K7's wrapper against torch.matmul
-            rec["host_us"] = {"quant_matmul": host_us(lambda: qm.quant_matmul(x, qt, dtype)),
-                              "torch.matmul": host_us(lambda: torch.matmul(x, ws[0]))}
+            # the host side of one call as a decode step makes it
+            # (DenseGeneral's quant_matmul_2d on its flat operands),
+            # against torch.matmul
+            s_flat = qt.scale.reshape(n)
+            rec["host_us"] = {
+                "quant_matmul_2d": host_us(lambda: qm.quant_matmul_2d(x, qt.q, s_flat, dtype)),
+                "torch.matmul": host_us(lambda: torch.matmul(x, ws[0]))}
         del qs, ws
     log("K7 " + json.dumps(rec))
     if not (math.isfinite(row_rel) and row_rel <= QM_RTOL[dtype]):

@@ -19,7 +19,6 @@ the CPU.
   ``generate`` and of the paged pool identical to JAX's int8 decoding.
 """
 
-import os
 import types
 
 import numpy as np
@@ -59,7 +58,6 @@ from tf_operator_tpu_torch.parallel.checkpoint import export_params
 
 torch.set_num_threads(2)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, MAX_LEN, BS = 256, 64, 8
 
 

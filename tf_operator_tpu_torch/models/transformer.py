@@ -54,7 +54,7 @@ from tf_operator_tpu_torch.ops.attention import dot_product_attention
 from tf_operator_tpu_torch.ops.flash_attention import attention
 from tf_operator_tpu_torch.ops.paged_attention import paged_attention_multi
 from tf_operator_tpu_torch.ops.quant import QTensor
-from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul
+from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul_2d
 from tf_operator_tpu_torch.ops.rotary import apply_rope
 
 #: flax's RMSNorm epsilon
@@ -200,12 +200,16 @@ class DenseGeneral(nn.Module):
         n_in = len(self.in_shape)
         lead = x.shape[: x.ndim - n_in]
         k_in = math.prod(self.in_shape)
-        x2 = x.to(self.dtype).reshape(*lead, k_in)
         if self.int8:
-            out = quant_matmul(x2, QTensor(self.kernel_q, self.kernel_scale), self.dtype,
-                               impl="plain" if plain else None)
+            # the JAX package's quant_matmul on the operands held flat
+            x2 = x.reshape(-1, k_in)
+            if x2.dtype != self.dtype:
+                x2 = x2.to(self.dtype)
+            out = quant_matmul_2d(x2, self.kernel_q, self.kernel_scale, self.dtype,
+                                  impl="plain" if plain else None)
         else:
-            out = torch.matmul(x2, self.kernel.to(self.dtype).reshape(k_in, -1))
+            out = torch.matmul(x.to(self.dtype).reshape(*lead, k_in),
+                               self.kernel.to(self.dtype).reshape(k_in, -1))
         out = out.reshape(*lead, *self.features)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)

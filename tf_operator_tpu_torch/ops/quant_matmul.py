@@ -77,7 +77,7 @@ def in_kernel_range(m: int, k: int, n: int) -> bool:
 def quant_matmul_plain(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
                        dtype: torch.dtype) -> torch.Tensor:
     """The plain version: x2 [M, K] and q2 [K, N] upcast to float32 (both
-    exact), one float32 product, times s2 [1, N], one cast."""
+    exact), one float32 product, times the N scales s2, one cast."""
 
     plain_calls[KERNEL] += 1
     return ((x2.float() @ q2.float()) * s2).to(dtype)
@@ -135,7 +135,7 @@ def _launcher():
 
 def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
     """Launch K7 on the current stream: x2 [M, K] (float32 or bf16),
-    q2 [K, N] int8, s2 [1, N] float32 -> [M, N] in x2's dtype.  Counts
+    q2 [K, N] int8, s2 N float32 scales -> [M, N] in x2's dtype.  Counts
     one launch in ``_build.launches[KERNEL]``."""
 
     _check_kernel_inputs(x2, q2, s2)
@@ -155,41 +155,49 @@ def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor) -> t
     return out
 
 
+def quant_matmul_2d(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
+                    dtype: torch.dtype, impl: Optional[str] = None) -> torch.Tensor:
+    """x2 [M, K] in ``dtype`` @ q2 [K, N] int8 * s2 (N float32 scales,
+    [N] or [1, N]) -> [M, N] in ``dtype``, by the routes of the module
+    docstring.  The counterpart of the JAX package's ``_quant_matmul_2d``
+    and of its output-scale form; models/transformer.DenseGeneral calls
+    it with operands it prepared once, so a decode step pays no reshapes
+    here."""
+
+    if impl is None:
+        impl = "cuda" if x2.is_cuda else "plain"
+    if impl == "plain":
+        return quant_matmul_plain(x2, q2, s2, dtype)
+    if impl != "cuda":
+        raise ValueError(f"impl must be None or one of {IMPLS}, got {impl!r}")
+    if not x2.is_cuda:
+        raise ValueError("quant_matmul impl='cuda' needs CUDA tensors")
+    if in_kernel_range(x2.shape[0], x2.shape[1], q2.shape[1]):
+        return quant_matmul_cuda(x2.contiguous(), q2, s2)
+    return quant_matmul_gemm(x2, q2, s2, dtype)
+
+
 def quant_matmul(x: torch.Tensor, qt: QTensor, dtype: torch.dtype = torch.bfloat16, *,
                  impl: Optional[str] = None) -> torch.Tensor:
     """``x @ qt`` with the weight read as int8.
 
     x: [..., K]; qt.q: [K, *features] int8 with a per-output-channel
     scale over the last axis.  Contraction is over x's last axis and
-    q's first; callers contracting several axes reshape first
-    (models/transformer.DenseGeneral does).  Returns [..., *features] in
-    ``dtype`` (module docstring for the routes)."""
+    q's first; callers contracting several axes reshape first.  Returns
+    [..., *features] in ``dtype`` (module docstring for the routes)."""
 
     q, s = qt.q, qt.scale
     k = x.shape[-1]
     feat = tuple(q.shape[1:])
     n = math.prod(feat)
-    x2 = x.reshape(-1, k).to(dtype)
-    q2 = q.reshape(k, n)
     per_channel = bool(feat) and s.numel() == feat[-1]
     if not per_channel:
         raise ValueError(
             f"quant_matmul needs a per-output-channel scale over the last "
             f"axis; got scale shape {tuple(s.shape)} for kernel {tuple(q.shape)}"
         )
-    # one scale per FLATTENED output channel (a copy only where the
-    # features have several axes)
-    s2 = (s if s.numel() == n else s.reshape(-1).expand(feat)).reshape(1, n).to(torch.float32)
-    if impl is None:
-        impl = "cuda" if x2.is_cuda else "plain"
-    if impl == "plain":
-        out = quant_matmul_plain(x2, q2, s2, dtype)
-    elif impl != "cuda":
-        raise ValueError(f"impl must be None or one of {IMPLS}, got {impl!r}")
-    elif not x2.is_cuda:
-        raise ValueError("quant_matmul impl='cuda' needs CUDA tensors")
-    elif in_kernel_range(x2.shape[0], k, n):
-        out = quant_matmul_cuda(x2.contiguous(), q2, s2)
-    else:
-        out = quant_matmul_gemm(x2, q2, s2, dtype)
+    # one scale per FLATTENED output channel: the per-channel scale
+    # repeated over the leading feature axes
+    s2 = s.reshape(-1).expand(feat).reshape(n).to(torch.float32)
+    out = quant_matmul_2d(x.reshape(-1, k).to(dtype), q.reshape(k, n), s2, dtype, impl)
     return out.reshape(*x.shape[:-1], *feat)
