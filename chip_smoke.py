@@ -46,7 +46,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``torch.matmul``.  The kernels line gives K7's numbers per launch
    over one 7B decode step's mix of shapes (225 launches at M = 8).
    Then the routes: M > 64, K % 32 != 0 and N not a multiple of 128
-   take the GEMM route, a strided weight raises.
+   take the GEMM route (within one bf16 ulp of each row's largest
+   plain value: its sums stay in float32 until after the scale), a
+   strided weight raises.
 5. the training main path: ``llama_pretrain`` at llama-wide (full
    depth, 12 layers), seq 2048 x batch 4, 30 steps on the byte corpus
    generated in a temporary directory.  The counts are zeroed just
@@ -525,6 +527,14 @@ def _row_rel(got, want):
     return ((got - want).abs().amax(-1) / want.abs().amax(-1).maximum(floor)).max().item()
 
 
+def _row_ulps(got, want):
+    """max over rows of max |got - want| in bf16 ulps of the row's
+    largest |want|"""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().amax(-1).clamp_min(1e-30))) - 7)
+    return ((got - want).abs().amax(-1) / ulp).max().item()
+
+
 def _tensor_rel(got, want):
     got, want = got.float(), want.float()
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
@@ -734,15 +744,22 @@ def phase_k7():
     # cannot take raises; neither runs the plain version
     dev = torch.device("cuda")
     routes = {}
-    qm.plain_calls.clear()
     for m, k, n in ((65, 4096, 4096), (8, 100, 384), (8, 96, 320)):
         x = torch.randn((m, k), device=dev).to(torch.bfloat16)
         qt = quantize_array(torch.randn((k, n), device=dev))
+        qm.plain_calls.clear()
         _build.launches.clear()
-        qm.quant_matmul(x, qt)
-        routes[f"m{m}_k{k}_n{n}"] = dict(_build.launches)
-        if dict(_build.launches) != {qm.GEMM: 1}:
-            raise AssertionError(f"K7 route for M={m} K={k} N={n}: {dict(_build.launches)}")
+        got = qm.quant_matmul(x, qt)
+        launched = dict(_build.launches)
+        if launched != {qm.GEMM: 1} or qm.plain_calls:
+            raise AssertionError(f"K7 route for M={m} K={k} N={n}: {launched}, plain "
+                                 f"{dict(qm.plain_calls)}")
+        ulps = _row_ulps(got, qm.quant_matmul(x, qt, impl="plain"))
+        routes[f"m{m}_k{k}_n{n}"] = {"launches": launched, "max_row_ulps": ulps}
+        if ulps > 1.0:
+            raise AssertionError(f"GEMM route for M={m} K={k} N={n}: {ulps} bf16 ulps "
+                                 "of the row's largest off the plain version")
+    qm.plain_calls.clear()
     x = torch.randn((8, 96), device=dev).to(torch.bfloat16)
     qt = quantize_array(torch.randn((96, 512), device=dev))
     try:

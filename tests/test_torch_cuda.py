@@ -26,7 +26,10 @@ The int8 matmul kernel (K7) is held against its plain version per
 output row, max |kernel - plain| over the row's largest |plain|: bf16
 8e-3, about two bf16 ulps (both round one float32 sum per element once;
 the sums run in another order); float32 1e-5 (float32 FMA sums in
-another order).
+another order).  The GEMM route (shapes out of the kernel's range)
+keeps torch.mm's sums in float32 until after the scale, as the plain
+version does: bf16 within one ulp of each row's largest |plain|,
+float32 1e-5.
 """
 
 import numpy as np
@@ -144,6 +147,14 @@ def _row_rel(got, want):
     got, want = got.float(), want.float()
     floor = 1e-3 * want.abs().max().clamp_min(1e-30)
     return ((got - want).abs().amax(-1) / want.abs().amax(-1).maximum(floor)).max().item()
+
+
+def _row_ulps(got, want):
+    """max over rows of max |got - want| in bf16 ulps of the row's
+    largest |want|"""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().amax(-1).clamp_min(1e-30))) - 7)
+    return ((got - want).abs().amax(-1) / ulp).max().item()
 
 
 def _rel(got, want):
@@ -274,14 +285,25 @@ def test_quant_matmul_routes_on_the_card(dev):
     of 128) a CUDA call takes the GEMM route, counted under its own name;
     an in-range call the kernel cannot take raises."""
 
-    for m, k, n in ((65, 96, 384), (8, 100, 384), (8, 96, 320)):
+    for m, k, n in ((65, 96, 384), (8, 100, 384), (8, 96, 320), (200, 4096, 4096)):
         x, qt = _qm_inputs(dev, m + k + n, m, k, n, torch.bfloat16)
         _build.launches.clear()
         got = qm.quant_matmul(x, qt)
         assert _build.launches == {qm.GEMM: 1}
         want = qm.quant_matmul(x, qt, impl="plain")
-        # torch.matmul rounds its sums to bf16 before the scale: two ulps
-        assert _row_rel(got, want) <= QM_RTOL[torch.bfloat16]
+        assert got.dtype == torch.bfloat16
+        assert _row_ulps(got, want) <= 1.0
+    x, qt = _qm_inputs(dev, 1, 65, 96, 384, torch.float32)
+    _build.launches.clear()
+    got = qm.quant_matmul(x, qt, torch.float32)
+    assert _build.launches == {qm.GEMM: 1}
+    assert _row_rel(got, qm.quant_matmul(x, qt, torch.float32, impl="plain")) <= 1e-5
+    # every route returns the asked dtype, whatever x's
+    for m in (8, 65):
+        x, qt = _qm_inputs(dev, m, m, 96, 384, torch.float32)
+        got = qm.quant_matmul(x, qt, torch.bfloat16)
+        assert got.dtype == torch.bfloat16
+        assert _row_ulps(got, qm.quant_matmul(x, qt, torch.bfloat16, impl="plain")) <= 1.0
     x, qt = _qm_inputs(dev, 0, 8, 96, 256, torch.bfloat16)
     _build.launches.clear()
     wide = QTensor(torch.cat([qt.q, qt.q], 1)[:, ::2], qt.scale)  # strided q

@@ -267,8 +267,8 @@ def test_scale_must_be_per_output_channel():
 
 
 def test_routes_on_the_cpu():
-    """CPU tensors run the plain version and launch nothing; the card's
-    routing (impl="cuda") and the kernel wrapper refuse CPU tensors."""
+    """CPU tensors run the plain version and launch nothing, in the
+    asked dtype whatever x's; the kernel wrapper refuses CPU tensors."""
 
     x, _, qt = _matmul_inputs(0, 8, 96, (128,))
     xt = torch.from_numpy(x).to(torch.bfloat16)
@@ -276,8 +276,10 @@ def test_routes_on_the_cpu():
     out = qm.quant_matmul(xt, qt)
     torch.testing.assert_close(out, qm.quant_matmul(xt, qt, impl="plain"), atol=0, rtol=0)
     assert not _build.launches
-    with pytest.raises(ValueError, match="needs CUDA tensors"):
-        qm.quant_matmul(xt, qt, impl="cuda")
+    out32 = qm.quant_matmul(xt.float(), qt, torch.bfloat16)
+    assert out32.dtype == torch.bfloat16
+    torch.testing.assert_close(out32, out, atol=0, rtol=0)
+    assert not _build.launches
     with pytest.raises(ValueError, match="not on a CUDA device"):
         qm.quant_matmul_cuda(xt, qt.q, qt.scale)
     with pytest.raises(ValueError, match="impl must be"):

@@ -46,7 +46,8 @@
 // as the JAX float32 dot does.
 //
 // Not done yet: split-K across CTAs (N = 4096 gives 128 CTAs, one wave
-// with one CTA an SM), staging x in shared memory, TMA and wgmma.
+// with one CTA an SM), 16-byte weight loads, staging x in shared memory,
+// TMA and wgmma.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

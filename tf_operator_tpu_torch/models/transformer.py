@@ -202,11 +202,8 @@ class DenseGeneral(nn.Module):
         k_in = math.prod(self.in_shape)
         if self.int8:
             # the JAX package's quant_matmul on the operands held flat
-            x2 = x.reshape(-1, k_in)
-            if x2.dtype != self.dtype:
-                x2 = x2.to(self.dtype)
-            out = quant_matmul_2d(x2, self.kernel_q, self.kernel_scale, self.dtype,
-                                  impl="plain" if plain else None)
+            out = quant_matmul_2d(x.reshape(-1, k_in), self.kernel_q, self.kernel_scale,
+                                  self.dtype, impl="plain" if plain else None)
         else:
             out = torch.matmul(x.to(self.dtype).reshape(*lead, k_in),
                                self.kernel.to(self.dtype).reshape(k_in, -1))

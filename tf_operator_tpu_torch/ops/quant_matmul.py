@@ -15,20 +15,19 @@ the 4096 x 32000 head; the same products in bf16 read twice the bytes.
 Range (the JAX package's): the kernel takes M <= 64 rows
 (``MAX_GEMV_ROWS``), K % 32 == 0 and N a multiple of one of the JAX
 block widths 512, 256, 128.  Outside it the JAX package runs the
-output-scale form ``(x @ q.astype(dtype)) * s`` as one XLA dot; the port
-runs the same form with ``torch.matmul`` (the GEMM route).  The JAX
-package also gates its kernel behind ``TPU_OPERATOR_QUANT_KERNEL=1`` on
-a TPU, a finding about XLA's fusion barriers there; the port takes the
-kernel for every CUDA call in range.
+output-scale form ``(x @ q.astype(dtype)) * s`` as one XLA dot with
+float32 sums; the port runs the same form with ``torch.mm`` asked for
+float32 sums (the GEMM route).  The JAX package also gates its kernel
+behind ``TPU_OPERATOR_QUANT_KERNEL=1`` on a TPU, a finding about XLA's
+fusion barriers there; the port takes the kernel for every CUDA call in
+range.
 
 Dispatch: ``impl=None`` routes CUDA tensors to the kernel when the
 shape is in range and to the GEMM route when it is not, and runs the
 plain version for CPU tensors.  An in-range CUDA call that cannot
 launch the kernel raises; nothing falls back to the plain version on
 the card.  ``impl="plain"`` asks for the plain version (the reference
-the kernel is held against); ``impl="cuda"`` asks for the card's
-routing (the kernel in range, the GEMM route out of it) and raises for
-CPU tensors.  ``_build.launches`` counts
+the kernel is held against).  ``_build.launches`` counts
 ``quant_matmul`` (the kernel) and ``quant_matmul_gemm`` (the GEMM
 route) where each runs, and ``plain_calls`` the plain version's calls,
 so a run on the card can show that no plain version ran on its path.
@@ -50,7 +49,6 @@ from tf_operator_tpu_torch.ops.quant import QTensor
 KERNEL = "quant_matmul"
 #: launches of the GEMM route (shapes out of the kernel's range, on CUDA)
 GEMM = "quant_matmul_gemm"
-IMPLS = ("plain", "cuda")
 #: the kernel only below this many activation rows
 MAX_GEMV_ROWS = 64
 #: the JAX package's N tile widths: N must be a multiple of one of them
@@ -86,12 +84,11 @@ def quant_matmul_plain(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
 def quant_matmul_gemm(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
                       dtype: torch.dtype) -> torch.Tensor:
     """The GEMM route for shapes out of the kernel's range: the
-    output-scale form through ``torch.matmul`` in ``dtype`` (q2 converted
-    eagerly, a temporary copy in ``dtype``).  In bf16, torch.matmul
-    rounds its float32 sums to bf16 before the scale, where the JAX dot
-    keeps them in float32: one more rounding."""
+    output-scale form through ``torch.mm`` in ``dtype`` (q2 converted
+    eagerly, a temporary copy in ``dtype``), its sums kept in float32
+    until after the scale as the JAX dot's are, then one cast."""
 
-    out = (torch.matmul(x2, q2.to(dtype)).float() * s2).to(dtype)
+    out = (torch.mm(x2, q2.to(dtype), out_dtype=torch.float32) * s2).to(dtype)
     _build.launches[GEMM] += 1
     return out
 
@@ -157,21 +154,19 @@ def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor) -> t
 
 def quant_matmul_2d(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
                     dtype: torch.dtype, impl: Optional[str] = None) -> torch.Tensor:
-    """x2 [M, K] in ``dtype`` @ q2 [K, N] int8 * s2 (N float32 scales,
-    [N] or [1, N]) -> [M, N] in ``dtype``, by the routes of the module
-    docstring.  The counterpart of the JAX package's ``_quant_matmul_2d``
-    and of its output-scale form; models/transformer.DenseGeneral calls
-    it with operands it prepared once, so a decode step pays no reshapes
-    here."""
+    """x2 [M, K] (cast to ``dtype`` first) @ q2 [K, N] int8 * s2 (N
+    float32 scales, [N] or [1, N]) -> [M, N] in ``dtype`` on every route
+    of the module docstring.  The counterpart of the JAX package's
+    ``_quant_matmul_2d`` and of its output-scale form;
+    models/transformer.DenseGeneral calls it with operands it prepared
+    once, so a decode step pays no reshapes here."""
 
-    if impl is None:
-        impl = "cuda" if x2.is_cuda else "plain"
-    if impl == "plain":
+    if impl not in (None, "plain"):
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    if x2.dtype != dtype:
+        x2 = x2.to(dtype)
+    if impl == "plain" or not x2.is_cuda:
         return quant_matmul_plain(x2, q2, s2, dtype)
-    if impl != "cuda":
-        raise ValueError(f"impl must be None or one of {IMPLS}, got {impl!r}")
-    if not x2.is_cuda:
-        raise ValueError("quant_matmul impl='cuda' needs CUDA tensors")
     if in_kernel_range(x2.shape[0], x2.shape[1], q2.shape[1]):
         return quant_matmul_cuda(x2.contiguous(), q2, s2)
     return quant_matmul_gemm(x2, q2, s2, dtype)
@@ -199,5 +194,5 @@ def quant_matmul(x: torch.Tensor, qt: QTensor, dtype: torch.dtype = torch.bfloat
     # one scale per FLATTENED output channel: the per-channel scale
     # repeated over the leading feature axes
     s2 = s.reshape(-1).expand(feat).reshape(n).to(torch.float32)
-    out = quant_matmul_2d(x.reshape(-1, k).to(dtype), q.reshape(k, n), s2, dtype, impl)
+    out = quant_matmul_2d(x.reshape(-1, k), q.reshape(k, n), s2, dtype, impl)
     return out.reshape(*x.shape[:-1], *feat)
