@@ -49,6 +49,31 @@ Phases, in order; any failure exits non-zero before the result line:
    take the GEMM route (within one bf16 ulp of each row's largest
    plain value: its sums stay in float32 until after the scale), a
    strided weight raises.
+4c. the fused BatchNorm kernels K5 (forward) and K6 (backward) against
+   their plain versions: each of the 16 (R, C, relu, residual) classes of
+   ResNet-50's 53 norms at batch 64 and 224 px (from the stem's [802816,
+   64] to [3136, 2048]), bf16 and float32, and the JAX test's ragged
+   shapes (2,3,3,5), (34,1,1,7), (1,9,5,130) with every epilogue: y,
+   mean, var, dx, dgamma, dbeta and dres on the same inputs, and the
+   gradients through the autograd Function (tolerances at ``BN_RTOL``).
+   In bf16 at every ResNet class: each kernel's device time (CUDA
+   events, queued behind a device sleep), its bound (bytes at 3.35
+   TB/s), the plain version's time, ``F.batch_norm(training=True)``'s
+   forward and autograd backward, and the wrapper's host microseconds;
+   then the totals over one step's 53 layers.
+4d. ResNet-50 training, the main path of K5 and K6: ``resnet_dp --norm
+   fused --model resnet50 --image-size 224 --batch-per-device 64 --steps
+   30`` in process.  Counts zeroed just before and read just after: K5
+   and K6 must each launch 53 x (30 + 15) times (train_loop's steps and
+   the benchmark's) and no plain version may run; the loss must fall.
+   Prints step ms, examples/s, model TFLOP/s (8.18 GFLOP an image
+   forward, x3 for a step) and their share of the 989 TFLOPS peak, and
+   peak memory.  Then one step under torch.profiler (busy share, K5's
+   and K6's shares, the largest kernel families); the one-step parity
+   of K5 / K6 against their plain versions (loss, grad norm, running
+   statistics); and the reference's A/B, ``--norm batchnorm`` against
+   ``--norm fused``, 3 steps each (step ms, the largest relative loss
+   difference).
 5. the training main path: ``llama_pretrain`` at llama-wide (full
    depth, 12 layers), seq 2048 x batch 4, 30 steps on the byte corpus
    generated in a temporary directory.  The counts are zeroed just
@@ -94,8 +119,10 @@ Phases, in order; any failure exits non-zero before the result line:
    a stated bound of the same step with the plain int8 matmul (K4 in
    both), with the same argmax.
 11. the kernels line (K1, K2, K3 from the training path, K4 from the
-   serving path, K7 from the int8 serving path), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   serving path, K7 from the int8 serving path, K5 and K6 from the
+   ResNet path, at the [200704, 256] no-ReLU, no-residual class, where
+   F.batch_norm computes the same function), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 """
 
 import gc
@@ -660,6 +687,14 @@ def time_ms_cold(fn, copies, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def time_ms_queued(fn, iters=20, warmup=3):
+    """Device ms per call of ``fn``, its launches queued behind a device
+    sleep so that a call whose host side takes longer than its kernels
+    is timed on the device (CUDA events, as ``time_ms``)."""
+
+    return time_ms_cold(lambda _: fn(), [None], iters=iters, warmup=warmup)
+
+
 def host_us(fn, calls=200):
     """Host microseconds per call of ``fn``, its launches left to run."""
 
@@ -862,9 +897,11 @@ def phase_train(data_dir, export_dir, steps):
     return stats, trainer, args
 
 
-def phase_train_profile(trainer, batch):
+def phase_train_profile(trainer, batch, tag="train step", shares=(("flash", "flash_"),)):
     """One training step under torch.profiler: the device's busy share
-    of the step's wall and the top kernels by device time."""
+    of the step's wall, the device-time share of each kernel whose name
+    holds one of ``shares``' patterns, the top kernels and the largest
+    kernel families (a kernel's name up to its template arguments)."""
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -881,15 +918,23 @@ def phase_train_profile(trainer, batch):
               and not e.key.startswith("aten::")]
     busy = sum(e.self_device_time_total for e in events)
     if busy == 0:
-        log("train step profile: the profiler recorded no device time")
+        log(f"{tag} profile: the profiler recorded no device time")
         return None
     top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
-    flash = sum(e.self_device_time_total for e in events if "flash_" in e.key)
+    families = {}
+    for e in events:
+        fam = e.key.split("<")[0].split("(")[0].strip()[:60]
+        families[fam] = families.get(fam, 0) + e.self_device_time_total
     rec = {"profiled_step_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-           "device_busy_share": busy / wall_us, "flash_share_of_device": flash / busy,
+           "device_busy_share": busy / wall_us,
            "top_kernels": [[e.key[:60], round(e.self_device_time_total / busy, 4), e.count]
-                           for e in top]}
-    log("train step profile " + json.dumps(rec))
+                           for e in top],
+           "top_families": [[f, round(t / busy, 4)] for f, t in
+                            sorted(families.items(), key=lambda kv: -kv[1])[:8]]}
+    for name, pattern in shares:
+        rec[f"{name}_share_of_device"] = sum(
+            e.self_device_time_total for e in events if pattern in e.key) / busy
+    log(f"{tag} profile " + json.dumps(rec))
     return rec
 
 
@@ -1087,6 +1132,373 @@ def phase_int8_end_to_end(model7b):
         raise AssertionError(f"7B int8 logits through K7 off the plain int8 matmul: {rec}")
 
 
+#: K5 / K6 against their plain versions on the same inputs (K6 is fed the
+#: kernel's own y, mean and var).  float32: y and dx within 1e-4 of the
+#: tensor's largest value, mean and var 1e-5 relative (sums in another
+#: order).  bf16: y within one bf16 ulp of each element, the ulp taken
+#: at no less than |y| = 1/16 (both round one float32 value once, but
+#: the kernel's fused multiply-add and the plain version's multiply,
+#: then add, differ by a float32 rounding of the O(1) terms, which is
+#: several bf16 ulps of a y that cancels to near zero: 2 to 6 read on
+#: the card before the floor); dx within
+#: 1e-2 of the tensor's largest |dx| (an element that cancels near zero
+#: may round an ulp of the tensor's scale away); dres bit for bit (the same
+#: masked dy).  dgamma and dbeta 1e-4 of their largest (float32 sums in
+#: another order).  Through autograd (K5 + K6 against the plain Function):
+#: every gradient within 1e-4 (float32) or 2e-2 (bf16) of its largest,
+#: apart from the elements where the two forwards' ReLU masks differ
+#: (bn_case).
+BN_RTOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+BN_AUTOGRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+#: the JAX test's ragged shapes (tests/test_fused_batchnorm.py:30)
+BN_RAGGED = [(2, 3, 3, 5), (34, 1, 1, 7), (1, 9, 5, 130)]
+#: the class the kernels line reports: the largest norm with neither
+#: ReLU nor residual, where F.batch_norm computes the same function
+BN_LINE_CLASS = (200704, 256, False, False)
+#: ResNet training of the main path: resnet_dp's own 30 steps, then its
+#: benchmark's max(30 // 2, 5)
+RESNET_STEPS = 30
+#: one-step parity at ResNet-50, batch 64, 224 px: the first step through
+#: K5 / K6 against the same step through their plain versions (same init,
+#: same batch; only the norms' arithmetic differs).  bf16 activations
+#: round an ulp apart in places at every norm and the difference crosses
+#: 53 norms and their convolutions: the loss within 2e-3 relative, the
+#: gradient norm 2e-2, and each norm's updated running mean and var within
+#: 2e-2 of that tensor's largest value
+RESNET_PARITY_RTOL = {"loss": 2e-3, "grad_norm": 2e-2, "running_stats": 2e-2}
+#: the reference's A/B (benchmarks/measure.py:334-400): stock norms
+#: against fused on the same init and batch, 3 sgd steps each.  The two
+#: graphs round the residual add at another place (the stock graph casts
+#: to bf16, then adds; the fused one adds in float32, then casts), so the
+#: losses drift apart (a CPU rehearsal at batch 2 and 32 px read 2.3e-2
+#: by the third step); the reference records the largest relative
+#: difference without a bound, and 0.1 here only catches a step that
+#: does not train
+RESNET_AB_RTOL = 0.1
+
+
+def resnet50_layout(batch, image):
+    """ResNet-50's norms at ``batch`` x ``image`` px, in forward order, as
+    (R, C, relu, residual), and the model flops of one image's forward
+    (2 x multiply-adds of every convolution and the head), read from a
+    forward on the meta device."""
+
+    from tf_operator_tpu_torch.models import resnet
+
+    model = resnet.resnet50(device="meta").eval()
+    layers, flops = [], [2 * model.head.kernel.numel()]
+
+    def norm_hook(mod, args, kwargs, out):
+        x = args[0]
+        layers.append((batch * (x.numel() // x.shape[-1]), x.shape[-1],
+                       bool(kwargs.get("relu", False)), kwargs.get("residual") is not None))
+
+    def conv_hook(mod, args, out):
+        flops[0] += 2 * mod.kernel.numel() * out.shape[1] * out.shape[2]
+
+    for m in model.modules():
+        if isinstance(m, resnet.BatchNorm):
+            m.register_forward_hook(norm_hook, with_kwargs=True)
+        elif isinstance(m, resnet.Conv):
+            m.register_forward_hook(conv_hook)
+    model(torch.empty(1, image, image, 3, device="meta"))
+    return layers, flops[0]
+
+
+def _bf16_ulps(got, want):
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -4))) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+def bn_case(name, shape, relu, use_res, dtype, seed, timed=False):
+    """K5 and K6 against their plain versions at one NHWC shape; with
+    ``timed``, their times beside the bound, the plain versions' and
+    F.batch_norm's (training=True, forward and its autograd backward)."""
+
+    import torch.nn.functional as F
+    from tf_operator_tpu_torch.ops import fused_batchnorm as fb
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=g, device=dev) * 2 + 0.3).to(dtype)
+    gamma = torch.randn(c, generator=g, device=dev)
+    beta = torch.randn(c, generator=g, device=dev)
+    res = torch.randn(shape, generator=g, device=dev).to(dtype) if use_res else None
+    dy = torch.randn(shape, generator=g, device=dev).to(dtype)
+    x2, dy2 = x.view(-1, c), dy.view(-1, c)
+    r2 = res.view(-1, c) if use_res else None
+    eps = 1e-5
+    fwd = lambda: fb.fused_batchnorm_fwd_cuda(x2, gamma, beta, eps, relu, r2)
+    y, m, v = fwd()
+    bwd = lambda: fb.fused_batchnorm_bwd_cuda(dy2, x2, gamma, y, m, v, eps, relu, use_res)
+    dx, dg, db, dr = bwd()
+    torch.cuda.synchronize()
+    py, pm, pv = fb.fused_batchnorm_fwd_plain(x2, gamma, beta, eps, relu, r2)
+    pdx, pdg, pdb, pdr = fb.fused_batchnorm_bwd_plain(dy2, x2, gamma, y, m, v, eps, relu,
+                                                      use_res)
+    rec = {"case": name, "shape": list(shape), "relu": relu, "residual": use_res,
+           "dtype": str(dtype),
+           "max_abs_err": {"y": (y.float() - py.float()).abs().max().item(),
+                           "dx": (dx.float() - pdx.float()).abs().max().item()},
+           "rel": {"mean": _tensor_rel(m, pm), "var": _tensor_rel(v, pv),
+                   "dgamma": _tensor_rel(dg, pdg), "dbeta": _tensor_rel(db, pdb),
+                   "dx": _tensor_rel(dx, pdx)}}
+    bad = {k: e for k, e in rec["rel"].items()
+           if not (math.isfinite(e) and e <= (BN_RTOL[dtype] if k == "dx" else 1e-4))}
+    if dtype == torch.bfloat16:
+        rec["y_bf16_ulps"] = _bf16_ulps(y, py)
+        if not rec["y_bf16_ulps"] <= 1.0:
+            bad["y_ulps"] = rec["y_bf16_ulps"]
+    else:
+        rec["rel"]["y"] = _tensor_rel(y, py)
+        if not rec["rel"]["y"] <= BN_RTOL[dtype]:
+            bad["y"] = rec["rel"]["y"]
+    if use_res and not torch.equal(dr, pdr):
+        bad["dres"] = "not bit for bit"
+    # through autograd: the Function with the kernels against the plain one
+    grads = {}
+    for impl in (None, "plain"):
+        ts = [t.clone().requires_grad_() for t in (x, gamma, beta) + ((res,) if use_res else ())]
+        out, _, _ = fb.fused_batchnorm(ts[0], ts[1], ts[2], eps=eps, relu=relu,
+                                       residual=ts[3] if use_res else None, impl=impl)
+        out.backward(dy)
+        grads[impl] = [out] + [t.grad for t in ts]
+    # where one forward rounds y to 0 and the other to a tiny positive
+    # value, the ReLU masks differ and that element's dx and dres differ
+    # by a whole dy: such elements must lie within the floored bf16 ulp
+    # of 0, are counted, and the elementwise gradients are compared
+    # where the masks agree
+    # where one forward rounds y to 0 and the other to a tiny positive
+    # value, the ReLU masks differ and that element's g differs by a
+    # whole dy.  Such elements must lie within the floored bf16 ulp of 0
+    # and are counted; dx and dres are compared where the masks agree,
+    # dgamma and dbeta with the flipped elements' own terms taken out
+    agree = torch.ones_like(x, dtype=torch.bool)
+    corr = {}
+    if relu:
+        yk, yp = grads[None][0].float(), grads["plain"][0].float()
+        agree = (yk > 0) == (yp > 0)
+        near0 = torch.maximum(yk.abs(), yp.abs()) <= 2.0 ** -11
+        rec["relu_mask_flips"] = int((~agree).sum())
+        if not bool(near0[~agree].all()):
+            bad["relu_mask_flip_away_from_0"] = rec["relu_mask_flips"]
+        flip = ((yk > 0).float() - (yp > 0).float()) * dy.float()
+        red = tuple(range(x.ndim - 1))
+        corr = {"dbeta": flip.sum(red),
+                "dgamma": (flip * (x.float() - pm) * torch.rsqrt(pv + eps)).sum(red)}
+    names = ("y", "dx", "dgamma", "dbeta", "dres")
+    rec["autograd_rel"] = {}
+    for n, a, b in zip(names, grads[None], grads["plain"]):
+        if n in ("dx", "dres"):
+            a, b = a * agree, b * agree
+        rec["autograd_rel"][n] = _tensor_rel(a.float() - corr.get(n, 0.0), b)
+    del grads
+    bad.update({f"autograd_{k}": e for k, e in rec["autograd_rel"].items()
+                if not (math.isfinite(e) and e <= BN_AUTOGRAD_RTOL[dtype])})
+    if timed:
+        elem = torch.finfo(dtype).bits // 8
+        f_bytes, b_bytes = fb.bytes_moved(x2.shape[0], c, elem, relu, use_res)
+        xv = x.permute(0, 3, 1, 2)
+        lx = xv.detach().requires_grad_()
+        lg, lb = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
+        lo = F.batch_norm(lx, None, None, lg, lb, training=True, eps=eps)
+        dyv = dy.permute(0, 3, 1, 2)
+        rec["timing"] = {
+            "fused_batchnorm_fwd": {
+                "ms": time_ms_queued(fwd), "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": time_ms_queued(lambda: fb.fused_batchnorm_fwd_plain(
+                    x2, gamma, beta, eps, relu, r2), iters=5),
+                "library_ms": time_ms_queued(lambda: F.batch_norm(
+                    xv, None, None, gamma, beta, training=True, eps=eps)),
+                "host_us": host_us(fwd, calls=50)},
+            "fused_batchnorm_bwd": {
+                "ms": time_ms_queued(bwd), "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
+                "plain_ms": time_ms_queued(lambda: fb.fused_batchnorm_bwd_plain(
+                    dy2, x2, gamma, y, m, v, eps, relu, use_res), iters=5),
+                "library_ms": time_ms_queued(lambda: torch.autograd.grad(
+                    lo, (lx, lg, lb), dyv, retain_graph=True)),
+                "host_us": host_us(bwd, calls=50)},
+        }
+        for t in rec["timing"].values():
+            t["bound_by"] = "bytes"
+            t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        del lo
+    fb.plain_calls.clear()
+    log("K5/K6 " + json.dumps(rec))
+    if bad:
+        raise AssertionError(f"K5/K6 {name}: errors over the tolerance: {bad}")
+    return rec
+
+
+def phase_bn(batch=64, image=224):
+    """K5 and K6 against their plain versions: every (R, C, relu,
+    residual) class of ResNet-50 at ``batch`` and ``image`` px in bf16 and
+    float32 (timed in bf16), and the JAX test's ragged shapes with every
+    epilogue.  Returns the records and one step's totals over the 53
+    layers."""
+
+    layers, _ = resnet50_layout(batch, image)
+    counts = {}
+    for cls in layers:
+        counts[cls] = counts.get(cls, 0) + 1
+    recs, timed = [], {}
+    for i, (r, c, relu, use_res) in enumerate(counts):
+        hw = int(round(math.sqrt(r // batch)))
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = bn_case(f"resnet50_r{r}_c{c}{'_relu' if relu else ''}{'_res' if use_res else ''}",
+                          (batch, hw, hw, c), relu, use_res, dtype, seed=i,
+                          timed=dtype == torch.bfloat16)
+            recs.append(rec)
+            if "timing" in rec:
+                timed[(r, c, relu, use_res)] = rec
+        free_device_memory()
+    for j, shape in enumerate(BN_RAGGED):
+        for relu in (False, True):
+            for use_res in (False, True):
+                for dtype in (torch.bfloat16, torch.float32):
+                    recs.append(bn_case(f"ragged_{'x'.join(map(str, shape))}", shape, relu,
+                                        use_res, dtype, seed=100 + j))
+    step = {}
+    for kname in ("fused_batchnorm_fwd", "fused_batchnorm_bwd"):
+        step[kname] = {key: sum(n * timed[cls]["timing"][kname][key]
+                                for cls, n in counts.items())
+                       for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        step[kname]["max_abs_err_bf16"] = max(
+            rec["max_abs_err"]["y" if kname.endswith("fwd") else "dx"]
+            for rec in timed.values())
+    log("K5/K6 one ResNet-50 step (53 layers, batch 64, 224 px, bf16; library_ms: "
+        "F.batch_norm, which has no epilogue on 49 of them) " + json.dumps(step))
+    return recs, timed, step
+
+
+def phase_resnet_train():
+    """The ResNet main path: ``resnet_dp --norm fused --model resnet50
+    --image-size 224 --batch-per-device 64 --steps 30`` in process.  The
+    counts are zeroed just before and read just after: K5 and K6 must
+    each launch 53 x (30 + 15) times and no plain version may run."""
+
+    from tf_operator_tpu_torch import resnet_dp
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import fused_batchnorm as fb
+
+    args = resnet_dp.parse_args([
+        "--norm", "fused", "--model", "resnet50", "--image-size", "224",
+        "--batch-per-device", "64", "--steps", str(RESNET_STEPS)])
+    layers, fwd_flops = resnet50_layout(args.batch_per_device, args.image_size)
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fb.plain_calls.clear()
+    out = resnet_dp.run(args)
+    torch.cuda.synchronize()
+    launches, plain = dict(_build.launches), dict(fb.plain_calls)
+    losses, bench = out["losses"], out["benchmark"]
+    n_norms = len(out["trainer"].model.norms())
+    steps = RESNET_STEPS + max(RESNET_STEPS // 2, 5)
+    step_s = _steady_step_s(out["resolved_at"])
+    flops_step = 3 * fwd_flops * args.batch_per_device
+    stats = {
+        "model": "resnet50", "norm": "fused", "batch": args.batch_per_device,
+        "image": args.image_size, "steps": steps, "norm_layers": n_norms,
+        "launches": launches, "plain_calls": plain,
+        "loss_first": losses[0], "loss_last5": sum(losses[-5:]) / 5,
+        "losses": [round(x, 4) for x in losses],
+        "step_ms_train_loop": step_s * 1e3, "step_ms_benchmark": bench["step_ms"],
+        "examples_per_s": bench["examples_per_sec"],
+        "examples_per_s_train_loop": args.batch_per_device / step_s,
+        "fwd_gflop_per_image": fwd_flops / 1e9, "tflop_per_step": flops_step / 1e12,
+        "model_tflops": flops_step / (bench["step_ms"] / 1e3) / 1e12,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    stats["peak_share"] = stats["model_tflops"] * 1e12 / PEAK_OPS[torch.bfloat16]
+    log("resnet train " + json.dumps(stats))
+    want = len(layers) * steps
+    for kname in (fb.KERNEL_FWD, fb.KERNEL_BWD):
+        if n_norms != len(layers) or launches.get(kname, 0) != want:
+            raise AssertionError(f"{kname} launched {launches.get(kname, 0)} times; "
+                                 f"{len(layers)} norms x {steps} steps = {want}")
+    if sum(plain.values()):
+        raise AssertionError(f"a plain BatchNorm ran on the card during training: {plain}")
+    if not stats["loss_last5"] < stats["loss_first"]:
+        raise AssertionError(f"the ResNet loss did not fall: {losses}")
+    return stats, out["trainer"], out["batch"], args
+
+
+def phase_resnet_parity(args, batch):
+    """One step through K5 / K6 against the same step through their plain
+    versions (``plain_kernels=True``): loss, grad norm, running stats."""
+
+    from tf_operator_tpu_torch import resnet_dp
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import fused_batchnorm as fb
+
+    dev = torch.device("cuda")
+    out = {}
+    for plain in (False, True):
+        trainer = resnet_dp.build_trainer(args, dev, plain_kernels=plain)
+        _build.launches.clear()
+        fb.plain_calls.clear()
+        m = trainer.compute_grads(batch)
+        counted = dict(fb.plain_calls) if plain else dict(_build.launches)
+        out[plain] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
+                      [(bn.mean.clone(), bn.var.clone()) for bn in trainer.model.norms()],
+                      counted)
+        del trainer, m
+        free_device_memory()
+    n = len(out[False][1])
+    if out[False][2] != {fb.KERNEL_FWD: n, fb.KERNEL_BWD: n} or \
+            out[True][2] != {fb.KERNEL_FWD: n, fb.KERNEL_BWD: n}:
+        raise AssertionError(f"parity steps did not run what they should: kernels "
+                             f"{out[False][2]}, plain {out[True][2]}")
+    rec = {}
+    for key in ("loss", "grad_norm"):
+        a, b = out[False][0][key], out[True][0][key]
+        rec[key] = {"kernels": a, "plain": b, "rel": abs(a - b) / abs(b),
+                    "tol": RESNET_PARITY_RTOL[key]}
+    stats_rel = max(max(_tensor_rel(ka, pa), _tensor_rel(kv, pv))
+                    for (ka, kv), (pa, pv) in zip(out[False][1], out[True][1]))
+    rec["running_stats"] = {"rel": stats_rel, "tol": RESNET_PARITY_RTOL["running_stats"]}
+    log("resnet one-step parity " + json.dumps(rec))
+    for key, r in rec.items():
+        if not (math.isfinite(r["rel"]) and r["rel"] <= r["tol"]):
+            raise AssertionError(f"ResNet one-step parity: {key} off the plain step: {rec}")
+    return rec
+
+
+def phase_resnet_ab(args, batch):
+    """The reference's A/B: ``--norm batchnorm`` against ``--norm fused``,
+    same init and batch, 3 steps each; step ms (steps 2 and 3, host clock
+    around synchronised steps) and the largest relative loss difference."""
+
+    import argparse
+
+    from tf_operator_tpu_torch import resnet_dp
+
+    dev = torch.device("cuda")
+    rec = {}
+    for norm in ("batchnorm", "fused"):
+        trainer = resnet_dp.build_trainer(argparse.Namespace(**dict(vars(args), norm=norm)), dev)
+        losses, times = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(trainer.train_step(batch)["loss"]))
+            times.append(time.perf_counter() - t0)
+        rec[norm] = {"losses": losses, "step_ms": 1e3 * sum(times[1:]) / 2,
+                     "first_step_ms": 1e3 * times[0]}
+        del trainer
+        free_device_memory()
+    rec["resnet_fusedbn_loss_max_rel_err"] = max(
+        abs(a - b) / max(abs(a), 1e-12)
+        for a, b in zip(rec["batchnorm"]["losses"], rec["fused"]["losses"]))
+    rec["tol"] = RESNET_AB_RTOL
+    log("resnet norm A/B " + json.dumps(rec))
+    if not rec["resnet_fusedbn_loss_max_rel_err"] <= RESNET_AB_RTOL:
+        raise AssertionError(f"stock and fused ResNet steps disagree: {rec}")
+    return rec
+
+
 #: training steps of the main path (the loss-decrease guard of
 #: train_loop needs 20 or more)
 TRAIN_STEPS = 30
@@ -1126,7 +1538,19 @@ def main():
     k4 = phase_k4()
     flash = phase_flash()
     k7 = phase_k7()
+    _, bn_timed, bn_step = phase_bn()
     log(f"kernel phases done at {time.perf_counter() - t0:.1f} s")
+
+    resnet_stats, trainer, batch, resnet_args = phase_resnet_train()
+    phase_train_profile(trainer, batch, tag="resnet train step",
+                        shares=(("k5", "bn_fwd_"), ("k6", "bn_bwd_")))
+    del trainer
+    free_device_memory()
+    phase_resnet_parity(resnet_args, batch)
+    phase_resnet_ab(resnet_args, batch)
+    del batch
+    free_device_memory()
+    log(f"resnet phases done at {time.perf_counter() - t0:.1f} s")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1185,6 +1609,16 @@ def main():
         "quant_matmul", "tf_operator_tpu_torch/csrc/quant_matmul.cu",
         "tf_operator_tpu/ops/quant_matmul.py:60", int8_stats["launches"].get("quant_matmul", 0),
         step["max_abs_err"], step))
+    line = bn_timed[BN_LINE_CLASS]
+    for kname, line_no, err in (("fused_batchnorm_fwd", 166, "y"),
+                                ("fused_batchnorm_bwd", 250, "dx")):
+        kernels.append(_kernel_entry(
+            kname, "tf_operator_tpu_torch/csrc/fused_batchnorm.cu",
+            f"tf_operator_tpu/ops/fused_batchnorm.py:{line_no}",
+            resnet_stats["launches"].get(kname, 0), line["max_abs_err"][err],
+            line["timing"][kname]))
+    log("K5/K6 kernels-line class: " + json.dumps(list(BN_LINE_CLASS)) + "; per step "
+        + json.dumps(bn_step))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -30,6 +30,21 @@ another order).  The GEMM route (shapes out of the kernel's range)
 keeps torch.mm's sums in float32 until after the scale, as the plain
 version does: bf16 within one ulp of each row's largest |plain|,
 float32 1e-5.
+
+The fused BatchNorm kernels (K5, K6) are held against their plain
+versions on the same inputs.  float32: y within 1e-4 of the tensor's
+largest |y| and the moments within 1e-5 relative (the sums run in
+another order); dx, dgamma and dbeta within 1e-4 of each tensor's
+largest value.  bf16: y within one bf16 ulp of each element, the ulp
+taken at no less than |y| = 1/16 (both round one float32 value once, but
+the kernel's fused multiply-add and the plain multiply-then-add differ
+by a float32 rounding of the O(1) terms, several bf16 ulps of a y that
+cancels to near zero), dres
+bit for bit (the same masked dy), dx within 1e-2 of the tensor's
+largest |dx| (an element that cancels to near zero may round one ulp of
+the tensor's scale away).  Through autograd (K5 + K6 against the plain
+Function): every gradient within 1e-4 (float32) or 2e-2 (bf16) of its
+tensor's largest value.
 """
 
 import numpy as np
@@ -42,6 +57,7 @@ from tf_operator_tpu_torch.models.llama import LlamaLM, llama_tiny
 from tf_operator_tpu_torch.models.weights import init_params
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
+from tf_operator_tpu_torch.ops import fused_batchnorm as fb
 from tf_operator_tpu_torch.ops import quant_matmul as qm
 from tf_operator_tpu_torch.ops.paged_attention import KERNEL, paged_attention_multi
 from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
@@ -327,3 +343,108 @@ def test_tiny_int8_pool_through_the_kernel_matches_plain_generate(dev):
     for p, rid in zip(prompts, rids):
         want = generate(plain, torch.as_tensor(p[None]).to(dev), 10)[0].cpu().numpy()
         np.testing.assert_array_equal(pool.result(rid), want)
+
+
+BN_SHAPES = [(4, 8, 8, 64), (8, 28, 28, 128), (2, 3, 3, 5), (34, 1, 1, 7), (1, 9, 5, 130),
+             (2, 7, 7, 2048)]
+BN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bn_inputs(dev, shape, dtype, seed=0):
+    r = np.random.default_rng(seed)
+    c = shape[-1]
+    to = lambda a, dt=dtype: torch.as_tensor(a, dtype=torch.float32).to(dev, dt)
+    return (to(r.standard_normal(shape) * 2 + 0.3), to(r.standard_normal(c), torch.float32),
+            to(r.standard_normal(c), torch.float32), to(r.standard_normal(shape)),
+            to(r.standard_normal(shape)))
+
+
+def _bf16_ulps(got, want):
+    """max over elements of |got - want| in bf16 ulps of max(|want|, 1/16)"""
+    got, want = got.float(), want.float()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -4))) - 7)
+    return ((got - want).abs() / ulp).max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", BN_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_fused_batchnorm_kernels_match_plain(dev, shape, dtype):
+    x, gamma, beta, res, dy = _bn_inputs(dev, shape, dtype)
+    c = shape[-1]
+    x2, res2, dy2 = x.reshape(-1, c), res.reshape(-1, c), dy.reshape(-1, c)
+    for relu in (False, True):
+        for r2 in (None, res2):
+            _build.launches.clear()
+            fb.plain_calls.clear()
+            y, m, v = fb.fused_batchnorm_fwd_cuda(x2, gamma, beta, 1e-5, relu, r2)
+            dx, dg, db, dr = fb.fused_batchnorm_bwd_cuda(dy2, x2, gamma, y, m, v, 1e-5, relu,
+                                                         r2 is not None)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {fb.KERNEL_FWD: 1, fb.KERNEL_BWD: 1}
+            assert not fb.plain_calls
+            py, pm, pv = fb.fused_batchnorm_fwd_plain(x2, gamma, beta, 1e-5, relu, r2)
+            # the backward on the same inputs (the kernel's y, mean, var)
+            pdx, pdg, pdb, pdr = fb.fused_batchnorm_bwd_plain(dy2, x2, gamma, y, m, v, 1e-5,
+                                                              relu, r2 is not None)
+            assert y.dtype == dtype and dx.dtype == dtype and m.dtype == torch.float32
+            torch.testing.assert_close(m, pm, rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(v, pv, rtol=1e-5, atol=1e-6)
+            if dtype == torch.float32:
+                assert _rel(y, py) <= 1e-4
+                assert _rel(dx, pdx) <= 1e-4
+            else:
+                assert _bf16_ulps(y, py) <= 1.0
+                assert _rel(dx, pdx) <= 1e-2
+            assert _rel(dg, pdg) <= 1e-4 and _rel(db, pdb) <= 1e-4
+            if r2 is None:
+                assert dr is None
+            else:
+                assert torch.equal(dr, pdr)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 64), (1, 9, 5, 130)], ids=["c64", "c130"])
+def test_fused_batchnorm_gradients_match_plain_autograd(dev, shape, dtype):
+    x, gamma, beta, res, dy = _bn_inputs(dev, shape, dtype, seed=1)
+    grads = {}
+    for impl in (None, "plain"):
+        ts = [t.clone().requires_grad_() for t in (x, gamma, beta, res)]
+        _build.launches.clear()
+        y, _, _ = fb.fused_batchnorm(ts[0], ts[1], ts[2], relu=True, residual=ts[3], impl=impl)
+        y.backward(dy)
+        launched = dict(_build.launches)
+        assert launched == ({fb.KERNEL_FWD: 1, fb.KERNEL_BWD: 1} if impl is None else {})
+        grads[impl] = [y] + [t.grad for t in ts]
+    for name, a, b in zip(("y", "dx", "dgamma", "dbeta", "dres"), grads[None], grads["plain"]):
+        assert _rel(a, b) <= BN_TOL[dtype], name
+
+
+def test_fused_batchnorm_vector_and_scalar_paths_agree(dev):
+    """A 16-byte-misaligned x takes the masked scalar loads; the result
+    is the aligned call's, bit for bit (the same sums in the same order)."""
+
+    x, gamma, beta, _, dy = _bn_inputs(dev, (6, 5, 5, 64), torch.bfloat16)
+    x2 = x.reshape(-1, 64)
+    store = torch.empty(x2.numel() + 1, dtype=x2.dtype, device=dev)
+    shifted = store[1:].view_as(x2)
+    shifted.copy_(x2)
+    assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+    a = fb.fused_batchnorm_fwd_cuda(x2, gamma, beta, 1e-5, True, None)
+    b = fb.fused_batchnorm_fwd_cuda(shifted, gamma, beta, 1e-5, True, None)
+    for u, w in zip(a, b):
+        assert torch.equal(u, w)
+
+
+def test_fused_batchnorm_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    x, gamma, beta, res, _ = _bn_inputs(dev, (2, 4, 4, 64), torch.bfloat16)
+    _build.launches.clear()
+    fb.plain_calls.clear()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fb.fused_batchnorm(x.half(), gamma, beta)
+    with pytest.raises(ValueError, match="residual must be"):
+        fb.fused_batchnorm(x, gamma, beta, residual=res.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.fused_batchnorm(x.transpose(1, 2), gamma, beta)
+    with pytest.raises(ValueError, match="gamma"):
+        fb.fused_batchnorm_fwd_cuda(x.reshape(-1, 64), gamma.cpu(), beta, 1e-5, False, None)
+    assert not _build.launches and not fb.plain_calls

@@ -60,7 +60,7 @@ def test_no_file_imports_jax_or_the_jax_package(path):
 def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     for m in ("models.batching", "ops.flash_attention", "ops.quant", "ops.quant_matmul",
-              "parallel.trainer",
+              "ops.fused_batchnorm", "models.resnet", "resnet_dp", "parallel.trainer",
               "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
@@ -115,7 +115,8 @@ def test_flash_kernel_source_and_entry_points():
         assert tpu_kernel in text  # names the TPU kernel it replaces
     assert "mma.sync.aligned.m16n8k16" in text
     # every source is built at first use, all nvcc processes together
-    assert _build.sources() == ["flash_attention", "paged_attention", "quant_matmul"]
+    assert _build.sources() == ["flash_attention", "fused_batchnorm", "paged_attention",
+                                "quant_matmul"]
 
 
 def test_quant_matmul_kernel_source_and_entry_point():
@@ -126,3 +127,17 @@ def test_quant_matmul_kernel_source_and_entry_point():
     # names the TPU kernel it replaces, and runs on the tensor cores
     assert "tf_operator_tpu/ops/quant_matmul.py::_kernel" in text
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+
+
+def test_fused_batchnorm_kernel_source_and_entry_points():
+    src = os.path.join(PKG, "csrc", "fused_batchnorm.cu")
+    with open(src) as f:
+        text = f.read()
+    for entry in ("fused_batchnorm_fwd_launch", "fused_batchnorm_bwd_launch"):
+        assert f'extern "C" int {entry}' in text
+    # names the TPU kernels it replaces
+    assert "tf_operator_tpu/ops/fused_batchnorm.py::_fwd_kernel" in text
+    assert "tf_operator_tpu/ops/fused_batchnorm.py::_bwd_kernel" in text
+    # hand-written: no library kernel behind it
+    for library in ("cudnn", "cublas", "batch_norm", "torch", "cutlass"):
+        assert library not in text.lower().replace("tf_operator_tpu_torch", "")

@@ -1,2 +1,2 @@
 """The port's model code: the llama decoder, its caches and the paged
-serving pool."""
+serving pool, and ResNet."""
