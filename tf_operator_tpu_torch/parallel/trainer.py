@@ -264,23 +264,19 @@ class Trainer:
                 "step_ms": 1e3 * dt}
 
 
-def cross_entropy_loss(model: torch.nn.Module, batch: Mapping[str, torch.Tensor]
-                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Supervised classification loss: softmax cross-entropy of the
-    model's float32 logits against the integer labels, mean over the
-    batch (optax's ``softmax_cross_entropy_with_integer_labels``), and
-    the batch's accuracy."""
+def batchnorm_cross_entropy_loss(model: torch.nn.Module, batch: Mapping[str, torch.Tensor]
+                                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Supervised classification loss of BatchNorm models (ResNet):
+    softmax cross-entropy of the model's float32 logits against the
+    integer labels, mean over the batch (optax's
+    ``softmax_cross_entropy_with_integer_labels``), and the batch's
+    accuracy.  The JAX package threads the ``batch_stats`` collection
+    through the step; here the statistics are the norms' buffers, which
+    a train-mode forward updates, and ``Trainer.eval_step`` runs the
+    model in eval mode, reading them and updating nothing."""
 
     logits = model(batch["image"]).float()
     labels = batch["label"].long()
     loss = torch.nn.functional.cross_entropy(logits, labels)
     acc = (logits.argmax(-1) == labels).float().mean()
     return loss, {"accuracy": acc}
-
-
-#: The loss of BatchNorm models (ResNet).  The JAX package threads the
-#: ``batch_stats`` collection through the step; here the statistics are
-#: the norms' buffers, updated in a train-mode forward, so the loss is
-#: the same function.  ``Trainer.eval_step`` runs the model in eval
-#: mode: it reads the running statistics and updates nothing.
-batchnorm_cross_entropy_loss = cross_entropy_loss
