@@ -8,7 +8,11 @@ Phases, in order; any failure exits non-zero before the result line:
    and nvcc versions.  Without a CUDA device the script exits 2.
 2. build: every CUDA source of the port under
    ``tf_operator_tpu_torch/csrc``, one nvcc process each, all started
-   together, with ptxas's register report per source.
+   together, with ptxas's register report per source; for the flash
+   source each kernel's registers, shared memory (static, and the
+   dynamic bytes K1's and K3's launchers ask for) and spills, and the
+   HGMMA count of K1's and K3's Hopper kernels in the SASS (cuobjdump).
+   Those kernels must not spill and must issue HGMMA.
 3. the paged-attention kernel (K4) against its plain PyTorch version on
    the card: 7B decode shapes (S=8, H=Hkv=32, D=128, bs=16, MB=128,
    lengths 1..2048), GQA (Hkv=8), K=1 and K=4, bf16 and float32, plus
@@ -19,16 +23,20 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel's, the plain version's and scaled_dot_product_attention's
    times (the last on the gathered view, a yardstick the port never
    calls) beside the bound: live K/V bytes over 3.35 TB/s.
-4. the flash-attention kernels K1 (forward), K2 (dq) and K3 (dk, dv)
-   against their plain versions: the wide training shape (B 4, H 16,
-   Hkv 8, S 2048, D 128, bf16, causal), non-causal, a window of 256 at
-   S 1024, Sq != Sk (causal and not), S = 1000, D 64, MHA and float32.
-   Kernel by kernel on the same inputs, per row; and the gradients
-   through ``FlashAttention`` against autograd through the plain
-   versions.  At the wide shape: each kernel's time (CUDA events, 20
-   launches after 3 warm-ups), its bound (the causal products at the
-   dense bf16 peak, or its bytes at 3.35 TB/s, whichever is larger),
-   the plain version's time and SDPA's forward and backward times.
+4. the flash-attention kernels K1 (forward, wgmma), K2 (dq, mma.sync)
+   and K3 (dk, dv, wgmma) against their plain versions: the wide
+   training shape (B 4, H 16, Hkv 8, S 2048, D 128, bf16, causal), the
+   same at GQA group 4 (H 32, Hkv 8: K3 folds four query heads into a
+   kv tile's walk), non-causal, a window of 256 at S 1024, Sq != Sk
+   (causal and not; 192 x 320 causal puts a kv tile across the diagonal
+   at a non-square offset), S = 1000, D 64, D 96 and D 32 (the 64-byte
+   swizzle route of K1 and K3), MHA and float32.  Kernel by kernel on
+   the same inputs, per row; and the gradients through
+   ``FlashAttention`` against autograd through the plain versions.  At
+   both wide shapes: each kernel's time (CUDA events, 20 launches after
+   3 warm-ups), its bound (the causal products at the dense bf16 peak,
+   or its bytes at 3.35 TB/s, whichever is larger), the plain version's
+   time and SDPA's forward and backward times.
 4b. the int8 matmul kernel (K7) against its plain version: M = 1, 8 and
    64 rows at each 7B projection shape (4096 x 4096, 4096 x 11008,
    11008 x 4096, 4096 x 32000) in bf16, small shapes at each JAX block
@@ -85,7 +93,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``serve_lm`` (K4 at Hkv 8) answers one greedy request with the
    bytes ``generate`` gives on the trained parameters in the process;
    then one training step under torch.profiler (busy share, top
-   kernels), and the one-step parity: the first step's loss and grad
+   kernels, and K1's, K2's and K3's shares of device time, each and
+   together), and the one-step parity: the first step's loss and grad
    norm through the kernels against the same step with the plain
    attention, same weights and batch.
 7. serving at full width: ``llama_7b_shape`` with seeded bf16
@@ -129,6 +138,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -207,11 +217,76 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def phase_build():
-    """Every source at once (one nvcc each, started together), then
-    each library loaded; prints ptxas's report per source."""
+#: the Hopper kernels of K1 and K3 (wgmma, TMA): built without spills
+#: and issuing HGMMA, which phase 2 checks in ptxas's report and the SASS
+HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel")
+
+
+def _ptxas_entries(report):
+    """ptxas's per-kernel lines: {mangled name: {"registers", "smem",
+    "spill_stores", "spill_loads", "stack"}} (static shared memory; the
+    kernels' dynamic shared memory is what their launchers ask for)."""
+
+    entries, cur = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return entries
+
+
+def _hgmma_counts(library):
+    """HGMMA instructions by kernel in the SASS of a built library
+    (cuobjdump), for the kernels whose name holds a HOPPER_KERNELS entry."""
 
     from tf_operator_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", library], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            cur = m.group(1) if any(k in m.group(1) for k in HOPPER_KERNELS) else None
+            if cur:
+                counts[cur] = 0
+        elif cur and "HGMMA" in ln:
+            counts[cur] += 1
+    return counts
+
+
+def _short(mangled):
+    """a kernel's name and head dim from its mangled name"""
+
+    m = re.search(r"\d+(flash_\w+?_kernel)(?:ILi(\d+)E)?", mangled)
+    if not m:
+        return mangled[:60]
+    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+
+
+def phase_build():
+    """Every source at once (one nvcc each, started together), then
+    each library loaded; prints ptxas's report per source and, for the
+    flash source, every kernel's registers, shared memory and spills,
+    the dynamic shared memory K1's and K3's launchers ask for, and their
+    HGMMA count in the SASS.  K1's and K3's Hopper kernels must not
+    spill and must issue HGMMA."""
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -221,6 +296,25 @@ def phase_build():
         report = [ln.strip() for ln in logs.get(name, "").splitlines()
                   if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         log(f"ptxas {name}.cu: " + " | ".join(report))
+    if "flash_attention" not in logs:
+        log("flash_attention.cu was built before this run: no ptxas report to check")
+        return
+    entries = _ptxas_entries(logs["flash_attention"])
+    hgmma = _hgmma_counts(_build._library_path("flash_attention"))
+    rows = {}
+    for mangled, e in entries.items():
+        name = _short(mangled)
+        rows[name] = dict(e)
+        if any(k in mangled for k in HOPPER_KERNELS):
+            d = int(name.split("<")[1][:-1])
+            which = 0 if "fwd" in name else 1
+            rows[name]["dynamic_smem"] = fa.hopper_smem_bytes(which, d)
+            rows[name]["hgmma"] = hgmma.get(mangled, 0)
+    log("flash kernels (ptxas, SASS) " + json.dumps(rows))
+    bad = {n: r for n, r in rows.items() if any(k in n for k in HOPPER_KERNELS)
+           and (r.get("spill_stores", 1) or r.get("spill_loads", 1) or not r.get("hgmma"))}
+    if bad or not any(any(k in n for k in HOPPER_KERNELS) for n in rows):
+        raise AssertionError(f"K1/K3 Hopper kernels spill or issue no HGMMA: {bad or rows}")
 
 
 def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed):
@@ -654,12 +748,19 @@ def phase_flash():
     small = dict(b=1, h=8, hkv=4, sq=1024, sk=1024, d=128, dtype=torch.bfloat16, causal=True)
     cases = [
         ("wide_causal_bf16", dict(wide, timed=True)),
+        # GQA group 4: K3 folds four query heads into each kv tile's walk
+        ("wide_gqa4_causal_bf16", dict(wide, h=32, timed=True)),
         ("noncausal_bf16", dict(small, causal=False)),
         ("window256_s1024_bf16", dict(small, window=256)),
         ("cross_sq512_sk1024_bf16", dict(small, sq=512)),
         ("cross_noncausal_sq1024_sk700_bf16", dict(small, sk=700, causal=False)),
         ("s1000_bf16", dict(small, sq=1000, sk=1000)),
         ("d64_bf16", dict(small, d=64)),
+        # the 64-byte swizzle route (32-column panels)
+        ("d96_bf16", dict(small, d=96)),
+        ("d32_bf16", dict(small, d=32)),
+        # a kv tile straddling the diagonal at a non-square offset
+        ("cross_sq192_sk320_bf16", dict(small, sq=192, sk=320)),
         ("mha_bf16", dict(small, hkv=8)),
         ("f32_causal_gqa", dict(small, sq=512, sk=512, dtype=torch.float32)),
     ]
@@ -1553,7 +1654,9 @@ def main():
         train_stats, trainer, args = phase_train(data_dir, export_dir, TRAIN_STEPS)
         batch = next(iter(as_lm_batches(TextBatches(data_dir, args.batch_per_device, seed=1))))
         phase_serve_artifact(trainer, export_dir)
-        phase_train_profile(trainer, batch)
+        phase_train_profile(trainer, batch, shares=(
+            ("flash", "flash_"), ("k1", "flash_fwd_"), ("k2", "flash_bwd_dq_"),
+            ("k3", "flash_bwd_dkv_")))
         del trainer
         free_device_memory()
         phase_parity(args, batch)

@@ -157,6 +157,21 @@ FLASH_CASES = {
     "causal_sq_lt_sk": dict(b=1, h=4, hkv=1, sq=64, sk=192, d=128, causal=True),
     "window": dict(b=1, h=2, hkv=1, sq=300, sk=300, d=64, causal=True, window=37),
 }
+#: the edges of K1's and K3's Hopper tiling (128 q rows a K1 CTA, kv
+#: tiles of 64; 64 kv rows a K3 CTA, q tiles of 64): two full 128-row
+#: tiles a row of CTAs under a causal GQA mask; a ragged tail inside one
+#: TMA box; a kv tile across the diagonal at a non-square offset; the
+#: 64-byte swizzle route; a window that cuts tiles.  bf16 only: the
+#: Hopper kernels are the bf16 path (float32 runs the FMA kernels, whose
+#: cases are above)
+HOPPER_FLASH_CASES = {
+    "s2048_causal_gqa": dict(b=1, h=4, hkv=2, sq=2048, sk=2048, d=128, causal=True),
+    "ragged_s1000": dict(b=1, h=2, hkv=1, sq=1000, sk=1000, d=64, causal=False),
+    "causal_sq192_sk320": dict(b=1, h=2, hkv=1, sq=192, sk=320, d=128, causal=True),
+    "d96_causal_gqa": dict(b=1, h=4, hkv=2, sq=300, sk=300, d=96, causal=True),
+    "window200_s1024": dict(b=1, h=2, hkv=1, sq=1024, sk=1024, d=128, causal=True,
+                            window=200),
+}
 
 
 def _row_rel(got, want):
@@ -178,8 +193,15 @@ def _rel(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+_DTYPE_IDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+FLASH_PARAMS = [pytest.param(case, dtype, id=f"{case}-{_DTYPE_IDS[dtype]}")
+                for case in sorted(FLASH_CASES) for dtype in (torch.float32, torch.bfloat16)]
+FLASH_PARAMS += [pytest.param(case, torch.bfloat16, id=f"{case}-bf16")
+                 for case in sorted(HOPPER_FLASH_CASES)]
+
+
 def _flash_inputs(dev, case, dtype):
-    c = dict(FLASH_CASES[case])
+    c = dict(FLASH_CASES.get(case) or HOPPER_FLASH_CASES[case])
     window = c.pop("window", None)
     r = np.random.default_rng(len(case))
     shapes = {"q": (c["b"], c["h"], c["sq"], c["d"]), "k": (c["b"], c["hkv"], c["sk"], c["d"])}
@@ -192,8 +214,7 @@ def _counts():
     return [_build.launches[n] for n in (fa.KERNEL_FWD, fa.KERNEL_DQ, fa.KERNEL_DKV)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("case, dtype", FLASH_PARAMS)
 def test_flash_kernels_match_plain(dev, case, dtype):
     q, k, v, g, causal, window = _flash_inputs(dev, case, dtype)
     _build.launches.clear()
@@ -213,8 +234,7 @@ def test_flash_kernels_match_plain(dev, case, dtype):
         assert err <= FLASH_RTOL[dtype], (name, err)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
-@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+@pytest.mark.parametrize("case, dtype", FLASH_PARAMS)
 def test_flash_gradients_match_plain_autograd(dev, case, dtype):
     q, k, v, g, causal, window = _flash_inputs(dev, case, dtype)
     results = {}
@@ -261,6 +281,23 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(dev):
     ]:
         with pytest.raises(ValueError):
             fa.flash_forward_cuda(*args)
+    assert sum(_build.launches.values()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_wrapper_refuses_a_base_off_16_bytes(dev, dtype):
+    # a contiguous view that starts one element into its storage: TMA
+    # (and the float32 kernels' 16-byte copies) cannot read it
+    flat = torch.randn(2 * 64 * 64 + 8, device=dev).to(dtype)
+    q = flat[1:1 + 2 * 64 * 64].view(1, 2, 64, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    k = torch.randn(1, 1, 64, 64, device=dev).to(dtype)
+    rows = torch.zeros(1, 2, 64, device=dev)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_forward_cuda(q, k, k, True)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_backward_dkv_cuda(q.clone(), k, k, q, rows, rows, True)
     assert sum(_build.launches.values()) == 0
 
 

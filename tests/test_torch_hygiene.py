@@ -119,6 +119,24 @@ def test_flash_kernel_source_and_entry_points():
                                 "quant_matmul"]
 
 
+def test_flash_hopper_kernels_run_wgmma_on_tma_stages():
+    src = os.path.join(PKG, "csrc", "flash_attention.cu")
+    with open(src) as f:
+        text = f.read()
+    # K1 and K3 are Hopper kernels: a producer warp's TMA loads into an
+    # mbarrier ring, consumer warpgroups on wgmma, registers moved by
+    # setmaxnreg, tensor maps encoded through the driver entry point
+    for kernel in ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel"):
+        assert f"{kernel}<D>" in text
+    for piece in ("wgmma.mma_async.sync.aligned.m64n", "cp.async.bulk.tensor.3d",
+                  "mbarrier.try_wait.parity", "setmaxnreg.inc", "setmaxnreg.dec",
+                  "cudaGetDriverEntryPoint", "const __grid_constant__ CUtensorMap"):
+        assert piece in text, piece
+    # the header names the TPU kernels they replace
+    assert "flash_attention.py:165" in text and "flash_attention.py:343" in text
+    assert 'extern "C" int flash_hopper_smem_bytes' in text
+
+
 def test_quant_matmul_kernel_source_and_entry_point():
     src = os.path.join(PKG, "csrc", "quant_matmul.cu")
     with open(src) as f:

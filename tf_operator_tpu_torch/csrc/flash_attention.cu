@@ -4,18 +4,27 @@
 // and computes the same functions.  Each C entry point launches the bf16
 // kernel (the training path, tensor cores) or the float32 one (plain FMA):
 //
-//   K1 _flash_kernel         flash_fwd_launch:     flash_fwd_bf16_kernel<D>
-//                                                  flash_fwd_f32_kernel
-//   K2 _flash_bwd_dq_kernel  flash_bwd_dq_launch:  flash_bwd_dq_bf16_kernel<D>
-//                                                  flash_bwd_dq_f32_kernel
-//   K3 _flash_bwd_dkv_kernel flash_bwd_dkv_launch: flash_bwd_dkv_bf16_kernel<D>
-//                                                  flash_bwd_dkv_f32_kernel
+//   K1 _flash_kernel (flash_attention.py:165)
+//        flash_fwd_launch:     flash_fwd_hopper_kernel<D>      wgmma, TMA
+//                              flash_fwd_f32_kernel
+//   K2 _flash_bwd_dq_kernel (flash_attention.py:297)
+//        flash_bwd_dq_launch:  flash_bwd_dq_bf16_kernel<D>     mma.sync
+//                              flash_bwd_dq_f32_kernel
+//   K3 _flash_bwd_dkv_kernel (flash_attention.py:343)
+//        flash_bwd_dkv_launch: flash_bwd_dkv_hopper_kernel<D>  wgmma, TMA
+//                              flash_bwd_dkv_f32_kernel
+//
+// Head dims: the launchers take D = 32, 64, 96 and 128 (shape_ok) and
+// send every one of them, by the switch on D, to the kernels above: K1
+// and K3 stage D = 64 and 128 as 64-column panels with the 128-byte
+// swizzle, D = 32 and 96 as 32-column panels with the 64-byte swizzle.
 //
 // Layout: q, dO, out [B, H, Sq, D];
 // k, v [B, Hkv, Sk, D] with H = Hkv * group; lse and delta [B, H, Sq]
-// float32.  All contiguous.  Logits are (q . k) * scale; the causal mask
-// is top-left aligned (qpos >= kpos, both counted from 0, whatever Sq and
-// Sk are); a window keeps qpos - kpos < window; masked logits are
+// float32.  All contiguous; the bf16 tensors that TMA reads start on a
+// 16-byte boundary.  Logits are (q . k) * scale; the causal mask is top-
+// left aligned (qpos >= kpos, both counted from 0, whatever Sq and Sk
+// are); a window keeps qpos - kpos < window; masked logits are
 // finfo(float32).min, never -inf.  The forward's softmax is online in
 // float32, divides by max(l, 1e-37) and writes
 // lse = m + log(max(l, 1e-37)).  The backward recomputes
@@ -25,34 +34,61 @@
 //
 // Design.  The TPU grid's sequential block dimension becomes a loop
 // inside one CTA:
-//   K1, K2: one CTA per (64-row q tile, head, batch) loops over the K/V
-//           tiles the causal mask and the window let in;
-//   K3:     one CTA per (64-row kv tile, kv head, batch) loops over the
+//   K1, K2: a CTA per q tile (and head, batch) loops over the K/V tiles
+//           the causal mask and the window let in;
+//   K3:     a CTA per kv tile (and kv head, batch) loops over the
 //           group's query heads x the q tiles that can see the kv tile,
 //           and accumulates dK and dV in registers: GQA folds into the
 //           loop as the JAX kernel folds it into its grid, with no
 //           atomics and no group-sum afterwards.
-// Tiles are copied into shared memory with 16-byte copies (cp.async on
-// the bf16 path, every copy of a tile in flight at once), rows padded by
-// 16 bytes against bank conflicts; rows past Sq or Sk load as zeros and
-// are masked, so any length works.
+// Rows past Sq or Sk load as zeros and are masked, so any length works.
 //
-// bf16 (the training path): 4 warps a CTA, 16 rows a warp; scores,
-// probabilities, ds and the output accumulators stay in registers as
-// mma.sync m16n8k16 fragments (float32 accumulation), operands come
-// from shared memory through ldmatrix, and a p or ds tile becomes the A
-// operand of the next product without leaving the registers.  p and ds
-// are rounded to bf16 only as operands.
+// Bound.  At the training shape (B 4, H 16, Hkv 8, S 2048, D 128, bf16,
+// causal) attention does O(S^2 D) flops on O(S D) bytes: it is bound by
+// operations, at the dense bf16 peak of 989 TFLOPS K1 0.0695 ms (two
+// products over the visible pairs) and K3 0.1390 ms (four).
+//
+// K1 and K3 (the Hopper section below) against what held the mma.sync
+// versions back:
+//   - mma.sync m16n8k16 reaches about two thirds of the tensor cores'
+//     rate: every product is a warpgroup's wgmma.mma_async, operands
+//     from swizzled shared memory or, for P, P^T and dS^T, registers;
+//   - copies did not overlap math (cp.async, then wait and barrier a
+//     tile): a producer warp keeps TMA loads in flight into a ring of
+//     four stages with full and empty mbarriers while two consumer
+//     warpgroups compute; setmaxnreg moves the producer's registers to
+//     them;
+//   - K1's CTAs were 64 q rows in increasing order: now 128 q rows (64 a
+//     consumer warpgroup) against kv tiles of 64, the heaviest causal q
+//     tiles first, S of a tile issued beside O += P V of the tile before
+//     (the tensor cores run that product during the softmax), and only
+//     tiles straddling the diagonal, the window's edge or Sk test each
+//     element;
+//   - K3 held 254 registers a thread (dK and dV both, two CTAs an SM)
+//     and reloaded lse and delta behind a barrier every q tile: now a
+//     CTA of 64 kv rows splits a q tile's work by output, warpgroup 0
+//     S^T, P^T and dV, warpgroup 1 dP^T, dS^T and dK (P^T handed over
+//     in shared memory), so a thread holds one D-wide accumulator; the
+//     producer stages each q tile's lse and delta beside Q and dO, and
+//     kv tile 0 (which sees every q tile under the causal mask) runs
+//     first; Q and dO are loaded once and read both ways (K-major and
+//     through the transposing descriptor).
+// K2 keeps the mma.sync design: 4 warps a CTA, 16 rows a warp; scores,
+// ds and dq in mma.sync m16n8k16 fragments (float32 accumulation),
+// operands from shared memory through ldmatrix, tiles by cp.async.
 // float32 (exactness, not speed): tile products from shared memory on
 // plain FMA (no TF32), 8 warps a CTA.
 //
-// Bound.  At the training shape (S 2048, D 128, bf16) attention does
-// O(S^2 D) flops on O(S D) bytes: it is bound by operations (the tensor
-// cores).  What the bf16 design does not yet do: overlap the next
-// tile's copies with the current tile's math (double buffering, TMA),
-// fewer registers in K3 (254 at D = 128: two CTAs an SM), wgmma, warp
-// specialisation.
+// What the bf16 design does not yet do: K2 is not redesigned (mma.sync,
+// no copy/math overlap, 64-row CTAs in increasing order); K3's steps do
+// not overlap (issuing a step's scores behind the last step's dV or dK
+// product made ptxas serialise every wgmma), and its P^T hand-over goes
+// through shared memory; the two consumer warpgroups are not scheduled
+// in turn (no ping-pong); the grid is not persistent; outputs are
+// written from registers, not through TMA stores; the tensor maps are
+// encoded on the host at every call.
 
+#include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -459,14 +495,13 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
-// bf16: register-resident tiles on the tensor cores.
+// bf16 K2: register-resident tiles on the tensor cores (mma.sync).
 //
-// A CTA of 4 warps owns 64 rows (q rows in K1 and K2, kv rows in K3),
-// 16 per warp.  Each warp keeps its scores, probabilities and output
-// accumulators in mma.sync m16n8k16 fragments (float32), so the only
+// A CTA of 4 warps owns 64 q rows, 16 per warp.  Each warp keeps its
+// scores, ds and dq accumulators in mma.sync m16n8k16 fragments (float32), so the only
 // shared-memory traffic is the operand tiles, read with ldmatrix (its
 // .trans form where the contracted index is not the contiguous one).
-// A probability or ds tile turns into the A operand of the next product
+// A ds tile turns into the A operand of the next product
 // in registers (the accumulator layout of two neighbouring n8 tiles is
 // the A layout of one k16 step).  Exponentials use __expf.
 //
@@ -476,7 +511,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 //   C 16x8:  c0 (g, 2t) c1 (g, 2t+1) c2 (g+8, 2t) c3 (g+8, 2t+1)
 
 constexpr int kRegThreads = 128;
-constexpr int kRegRows = 64;  // rows per CTA, and kv (K1, K2) or q (K3) rows per tile
+constexpr int kRegRows = 64;  // q rows per CTA, kv rows per tile
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -627,95 +662,10 @@ __device__ __forceinline__ void store_pair(void* dst, bool out_f32, size_t off,
     *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dst) + off) = pack_f32(x, y);
 }
 
+// K2's tiles: q, dO, k, v
 template <int D>
-constexpr int reg_smem_bytes(Kind kind) {
-  return (kind == kFwd ? 3 : 4) * kRegRows * (D + 8) * 2 +
-         (kind == kDkv ? 2 * kRegRows * 4 : 0);
-}
-
-// K1.  grid (q tiles, H, B).
-template <int D>
-__global__ void __launch_bounds__(kRegThreads)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int H, int group, int Sq, int Sk,
-                      int causal, int window, float scale) {
-  constexpr int LD = D + 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + kRegRows * LD;
-  bf16* v_s = k_s + kRegRows * LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q_lo = qt * kRegRows, q_hi = min(q_lo + kRegRows, Sq) - 1;
-  const size_t qoff = ((size_t)b * H + h) * Sq;
-  const size_t koff = ((size_t)b * (H / group) + h / group) * Sk * D;
-  const int qp[2] = {q_lo + m0 + g, q_lo + m0 + g + 8};
-
-  tile_async<D>(q_s, q + qoff * D, q_lo, Sq);
-  float o[ND][4];
-#pragma unroll
-  for (int jd = 0; jd < ND; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[jd][e] = 0.f;
-  // running max (shared by the quad) and this thread's share of the sum
-  float m[2] = {kNegFill, kNegFill}, l[2] = {0.f, 0.f};
-  int kt_begin, kt_end;
-  kv_range(q_lo, q_hi, Sk, kRegRows, causal, window, &kt_begin, &kt_end);
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_lo = kt * kRegRows;
-    __syncthreads();  // the previous tile's readers are done
-    tile_async<D>(k_s, k + koff, k_lo, Sk);
-    tile_async<D>(v_s, v + koff, k_lo, Sk);
-    tile_wait();
-    float s[8][4];
-    scores<D>(s, q_s, k_s, m0, lane);
-    float mx[2] = {kNegFill, kNegFill};
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k_lo + j * 8 + 2 * t + (e & 1);
-        float x = s[j][e] * scale;
-        if (!visible(qp[e >> 1], kpos, Sk, causal, window)) x = kNegFill;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], quad_max(mx[r]));
-      alpha[r] = __expf(m[r] - m_new);
-      m[r] = m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = __expf(s[j][e] - m[e >> 1]);
-        s[j][e] = p;
-        l[e >> 1] += p;
-      }
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[jd][e] *= alpha[e >> 1];
-    accumulate<D>(o, s, v_s, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float lt = fmaxf(quad_sum(l[r]), 1e-37f);
-    if (qp[r] >= Sq) continue;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      store_pair(out, false, (qoff + qp[r]) * D + jd * 8 + 2 * t,
-                 o[jd][2 * r] / lt, o[jd][2 * r + 1] / lt);
-    if (t == 0) lse[qoff + qp[r]] = m[r] + logf(lt);
-  }
+constexpr int dq_smem_bytes() {
+  return 4 * kRegRows * (D + 8) * 2;
 }
 
 // K2.  grid (q tiles, H, B).
@@ -789,87 +739,752 @@ flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// K3.  grid (kv tiles, Hkv, B).  The warp's 16 kv rows are the rows of
-// every product: s^T = k q^T, dp^T = v dO^T, dv += p^T dO, dk += ds^T q.
+// ---------------------------------------------------------------------
+// Hopper: K1 and K3 on wgmma, fed by TMA through an mbarrier ring.
+//
+// A CTA is three warpgroups (384 threads).  Warpgroups 0 and 1 are
+// the consumers, 64 rows each: they issue wgmma.mma_async on the staged
+// tiles and keep every accumulator in registers.  Warpgroup 2 is the
+// producer: it gives registers back with setmaxnreg (the consumers ask
+// for 232), and one warp of it keeps TMA loads in flight into a ring of
+// tile stages in shared memory, each stage with a full barrier (the
+// bytes landed) and an empty barrier (every consumer thread is done
+// reading).  ptxas (CUDA 12.8) did not give the consumers more than
+// the 168 registers a thread of a 384-thread CTA has at launch: designs
+// that needed more spilled and had their wgmma serialised, so each
+// design below keeps a consumer's live registers under that.
+
+// Tiles are [rows][D] bf16, stored as D / P panels of [rows][P] (P = 64
+// columns, 128-byte swizzle, where D is a multiple of 64; else P = 32,
+// 64-byte swizzle), each panel one TMA box of a 3-d tensor map (D, S,
+// B * heads): TMA zero-fills rows past S of the head's own slab, never
+// the next head's rows.  A product reads a tile K-major (the contracted
+// index is D: descriptors step 32 bytes along a panel row) or MN-major
+// (the contracted index is the row: the transposing descriptor steps 16
+// rows), so one staged tile serves both ways.
+//
+// wgmma fragments (thread i of the warpgroup, warp w = i / 32, g = lane
+// / 4, t = lane % 4): accumulator d[4j + e] holds row 16w + g + 8(e / 2),
+// column 8j + 2t + e % 2; a register A operand of one k16 step is the
+// accumulator of two neighbouring n8 columns, rounded to bf16.
+
+constexpr int kConsumerThreads = 256;  // two consumer warpgroups
+constexpr int kConsumerWarps = kConsumerThreads / 32;
+constexpr int kHopThreads = kConsumerThreads + 128;  // and the producer warpgroup
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+constexpr float kLog2e = 1.4426950408889634f, kLn2 = 0.6931471805599453f;
+
 template <int D>
-__global__ void __launch_bounds__(kRegThreads)
-flash_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ delta, void* __restrict__ dk,
-                          void* __restrict__ dv, int out_f32, int H, int group,
-                          int Sq, int Sk, int causal, int window, float scale) {
-  constexpr int LD = D + 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* k_s = reinterpret_cast<bf16*>(smem);
-  bf16* v_s = k_s + kRegRows * LD;
-  bf16* q_s = v_s + kRegRows * LD;
-  bf16* do_s = q_s + kRegRows * LD;
-  float* lse_s = reinterpret_cast<float*>(do_s + kRegRows * LD);
-  float* delta_s = lse_s + kRegRows;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
-  const int kt = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
-  const int k_lo = kt * kRegRows, k_hi = min(k_lo + kRegRows, Sk) - 1;
-  const size_t koff = ((size_t)b * (H / group) + hk) * Sk * D;
-  const int kp[2] = {k_lo + m0 + g, k_lo + m0 + g + 8};
+struct Panels {
+  static constexpr int SW = D % 64 == 0 ? 128 : 64;  // swizzle = panel row bytes
+  static constexpr int P = SW / 2;                   // bf16 columns a panel
+  static constexpr int N = D / P;                    // panels a tile
+  static constexpr uint64_t kLayout = SW == 128 ? 1 : 2;  // descriptor swizzle code
+};
 
-  tile_async<D>(k_s, k + koff, k_lo, Sk);
-  tile_async<D>(v_s, v + koff, k_lo, Sk);
-  float dk_acc[ND][4], dv_acc[ND][4];
-#pragma unroll
-  for (int jd = 0; jd < ND; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[jd][e] = dv_acc[jd][e] = 0.f;
-  const int nq = (Sq + kRegRows - 1) / kRegRows;
-  int qt_begin = 0, qt_end = nq;
-  if (causal) {
-    qt_begin = min(nq, k_lo / kRegRows);
-    if (window > 0) qt_end = min(nq, (k_hi + window - 1) / kRegRows + 1);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// wait for the completion of the barrier's phase of this parity.  A
+// wait that outlasts 2^28 polls (far beyond any tile's copy) is a fault
+// of the pipeline: it traps, so the launch fails instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
   }
+}
 
-  for (int gi = 0; gi < group; ++gi) {
-    const size_t qoff = ((size_t)b * H + hk * group + gi) * Sq;
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q_lo = qt * kRegRows;
-      __syncthreads();
-      tile_async<D>(q_s, q + qoff * D, q_lo, Sq);
-      tile_async<D>(do_s, dout + qoff * D, q_lo, Sq);
-      load_rows(lse_s, lse + qoff, q_lo, kRegRows, Sq);
-      load_rows(delta_s, delta + qoff, q_lo, kRegRows, Sq);
-      tile_wait();
-      float p[8][4];
-      scores<D>(p, k_s, q_s, m0, lane);
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// one arrival for the calling warp, once all its lanes are here (their
+// shared-memory reads ordered before it): consumer barriers count warps,
+// not threads, so a release is 8 arrivals on one word, not 256
+__device__ __forceinline__ void warp_arrive(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// arrive, and expect this many bytes of TMA loads before the phase ends
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory, asynchronously (zeros where
+// !valid); cp_async_arrive makes the landing of this thread's copies one
+// arrival on a barrier (counted in its init)
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// one box of a 3-d tensor map at (c0, c1, c2) into shared memory
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the rows [row0, row0 + rows) of one head as a staged tile: one box a panel
+template <int D>
+__device__ __forceinline__ void tma_tile(bf16* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int rows, int row0, int slab) {
+  using G = Panels<D>;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+  for (int p = 0; p < G::N; ++p) tma_load(dst + p * rows * G::P, map, bar, p * G::P, row0, slab);
+}
+
+// a wgmma shared-memory descriptor: start >> 4, leading and stride byte
+// offsets >> 4, the swizzle code in bits 62-63
+template <int D>
+__device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | Panels<D>::kLayout << 62;
+}
+
+// K-major: rows [r0, r0 + 64 or the product's N) of a staged [rows][D]
+// tile, columns [16 kk, 16 kk + 16): 8-row groups SW * 8 bytes apart.
+// The step along D is a constant added to the start address field, so
+// the tile's descriptor is built once
+template <int D>
+__device__ __forceinline__ uint64_t desc_k(const bf16* tile, int rows, int r0, int kk) {
+  using G = Panels<D>;
+  const int col = kk * 16;
+  return make_desc<D>(tile + r0 * G::P, 16, 8 * G::SW) +
+         static_cast<uint64_t>(((col / G::P) * rows * G::SW + (col % G::P) * 2) >> 4);
+}
+
+// MN-major (transposed): rows [16 kk, 16 kk + 16) of a staged tile as
+// the contracted index, all D columns as N: panels rows * SW bytes apart
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn(const bf16* tile, int rows, int kk) {
+  using G = Panels<D>;
+  return make_desc<D>(tile, rows * G::SW, 8 * G::SW) +
+         static_cast<uint64_t>((kk * 16 * G::SW) >> 4);
+}
+
+// 2^x on the special function unit (ex2.approx.ftz: -inf and very
+// negative x give 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_one() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// keeps the compiler from moving reads of an accumulator above the wait
+// that ends the products writing it
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + 2 * t + (e & 1);
-          p[j][e] = q_lo + c < Sq && visible(q_lo + c, kp[e >> 1], Sk, causal, window)
-                        ? __expf(p[j][e] * scale - lse_s[c])
-                        : 0.f;
-        }
-      accumulate<D>(dv_acc, p, do_s, lane);
-      float ds[8][4];
-      scores<D>(ds, v_s, do_s, m0, lane);
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the register A operand of k16 step kk from an m64 x n(16 * steps)
+// accumulator
+template <int N>
+__device__ __forceinline__ void acc_to_frag(uint32_t (&a)[4], const float (&c)[N], int kk) {
+  a[0] = pack_f32(c[8 * kk + 0], c[8 * kk + 1]);
+  a[1] = pack_f32(c[8 * kk + 2], c[8 * kk + 3]);
+  a[2] = pack_f32(c[8 * kk + 4], c[8 * kk + 5]);
+  a[3] = pack_f32(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// the first 1024-byte boundary (the swizzle atoms' alignment) of dynamic
+// shared memory, as an offset from its start: pointers made from the
+// array itself stay shared-memory pointers to the compiler, so their
+// loads and stores are ld.shared / st.shared, not generic ones
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* smem) {
+  return smem + ((1024 - (smem_u32(smem) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+}
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+}
+
+// d (m64 x n64) = A (smem, K-major) x B (smem, K-major), scaled into d
+// when accumulate != 0, else written
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (m64 x n32) += A (registers) x B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n64) += A (registers) x B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n96) += A (registers) x B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[48], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (m64 x n128) += A (registers) x B (smem, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// K1 on Hopper.  1-d grid over (q tile, head, batch), the q tiles
+// heaviest first (the last q tile sees the most kv tiles under the
+// causal mask).  A CTA owns 128 q rows, 64 a consumer warpgroup, and
+// walks the kv tiles of 64 rows the mask lets in:
+//   S = Q K^T    wgmma m64n64k16, Q and K from shared memory (K-major)
+//   online softmax in float32 on the accumulator, in log2 units
+//   O += P V     wgmma m64nDk16, P from registers (bf16), V MN-major
+// A consumer holds S (32 floats), P (16 registers) and O (D / 2 floats)
+// at once; kv tiles of 128 measured slower (S alone 64 floats: spills).
+// Only tiles that straddle the diagonal, the window's edge or Sk test
+// each element.
+constexpr int kFwdRows = 128, kFwdKv = 64, kFwdStages = 4;
+
+template <int D>
+struct FwdSmem {
+  static constexpr int q = 0;
+  static constexpr int k = q + kFwdRows * D * 2;
+  static constexpr int v = k + kFwdStages * kFwdKv * D * 2;
+  static constexpr int bars = v + kFwdStages * kFwdKv * D * 2;
+  static constexpr int total = bars + 8 * (1 + 4 * kFwdStages) + 1024;  // + alignment
+};
+
+// S = Q K^T for a consumer warpgroup's 64 q rows and a 128-row kv tile
+template <int D>
+__device__ __forceinline__ void fwd_scores(float (&sc)[kFwdKv / 2], const bf16* q_s, const bf16* k_s,
+                                           int wg) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(sc, desc_k<D>(q_s, kFwdRows, 64 * wg, kk), desc_k<D>(k_s, kFwdKv, 0, kk), kk > 0);
+}
+
+// O += P V: P from registers, V MN-major
+template <int D>
+__device__ __forceinline__ void fwd_pv(float (&o)[D / 2], const uint32_t (&pa)[kFwdKv / 16][4],
+                                       const bf16* v_s) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[j][e] = p[j][e] * (ds[j][e] - delta_s[j * 8 + 2 * t + (e & 1)]);
-      accumulate<D>(dk_acc, ds, q_s, lane);
+  for (int kk = 0; kk < kFwdKv / 16; ++kk) wgmma_rs(o, pa[kk], desc_mn<D>(v_s, kFwdKv, kk));
+}
+
+// The online softmax of one tile's scores, in place, in log2 units:
+// the running max m and this thread's share l of the sum; alpha (when
+// asked for) is the factor O is rescaled by.  A tile that straddles the
+// diagonal, the window's edge or Sk is scaled and masked element by
+// element first; an interior tile folds the scale into the exponent
+__device__ __forceinline__ void fwd_softmax(float (&sc)[kFwdKv / 2], float (&m)[2],
+                                            float (&l)[2], int k_lo, int r_lo, int r_hi,
+                                            const int (&qp)[2], int t, int Sk, int causal,
+                                            int window, float scale_log2,
+                                            float* alpha = nullptr) {
+  const bool straddles = k_lo + kFwdKv > Sk ||
+                         (causal && (k_lo + kFwdKv - 1 > r_lo ||
+                                     (window > 0 && r_hi - k_lo >= window)));
+  float k = scale_log2;
+  if (straddles) {
+#pragma unroll
+    for (int c = 0; c < kFwdKv / 2; ++c) {
+      const int kpos = k_lo + (c / 4) * 8 + 2 * t + (c & 1);
+      sc[c] = visible(qp[(c >> 1) & 1], kpos, Sk, causal, window) ? sc[c] * scale_log2
+                                                                   : kNegFill;
     }
+    k = 1.f;
   }
-  tile_wait();  // no copy may land after the CTA ends, even with no q tile
-
+  float mx[2] = {kNegFill, kNegFill};
+#pragma unroll
+  for (int c = 0; c < kFwdKv / 2; ++c) mx[(c >> 1) & 1] = fmaxf(mx[(c >> 1) & 1], sc[c]);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (kp[r] >= Sk) continue;
+    // k > 0, so the max of the scaled scores is the scaled max
+    const float m_new = fmaxf(m[r], quad_max(mx[r]) * k);
+    const float a = fast_exp2(m[r] - m_new);
+    if (alpha) alpha[r] = a;
+    m[r] = m_new;
+    l[r] *= a;
+  }
 #pragma unroll
-    for (int jd = 0; jd < ND; ++jd) {
-      const size_t off = koff + (size_t)kp[r] * D + jd * 8 + 2 * t;
-      store_pair(dk, out_f32, off, dk_acc[jd][2 * r] * scale, dk_acc[jd][2 * r + 1] * scale);
-      store_pair(dv, out_f32, off, dv_acc[jd][2 * r], dv_acc[jd][2 * r + 1]);
+  for (int c = 0; c < kFwdKv / 2; ++c) {
+    const float p = fast_exp2(fmaf(sc[c], k, -m[(c >> 1) & 1]));
+    sc[c] = p;
+    l[(c >> 1) & 1] += p;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv, bf16* __restrict__ out,
+                        float* __restrict__ lse, int B, int H, int group, int Sq, int Sk,
+                        int causal, int window, float scale_log2) {
+  using L = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + kFwdStages;
+  uint64_t* empty_k = full_v + kFwdStages;
+  uint64_t* empty_v = empty_k + kFwdStages;
+  constexpr int kTile = kFwdKv * D;  // elements of a staged K or V tile
+
+  const int heads = H * B;
+  const int nq = (Sq + kFwdRows - 1) / kFwdRows;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int bh = static_cast<int>(blockIdx.x) % heads;  // b * H + h
+  const int bhk = (bh / H) * (H / group) + (bh % H) / group;
+  const int q_lo = qt * kFwdRows, q_hi = min(q_lo + kFwdRows, Sq) - 1;
+  int kt_begin, kt_end;
+  kv_range(q_lo, q_hi, Sk, kFwdKv, causal, window, &kt_begin, &kt_end);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], kConsumerWarps);
+      mbar_init(&empty_v[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it is
+  // the same across each warp: every wgmma below runs on a path all 128
+  // threads of a warpgroup take
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    // producer: Q once, then K and V of every tile into the ring
+    setmaxnreg_dec();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_arrive_tx(full_q, kFwdRows * D * 2);
+      tma_tile<D>(q_s, &tq, full_q, kFwdRows, q_lo, bh);
+      for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+        const int s = i % kFwdStages, free_parity = ((i / kFwdStages) & 1) ^ 1;
+        mbar_wait(&empty_k[s], free_parity);
+        mbar_arrive_tx(&full_k[s], kTile * 2);
+        tma_tile<D>(k_s + s * kTile, &tk, &full_k[s], kFwdKv, kt * kFwdKv, bhk);
+        mbar_wait(&empty_v[s], free_parity);
+        mbar_arrive_tx(&full_v[s], kTile * 2);
+        tma_tile<D>(v_s + s * kTile, &tv, &full_v[s], kFwdKv, kt * kFwdKv, bhk);
+      }
+    }
+  } else {
+    setmaxnreg_inc();
+    const int wg = role;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = q_lo + 64 * wg, r_hi = r_lo + 63;  // this warpgroup's q rows
+    const int qp[2] = {r_lo + 16 * warp + g, r_lo + 16 * warp + g + 8};
+    float o[D / 2];
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) o[c] = 0.f;
+    // running max (log2 units, shared by the quad) and this thread's share of the sum
+    float m[2] = {kNegFill, kNegFill}, l[2] = {0.f, 0.f};
+    float sc[kFwdKv / 2];
+    uint32_t pa[kFwdKv / 16][4];
+    const int n = kt_end - kt_begin;
+    mbar_wait(full_q, 0);
+    if (n > 0) {
+      // kv tile 0: S alone
+      mbar_wait(&full_k[0], 0);
+      wg_fence();
+      fwd_scores<D>(sc, q_s, k_s, wg);
+      wg_commit();
+      wg_wait_all();
+      hold(sc);
+      warp_arrive(&empty_k[0]);
+      fwd_softmax(sc, m, l, kt_begin * kFwdKv, r_lo, r_hi, qp, t, Sk, causal, window,
+                  scale_log2);
+#pragma unroll
+      for (int kk = 0; kk < kFwdKv / 16; ++kk) acc_to_frag(pa[kk], sc, kk);
+      // kv tile i: S of tile i is issued beside O += P V of tile i - 1, so
+      // the tensor cores run that product while tile i's softmax is computed
+      for (int i = 1; i < n; ++i) {
+        const int s = i % kFwdStages, sp = (i - 1) % kFwdStages;
+        mbar_wait(&full_k[s], (i / kFwdStages) & 1);
+        mbar_wait(&full_v[sp], ((i - 1) / kFwdStages) & 1);
+        wg_fence();
+        fwd_scores<D>(sc, q_s, k_s + s * kTile, wg);
+        wg_commit();
+        fwd_pv<D>(o, pa, v_s + sp * kTile);
+        wg_commit();
+        wg_wait_one();  // S of tile i; O += P V of tile i - 1 may still run
+        hold(sc);
+        warp_arrive(&empty_k[s]);
+        float alpha[2];
+        fwd_softmax(sc, m, l, (kt_begin + i) * kFwdKv, r_lo, r_hi, qp, t, Sk, causal, window,
+                    scale_log2, alpha);
+        wg_wait_all();  // O += P V of tile i - 1: O and P are free again
+        hold(o);
+        warp_arrive(&empty_v[sp]);
+#pragma unroll
+        for (int c = 0; c < D / 2; ++c) o[c] *= alpha[(c >> 1) & 1];
+#pragma unroll
+        for (int kk = 0; kk < kFwdKv / 16; ++kk) acc_to_frag(pa[kk], sc, kk);
+      }
+      const int sl = (n - 1) % kFwdStages;
+      mbar_wait(&full_v[sl], ((n - 1) / kFwdStages) & 1);
+      wg_fence();
+      fwd_pv<D>(o, pa, v_s + sl * kTile);
+      wg_commit();
+      wg_wait_all();
+      hold(o);
+      warp_arrive(&empty_v[sl]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lt = fmaxf(quad_sum(l[r]), 1e-37f);
+      if (qp[r] >= Sq) continue;
+      const size_t row = static_cast<size_t>(bh) * Sq + qp[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store_pair(out, false, row * D + j * 8 + 2 * t, o[4 * j + 2 * r] / lt,
+                   o[4 * j + 2 * r + 1] / lt);
+      // a row the mask hides entirely keeps the fill, as the plain version
+      if (t == 0) lse[row] = (m[r] == kNegFill ? kNegFill : m[r] * kLn2) + logf(lt);
+    }
+  }
+}
+
+// K3 on Hopper.  1-d grid over (kv tile, kv head, batch), kv tile 0
+// first (under the causal mask it sees every q tile).  A CTA owns 64 kv
+// rows and holds their K and V tiles in shared memory; it walks the
+// group's query heads x the q tiles of 64 rows that can see them, and
+// the producer stages each q tile's Q, dO (TMA) and lse, delta (its
+// lanes' asynchronous copies) in the ring.  The two consumer warpgroups split the
+// work of a q tile by output, each holding one accumulator:
+//   warpgroup 0: S^T = K Q^T (wgmma m64n64k16, smem), P^T = exp(S^T
+//                scale - lse), masked, handed to warpgroup 1 through
+//                shared memory in float32; dV += P^T dO (wgmma
+//                m64nDk16, P^T from registers, dO MN-major);
+//   warpgroup 1: dP^T = V dO^T (m64n64k16), dS^T = P^T (dP^T - delta);
+//                dK += dS^T Q (m64nDk16, dS^T from registers, Q
+//                MN-major).
+// So a consumer thread holds one D-wide accumulator, not two (ptxas
+// gives each about 168 registers), and Q and dO are loaded once and
+// read both ways.  dK and dV stay in registers over the whole walk: GQA
+// folds into the loop, with no atomics and no group sum afterwards.
+constexpr int kDkvRows = 64, kDkvQ = 64, kDkvStages = 4;
+
+template <int D>
+struct DkvSmem {
+  static constexpr int k = 0;
+  static constexpr int v = k + kDkvRows * D * 2;
+  static constexpr int q = v + kDkvRows * D * 2;
+  static constexpr int dout = q + kDkvStages * kDkvQ * D * 2;
+  static constexpr int p = dout + kDkvStages * kDkvQ * D * 2;  // P^T, float32, two buffers
+  static constexpr int rows = p + 2 * kDkvRows * kDkvQ * 4;  // lse, delta
+  static constexpr int bars = rows + kDkvStages * 2 * kDkvQ * 4;
+  static constexpr int total = bars + 8 * (1 + 2 * kDkvStages + 4) + 1024;  // + alignment
+};
+
+// S^T (K, Q) or dP^T (V, dO) of a q tile: wgmma m64n64k16, both K-major
+template <int D>
+__device__ __forceinline__ void dkv_scores(float (&acc)[32], const bf16* kv_s, const bf16* q_s) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss(acc, desc_k<D>(kv_s, kDkvRows, 0, kk), desc_k<D>(q_s, kDkvQ, 0, kk), kk > 0);
+}
+
+// acc += A (registers, 64 kv rows x 64 q) x B (a staged q tile,
+// MN-major): issued, not waited for
+template <int D>
+__device__ __forceinline__ void dkv_accumulate(float (&acc)[D / 2],
+                                               const uint32_t (&a)[kDkvQ / 16][4],
+                                               const bf16* b_s) {
+#pragma unroll
+  for (int kk = 0; kk < kDkvQ / 16; ++kk) wgmma_rs(acc, a[kk], desc_mn<D>(b_s, kDkvQ, kk));
+}
+
+// A step's register operand from its scores: warpgroup 0 turns S^T
+// into P^T = exp(S^T scale - lse), masked, and hands it to warpgroup 1
+// through shared memory in float32 (thread tid of both warpgroups holds
+// the same elements, so a buffer is [element][thread]); warpgroup 1
+// turns dP^T into dS^T = P^T (dP^T - delta).  Both round to bf16.
+__device__ __forceinline__ void dkv_operand(uint32_t (&frag)[kDkvQ / 16][4], float (&sc)[32],
+                                            int role, int i, int tid, int t, int q_lo,
+                                            int k_lo, int k_hi, const int (&kp)[2],
+                                            const float* rs, float* p_s, uint64_t* p_full,
+                                            uint64_t* p_empty, int Sq, int Sk, int causal,
+                                            int window, float scale_log2) {
+  const int pb = i & 1, p_parity = (i >> 1) & 1;
+  float* pt = p_s + pb * kDkvRows * kDkvQ;
+  if (role == 0) {
+    const int q_hi = q_lo + kDkvQ - 1;
+    const bool straddles = q_hi >= Sq ||
+                           (causal && (k_hi > q_lo || (window > 0 && q_hi - k_lo >= window)));
+#pragma unroll
+    for (int c = 0; c < 32; ++c)
+      sc[c] = fast_exp2(fmaf(sc[c], scale_log2, -kLog2e * rs[(c / 4) * 8 + 2 * t + (c & 1)]));
+    if (straddles) {
+#pragma unroll
+      for (int c = 0; c < 32; ++c) {
+        const int q = q_lo + (c / 4) * 8 + 2 * t + (c & 1);
+        if (!(q < Sq && visible(q, kp[(c >> 1) & 1], Sk, causal, window))) sc[c] = 0.f;
+      }
+    }
+    if (i >= 2) mbar_wait(&p_empty[pb], p_parity ^ 1);
+#pragma unroll
+    for (int c = 0; c < 32; ++c) pt[c * 128 + tid] = sc[c];
+    warp_arrive(&p_full[pb]);
+  } else {
+    mbar_wait(&p_full[pb], p_parity);
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const int col = (c / 4) * 8 + 2 * t + (c & 1);
+      sc[c] = pt[c * 128 + tid] * (sc[c] - rs[kDkvQ + col]);
+    }
+    warp_arrive(&p_empty[pb]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < kDkvQ / 16; ++kk) acc_to_frag(frag[kk], sc, kk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_bwd_dkv_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tdo,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            void* __restrict__ dk, void* __restrict__ dv, int out_f32, int B,
+                            int H, int group, int Sq, int Sk, int causal, int window,
+                            float scale, float scale_log2) {
+  using L = DkvSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* do_s = reinterpret_cast<bf16*>(smem + L::dout);
+  float* p_s = reinterpret_cast<float*>(smem + L::p);
+  float* rows_s = reinterpret_cast<float*>(smem + L::rows);
+  uint64_t* full_kv = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = full_kv + 1;
+  uint64_t* empty = full + kDkvStages;
+  uint64_t* p_full = empty + kDkvStages;  // P^T written (warpgroup 0), two buffers
+  uint64_t* p_empty = p_full + 2;      // P^T read (warpgroup 1)
+  constexpr int kTile = kDkvQ * D;     // elements of a staged Q or dO tile
+
+  const int Hkv = H / group;
+  const int slabs = Hkv * B;
+  const int kt = static_cast<int>(blockIdx.x) / slabs;
+  const int bhk = static_cast<int>(blockIdx.x) % slabs;  // b * Hkv + hk
+  const int b = bhk / Hkv, hk = bhk % Hkv;
+  const int k_lo = kt * kDkvRows, k_hi = min(k_lo + kDkvRows, Sk) - 1;
+  // the q tiles [qt_begin, qt_end) that can see kv rows [k_lo, k_hi]
+  const int nq = (Sq + kDkvQ - 1) / kDkvQ;
+  int qt_begin = 0, qt_end = nq;
+  if (causal) {
+    qt_begin = min(nq, k_lo / kDkvQ);
+    if (window > 0) qt_end = min(nq, (k_hi + window - 1) / kDkvQ + 1);
+  }
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_kv, 1);
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the TMA bytes' arrival and the producer lanes'
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&p_full[s], kConsumerWarps / 2);
+      mbar_init(&p_empty[s], kConsumerWarps / 2);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it is
+  // the same across each warp: every wgmma below runs on a path all 128
+  // threads of a warpgroup take
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    // producer warp: K and V once, then Q, dO, lse and delta of every
+    // (query head, q tile) into the ring
+    setmaxnreg_dec();
+    if (threadIdx.x < kConsumerThreads + 32) {
+      const int lane = threadIdx.x - kConsumerThreads;
+      if (lane == 0) {
+        mbar_arrive_tx(full_kv, 2 * kDkvRows * D * 2);
+        tma_tile<D>(k_s, &tk, full_kv, kDkvRows, k_lo, bhk);
+        tma_tile<D>(v_s, &tv, full_kv, kDkvRows, k_lo, bhk);
+      }
+      int i = 0;
+      for (int gi = 0; gi < group; ++gi) {
+        const int bh = b * H + hk * group + gi;
+        for (int qt = qt_begin; qt < qt_end; ++qt, ++i) {
+          const int s = i % kDkvStages, q_lo = qt * kDkvQ;
+          mbar_wait(&empty[s], ((i / kDkvStages) & 1) ^ 1);
+          // the rows' lse and delta by asynchronous 4-byte copies (rows
+          // past Sq read as zeros), each lane's landing counted as one
+          // arrival on the stage's full barrier: the producer never
+          // waits for their latency
+          float* rs = rows_s + s * 2 * kDkvQ;
+#pragma unroll
+          for (int j = 0; j < kDkvQ / 32; ++j) {
+            const int r = q_lo + lane + 32 * j;
+            const size_t at = static_cast<size_t>(bh) * Sq + (r < Sq ? r : 0);
+            cp_async_4(rs + lane + 32 * j, lse + at, r < Sq);
+            cp_async_4(rs + kDkvQ + lane + 32 * j, delta + at, r < Sq);
+          }
+          cp_async_arrive(&full[s]);
+          if (lane == 0) {
+            mbar_arrive_tx(&full[s], 2 * kTile * 2);
+            tma_tile<D>(q_s + s * kTile, &tq, &full[s], kDkvQ, q_lo, bh);
+            tma_tile<D>(do_s + s * kTile, &tdo, &full[s], kDkvQ, q_lo, bh);
+          }
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc();
+    const int tid = threadIdx.x % 128;
+    const int lane = tid % 32, warp = tid / 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int kp[2] = {k_lo + 16 * warp + g, k_lo + 16 * warp + g + 8};
+    float acc[D / 2];  // dV (warpgroup 0) or dK (warpgroup 1)
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+    mbar_wait(full_kv, 0);
+
+    // the walk, flattened: step i is q tile qt_begin + i % nqt of query
+    // head i / nqt.  Each step waits for its scores, then for its
+    // product: issuing the next step's scores behind this step's product
+    // makes ptxas serialize every wgmma (a wait it inserts on the
+    // warpgroups' divergent hand-off path), which measured slower
+    const int nqt = qt_end - qt_begin, n = group * nqt;
+    const bf16* a_s = role == 0 ? k_s : v_s;   // S^T = K Q^T or dP^T = V dO^T
+    const bf16* sq_s = role == 0 ? q_s : do_s;
+    const bf16* acc_s = role == 0 ? do_s : q_s;  // dV += P^T dO or dK += dS^T Q
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kDkvStages;
+      float sc[32];
+      uint32_t frag[kDkvQ / 16][4];
+      mbar_wait(&full[s], (i / kDkvStages) & 1);
+      wg_fence();
+      dkv_scores<D>(sc, a_s, sq_s + s * kTile);
+      wg_commit();
+      wg_wait_all();
+      hold(sc);
+      dkv_operand(frag, sc, role, i, tid, t, (qt_begin + i % nqt) * kDkvQ, k_lo, k_hi, kp,
+                  rows_s + s * 2 * kDkvQ, p_s, p_full, p_empty, Sq, Sk, causal, window,
+                  scale_log2);
+      wg_fence();
+      dkv_accumulate<D>(acc, frag, acc_s + s * kTile);
+      wg_commit();
+      wg_wait_all();
+      hold(acc);
+      warp_arrive(&empty[s]);
+    }
+
+    // warpgroup 0 writes dV, warpgroup 1 dK (times the scale)
+    void* dst = role == 0 ? dv : dk;
+    const float mul = role == 0 ? 1.f : scale;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kp[r] >= Sk) continue;
+      const size_t row = static_cast<size_t>(bhk) * Sk + kp[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store_pair(dst, out_f32, row * D + j * 8 + 2 * t, acc[4 * j + 2 * r] * mul,
+                   acc[4 * j + 2 * r + 1] * mul);
     }
   }
 }
@@ -947,19 +1562,65 @@ int bwd_dkv_f32(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled through the runtime's driver entry point, so
+// the library links no libcuda of its own
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the tensor map of a contiguous bf16 [slabs, S, D] tensor, boxes of
+// [rows, P] (one panel of a tile); rows past S read as zeros
 template <int D>
-int fwd_bf16(const void* q, const void* k, const void* v, void* out, void* lse,
-             const Args& a, cudaStream_t st) {
+int tile_map(CUtensorMap* map, const void* base, int S, int slabs, int rows) {
+  using G = Panels<D>;
+  EncodeTiled fn = encode_tiled();
+  if (!fn) return (int)cudaErrorNotSupported;
+  if (reinterpret_cast<uintptr_t>(base) % 16) return (int)cudaErrorMisalignedAddress;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)slabs};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)S * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)G::P, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        G::SW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <int D>
+int fwd_hopper(const void* q, const void* k, const void* v, void* out, void* lse,
+               const Args& a, cudaStream_t st) {
   static int granted = 48 * 1024;
-  constexpr int smem = reg_smem_bytes<D>(kFwd);
-  auto kernel = flash_fwd_bf16_kernel<D>;
+  constexpr int smem = FwdSmem<D>::total;
+  auto kernel = flash_fwd_hopper_kernel<D>;
   if (int err = grant(kernel, smem, &granted)) return err;
-  dim3 grid((a.Sq + kRegRows - 1) / kRegRows, a.H, a.B);
-  kernel<<<grid, kRegThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out),
-      static_cast<float*>(lse), a.H, a.H / a.Hkv, a.Sq, a.Sk, a.causal,
-      a.window, a.scale);
+  CUtensorMap tq, tk, tv;
+  if (int err = tile_map<D>(&tq, q, a.Sq, a.B * a.H, kFwdRows)) return err;
+  if (int err = tile_map<D>(&tk, k, a.Sk, a.B * a.Hkv, kFwdKv)) return err;
+  if (int err = tile_map<D>(&tv, v, a.Sk, a.B * a.Hkv, kFwdKv)) return err;
+  const int nq = (a.Sq + kFwdRows - 1) / kFwdRows;
+  kernel<<<nq * a.H * a.B, kHopThreads, smem, st>>>(
+      tq, tk, tv, static_cast<bf16*>(out), static_cast<float*>(lse), a.B, a.H, a.H / a.Hkv,
+      a.Sq, a.Sk, a.causal, a.window, a.scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -968,7 +1629,7 @@ int bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, void* dq, int out_f32,
                 const Args& a, cudaStream_t st) {
   static int granted = 48 * 1024;
-  constexpr int smem = reg_smem_bytes<D>(kDq);
+  constexpr int smem = dq_smem_bytes<D>();
   auto kernel = flash_bwd_dq_bf16_kernel<D>;
   if (int err = grant(kernel, smem, &granted)) return err;
   dim3 grid((a.Sq + kRegRows - 1) / kRegRows, a.H, a.B);
@@ -981,19 +1642,23 @@ int bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
 }
 
 template <int D>
-int bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, void* dk, void* dv,
-                 int out_f32, const Args& a, cudaStream_t st) {
+int bwd_dkv_hopper(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, int out_f32,
+                   const Args& a, cudaStream_t st) {
   static int granted = 48 * 1024;
-  constexpr int smem = reg_smem_bytes<D>(kDkv);
-  auto kernel = flash_bwd_dkv_bf16_kernel<D>;
+  constexpr int smem = DkvSmem<D>::total;
+  auto kernel = flash_bwd_dkv_hopper_kernel<D>;
   if (int err = grant(kernel, smem, &granted)) return err;
-  dim3 grid((a.Sk + kRegRows - 1) / kRegRows, a.Hkv, a.B);
-  kernel<<<grid, kRegThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv,
-      out_f32, a.H, a.H / a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  CUtensorMap tq, tk, tv, tdo;
+  if (int err = tile_map<D>(&tq, q, a.Sq, a.B * a.H, kDkvQ)) return err;
+  if (int err = tile_map<D>(&tdo, dout, a.Sq, a.B * a.H, kDkvQ)) return err;
+  if (int err = tile_map<D>(&tk, k, a.Sk, a.B * a.Hkv, kDkvRows)) return err;
+  if (int err = tile_map<D>(&tv, v, a.Sk, a.B * a.Hkv, kDkvRows)) return err;
+  const int nk = (a.Sk + kDkvRows - 1) / kDkvRows;
+  kernel<<<nk * a.Hkv * a.B, kHopThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), dk, dv,
+      out_f32, a.B, a.H, a.H / a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale,
+      a.scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1015,10 +1680,22 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype != 1) return fwd_f32(q, k, v, out, lse, a, st);
   switch (D) {
-    case 32: return fwd_bf16<32>(q, k, v, out, lse, a, st);
-    case 64: return fwd_bf16<64>(q, k, v, out, lse, a, st);
-    case 96: return fwd_bf16<96>(q, k, v, out, lse, a, st);
-    default: return fwd_bf16<128>(q, k, v, out, lse, a, st);
+    case 32: return fwd_hopper<32>(q, k, v, out, lse, a, st);
+    case 64: return fwd_hopper<64>(q, k, v, out, lse, a, st);
+    case 96: return fwd_hopper<96>(q, k, v, out, lse, a, st);
+    default: return fwd_hopper<128>(q, k, v, out, lse, a, st);
+  }
+}
+
+// the dynamic shared memory (bytes) of K1's (which = 0) or K3's
+// (which = 1) Hopper kernel at head dim D; 0 for a head dim not taken
+extern "C" int flash_hopper_smem_bytes(int which, int D) {
+  switch (D) {
+    case 32: return which ? DkvSmem<32>::total : FwdSmem<32>::total;
+    case 64: return which ? DkvSmem<64>::total : FwdSmem<64>::total;
+    case 96: return which ? DkvSmem<96>::total : FwdSmem<96>::total;
+    case 128: return which ? DkvSmem<128>::total : FwdSmem<128>::total;
+    default: return 0;
   }
 }
 
@@ -1054,9 +1731,9 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
   if (dtype != 1)
     return bwd_dkv_f32(q, k, v, dout, lse, delta, dk, dv, a, st);
   switch (D) {
-    case 32: return bwd_dkv_bf16<32>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
-    case 64: return bwd_dkv_bf16<64>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
-    case 96: return bwd_dkv_bf16<96>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
-    default: return bwd_dkv_bf16<128>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
+    case 32: return bwd_dkv_hopper<32>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
+    case 64: return bwd_dkv_hopper<64>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
+    case 96: return bwd_dkv_hopper<96>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
+    default: return bwd_dkv_hopper<128>(q, k, v, dout, lse, delta, dk, dv, out_f32, a, st);
   }
 }

@@ -174,6 +174,9 @@ def _check_kernel_inputs(name, q, k, v, rows=(), grads=()) -> None:
             raise ValueError(f"{name} kernel: {label} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel: {label} is not contiguous")
+        if t.data_ptr() % 16:
+            # TMA and the 16-byte copies read from a 16-byte boundary
+            raise ValueError(f"{name} kernel: {label} does not start on a 16-byte boundary")
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name} kernel takes float32 or bfloat16, got {q.dtype}")
     for label, t in (("k", k), ("v", v), *grads):
@@ -210,6 +213,16 @@ def _launchers():
     for fn in (fwd, dq, dkv):
         fn.restype = ctypes.c_int
     return fwd, dq, dkv
+
+
+def hopper_smem_bytes(kernel: int, head_dim: int) -> int:
+    """The dynamic shared memory (bytes) that K1's (``kernel`` 0) or
+    K3's (1) Hopper kernel asks for at ``head_dim``."""
+
+    fn = _build.load(SOURCE).flash_hopper_smem_bytes
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(kernel, head_dim)
 
 
 def _shape_args(q, k, causal, window):
