@@ -1,6 +1,15 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab TREE_DIR [TREE_DIR ...]
+
+The second form runs no smoke run: it times the kernels of the trees at
+TREE_DIR (``git archive``s of the parent commit and of any commit
+between it and this tree, unpacked into directories that .gitignore
+lists) against this tree's, phases 2, 4 and 4b of each tree's own
+chip_smoke.py in a fresh process, in turns (the others, this tree
+twice, the others in reverse) on one card, and prints each run's kernel
+times.
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -10,9 +19,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ``tf_operator_tpu_torch/csrc``, one nvcc process each, all started
    together, with ptxas's register report per source; for the flash
    source each kernel's registers, shared memory (static, and the
-   dynamic bytes K1's and K3's launchers ask for) and spills, and the
-   HGMMA count of K1's and K3's Hopper kernels in the SASS (cuobjdump).
-   Those kernels must not spill and must issue HGMMA.
+   dynamic bytes K1's, K2's and K3's launchers ask for) and spills, and
+   the HGMMA count of K1's, K2's and K3's Hopper kernels in the SASS
+   (cuobjdump); for the int8 matmul source each K7 kernel's registers,
+   shared memory and spills; ptxas's warnings.  The Hopper kernels must
+   not spill and must issue HGMMA; no K7 kernel may spill.
 3. the paged-attention kernel (K4) against its plain PyTorch version on
    the card: 7B decode shapes (S=8, H=Hkv=32, D=128, bs=16, MB=128,
    lengths 1..2048), GQA (Hkv=8), K=1 and K=4, bf16 and float32, plus
@@ -23,8 +34,8 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel's, the plain version's and scaled_dot_product_attention's
    times (the last on the gathered view, a yardstick the port never
    calls) beside the bound: live K/V bytes over 3.35 TB/s.
-4. the flash-attention kernels K1 (forward, wgmma), K2 (dq, mma.sync)
-   and K3 (dk, dv, wgmma) against their plain versions: the wide
+4. the flash-attention kernels K1 (forward), K2 (dq) and K3 (dk, dv),
+   all three wgmma fed by TMA, against their plain versions: the wide
    training shape (B 4, H 16, Hkv 8, S 2048, D 128, bf16, causal), the
    same at GQA group 4 (H 32, Hkv 8: K3 folds four query heads into a
    kv tile's walk), non-causal, a window of 256 at S 1024, Sq != Sk
@@ -51,12 +62,14 @@ Phases, in order; any failure exits non-zero before the result line:
    larger) and, as the library yardstick, ``torch.matmul`` on a bf16
    weight of the same shape: the product the int8 path replaces; at
    M = 8 also the host microseconds per call of the wrapper and of
-   ``torch.matmul``.  The kernels line gives K7's numbers per launch
+   ``torch.matmul``; and the redesign's two changes timed apart
+   (``K7_VARIANTS``: 4-byte or widest loads, one split or the grid's
+   own), each variant first held to the plain version.  The kernels line gives K7's numbers per launch
    over one 7B decode step's mix of shapes (225 launches at M = 8).
    Then the routes: M > 64, K % 32 != 0 and N not a multiple of 128
    take the GEMM route (within one bf16 ulp of each row's largest
    plain value: its sums stay in float32 until after the scale), a
-   strided weight raises.
+   strided weight and a weight off 16 bytes raise.
 4c. the fused BatchNorm kernels K5 (forward) and K6 (backward) against
    their plain versions: each of the 16 (R, C, relu, residual) classes of
    ResNet-50's 53 norms at batch 64 and 224 px (from the stem's [802816,
@@ -217,9 +230,14 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-#: the Hopper kernels of K1 and K3 (wgmma, TMA): built without spills
-#: and issuing HGMMA, which phase 2 checks in ptxas's report and the SASS
-HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel")
+#: the Hopper kernels of K1, K2 and K3 (wgmma, TMA): built without
+#: spills and issuing HGMMA, which phase 2 checks in ptxas's report and
+#: the SASS
+HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dq_hopper_kernel",
+                  "flash_bwd_dkv_hopper_kernel")
+#: flash_hopper_smem_bytes's index of each Hopper kernel
+HOPPER_SMEM_INDEX = {"flash_fwd_hopper_kernel": 0, "flash_bwd_dq_hopper_kernel": 1,
+                     "flash_bwd_dkv_hopper_kernel": 2}
 
 
 def _ptxas_entries(report):
@@ -269,21 +287,36 @@ def _hgmma_counts(library):
 
 
 def _short(mangled):
-    """a kernel's name and head dim from its mangled name"""
+    """a kernel's name and template arguments (head dim; row tiles and
+    load width) from its mangled name"""
 
-    m = re.search(r"\d+(flash_\w+?_kernel)(?:ILi(\d+)E)?", mangled)
+    m = re.search(r"\d+((?:flash|quant_matmul)_\w+?_kernel)((?:ILi\d+E(?:Li\d+E)*E?)?)",
+                  mangled)
     if not m:
         return mangled[:60]
-    return m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+    args = re.findall(r"Li(\d+)E", m.group(2))
+    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+
+
+def _ptxas_rows(log_text):
+    """{short name: ptxas's entry} of one source's report"""
+
+    return {_short(mangled): dict(e) for mangled, e in _ptxas_entries(log_text).items()}
+
+
+def _spills(row):
+    return row.get("spill_stores", 1) or row.get("spill_loads", 1)
 
 
 def phase_build():
     """Every source at once (one nvcc each, started together), then
     each library loaded; prints ptxas's report per source and, for the
     flash source, every kernel's registers, shared memory and spills,
-    the dynamic shared memory K1's and K3's launchers ask for, and their
-    HGMMA count in the SASS.  K1's and K3's Hopper kernels must not
-    spill and must issue HGMMA."""
+    the dynamic shared memory K1's, K2's and K3's launchers ask for, and
+    their HGMMA count in the SASS; for the int8 matmul source, each K7
+    kernel's registers, shared memory and spills.  K1's, K2's and K3's
+    Hopper kernels must not spill and must issue HGMMA; no K7 kernel may
+    spill."""
 
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -296,6 +329,18 @@ def phase_build():
         report = [ln.strip() for ln in logs.get(name, "").splitlines()
                   if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         log(f"ptxas {name}.cu: " + " | ".join(report))
+        # ptxas's warnings (a wgmma it serialised names the reason)
+        for ln in logs.get(name, "").splitlines():
+            if "warning" in ln.lower():
+                log(f"ptxas {name}.cu warning: {ln.strip()[:300]}")
+    if "quant_matmul" in logs:
+        k7 = _ptxas_rows(logs["quant_matmul"])
+        log("K7 kernels (ptxas) " + json.dumps(k7))
+        bad = {n: r for n, r in k7.items() if _spills(r)}
+        if bad or not k7:
+            raise AssertionError(f"K7 kernels spill: {bad or k7}")
+    else:
+        log("quant_matmul.cu was built before this run: no ptxas report to check")
     if "flash_attention" not in logs:
         log("flash_attention.cu was built before this run: no ptxas report to check")
         return
@@ -305,16 +350,18 @@ def phase_build():
     for mangled, e in entries.items():
         name = _short(mangled)
         rows[name] = dict(e)
-        if any(k in mangled for k in HOPPER_KERNELS):
+        kernel = next((k for k in HOPPER_KERNELS if k in mangled), None)
+        if kernel:
             d = int(name.split("<")[1][:-1])
-            which = 0 if "fwd" in name else 1
-            rows[name]["dynamic_smem"] = fa.hopper_smem_bytes(which, d)
+            rows[name]["dynamic_smem"] = fa.hopper_smem_bytes(HOPPER_SMEM_INDEX[kernel], d)
             rows[name]["hgmma"] = hgmma.get(mangled, 0)
     log("flash kernels (ptxas, SASS) " + json.dumps(rows))
     bad = {n: r for n, r in rows.items() if any(k in n for k in HOPPER_KERNELS)
-           and (r.get("spill_stores", 1) or r.get("spill_loads", 1) or not r.get("hgmma"))}
-    if bad or not any(any(k in n for k in HOPPER_KERNELS) for n in rows):
-        raise AssertionError(f"K1/K3 Hopper kernels spill or issue no HGMMA: {bad or rows}")
+           and (_spills(r) or not r.get("hgmma"))}
+    missing = [k for k in HOPPER_KERNELS if not any(k in n for n in rows)]
+    if bad or missing:
+        raise AssertionError(f"K1-K3 Hopper kernels spill, issue no HGMMA or are missing: "
+                             f"{bad or missing}")
 
 
 def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed):
@@ -809,6 +856,15 @@ def host_us(fn, calls=200):
     return (t1 - t0) / calls * 1e6
 
 
+#: K7's configurations timed apart at the 7B shapes, as (the weight bytes
+#: a lane loads, K's splits), 0 leaving either to the kernel's own choice
+#: (the widest load the row count allows; splits for two CTAs an SM):
+#: neither change of the redesign, split-K alone, wide loads alone, and
+#: both (the shipped configuration)
+K7_VARIANTS = {"no_split_4byte": (4, 1), "split_k_4byte": (4, 0),
+               "no_split_wide": (0, 1), "split_k_wide": (0, 0)}
+
+
 def k7_case(name, *, m, k, n, dtype, seed, timed=False):
     from tf_operator_tpu_torch.ops import quant_matmul as qm
     from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
@@ -843,6 +899,15 @@ def k7_case(name, *, m, k, n, dtype, seed, timed=False):
             else "operations", "weight_copies": n_copies,
         })
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        # the redesign's two changes apart, each held to the plain version
+        rec["variants"] = {}
+        for label, (width, splits) in K7_VARIANTS.items():
+            run = lambda q, w=width, sp=splits: qm.quant_matmul_cuda(
+                x, q.q, q.scale.reshape(n), width=w, splits=sp)
+            v_rel = _row_rel(run(qt), want)
+            if not (math.isfinite(v_rel) and v_rel <= QM_RTOL[dtype]):
+                raise AssertionError(f"K7 {name} variant {label}: row-relative error {v_rel}")
+            rec["variants"][label] = {"ms": time_ms_cold(run, qs), "max_row_rel_err": v_rel}
         if m == 8:
             # the host side of one call as a decode step makes it
             # (DenseGeneral's quant_matmul_2d on its flat operands),
@@ -903,6 +968,16 @@ def phase_k7():
         raise AssertionError("K7 took a strided weight")
     except ValueError as exc:
         routes["strided_q"] = str(exc)
+    # a contiguous weight view 4 bytes into its storage: the 16-byte loads
+    # cannot read it
+    store = torch.empty(qt.q.numel() + 16, dtype=torch.int8, device=dev)
+    shifted = store[4:4 + qt.q.numel()].view(qt.q.shape)
+    shifted.copy_(qt.q)
+    try:
+        qm.quant_matmul(x, QTensor(shifted, qt.scale))
+        raise AssertionError("K7 took a weight off 16 bytes")
+    except ValueError as exc:
+        routes["q_off_16_bytes"] = str(exc)
     if qm.plain_calls:
         raise AssertionError(f"a K7 route ran the plain version: {dict(qm.plain_calls)}")
     log("K7 routes " + json.dumps(routes))
@@ -919,7 +994,9 @@ def k7_decode_step(recs):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     rec = {key: v / launches for key, v in step.items()}
     rec.update({"bound_by": "bytes", "launches_per_step": launches,
-                "step_totals_ms": step,
+                "step_totals_ms": dict(step, variants={
+                    label: sum(PROJ_7B[s] * by_shape[s]["variants"][label]["ms"]
+                               for s in PROJ_7B) for label in K7_VARIANTS}),
                 "max_abs_err": max(r["max_abs_err"] for r in recs
                                    if r["case"].startswith("7b_"))})
     log("K7 decode step (M = 8) " + json.dumps(rec))
@@ -1600,6 +1677,58 @@ def phase_resnet_ab(args, batch):
 TRAIN_STEPS = 30
 
 
+#: what the A/B mode runs in each tree, from the tree's root: its own
+#: phases 2, 4 and 4b on its own sources
+AB_SNIPPET = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as c; "
+              "torch.backends.cuda.matmul.allow_tf32 = False; "
+              "c.phase_build(); c.phase_flash(); c.phase_k7()")
+
+
+def _ab_run(root):
+    """Phases 2, 4 and 4b of the tree at ``root`` in a process of its
+    own: each timed flash case's kernel ms and each timed K7 case's ms,
+    as that tree's chip_smoke.py printed them."""
+
+    out = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=root, capture_output=True,
+                         text=True, timeout=1500)
+    if out.returncode != 0:
+        raise AssertionError(f"A/B run in {root} failed:\n{out.stdout[-4000:]}\n"
+                             f"{out.stderr[-4000:]}")
+    flash, k7 = {}, {}
+    for ln in out.stdout.splitlines():
+        if ln.startswith("flash {"):
+            r = json.loads(ln[len("flash "):])
+            if "timing" in r:
+                flash[r["case"]] = {kname: t["ms"] for kname, t in r["timing"].items()}
+        elif ln.startswith("K7 {"):
+            r = json.loads(ln[len("K7 "):])
+            if "ms" in r:
+                k7[r["case"]] = {"ms": r["ms"], "library_ms": r["library_ms"],
+                                 "variants": {v: t["ms"] for v, t in
+                                              r.get("variants", {}).items()}}
+    return {"flash": flash, "k7": k7}
+
+
+def phase_ab(others):
+    """The kernels of the trees at ``others`` (``git archive``s of the
+    parent commit and of any commit between it and this tree) against
+    this tree's on one card, in turns: each of ``others``, this tree
+    twice, then ``others`` in reverse.  Each run is a fresh process that
+    builds its tree's sources and runs that tree's phases 2, 4 and 4b."""
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = list(others) + [here, here] + list(reversed(others))
+    runs = []
+    for root in order:
+        t0 = time.perf_counter()
+        rec = _ab_run(root)
+        tag = "change" if root == here else os.path.basename(root.rstrip("/"))
+        rec.update(tree=tag, seconds=time.perf_counter() - t0)
+        log(f"A/B {tag} " + json.dumps(rec))
+        runs.append(rec)
+    return runs
+
+
 def _kernel_entry(name, source, replaces, launches, err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": timing["ms"],
@@ -1607,12 +1736,21 @@ def _kernel_entry(name, source, replaces, launches, err, timing):
             "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
 
 
-def main():
+def main(argv=None):
+    import argparse
+    import shutil
+    import tempfile
+
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    parser.add_argument("--ab", metavar="TREE_DIR", nargs="+",
+                        help="instead of the smoke run: time the kernels of the trees at "
+                             "TREE_DIR (git archives of the parent commit and of any commit "
+                             "between) against this tree's, phases 2, 4 and 4b of each, in "
+                             "turns on one card")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
         return 2
-    import shutil
-    import tempfile
 
     from tf_operator_tpu_torch import resolve_device
     from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
@@ -1629,6 +1767,10 @@ def main():
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}, "
         f"device {torch.cuda.get_device_name(0)}")
+    if args.ab:
+        phase_ab([os.path.abspath(d) for d in args.ab])
+        print(card)
+        return 0
     t0 = time.perf_counter()
     phase_build()
     k4 = phase_k4()

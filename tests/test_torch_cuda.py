@@ -157,13 +157,15 @@ FLASH_CASES = {
     "causal_sq_lt_sk": dict(b=1, h=4, hkv=1, sq=64, sk=192, d=128, causal=True),
     "window": dict(b=1, h=2, hkv=1, sq=300, sk=300, d=64, causal=True, window=37),
 }
-#: the edges of K1's and K3's Hopper tiling (128 q rows a K1 CTA, kv
-#: tiles of 64; 64 kv rows a K3 CTA, q tiles of 64): two full 128-row
-#: tiles a row of CTAs under a causal GQA mask; a ragged tail inside one
-#: TMA box; a kv tile across the diagonal at a non-square offset; the
-#: 64-byte swizzle route; a window that cuts tiles.  bf16 only: the
-#: Hopper kernels are the bf16 path (float32 runs the FMA kernels, whose
-#: cases are above)
+#: the edges of the Hopper tiling (128 q rows a K1 or K2 CTA, 64 a
+#: consumer warpgroup, kv tiles of 64; 64 kv rows a K3 CTA, q tiles of
+#: 64): two full 128-row tiles a row of CTAs under a causal GQA mask; a
+#: ragged tail inside one TMA box; a kv tile across the diagonal at a
+#: non-square offset; the 64-byte swizzle route; a window that cuts
+#: tiles; a 128-row q tile cut by Sq inside its second warpgroup (rows
+#: 192..199 of 128..255); four query heads a kv head under the causal
+#: mask.  bf16 only: the Hopper kernels are the bf16 path (float32 runs
+#: the FMA kernels, whose cases are above)
 HOPPER_FLASH_CASES = {
     "s2048_causal_gqa": dict(b=1, h=4, hkv=2, sq=2048, sk=2048, d=128, causal=True),
     "ragged_s1000": dict(b=1, h=2, hkv=1, sq=1000, sk=1000, d=64, causal=False),
@@ -171,6 +173,8 @@ HOPPER_FLASH_CASES = {
     "d96_causal_gqa": dict(b=1, h=4, hkv=2, sq=300, sk=300, d=96, causal=True),
     "window200_s1024": dict(b=1, h=2, hkv=1, sq=1024, sk=1024, d=128, causal=True,
                             window=200),
+    "sq200_causal_d64": dict(b=1, h=2, hkv=1, sq=200, sk=200, d=64, causal=True),
+    "gqa4_causal": dict(b=2, h=8, hkv=2, sq=640, sk=640, d=128, causal=True),
 }
 
 
@@ -303,13 +307,17 @@ def test_flash_wrapper_refuses_a_base_off_16_bytes(dev, dtype):
 
 QM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 #: (M, K, N, x dtype): the 7B decode shapes, the small N widths of each
-#: JAX block width, every row count a tile boundary can cut, float32
+#: JAX block width, every row count a tile boundary can cut, float32;
+#: then K split unevenly (4128 = 258 steps of 16 over 8 splits), the
+#: smallest N at the most rows, one row at the widest K
 QM_CASES = [
     (1, 4096, 4096, torch.bfloat16), (8, 4096, 11008, torch.bfloat16),
     (64, 11008, 4096, torch.bfloat16), (8, 4096, 32000, torch.bfloat16),
     (3, 96, 384, torch.bfloat16), (17, 96, 640, torch.bfloat16),
     (40, 96, 768, torch.bfloat16), (64, 96, 1024, torch.bfloat16),
     (8, 96, 384, torch.float32), (57, 352, 256, torch.float32),
+    (8, 4128, 4096, torch.bfloat16), (64, 4096, 128, torch.bfloat16),
+    (1, 11008, 4096, torch.bfloat16),
 ]
 
 
@@ -331,6 +339,53 @@ def test_quant_matmul_kernel_matches_plain(dev, case):
     want = qm.quant_matmul(x, qt, dtype, impl="plain")
     assert got.dtype == dtype and got.shape == (m, n)
     assert _row_rel(got, want) <= QM_RTOL[dtype]
+
+
+#: (M, K, N) x (load width, splits): each configuration the bf16 kernel
+#: takes, pinned (0 = the kernel's own choice), at a row count of each
+#: width's range; K = 4128 splits unevenly
+QM_CONFIGS = [(m, k, n, width, splits)
+              for m, k, n, widths in ((8, 4128, 1024, (16, 8, 4)), (24, 4096, 512, (8, 4)),
+                                      (64, 4128, 256, (4,)))
+              for width in widths + (0,) for splits in (1, 3, 8, 0)]
+
+
+@pytest.mark.parametrize("m, k, n, width, splits", QM_CONFIGS)
+def test_quant_matmul_configurations_match_plain(dev, m, k, n, width, splits):
+    x, qt = _qm_inputs(dev, m + width + splits, m, k, n, torch.bfloat16)
+    want = qm.quant_matmul(x, qt, impl="plain")
+    _build.launches.clear()
+    got = qm.quant_matmul_cuda(x, qt.q, qt.scale.reshape(n), width=width, splits=splits)
+    torch.cuda.synchronize()
+    assert _build.launches == {qm.KERNEL: 1}
+    assert _row_rel(got, want) <= QM_RTOL[torch.bfloat16]
+    # the sums meet in a fixed order: a second launch gives the same bits
+    assert torch.equal(got, qm.quant_matmul_cuda(x, qt.q, qt.scale.reshape(n), width=width,
+                                                 splits=splits))
+
+
+def test_quant_matmul_refuses_a_configuration_it_has_not(dev):
+    x, qt = _qm_inputs(dev, 0, 40, 96, 256, torch.bfloat16)
+    for width, splits in ((16, 0), (8, 0), (0, 9), (0, 7), (3, 0)):
+        # 40 rows take 4-byte loads only; 96 rows of K are 6 steps of 16
+        with pytest.raises(RuntimeError, match="launch failed"):
+            qm.quant_matmul_cuda(x, qt.q, qt.scale.reshape(256), width=width, splits=splits)
+
+
+def test_quant_matmul_refuses_a_weight_off_16_bytes(dev):
+    """The kernel reads the weight in 16-byte loads: a contiguous weight
+    view that starts 4 bytes into its storage raises and launches
+    nothing."""
+
+    x, qt = _qm_inputs(dev, 0, 8, 96, 512, torch.bfloat16)
+    store = torch.empty(qt.q.numel() + 16, dtype=torch.int8, device=dev)
+    shifted = store[4:4 + qt.q.numel()].view(qt.q.shape)
+    shifted.copy_(qt.q)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        qm.quant_matmul(x, QTensor(shifted, qt.scale))
+    assert not _build.launches
 
 
 def test_quant_matmul_routes_on_the_card(dev):

@@ -113,7 +113,8 @@ def test_flash_kernel_source_and_entry_points():
         assert f'extern "C" int {entry}' in text
     for tpu_kernel in ("_flash_kernel", "_flash_bwd_dq_kernel", "_flash_bwd_dkv_kernel"):
         assert tpu_kernel in text  # names the TPU kernel it replaces
-    assert "mma.sync.aligned.m16n8k16" in text
+    # the bf16 kernels are all on wgmma: the mma.sync design is gone
+    assert "mma.sync.aligned" not in text and "wgmma.mma_async" in text
     # every source is built at first use, all nvcc processes together
     assert _build.sources() == ["flash_attention", "fused_batchnorm", "paged_attention",
                                 "quant_matmul"]
@@ -123,17 +124,19 @@ def test_flash_hopper_kernels_run_wgmma_on_tma_stages():
     src = os.path.join(PKG, "csrc", "flash_attention.cu")
     with open(src) as f:
         text = f.read()
-    # K1 and K3 are Hopper kernels: a producer warp's TMA loads into an
-    # mbarrier ring, consumer warpgroups on wgmma, registers moved by
+    # K1, K2 and K3 are Hopper kernels: a producer warp's TMA loads into
+    # an mbarrier ring, consumer warpgroups on wgmma, registers moved by
     # setmaxnreg, tensor maps encoded through the driver entry point
-    for kernel in ("flash_fwd_hopper_kernel", "flash_bwd_dkv_hopper_kernel"):
+    for kernel in ("flash_fwd_hopper_kernel", "flash_bwd_dq_hopper_kernel",
+                   "flash_bwd_dkv_hopper_kernel"):
         assert f"{kernel}<D>" in text
     for piece in ("wgmma.mma_async.sync.aligned.m64n", "cp.async.bulk.tensor.3d",
                   "mbarrier.try_wait.parity", "setmaxnreg.inc", "setmaxnreg.dec",
                   "cudaGetDriverEntryPoint", "const __grid_constant__ CUtensorMap"):
         assert piece in text, piece
     # the header names the TPU kernels they replace
-    assert "flash_attention.py:165" in text and "flash_attention.py:343" in text
+    for line in (165, 297, 343):
+        assert f"flash_attention.py:{line}" in text
     assert 'extern "C" int flash_hopper_smem_bytes' in text
 
 
@@ -145,6 +148,12 @@ def test_quant_matmul_kernel_source_and_entry_point():
     # names the TPU kernel it replaces, and runs on the tensor cores
     assert "tf_operator_tpu/ops/quant_matmul.py::_kernel" in text
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
+    # split-K over a cluster (partials added through distributed shared
+    # memory, no atomics) and 16-byte weight loads
+    assert "cudaLaunchAttributeClusterDimension" in text and "map_shared_rank" in text
+    assert "atomicAdd" not in text and "red.global" not in text
+    assert "ld.global.nc.L1::no_allocate.v4.u32" in text
+    assert 'extern "C" int quant_matmul_launch_config' in text
 
 
 def test_fused_batchnorm_kernel_source_and_entry_points():

@@ -8,16 +8,17 @@
 //        flash_fwd_launch:     flash_fwd_hopper_kernel<D>      wgmma, TMA
 //                              flash_fwd_f32_kernel
 //   K2 _flash_bwd_dq_kernel (flash_attention.py:297)
-//        flash_bwd_dq_launch:  flash_bwd_dq_bf16_kernel<D>     mma.sync
+//        flash_bwd_dq_launch:  flash_bwd_dq_hopper_kernel<D>   wgmma, TMA
 //                              flash_bwd_dq_f32_kernel
 //   K3 _flash_bwd_dkv_kernel (flash_attention.py:343)
 //        flash_bwd_dkv_launch: flash_bwd_dkv_hopper_kernel<D>  wgmma, TMA
 //                              flash_bwd_dkv_f32_kernel
 //
 // Head dims: the launchers take D = 32, 64, 96 and 128 (shape_ok) and
-// send every one of them, by the switch on D, to the kernels above: K1
-// and K3 stage D = 64 and 128 as 64-column panels with the 128-byte
-// swizzle, D = 32 and 96 as 32-column panels with the 64-byte swizzle.
+// send every one of them, by the switch on D, to the kernels above: the
+// Hopper kernels stage D = 64 and 128 as 64-column panels with the
+// 128-byte swizzle, D = 32 and 96 as 32-column panels with the 64-byte
+// swizzle.
 //
 // Layout: q, dO, out [B, H, Sq, D];
 // k, v [B, Hkv, Sk, D] with H = Hkv * group; lse and delta [B, H, Sq]
@@ -46,24 +47,27 @@
 // Bound.  At the training shape (B 4, H 16, Hkv 8, S 2048, D 128, bf16,
 // causal) attention does O(S^2 D) flops on O(S D) bytes: it is bound by
 // operations, at the dense bf16 peak of 989 TFLOPS K1 0.0695 ms (two
-// products over the visible pairs) and K3 0.1390 ms (four).
+// products over the visible pairs), K2 0.1043 ms (three) and K3 0.1390
+// ms (four).
 //
-// K1 and K3 (the Hopper section below) against what held the mma.sync
+// bf16 (the Hopper section below), against what held the first mma.sync
 // versions back:
 //   - mma.sync m16n8k16 reaches about two thirds of the tensor cores'
 //     rate: every product is a warpgroup's wgmma.mma_async, operands
-//     from swizzled shared memory or, for P, P^T and dS^T, registers;
+//     from swizzled shared memory or, for P, dS, P^T and dS^T, registers;
 //   - copies did not overlap math (cp.async, then wait and barrier a
 //     tile): a producer warp keeps TMA loads in flight into a ring of
 //     four stages with full and empty mbarriers while two consumer
 //     warpgroups compute; setmaxnreg moves the producer's registers to
 //     them;
-//   - K1's CTAs were 64 q rows in increasing order: now 128 q rows (64 a
-//     consumer warpgroup) against kv tiles of 64, the heaviest causal q
-//     tiles first, S of a tile issued beside O += P V of the tile before
-//     (the tensor cores run that product during the softmax), and only
-//     tiles straddling the diagonal, the window's edge or Sk test each
-//     element;
+//   - K1's and K2's CTAs were 64 q rows in increasing order: now 128 q
+//     rows (64 a consumer warpgroup) against kv tiles of 64, the
+//     heaviest causal q tiles first; K1 issues S of a tile beside O += P
+//     V of the tile before (the tensor cores run that product during the
+//     softmax); K2 issues S and dP of a tile together, from Q and dO
+//     staged once with their rows' lse and delta; only tiles straddling
+//     the diagonal, the window's edge or Sk test each element, and the
+//     exponentials are exp2 with the scale folded in;
 //   - K3 held 254 registers a thread (dK and dV both, two CTAs an SM)
 //     and reloaded lse and delta behind a barrier every q tile: now a
 //     CTA of 64 kv rows splits a q tile's work by output, warpgroup 0
@@ -73,20 +77,17 @@
 //     kv tile 0 (which sees every q tile under the causal mask) runs
 //     first; Q and dO are loaded once and read both ways (K-major and
 //     through the transposing descriptor).
-// K2 keeps the mma.sync design: 4 warps a CTA, 16 rows a warp; scores,
-// ds and dq in mma.sync m16n8k16 fragments (float32 accumulation),
-// operands from shared memory through ldmatrix, tiles by cp.async.
 // float32 (exactness, not speed): tile products from shared memory on
 // plain FMA (no TF32), 8 warps a CTA.
 //
-// What the bf16 design does not yet do: K2 is not redesigned (mma.sync,
-// no copy/math overlap, 64-row CTAs in increasing order); K3's steps do
-// not overlap (issuing a step's scores behind the last step's dV or dK
-// product made ptxas serialise every wgmma), and its P^T hand-over goes
-// through shared memory; the two consumer warpgroups are not scheduled
-// in turn (no ping-pong); the grid is not persistent; outputs are
-// written from registers, not through TMA stores; the tensor maps are
-// encoded on the host at every call.
+// What the bf16 design does not yet do: K2 and K3 do not overlap one kv
+// or q tile's products with the next one's (K3: issuing a step's scores
+// behind the last step's product made ptxas serialise every wgmma; K2: S,
+// dP and dQ at once would not fit the 168 registers a consumer thread
+// gets), and K3's P^T hand-over goes through shared memory; the two
+// consumer warpgroups are not scheduled in turn (no ping-pong); the grid
+// is not persistent; outputs are written from registers, not through TMA
+// stores; the tensor maps are encoded on the host at every call.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
 #include <cuda_bf16.h>
@@ -495,153 +496,11 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------
-// bf16 K2: register-resident tiles on the tensor cores (mma.sync).
-//
-// A CTA of 4 warps owns 64 q rows, 16 per warp.  Each warp keeps its
-// scores, ds and dq accumulators in mma.sync m16n8k16 fragments (float32), so the only
-// shared-memory traffic is the operand tiles, read with ldmatrix (its
-// .trans form where the contracted index is not the contiguous one).
-// A ds tile turns into the A operand of the next product
-// in registers (the accumulator layout of two neighbouring n8 tiles is
-// the A layout of one k16 step).  Exponentials use __expf.
-//
-// Fragment layouts (g = lane / 4, t = lane % 4):
-//   A 16x16: a0 (g, 2t..2t+1) a1 (g+8, 2t..) a2 (g, 2t+8..) a3 (g+8, 2t+8..)
-//   B 16x8:  b0 (k 2t..2t+1, n g)  b1 (k 2t+8..2t+9, n g)
-//   C 16x8:  c0 (g, 2t) c1 (g, 2t+1) c2 (g+8, 2t) c3 (g+8, 2t+1)
-
-constexpr int kRegThreads = 128;
-constexpr int kRegRows = 64;  // q rows per CTA, kv rows per tile
-
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Register helpers of the bf16 kernels.
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Four 8x8 bf16 matrices from shared memory, lane l giving the address
-// of row l % 8 of matrix l / 8; register j of lane l receives row l / 4,
-// columns 2 (l % 4) and 2 (l % 4) + 1 of matrix j (of its transpose with
-// .trans).  Row addresses are 16-byte aligned (16-byte padded rows).
-__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a)
-               : "memory");
-}
-
-// rows [row0, row0 + 64) of a [S, D] slab into a [64][D + 8] tile with
-// asynchronous 16-byte copies (cp.async), rows past S zero-filled: every
-// copy of the tile is in flight at once.  tile_wait() ends them.
-template <int D>
-__device__ __forceinline__ void tile_async(bf16* dst, const bf16* src, int row0, int S) {
-  constexpr int chunks = D / 8;
-  for (int idx = threadIdx.x; idx < kRegRows * chunks; idx += kRegThreads) {
-    const int r = idx / chunks, c = (idx - r * chunks) * 8;
-    const bool valid = row0 + r < S;
-    const bf16* from = src + (size_t)(valid ? row0 + r : 0) * D + c;
-    const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst + r * (D + 8) + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(to), "l"(from), "r"(valid ? 16 : 0) : "memory");
-  }
-}
-
-// wait for this thread's copies, then for every thread's
-__device__ __forceinline__ void tile_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-  __syncthreads();
-}
-
-// A fragment of rows [m0, m0+16), k [k0, k0+16) of a row-major tile:
-// matrices (m0, k0) (m0+8, k0) (m0, k0+8) (m0+8, k0+8) are a0..a3
-__device__ __forceinline__ void frag_a(uint32_t a[4], const bf16* s, int ld,
-                                       int m0, int k0, int lane) {
-  const int mi = lane >> 3;
-  ldsm_x4(a, s + (m0 + (lane & 7) + (mi & 1) * 8) * ld + k0 + (mi >> 1) * 8);
-}
-
-// B fragments of two n8 tiles [n0, n0+16), k [k0, k0+16), where
-// B(k, n) = s[n * ld + k] (k contiguous): b[0..1] for n0, b[2..3] for
-// n0 + 8 (matrices (n0, k0) (n0, k0+8) (n0+8, k0) (n0+8, k0+8))
-__device__ __forceinline__ void frag_b2_kc(uint32_t b[4], const bf16* s, int ld,
-                                           int k0, int n0, int lane) {
-  const int mi = lane >> 3;
-  ldsm_x4(b, s + (n0 + (lane & 7) + (mi >> 1) * 8) * ld + k0 + (mi & 1) * 8);
-}
-
-// the same where B(k, n) = s[k * ld + n] (n contiguous), transposed by
-// ldmatrix: matrices (k0, n0) (k0+8, n0) (k0, n0+8) (k0+8, n0+8)
-__device__ __forceinline__ void frag_b2_nc(uint32_t b[4], const bf16* s, int ld,
-                                           int k0, int n0, int lane) {
-  const int mi = lane >> 3;
-  ldsm_x4_t(b, s + (k0 + (lane & 7) + (mi & 1) * 8) * ld + n0 + (mi >> 1) * 8);
-}
-
-// the A fragment of k step kk from a 16 x 64 accumulator c[8][4]
-__device__ __forceinline__ void acc_to_a(uint32_t a[4], const float (*c)[4],
-                                         int kk) {
-  a[0] = pack_f32(c[2 * kk][0], c[2 * kk][1]);
-  a[1] = pack_f32(c[2 * kk][2], c[2 * kk][3]);
-  a[2] = pack_f32(c[2 * kk + 1][0], c[2 * kk + 1][1]);
-  a[3] = pack_f32(c[2 * kk + 1][2], c[2 * kk + 1][3]);
-}
-
-// c[8][4] (16 x 64) = A (16 rows at m0 of a, k = D) x B (64 columns)
-template <int D>
-__device__ __forceinline__ void scores(float (*c)[4], const bf16* a, const bf16* b,
-                                       int m0, int lane) {
-  constexpr int ld = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[j][e] = 0.f;
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    uint32_t fa[4];
-    frag_a(fa, a, ld, m0, k0, lane);
-#pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      uint32_t fb[4];
-      frag_b2_kc(fb, b, ld, k0, j * 8, lane);
-      mma_bf16(c[j], fa, fb[0], fb[1]);
-      mma_bf16(c[j + 1], fa, fb[2], fb[3]);
-    }
-  }
-}
-
-// acc[D/8][4] (16 x D) += P (c[8][4] as 16 x 64) x B (64 rows x D of b)
-template <int D>
-__device__ __forceinline__ void accumulate(float (*acc)[4], const float (*c)[4],
-                                           const bf16* b, int lane) {
-  constexpr int ld = D + 8;
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    uint32_t fa[4];
-    acc_to_a(fa, c, kk);
-#pragma unroll
-    for (int jd = 0; jd < D / 8; jd += 2) {
-      uint32_t fb[4];
-      frag_b2_nc(fb, b, ld, kk * 16, jd * 8, lane);
-      mma_bf16(acc[jd], fa, fb[0], fb[1]);
-      mma_bf16(acc[jd + 1], fa, fb[2], fb[3]);
-    }
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -662,85 +521,8 @@ __device__ __forceinline__ void store_pair(void* dst, bool out_f32, size_t off,
     *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dst) + off) = pack_f32(x, y);
 }
 
-// K2's tiles: q, dO, k, v
-template <int D>
-constexpr int dq_smem_bytes() {
-  return 4 * kRegRows * (D + 8) * 2;
-}
-
-// K2.  grid (q tiles, H, B).
-template <int D>
-__global__ void __launch_bounds__(kRegThreads)
-flash_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                         const float* __restrict__ lse,
-                         const float* __restrict__ delta, void* __restrict__ dq,
-                         int out_f32, int H, int group, int Sq, int Sk,
-                         int causal, int window, float scale) {
-  constexpr int LD = D + 8, ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* do_s = q_s + kRegRows * LD;
-  bf16* k_s = do_s + kRegRows * LD;
-  bf16* v_s = k_s + kRegRows * LD;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3, m0 = warp * 16;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q_lo = qt * kRegRows, q_hi = min(q_lo + kRegRows, Sq) - 1;
-  const size_t qoff = ((size_t)b * H + h) * Sq;
-  const size_t koff = ((size_t)b * (H / group) + h / group) * Sk * D;
-  const int qp[2] = {q_lo + m0 + g, q_lo + m0 + g + 8};
-  float row_lse[2], row_delta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    row_lse[r] = qp[r] < Sq ? lse[qoff + qp[r]] : 0.f;
-    row_delta[r] = qp[r] < Sq ? delta[qoff + qp[r]] : 0.f;
-  }
-
-  tile_async<D>(q_s, q + qoff * D, q_lo, Sq);
-  tile_async<D>(do_s, dout + qoff * D, q_lo, Sq);
-  float acc[ND][4];
-#pragma unroll
-  for (int jd = 0; jd < ND; ++jd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[jd][e] = 0.f;
-  int kt_begin, kt_end;
-  kv_range(q_lo, q_hi, Sk, kRegRows, causal, window, &kt_begin, &kt_end);
-
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k_lo = kt * kRegRows;
-    __syncthreads();
-    tile_async<D>(k_s, k + koff, k_lo, Sk);
-    tile_async<D>(v_s, v + koff, k_lo, Sk);
-    tile_wait();
-    float s[8][4], dp[8][4];
-    scores<D>(s, q_s, k_s, m0, lane);
-    scores<D>(dp, do_s, v_s, m0, lane);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1, kpos = k_lo + j * 8 + 2 * t + (e & 1);
-        float ds = 0.f;
-        if (qp[r] < Sq && visible(qp[r], kpos, Sk, causal, window))
-          ds = __expf(s[j][e] * scale - row_lse[r]) * (dp[j][e] - row_delta[r]);
-        s[j][e] = ds;
-      }
-    accumulate<D>(acc, s, k_s, lane);
-  }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (qp[r] >= Sq) continue;
-#pragma unroll
-    for (int jd = 0; jd < ND; ++jd)
-      store_pair(dq, out_f32, (qoff + qp[r]) * D + jd * 8 + 2 * t,
-                 acc[jd][2 * r] * scale, acc[jd][2 * r + 1] * scale);
-  }
-}
-
 // ---------------------------------------------------------------------
-// Hopper: K1 and K3 on wgmma, fed by TMA through an mbarrier ring.
+// Hopper: K1, K2 and K3 on wgmma, fed by TMA through an mbarrier ring.
 //
 // A CTA is three warpgroups (384 threads).  Warpgroups 0 and 1 are
 // the consumers, 64 rows each: they issue wgmma.mma_async on the staged
@@ -1043,21 +825,25 @@ struct FwdSmem {
   static constexpr int total = bars + 8 * (1 + 4 * kFwdStages) + 1024;  // + alignment
 };
 
-// S = Q K^T for a consumer warpgroup's 64 q rows and a 128-row kv tile
+// sc = A B^T for a consumer warpgroup's 64 rows of a staged 128-row
+// tile A and a 64-row kv tile B, both K-major: K1's S = Q K^T, K2's S
+// and dP = dO V^T
 template <int D>
-__device__ __forceinline__ void fwd_scores(float (&sc)[kFwdKv / 2], const bf16* q_s, const bf16* k_s,
-                                           int wg) {
+__device__ __forceinline__ void tile_scores(float (&sc)[kFwdKv / 2], const bf16* a_s,
+                                            const bf16* b_s, int wg) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    wgmma_ss(sc, desc_k<D>(q_s, kFwdRows, 64 * wg, kk), desc_k<D>(k_s, kFwdKv, 0, kk), kk > 0);
+    wgmma_ss(sc, desc_k<D>(a_s, kFwdRows, 64 * wg, kk), desc_k<D>(b_s, kFwdKv, 0, kk), kk > 0);
 }
 
-// O += P V: P from registers, V MN-major
+// acc += A B: A from registers (64 rows x 64 kv), B a staged kv tile
+// read MN-major: K1's O += P V, K2's dQ += dS K
 template <int D>
-__device__ __forceinline__ void fwd_pv(float (&o)[D / 2], const uint32_t (&pa)[kFwdKv / 16][4],
-                                       const bf16* v_s) {
+__device__ __forceinline__ void tile_accumulate(float (&acc)[D / 2],
+                                                const uint32_t (&a)[kFwdKv / 16][4],
+                                                const bf16* b_s) {
 #pragma unroll
-  for (int kk = 0; kk < kFwdKv / 16; ++kk) wgmma_rs(o, pa[kk], desc_mn<D>(v_s, kFwdKv, kk));
+  for (int kk = 0; kk < kFwdKv / 16; ++kk) wgmma_rs(acc, a[kk], desc_mn<D>(b_s, kFwdKv, kk));
 }
 
 // The online softmax of one tile's scores, in place, in log2 units:
@@ -1184,7 +970,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
       // kv tile 0: S alone
       mbar_wait(&full_k[0], 0);
       wg_fence();
-      fwd_scores<D>(sc, q_s, k_s, wg);
+      tile_scores<D>(sc, q_s, k_s, wg);
       wg_commit();
       wg_wait_all();
       hold(sc);
@@ -1200,9 +986,9 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_wait(&full_k[s], (i / kFwdStages) & 1);
         mbar_wait(&full_v[sp], ((i - 1) / kFwdStages) & 1);
         wg_fence();
-        fwd_scores<D>(sc, q_s, k_s + s * kTile, wg);
+        tile_scores<D>(sc, q_s, k_s + s * kTile, wg);
         wg_commit();
-        fwd_pv<D>(o, pa, v_s + sp * kTile);
+        tile_accumulate<D>(o, pa, v_s + sp * kTile);
         wg_commit();
         wg_wait_one();  // S of tile i; O += P V of tile i - 1 may still run
         hold(sc);
@@ -1221,7 +1007,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
       const int sl = (n - 1) % kFwdStages;
       mbar_wait(&full_v[sl], ((n - 1) / kFwdStages) & 1);
       wg_fence();
-      fwd_pv<D>(o, pa, v_s + sl * kTile);
+      tile_accumulate<D>(o, pa, v_s + sl * kTile);
       wg_commit();
       wg_wait_all();
       hold(o);
@@ -1239,6 +1025,192 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                    o[4 * j + 2 * r + 1] / lt);
       // a row the mask hides entirely keeps the fill, as the plain version
       if (t == 0) lse[row] = (m[r] == kNegFill ? kNegFill : m[r] * kLn2) + logf(lt);
+    }
+  }
+}
+
+// K2 on Hopper.  The grid of K1: 1-d over (q tile, head, batch), the q
+// tiles heaviest first, a batch's query heads next to each other (a
+// group's heads read the same K/V tiles, which so stay in L2).  A CTA
+// owns 128 q rows, 64 a consumer warpgroup; the producer stages Q and dO
+// once (TMA) with their rows' lse and delta (its lanes' asynchronous
+// copies, counted on the same barrier), then K and V of every kv tile of
+// 64 rows the mask lets in through the ring.  lse and delta come from
+// outside, so there is no online softmax; per kv tile a consumer runs
+//   S = Q K^T, dP = dO V^T   two wgmma m64n64k16 from shared memory
+//                            (K-major), issued together
+//   dS = exp2(S scale log2e - lse log2e) (dP - delta)   in registers
+//   dQ += dS K               wgmma m64nDk16, dS from registers (bf16),
+//                            K read MN-major (the transposing descriptor)
+// and holds dQ (D / 2 floats), S and dP (32 each) at once.  Only tiles
+// that straddle the diagonal, the window's edge or Sk test each element.
+constexpr int kDqStages = 4;
+
+template <int D>
+struct DqSmem {
+  static constexpr int q = 0;
+  static constexpr int dout = q + kFwdRows * D * 2;
+  static constexpr int k = dout + kFwdRows * D * 2;
+  static constexpr int v = k + kDqStages * kFwdKv * D * 2;
+  static constexpr int rows = v + kDqStages * kFwdKv * D * 2;  // lse, delta of the q rows
+  static constexpr int bars = rows + 2 * kFwdRows * 4;
+  static constexpr int total = bars + 8 * (1 + 2 * kDqStages) + 1024;  // + alignment
+};
+
+// dS of one kv tile, in place of S, as the register A operand of dQ +=
+// dS K.  A tile that straddles the diagonal, the window's edge or Sk
+// zeroes what the mask hides, after the product (the exponent of a hidden
+// element may overflow; it is replaced, never multiplied)
+__device__ __forceinline__ void dq_operand(uint32_t (&frag)[kFwdKv / 16][4],
+                                           float (&sc)[kFwdKv / 2], const float (&dp)[kFwdKv / 2],
+                                           const float (&lse2)[2], const float (&dlt)[2],
+                                           int k_lo, int r_lo, int r_hi, const int (&qp)[2],
+                                           int t, int Sk, int causal, int window,
+                                           float scale_log2) {
+  const bool straddles = k_lo + kFwdKv > Sk ||
+                         (causal && (k_lo + kFwdKv - 1 > r_lo ||
+                                     (window > 0 && r_hi - k_lo >= window)));
+#pragma unroll
+  for (int c = 0; c < kFwdKv / 2; ++c) {
+    const int r = (c >> 1) & 1;
+    sc[c] = fast_exp2(fmaf(sc[c], scale_log2, -lse2[r])) * (dp[c] - dlt[r]);
+  }
+  if (straddles) {
+#pragma unroll
+    for (int c = 0; c < kFwdKv / 2; ++c) {
+      const int kpos = k_lo + (c / 4) * 8 + 2 * t + (c & 1);
+      if (!visible(qp[(c >> 1) & 1], kpos, Sk, causal, window)) sc[c] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kFwdKv / 16; ++kk) acc_to_frag(frag[kk], sc, kk);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kHopThreads, 1)
+flash_bwd_dq_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           void* __restrict__ dq, int out_f32, int B, int H, int group,
+                           int Sq, int Sk, int causal, int window, float scale,
+                           float scale_log2) {
+  using L = DqSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  bf16* q_s = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* do_s = reinterpret_cast<bf16*>(smem + L::dout);
+  bf16* k_s = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* v_s = reinterpret_cast<bf16*>(smem + L::v);
+  float* rows_s = reinterpret_cast<float*>(smem + L::rows);  // lse [128], then delta [128]
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* full = full_q + 1;
+  uint64_t* empty = full + kDqStages;
+  constexpr int kTile = kFwdKv * D;  // elements of a staged K or V tile
+
+  const int heads = H * B;
+  const int nq = (Sq + kFwdRows - 1) / kFwdRows;
+  const int qt = nq - 1 - static_cast<int>(blockIdx.x) / heads;
+  const int bh = static_cast<int>(blockIdx.x) % heads;  // b * H + h
+  const int bhk = (bh / H) * (H / group) + (bh % H) / group;
+  const int q_lo = qt * kFwdRows, q_hi = min(q_lo + kFwdRows, Sq) - 1;
+  int kt_begin, kt_end;
+  kv_range(q_lo, q_hi, Sk, kFwdKv, causal, window, &kt_begin, &kt_end);
+
+  if (threadIdx.x == 0) {
+    mbar_init(full_q, 1 + 32);  // the TMA bytes' arrival and the producer lanes'
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warpgroup, broadcast from lane 0 so that the compiler sees it is
+  // the same across each warp: every wgmma below runs on a path all 128
+  // threads of a warpgroup take
+  const int role = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (role == 2) {
+    // producer warp: Q, dO, lse and delta once, then K and V of every
+    // tile into the ring
+    setmaxnreg_dec();
+    if (threadIdx.x < kConsumerThreads + 32) {
+      const int lane = threadIdx.x - kConsumerThreads;
+      // the rows' lse and delta by asynchronous 4-byte copies (rows past
+      // Sq read as zeros), each lane's landing one arrival on full_q
+#pragma unroll
+      for (int j = 0; j < kFwdRows / 32; ++j) {
+        const int r = q_lo + lane + 32 * j;
+        const size_t at = static_cast<size_t>(bh) * Sq + (r < Sq ? r : 0);
+        cp_async_4(rows_s + lane + 32 * j, lse + at, r < Sq);
+        cp_async_4(rows_s + kFwdRows + lane + 32 * j, delta + at, r < Sq);
+      }
+      cp_async_arrive(full_q);
+      if (lane == 0) {
+        mbar_arrive_tx(full_q, 2 * kFwdRows * D * 2);
+        tma_tile<D>(q_s, &tq, full_q, kFwdRows, q_lo, bh);
+        tma_tile<D>(do_s, &tdo, full_q, kFwdRows, q_lo, bh);
+        for (int kt = kt_begin, i = 0; kt < kt_end; ++kt, ++i) {
+          const int s = i % kDqStages;
+          mbar_wait(&empty[s], ((i / kDqStages) & 1) ^ 1);
+          mbar_arrive_tx(&full[s], 2 * kTile * 2);
+          tma_tile<D>(k_s + s * kTile, &tk, &full[s], kFwdKv, kt * kFwdKv, bhk);
+          tma_tile<D>(v_s + s * kTile, &tv, &full[s], kFwdKv, kt * kFwdKv, bhk);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc();
+    const int wg = role;
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const int g = lane >> 2, t = lane & 3;
+    const int r_lo = q_lo + 64 * wg, r_hi = r_lo + 63;  // this warpgroup's q rows
+    const int qp[2] = {r_lo + 16 * warp + g, r_lo + 16 * warp + g + 8};
+    float acc[D / 2];
+#pragma unroll
+    for (int c = 0; c < D / 2; ++c) acc[c] = 0.f;
+    mbar_wait(full_q, 0);
+    // this thread's two rows' lse (log2 units) and delta
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 64 * wg + 16 * warp + g + 8 * r;
+      lse2[r] = rows_s[row] * kLog2e;
+      dlt[r] = rows_s[kFwdRows + row];
+    }
+    const int n = kt_end - kt_begin;
+    for (int i = 0; i < n; ++i) {
+      const int s = i % kDqStages;
+      float sc[kFwdKv / 2], dp[kFwdKv / 2];
+      uint32_t frag[kFwdKv / 16][4];
+      mbar_wait(&full[s], (i / kDqStages) & 1);
+      wg_fence();
+      tile_scores<D>(sc, q_s, k_s + s * kTile, wg);
+      tile_scores<D>(dp, do_s, v_s + s * kTile, wg);
+      wg_commit();
+      wg_wait_all();
+      hold(sc);
+      hold(dp);
+      dq_operand(frag, sc, dp, lse2, dlt, (kt_begin + i) * kFwdKv, r_lo, r_hi, qp, t, Sk,
+                 causal, window, scale_log2);
+      wg_fence();
+      tile_accumulate<D>(acc, frag, k_s + s * kTile);
+      wg_commit();
+      wg_wait_all();
+      hold(acc);
+      warp_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qp[r] >= Sq) continue;
+      const size_t row = static_cast<size_t>(bh) * Sq + qp[r];
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        store_pair(dq, out_f32, row * D + j * 8 + 2 * t, acc[4 * j + 2 * r] * scale,
+                   acc[4 * j + 2 * r + 1] * scale);
     }
   }
 }
@@ -1625,19 +1597,23 @@ int fwd_hopper(const void* q, const void* k, const void* v, void* out, void* lse
 }
 
 template <int D>
-int bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* delta, void* dq, int out_f32,
-                const Args& a, cudaStream_t st) {
+int bwd_dq_hopper(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int out_f32, const Args& a,
+                  cudaStream_t st) {
   static int granted = 48 * 1024;
-  constexpr int smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_bf16_kernel<D>;
+  constexpr int smem = DqSmem<D>::total;
+  auto kernel = flash_bwd_dq_hopper_kernel<D>;
   if (int err = grant(kernel, smem, &granted)) return err;
-  dim3 grid((a.Sq + kRegRows - 1) / kRegRows, a.H, a.B);
-  kernel<<<grid, kRegThreads, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
-      out_f32, a.H, a.H / a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale);
+  CUtensorMap tq, tk, tv, tdo;
+  if (int err = tile_map<D>(&tq, q, a.Sq, a.B * a.H, kFwdRows)) return err;
+  if (int err = tile_map<D>(&tdo, dout, a.Sq, a.B * a.H, kFwdRows)) return err;
+  if (int err = tile_map<D>(&tk, k, a.Sk, a.B * a.Hkv, kFwdKv)) return err;
+  if (int err = tile_map<D>(&tv, v, a.Sk, a.B * a.Hkv, kFwdKv)) return err;
+  const int nq = (a.Sq + kFwdRows - 1) / kFwdRows;
+  kernel<<<nq * a.H * a.B, kHopThreads, smem, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse), static_cast<const float*>(delta), dq,
+      out_f32, a.B, a.H, a.H / a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale,
+      a.scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -1660,6 +1636,16 @@ int bwd_dkv_hopper(const void* q, const void* k, const void* v, const void* dout
       out_f32, a.B, a.H, a.H / a.Hkv, a.Sq, a.Sk, a.causal, a.window, a.scale,
       a.scale * kLog2e);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int hopper_smem(int which) {
+  switch (which) {
+    case 0: return FwdSmem<D>::total;
+    case 1: return DqSmem<D>::total;
+    case 2: return DkvSmem<D>::total;
+    default: return 0;
+  }
 }
 
 }  // namespace
@@ -1687,14 +1673,14 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
   }
 }
 
-// the dynamic shared memory (bytes) of K1's (which = 0) or K3's
-// (which = 1) Hopper kernel at head dim D; 0 for a head dim not taken
+// the dynamic shared memory (bytes) of K1's (which = 0), K2's (1) or
+// K3's (2) Hopper kernel at head dim D; 0 for a head dim not taken
 extern "C" int flash_hopper_smem_bytes(int which, int D) {
   switch (D) {
-    case 32: return which ? DkvSmem<32>::total : FwdSmem<32>::total;
-    case 64: return which ? DkvSmem<64>::total : FwdSmem<64>::total;
-    case 96: return which ? DkvSmem<96>::total : FwdSmem<96>::total;
-    case 128: return which ? DkvSmem<128>::total : FwdSmem<128>::total;
+    case 32: return hopper_smem<32>(which);
+    case 64: return hopper_smem<64>(which);
+    case 96: return hopper_smem<96>(which);
+    case 128: return hopper_smem<128>(which);
     default: return 0;
   }
 }
@@ -1711,10 +1697,10 @@ extern "C" int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
   if (dtype != 1)
     return bwd_dq_f32(q, k, v, dout, lse, delta, dq, a, st);
   switch (D) {
-    case 32: return bwd_dq_bf16<32>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
-    case 64: return bwd_dq_bf16<64>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
-    case 96: return bwd_dq_bf16<96>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
-    default: return bwd_dq_bf16<128>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
+    case 32: return bwd_dq_hopper<32>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
+    case 64: return bwd_dq_hopper<64>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
+    case 96: return bwd_dq_hopper<96>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
+    default: return bwd_dq_hopper<128>(q, k, v, dout, lse, delta, dq, out_f32, a, st);
   }
 }
 

@@ -8,7 +8,7 @@
 // x is [M, K] row-major (bf16 or float32), q is [K, N] row-major int8 (the
 // flax layout, in x out), s is [N] float32, out is [M, N] in x's dtype.
 // The wrapper (ops/quant_matmul.py) admits M <= 64, K % 32 == 0 and N a
-// multiple of 128.
+// multiple of 128; q starts on a 16-byte boundary.
 //
 // Bound.  2*M flops per int8 weight byte: below the card's ridge for
 // every M <= 64, so the bound is the int8 weight bytes at 3.35 TB/s (5.0
@@ -17,54 +17,79 @@
 // columns in order with x resident in VMEM; on Hopper the weight is
 // streamed by many CTAs at once instead.
 //
-// Design (bf16 x).  A weight-streaming GEMV on the tensor cores.  One CTA
-// owns 32 columns of N (so N = 4096 already gives 128 CTAs for 132 SMs);
-// its 8 warps split K by 16-row steps (step i goes to warp i % 8).  The
-// product is computed transposed, out^T[N, M] = q^T[N, K] x^T[K, M], with
-// mma.sync m16n8k16 (bf16 in, float32 accumulators): the weight is the A
-// operand (16 columns of N per tile, two tiles per warp) and x the B
-// operand (8 rows of M per tile), so the decode shape M = 8 fills one B
-// tile with no padding.  A fragment pairs two consecutive K rows of one
-// column, while q is contiguous along N; a lane therefore reads one
-// 4-byte word (4 neighbouring columns) from each of its four K rows, and
-// the 32 columns are permuted onto the tiles' rows so that the four bytes
-// of a word land in four fragment slots of the same lane: tile j's row g
-// is column 4g + 2j and its row g + 8 is column 4g + 2j + 1.  Each warp
-// load touches four whole 32-byte sectors.  The int8 -> bf16 conversion
-// is exact and costs no conversion instruction: the byte, biased by 128,
-// is placed under the exponent of 2^23 (one byte permute), 2^23 + 128 is
-// subtracted in float32, and two such floats (whose low halves are zero)
-// are packed into one bf16x2 register by a second permute.  The loads of
-// kUnroll steps are issued before any of them is used, so each warp keeps
-// kUnroll * 512 bytes of the weight in flight.  x is read through the
-// read-only cache (every CTA reads all of it).  At the end the eight
-// warps' partial sums meet in shared memory and are added in a fixed
-// order (the result does not depend on scheduling), scaled and cast.
+// Design (bf16 x).  A weight-streaming GEMV on the tensor cores, on a 2-d
+// grid: column tiles of N x splits of K.
+//
+//   Split-K.  A CTA owns 8 W columns of N (W = 16, 8 or 4, below) and one of `splits` contiguous ranges of K's 16-row
+//   steps; its 8 warps take the range's steps in turn.  splits is the
+//   most that keeps the grid one wave (the CTAs an SM holds at once, from
+//   the occupancy query, times the SMs), at most 8 and no more than leave
+//   each warp a step: a 4096-column projection at W = 16 has 32 column
+//   tiles, 8 splits, 256 CTAs.  The splits of a column
+//   tile are one thread-block cluster along K: each CTA adds its warps'
+//   partial sums in shared memory, the cluster synchronises, and each CTA
+//   then reads the partials of every CTA of the cluster through
+//   distributed shared memory, adds them in rank order, scales and casts
+//   its share of the outputs.  One launch, no workspace, no atomics: the
+//   sums meet in a fixed order, so the result does not depend on
+//   scheduling.
+//
+//   The product is computed transposed, out^T[N, M] = q^T[N, K] x^T[K,
+//   M], with mma.sync m16n8k16 (bf16 in, float32 accumulators): the
+//   weight is the A operand (16 columns of N a tile) and x the B operand
+//   (8 rows of M a tile), so the decode shape M = 8 fills one B tile with
+//   no padding.  An A fragment pairs two consecutive K rows of one
+//   column, while q is contiguous along N; a lane therefore loads W bytes
+//   (W neighbouring columns) from each of its four K rows (2t, 2t + 1, 2t
+//   + 8, 2t + 9), and the 8 W columns are permuted onto the W / 2 tiles'
+//   rows so that each byte lands in a fragment slot of the same lane:
+//   tile j's row g is column W g + 2j and its row g + 8 is column W g +
+//   2j + 1.  W is 16 for M <= 16, 8 for M <= 32 and 4 above (a thread's
+//   accumulators, W / 2 tiles x M / 8 tiles x 4 floats, stay at 64 or
+//   fewer).  A warp issues the loads of kUnroll steps (64 registers of
+//   weight words; 32 at W = 4) before it uses any of them.  The int8 ->
+//   bf16 conversion is exact and costs no conversion instruction: the
+//   byte, biased by 128, is placed under the exponent of 2^23 (one byte
+//   permute), 2^23 + 128 is subtracted in float32, and two such floats
+//   (whose low halves are zero) are packed into one bf16x2 register by a
+//   second permute.  x is read through the read-only cache.
 //
 // float32 x (the token-identity checks at float32) takes a plain CUDA-core
-// kernel with the same CTA tiling and reduction: products in float32 FMA,
-// as the JAX float32 dot does.
+// kernel: 32 columns a CTA, one per lane, all of K split across its warps,
+// products in float32 FMA, as the JAX float32 dot does.
 //
-// Not done yet: split-K across CTAs (N = 4096 gives 128 CTAs, one wave
-// with one CTA an SM), 16-byte weight loads, staging x in shared memory,
-// TMA and wgmma.
+// Not done yet: the weight staged in shared memory (the global reads
+// still follow the fragment layout), x staged, TMA, wgmma.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCols = 32;      // columns of N a CTA owns
-constexpr int kUnroll = 8;     // 16-row steps whose loads a warp keeps in flight
+constexpr int kF32Cols = 32;     // columns of N a float32 CTA owns
 constexpr int kMaxRowTiles = 8;  // M <= 64 in tiles of 8 rows
+constexpr int kMaxSplits = 8;    // the portable cluster size
 
-__device__ __forceinline__ uint32_t load_stream(const int8_t* p) {
-  uint32_t v;
-  asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v) : "l"(p));
-  return v;
+// W bytes of the weight, streamed past L1, as W / 4 words
+template <int W>
+__device__ __forceinline__ void load_stream(uint32_t (&v)[W / 4], const int8_t* p) {
+  if constexpr (W == 16) {
+    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "l"(p));
+  } else if constexpr (W == 8) {
+    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
+                 : "=r"(v[0]), "=r"(v[1])
+                 : "l"(p));
+  } else {
+    asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v[0]) : "l"(p));
+  }
 }
 
 // byte b (0..3) of a word whose bytes are int8 values biased by 128,
@@ -88,47 +113,49 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
-
-// red[w][c][r]: warp w's partial sum for column c (0..31) and row r;
-// the row stride is padded by one float against bank conflicts
-__device__ __forceinline__ int red_index(int w, int c, int r, int rows) {
-  return (w * kCols + c) * (rows + 1) + r;
+// red[w][c][r]: warp w's partial sum for column c and row r of a CTA
+// owning `cols` columns; the row stride is padded by one float against
+// bank conflicts
+__device__ __forceinline__ int red_index(int w, int c, int r, int cols, int rows) {
+  return (w * cols + c) * (rows + 1) + r;
 }
 
-template <typename T>
-__device__ __forceinline__ void reduce_scale_store(const float* red, int rows,
-                                                   const float* s, T* out, int m,
-                                                   int n, int col0) {
-  for (int i = threadIdx.x; i < kCols * m; i += kThreads) {
-    const int c = i % kCols;
-    const int r = i / kCols;
-    float acc = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) acc += red[red_index(w, c, r, rows)];
-    store(out + (size_t)r * n + col0 + c, acc * s[col0 + c]);
-  }
-}
+template <int MT, int W>
+struct Stage {
+  static constexpr int kCols = 8 * W;  // columns of N a CTA owns
+  static constexpr int part = kWarps * kCols * (MT * 8 + 1) * 4;
+  static constexpr int total = part + MT * 8 * kCols * 4;
+};
 
-// MT tiles of 8 rows of M (M <= 8 * MT)
-template <int MT>
+// MT tiles of 8 rows of M (M <= 8 * MT), W weight bytes a lane load.
+// grid (N / (8 W), splits), cluster (1, splits)
+template <int MT, int W>
 __global__ void __launch_bounds__(kThreads)
 quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
                          const float* __restrict__ s, __nv_bfloat16* __restrict__ out,
                          int m, int k, int n) {
-  extern __shared__ float red[];
+  using L = Stage<MT, W>;
+  constexpr int kCols = L::kCols;
+  constexpr int kTiles = W / 2;    // mma tiles of 16 columns a lane load feeds
+  constexpr int kUnroll = W == 4 ? 8 : 64 / W;  // steps whose loads a warp keeps in flight
+  constexpr int kRows = MT * 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kCols][kRows + 1]
+  float* part = reinterpret_cast<float*>(smem + L::part);  // [kRows][kCols]: this CTA's sums
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // fragment column pair
   const int col0 = blockIdx.x * kCols;
+  const int split = blockIdx.y, splits = gridDim.y;
   const int steps = k / 16;
-  const int8_t* qcol = q + col0 + 4 * g;
+  const int step_begin = static_cast<int>(static_cast<long long>(steps) * split / splits);
+  const int step_end = static_cast<int>(static_cast<long long>(steps) * (split + 1) / splits);
+  const int8_t* qcol = q + col0 + W * g;
 
-  float acc[2][MT][4];
+  float acc[kTiles][MT][4];
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < kTiles; ++j)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -144,23 +171,23 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
     xrow[mt] = x + (size_t)(xlive[mt] ? row : 0) * k + 2 * t;
   }
 
-  for (int base = warp; base < steps; base += kWarps * kUnroll) {
-    uint32_t w[kUnroll][4];
+  for (int base = step_begin + warp; base < step_end; base += kWarps * kUnroll) {
+    uint32_t w[kUnroll][4][W / 4];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int step = base + u * kWarps;
-      if (step < steps) {
+      if (step < step_end) {
         const int8_t* p = qcol + (size_t)(step * 16 + 2 * t) * n;
-        w[u][0] = load_stream(p);                   // K row 2t
-        w[u][1] = load_stream(p + n);               // 2t + 1
-        w[u][2] = load_stream(p + (size_t)8 * n);   // 2t + 8
-        w[u][3] = load_stream(p + (size_t)9 * n);   // 2t + 9
+        load_stream<W>(w[u][0], p);                   // K row 2t
+        load_stream<W>(w[u][1], p + n);               // 2t + 1
+        load_stream<W>(w[u][2], p + (size_t)8 * n);   // 2t + 8
+        load_stream<W>(w[u][3], p + (size_t)9 * n);   // 2t + 9
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int step = base + u * kWarps;
-      if (step >= steps) break;
+      if (step >= step_end) break;
       const int k0 = step * 16;
       uint32_t b[MT][2];
 #pragma unroll
@@ -169,48 +196,69 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
         b[mt][0] = xlive[mt] ? __ldg(reinterpret_cast<const unsigned int*>(xp)) : 0u;
         b[mt][1] = xlive[mt] ? __ldg(reinterpret_cast<const unsigned int*>(xp + 8)) : 0u;
       }
-      uint32_t biased[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) biased[i] = w[u][i] ^ 0x80808080u;
+      for (int j = 0; j < kTiles; ++j) {
+        // word j / 2 of each K row; a0: (row g, K 2t..2t+1) -> column
+        // W g + 2j, byte 2 (j % 2) of rows 2t, 2t+1; a1: (row g+8) ->
+        // column W g + 2j + 1, the next byte; a2, a3: the same columns at
+        // K rows 2t+8, 2t+9
+        const int wi = j / 2, by = 2 * (j % 2);
+        uint32_t biased[4];
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        // a0: (row g, K 2t..2t+1) -> column 4g+2j, byte 2j of rows 2t, 2t+1
-        // a1: (row g+8, K 2t..2t+1) -> column 4g+2j+1, byte 2j+1
-        // a2, a3: the same columns at K rows 2t+8, 2t+9
+        for (int i = 0; i < 4; ++i) biased[i] = w[u][i][wi] ^ 0x80808080u;
         uint32_t a[4];
-        a[0] = pack_bf16x2(biased_byte_to_float(biased[0], 2 * j),
-                           biased_byte_to_float(biased[1], 2 * j));
-        a[1] = pack_bf16x2(biased_byte_to_float(biased[0], 2 * j + 1),
-                           biased_byte_to_float(biased[1], 2 * j + 1));
-        a[2] = pack_bf16x2(biased_byte_to_float(biased[2], 2 * j),
-                           biased_byte_to_float(biased[3], 2 * j));
-        a[3] = pack_bf16x2(biased_byte_to_float(biased[2], 2 * j + 1),
-                           biased_byte_to_float(biased[3], 2 * j + 1));
+        a[0] = pack_bf16x2(biased_byte_to_float(biased[0], by),
+                           biased_byte_to_float(biased[1], by));
+        a[1] = pack_bf16x2(biased_byte_to_float(biased[0], by + 1),
+                           biased_byte_to_float(biased[1], by + 1));
+        a[2] = pack_bf16x2(biased_byte_to_float(biased[2], by),
+                           biased_byte_to_float(biased[3], by));
+        a[3] = pack_bf16x2(biased_byte_to_float(biased[2], by + 1),
+                           biased_byte_to_float(biased[3], by + 1));
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[j][mt], a, b[mt][0], b[mt][1]);
       }
     }
   }
 
-  // d0, d1: tile row g (column 4g+2j), M rows 2t, 2t+1; d2, d3: tile
-  // row g+8 (column 4g+2j+1), the same M rows
-  const int rows = MT * 8;
+  // d0, d1: tile row g (column W g + 2j), M rows 2t, 2t+1; d2, d3: tile
+  // row g+8 (column W g + 2j + 1), the same M rows
 #pragma unroll
-  for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < kTiles; ++j)
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        const int c = 4 * g + 2 * j + (r >> 1);
+        const int c = W * g + 2 * j + (r >> 1);
         const int row = mt * 8 + 2 * t + (r & 1);
-        red[red_index(warp, c, row, rows)] = acc[j][mt][r];
+        red[red_index(warp, c, row, kCols, kRows)] = acc[j][mt][r];
       }
   __syncthreads();
-  reduce_scale_store(red, rows, s, out, m, n, col0);
+  // this CTA's sums, its warps added in order
+  for (int i = threadIdx.x; i < kCols * m; i += kThreads) {
+    const int c = i % kCols, r = i / kCols;
+    float sum = 0.f;
+#pragma unroll
+    for (int w2 = 0; w2 < kWarps; ++w2) sum += red[red_index(w2, c, r, kCols, kRows)];
+    part[r * kCols + c] = sum;
+  }
+  // the cluster's CTAs (the splits of this column tile) add each other's
+  // sums through distributed shared memory, in rank order; CTA `split`
+  // writes every splits-th block of kThreads outputs
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  for (int i = split * kThreads + threadIdx.x; i < kCols * m; i += splits * kThreads) {
+    const int c = i % kCols, r = i / kCols;
+    float sum = 0.f;
+    for (int rank = 0; rank < splits; ++rank)
+      sum += cluster.map_shared_rank(part, rank)[r * kCols + c];
+    out[(size_t)r * n + col0 + c] = __float2bfloat16(sum * s[col0 + c]);
+  }
+  cluster.sync();  // no CTA leaves while another may still read its sums
 }
 
-// float32 x: one column per lane, K rows split across the warps as in
-// the bf16 kernel, products in float32 FMA
+// float32 x: one column per lane, all of K split across the warps,
+// products in float32 FMA
 template <int MT>
 __global__ void __launch_bounds__(kThreads)
 quant_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q,
@@ -219,7 +267,7 @@ quant_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ 
   extern __shared__ float red[];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int col0 = blockIdx.x * kCols;
+  const int col0 = blockIdx.x * kF32Cols;
   const int rows = MT * 8;
   float acc[MT * 8];
 #pragma unroll
@@ -233,12 +281,16 @@ quant_matmul_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ 
     }
   }
 #pragma unroll
-  for (int r = 0; r < MT * 8; ++r) red[red_index(warp, lane, r, rows)] = acc[r];
+  for (int r = 0; r < MT * 8; ++r) red[red_index(warp, lane, r, kF32Cols, rows)] = acc[r];
   __syncthreads();
-  reduce_scale_store(red, rows, s, out, m, n, col0);
+  for (int i = threadIdx.x; i < kF32Cols * m; i += kThreads) {
+    const int c = i % kF32Cols, r = i / kF32Cols;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += red[red_index(w, c, r, kF32Cols, rows)];
+    out[(size_t)r * n + col0 + c] = sum * s[col0 + c];
+  }
 }
-
-size_t red_bytes(int mt) { return sizeof(float) * kWarps * kCols * (mt * 8 + 1); }
 
 // above 48 KB a kernel needs its dynamic shared memory raised once
 template <typename Kernel>
@@ -250,48 +302,124 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, bool* done) {
   return err;
 }
 
+int sm_count() {
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      sms = 132;
+  }
+  return sms;
+}
+
+// the widest weight load whose accumulators fit: 16 bytes for M <= 16,
+// 8 for M <= 32, 4 above
+int widest(int mt) { return mt <= 2 ? 16 : mt <= 4 ? 8 : 4; }
+
+// K's splits for a grid of `tiles` column tiles: as many as leave the
+// grid one wave (`resident` CTAs an SM), at least 1, at most kMaxSplits
+// and no more than leave each warp a step
+int auto_splits(int tiles, int steps, int resident) {
+  const int wave = resident * sm_count();
+  int splits = wave / tiles;
+  if (splits > kMaxSplits) splits = kMaxSplits;
+  if (splits > steps / kWarps) splits = steps / kWarps;
+  return splits > 1 ? splits : 1;
+}
+
+template <int MT, int W>
+cudaError_t launch_bf16(const void* x, const int8_t* q, const float* s, void* out, int m,
+                        int k, int n, int splits, cudaStream_t stream) {
+  static bool smem_done = false;
+  static int resident = 0;  // CTAs an SM holds at once
+  constexpr int smem = Stage<MT, W>::total;
+  auto kernel = quant_matmul_bf16_kernel<MT, W>;
+  cudaError_t err = allow_smem(kernel, smem, &smem_done);
+  if (err != cudaSuccess) return err;
+  if (!resident) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (resident < 1) resident = 1;
+  }
+  const int tiles = n / (8 * W);
+  if (splits <= 0) splits = auto_splits(tiles, k / 16, resident);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, splits, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(x), q, s,
+                           static_cast<__nv_bfloat16*>(out), m, k, n);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int MT>
+cudaError_t launch_f32(const void* x, const int8_t* q, const float* s, void* out, int m, int k,
+                       int n, cudaStream_t stream) {
+  static bool smem_done = false;
+  const size_t smem = sizeof(float) * kWarps * kF32Cols * (MT * 8 + 1);
+  const cudaError_t err = allow_smem(quant_matmul_f32_kernel<MT>, smem, &smem_done);
+  if (err != cudaSuccess) return err;
+  quant_matmul_f32_kernel<MT><<<n / kF32Cols, kThreads, smem, stream>>>(
+      static_cast<const float*>(x), q, s, static_cast<float*>(out), m, k, n);
+  return cudaGetLastError();
+}
+
 template <int MT>
 cudaError_t launch_mt(const void* x, const int8_t* q, const float* s, void* out, int dtype,
-                      int m, int k, int n, cudaStream_t stream) {
-  static bool smem_bf16 = false, smem_f32 = false;
-  const size_t smem = red_bytes(MT);
-  const dim3 grid(n / kCols);
-  if (dtype == 1) {
-    const cudaError_t err = allow_smem(quant_matmul_bf16_kernel<MT>, smem, &smem_bf16);
-    if (err != cudaSuccess) return err;
-    quant_matmul_bf16_kernel<MT><<<grid, kThreads, smem, stream>>>(
-        static_cast<const __nv_bfloat16*>(x), q, s, static_cast<__nv_bfloat16*>(out), m, k, n);
-  } else {
-    const cudaError_t err = allow_smem(quant_matmul_f32_kernel<MT>, smem, &smem_f32);
-    if (err != cudaSuccess) return err;
-    quant_matmul_f32_kernel<MT><<<grid, kThreads, smem, stream>>>(
-        static_cast<const float*>(x), q, s, static_cast<float*>(out), m, k, n);
-  }
-  return cudaGetLastError();
+                      int m, int k, int n, int width, int splits, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<MT>(x, q, s, out, m, k, n, stream);
+  if (width == 0) width = widest(MT);
+  if constexpr (MT <= 2)
+    if (width == 16) return launch_bf16<MT, 16>(x, q, s, out, m, k, n, splits, stream);
+  if constexpr (MT <= 4)
+    if (width == 8) return launch_bf16<MT, 8>(x, q, s, out, m, k, n, splits, stream);
+  if (width == 4) return launch_bf16<MT, 4>(x, q, s, out, m, k, n, splits, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // x [M, K] (dtype 0 = float32, 1 = bf16), q [K, N] int8, s [N] float32,
-// out [M, N] in x's dtype, on `stream`.  Returns the CUDA error code of
-// the launch (0 = launched).
-extern "C" int quant_matmul_launch(const void* x, const void* q, const void* s, void* out,
-                                   int dtype, int m, int k, int n, void* stream) {
-  if (m < 1 || m > 8 * kMaxRowTiles || k % 32 || n % 128 || (dtype != 0 && dtype != 1))
+// out [M, N] in x's dtype, on `stream`.  width (bf16 only): the weight
+// bytes a lane loads, 16, 8 or 4 (at most 16 for M <= 16, 8 for M <=
+// 32, 4 above), 0 for the widest; splits: K's splits, 1 to 8, 0 for the
+// grid's own choice.  Returns the CUDA error code of the launch (0 =
+// launched).
+extern "C" int quant_matmul_launch_config(const void* x, const void* q, const void* s,
+                                          void* out, int dtype, int m, int k, int n,
+                                          int width, int splits, void* stream) {
+  if (m < 1 || m > 8 * kMaxRowTiles || k % 32 || n % 128 || (dtype != 0 && dtype != 1) ||
+      splits < 0 || splits > kMaxSplits || (splits > 0 && splits > k / 16))
     return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const int8_t*>(q);
   const auto* ss = static_cast<const float*>(s);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch ((m + 7) / 8) {
-    case 1: err = launch_mt<1>(x, qq, ss, out, dtype, m, k, n, st); break;
-    case 2: err = launch_mt<2>(x, qq, ss, out, dtype, m, k, n, st); break;
-    case 3: err = launch_mt<3>(x, qq, ss, out, dtype, m, k, n, st); break;
-    case 4: err = launch_mt<4>(x, qq, ss, out, dtype, m, k, n, st); break;
-    case 5: err = launch_mt<5>(x, qq, ss, out, dtype, m, k, n, st); break;
-    case 6: err = launch_mt<6>(x, qq, ss, out, dtype, m, k, n, st); break;
-    case 7: err = launch_mt<7>(x, qq, ss, out, dtype, m, k, n, st); break;
-    default: err = launch_mt<8>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 1: err = launch_mt<1>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 2: err = launch_mt<2>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 3: err = launch_mt<3>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 4: err = launch_mt<4>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 5: err = launch_mt<5>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 6: err = launch_mt<6>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 7: err = launch_mt<7>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    default: err = launch_mt<8>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
   }
   return (int)err;
+}
+
+// the same with the widest load and the grid's own splits
+extern "C" int quant_matmul_launch(const void* x, const void* q, const void* s, void* out,
+                                   int dtype, int m, int k, int n, void* stream) {
+  return quant_matmul_launch_config(x, q, s, out, dtype, m, k, n, 0, 0, stream);
 }

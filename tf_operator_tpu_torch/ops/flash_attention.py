@@ -216,8 +216,8 @@ def _launchers():
 
 
 def hopper_smem_bytes(kernel: int, head_dim: int) -> int:
-    """The dynamic shared memory (bytes) that K1's (``kernel`` 0) or
-    K3's (1) Hopper kernel asks for at ``head_dim``."""
+    """The dynamic shared memory (bytes) that K1's (``kernel`` 0), K2's
+    (1) or K3's (2) Hopper kernel asks for at ``head_dim``."""
 
     fn = _build.load(SOURCE).flash_hopper_smem_bytes
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
