@@ -857,10 +857,10 @@ def host_us(fn, calls=200):
 
 
 #: K7's configurations timed apart at the 7B shapes, as (the weight bytes
-#: a lane loads, K's splits), 0 leaving either to the kernel's own choice
-#: (the widest load the row count allows; splits for two CTAs an SM):
-#: neither change of the redesign, split-K alone, wide loads alone, and
-#: both (the shipped configuration)
+#: a lane takes of a K row, K's splits), 0 leaving either to the kernel's
+#: own choice (the widest the row count allows; the most splits that
+#: keep the grid within one wave): 4-byte fragments in one split, split-K
+#: alone, the wide fragments alone, and both (the shipped configuration)
 K7_VARIANTS = {"no_split_4byte": (4, 1), "split_k_4byte": (4, 0),
                "no_split_wide": (0, 1), "split_k_wide": (0, 0)}
 

@@ -11,6 +11,7 @@
 
 import ast
 import os
+import re
 import pkgutil
 import shutil
 import subprocess
@@ -149,10 +150,11 @@ def test_quant_matmul_kernel_source_and_entry_point():
     assert "tf_operator_tpu/ops/quant_matmul.py::_kernel" in text
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in text
     # split-K over a cluster (partials added through distributed shared
-    # memory, no atomics) and 16-byte weight loads
+    # memory, no atomics); the weight and x staged in shared memory by
+    # 16-byte asynchronous copies
     assert "cudaLaunchAttributeClusterDimension" in text and "map_shared_rank" in text
-    assert "atomicAdd" not in text and "red.global" not in text
-    assert "ld.global.nc.L1::no_allocate.v4.u32" in text
+    assert "atomic" not in text.replace("no atomics", "") and not re.search(r"\bred\.", text)
+    assert "cp.async.cg.shared.global [%0], [%1], 16" in text
     assert 'extern "C" int quant_matmul_launch_config' in text
 
 

@@ -8,7 +8,7 @@
 // x is [M, K] row-major (bf16 or float32), q is [K, N] row-major int8 (the
 // flax layout, in x out), s is [N] float32, out is [M, N] in x's dtype.
 // The wrapper (ops/quant_matmul.py) admits M <= 64, K % 32 == 0 and N a
-// multiple of 128; q starts on a 16-byte boundary.
+// multiple of 128; x and q start on a 16-byte boundary.
 //
 // Bound.  2*M flops per int8 weight byte: below the card's ridge for
 // every M <= 64, so the bound is the int8 weight bytes at 3.35 TB/s (5.0
@@ -20,46 +20,61 @@
 // Design (bf16 x).  A weight-streaming GEMV on the tensor cores, on a 2-d
 // grid: column tiles of N x splits of K.
 //
-//   Split-K.  A CTA owns 8 W columns of N (W = 16, 8 or 4, below) and one of `splits` contiguous ranges of K's 16-row
-//   steps; its 8 warps take the range's steps in turn.  splits is the
-//   most that keeps the grid one wave (the CTAs an SM holds at once, from
-//   the occupancy query, times the SMs), at most 8 and no more than leave
-//   each warp a step: a 4096-column projection at W = 16 has 32 column
-//   tiles, 8 splits, 256 CTAs.  The splits of a column
-//   tile are one thread-block cluster along K: each CTA adds its warps'
-//   partial sums in shared memory, the cluster synchronises, and each CTA
-//   then reads the partials of every CTA of the cluster through
-//   distributed shared memory, adds them in rank order, scales and casts
-//   its share of the outputs.  One launch, no workspace, no atomics: the
-//   sums meet in a fixed order, so the result does not depend on
-//   scheduling.
+//   Split-K.  A CTA owns 8 W columns of N (W = 16, 8 or 4, below) and
+//   one of `splits` contiguous ranges of K's 16-row steps; its 8 warps
+//   take the range's steps in turn.  splits is the most that keep the
+//   grid within one wave (the CTAs an SM holds at once, from the
+//   occupancy query, times the SMs; a second, partial wave measured
+//   slower), at most 8 and no more than leave each warp a step: a 4096-column projection at W = 16 has 32 column tiles, 8
+//   splits, 256 CTAs.  The splits of a column tile are one thread-block
+//   cluster along K: each CTA adds its warps' partial sums in shared
+//   memory, the cluster synchronises, and each CTA then reads the
+//   partials of every CTA of the cluster through distributed shared
+//   memory, adds them in rank order, scales and casts its share of the
+//   outputs.  One launch, no workspace, no atomics: the sums meet in a
+//   fixed order, so the result does not depend on scheduling.
 //
 //   The product is computed transposed, out^T[N, M] = q^T[N, K] x^T[K,
 //   M], with mma.sync m16n8k16 (bf16 in, float32 accumulators): the
 //   weight is the A operand (16 columns of N a tile) and x the B operand
 //   (8 rows of M a tile), so the decode shape M = 8 fills one B tile with
 //   no padding.  An A fragment pairs two consecutive K rows of one
-//   column, while q is contiguous along N; a lane therefore loads W bytes
-//   (W neighbouring columns) from each of its four K rows (2t, 2t + 1, 2t
-//   + 8, 2t + 9), and the 8 W columns are permuted onto the W / 2 tiles'
+//   column, while q is contiguous along N; a lane therefore takes W bytes
+//   (W neighbouring columns) of each of its four K rows (2t, 2t + 1, 2t +
+//   8, 2t + 9), and the 8 W columns are permuted onto the W / 2 tiles'
 //   rows so that each byte lands in a fragment slot of the same lane:
 //   tile j's row g is column W g + 2j and its row g + 8 is column W g +
-//   2j + 1.  W is 16 for M <= 16, 8 for M <= 32 and 4 above (a thread's
-//   accumulators, W / 2 tiles x M / 8 tiles x 4 floats, stay at 64 or
-//   fewer).  A warp issues the loads of kUnroll steps (64 registers of
-//   weight words; 32 at W = 4) before it uses any of them.  The int8 ->
-//   bf16 conversion is exact and costs no conversion instruction: the
-//   byte, biased by 128, is placed under the exponent of 2^23 (one byte
-//   permute), 2^23 + 128 is subtracted in float32, and two such floats
-//   (whose low halves are zero) are packed into one bf16x2 register by a
-//   second permute.  x is read through the read-only cache.
+//   2j + 1.  W is 16 for M <= 16 and 8 above (a thread's accumulators,
+//   W / 2 tiles x M / 8 tiles x 4 floats: 64 floats at M = 16 and 32,
+//   128 at M = 64); a launch may ask for W = 4.  The int8 -> bf16 conversion is exact and costs no
+//   conversion instruction: the byte, biased by 128, is placed under the
+//   exponent of 2^23 (one byte permute), 2^23 + 128 is subtracted in
+//   float32, and two such floats (whose low halves are zero) are packed
+//   into one bf16x2 register by a second permute.
+//
+//   Wide loads through shared memory.  The global reads do not follow
+//   the fragment layout: each warp streams its steps through a ring in
+//   shared memory with 16-byte cp.async copies (a step's 16 K rows x 8 W
+//   columns of the weight, 16 contiguous bytes a lane), 2 KB of the
+//   weight in flight (one step at W = 16, two at 8, four at 4) while it
+//   computes on the oldest; the fragment reads from the ring are 16-, 8-
+//   or 4-byte shared loads, with the 16-byte chunks of the staged tile
+//   permuted so that they hit distinct banks.  Deeper rings at W = 16
+//   measured no faster at the 7B shapes: the time goes to the
+//   conversion's instructions, which more resident warps (a small ring)
+//   hide better.  Up to 16 rows, x's rows of a step
+//   are staged beside its weight, so no step waits for x; above that a
+//   warp would stage more of x than of the weight, and reads x's
+//   fragments through the read-only cache, asked for before it waits for
+//   the step's weight.
 //
 // float32 x (the token-identity checks at float32) takes a plain CUDA-core
 // kernel: 32 columns a CTA, one per lane, all of K split across its warps,
 // products in float32 FMA, as the JAX float32 dot does.
 //
-// Not done yet: the weight staged in shared memory (the global reads
-// still follow the fragment layout), x staged, TMA, wgmma.
+// Not done yet: TMA boxes of the weight (one copy a stage instead of a
+// warp's 16-byte copies), x staged once per CTA above 16 rows, wgmma, a
+// persistent grid.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -76,20 +91,21 @@ constexpr int kF32Cols = 32;     // columns of N a float32 CTA owns
 constexpr int kMaxRowTiles = 8;  // M <= 64 in tiles of 8 rows
 constexpr int kMaxSplits = 8;    // the portable cluster size
 
-// W bytes of the weight, streamed past L1, as W / 4 words
-template <int W>
-__device__ __forceinline__ void load_stream(uint32_t (&v)[W / 4], const int8_t* p) {
-  if constexpr (W == 16) {
-    asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-                 : "l"(p));
-  } else if constexpr (W == 8) {
-    asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
-                 : "=r"(v[0]), "=r"(v[1])
-                 : "l"(p));
-  } else {
-    asm volatile("ld.global.nc.L1::no_allocate.b32 %0, [%1];" : "=r"(v[0]) : "l"(p));
-  }
+// 16 bytes from global to shared memory, asynchronously, bypassing L1
+// (zeros where !valid)
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool valid) {
+  const uint32_t to = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most n of this thread's committed groups are in flight
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 // byte b (0..3) of a word whose bytes are int8 values biased by 128,
@@ -120,15 +136,38 @@ __device__ __forceinline__ int red_index(int w, int c, int r, int cols, int rows
   return (w * cols + c) * (rows + 1) + r;
 }
 
+// A step's staged tiles in a warp's ring: the weight's 16 K rows x
+// 8 W columns, as 16-byte chunks in 128-byte lines whose chunks are
+// permuted (chunk ^ swizzle(line)) so that the fragment reads of a
+// quarter-, half- or whole warp (LDS.128, .64, .32) hit distinct banks;
+// then x's 8 MT rows x 16 K values, rows 48 bytes apart (the B fragment
+// reads of 8 rows x 4 lanes hit distinct banks).
+constexpr int kXLd = 24;     // bf16 a staged x row takes
+
+template <int W>
+__device__ __forceinline__ int swizzle(int line) {
+  return W == 16 ? line & 6 : W == 8 ? (line << 1) & 6 : (line << 1) & 2;
+}
+
 template <int MT, int W>
 struct Stage {
-  static constexpr int kCols = 8 * W;  // columns of N a CTA owns
-  static constexpr int part = kWarps * kCols * (MT * 8 + 1) * 4;
+  static constexpr int kCols = 8 * W;             // columns of N a CTA owns
+  // x is staged beside the weight up to 16 rows; above, each warp would
+  // stage more of x than of the weight, and reads it from global memory
+  static constexpr bool kStageX = MT <= 2;
+  static constexpr int weight = 16 * kCols;       // bytes of a step's weight
+  // steps a warp's ring holds: 2 KB of the weight in flight (stages - 1)
+  static constexpr int stages = W == 16 ? 2 : W == 8 ? 3 : 5;
+  static constexpr int bytes = weight + (kStageX ? MT * 8 * kXLd * 2 : 0);
+  static constexpr int ring = kWarps * stages * bytes;
+  static constexpr int red = kWarps * kCols * (MT * 8 + 1) * 4;
+  // the ring, reused for the warps' partial sums, then the CTA's sums
+  static constexpr int part = ring > red ? ring : red;
   static constexpr int total = part + MT * 8 * kCols * 4;
 };
 
-// MT tiles of 8 rows of M (M <= 8 * MT), W weight bytes a lane load.
-// grid (N / (8 W), splits), cluster (1, splits)
+// MT tiles of 8 rows of M (M <= 8 * MT), W weight bytes a lane reads
+// from each of its K rows.  grid (N / (8 W), splits), cluster (1, splits)
 template <int MT, int W>
 __global__ void __launch_bounds__(kThreads)
 quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ q,
@@ -136,11 +175,11 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
                          int m, int k, int n) {
   using L = Stage<MT, W>;
   constexpr int kCols = L::kCols;
-  constexpr int kTiles = W / 2;    // mma tiles of 16 columns a lane load feeds
-  constexpr int kUnroll = W == 4 ? 8 : 64 / W;  // steps whose loads a warp keeps in flight
+  constexpr int kTiles = W / 2;      // mma tiles of 16 columns a lane's W bytes feed
   constexpr int kRows = MT * 8;
+  constexpr int kChunks = kCols / 16;  // 16-byte chunks of a weight row
   extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kCols][kRows + 1]
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kCols][kRows + 1], after the ring
   float* part = reinterpret_cast<float*>(smem + L::part);  // [kRows][kCols]: this CTA's sums
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -151,7 +190,57 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
   const int steps = k / 16;
   const int step_begin = static_cast<int>(static_cast<long long>(steps) * split / splits);
   const int step_end = static_cast<int>(static_cast<long long>(steps) * (split + 1) / splits);
-  const int8_t* qcol = q + col0 + W * g;
+  // this warp's steps: step_begin + warp, + kWarps, ...
+  const int first = step_begin + warp;
+  const int nsteps = first < step_end ? (step_end - first + kWarps - 1) / kWarps : 0;
+  constexpr int kStages = L::stages;
+  unsigned char* ring = smem + warp * kStages * L::bytes;
+
+  // this lane's 16-byte chunks of a step: of the weight tile (from the
+  // step's first K row) and of x's rows (from the step's first K
+  // column; rows >= m copied as zeros), with their places in a stage
+  constexpr int kQCopies = kCols / 32, kXCopies = (2 * kRows + 31) / 32;
+  const int8_t* qsrc[kQCopies];
+  int qdst[kQCopies];
+#pragma unroll
+  for (int j = 0; j < kQCopies; ++j) {
+    const int c = lane + 32 * j;
+    qsrc[j] = q + (size_t)(c / kChunks) * n + col0 + 16 * (c % kChunks);
+    qdst[j] = 16 * (c ^ swizzle<W>(c / 8));
+  }
+  const __nv_bfloat16* xsrc[kXCopies];
+  int xdst[kXCopies];
+  bool xlive[kXCopies];
+#pragma unroll
+  for (int j = 0; j < kXCopies; ++j) {
+    const int c = lane + 32 * j, r = c / 2;
+    xlive[j] = r < m;
+    xsrc[j] = x + (size_t)(xlive[j] ? r : 0) * k + 8 * (c % 2);
+    xdst[j] = c < 2 * kRows ? L::weight + r * kXLd * 2 + 16 * (c % 2) : -1;
+  }
+
+  // the x rows this lane feeds to the B fragments when x is not staged
+  const __nv_bfloat16* xrow[MT];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+    xrow[mt] = x + (size_t)(mt * 8 + g < m ? mt * 8 + g : 0) * k + 2 * t;
+
+  // step i of this warp into its stage i % kStages; one commit group a
+  // step, empty past the last
+  auto stage_in = [&](int i) {
+    if (i < nsteps) {
+      const int k0 = (first + i * kWarps) * 16;
+      unsigned char* st = ring + (i % kStages) * L::bytes;
+#pragma unroll
+      for (int j = 0; j < kQCopies; ++j) cp_async_16(st + qdst[j], qsrc[j] + (size_t)k0 * n, true);
+      if constexpr (L::kStageX) {
+#pragma unroll
+        for (int j = 0; j < kXCopies; ++j)
+          if (xdst[j] >= 0) cp_async_16(st + xdst[j], xsrc[j] + k0, xlive[j]);
+      }
+    }
+    cp_async_commit();
+  };
 
   float acc[kTiles][MT][4];
 #pragma unroll
@@ -161,65 +250,81 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[j][mt][r] = 0.f;
 
-  // x rows this lane feeds to the B fragments (row >= m reads as zero)
-  const __nv_bfloat16* xrow[MT];
-  bool xlive[MT];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const int row = mt * 8 + g;
-    xlive[mt] = row < m;
-    xrow[mt] = x + (size_t)(xlive[mt] ? row : 0) * k + 2 * t;
-  }
+  // where this lane's W bytes of K row r sit in a staged weight tile
+  auto wslot = [&](int r) {
+    const int c = r * kChunks + (W * g) / 16;
+    return 16 * (c ^ swizzle<W>(c / 8)) + (W * g) % 16;
+  };
+  const int wrow[4] = {wslot(2 * t), wslot(2 * t + 1), wslot(2 * t + 8), wslot(2 * t + 9)};
 
-  for (int base = step_begin + warp; base < step_end; base += kWarps * kUnroll) {
-    uint32_t w[kUnroll][4][W / 4];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int step = base + u * kWarps;
-      if (step < step_end) {
-        const int8_t* p = qcol + (size_t)(step * 16 + 2 * t) * n;
-        load_stream<W>(w[u][0], p);                   // K row 2t
-        load_stream<W>(w[u][1], p + n);               // 2t + 1
-        load_stream<W>(w[u][2], p + (size_t)8 * n);   // 2t + 8
-        load_stream<W>(w[u][3], p + (size_t)9 * n);   // 2t + 9
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int step = base + u * kWarps;
-      if (step >= step_end) break;
-      const int k0 = step * 16;
-      uint32_t b[MT][2];
+  for (int i = 0; i < kStages - 1; ++i) stage_in(i);
+  for (int i = 0; i < nsteps; ++i) {
+    stage_in(i + kStages - 1);  // into the stage step i - 1 read
+    uint32_t b[MT][2];
+    if constexpr (!L::kStageX) {
+      // x's B fragments through the read-only cache, asked for before the
+      // wait for the weight so that the two latencies overlap
+      const int k0 = (first + i * kWarps) * 16;
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         const __nv_bfloat16* xp = xrow[mt] + k0;
-        b[mt][0] = xlive[mt] ? __ldg(reinterpret_cast<const unsigned int*>(xp)) : 0u;
-        b[mt][1] = xlive[mt] ? __ldg(reinterpret_cast<const unsigned int*>(xp + 8)) : 0u;
-      }
-#pragma unroll
-      for (int j = 0; j < kTiles; ++j) {
-        // word j / 2 of each K row; a0: (row g, K 2t..2t+1) -> column
-        // W g + 2j, byte 2 (j % 2) of rows 2t, 2t+1; a1: (row g+8) ->
-        // column W g + 2j + 1, the next byte; a2, a3: the same columns at
-        // K rows 2t+8, 2t+9
-        const int wi = j / 2, by = 2 * (j % 2);
-        uint32_t biased[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) biased[i] = w[u][i][wi] ^ 0x80808080u;
-        uint32_t a[4];
-        a[0] = pack_bf16x2(biased_byte_to_float(biased[0], by),
-                           biased_byte_to_float(biased[1], by));
-        a[1] = pack_bf16x2(biased_byte_to_float(biased[0], by + 1),
-                           biased_byte_to_float(biased[1], by + 1));
-        a[2] = pack_bf16x2(biased_byte_to_float(biased[2], by),
-                           biased_byte_to_float(biased[3], by));
-        a[3] = pack_bf16x2(biased_byte_to_float(biased[2], by + 1),
-                           biased_byte_to_float(biased[3], by + 1));
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[j][mt], a, b[mt][0], b[mt][1]);
+        b[mt][0] = mt * 8 + g < m ? __ldg(reinterpret_cast<const unsigned int*>(xp)) : 0u;
+        b[mt][1] = mt * 8 + g < m ? __ldg(reinterpret_cast<const unsigned int*>(xp + 8)) : 0u;
       }
     }
+    cp_async_wait<kStages - 1>();
+    __syncwarp();               // every lane's copies of step i have landed
+    const unsigned char* st = ring + (i % kStages) * L::bytes;
+    if constexpr (L::kStageX) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const unsigned char* xr = st + L::weight + (mt * 8 + g) * kXLd * 2 + 4 * t;
+        b[mt][0] = *reinterpret_cast<const uint32_t*>(xr);
+        b[mt][1] = *reinterpret_cast<const uint32_t*>(xr + 16);
+      }
+    }
+    // K rows 2t, 2t + 1, 2t + 8, 2t + 9: W / 4 words each
+    uint32_t w[4][W / 4];
+#pragma unroll
+    for (int i2 = 0; i2 < 4; ++i2) {
+      const unsigned char* p = st + wrow[i2];
+      if constexpr (W == 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(p);
+        w[i2][0] = v.x, w[i2][1] = v.y, w[i2][2] = v.z, w[i2][3] = v.w;
+      } else if constexpr (W == 8) {
+        const uint2 v = *reinterpret_cast<const uint2*>(p);
+        w[i2][0] = v.x, w[i2][1] = v.y;
+      } else {
+        w[i2][0] = *reinterpret_cast<const uint32_t*>(p);
+      }
+    }
+    __syncwarp();               // the stage is free for step i + kStages
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      // word j / 2 of each K row; a0: (row g, K 2t..2t+1) -> column
+      // W g + 2j, byte 2 (j % 2) of rows 2t, 2t+1; a1: (row g+8) ->
+      // column W g + 2j + 1, the next byte; a2, a3: the same columns at
+      // K rows 2t+8, 2t+9
+      const int wi = j / 2, by = 2 * (j % 2);
+      uint32_t biased[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) biased[r] = w[r][wi] ^ 0x80808080u;
+      uint32_t a[4];
+      a[0] = pack_bf16x2(biased_byte_to_float(biased[0], by),
+                         biased_byte_to_float(biased[1], by));
+      a[1] = pack_bf16x2(biased_byte_to_float(biased[0], by + 1),
+                         biased_byte_to_float(biased[1], by + 1));
+      a[2] = pack_bf16x2(biased_byte_to_float(biased[2], by),
+                         biased_byte_to_float(biased[3], by));
+      a[3] = pack_bf16x2(biased_byte_to_float(biased[2], by + 1),
+                         biased_byte_to_float(biased[3], by + 1));
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[j][mt], a, b[mt][0], b[mt][1]);
+    }
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with its ring: it holds the partial sums now
 
   // d0, d1: tile row g (column W g + 2j), M rows 2t, 2t+1; d2, d3: tile
   // row g+8 (column W g + 2j + 1), the same M rows
@@ -313,13 +418,12 @@ int sm_count() {
   return sms;
 }
 
-// the widest weight load whose accumulators fit: 16 bytes for M <= 16,
-// 8 for M <= 32, 4 above
-int widest(int mt) { return mt <= 2 ? 16 : mt <= 4 ? 8 : 4; }
+// the widest W whose accumulators fit: 16 bytes for M <= 16, 8 above
+int widest(int mt) { return mt <= 2 ? 16 : 8; }
 
-// K's splits for a grid of `tiles` column tiles: as many as leave the
-// grid one wave (`resident` CTAs an SM), at least 1, at most kMaxSplits
-// and no more than leave each warp a step
+// K's splits for a grid of `tiles` column tiles: the most that keep the
+// grid within one wave (`resident` CTAs an SM), at least 1, at most
+// kMaxSplits and no more than leave each warp a step
 int auto_splits(int tiles, int steps, int resident) {
   const int wave = resident * sm_count();
   int splits = wave / tiles;
@@ -381,8 +485,7 @@ cudaError_t launch_mt(const void* x, const int8_t* q, const float* s, void* out,
   if (width == 0) width = widest(MT);
   if constexpr (MT <= 2)
     if (width == 16) return launch_bf16<MT, 16>(x, q, s, out, m, k, n, splits, stream);
-  if constexpr (MT <= 4)
-    if (width == 8) return launch_bf16<MT, 8>(x, q, s, out, m, k, n, splits, stream);
+  if (width == 8) return launch_bf16<MT, 8>(x, q, s, out, m, k, n, splits, stream);
   if (width == 4) return launch_bf16<MT, 4>(x, q, s, out, m, k, n, splits, stream);
   return cudaErrorInvalidValue;
 }
@@ -391,8 +494,8 @@ cudaError_t launch_mt(const void* x, const int8_t* q, const float* s, void* out,
 
 // x [M, K] (dtype 0 = float32, 1 = bf16), q [K, N] int8, s [N] float32,
 // out [M, N] in x's dtype, on `stream`.  width (bf16 only): the weight
-// bytes a lane loads, 16, 8 or 4 (at most 16 for M <= 16, 8 for M <=
-// 32, 4 above), 0 for the widest; splits: K's splits, 1 to 8, 0 for the
+// bytes a lane takes of a K row, 16, 8 or 4 (16 only for M <= 16), 0 for
+// the widest; splits: K's splits, 1 to 8, 0 for the
 // grid's own choice.  Returns the CUDA error code of the launch (0 =
 // launched).
 extern "C" int quant_matmul_launch_config(const void* x, const void* q, const void* s,

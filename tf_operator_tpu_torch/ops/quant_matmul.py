@@ -139,10 +139,11 @@ def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor, *,
     q2 [K, N] int8, s2 N float32 scales -> [M, N] in x2's dtype.  Counts
     one launch in ``_build.launches[KERNEL]``.
 
-    ``width`` (the weight bytes a lane loads: 16, 8 or 4) and ``splits``
-    (K's splits, 1 to 8) pin the bf16 kernel's configuration for a
-    measurement of its variants; 0 leaves each to the kernel's own choice
-    (the widest load the row count allows, splits for two CTAs an SM)."""
+    ``width`` (the weight bytes a lane takes of a K row: 16, 8 or 4)
+    and ``splits`` (K's splits, 1 to 8) pin the bf16 kernel's
+    configuration for a measurement of its variants; 0 leaves each to the
+    kernel's own choice (the widest the row count allows, the most splits
+    that keep the grid within one wave)."""
 
     _check_kernel_inputs(x2, q2, s2)
     m, k = x2.shape
