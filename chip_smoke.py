@@ -62,9 +62,7 @@ Phases, in order; any failure exits non-zero before the result line:
    larger) and, as the library yardstick, ``torch.matmul`` on a bf16
    weight of the same shape: the product the int8 path replaces; at
    M = 8 also the host microseconds per call of the wrapper and of
-   ``torch.matmul``; and the redesign's two changes timed apart
-   (``K7_VARIANTS``: 4-byte or widest loads, one split or the grid's
-   own), each variant first held to the plain version.  The kernels line gives K7's numbers per launch
+   ``torch.matmul``.  The kernels line gives K7's numbers per launch
    over one 7B decode step's mix of shapes (225 launches at M = 8).
    Then the routes: M > 64, K % 32 != 0 and N not a multiple of 128
    take the GEMM route (within one bf16 ulp of each row's largest
@@ -230,14 +228,11 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-#: the Hopper kernels of K1, K2 and K3 (wgmma, TMA): built without
-#: spills and issuing HGMMA, which phase 2 checks in ptxas's report and
-#: the SASS
-HOPPER_KERNELS = ("flash_fwd_hopper_kernel", "flash_bwd_dq_hopper_kernel",
-                  "flash_bwd_dkv_hopper_kernel")
-#: flash_hopper_smem_bytes's index of each Hopper kernel
-HOPPER_SMEM_INDEX = {"flash_fwd_hopper_kernel": 0, "flash_bwd_dq_hopper_kernel": 1,
-                     "flash_bwd_dkv_hopper_kernel": 2}
+#: the Hopper kernels of K1, K2 and K3 (wgmma, TMA), each with its
+#: index for flash_hopper_smem_bytes: built without spills and issuing
+#: HGMMA, which phase 2 checks in ptxas's report and the SASS
+HOPPER_KERNELS = {"flash_fwd_hopper_kernel": 0, "flash_bwd_dq_hopper_kernel": 1,
+                  "flash_bwd_dkv_hopper_kernel": 2}
 
 
 def _ptxas_entries(report):
@@ -353,7 +348,7 @@ def phase_build():
         kernel = next((k for k in HOPPER_KERNELS if k in mangled), None)
         if kernel:
             d = int(name.split("<")[1][:-1])
-            rows[name]["dynamic_smem"] = fa.hopper_smem_bytes(HOPPER_SMEM_INDEX[kernel], d)
+            rows[name]["dynamic_smem"] = fa.hopper_smem_bytes(HOPPER_KERNELS[kernel], d)
             rows[name]["hgmma"] = hgmma.get(mangled, 0)
     log("flash kernels (ptxas, SASS) " + json.dumps(rows))
     bad = {n: r for n, r in rows.items() if any(k in n for k in HOPPER_KERNELS)
@@ -856,15 +851,6 @@ def host_us(fn, calls=200):
     return (t1 - t0) / calls * 1e6
 
 
-#: K7's configurations timed apart at the 7B shapes, as (the weight bytes
-#: a lane takes of a K row, K's splits), 0 leaving either to the kernel's
-#: own choice (the widest the row count allows; the most splits that
-#: keep the grid within one wave): 4-byte fragments in one split, split-K
-#: alone, the wide fragments alone, and both (the shipped configuration)
-K7_VARIANTS = {"no_split_4byte": (4, 1), "split_k_4byte": (4, 0),
-               "no_split_wide": (0, 1), "split_k_wide": (0, 0)}
-
-
 def k7_case(name, *, m, k, n, dtype, seed, timed=False):
     from tf_operator_tpu_torch.ops import quant_matmul as qm
     from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
@@ -899,15 +885,6 @@ def k7_case(name, *, m, k, n, dtype, seed, timed=False):
             else "operations", "weight_copies": n_copies,
         })
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
-        # the redesign's two changes apart, each held to the plain version
-        rec["variants"] = {}
-        for label, (width, splits) in K7_VARIANTS.items():
-            run = lambda q, w=width, sp=splits: qm.quant_matmul_cuda(
-                x, q.q, q.scale.reshape(n), width=w, splits=sp)
-            v_rel = _row_rel(run(qt), want)
-            if not (math.isfinite(v_rel) and v_rel <= QM_RTOL[dtype]):
-                raise AssertionError(f"K7 {name} variant {label}: row-relative error {v_rel}")
-            rec["variants"][label] = {"ms": time_ms_cold(run, qs), "max_row_rel_err": v_rel}
         if m == 8:
             # the host side of one call as a decode step makes it
             # (DenseGeneral's quant_matmul_2d on its flat operands),
@@ -968,8 +945,8 @@ def phase_k7():
         raise AssertionError("K7 took a strided weight")
     except ValueError as exc:
         routes["strided_q"] = str(exc)
-    # a contiguous weight view 4 bytes into its storage: the 16-byte loads
-    # cannot read it
+    # a contiguous weight view 4 bytes into its storage: the 16-byte
+    # copies cannot read it
     store = torch.empty(qt.q.numel() + 16, dtype=torch.int8, device=dev)
     shifted = store[4:4 + qt.q.numel()].view(qt.q.shape)
     shifted.copy_(qt.q)
@@ -994,9 +971,7 @@ def k7_decode_step(recs):
             for key in ("ms", "plain_ms", "bound_ms", "library_ms")}
     rec = {key: v / launches for key, v in step.items()}
     rec.update({"bound_by": "bytes", "launches_per_step": launches,
-                "step_totals_ms": dict(step, variants={
-                    label: sum(PROJ_7B[s] * by_shape[s]["variants"][label]["ms"]
-                               for s in PROJ_7B) for label in K7_VARIANTS}),
+                "step_totals_ms": step,
                 "max_abs_err": max(r["max_abs_err"] for r in recs
                                    if r["case"].startswith("7b_"))})
     log("K7 decode step (M = 8) " + json.dumps(rec))
@@ -1687,7 +1662,8 @@ AB_SNIPPET = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as 
 def _ab_run(root):
     """Phases 2, 4 and 4b of the tree at ``root`` in a process of its
     own: each timed flash case's kernel ms and each timed K7 case's ms,
-    as that tree's chip_smoke.py printed them."""
+    its library call's and, where that tree's phase 4b times variants of
+    the kernel, theirs, as that tree's chip_smoke.py printed them."""
 
     out = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=root, capture_output=True,
                          text=True, timeout=1500)
@@ -1736,7 +1712,7 @@ def _kernel_entry(name, source, replaces, launches, err, timing):
             "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
 
 
-def main(argv=None):
+def main():
     import argparse
     import shutil
     import tempfile
@@ -1747,7 +1723,7 @@ def main(argv=None):
                              "TREE_DIR (git archives of the parent commit and of any commit "
                              "between) against this tree's, phases 2, 4 and 4b of each, in "
                              "turns on one card")
-    args = parser.parse_args(argv)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
         return 2

@@ -341,39 +341,6 @@ def test_quant_matmul_kernel_matches_plain(dev, case):
     assert _row_rel(got, want) <= QM_RTOL[dtype]
 
 
-#: (M, K, N) x (weight bytes a lane takes of a K row, splits): each
-#: configuration the bf16 kernel takes, pinned (0 = the kernel's own
-#: choice), at a row count of each width's range; K = 4128 splits
-#: unevenly
-QM_CONFIGS = [(m, k, n, width, splits)
-              for m, k, n, widths in ((8, 4128, 1024, (16, 8, 4)), (24, 4096, 512, (8, 4)),
-                                      (64, 4128, 256, (8, 4)))
-              for width in widths + (0,) for splits in (1, 3, 8, 0)]
-
-
-@pytest.mark.parametrize("m, k, n, width, splits", QM_CONFIGS)
-def test_quant_matmul_configurations_match_plain(dev, m, k, n, width, splits):
-    x, qt = _qm_inputs(dev, m + width + splits, m, k, n, torch.bfloat16)
-    want = qm.quant_matmul(x, qt, impl="plain")
-    _build.launches.clear()
-    got = qm.quant_matmul_cuda(x, qt.q, qt.scale.reshape(n), width=width, splits=splits)
-    torch.cuda.synchronize()
-    assert _build.launches == {qm.KERNEL: 1}
-    assert _row_rel(got, want) <= QM_RTOL[torch.bfloat16]
-    # the sums meet in a fixed order: a second launch gives the same bits
-    assert torch.equal(got, qm.quant_matmul_cuda(x, qt.q, qt.scale.reshape(n), width=width,
-                                                 splits=splits))
-
-
-def test_quant_matmul_refuses_a_configuration_it_has_not(dev):
-    x, qt = _qm_inputs(dev, 0, 40, 96, 256, torch.bfloat16)
-    for width, splits in ((16, 0), (0, 9), (0, 7), (3, 0)):
-        # 40 rows take 8 or 4 weight bytes a K row; 96 rows of K are 6
-        # steps of 16
-        with pytest.raises(RuntimeError, match="launch failed"):
-            qm.quant_matmul_cuda(x, qt.q, qt.scale.reshape(256), width=width, splits=splits)
-
-
 def test_quant_matmul_refuses_a_weight_off_16_bytes(dev):
     """The kernel reads the weight in 16-byte loads: a contiguous weight
     view that starts 4 bytes into its storage raises and launches

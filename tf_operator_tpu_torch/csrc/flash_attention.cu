@@ -97,7 +97,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr float kNegFill = -3.4028234663852886e38f;  // finfo(float32).min
 
 typedef __nv_bfloat16 bf16;

@@ -20,12 +20,13 @@
 // Design (bf16 x).  A weight-streaming GEMV on the tensor cores, on a 2-d
 // grid: column tiles of N x splits of K.
 //
-//   Split-K.  A CTA owns 8 W columns of N (W = 16, 8 or 4, below) and
-//   one of `splits` contiguous ranges of K's 16-row steps; its 8 warps
-//   take the range's steps in turn.  splits is the most that keep the
-//   grid within one wave (the CTAs an SM holds at once, from the
-//   occupancy query, times the SMs; a second, partial wave measured
-//   slower), at most 8 and no more than leave each warp a step: a 4096-column projection at W = 16 has 32 column tiles, 8
+//   Split-K.  A CTA owns 8 W columns of N (W = 16 or 8, below) and one
+//   of `splits` contiguous ranges of K's 16-row steps; its 8 warps take
+//   the range's steps in turn.  splits is the most that keep the grid
+//   within one wave (the CTAs an SM holds at once, from the occupancy
+//   query, times the SMs; a second, partial wave measured slower), at
+//   most 8 and no more than leave each warp a step: a 4096 x 4096
+//   projection at M = 8 (W = 16, three CTAs an SM) has 32 column tiles, 8
 //   splits, 256 CTAs.  The splits of a column tile are one thread-block
 //   cluster along K: each CTA adds its warps' partial sums in shared
 //   memory, the cluster synchronises, and each CTA then reads the
@@ -45,28 +46,28 @@
 //   rows so that each byte lands in a fragment slot of the same lane:
 //   tile j's row g is column W g + 2j and its row g + 8 is column W g +
 //   2j + 1.  W is 16 for M <= 16 and 8 above (a thread's accumulators,
-//   W / 2 tiles x M / 8 tiles x 4 floats: 64 floats at M = 16 and 32,
-//   128 at M = 64); a launch may ask for W = 4.  The int8 -> bf16 conversion is exact and costs no
-//   conversion instruction: the byte, biased by 128, is placed under the
-//   exponent of 2^23 (one byte permute), 2^23 + 128 is subtracted in
-//   float32, and two such floats (whose low halves are zero) are packed
-//   into one bf16x2 register by a second permute.
+//   W / 2 tiles x M / 8 tiles x 4 floats, are 64 floats at M = 16 and 32,
+//   128 at M = 64, where 4-byte fragments measured slower).  The int8 ->
+//   bf16 conversion is exact and costs no conversion instruction: the
+//   byte, biased by 128, is placed under the exponent of 2^23 (one byte
+//   permute), 2^23 + 128 is subtracted in float32, and two such floats
+//   (whose low halves are zero) are packed into one bf16x2 register by a
+//   second permute.
 //
 //   Wide loads through shared memory.  The global reads do not follow
 //   the fragment layout: each warp streams its steps through a ring in
 //   shared memory with 16-byte cp.async copies (a step's 16 K rows x 8 W
 //   columns of the weight, 16 contiguous bytes a lane), 2 KB of the
-//   weight in flight (one step at W = 16, two at 8, four at 4) while it
-//   computes on the oldest; the fragment reads from the ring are 16-, 8-
-//   or 4-byte shared loads, with the 16-byte chunks of the staged tile
-//   permuted so that they hit distinct banks.  Deeper rings at W = 16
-//   measured no faster at the 7B shapes: the time goes to the
-//   conversion's instructions, which more resident warps (a small ring)
-//   hide better.  Up to 16 rows, x's rows of a step
-//   are staged beside its weight, so no step waits for x; above that a
-//   warp would stage more of x than of the weight, and reads x's
-//   fragments through the read-only cache, asked for before it waits for
-//   the step's weight.
+//   weight in flight (one step at W = 16, two at 8) while it computes on
+//   the oldest; the fragment reads from the ring are 16- or 8-byte shared
+//   loads, with the 16-byte chunks of the staged tile permuted so that
+//   they hit distinct banks.  Deeper rings at W = 16 measured no faster
+//   at the 7B shapes: the time goes to the conversion's instructions,
+//   which more resident warps (a small ring) hide better.  Up to 16 rows,
+//   x's rows of a step are staged beside its weight, so no step waits for
+//   x; above that a warp would stage more of x than of the weight, and
+//   reads x's fragments through the read-only cache, asked for before it
+//   waits for the step's weight.
 //
 // float32 x (the token-identity checks at float32) takes a plain CUDA-core
 // kernel: 32 columns a CTA, one per lane, all of K split across its warps,
@@ -139,14 +140,14 @@ __device__ __forceinline__ int red_index(int w, int c, int r, int cols, int rows
 // A step's staged tiles in a warp's ring: the weight's 16 K rows x
 // 8 W columns, as 16-byte chunks in 128-byte lines whose chunks are
 // permuted (chunk ^ swizzle(line)) so that the fragment reads of a
-// quarter-, half- or whole warp (LDS.128, .64, .32) hit distinct banks;
+// quarter or half warp (LDS.128, .64) hit distinct banks;
 // then x's 8 MT rows x 16 K values, rows 48 bytes apart (the B fragment
 // reads of 8 rows x 4 lanes hit distinct banks).
 constexpr int kXLd = 24;     // bf16 a staged x row takes
 
 template <int W>
 __device__ __forceinline__ int swizzle(int line) {
-  return W == 16 ? line & 6 : W == 8 ? (line << 1) & 6 : (line << 1) & 2;
+  return W == 16 ? line & 6 : (line << 1) & 6;
 }
 
 template <int MT, int W>
@@ -157,7 +158,7 @@ struct Stage {
   static constexpr bool kStageX = MT <= 2;
   static constexpr int weight = 16 * kCols;       // bytes of a step's weight
   // steps a warp's ring holds: 2 KB of the weight in flight (stages - 1)
-  static constexpr int stages = W == 16 ? 2 : W == 8 ? 3 : 5;
+  static constexpr int stages = W == 16 ? 2 : 3;
   static constexpr int bytes = weight + (kStageX ? MT * 8 * kXLd * 2 : 0);
   static constexpr int ring = kWarps * stages * bytes;
   static constexpr int red = kWarps * kCols * (MT * 8 + 1) * 4;
@@ -292,11 +293,9 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
       if constexpr (W == 16) {
         const uint4 v = *reinterpret_cast<const uint4*>(p);
         w[i2][0] = v.x, w[i2][1] = v.y, w[i2][2] = v.z, w[i2][3] = v.w;
-      } else if constexpr (W == 8) {
+      } else {
         const uint2 v = *reinterpret_cast<const uint2*>(p);
         w[i2][0] = v.x, w[i2][1] = v.y;
-      } else {
-        w[i2][0] = *reinterpret_cast<const uint32_t*>(p);
       }
     }
     __syncwarp();               // the stage is free for step i + kStages
@@ -418,9 +417,6 @@ int sm_count() {
   return sms;
 }
 
-// the widest W whose accumulators fit: 16 bytes for M <= 16, 8 above
-int widest(int mt) { return mt <= 2 ? 16 : 8; }
-
 // K's splits for a grid of `tiles` column tiles: the most that keep the
 // grid within one wave (`resident` CTAs an SM), at least 1, at most
 // kMaxSplits and no more than leave each warp a step
@@ -434,7 +430,7 @@ int auto_splits(int tiles, int steps, int resident) {
 
 template <int MT, int W>
 cudaError_t launch_bf16(const void* x, const int8_t* q, const float* s, void* out, int m,
-                        int k, int n, int splits, cudaStream_t stream) {
+                        int k, int n, cudaStream_t stream) {
   static bool smem_done = false;
   static int resident = 0;  // CTAs an SM holds at once
   constexpr int smem = Stage<MT, W>::total;
@@ -447,7 +443,7 @@ cudaError_t launch_bf16(const void* x, const int8_t* q, const float* s, void* ou
     if (resident < 1) resident = 1;
   }
   const int tiles = n / (8 * W);
-  if (splits <= 0) splits = auto_splits(tiles, k / 16, resident);
+  const int splits = auto_splits(tiles, k / 16, resident);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(tiles, splits, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
@@ -478,51 +474,36 @@ cudaError_t launch_f32(const void* x, const int8_t* q, const float* s, void* out
   return cudaGetLastError();
 }
 
+// W = 16 up to 16 rows, 8 above
 template <int MT>
 cudaError_t launch_mt(const void* x, const int8_t* q, const float* s, void* out, int dtype,
-                      int m, int k, int n, int width, int splits, cudaStream_t stream) {
+                      int m, int k, int n, cudaStream_t stream) {
   if (dtype == 0) return launch_f32<MT>(x, q, s, out, m, k, n, stream);
-  if (width == 0) width = widest(MT);
-  if constexpr (MT <= 2)
-    if (width == 16) return launch_bf16<MT, 16>(x, q, s, out, m, k, n, splits, stream);
-  if (width == 8) return launch_bf16<MT, 8>(x, q, s, out, m, k, n, splits, stream);
-  if (width == 4) return launch_bf16<MT, 4>(x, q, s, out, m, k, n, splits, stream);
-  return cudaErrorInvalidValue;
+  return launch_bf16<MT, MT <= 2 ? 16 : 8>(x, q, s, out, m, k, n, stream);
 }
 
 }  // namespace
 
 // x [M, K] (dtype 0 = float32, 1 = bf16), q [K, N] int8, s [N] float32,
-// out [M, N] in x's dtype, on `stream`.  width (bf16 only): the weight
-// bytes a lane takes of a K row, 16, 8 or 4 (16 only for M <= 16), 0 for
-// the widest; splits: K's splits, 1 to 8, 0 for the
-// grid's own choice.  Returns the CUDA error code of the launch (0 =
-// launched).
-extern "C" int quant_matmul_launch_config(const void* x, const void* q, const void* s,
-                                          void* out, int dtype, int m, int k, int n,
-                                          int width, int splits, void* stream) {
-  if (m < 1 || m > 8 * kMaxRowTiles || k % 32 || n % 128 || (dtype != 0 && dtype != 1) ||
-      splits < 0 || splits > kMaxSplits || (splits > 0 && splits > k / 16))
+// out [M, N] in x's dtype, on `stream`.  Returns the CUDA error code of
+// the launch (0 = launched).
+extern "C" int quant_matmul_launch(const void* x, const void* q, const void* s, void* out,
+                                   int dtype, int m, int k, int n, void* stream) {
+  if (m < 1 || m > 8 * kMaxRowTiles || k % 32 || n % 128 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const auto* qq = static_cast<const int8_t*>(q);
   const auto* ss = static_cast<const float*>(s);
   auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch ((m + 7) / 8) {
-    case 1: err = launch_mt<1>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    case 2: err = launch_mt<2>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    case 3: err = launch_mt<3>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    case 4: err = launch_mt<4>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    case 5: err = launch_mt<5>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    case 6: err = launch_mt<6>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    case 7: err = launch_mt<7>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
-    default: err = launch_mt<8>(x, qq, ss, out, dtype, m, k, n, width, splits, st); break;
+    case 1: err = launch_mt<1>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 2: err = launch_mt<2>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 3: err = launch_mt<3>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 4: err = launch_mt<4>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 5: err = launch_mt<5>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 6: err = launch_mt<6>(x, qq, ss, out, dtype, m, k, n, st); break;
+    case 7: err = launch_mt<7>(x, qq, ss, out, dtype, m, k, n, st); break;
+    default: err = launch_mt<8>(x, qq, ss, out, dtype, m, k, n, st); break;
   }
   return (int)err;
-}
-
-// the same with the widest load and the grid's own splits
-extern "C" int quant_matmul_launch(const void* x, const void* q, const void* s, void* out,
-                                   int dtype, int m, int k, int n, void* stream) {
-  return quant_matmul_launch_config(x, q, s, out, dtype, m, k, n, 0, 0, stream);
 }

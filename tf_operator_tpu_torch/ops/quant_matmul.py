@@ -103,7 +103,7 @@ def _check_kernel_inputs(x2, q2, s2) -> None:
             raise ValueError(f"quant_matmul kernel: {name} is on {t.device}, x on {x2.device}")
         if not t.is_contiguous():
             raise ValueError(f"quant_matmul kernel: {name} is not contiguous")
-        # the kernel copies x and q in 16-byte chunks, reads scales as words
+        # the bf16 kernel copies q, and x up to 16 rows, in 16-byte chunks
         align = 4 if name == "scale" else 16
         if t.data_ptr() % align:
             raise ValueError(f"quant_matmul kernel: {name} does not start on a "
@@ -127,23 +127,16 @@ def _launcher():
     """The kernel's C entry point with its argument types declared
     (pointers and the stream as c_void_p, so none is cut to 32 bits)."""
 
-    fn = _build.load(KERNEL).quant_matmul_launch_config
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = _build.load(KERNEL).quant_matmul_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor, *,
-                      width: int = 0, splits: int = 0) -> torch.Tensor:
+def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
     """Launch K7 on the current stream: x2 [M, K] (float32 or bf16),
     q2 [K, N] int8, s2 N float32 scales -> [M, N] in x2's dtype.  Counts
-    one launch in ``_build.launches[KERNEL]``.
-
-    ``width`` (the weight bytes a lane takes of a K row: 16, 8 or 4)
-    and ``splits`` (K's splits, 1 to 8) pin the bf16 kernel's
-    configuration for a measurement of its variants; 0 leaves each to the
-    kernel's own choice (the widest the row count allows, the most splits
-    that keep the grid within one wave)."""
+    one launch in ``_build.launches[KERNEL]``."""
 
     _check_kernel_inputs(x2, q2, s2)
     m, k = x2.shape
@@ -153,7 +146,7 @@ def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor, *,
         return out
     err = _launcher()(
         x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
-        _DTYPE_CODES[x2.dtype], m, k, n, width, splits,
+        _DTYPE_CODES[x2.dtype], m, k, n,
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     if err != 0:
