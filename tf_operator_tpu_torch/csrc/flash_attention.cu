@@ -82,12 +82,14 @@
 //
 // What the bf16 design does not yet do: K2 and K3 do not overlap one kv
 // or q tile's products with the next one's (K3: issuing a step's scores
-// behind the last step's product made ptxas serialise every wgmma; K2: S,
-// dP and dQ at once would not fit the 168 registers a consumer thread
-// gets), and K3's P^T hand-over goes through shared memory; the two
-// consumer warpgroups are not scheduled in turn (no ping-pong); the grid
-// is not persistent; outputs are written from registers, not through TMA
-// stores; the tensor maps are encoded on the host at every call.
+// behind the last step's product made ptxas serialise every wgmma; K2:
+// holding a tile's dS fragments beside the next tile's S and dP adds 16
+// registers to the 128 of dQ, S and dP under the 168 a consumer thread
+// gets; not tried), and K3's P^T hand-over goes through shared memory;
+// the two consumer warpgroups are not scheduled in turn (no ping-pong);
+// the grid is not persistent; outputs are written from registers, not
+// through TMA stores; the tensor maps are encoded on the host at every
+// call.
 
 #include <cuda.h>  // CUtensorMap and its enums; no libcuda is linked
 #include <cuda_bf16.h>

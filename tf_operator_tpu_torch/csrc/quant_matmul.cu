@@ -140,10 +140,10 @@ __device__ __forceinline__ int red_index(int w, int c, int r, int cols, int rows
 // A step's staged tiles in a warp's ring: the weight's 16 K rows x
 // 8 W columns, as 16-byte chunks in 128-byte lines whose chunks are
 // permuted (chunk ^ swizzle(line)) so that the fragment reads of a
-// quarter or half warp (LDS.128, .64) hit distinct banks;
-// then x's 8 MT rows x 16 K values, rows 48 bytes apart (the B fragment
-// reads of 8 rows x 4 lanes hit distinct banks).
-constexpr int kXLd = 24;     // bf16 a staged x row takes
+// quarter or half warp (LDS.128, .64) hit distinct banks; then, up to
+// 16 rows, x's 8 MT rows x 16 K values, rows 48 bytes apart (the B
+// fragment reads of 8 rows x 4 lanes hit distinct banks).
+constexpr int kXLd = 24;  // bf16 a staged x row takes
 
 template <int W>
 __device__ __forceinline__ int swizzle(int line) {
@@ -180,7 +180,7 @@ quant_matmul_bf16_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __re
   constexpr int kRows = MT * 8;
   constexpr int kChunks = kCols / 16;  // 16-byte chunks of a weight row
   extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kCols][kRows + 1], after the ring
+  float* red = reinterpret_cast<float*>(smem);  // [kWarps][kCols][kRows + 1], over the spent ring
   float* part = reinterpret_cast<float*>(smem + L::part);  // [kRows][kCols]: this CTA's sums
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
