@@ -1,15 +1,6 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --ab TREE_DIR [TREE_DIR ...]
-
-The second form runs no smoke run: it times the kernels of the trees at
-TREE_DIR (``git archive``s of the parent commit and of any commit
-between it and this tree, unpacked into directories that .gitignore
-lists) against this tree's, phases 2, 4 and 4b of each tree's own
-chip_smoke.py in a fresh process, in turns (the others, this tree
-twice, the others in reverse) on one card, and prints each run's kernel
-times.
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -1652,59 +1643,6 @@ def phase_resnet_ab(args, batch):
 TRAIN_STEPS = 30
 
 
-#: what the A/B mode runs in each tree, from the tree's root: its own
-#: phases 2, 4 and 4b on its own sources
-AB_SNIPPET = ("import sys, torch; sys.path.insert(0, '.'); import chip_smoke as c; "
-              "torch.backends.cuda.matmul.allow_tf32 = False; "
-              "c.phase_build(); c.phase_flash(); c.phase_k7()")
-
-
-def _ab_run(root):
-    """Phases 2, 4 and 4b of the tree at ``root`` in a process of its
-    own: each timed flash case's kernel ms and each timed K7 case's ms,
-    its library call's and, where that tree's phase 4b times variants of
-    the kernel, theirs, as that tree's chip_smoke.py printed them."""
-
-    out = subprocess.run([sys.executable, "-c", AB_SNIPPET], cwd=root, capture_output=True,
-                         text=True, timeout=1500)
-    if out.returncode != 0:
-        raise AssertionError(f"A/B run in {root} failed:\n{out.stdout[-4000:]}\n"
-                             f"{out.stderr[-4000:]}")
-    flash, k7 = {}, {}
-    for ln in out.stdout.splitlines():
-        if ln.startswith("flash {"):
-            r = json.loads(ln[len("flash "):])
-            if "timing" in r:
-                flash[r["case"]] = {kname: t["ms"] for kname, t in r["timing"].items()}
-        elif ln.startswith("K7 {"):
-            r = json.loads(ln[len("K7 "):])
-            if "ms" in r:
-                k7[r["case"]] = {"ms": r["ms"], "library_ms": r["library_ms"],
-                                 "variants": {v: t["ms"] for v, t in
-                                              r.get("variants", {}).items()}}
-    return {"flash": flash, "k7": k7}
-
-
-def phase_ab(others):
-    """The kernels of the trees at ``others`` (``git archive``s of the
-    parent commit and of any commit between it and this tree) against
-    this tree's on one card, in turns: each of ``others``, this tree
-    twice, then ``others`` in reverse.  Each run is a fresh process that
-    builds its tree's sources and runs that tree's phases 2, 4 and 4b."""
-
-    here = os.path.dirname(os.path.abspath(__file__))
-    order = list(others) + [here, here] + list(reversed(others))
-    runs = []
-    for root in order:
-        t0 = time.perf_counter()
-        rec = _ab_run(root)
-        tag = "change" if root == here else os.path.basename(root.rstrip("/"))
-        rec.update(tree=tag, seconds=time.perf_counter() - t0)
-        log(f"A/B {tag} " + json.dumps(rec))
-        runs.append(rec)
-    return runs
-
-
 def _kernel_entry(name, source, replaces, launches, err, timing):
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": timing["ms"],
@@ -1713,20 +1651,11 @@ def _kernel_entry(name, source, replaces, launches, err, timing):
 
 
 def main():
-    import argparse
-    import shutil
-    import tempfile
-
-    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
-    parser.add_argument("--ab", metavar="TREE_DIR", nargs="+",
-                        help="instead of the smoke run: time the kernels of the trees at "
-                             "TREE_DIR (git archives of the parent commit and of any commit "
-                             "between) against this tree's, phases 2, 4 and 4b of each, in "
-                             "turns on one card")
-    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
         return 2
+    import shutil
+    import tempfile
 
     from tf_operator_tpu_torch import resolve_device
     from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
@@ -1743,10 +1672,6 @@ def main():
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, nvcc: {nvcc}, "
         f"device {torch.cuda.get_device_name(0)}")
-    if args.ab:
-        phase_ab([os.path.abspath(d) for d in args.ab])
-        print(card)
-        return 0
     t0 = time.perf_counter()
     phase_build()
     k4 = phase_k4()

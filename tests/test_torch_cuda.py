@@ -357,6 +357,34 @@ def test_quant_matmul_refuses_a_weight_off_16_bytes(dev):
     assert not _build.launches
 
 
+def test_quant_matmul_x_alignment_follows_its_reads(dev):
+    """x is held to 16 bytes only where the kernel copies it in 16-byte
+    chunks (bf16, up to 16 rows): there a view 4 bytes into its storage
+    raises and launches nothing; bf16 x of more rows and float32 x are
+    read in 4-byte words and take such a view, with the aligned call's
+    result."""
+
+    def shifted(x):
+        store = torch.empty(x.numel() + 16, dtype=x.dtype, device=dev)
+        lead = 4 // x.element_size()
+        view = store[lead:lead + x.numel()].view(x.shape)
+        view.copy_(x)
+        assert view.is_contiguous() and view.data_ptr() % 16 == 4
+        return view
+
+    x, qt = _qm_inputs(dev, 0, 8, 96, 512, torch.bfloat16)
+    _build.launches.clear()
+    with pytest.raises(ValueError, match="x does not start on a 16-byte boundary"):
+        qm.quant_matmul(shifted(x), qt)
+    assert not _build.launches
+    for m, dtype in ((32, torch.bfloat16), (8, torch.float32)):
+        x, qt = _qm_inputs(dev, m, m, 96, 512, dtype)
+        _build.launches.clear()
+        got = qm.quant_matmul(shifted(x), qt, dtype)
+        assert _build.launches == {qm.KERNEL: 1}
+        torch.testing.assert_close(got, qm.quant_matmul(x, qt, dtype), rtol=0, atol=0)
+
+
 def test_quant_matmul_routes_on_the_card(dev):
     """Out of the kernel's range (M > 64, K % 32 != 0, N not a multiple
     of 128) a CUDA call takes the GEMM route, counted under its own name;

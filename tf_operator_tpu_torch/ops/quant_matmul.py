@@ -103,8 +103,11 @@ def _check_kernel_inputs(x2, q2, s2) -> None:
             raise ValueError(f"quant_matmul kernel: {name} is on {t.device}, x on {x2.device}")
         if not t.is_contiguous():
             raise ValueError(f"quant_matmul kernel: {name} is not contiguous")
-        # the bf16 kernel copies q, and x up to 16 rows, in 16-byte chunks
-        align = 4 if name == "scale" else 16
+        # the bf16 kernel copies q, and bf16 x of up to 16 rows, in 16-byte
+        # chunks; it reads bf16 x of more rows in 4-byte words, and the
+        # float32 kernel float32 x in floats (q is held to 16 bytes for both)
+        wide = name == "q" or (name == "x" and t.dtype == torch.bfloat16 and m <= 16)
+        align = 16 if wide else 4
         if t.data_ptr() % align:
             raise ValueError(f"quant_matmul kernel: {name} does not start on a "
                              f"{align}-byte boundary")
