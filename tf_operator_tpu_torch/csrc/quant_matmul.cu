@@ -8,7 +8,8 @@
 // x is [M, K] row-major (bf16 or float32), q is [K, N] row-major int8 (the
 // flax layout, in x out), s is [N] float32, out is [M, N] in x's dtype.
 // The wrapper (ops/quant_matmul.py) admits M <= 64, K % 32 == 0 and N a
-// multiple of 128; x and q start on a 16-byte boundary.
+// multiple of 128; q starts on a 16-byte boundary, and so does bf16 x of
+// up to 16 rows (both copied in 16-byte chunks); other x on 4 bytes.
 //
 // Bound.  2*M flops per int8 weight byte: below the card's ridge for
 // every M <= 64, so the bound is the int8 weight bytes at 3.35 TB/s (5.0
