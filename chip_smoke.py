@@ -13,12 +13,17 @@ Phases, in order; any failure exits non-zero before the result line:
    dynamic bytes K1's, K2's and K3's launchers ask for) and spills, and
    the HGMMA count of K1's, K2's and K3's Hopper kernels in the SASS
    (cuobjdump); for the int8 matmul source each K7 kernel's registers,
-   shared memory and spills; ptxas's warnings.  The Hopper kernels must
-   not spill and must issue HGMMA; no K7 kernel may spill.
+   shared memory and spills; for K4 and K6 each kernel's registers,
+   spills, static and dynamic shared memory (K6's from its occupancy
+   query, with its grid); ptxas's warnings.  The Hopper kernels must
+   not spill and must issue HGMMA; no K7, K4 or K6 kernel may spill.
 3. the paged-attention kernel (K4) against its plain PyTorch version on
    the card: 7B decode shapes (S=8, H=Hkv=32, D=128, bs=16, MB=128,
-   lengths 1..2048), GQA (Hkv=8), K=1 and K=4, bf16 and float32, plus
-   small shapes covering the other block sizes and head dims.  Each case
+   lengths 1..2048), the same with seats at the table's end beside
+   short ones (one under a split, one on a split boundary, one just
+   past it), GQA (Hkv=8), K=1 and K=4, bf16 and float32, plus small
+   shapes covering the other block sizes and head dims; each case
+   prints its split count and positions a split.  Each case
    holds the kernel to an absolute tolerance and, per output row (one
    seat, query row and head), to a tolerance relative to that row's
    largest value; it prints both errors and the
@@ -69,8 +74,9 @@ Phases, in order; any failure exits non-zero before the result line:
    In bf16 at every ResNet class: each kernel's device time (CUDA
    events, queued behind a device sleep), its bound (bytes at 3.35
    TB/s), the plain version's time, ``F.batch_norm(training=True)``'s
-   forward and autograd backward, and the wrapper's host microseconds;
-   then the totals over one step's 53 layers.
+   forward and autograd backward, the wrapper's host microseconds, and
+   the bytes of g and x K6 held on chip; then K6 by class (share of the
+   bound, bytes held) and the totals over one step's 53 layers.
 4d. ResNet-50 training, the main path of K5 and K6: ``resnet_dp --norm
    fused --model resnet50 --image-size 224 --batch-per-device 64 --steps
    30`` in process.  Counts zeroed just before and read just after: K5
@@ -276,12 +282,14 @@ def _short(mangled):
     """a kernel's name and template arguments (head dim; row tiles and
     load width) from its mangled name"""
 
-    m = re.search(r"\d+((?:flash|quant_matmul)_\w+?_kernel)((?:ILi\d+E(?:Li\d+E)*E?)?)",
-                  mangled)
+    m = re.search(r"\d+((?:flash|quant_matmul|paged_attention|bn_bwd)_\w+?_kernel)"
+                  r"(I(?:\w+?)E)?(?:v|$)", mangled)
     if not m:
         return mangled[:60]
-    args = re.findall(r"Li(\d+)E", m.group(2))
-    return m.group(1) + (f"<{','.join(args)}>" if args else "")
+    # template arguments: integers, bools, and float / bf16
+    args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16)|(?<=I)(f)|(?<=E)(f)", m.group(2) or "")
+    names = [a or ("bf16" if b else "f32") for a, b, c, d in args]
+    return m.group(1) + (f"<{','.join(names)}>" if names else "")
 
 
 def _ptxas_rows(log_text):
@@ -292,6 +300,34 @@ def _ptxas_rows(log_text):
 
 def _spills(row):
     return row.get("spill_stores", 1) or row.get("spill_loads", 1)
+
+
+def _check_k4_k6_build(logs):
+    """K4's and K6's kernels: registers, spills and shared memory (static
+    from ptxas; dynamic: K4's ring and partials, K6's on-chip rows from
+    its occupancy query, with its grid).  Neither may spill."""
+
+    from tf_operator_tpu_torch.ops import fused_batchnorm as fb
+    from tf_operator_tpu_torch.ops import paged_attention as pa
+
+    for src, tag, prefix in (("paged_attention", "K4", "paged_attention_split_kernel"),
+                             ("fused_batchnorm", "K6", "bn_bwd_fused_kernel")):
+        if src not in logs:
+            log(f"{src}.cu was built before this run: no ptxas report to check")
+            continue
+        rows = {n: r for n, r in _ptxas_rows(logs[src]).items() if n.startswith(prefix)}
+        for name, row in rows.items():
+            args = name.split("<")[1][:-1].split(",")
+            if tag == "K4":  # <dtype, D, rows>
+                row["dynamic_smem"] = pa.kernel_smem_bytes(int(args[1]), int(args[2]))
+            else:  # <dtype, vec, relu, residual>
+                code = 1 if args[0] == "bf16" else 0
+                row["grid_ctas"], row["dynamic_smem"] = fb.bwd_resources(
+                    code, int(args[1]), int(args[2]), int(args[3]))
+        log(f"{tag} kernels (ptxas) " + json.dumps(rows))
+        bad = {n: r for n, r in rows.items() if _spills(r)}
+        if bad or not rows:
+            raise AssertionError(f"{tag} kernels spill or are missing: {bad or rows}")
 
 
 def phase_build():
@@ -327,6 +363,7 @@ def phase_build():
             raise AssertionError(f"K7 kernels spill: {bad or k7}")
     else:
         log("quant_matmul.cu was built before this run: no ptxas report to check")
+    _check_k4_k6_build(logs)
     if "flash_attention" not in logs:
         log("flash_attention.cu was built before this run: no ptxas report to check")
         return
@@ -350,9 +387,10 @@ def phase_build():
                              f"{bad or missing}")
 
 
-def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed):
+def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed, lengths=None):
     from tf_operator_tpu_torch.ops.paged_attention import (
         _gathered_view,
+        launch_plan,
         paged_attention_multi,
     )
 
@@ -366,7 +404,9 @@ def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed):
     va[0] = 1e4
     perm = torch.randperm(nb - 1, generator=g, device=dev)[: s * mb] + 1
     tables = perm.reshape(s, mb).to(torch.int32)
-    lengths = torch.randint(k_new, max_len + 1, (s,), generator=g, device=dev).to(torch.int32)
+    if lengths is None:
+        lengths = torch.randint(k_new, max_len + 1, (s,), generator=g, device=dev)
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32)
     for i in range(s):
         used = -(-int(lengths[i]) // bs)
         tables[i, used:] = 0
@@ -402,8 +442,10 @@ def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed):
     ops = 4 * d * h * visible
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
+    splits, chunk = launch_plan(q, ka, tables)
     rec = {
-        "case": name, "max_abs_err": err, "tol": TOL[dtype],
+        "case": name, "splits": splits, "split_positions": chunk,
+        "max_abs_err": err, "tol": TOL[dtype],
         "max_row_rel_err": row_rel, "row_rtol": ROW_RTOL[dtype], "kernel_ms": ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": max(t_bytes, t_ops),
@@ -422,6 +464,11 @@ def phase_k4():
         ("7b_mha_k1_bf16", dict(mha, k_new=1, dtype=torch.bfloat16)),
         ("7b_mha_k4_bf16", dict(mha, k_new=4, dtype=torch.bfloat16)),
         ("7b_mha_k1_f32", dict(mha, k_new=1, dtype=torch.float32)),
+        # seats at the table's end beside short ones (one under a split,
+        # one on the split boundary of the 2 x 1024 plan, one a position
+        # past it)
+        ("7b_mha_k1_bf16_long_short", dict(mha, k_new=1, dtype=torch.bfloat16, lengths=[
+            2048, 37, 2048, 1024, 2048, 1025, 2048, 1])),
         ("gqa8_k1_bf16", dict(gqa, k_new=1, dtype=torch.bfloat16)),
         ("gqa8_k4_f32", dict(gqa, k_new=4, dtype=torch.float32)),
         ("bs8_d32_k3_f32", dict(s=5, h=4, hkv=2, d=32, bs=8, mb=9, max_len=70,
@@ -1463,6 +1510,11 @@ def bn_case(name, shape, relu, use_res, dtype, seed, timed=False):
         for t in rec["timing"].values():
             t["bound_by"] = "bytes"
             t["share_of_bound"] = t["bound_ms"] / t["ms"]
+        ctas, hold = fb.bwd_resources(fb._DTYPE_CODES[dtype], fb._vector_io(c, x2, dy2),
+                                      int(relu), int(use_res))
+        held = fb.bwd_held_bytes(x2.shape[0], c, ctas, hold, elem)
+        rec["timing"]["fused_batchnorm_bwd"].update(
+            held_on_chip_bytes=held, held_share_of_rows=held / (2 * elem * x2.numel()))
         del lo
     fb.plain_calls.clear()
     log("K5/K6 " + json.dumps(rec))
@@ -1507,6 +1559,11 @@ def phase_bn(batch=64, image=224):
         step[kname]["max_abs_err_bf16"] = max(
             rec["max_abs_err"]["y" if kname.endswith("fwd") else "dx"]
             for rec in timed.values())
+    log("K6 by class (bf16): [R, C, relu, residual, layers, ms, bound_ms, share of bound, "
+        "bytes of g and x held on chip] " + json.dumps([
+            [*cls, n, t["ms"], t["bound_ms"], t["share_of_bound"], t["held_on_chip_bytes"]]
+            for cls, n in counts.items()
+            for t in (timed[cls]["timing"]["fused_batchnorm_bwd"],)]))
     log("K5/K6 one ResNet-50 step (53 layers, batch 64, 224 px, bf16; library_ms: "
         "F.batch_norm, which has no epilogue on 49 of them) " + json.dumps(step))
     return recs, timed, step

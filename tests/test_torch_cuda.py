@@ -59,7 +59,7 @@ from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
 from tf_operator_tpu_torch.ops import fused_batchnorm as fb
 from tf_operator_tpu_torch.ops import quant_matmul as qm
-from tf_operator_tpu_torch.ops.paged_attention import KERNEL, paged_attention_multi
+from tf_operator_tpu_torch.ops.paged_attention import KERNEL, launch_plan, paged_attention_multi
 from tf_operator_tpu_torch.ops.quant import QTensor, quantize_array
 
 pytestmark = pytest.mark.cuda
@@ -75,7 +75,7 @@ def dev():
     return torch.device("cuda")
 
 
-def _rig(dev, seed, *, s, h, hkv, d, bs, mb, k_new, dtype, overshoot=False):
+def _rig(dev, seed, *, s, h, hkv, d, bs, mb, k_new, dtype, overshoot=False, lengths=None):
     r = np.random.default_rng(seed)
     nb = s * mb + 1
     q = r.standard_normal((s, k_new, h, d))
@@ -83,8 +83,11 @@ def _rig(dev, seed, *, s, h, hkv, d, bs, mb, k_new, dtype, overshoot=False):
     va = r.standard_normal((nb, hkv, bs, d))
     ka[0] = va[0] = 1e4  # poisoned scratch
     tables = r.permutation(np.arange(1, nb))[: s * mb].reshape(s, mb).astype(np.int32)
-    lengths = r.integers(k_new, mb * bs + 1, s).astype(np.int32)
-    lengths[0] = min(bs + 1, mb * bs)  # a block straddle
+    if lengths is not None:
+        lengths = np.asarray(lengths, dtype=np.int32)
+    else:
+        lengths = r.integers(k_new, mb * bs + 1, s).astype(np.int32)
+        lengths[0] = min(bs + 1, mb * bs)  # a block straddle
     for i in range(s):
         tables[i, -(-int(lengths[i]) // bs):] = 0
     if overshoot:
@@ -115,6 +118,50 @@ def test_kernel_matches_plain(dev, case, dtype):
     assert got.dtype == dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[dtype], err
+
+
+#: the context split (launch_plan: 8 ranges of 128 positions at MB * bs =
+#: 1024 on a grid this small): seats on and next to a range boundary, a seat under one range
+#: beside seats at the table's end, GQA group 4 with 4 draft tokens (16
+#: rows: four row groups of CTAs), and appends past the table beside the
+#: poisoned scratch block, over several ranges
+SPLIT_CASES = {
+    "split_boundary": dict(s=4, h=8, hkv=8, d=128, bs=16, mb=64, k_new=1,
+                           lengths=[128, 129, 127, 256]),
+    "short_beside_full": dict(s=4, h=4, hkv=2, d=64, bs=16, mb=64, k_new=2,
+                              lengths=[1024, 5, 1024, 2]),
+    "gqa4_k4": dict(s=3, h=16, hkv=4, d=64, bs=16, mb=40, k_new=4),
+    # seat 0 appended 2 tokens past its full table (384 positions); the
+    # others' unused entries point at the poisoned scratch block
+    "overshoot_splits": dict(s=3, h=4, hkv=2, d=32, bs=8, mb=48, k_new=2,
+                             lengths=[386, 100, 7]),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_kernel_matches_plain(dev, case, dtype):
+    args = _rig(dev, 11, dtype=dtype, **SPLIT_CASES[case])
+    splits, chunk = launch_plan(args[0], args[1], args[3])
+    assert splits > 1
+    if case == "split_boundary":
+        assert chunk == 128
+    got = paged_attention_multi(*args)
+    torch.cuda.synchronize()
+    want = paged_attention_multi(*args, impl="plain")
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_split_kernel_is_bit_identical_across_runs(dev, dtype):
+    """The splits meet in rank order, with no atomics: the same bits
+    every run."""
+
+    args = _rig(dev, 12, dtype=dtype, s=6, h=8, hkv=2, d=128, bs=16, mb=96, k_new=3)
+    first = paged_attention_multi(*args)
+    for _ in range(3):
+        assert torch.equal(paged_attention_multi(*args), first)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
@@ -537,3 +584,81 @@ def test_fused_batchnorm_wrapper_refuses_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="gamma"):
         fb.fused_batchnorm_fwd_cuda(x.reshape(-1, 64), gamma.cpu(), beta, 1e-5, False, None)
     assert not _build.launches and not fb.plain_calls
+
+
+#: every (R, C, relu, residual) class of ResNet-50's norms at batch 8 and
+#: 224 px, as NHWC shapes
+RESNET50_B8 = [((8, 112, 112, 64), True, False), ((8, 56, 56, 64), True, False),
+               ((8, 56, 56, 256), False, False), ((8, 56, 56, 256), True, True),
+               ((8, 56, 56, 128), True, False), ((8, 28, 28, 128), True, False),
+               ((8, 28, 28, 512), False, False), ((8, 28, 28, 512), True, True),
+               ((8, 28, 28, 256), True, False), ((8, 14, 14, 256), True, False),
+               ((8, 14, 14, 1024), False, False), ((8, 14, 14, 1024), True, True),
+               ((8, 14, 14, 512), True, False), ((8, 7, 7, 512), True, False),
+               ((8, 7, 7, 2048), False, False), ((8, 7, 7, 2048), True, True)]
+
+
+def _check_bwd(dev, shape, dtype, relu, use_res, seed=0):
+    """K6 against its plain version on the same inputs (K5's y, mean and
+    var), at the module docstring's tolerances; returns K6's outputs."""
+
+    x, gamma, beta, res, dy = _bn_inputs(dev, shape, dtype, seed)
+    c = shape[-1]
+    x2, dy2 = x.reshape(-1, c), dy.reshape(-1, c)
+    r2 = res.reshape(-1, c) if use_res else None
+    y, m, v = fb.fused_batchnorm_fwd_cuda(x2, gamma, beta, 1e-5, relu, r2)
+    _build.launches.clear()
+    out = fb.fused_batchnorm_bwd_cuda(dy2, x2, gamma, y, m, v, 1e-5, relu, use_res)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fb.KERNEL_BWD: 1}
+    dx, dg, db, dr = out
+    pdx, pdg, pdb, pdr = fb.fused_batchnorm_bwd_plain(dy2, x2, gamma, y, m, v, 1e-5, relu,
+                                                      use_res)
+    assert _rel(dx, pdx) <= (1e-4 if dtype == torch.float32 else 1e-2)
+    assert _rel(dg, pdg) <= 1e-4 and _rel(db, pdb) <= 1e-4
+    assert dr is None if not use_res else torch.equal(dr, pdr)
+    return out, (dy2, x2, gamma, y, m, v, relu, use_res)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cls", RESNET50_B8,
+                         ids=lambda c: "x".join(map(str, c[0])) + "_relu" * c[1] + "_res" * c[2])
+def test_fused_batchnorm_backward_every_resnet50_class(dev, cls, dtype):
+    shape, relu, use_res = cls
+    _check_bwd(dev, shape, dtype, relu, use_res)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_batchnorm_backward_past_what_fits_on_chip(dev, dtype):
+    """[200704, 64]: more rows than the grid's shared memory holds, so
+    each CTA's first rows are read again from device memory or L2."""
+
+    shape = (16, 112, 112, 64)
+    elem = torch.finfo(dtype).bits // 8
+    ctas, hold = fb.bwd_resources(fb._DTYPE_CODES[dtype], 1, 1, 1)
+    r = shape[0] * shape[1] * shape[2]
+    assert fb.bwd_held_bytes(r, 64, ctas, hold, elem) < 2 * elem * r * 64
+    _check_bwd(dev, shape, dtype, True, True, seed=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(3, 7, 7, 72), (5, 11, 11, 13), (2, 33, 33, 136),
+                                   (1, 9, 5, 130)], ids=lambda s: "x".join(map(str, s)))
+def test_fused_batchnorm_backward_ragged_every_epilogue(dev, shape, dtype):
+    for relu in (False, True):
+        for use_res in (False, True):
+            _check_bwd(dev, shape, dtype, relu, use_res, seed=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 28, 28, 512), (8, 112, 112, 64), (5, 11, 11, 13)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_batchnorm_backward_is_bit_identical_across_runs(dev, shape, dtype):
+    """Partials and totals are added in a fixed order, with no atomics:
+    dgamma, dbeta, dx and dres have the same bits every run."""
+
+    first, args = _check_bwd(dev, shape, dtype, True, True, seed=5)
+    for _ in range(2):
+        again = fb.fused_batchnorm_bwd_cuda(*args[:6], 1e-5, *args[6:])
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)

@@ -264,3 +264,37 @@ def test_row_split_covers_every_row(r, c, chunks):
     n, rows = fb.chunk_rows(r, c)
     assert n == chunks
     assert (n - 1) * rows < r <= n * rows
+
+
+#: an H100's K6 resources at two CTAs an SM: 264 CTAs, 111,616 bytes of
+#: rows a CTA
+H100_CTAS, H100_HOLD = 264, 111616
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+@pytest.mark.parametrize("r,c", [(802816, 64), (200704, 256), (50176, 128), (12544, 1024),
+                                 (3136, 2048), (3136, 512), (18, 5), (45, 130), (7, 20000)])
+def test_bwd_plan_covers_every_row_and_holds_what_fits(r, c, elem):
+    chunks, rows, hold_rows = fb.bwd_plan(r, c, H100_CTAS, H100_HOLD, elem)
+    tiles = -(-c // fb.TILE_C)
+    assert (chunks - 1) * rows < r <= chunks * rows
+    assert chunks == 1 or tiles * chunks <= H100_CTAS
+    assert rows >= min(r, fb.ROW_LANES)
+    assert hold_rows == min(rows, H100_HOLD // (2 * fb.TILE_C * elem))
+    held = fb.bwd_held_bytes(r, c, H100_CTAS, H100_HOLD, elem)
+    whole = 2 * elem * r * c
+    if tiles <= H100_CTAS:  # one item a CTA: each chunk keeps its last hold_rows rows
+        assert held == 2 * elem * c * sum(min(hold_rows, r - k * rows) for k in range(chunks))
+    assert 0 < held <= whole
+    assert (held == whole) == (hold_rows == rows and tiles <= H100_CTAS)
+
+
+def test_bwd_plan_keeps_the_small_resnet_layers_whole_on_chip():
+    """At batch 64 in bf16, every [3136, C] layer, [12544, 256], [12544,
+    512] and [50176, 128] fit the grid's shared memory whole; the stem
+    and [12544, 1024] do not."""
+
+    for r, c in ((3136, 512), (3136, 2048), (12544, 256), (12544, 512), (50176, 128)):
+        assert fb.bwd_held_bytes(r, c, H100_CTAS, H100_HOLD, 2) == 4 * r * c, (r, c)
+    for r, c in ((802816, 64), (12544, 1024)):
+        assert fb.bwd_held_bytes(r, c, H100_CTAS, H100_HOLD, 2) < 4 * r * c, (r, c)

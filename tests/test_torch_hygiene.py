@@ -169,3 +169,31 @@ def test_fused_batchnorm_kernel_source_and_entry_points():
     # hand-written: no library kernel behind it
     for library in ("cudnn", "cublas", "batch_norm", "torch", "cutlass"):
         assert library not in text.lower().replace("tf_operator_tpu_torch", "")
+
+
+def test_paged_attention_kernel_splits_over_a_cluster_fed_by_a_ring():
+    src = os.path.join(PKG, "csrc", "paged_attention.cu")
+    with open(src) as f:
+        text = f.read()
+    # the context split across a thread-block cluster, partials through
+    # distributed shared memory in rank order, no atomics
+    assert "cudaLaunchAttributeClusterDimension" in text and "map_shared_rank" in text
+    assert "atomic" not in text.replace("No atomics", "") and not re.search(r"\bred\.", text)
+    # K and V through a ring of 16-byte asynchronous copies
+    assert "cp.async.cg.shared.global [%0], [%1], 16" in text
+    assert "cp.async.wait_group" in text and re.search(r"kStages = [2-9];", text)
+    # the one-CTA-a-seat design is gone
+    assert "paged_attention_kernel(" not in text and "paged_attention_split_kernel(" in text
+
+
+def test_fused_batchnorm_backward_is_one_cooperative_launch():
+    src = os.path.join(PKG, "csrc", "fused_batchnorm.cu")
+    with open(src) as f:
+        text = f.read()
+    assert "cudaLaunchCooperativeKernel" in text and "grid.sync()" in text
+    assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in text
+    assert 'extern "C" int fused_batchnorm_bwd_resources' in text
+    # the two-launch backward is gone; K5's two kernels stay
+    assert "bn_bwd_stats" not in text and "bn_bwd_apply" not in text
+    assert "bn_fwd_stats" in text and "bn_fwd_apply" in text
+    assert "atomic" not in text.replace("no atomics", "") and not re.search(r"\bred\.", text)

@@ -25,8 +25,12 @@ from tf_operator_tpu.ops.rotary import apply_rope as j_apply_rope
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops.attention import dot_product_attention
 from tf_operator_tpu_torch.ops.paged_attention import (
+    MAX_SPLITS,
+    SPLIT_MIN_POSITIONS,
+    kernel_rows,
     paged_attention,
     paged_attention_multi,
+    split_plan,
 )
 from tf_operator_tpu_torch.ops.rotary import apply_rope
 
@@ -210,3 +214,30 @@ def test_cuda_tensor_goes_to_the_kernel_or_raises(monkeypatch, tmp_path):
     with pytest.raises((RuntimeError, OSError)):
         paged_attention(*args, *tl)
     assert _build.launches["paged_attention"] == before
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "f32"])
+def test_split_plan_covers_the_table(elem, d):
+    """The kernel's context split: whole CTA passes, at most 8 ranges
+    (one cluster), none empty, together covering MB * bs, and no more
+    splits than keep the grid within the card's resident CTAs (528: four
+    CTAs on each of 132 SMs)."""
+
+    unit = 4 * 2048 // (d * elem)
+    for positions in (1, 8, 40, 128, 129, 384, 1000, 2048, 32768):
+        for units in (1, 64, 256, 4096):
+            splits, chunk = split_plan(positions, d, elem, units, 528)
+            assert 1 <= splits <= MAX_SPLITS and chunk % unit == 0
+            assert (splits - 1) * chunk < positions <= splits * chunk
+            assert splits <= -(-positions // SPLIT_MIN_POSITIONS)
+            assert splits == 1 or splits * units <= 528
+
+
+def test_split_plan_at_the_7b_decode_shapes():
+    # MHA (32 kv heads x 8 seats): 2 ranges of 1024; GQA (8 kv heads): 8
+    # of 256; K = 4 on MHA (one row group of 4 rows): as MHA at K = 1
+    assert split_plan(2048, 128, 2, 32 * 8, 528) == (2, 1024)
+    assert split_plan(2048, 128, 2, 8 * 8, 528) == (8, 256)
+    assert kernel_rows(1) == 1 and kernel_rows(2) == 2 and kernel_rows(3) == 4
+    assert kernel_rows(16) == 4

@@ -31,36 +31,68 @@
 // a sequential sweep over the rows of one channel tile (grid (C tiles, 2, R
 // tiles)).  On the card one CTA per channel tile would give 1 CTA to the
 // stem's 64 channels, walking 802,816 rows alone.  So R is split across
-// CTAs, and each kernel is two launches, with no atomics, so that the
-// result does not change from run to run:
+// CTAs, with no atomics, so that the result does not change from run to
+// run.  A CTA of 256 threads is 8 lanes along C (8 channels each, one
+// 16-byte load of bf16 or two of float32) by 32 lanes down the rows; each
+// thread keeps 4 rows of loads in flight.  Where C % 8 != 0 or a pointer
+// is not 16-byte aligned (only the tests' ragged shapes; every ResNet C is
+// a multiple of 64) every load is a masked scalar load (K6 then keeps one
+// row in flight, and two rows of float32 on the 16-byte path).
+//
+// K5: two launches.
 //
 // 1. partial sums.  Grid (C tiles of 64 channels, R chunks), about two CTAs
-//    for each of the 132 SMs (the wrapper's chunk_rows).  A CTA of 256
-//    threads is 8 lanes along C (8 channels each, one 16-byte load of bf16
-//    or two of float32) by 32 lanes down the rows; each thread keeps 4 rows
-//    of loads in flight.  Where C % 8 != 0 or a pointer is not 16-byte
-//    aligned (only the tests' ragged shapes; every ResNet C is a multiple
-//    of 64) every load is a masked scalar load.  The 32 row lanes meet in
-//    shared memory and are added in a fixed order; the CTA writes its
-//    partial sums to a [chunks, C] float32 workspace.
+//    for each of the 132 SMs (the wrapper's chunk_rows).  The 32 row lanes
+//    meet in shared memory and are added in a fixed order; the CTA writes
+//    its partial sums to a [chunks, C] float32 workspace.
 // 2. elementwise pass, on the same grid.  Each CTA adds its channel tile's
 //    partials over all chunks in a fixed order (every CTA of a tile does
 //    the same additions, so all use the same constants), computes the
-//    per-channel constants, and streams its chunk's rows to write y (or dx
-//    and dres).  The CTAs of chunk 0 write mean and var (or dgamma and
-//    dbeta).
+//    per-channel constants, and streams its chunk's rows to write y.  The
+//    CTAs of chunk 0 write mean and var.
 //
-// Why two CTAs an SM and not more: every CTA of the elementwise pass adds
-// all of its tile's partials again, so the L2 reads of that step grow with
-// the square of the chunk count (for the stem, whose one channel tile gets
-// every chunk, 264 chunks read 36 MB; 528 would read 143 MB).  At 78-128
-// registers a thread, two CTAs of 256 threads are also what an SM holds of
-// the elementwise kernels.
+// So K5 reads x twice (at best 71 % of the bound), and every CTA of the
+// elementwise pass adds all of its tile's partials again: the L2 reads of
+// that step grow with the square of the chunk count.
 //
-// So K5 reads x twice and K6 reads dy, x and y twice: at best 71 % (K5)
-// and 60 % (K6) of the bound.  A single launch over a CTA cluster or a grid
-// barrier, and a chunk of x kept in shared memory between the sums and the
-// normalise, are for a later redesign.
+// K6: one cooperative launch (cudaLaunchCooperativeKernel) of a persistent
+// grid of exactly the CTAs the card holds at once (the occupancy query
+// times the SMs: two CTAs of 256 threads an SM, each with half of the SM's
+// shared memory).  The work items are (channel tile, row chunk) pairs, one
+// per CTA wherever C / 64 tiles fit the grid (every ResNet layer), the
+// chunks as many as fill it.
+//
+// 1. sums.  Each CTA streams its chunk's rows in order: g = dy (masked by
+//    the saved y under ReLU), Sum g and Sum g * xhat per thread, then its
+//    warps' row lanes meet by shuffles and in shared memory in a fixed
+//    order, and the CTA writes its partials to a [chunks, C] workspace.
+//    The chunk's last rows, as many as the dynamic shared memory holds
+//    (436 rows of 64 channels in bf16, 218 in float32), stay on chip as g
+//    and x, in x's dtype (exact: g is dy or 0): the ReLU mask is spent and
+//    y is not kept.
+// 2. grid barrier (cooperative_groups::this_grid().sync()).  Each CTA then
+//    adds the partials of its own slice of 8 channels, over all chunks, in
+//    a fixed order (32 strided groups of chunks, then the groups in
+//    order), and writes the totals (dbeta, dgamma, and a copy in the
+//    workspace): the L2 reads are the partials once, not once per CTA.
+// 3. grid barrier, then the elementwise pass over each CTA's rows in
+//    reverse: first the rows it holds on chip, then the rest from the one
+//    read last (most likely still in L2) down to the chunk's first.  A CTA
+//    reads its tile's totals from L2 once, into shared memory: every warp
+//    of the grid reading the same few lines of L2 cost about 3 us a call
+//    on an H100 (0.18 ms over a ResNet-50 step's 53 calls).
+//
+// Alternatives tried on an H100 and dropped: L2 eviction hints on the held
+// rows (so that L2 keeps the rows before them) made a step slower, holding
+// the first rows instead of the last moved it within noise, and one CTA an
+// SM with twice the shared memory was slower.
+//
+// A layer whose dy and x fit in the grid's shared memory whole (at batch 64
+// in bf16: every [3136, C] layer of ResNet-50, [12544, 256], [12544, 512]
+// and [50176, 128]) reads each input byte from device memory once; a
+// larger one reads again only what neither shared memory nor L2 kept.
+// What it does not do: keep the rest of a large layer compressed on chip,
+// or overlap one layer's barriers with another layer's work.
 //
 // Numerics against the plain versions (ops/fused_batchnorm.py), which
 // compute the same expressions in the same order: the sums run in another
@@ -70,9 +102,12 @@
 // moments within 6e-7 relative, a bf16 y within one bf16 ulp of the O(1)
 // terms (a y that cancels near 0 can differ by several ulps of itself).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -324,15 +359,20 @@ bn_fwd_apply(const T* __restrict__ x, const T* __restrict__ res,
 // ---------------------------------------------------------------------------
 // K6
 
+constexpr int kBwdCtasPerSm = 2;              // resident CTAs an SM, by design
+constexpr int kWarpsCta = kThreads / 32;      // 8
+constexpr int kSliceC = 8;                    // channels a CTA totals after barrier 1
+constexpr int kSliceGroups = kThreads / kSliceC;  // 32 strided groups of chunks
+
 // the per-channel mean and rstd = rsqrt(var + eps) of a thread's 8 channels
-__device__ __forceinline__ void channel_consts(const Place& p, const float* mean,
+__device__ __forceinline__ void channel_consts(int c, int valid, const float* mean,
                                                const float* var, float eps,
                                                float (&mu)[kVec], float (&rstd)[kVec]) {
 #pragma unroll
   for (int j = 0; j < kVec; ++j) {
-    const bool in = j < p.valid;
-    mu[j] = in ? mean[p.c + j] : 0.f;
-    rstd[j] = in ? rsqrtf(var[p.c + j] + eps) : 0.f;
+    const bool in = j < valid;
+    mu[j] = in ? mean[c + j] : 0.f;
+    rstd[j] = in ? rsqrtf(var[c + j] + eps) : 0.f;
   }
 }
 
@@ -348,103 +388,217 @@ __device__ __forceinline__ void masked_grad(const T* dy, const T* y, size_t off,
   }
 }
 
-template <typename T, bool kVecIO, bool kRelu>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_stats(const T* __restrict__ dy, const T* __restrict__ x, const T* __restrict__ y,
-             const float* __restrict__ mean, const float* __restrict__ var, float eps,
-             float* __restrict__ psg, float* __restrict__ psgx, int R, int C,
-             int rows_per_chunk) {
-  const Place p = place(R, C, rows_per_chunk);
-  float sg[kVec] = {}, sgx[kVec] = {};
-  if (p.valid > 0) {
-    float mu[kVec], rstd[kVec];
-    channel_consts(p, mean, var, eps, mu, rstd);
-    auto acc = [&](const float (&g)[kVec], const float (&v)[kVec]) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        sg[j] += g[j];
-        sgx[j] += g[j] * ((v[j] - mu[j]) * rstd[j]);
-      }
-    };
-    int r = p.r0 + p.ty;
-    for (; r + (kUnroll - 1) * kLanesR < p.r1; r += kUnroll * kLanesR) {
-      float g[kUnroll][kVec], v[kUnroll][kVec];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const size_t off = (size_t)(r + u * kLanesR) * C + p.c;
-        masked_grad<T, kVecIO, kRelu>(dy, y, off, p.valid, g[u]);
-        load8<kVecIO>(x + off, p.valid, v[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) acc(g[u], v[u]);
-    }
-    for (; r < p.r1; r += kLanesR) {
-      const size_t off = (size_t)r * C + p.c;
-      float g[kVec], v[kVec];
-      masked_grad<T, kVecIO, kRelu>(dy, y, off, p.valid, g);
-      load8<kVecIO>(x + off, p.valid, v);
-      acc(g, v);
-    }
-  }
-  write_partials(p, sg, sgx, psg, psgx, C);
+// One work item: channel tile `tile`, row chunk `chunk`.  n rows from r0;
+// the rows from `first_held` on (local index) stay on chip.
+struct Item {
+  int c, valid, r0, n, chunk, first_held;
+};
+
+__device__ __forceinline__ Item item_at(int it, int tiles, int R, int C, int rows_per_chunk,
+                                        int hold_rows, bool keep) {
+  Item t;
+  const int tile = it % tiles;  // neighbouring CTAs: neighbouring tiles of the same rows
+  t.chunk = it / tiles;
+  t.c = tile * kTileC + (threadIdx.x % kLanesC) * kVec;
+  t.valid = min(kVec, C - t.c);
+  t.r0 = t.chunk * rows_per_chunk;
+  t.n = min(R, t.r0 + rows_per_chunk) - t.r0;
+  t.first_held = keep ? max(0, t.n - hold_rows) : t.n;
+  return t;
+}
+
+// a held row's slot: g then x, each [hold_rows][8 channel lanes][8 values]
+// in T, so a warp's 4 rows x 8 lanes are 512 contiguous bytes (bf16)
+template <typename T>
+__device__ __forceinline__ T* held(unsigned char* hold, int hold_rows, int slot, int which) {
+  return reinterpret_cast<T*>(hold) +
+         ((size_t)which * hold_rows * kLanesC + (size_t)slot * kLanesC + threadIdx.x % kLanesC) *
+             kVec;
 }
 
 template <typename T, bool kVecIO, bool kRelu, bool kRes>
-__global__ void __launch_bounds__(kThreads)
-bn_bwd_apply(const T* __restrict__ dy, const T* __restrict__ x, const T* __restrict__ y,
-             const float* __restrict__ gamma, const float* __restrict__ mean,
-             const float* __restrict__ var, const float* __restrict__ psg,
-             const float* __restrict__ psgx, T* __restrict__ dx, T* __restrict__ dres,
-             float* __restrict__ dgamma, float* __restrict__ dbeta, int R, int C,
-             int rows_per_chunk, int chunks, float inv_n, float eps) {
-  __shared__ float tot[2][kTileC];
-  reduce_partials(psg, psgx, C, chunks, tot);
-  __syncthreads();
-  if (blockIdx.y == 0 && threadIdx.x < kTileC) {
-    const int cc = blockIdx.x * kTileC + threadIdx.x;
-    if (cc < C) {
-      dbeta[cc] = tot[0][threadIdx.x];
-      dgamma[cc] = tot[1][threadIdx.x];
-    }
-  }
-  const Place p = place(R, C, rows_per_chunk);
-  if (p.valid <= 0) return;
-  float mu[kVec], rstd[kVec], k[kVec], c1[kVec], c2[kVec];
-  channel_consts(p, mean, var, eps, mu, rstd);
+__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm)
+bn_bwd_fused_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __restrict__ y,
+                    const float* __restrict__ gamma, const float* __restrict__ mean,
+                    const float* __restrict__ var, T* __restrict__ dx, T* __restrict__ dres,
+                    float* __restrict__ dgamma, float* __restrict__ dbeta, float* ws, int R,
+                    int C, int chunks, int rows_per_chunk, int hold_rows, float inv_n,
+                    float eps) {
+  // rows of loads in flight a thread, within the registers two CTAs an SM
+  // leave: 4 of bf16, 2 of float32 (the same 64 bytes of each input), 1
+  // on the masked scalar path (ragged C, misaligned pointers)
+  constexpr int kU = !kVecIO ? 1 : sizeof(T) == 2 ? kUnroll : kUnroll / 2;
+  extern __shared__ __align__(16) unsigned char hold[];
+  __shared__ float red[2][kWarpsCta][kTileC];
+  cg::grid_group grid = cg::this_grid();
+  const int tiles = (C + kTileC - 1) / kTileC;
+  const int items = tiles * chunks;
+  float* psg = ws;                             // [chunks, C]
+  float* psgx = ws + (size_t)chunks * C;       // [chunks, C]
+  float* tot = ws + 2 * (size_t)chunks * C;    // [2, C]: Sum g, Sum g * xhat
+  const int ty = threadIdx.x / kLanesC, tx = threadIdx.x % kLanesC;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // the CTA's items are blockIdx.x, + gridDim.x, ...; the last one keeps
+  // its tail on chip
+  const int cta = blockIdx.x, n_ctas = gridDim.x;
+  const int last = cta < items ? cta + (items - 1 - cta) / n_ctas * n_ctas : -1;
+
+  // 1. sums, rows in order
+  for (int it = cta; it < items; it += n_ctas) {
+    const Item t = item_at(it, tiles, R, C, rows_per_chunk, hold_rows, it == last);
+    float sg[kVec] = {}, sgx[kVec] = {};
+    if (t.valid > 0) {
+      float mu[kVec], rstd[kVec];
+      channel_consts(t.c, t.valid, mean, var, eps, mu, rstd);
+      auto acc = [&](const float (&g)[kVec], const float (&v)[kVec], int i) {
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    k[j] = j < p.valid ? gamma[p.c + j] * rstd[j] : 0.f;
-    c1[j] = tot[0][p.tx * kVec + j] * inv_n;
-    c2[j] = tot[1][p.tx * kVec + j] * inv_n;
-  }
-  auto row = [&](const float (&g)[kVec], const float (&v)[kVec], size_t off) {
-    float o[kVec];
+        for (int j = 0; j < kVec; ++j) {
+          sg[j] += g[j];
+          sgx[j] += g[j] * ((v[j] - mu[j]) * rstd[j]);
+        }
+        if (i >= t.first_held) {
+          store8<true>(held<T>(hold, hold_rows, i - t.first_held, 0), kVec, g);
+          store8<true>(held<T>(hold, hold_rows, i - t.first_held, 1), kVec, v);
+        }
+      };
+      auto load_row = [&](int i, float (&g)[kVec], float (&v)[kVec]) {
+        const size_t off = (size_t)(t.r0 + i) * C + t.c;
+        masked_grad<T, kVecIO, kRelu>(dy, y, off, t.valid, g);
+        load8<kVecIO>(x + off, t.valid, v);
+      };
+      int i = ty;
+      for (; i + (kU - 1) * kLanesR < t.n; i += kU * kLanesR) {
+        float g[kU][kVec], v[kU][kVec];
+#pragma unroll
+        for (int u = 0; u < kU; ++u) load_row(i + u * kLanesR, g[u], v[u]);
+#pragma unroll
+        for (int u = 0; u < kU; ++u) acc(g[u], v[u], i + u * kLanesR);
+      }
+      for (; i < t.n; i += kLanesR) {
+        float g[kVec], v[kVec];
+        load_row(i, g, v);
+        acc(g, v, i);
+      }
+    }
+    // the 32 row lanes meet: the warp's 4 by shuffles, the 8 warps in
+    // order in shared memory
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      const float xhat = (v[j] - mu[j]) * rstd[j];
-      o[j] = k[j] * (g[j] - c1[j] - xhat * c2[j]);
+      sg[j] += __shfl_xor_sync(0xffffffffu, sg[j], 8);
+      sg[j] += __shfl_xor_sync(0xffffffffu, sg[j], 16);
+      sgx[j] += __shfl_xor_sync(0xffffffffu, sgx[j], 8);
+      sgx[j] += __shfl_xor_sync(0xffffffffu, sgx[j], 16);
     }
-    store8<kVecIO>(dx + off, p.valid, o);
-    if (kRes) store8<kVecIO>(dres + off, p.valid, g);
-  };
-  int r = p.r0 + p.ty;
-  for (; r + (kUnroll - 1) * kLanesR < p.r1; r += kUnroll * kLanesR) {
-    float g[kUnroll][kVec], v[kUnroll][kVec];
+    if (lane < kLanesC) {
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const size_t off = (size_t)(r + u * kLanesR) * C + p.c;
-      masked_grad<T, kVecIO, kRelu>(dy, y, off, p.valid, g[u]);
-      load8<kVecIO>(x + off, p.valid, v[u]);
+      for (int j = 0; j < kVec; ++j) {
+        red[0][warp][tx * kVec + j] = sg[j];
+        red[1][warp][tx * kVec + j] = sgx[j];
+      }
     }
+    __syncthreads();
+    if (threadIdx.x < 2 * kTileC) {
+      const int which = threadIdx.x / kTileC, col = threadIdx.x % kTileC;
+      float sum = 0.f;
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) row(g[u], v[u], (size_t)(r + u * kLanesR) * C + p.c);
+      for (int w = 0; w < kWarpsCta; ++w) sum += red[which][w][col];
+      const int cc = (it % tiles) * kTileC + col;
+      if (cc < C) (which ? psgx : psg)[(size_t)t.chunk * C + cc] = sum;
+    }
+    __syncthreads();
   }
-  for (; r < p.r1; r += kLanesR) {
-    const size_t off = (size_t)r * C + p.c;
-    float g[kVec], v[kVec];
-    masked_grad<T, kVecIO, kRelu>(dy, y, off, p.valid, g);
-    load8<kVecIO>(x + off, p.valid, v);
-    row(g, v, off);
+  grid.sync();
+
+  // 2. each CTA totals its slices of 8 channels over every chunk, in a
+  // fixed order
+  float (*sred)[kSliceGroups][kSliceC] = reinterpret_cast<float (*)[kSliceGroups][kSliceC]>(red);
+  for (int sl = cta; sl * kSliceC < C; sl += n_ctas) {
+    const int cc = sl * kSliceC + threadIdx.x % kSliceC, grp = threadIdx.x / kSliceC;
+    float a = 0.f, b = 0.f;
+    if (cc < C) {
+#pragma unroll 4
+      for (int k = grp; k < chunks; k += kSliceGroups) {
+        a += __ldcg(psg + (size_t)k * C + cc);
+        b += __ldcg(psgx + (size_t)k * C + cc);
+      }
+    }
+    sred[0][grp][threadIdx.x % kSliceC] = a;
+    sred[1][grp][threadIdx.x % kSliceC] = b;
+    __syncthreads();
+    if (threadIdx.x < 2 * kSliceC) {
+      const int which = threadIdx.x / kSliceC, col = threadIdx.x % kSliceC;
+      const int c = sl * kSliceC + col;
+      float sum = 0.f;
+      for (int g = 0; g < kSliceGroups; ++g) sum += sred[which][g][col];
+      if (c < C) {
+        tot[(size_t)which * C + c] = sum;
+        (which ? dgamma : dbeta)[c] = sum;
+      }
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // 3. the elementwise pass, items and rows in reverse: the rows held on
+  // chip first, then the rest from the one read last
+  for (int it = last; it >= cta; it -= n_ctas) {
+    const Item t = item_at(it, tiles, R, C, rows_per_chunk, hold_rows, it == last);
+    // the tile's totals, read from L2 once a CTA into shared memory (every
+    // warp of the grid reading the same few lines of L2 costs ~5 us)
+    if (threadIdx.x < 2 * kTileC) {
+      const int which = threadIdx.x / kTileC, col = threadIdx.x % kTileC;
+      const int cc = (it % tiles) * kTileC + col;
+      red[0][which][col] = cc < C ? __ldcg(tot + (size_t)which * C + cc) * inv_n : 0.f;
+    }
+    __syncthreads();
+    float mu[kVec], rstd[kVec], k[kVec], c1[kVec], c2[kVec];
+    channel_consts(t.c, t.valid, mean, var, eps, mu, rstd);
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      k[j] = j < t.valid ? gamma[t.c + j] * rstd[j] : 0.f;
+      c1[j] = red[0][0][tx * kVec + j];
+      c2[j] = red[0][1][tx * kVec + j];
+    }
+    __syncthreads();  // the next item overwrites them
+    if (t.valid <= 0) continue;
+    auto row = [&](const float (&g)[kVec], const float (&v)[kVec], int i) {
+      const size_t off = (size_t)(t.r0 + i) * C + t.c;
+      float o[kVec];
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) {
+        const float xhat = (v[j] - mu[j]) * rstd[j];
+        o[j] = k[j] * (g[j] - c1[j] - xhat * c2[j]);
+      }
+      store8<kVecIO>(dx + off, t.valid, o);
+      if (kRes) store8<kVecIO>(dres + off, t.valid, g);
+    };
+    // this thread's rows are ty + 32 m
+    int m = t.n > ty ? (t.n - ty - 1) / kLanesR : -1;
+    for (; m >= 0 && ty + m * kLanesR >= t.first_held; --m) {
+      const int i = ty + m * kLanesR;
+      float g[kVec], v[kVec];
+      load8<true>(held<T>(hold, hold_rows, i - t.first_held, 0), kVec, g);
+      load8<true>(held<T>(hold, hold_rows, i - t.first_held, 1), kVec, v);
+      row(g, v, i);
+    }
+    for (; m >= kU - 1; m -= kU) {
+      float g[kU][kVec], v[kU][kVec];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const size_t off = (size_t)(t.r0 + ty + (m - u) * kLanesR) * C + t.c;
+        masked_grad<T, kVecIO, kRelu>(dy, y, off, t.valid, g[u]);
+        load8<kVecIO>(x + off, t.valid, v[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) row(g[u], v[u], ty + (m - u) * kLanesR);
+    }
+    for (; m >= 0; --m) {
+      const size_t off = (size_t)(t.r0 + ty + m * kLanesR) * C + t.c;
+      float g[kVec], v[kVec];
+      masked_grad<T, kVecIO, kRelu>(dy, y, off, t.valid, g);
+      load8<kVecIO>(x + off, t.valid, v);
+      row(g, v, ty + m * kLanesR);
+    }
   }
 }
 
@@ -477,38 +631,115 @@ int fwd_launch(const void* x, const void* res, const float* gamma, const float* 
   return (int)cudaGetLastError();
 }
 
+// K6's arguments, as the wrapper passes them
+struct BwdArgs {
+  const void *dy, *x, *y;
+  const float *gamma, *mean, *var;
+  void *dx, *dres;
+  float *dgamma, *dbeta, *ws;
+  int R, C, chunks, rows_per_chunk, hold_rows, ctas;
+  float eps;
+  cudaStream_t stream;
+};
+
+// The grid (the CTAs the card holds at once) and the dynamic shared memory
+// a CTA keeps rows in, found once per instantiation: an SM's shared memory
+// split between its kBwdCtasPerSm CTAs (fewer where the registers allow
+// fewer), less the per-block reservation and the static arrays, in whole
+// held rows (g and x of 64 channels)
+template <typename T, bool kVecIO, bool kRelu, bool kRes>
+cudaError_t bwd_resources(int* ctas, int* hold_bytes) {
+  static int s_ctas = 0, s_hold = 0;
+  if (!s_ctas) {
+    auto kernel = bn_bwd_fused_kernel<T, kVecIO, kRelu, kRes>;
+    int dev = 0, per_sm = 0, reserved = 0, optin = 0, sms = 0, occ = 0;
+    cudaFuncAttributes fa;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+    if (err != cudaSuccess) return err;
+    // CTAs an SM: kBwdCtasPerSm, or fewer if the registers allow fewer
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, 0);
+    if (err != cudaSuccess) return err;
+    const int per = max(1, min(occ, kBwdCtasPerSm));
+    const int row = 2 * kTileC * (int)sizeof(T);
+    int dyn = min(per_sm / per - reserved, optin) - (int)fa.sharedSizeBytes;
+    dyn = max(0, dyn / row * row);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, dyn);
+    if (err != cudaSuccess) return err;
+    if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
+    s_ctas = occ * sms;
+    s_hold = dyn;
+  }
+  *ctas = s_ctas;
+  *hold_bytes = s_hold;
+  return cudaSuccess;
+}
+
+// one cooperative launch of the persistent grid; the plan must be the one
+// the wrapper made from bwd_resources (the grid, the held rows, the chunks
+// covering R)
+template <typename T, bool kVecIO, bool kRelu, bool kRes>
+cudaError_t bwd_launch(const BwdArgs& a) {
+  int ctas = 0, hold = 0;
+  cudaError_t err = bwd_resources<T, kVecIO, kRelu, kRes>(&ctas, &hold);
+  if (err != cudaSuccess) return err;
+  if (a.ctas != ctas || a.hold_rows < 0 || a.hold_rows * 2 * kTileC * (int)sizeof(T) > hold ||
+      a.chunks < 1 || a.rows_per_chunk < 1 || (long long)a.chunks * a.rows_per_chunk < a.R ||
+      (long long)(a.chunks - 1) * a.rows_per_chunk >= a.R)
+    return cudaErrorInvalidValue;
+  const T* dy = static_cast<const T*>(a.dy);
+  const T* x = static_cast<const T*>(a.x);
+  const T* y = static_cast<const T*>(a.y);
+  const float *gamma = a.gamma, *mean = a.mean, *var = a.var;
+  T* dx = static_cast<T*>(a.dx);
+  T* dres = static_cast<T*>(a.dres);
+  float *dgamma = a.dgamma, *dbeta = a.dbeta, *ws = a.ws;
+  int R = a.R, C = a.C, chunks = a.chunks, rows = a.rows_per_chunk, hold_rows = a.hold_rows;
+  float inv_n = 1.0f / (float)a.R, eps = a.eps;
+  void* args[] = {&dy,     &x,     &y,  &gamma, &mean,   &var,  &dx,        &dres,  &dgamma,
+                  &dbeta,  &ws,    &R,  &C,     &chunks, &rows, &hold_rows, &inv_n, &eps};
+  err = cudaLaunchCooperativeKernel(bn_bwd_fused_kernel<T, kVecIO, kRelu, kRes>, dim3(ctas),
+                                    dim3(kThreads), args, (size_t)hold, a.stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// with ctas non-null: the resources; else the launch
+template <typename T, bool kVecIO, bool kRelu, bool kRes>
+cudaError_t bwd_entry(const BwdArgs* a, int* ctas, int* hold_bytes) {
+  if (ctas) return bwd_resources<T, kVecIO, kRelu, kRes>(ctas, hold_bytes);
+  return bwd_launch<T, kVecIO, kRelu, kRes>(*a);
+}
+template <typename T, bool kVecIO, bool kRelu>
+cudaError_t bwd_res(int res, const BwdArgs* a, int* ctas, int* hold_bytes) {
+  return res ? bwd_entry<T, kVecIO, kRelu, true>(a, ctas, hold_bytes)
+             : bwd_entry<T, kVecIO, kRelu, false>(a, ctas, hold_bytes);
+}
 template <typename T, bool kVecIO>
-int bwd_launch(const void* dy, const void* x, const void* y, const float* gamma,
-               const float* mean, const float* var, void* dx, void* dres, float* dgamma,
-               float* dbeta, float* ws, int relu, int R, int C, int chunks, int rows_per_chunk,
-               float eps, cudaStream_t stream) {
-  const dim3 grid((C + kTileC - 1) / kTileC, chunks);
-  float* psg = ws;
-  float* psgx = ws + (size_t)chunks * C;
-  const T* dyt = static_cast<const T*>(dy);
-  const T* xt = static_cast<const T*>(x);
-  const T* yt = static_cast<const T*>(y);
-  T* dxt = static_cast<T*>(dx);
-  T* drt = static_cast<T*>(dres);
-  if (relu)
-    bn_bwd_stats<T, kVecIO, true><<<grid, kThreads, 0, stream>>>(
-        dyt, xt, yt, mean, var, eps, psg, psgx, R, C, rows_per_chunk);
-  else
-    bn_bwd_stats<T, kVecIO, false><<<grid, kThreads, 0, stream>>>(
-        dyt, xt, yt, mean, var, eps, psg, psgx, R, C, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const float inv_n = 1.0f / (float)R;
-#define BN_BWD_APPLY(RELU, RES)                                                          \
-  bn_bwd_apply<T, kVecIO, RELU, RES><<<grid, kThreads, 0, stream>>>(                     \
-      dyt, xt, yt, gamma, mean, var, psg, psgx, dxt, drt, dgamma, dbeta, R, C,           \
-      rows_per_chunk, chunks, inv_n, eps)
-  if (relu && dres) BN_BWD_APPLY(true, true);
-  else if (relu) BN_BWD_APPLY(true, false);
-  else if (dres) BN_BWD_APPLY(false, true);
-  else BN_BWD_APPLY(false, false);
-#undef BN_BWD_APPLY
-  return (int)cudaGetLastError();
+cudaError_t bwd_relu(int relu, int res, const BwdArgs* a, int* ctas, int* hold_bytes) {
+  return relu ? bwd_res<T, kVecIO, true>(res, a, ctas, hold_bytes)
+              : bwd_res<T, kVecIO, false>(res, a, ctas, hold_bytes);
+}
+cudaError_t bwd_dispatch(int dtype, int vec, int relu, int res, const BwdArgs* a, int* ctas,
+                         int* hold_bytes) {
+  if (dtype == 1)
+    return vec ? bwd_relu<__nv_bfloat16, true>(relu, res, a, ctas, hold_bytes)
+               : bwd_relu<__nv_bfloat16, false>(relu, res, a, ctas, hold_bytes);
+  return vec ? bwd_relu<float, true>(relu, res, a, ctas, hold_bytes)
+             : bwd_relu<float, false>(relu, res, a, ctas, hold_bytes);
 }
 
 }  // namespace
@@ -540,28 +771,44 @@ extern "C" int fused_batchnorm_fwd_launch(const void* x, const void* res, const 
                                         rows_per_chunk, eps, st);
 }
 
-// y may be null when relu is 0; dres may be null (no residual).
+// K6's grid (the CTAs the card holds at once) and the dynamic shared memory
+// each CTA keeps rows in, for one instantiation (res: 1 with a residual).
+// Returns the CUDA error code (0 = found).
+extern "C" int fused_batchnorm_bwd_resources(int dtype, int vec, int relu, int res, int* ctas,
+                                             int* hold_bytes) {
+  return (int)bwd_dispatch(dtype, vec, relu, res, nullptr, ctas, hold_bytes);
+}
+
+// y may be null when relu is 0; dres may be null (no residual).  ws holds
+// (2 * chunks + 2) * C floats; ctas and hold_rows come from
+// fused_batchnorm_bwd_resources (hold_rows at most hold_bytes / (128 *
+// sizeof(x))).  Returns the CUDA error code of the cooperative launch (0 =
+// launched); a grid the card cannot hold at once is refused, not shrunk.
 extern "C" int fused_batchnorm_bwd_launch(const void* dy, const void* x, const void* y,
                                           const void* gamma, const void* mean,
                                           const void* var, void* dx, void* dres,
                                           void* dgamma, void* dbeta, void* ws, int dtype,
                                           int vec, int relu, int R, int C, int chunks,
-                                          int rows_per_chunk, float eps, void* stream) {
-  const float* g = static_cast<const float*>(gamma);
-  const float* m = static_cast<const float*>(mean);
-  const float* v = static_cast<const float*>(var);
-  float* dg = static_cast<float*>(dgamma);
-  float* db = static_cast<float*>(dbeta);
-  float* w = static_cast<float*>(ws);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return vec ? bwd_launch<__nv_bfloat16, true>(dy, x, y, g, m, v, dx, dres, dg, db, w, relu,
-                                                 R, C, chunks, rows_per_chunk, eps, st)
-               : bwd_launch<__nv_bfloat16, false>(dy, x, y, g, m, v, dx, dres, dg, db, w,
-                                                  relu, R, C, chunks, rows_per_chunk, eps, st);
-  }
-  return vec ? bwd_launch<float, true>(dy, x, y, g, m, v, dx, dres, dg, db, w, relu, R, C,
-                                       chunks, rows_per_chunk, eps, st)
-             : bwd_launch<float, false>(dy, x, y, g, m, v, dx, dres, dg, db, w, relu, R, C,
-                                        chunks, rows_per_chunk, eps, st);
+                                          int rows_per_chunk, int hold_rows, int ctas,
+                                          float eps, void* stream) {
+  const BwdArgs a{dy,
+                  x,
+                  y,
+                  static_cast<const float*>(gamma),
+                  static_cast<const float*>(mean),
+                  static_cast<const float*>(var),
+                  dx,
+                  dres,
+                  static_cast<float*>(dgamma),
+                  static_cast<float*>(dbeta),
+                  static_cast<float*>(ws),
+                  R,
+                  C,
+                  chunks,
+                  rows_per_chunk,
+                  hold_rows,
+                  ctas,
+                  eps,
+                  static_cast<cudaStream_t>(stream)};
+  return (int)bwd_dispatch(dtype, vec, relu, dres != nullptr, &a, nullptr, nullptr);
 }

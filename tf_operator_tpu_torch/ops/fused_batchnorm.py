@@ -30,9 +30,10 @@ another dtype (``_Cfg.res_dtype``); ResNet never passes one, and the
 kernel here refuses it (the plain version takes any dtype).
 
 ``_build.launches`` counts ``fused_batchnorm_fwd`` and
-``fused_batchnorm_bwd`` once per kernel call (each is two launches on
-the card: partial sums, then the elementwise pass), ``plain_calls``
-the plain versions' calls.
+``fused_batchnorm_bwd`` once per kernel call (K5 is two launches on the
+card: partial sums, then the elementwise pass; K6 is one cooperative
+launch of a grid the card holds at once, whose row split and on-chip
+rows :func:`bwd_plan` sets), ``plain_calls`` the plain versions' calls.
 """
 
 from __future__ import annotations
@@ -56,7 +57,7 @@ TILE_C = 64
 ROW_LANES = 32
 #: rows a thread keeps in flight (the kernel's kUnroll)
 UNROLL = 4
-#: CTAs a launch aims at: two for each of the H100's 132 SMs
+#: CTAs a K5 launch aims at: two for each of the H100's 132 SMs
 TARGET_CTAS = 2 * 132
 
 #: plain-version calls since the last ``plain_calls.clear()``
@@ -64,7 +65,7 @@ plain_calls: "collections.Counter[str]" = collections.Counter()
 
 
 def chunk_rows(r: int, c: int) -> Tuple[int, int]:
-    """(chunks, rows a chunk) of the kernels' row split: about
+    """(chunks, rows a chunk) of K5's row split: about
     ``TARGET_CTAS`` CTAs over the channel tiles, no chunk of fewer than
     ``ROW_LANES * UNROLL`` rows unless R is smaller, no empty chunk."""
 
@@ -72,6 +73,41 @@ def chunk_rows(r: int, c: int) -> Tuple[int, int]:
     chunks = max(1, min(-(-TARGET_CTAS // tiles), -(-r // (ROW_LANES * UNROLL))))
     rows = -(-r // chunks)
     return -(-r // rows), rows
+
+
+def bwd_plan(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> Tuple[int, int, int]:
+    """(chunks, rows a chunk, rows held on chip a chunk) of K6 on a grid
+    of ``ctas`` CTAs, each keeping up to ``hold_bytes`` of rows (g and x
+    of ``TILE_C`` channels, ``elem`` bytes a value) in shared memory.
+
+    The chunks are as many as fill the grid with the channel tiles' work
+    items (one item a CTA where the tiles fit), no chunk of fewer than
+    ``ROW_LANES`` rows unless R is smaller, no empty chunk; each chunk
+    keeps its last rows on chip, as many as fit.  Where the tiles exceed
+    the grid a CTA takes several items and keeps the last one's rows."""
+
+    tiles = -(-c // TILE_C)
+    chunks = max(1, min(ctas // tiles, r // ROW_LANES))
+    rows = -(-r // chunks)
+    hold_rows = hold_bytes // (2 * TILE_C * elem)
+    return -(-r // rows), rows, min(rows, hold_rows)
+
+
+def bwd_held_bytes(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> int:
+    """Bytes of g and x that K6 keeps on chip between its sums and its
+    elementwise pass, over every channel tile: each CTA keeps the tail
+    of its last item only."""
+
+    chunks, rows, hold_rows = bwd_plan(r, c, ctas, hold_bytes, elem)
+    tiles = -(-c // TILE_C)
+    items = tiles * chunks
+    held = 0
+    for b in range(min(ctas, items)):
+        last = b + (items - 1 - b) // ctas * ctas
+        chunk, tile = divmod(last, tiles)
+        n = min(r, (chunk + 1) * rows) - chunk * rows
+        held += min(hold_rows, n) * min(TILE_C, c - tile * TILE_C)
+    return 2 * elem * held
 
 
 def fused_batchnorm_fwd_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -158,10 +194,27 @@ def _launchers():
                                                                    ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.fused_batchnorm_bwd_launch
-    bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 + [ctypes.c_float,
+    bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                                     ctypes.c_void_p]
     bwd.restype = ctypes.c_int
-    return fwd, bwd
+    res = lib.fused_batchnorm_bwd_resources
+    res.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+    res.restype = ctypes.c_int
+    return fwd, bwd, res
+
+
+@functools.cache
+def bwd_resources(dtype_code: int, vec: int, relu: int, residual: int) -> Tuple[int, int]:
+    """(CTAs the card holds at once, shared-memory bytes a CTA keeps rows
+    in) of the K6 instantiation, from the occupancy query on the current
+    device."""
+
+    ctas, hold = ctypes.c_int(0), ctypes.c_int(0)
+    err = _launchers()[2](dtype_code, vec, relu, residual, ctypes.byref(ctas), ctypes.byref(hold))
+    if err != 0:
+        raise RuntimeError(f"fused_batchnorm backward kernel: occupancy query failed: CUDA "
+                           f"error {err}")
+    return ctas.value, hold.value
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -201,9 +254,10 @@ def fused_batchnorm_fwd_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.
 def fused_batchnorm_bwd_cuda(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.Tensor,
                              y2: Optional[torch.Tensor], mean: torch.Tensor,
                              var: torch.Tensor, eps: float, relu: bool, has_residual: bool):
-    """Launch K6 on the current stream -> (dx2, dgamma, dbeta, dres2 or
-    None).  ``y2`` (K5's output) is read for the ReLU mask only.  Counts
-    one launch of ``fused_batchnorm_bwd``."""
+    """Launch K6 on the current stream, one cooperative launch -> (dx2,
+    dgamma, dbeta, dres2 or None).  ``y2`` (K5's output) is read for the
+    ReLU mask only.  A launch the card refuses raises.  Counts one launch
+    of ``fused_batchnorm_bwd``."""
 
     _check_x(x2)
     r, c = x2.shape
@@ -218,15 +272,17 @@ def fused_batchnorm_bwd_cuda(dy2: torch.Tensor, x2: torch.Tensor, gamma: torch.T
     dres2 = torch.empty_like(x2) if has_residual else None
     dgamma = torch.empty(c, dtype=torch.float32, device=x2.device)
     dbeta = torch.empty_like(dgamma)
-    chunks, rows = chunk_rows(r, c)
-    ws = torch.empty(2 * chunks * c, dtype=torch.float32, device=x2.device)
     vec = _vector_io(c, dy2, x2, dx2, *(t for t in (y2 if relu else None, dres2)
                                         if t is not None))
+    code = _DTYPE_CODES[x2.dtype]
+    ctas, hold = bwd_resources(code, vec, int(relu), int(has_residual))
+    chunks, rows, hold_rows = bwd_plan(r, c, ctas, hold, x2.element_size())
+    ws = torch.empty((2 * chunks + 2) * c, dtype=torch.float32, device=x2.device)
     err = _launchers()[1](
         dy2.data_ptr(), x2.data_ptr(), _ptr(y2 if relu else None), gamma.data_ptr(),
         mean.data_ptr(), var.data_ptr(), dx2.data_ptr(), _ptr(dres2), dgamma.data_ptr(),
         dbeta.data_ptr(), ws.data_ptr(),
-        _DTYPE_CODES[x2.dtype], vec, int(relu), r, c, chunks, rows, float(eps),
+        code, vec, int(relu), r, c, chunks, rows, hold_rows, ctas, float(eps),
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     if err != 0:

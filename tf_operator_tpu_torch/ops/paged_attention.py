@@ -21,7 +21,10 @@ Dispatch: ``impl=None`` launches the CUDA kernel
 version for CPU tensors.  There is no fallback: a CUDA tensor reaches
 the kernel or the call raises.  ``impl="plain"`` asks for the plain
 version explicitly (the reference the kernel is held against);
-``impl="cuda"`` asks for the kernel.
+``impl="cuda"`` asks for the kernel.  The kernel splits each seat's
+context into up to ``MAX_SPLITS`` ranges sized from ``MB * bs`` alone
+(:func:`split_plan`); their partial softmaxes meet inside the one
+launch.
 """
 
 from __future__ import annotations
@@ -40,6 +43,15 @@ KERNEL = "paged_attention"
 PAGED_IMPLS = ("plain", "cuda")
 KERNEL_BLOCK_SIZES = (8, 12, 16, 32)
 KERNEL_HEAD_DIMS = (32, 64, 128)
+#: splits of a seat's context: a thread-block cluster of at most 8 CTAs
+#: (the portable cluster size), one for every SPLIT_MIN_POSITIONS at most
+MAX_SPLITS = 8
+SPLIT_MIN_POSITIONS = 128
+#: K and V bytes of one warp's tile in the kernel, its ring's stages, and
+#: its warps a CTA
+TILE_BYTES = 4096
+STAGES = 3
+WARPS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -112,17 +124,77 @@ def _check_kernel_inputs(q, k_arena, v_arena, tables, lengths) -> None:
         raise ValueError(f"paged_attention kernel: K must be >= 1, got {k_new}")
 
 
+def kernel_rows(g_rows: int) -> int:
+    """Query rows a kernel CTA carries: 1, 2 or 4 (G = K * group rounded
+    up, at most 4; more rows take more CTAs)."""
+
+    return 1 if g_rows == 1 else 2 if g_rows == 2 else 4
+
+
+def split_plan(max_positions: int, head_dim: int, elem: int, units: int, resident: int):
+    """(splits, chunk) of the kernel's context split: ``splits`` ranges of
+    ``chunk`` positions cover ``max_positions`` (= MB * bs).  As many as
+    keep the grid of ``units`` (kv head, row group, seat) clusters within
+    the ``resident`` CTAs the card holds at once, at most ``MAX_SPLITS``
+    and one for every ``SPLIT_MIN_POSITIONS`` positions, at least one;
+    none empty, each a whole number of the CTA's passes (its warps' tiles
+    of ``TILE_BYTES`` of K and V: 2048 / (head_dim * elem) positions a
+    warp)."""
+
+    unit = WARPS * (TILE_BYTES // 2) // (head_dim * elem)
+    splits = max(1, min(MAX_SPLITS, -(-max_positions // SPLIT_MIN_POSITIONS),
+                        resident // max(1, units)))
+    per_split = -(-max_positions // splits)
+    chunk = max(unit, -(-per_split // unit) * unit)
+    return max(1, -(-max_positions // chunk)), chunk
+
+
+def kernel_smem_bytes(head_dim: int, rows: int) -> int:
+    """Dynamic shared memory of a kernel CTA carrying ``rows`` query rows:
+    its warps' rings, then its partial (acc [rows, D], m and l [rows])."""
+
+    return WARPS * STAGES * TILE_BYTES + rows * (head_dim + 2) * 4
+
+
 @functools.cache
 def _launcher():
     """The kernel's C entry point with its argument types declared
     (pointers and the stream as c_void_p, so none is cut to 32 bits)."""
 
     fn = _build.load(KERNEL).paged_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
         ctypes.c_float, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def resident_ctas(dtype_code: int, head_dim: int, rows: int) -> int:
+    """CTAs of the kernel instantiation the card holds at once (the
+    occupancy query times the SMs of the current device)."""
+
+    fn = _build.load(KERNEL).paged_attention_resident_ctas
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    ctas = ctypes.c_int(0)
+    err = fn(dtype_code, head_dim, rows, ctypes.byref(ctas))
+    if err != 0 or ctas.value < 1:
+        raise RuntimeError(f"paged_attention kernel: occupancy query failed: CUDA error {err}")
+    return ctas.value
+
+
+def launch_plan(q: torch.Tensor, k_arena: torch.Tensor, tables: torch.Tensor):
+    """(splits, chunk) the kernel takes for these shapes (:func:`split_plan`
+    on the card's resident CTAs); no tensor is read."""
+
+    s, k_new, h, d = q.shape
+    hkv, bs = k_arena.shape[1], k_arena.shape[2]
+    g_rows = k_new * (h // hkv)
+    rows = kernel_rows(g_rows)
+    units = hkv * -(-g_rows // rows) * s
+    return split_plan(tables.shape[1] * bs, d, q.element_size(), units,
+                      resident_ctas(_DTYPE_CODES[q.dtype], d, rows))
 
 
 def paged_attention_multi_cuda(q, k_arena, v_arena, tables, lengths):
@@ -135,11 +207,12 @@ def paged_attention_multi_cuda(q, k_arena, v_arena, tables, lengths):
     out = torch.empty_like(q)
     if s == 0:
         return out
+    splits, chunk = launch_plan(q, k_arena, tables)
     err = _launcher()(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[q.dtype], s, hkv, bs, d, tables.shape[1], k_new,
-        h // hkv, 1.0 / math.sqrt(d),
+        h // hkv, splits, chunk, 1.0 / math.sqrt(d),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
