@@ -13,10 +13,11 @@ Phases, in order; any failure exits non-zero before the result line:
    dynamic bytes K1's, K2's and K3's launchers ask for) and spills, and
    the HGMMA count of K1's, K2's and K3's Hopper kernels in the SASS
    (cuobjdump); for the int8 matmul source each K7 kernel's registers,
-   shared memory and spills; for K4 and K6 each kernel's registers,
-   spills, static and dynamic shared memory (K6's from its occupancy
-   query, with its grid); ptxas's warnings.  The Hopper kernels must
-   not spill and must issue HGMMA; no K7, K4 or K6 kernel may spill.
+   shared memory and spills; for K4, K5 and K6 each kernel's
+   registers, spills, static and dynamic shared memory (K5's and K6's
+   from their occupancy queries, with their grids); ptxas's warnings.
+   The Hopper kernels must not spill and must issue HGMMA; no K7, K4,
+   K5 or K6 kernel may spill.
 3. the paged-attention kernel (K4) against its plain PyTorch version on
    the card: 7B decode shapes (S=8, H=Hkv=32, D=128, bs=16, MB=128,
    lengths 1..2048), the same with seats at the table's end beside
@@ -28,8 +29,10 @@ Phases, in order; any failure exits non-zero before the result line:
    seat, query row and head), to a tolerance relative to that row's
    largest value; it prints both errors and the
    kernel's, the plain version's and scaled_dot_product_attention's
-   times (the last on the gathered view, a yardstick the port never
-   calls) beside the bound: live K/V bytes over 3.35 TB/s.
+   device times (the last on the gathered view, a yardstick the port
+   never calls; CUDA events, queued behind a device sleep so that the
+   wrapper's host time is not what is timed) beside the bound: live K/V
+   bytes over 3.35 TB/s; and the wrapper's host microseconds a call.
 4. the flash-attention kernels K1 (forward), K2 (dq) and K3 (dk, dv),
    all three wgmma fed by TMA, against their plain versions: the wide
    training shape (B 4, H 16, Hkv 8, S 2048, D 128, bf16, causal), the
@@ -72,11 +75,13 @@ Phases, in order; any failure exits non-zero before the result line:
    mean, var, dx, dgamma, dbeta and dres on the same inputs, and the
    gradients through the autograd Function (tolerances at ``BN_RTOL``).
    In bf16 at every ResNet class: each kernel's device time (CUDA
-   events, queued behind a device sleep), its bound (bytes at 3.35
-   TB/s), the plain version's time, ``F.batch_norm(training=True)``'s
+   events, queued behind a device sleep, 3 times), its bound (bytes at
+   3.35 TB/s), the plain version's time, ``F.batch_norm(training=True)``'s
    forward and autograd backward, the wrapper's host microseconds, and
-   the bytes of g and x K6 held on chip; then K6 by class (share of the
-   bound, bytes held) and the totals over one step's 53 layers.
+   the bytes K5 (x) and K6 (g and x) held on chip; then K5 and K6 by
+   class (median ms, share of the bound, bytes held) and the totals
+   over one step's 53 layers (the median of the 3 repeats and their
+   spread).
 4d. ResNet-50 training, the main path of K5 and K6: ``resnet_dp --norm
    fused --model resnet50 --image-size 224 --batch-per-device 64 --steps
    30`` in process.  Counts zeroed just before and read just after: K5
@@ -147,6 +152,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import threading
@@ -282,7 +288,7 @@ def _short(mangled):
     """a kernel's name and template arguments (head dim; row tiles and
     load width) from its mangled name"""
 
-    m = re.search(r"\d+((?:flash|quant_matmul|paged_attention|bn_bwd)_\w+?_kernel)"
+    m = re.search(r"\d+((?:flash|quant_matmul|paged_attention|bn_fwd|bn_bwd)_\w+?_kernel)"
                   r"(I(?:\w+?)E)?(?:v|$)", mangled)
     if not m:
         return mangled[:60]
@@ -302,15 +308,17 @@ def _spills(row):
     return row.get("spill_stores", 1) or row.get("spill_loads", 1)
 
 
-def _check_k4_k6_build(logs):
-    """K4's and K6's kernels: registers, spills and shared memory (static
-    from ptxas; dynamic: K4's ring and partials, K6's on-chip rows from
-    its occupancy query, with its grid).  Neither may spill."""
+def _check_k4_k5_k6_build(logs):
+    """K4's, K5's and K6's kernels: registers, spills and shared memory
+    (static from ptxas; dynamic: K4's ring and partials, K5's and K6's
+    on-chip rows from their occupancy queries, with their grids).  None
+    may spill."""
 
     from tf_operator_tpu_torch.ops import fused_batchnorm as fb
     from tf_operator_tpu_torch.ops import paged_attention as pa
 
     for src, tag, prefix in (("paged_attention", "K4", "paged_attention_split_kernel"),
+                             ("fused_batchnorm", "K5", "bn_fwd_fused_kernel"),
                              ("fused_batchnorm", "K6", "bn_bwd_fused_kernel")):
         if src not in logs:
             log(f"{src}.cu was built before this run: no ptxas report to check")
@@ -322,7 +330,8 @@ def _check_k4_k6_build(logs):
                 row["dynamic_smem"] = pa.kernel_smem_bytes(int(args[1]), int(args[2]))
             else:  # <dtype, vec, relu, residual>
                 code = 1 if args[0] == "bf16" else 0
-                row["grid_ctas"], row["dynamic_smem"] = fb.bwd_resources(
+                find = fb.fwd_resources if tag == "K5" else fb.bwd_resources
+                row["grid_ctas"], row["dynamic_smem"] = find(
                     code, int(args[1]), int(args[2]), int(args[3]))
         log(f"{tag} kernels (ptxas) " + json.dumps(rows))
         bad = {n: r for n, r in rows.items() if _spills(r)}
@@ -336,9 +345,10 @@ def phase_build():
     flash source, every kernel's registers, shared memory and spills,
     the dynamic shared memory K1's, K2's and K3's launchers ask for, and
     their HGMMA count in the SASS; for the int8 matmul source, each K7
-    kernel's registers, shared memory and spills.  K1's, K2's and K3's
-    Hopper kernels must not spill and must issue HGMMA; no K7 kernel may
-    spill."""
+    kernel's registers, shared memory and spills; for K4, K5 and K6 the
+    same with their dynamic shared memory and grids.  K1's, K2's and
+    K3's Hopper kernels must not spill and must issue HGMMA; no K7, K4,
+    K5 or K6 kernel may spill."""
 
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -363,7 +373,7 @@ def phase_build():
             raise AssertionError(f"K7 kernels spill: {bad or k7}")
     else:
         log("quant_matmul.cu was built before this run: no ptxas report to check")
-    _check_k4_k6_build(logs)
+    _check_k4_k5_k6_build(logs)
     if "flash_attention" not in logs:
         log("flash_attention.cu was built before this run: no ptxas report to check")
         return
@@ -421,8 +431,8 @@ def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed, lengths=
         raise AssertionError(
             f"K4 {name}: max abs err {err} (tol {TOL[dtype]}), max row-relative "
             f"err {row_rel} (tol {ROW_RTOL[dtype]})")
-    ms = time_ms(lambda: paged_attention_multi(*args))
-    plain_ms = time_ms(lambda: paged_attention_multi(*args, impl="plain"), iters=5)
+    ms = time_ms_queued(lambda: paged_attention_multi(*args))
+    plain_ms = time_ms_queued(lambda: paged_attention_multi(*args, impl="plain"), iters=5)
     # the library yardstick: SDPA on the gathered contiguous view
     kv_k, kv_v = _gathered_view(ka, tables), _gathered_view(va, tables)
     qend = lengths[:, None].long() - (k_new - 1 - torch.arange(k_new, device=dev))[None]
@@ -432,7 +442,7 @@ def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed, lengths=
         kv_k = kv_k.repeat_interleave(h // hkv, dim=1)
         kv_v = kv_v.repeat_interleave(h // hkv, dim=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kv_k, kv_v, attn_mask=mask))
+    library_ms = time_ms_queued(lambda: sdpa(qt, kv_k, kv_v, attn_mask=mask))
     elem = torch.finfo(dtype).bits // 8
     live = int(lengths.clamp(max=mb * bs).sum())
     n_bytes = (2 * live * hkv * d * elem + 2 * q.numel() * elem
@@ -451,6 +461,7 @@ def k4_case(name, *, s, h, hkv, d, bs, mb, k_new, dtype, max_len, seed, lengths=
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "live_kv_bytes": 2 * live * hkv * d * elem,
+        "host_us": host_us(lambda: paged_attention_multi(*args), calls=50),
     }
     rec["share_of_bound"] = rec["bound_ms"] / ms
     log("K4 " + json.dumps(rec))
@@ -1346,6 +1357,9 @@ BN_RAGGED = [(2, 3, 3, 5), (34, 1, 1, 7), (1, 9, 5, 130)]
 #: the class the kernels line reports: the largest norm with neither
 #: ReLU nor residual, where F.batch_norm computes the same function
 BN_LINE_CLASS = (200704, 256, False, False)
+#: K5 and K6 are timed this many times at every class; the step totals
+#: are reported as the median of the repeats and their spread
+BN_REPEATS = 3
 #: ResNet training of the main path: resnet_dp's own 30 steps, then its
 #: benchmark's max(30 // 2, 5)
 RESNET_STEPS = 30
@@ -1491,27 +1505,36 @@ def bn_case(name, shape, relu, use_res, dtype, seed, timed=False):
         lg, lb = gamma.clone().requires_grad_(), beta.clone().requires_grad_()
         lo = F.batch_norm(lx, None, None, lg, lb, training=True, eps=eps)
         dyv = dy.permute(0, 3, 1, 2)
+        runs = {fb.KERNEL_FWD: [], fb.KERNEL_BWD: []}
+        for _ in range(BN_REPEATS):
+            runs[fb.KERNEL_FWD].append(time_ms_queued(fwd))
+            runs[fb.KERNEL_BWD].append(time_ms_queued(bwd))
         rec["timing"] = {
             "fused_batchnorm_fwd": {
-                "ms": time_ms_queued(fwd), "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": f_bytes / HBM_BYTES_PER_S * 1e3,
                 "plain_ms": time_ms_queued(lambda: fb.fused_batchnorm_fwd_plain(
                     x2, gamma, beta, eps, relu, r2), iters=5),
                 "library_ms": time_ms_queued(lambda: F.batch_norm(
                     xv, None, None, gamma, beta, training=True, eps=eps)),
                 "host_us": host_us(fwd, calls=50)},
             "fused_batchnorm_bwd": {
-                "ms": time_ms_queued(bwd), "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": b_bytes / HBM_BYTES_PER_S * 1e3,
                 "plain_ms": time_ms_queued(lambda: fb.fused_batchnorm_bwd_plain(
                     dy2, x2, gamma, y, m, v, eps, relu, use_res), iters=5),
                 "library_ms": time_ms_queued(lambda: torch.autograd.grad(
                     lo, (lx, lg, lb), dyv, retain_graph=True)),
                 "host_us": host_us(bwd, calls=50)},
         }
-        for t in rec["timing"].values():
-            t["bound_by"] = "bytes"
+        for kname, t in rec["timing"].items():
+            t.update(ms=statistics.median(runs[kname]), ms_runs=runs[kname], bound_by="bytes")
             t["share_of_bound"] = t["bound_ms"] / t["ms"]
-        ctas, hold = fb.bwd_resources(fb._DTYPE_CODES[dtype], fb._vector_io(c, x2, dy2),
+        code = fb._DTYPE_CODES[dtype]
+        ctas, hold = fb.fwd_resources(code, fb._vector_io(c, x2, y, *((r2,) if use_res else ())),
                                       int(relu), int(use_res))
+        held = fb.fwd_held_bytes(x2.shape[0], c, ctas, hold, elem)
+        rec["timing"]["fused_batchnorm_fwd"].update(
+            held_on_chip_bytes=held, held_share_of_rows=held / (elem * x2.numel()))
+        ctas, hold = fb.bwd_resources(code, fb._vector_io(c, x2, dy2), int(relu), int(use_res))
         held = fb.bwd_held_bytes(x2.shape[0], c, ctas, hold, elem)
         rec["timing"]["fused_batchnorm_bwd"].update(
             held_on_chip_bytes=held, held_share_of_rows=held / (2 * elem * x2.numel()))
@@ -1556,16 +1579,24 @@ def phase_bn(batch=64, image=224):
         step[kname] = {key: sum(n * timed[cls]["timing"][kname][key]
                                 for cls, n in counts.items())
                        for key in ("ms", "bound_ms", "plain_ms", "library_ms")}
+        runs = [sum(n * timed[cls]["timing"][kname]["ms_runs"][i] for cls, n in counts.items())
+                for i in range(BN_REPEATS)]
+        step[kname].update(ms=statistics.median(runs), ms_runs=runs,
+                           ms_spread=max(runs) - min(runs))
+        step[kname]["share_of_bound"] = step[kname]["bound_ms"] / step[kname]["ms"]
         step[kname]["max_abs_err_bf16"] = max(
             rec["max_abs_err"]["y" if kname.endswith("fwd") else "dx"]
             for rec in timed.values())
-    log("K6 by class (bf16): [R, C, relu, residual, layers, ms, bound_ms, share of bound, "
-        "bytes of g and x held on chip] " + json.dumps([
-            [*cls, n, t["ms"], t["bound_ms"], t["share_of_bound"], t["held_on_chip_bytes"]]
-            for cls, n in counts.items()
-            for t in (timed[cls]["timing"]["fused_batchnorm_bwd"],)]))
-    log("K5/K6 one ResNet-50 step (53 layers, batch 64, 224 px, bf16; library_ms: "
-        "F.batch_norm, which has no epilogue on 49 of them) " + json.dumps(step))
+    for tag, kname, held in (("K5", "fused_batchnorm_fwd", "x"),
+                             ("K6", "fused_batchnorm_bwd", "g and x")):
+        log(f"{tag} by class (bf16): [R, C, relu, residual, layers, ms (median of "
+            f"{BN_REPEATS}), bound_ms, share of bound, bytes of {held} held on chip] "
+            + json.dumps([
+                [*cls, n, t["ms"], t["bound_ms"], t["share_of_bound"], t["held_on_chip_bytes"]]
+                for cls, n in counts.items() for t in (timed[cls]["timing"][kname],)]))
+    log(f"K5/K6 one ResNet-50 step (53 layers, batch 64, 224 px, bf16; ms: the median of "
+        f"{BN_REPEATS} repeats, ms_runs each repeat's total, ms_spread their range; "
+        "library_ms: F.batch_norm, which has no epilogue on 49 of them) " + json.dumps(step))
     return recs, timed, step
 
 

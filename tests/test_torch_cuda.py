@@ -44,7 +44,10 @@ bit for bit (the same masked dy), dx within 1e-2 of the tensor's
 largest |dx| (an element that cancels to near zero may round one ulp of
 the tensor's scale away).  Through autograd (K5 + K6 against the plain
 Function): every gradient within 1e-4 (float32) or 2e-2 (bf16) of its
-tensor's largest value.
+tensor's largest value.  K5's own cases (every ResNet-50 class, more rows
+than the grid holds on chip, ragged shapes up to C = 20000): y as above,
+the moments within 1e-4 relative (sums of up to 401,408 rows a channel in
+another order), and the same bits from run to run.
 """
 
 import numpy as np
@@ -660,5 +663,80 @@ def test_fused_batchnorm_backward_is_bit_identical_across_runs(dev, shape, dtype
     first, args = _check_bwd(dev, shape, dtype, True, True, seed=5)
     for _ in range(2):
         again = fb.fused_batchnorm_bwd_cuda(*args[:6], 1e-5, *args[6:])
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def _check_fwd(dev, shape, dtype, relu, use_res, seed=0):
+    """K5 against its plain version on the same inputs: mean and var
+    within 1e-4 relative, y within one bf16 ulp (bf16) or 1e-4 of the
+    tensor's largest |y| (float32); returns K5's outputs and inputs."""
+
+    x, gamma, beta, res, _ = _bn_inputs(dev, shape, dtype, seed)
+    c = shape[-1]
+    x2 = x.reshape(-1, c)
+    r2 = res.reshape(-1, c) if use_res else None
+    _build.launches.clear()
+    fb.plain_calls.clear()
+    out = fb.fused_batchnorm_fwd_cuda(x2, gamma, beta, 1e-5, relu, r2)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {fb.KERNEL_FWD: 1} and not fb.plain_calls
+    y, m, v = out
+    py, pm, pv = fb.fused_batchnorm_fwd_plain(x2, gamma, beta, 1e-5, relu, r2)
+    assert y.dtype == dtype and m.dtype == torch.float32 and v.dtype == torch.float32
+    torch.testing.assert_close(m, pm, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(v, pv, rtol=1e-4, atol=1e-6)
+    if dtype == torch.float32:
+        assert _rel(y, py) <= 1e-4
+    else:
+        assert _bf16_ulps(y, py) <= 1.0
+    return out, (x2, gamma, beta, 1e-5, relu, r2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("cls", RESNET50_B8,
+                         ids=lambda c: "x".join(map(str, c[0])) + "_relu" * c[1] + "_res" * c[2])
+def test_fused_batchnorm_forward_every_resnet50_class(dev, cls, dtype):
+    shape, relu, use_res = cls
+    _check_fwd(dev, shape, dtype, relu, use_res)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_fused_batchnorm_forward_past_what_fits_on_chip(dev, dtype):
+    """[401408, 64]: more rows of x than the grid's shared memory holds,
+    so each CTA's first rows are read again from device memory or L2."""
+
+    shape = (32, 112, 112, 64)
+    elem = torch.finfo(dtype).bits // 8
+    ctas, hold = fb.fwd_resources(fb._DTYPE_CODES[dtype], 1, 1, 1)
+    r = shape[0] * shape[1] * shape[2]
+    assert fb.fwd_held_bytes(r, 64, ctas, hold, elem) < elem * r * 64
+    _check_fwd(dev, shape, dtype, True, True, seed=3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(3, 7, 7, 72), (5, 11, 11, 13), (2, 33, 33, 136),
+                                   (1, 9, 5, 130), (1, 1, 7, 20000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_fused_batchnorm_forward_ragged_every_epilogue(dev, shape, dtype):
+    """Ragged C, rows under a chunk, and C = 20000 (more channel tiles
+    than CTAs: a CTA takes several items and holds the last one's rows)."""
+
+    for relu in (False, True):
+        for use_res in (False, True):
+            _check_fwd(dev, shape, dtype, relu, use_res, seed=4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", [(8, 28, 28, 512), (8, 112, 112, 64), (32, 112, 112, 64),
+                                   (5, 11, 11, 13)], ids=lambda s: "x".join(map(str, s)))
+def test_fused_batchnorm_forward_is_bit_identical_across_runs(dev, shape, dtype):
+    """Partials and totals are added in a fixed order, with no atomics,
+    and the held rows are x itself: y, mean and var have the same bits
+    every run."""
+
+    first, args = _check_fwd(dev, shape, dtype, True, True, seed=5)
+    for _ in range(2):
+        again = fb.fused_batchnorm_fwd_cuda(*args)
         for a, b in zip(first, again):
             assert torch.equal(a, b)

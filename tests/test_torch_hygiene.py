@@ -193,7 +193,30 @@ def test_fused_batchnorm_backward_is_one_cooperative_launch():
     assert "cudaLaunchCooperativeKernel" in text and "grid.sync()" in text
     assert "cudaOccupancyMaxActiveBlocksPerMultiprocessor" in text
     assert 'extern "C" int fused_batchnorm_bwd_resources' in text
-    # the two-launch backward is gone; K5's two kernels stay
+    # the two-launch backward is gone, and so is K5's
     assert "bn_bwd_stats" not in text and "bn_bwd_apply" not in text
-    assert "bn_fwd_stats" in text and "bn_fwd_apply" in text
+    assert "bn_fwd_stats" not in text and "bn_fwd_apply" not in text
     assert "atomic" not in text.replace("no atomics", "") and not re.search(r"\bred\.", text)
+
+
+def test_fused_batchnorm_forward_is_one_cooperative_launch():
+    src = os.path.join(PKG, "csrc", "fused_batchnorm.cu")
+    with open(src) as f:
+        text = f.read()
+    # K5: one kernel through the cooperative launch on the grid from the
+    # occupancy query, x held in shared memory between its sums and its
+    # elementwise pass; no triple-chevron launch, no helper of the
+    # two-launch design
+    assert "bn_fwd_fused_kernel<T, kVecIO, kRelu, kRes>" in text
+    assert "__launch_bounds__(kThreads, kCtasPerSm)\nbn_fwd_fused_kernel" in text
+    assert 'extern "C" int fused_batchnorm_fwd_resources' in text
+    assert "<<<" not in text
+    for gone in ("reduce_partials", "chunk_rows", "TARGET_CTAS"):
+        assert gone not in text
+    body = text[text.index("bn_fwd_fused_kernel(") : text.index("\n// K6\n")]
+    assert body.count("grid.sync()") == 2
+    wrapper = os.path.join(PKG, "ops", "fused_batchnorm.py")
+    with open(wrapper) as f:
+        py = f.read()
+    assert "chunk_rows" not in py and "TARGET_CTAS" not in py
+    assert "fwd_resources(code" in py and "fwd_plan(r, c, ctas, hold" in py

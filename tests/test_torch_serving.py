@@ -5,7 +5,8 @@ Greedy tokens must match byte for byte: the port's pool against JAX's
 ``PagedContinuousBatchingDecoder(reserve="worst-case")`` on both its
 gather emulation (``paged_kernel="off"``) and the Pallas kernel in
 interpret mode, and the port's ``/generate`` against the JAX server's
-pool handler.
+pool handler.  The JAX server's own pool reserves lazily; below the
+default arena it admits what the port queues, with the same tokens.
 """
 
 import json
@@ -303,3 +304,37 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--model", "llama-tiny", "--port", "0"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_lazy_jax_pool_admits_what_the_worst_case_port_queues(tiny):
+    """Below slots x max_len / block blocks the JAX pool as its server
+    builds it (no ``reserve``: lazy) admits two requests at once, where
+    the port (worst-case reservation only) queues the second; the greedy
+    tokens are the same either way."""
+
+    jm, params, model = tiny
+    r = np.random.default_rng(1)
+    mix = [(r.integers(0, VOCAB, 9), 20), (r.integers(0, VOCAB, 9), 20)]
+    # each request's worst case is ceil((9 + 20) / 8) = 4 blocks: the six
+    # usable blocks hold one worst case, and two prompts' blocks + 1
+    kv_blocks = 6
+    assert kv_blocks < 2 * MAX_LEN // BS
+    jpool = JaxPool(jm, params, slots=2, steps_per_sync=4, kv_block_size=BS,
+                    kv_blocks=kv_blocks)
+    assert jpool.reserve == "lazy"
+    jrids = [jpool.submit(p, n) for p, n in mix]
+    jpool.step()
+    assert len(jpool._active) == 2 and not jpool._queue
+    jpool.run()
+    pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=4, kv_block_size=BS,
+                                          kv_blocks=kv_blocks)
+    rids = [pool.submit(p, n) for p, n in mix]
+    pool.step()
+    assert len(pool._active) == 1 and len(pool._queue) == 1
+    pool.run()
+    pool.alloc.check()
+    for rid, jrid, (p, n) in zip(rids, jrids, mix):
+        got = pool.result(rid)
+        np.testing.assert_array_equal(got, jpool.result(jrid))
+        want = generate(model, torch.as_tensor(p[None].astype(np.int64)), n).numpy()[0]
+        np.testing.assert_array_equal(got, want)

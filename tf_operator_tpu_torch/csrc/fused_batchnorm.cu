@@ -29,70 +29,79 @@
 //
 // Why not the TPU design.  The Pallas kernels carry the sums in VMEM across
 // a sequential sweep over the rows of one channel tile (grid (C tiles, 2, R
-// tiles)).  On the card one CTA per channel tile would give 1 CTA to the
-// stem's 64 channels, walking 802,816 rows alone.  So R is split across
-// CTAs, with no atomics, so that the result does not change from run to
-// run.  A CTA of 256 threads is 8 lanes along C (8 channels each, one
-// 16-byte load of bf16 or two of float32) by 32 lanes down the rows; each
-// thread keeps 4 rows of loads in flight.  Where C % 8 != 0 or a pointer
-// is not 16-byte aligned (only the tests' ragged shapes; every ResNet C is
-// a multiple of 64) every load is a masked scalar load (K6 then keeps one
-// row in flight, and two rows of float32 on the 16-byte path).
+// tiles)), reading x twice in the forward.  On the card one CTA per channel
+// tile would give 1 CTA to the stem's 64 channels, walking 802,816 rows
+// alone.  So R is split across CTAs, with no atomics, so that the result
+// does not change from run to run.  A CTA of 256 threads is 8 lanes along C
+// (8 channels each, one 16-byte load of bf16 or two of float32) by 32 lanes
+// down the rows; each thread keeps 4 rows of loads in flight in bf16, 2 in
+// float32 (the same 64 bytes of each input), within the registers two CTAs
+// an SM leave.  Where C % 8 != 0 or a pointer is not 16-byte aligned (only
+// the tests' ragged shapes; every ResNet C is a multiple of 64) every load
+// is a masked scalar load, one row in flight.
 //
-// K5: two launches.
+// K5 and K6 are each one cooperative launch (cudaLaunchCooperativeKernel)
+// of a persistent grid of exactly the CTAs the card holds at once (the
+// occupancy query times the SMs: two CTAs of 256 threads an SM, each with
+// half of the SM's shared memory).  The work items are (channel tile of 64,
+// row chunk) pairs, one per CTA wherever C / 64 tiles fit the grid (every
+// ResNet layer), the chunks as many as fill it; where the tiles exceed the
+// grid a CTA takes several items.  Three phases, the same in both:
 //
-// 1. partial sums.  Grid (C tiles of 64 channels, R chunks), about two CTAs
-//    for each of the 132 SMs (the wrapper's chunk_rows).  The 32 row lanes
-//    meet in shared memory and are added in a fixed order; the CTA writes
-//    its partial sums to a [chunks, C] float32 workspace.
-// 2. elementwise pass, on the same grid.  Each CTA adds its channel tile's
-//    partials over all chunks in a fixed order (every CTA of a tile does
-//    the same additions, so all use the same constants), computes the
-//    per-channel constants, and streams its chunk's rows to write y.  The
-//    CTAs of chunk 0 write mean and var.
-//
-// So K5 reads x twice (at best 71 % of the bound), and every CTA of the
-// elementwise pass adds all of its tile's partials again: the L2 reads of
-// that step grow with the square of the chunk count.
-//
-// K6: one cooperative launch (cudaLaunchCooperativeKernel) of a persistent
-// grid of exactly the CTAs the card holds at once (the occupancy query
-// times the SMs: two CTAs of 256 threads an SM, each with half of the SM's
-// shared memory).  The work items are (channel tile, row chunk) pairs, one
-// per CTA wherever C / 64 tiles fit the grid (every ResNet layer), the
-// chunks as many as fill it.
-//
-// 1. sums.  Each CTA streams its chunk's rows in order: g = dy (masked by
-//    the saved y under ReLU), Sum g and Sum g * xhat per thread, then its
-//    warps' row lanes meet by shuffles and in shared memory in a fixed
-//    order, and the CTA writes its partials to a [chunks, C] workspace.
-//    The chunk's last rows, as many as the dynamic shared memory holds
-//    (436 rows of 64 channels in bf16, 218 in float32), stay on chip as g
-//    and x, in x's dtype (exact: g is dy or 0): the ReLU mask is spent and
-//    y is not kept.
+// 1. sums.  Each CTA streams its chunk's rows in order and adds its two
+//    sums per thread (K5: x and x^2; K6: g and g * xhat, g = dy masked by
+//    the saved y under ReLU).  Its warps' row lanes meet by shuffles and in
+//    shared memory in a fixed order, and the CTA writes its partials to a
+//    [chunks, C] workspace.  The chunk's last rows, as many as the dynamic
+//    shared memory holds, stay on chip in x's dtype (exact): K5 keeps x
+//    (872 rows of 64 channels in bf16, 436 in float32), K6 keeps g and x
+//    (436 and 218; the ReLU mask is spent and y is not kept).
 // 2. grid barrier (cooperative_groups::this_grid().sync()).  Each CTA then
-//    adds the partials of its own slice of 8 channels, over all chunks, in
-//    a fixed order (32 strided groups of chunks, then the groups in
-//    order), and writes the totals (dbeta, dgamma, and a copy in the
-//    workspace): the L2 reads are the partials once, not once per CTA.
+//    adds the partials of its own slices of 8 channels, over all chunks, in
+//    a fixed order (32 strided groups of chunks, then the groups in order),
+//    and writes the totals once: K5 mean, var and the per-channel
+//    constants (mean, rsqrt(var + eps) * gamma), K6 dbeta, dgamma and a
+//    copy in the workspace.  The L2 reads are the partials once, not once
+//    per CTA.  K5 takes this phase only where the plan has more than 132
+//    chunks; with fewer, every CTA adds its own tile's partials (4 strided
+//    groups of chunks, then the groups in order: the same bits in every CTA
+//    of the tile) at the start of phase 3, which saves phase 2 and a
+//    barrier.
 // 3. grid barrier, then the elementwise pass over each CTA's rows in
 //    reverse: first the rows it holds on chip, then the rest from the one
 //    read last (most likely still in L2) down to the chunk's first.  A CTA
-//    reads its tile's totals from L2 once, into shared memory: every warp
-//    of the grid reading the same few lines of L2 cost about 3 us a call
-//    on an H100 (0.18 ms over a ResNet-50 step's 53 calls).
+//    reads its tile's constants from L2 once, into shared memory: every
+//    warp of the grid reading the same few lines of L2 cost about 3 us a
+//    call on an H100 (0.18 ms over a ResNet-50 step's 53 calls of K6).  K5
+//    reads the residual here, once.
 //
-// Alternatives tried on an H100 and dropped: L2 eviction hints on the held
-// rows (so that L2 keeps the rows before them) made a step slower, holding
-// the first rows instead of the last moved it within noise, and one CTA an
-// SM with twice the shared memory was slower.
+// At batch 64 in bf16, 42 of ResNet-50's 53 norms fit K5's grid (264 CTAs
+// of 111,616 bytes) whole and read x from device memory once: [200704, 64],
+// [50176, 128], [50176, 256] and every [12544, C] and [3136, C] layer.  The
+// stem and [200704, 256] re-read at most 71 % of x, [200704, 128] and
+// [50176, 512] at most 43 % (less what L2 kept).  So a step moves at most
+// 4.05 GB against the 3.55 GB bound.  K6 keeps every [3136, C] layer,
+// [12544, 256], [12544, 512] and [50176, 128] whole.  On an H100
+// (chip_smoke.py phase 4c) K5 takes 1.77 ms a ResNet-50 step, 60 % of its
+// bound, and K6 3.49 ms, 53 %.
 //
-// A layer whose dy and x fit in the grid's shared memory whole (at batch 64
-// in bf16: every [3136, C] layer of ResNet-50, [12544, 256], [12544, 512]
-// and [50176, 128]) reads each input byte from device memory once; a
-// larger one reads again only what neither shared memory nor L2 kept.
-// What it does not do: keep the rest of a large layer compressed on chip,
-// or overlap one layer's barriers with another layer's work.
+// Alternatives tried on an H100 and dropped.  K5 as two launches (partial
+// sums; then an elementwise pass whose every CTA re-added its tile's
+// partials, on a grid of 2 x 132 CTAs fixed by a constant): x read twice
+// (at best 71 % of the bound), the L2 reads of the partials growing with
+// the square of the chunk count, 2.20 ms a ResNet-50 step (47.6 % of the
+// bound).  In this design: 8 or 16 rows of loads in flight for the sums,
+// or 8 in the elementwise pass, moved nothing (the sums are not short of
+// loads in flight); the last step's loads predicated instead of a row at a
+// time made a step slower by about a quarter; prefetching the held rows'
+// residual into L2 before the first barrier was slower; own totals at
+// every layer, or at none, were slower than from 132 chunks down.  For
+// K6: L2 eviction hints on the held rows (so that L2 keeps the rows before
+// them) made a step slower, holding the first rows instead of the last
+// moved it within noise, and one CTA an SM with twice the shared memory
+// was slower.  What neither does: keep the rest of a large layer
+// compressed on chip, or overlap one layer's barriers with another layer's
+// work.
 //
 // Numerics against the plain versions (ops/fused_batchnorm.py), which
 // compute the same expressions in the same order: the sums run in another
@@ -101,6 +110,8 @@
 // multiply and an add into one fused multiply-add.  Read on the card: the
 // moments within 6e-7 relative, a bf16 y within one bf16 ulp of the O(1)
 // terms (a y that cancels near 0 can differ by several ulps of itself).
+// The row split depends on the grid alone, not on the load width, so the
+// 16-byte and the masked scalar paths add the same values in the same order.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -116,8 +127,25 @@ constexpr int kLanesC = 8;                    // threads across a channel tile
 constexpr int kTileC = kVec * kLanesC;        // 64 channels a CTA
 constexpr int kLanesR = 32;                   // threads down the rows
 constexpr int kThreads = kLanesC * kLanesR;   // 256
-constexpr int kUnroll = 4;                    // rows of loads in flight a thread
-constexpr int kPartGroups = kThreads / kTileC;  // partial rows summed at once
+constexpr int kUnroll = 4;                    // rows of bf16 loads in flight a thread
+constexpr int kCtasPerSm = 2;                 // resident CTAs an SM, by design
+constexpr int kWarpsCta = kThreads / 32;      // 8
+constexpr int kSliceC = 8;                    // channels a CTA totals after barrier 1
+constexpr int kSliceGroups = kThreads / kSliceC;  // 32 strided groups of chunks
+constexpr int kTileGroups = kThreads / kTileC;    // 4 strided groups of chunks
+// K5 plans of at most this many chunks skip phase 2: each CTA totals its
+// own tile's partials (chunks x 512 bytes from L2), which saves phase 2
+// and its grid barrier (every ResNet-50 layer but the C = 64 ones, whose
+// 264 chunks total faster in slices)
+constexpr int kOwnTotalsChunks = 132;
+
+// rows of loads in flight a thread, within the registers two CTAs an SM
+// leave: 4 of bf16, 2 of float32 (the same 64 bytes of each input), 1 on
+// the masked scalar path (ragged C, misaligned pointers)
+template <typename T, bool kVecIO>
+__host__ __device__ constexpr int rows_in_flight() {
+  return !kVecIO ? 1 : sizeof(T) == 2 ? kUnroll : kUnroll / 2;
+}
 
 // 8 values of a row from p (channels c .. c + 7), as float32; `valid`
 // channels are read, the rest are 0
@@ -182,187 +210,282 @@ __device__ __forceinline__ void store8(__nv_bfloat16* p, int valid, const float 
   }
 }
 
-// Where a thread stands: its first channel, how many of its 8 channels lie
-// inside C, and its chunk's rows [r0, r1).
-struct Place {
-  int c, valid, r0, r1, ty, tx;
+// One work item: channel tile `tile`, row chunk `chunk`.  n rows from r0;
+// the rows from `first_held` on (local index) stay on chip.
+struct Item {
+  int c, valid, r0, n, chunk, first_held;
 };
 
-__device__ __forceinline__ Place place(int R, int C, int rows_per_chunk) {
-  Place p;
-  p.tx = threadIdx.x % kLanesC;
-  p.ty = threadIdx.x / kLanesC;
-  p.c = blockIdx.x * kTileC + p.tx * kVec;
-  p.valid = min(kVec, C - p.c);
-  p.r0 = blockIdx.y * rows_per_chunk;
-  p.r1 = min(R, p.r0 + rows_per_chunk);
-  return p;
+__device__ __forceinline__ Item item_at(int it, int tiles, int R, int C, int rows_per_chunk,
+                                        int hold_rows, bool keep) {
+  Item t;
+  const int tile = it % tiles;  // neighbouring CTAs: neighbouring tiles of the same rows
+  t.chunk = it / tiles;
+  t.c = tile * kTileC + (threadIdx.x % kLanesC) * kVec;
+  t.valid = min(kVec, C - t.c);
+  t.r0 = t.chunk * rows_per_chunk;
+  t.n = min(R, t.r0 + rows_per_chunk) - t.r0;
+  t.first_held = keep ? max(0, t.n - hold_rows) : t.n;
+  return t;
 }
 
-// The 32 row lanes' sums a[8], b[8] of each thread added in a fixed order
-// (row lane 0 first); the CTA's partials go to pa, pb [chunks, C].
-__device__ __forceinline__ void write_partials(const Place& p, const float (&a)[kVec],
-                                               const float (&b)[kVec], float* pa, float* pb,
-                                               int C) {
-  __shared__ float red[2][kLanesR][kTileC];
+// a held row's slot: [which][hold_rows][8 channel lanes][8 values] in T,
+// so a warp's 4 rows x 8 lanes are 512 contiguous bytes (bf16); K5 holds
+// x (which 0), K6 g (0) and x (1)
+template <typename T>
+__device__ __forceinline__ T* held(unsigned char* hold, int hold_rows, int slot, int which) {
+  return reinterpret_cast<T*>(hold) +
+         ((size_t)which * hold_rows * kLanesC + (size_t)slot * kLanesC + threadIdx.x % kLanesC) *
+             kVec;
+}
+
+// Phase 1's end: the 32 row lanes' sums a[8], b[8] of each thread meet (a
+// warp's 4 by shuffles, then the 8 warps in order in shared memory) and
+// the CTA writes them to row `chunk` of pa, pb [chunks, C]
+__device__ __forceinline__ void write_partials(float (&a)[kVec], float (&b)[kVec],
+                                               float (*red)[kWarpsCta][kTileC], int tile,
+                                               int chunk, int C, float* pa, float* pb) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, tx = threadIdx.x % kLanesC;
 #pragma unroll
   for (int j = 0; j < kVec; ++j) {
-    red[0][p.ty][p.tx * kVec + j] = a[j];
-    red[1][p.ty][p.tx * kVec + j] = b[j];
+    a[j] += __shfl_xor_sync(0xffffffffu, a[j], 8);
+    a[j] += __shfl_xor_sync(0xffffffffu, a[j], 16);
+    b[j] += __shfl_xor_sync(0xffffffffu, b[j], 8);
+    b[j] += __shfl_xor_sync(0xffffffffu, b[j], 16);
+  }
+  if (lane < kLanesC) {
+#pragma unroll
+    for (int j = 0; j < kVec; ++j) {
+      red[0][warp][tx * kVec + j] = a[j];
+      red[1][warp][tx * kVec + j] = b[j];
+    }
   }
   __syncthreads();
   if (threadIdx.x < 2 * kTileC) {
     const int which = threadIdx.x / kTileC, col = threadIdx.x % kTileC;
-    float acc = 0.f;
-    for (int i = 0; i < kLanesR; ++i) acc += red[which][i][col];
-    const int cc = blockIdx.x * kTileC + col;
-    if (cc < C) (which ? pb : pa)[(size_t)blockIdx.y * C + cc] = acc;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarpsCta; ++w) sum += red[which][w][col];
+    const int cc = tile * kTileC + col;
+    if (cc < C) (which ? pb : pa)[(size_t)chunk * C + cc] = sum;
   }
+  __syncthreads();
 }
 
-// The tile's partials over all chunks, added in a fixed order: thread t
-// sums the chunks t / 64, t / 64 + 4, ... of channel t % 64, and the four
-// groups meet in order.  out[0][col], out[1][col] get the totals.
-__device__ __forceinline__ void reduce_partials(const float* pa, const float* pb, int C,
-                                                int chunks, float (*out)[kTileC]) {
-  __shared__ float red[2][kPartGroups][kTileC];
-  const int col = threadIdx.x % kTileC, grp = threadIdx.x / kTileC;
-  const int cc = blockIdx.x * kTileC + col;
+using Slice = float[kSliceC];
+
+// Phase 2: the partials pa, pb [chunks, C] of slice sl's 8 channels added
+// over every chunk in a fixed order (32 strided groups of chunks, then the
+// groups in order).  Returns the totals [2][8] (Sum a, Sum b) in `scratch`
+// (at least 2 * (kThreads + kSliceC) floats of shared memory), which every
+// thread may read until the next call.
+__device__ __forceinline__ const Slice* slice_totals(const float* pa, const float* pb, int C,
+                                                     int chunks, int sl, float* scratch) {
+  float (*sred)[kSliceGroups][kSliceC] =
+      reinterpret_cast<float (*)[kSliceGroups][kSliceC]>(scratch);
+  Slice* tot = reinterpret_cast<Slice*>(scratch + 2 * kThreads);
+  const int cc = sl * kSliceC + threadIdx.x % kSliceC, grp = threadIdx.x / kSliceC;
   float a = 0.f, b = 0.f;
   if (cc < C) {
 #pragma unroll 4
-    for (int k = grp; k < chunks; k += kPartGroups) {
-      a += pa[(size_t)k * C + cc];
-      b += pb[(size_t)k * C + cc];
+    for (int k = grp; k < chunks; k += kSliceGroups) {
+      a += __ldcg(pa + (size_t)k * C + cc);
+      b += __ldcg(pb + (size_t)k * C + cc);
     }
   }
-  red[0][grp][col] = a;
-  red[1][grp][col] = b;
+  sred[0][grp][threadIdx.x % kSliceC] = a;
+  sred[1][grp][threadIdx.x % kSliceC] = b;
   __syncthreads();
-  if (threadIdx.x < kTileC) {
-    float sa = 0.f, sb = 0.f;
-#pragma unroll
-    for (int g = 0; g < kPartGroups; ++g) {
-      sa += red[0][g][col];
-      sb += red[1][g][col];
-    }
-    out[0][col] = sa;
-    out[1][col] = sb;
+  if (threadIdx.x < 2 * kSliceC) {
+    const int which = threadIdx.x / kSliceC, col = threadIdx.x % kSliceC;
+    float sum = 0.f;
+    for (int g = 0; g < kSliceGroups; ++g) sum += sred[which][g][col];
+    tot[which][col] = sum;
   }
+  __syncthreads();
+  return tot;
 }
 
 // ---------------------------------------------------------------------------
 // K5
 
-template <typename T, bool kVecIO>
-__global__ void __launch_bounds__(kThreads)
-bn_fwd_stats(const T* __restrict__ x, float* __restrict__ psum, float* __restrict__ psq,
-             int R, int C, int rows_per_chunk) {
-  const Place p = place(R, C, rows_per_chunk);
-  float s[kVec] = {}, q[kVec] = {};
-  if (p.valid > 0) {
-    int r = p.r0 + p.ty;
-    for (; r + (kUnroll - 1) * kLanesR < p.r1; r += kUnroll * kLanesR) {
-      float v[kUnroll][kVec];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
-        load8<kVecIO>(x + (size_t)(r + u * kLanesR) * C + p.c, p.valid, v[u]);
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u)
+template <typename T, bool kVecIO, bool kRelu, bool kRes>
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+bn_fwd_fused_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const float* __restrict__ gamma, const float* __restrict__ beta,
+                    T* __restrict__ y, float* __restrict__ mean, float* __restrict__ var,
+                    float* ws, int R, int C, int chunks, int rows_per_chunk, int hold_rows,
+                    float inv_n, float eps) {
+  constexpr int kU = rows_in_flight<T, kVecIO>();
+  extern __shared__ __align__(16) unsigned char hold[];
+  __shared__ float red[2][kWarpsCta][kTileC];
+  cg::grid_group grid = cg::this_grid();
+  const int tiles = (C + kTileC - 1) / kTileC;
+  const int items = tiles * chunks;
+  float* psum = ws;                            // [chunks, C]
+  float* psq = ws + (size_t)chunks * C;        // [chunks, C]
+  float* cst = ws + 2 * (size_t)chunks * C;    // [2, C]: mean, rsqrt(var + eps) * gamma
+  const int ty = threadIdx.x / kLanesC, tx = threadIdx.x % kLanesC;
+  // the CTA's items are blockIdx.x, + gridDim.x, ...; the last one keeps
+  // its tail on chip
+  const int cta = blockIdx.x, n_ctas = gridDim.x;
+  const int last = cta < items ? cta + (items - 1 - cta) / n_ctas * n_ctas : -1;
+
+  // 1. sums, rows in order
+  for (int it = cta; it < items; it += n_ctas) {
+    const Item t = item_at(it, tiles, R, C, rows_per_chunk, hold_rows, it == last);
+    float s[kVec] = {}, q[kVec] = {};
+    if (t.valid > 0) {
+      auto acc = [&](const float (&v)[kVec], int i) {
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
-          s[j] += v[u][j];
-          q[j] += v[u][j] * v[u][j];
+          s[j] += v[j];
+          q[j] += v[j] * v[j];
         }
-    }
-    for (; r < p.r1; r += kLanesR) {
-      float v[kVec];
-      load8<kVecIO>(x + (size_t)r * C + p.c, p.valid, v);
+        if (i >= t.first_held) store8<true>(held<T>(hold, hold_rows, i - t.first_held, 0), kVec, v);
+      };
+      int i = ty;
+      for (; i + (kU - 1) * kLanesR < t.n; i += kU * kLanesR) {
+        float v[kU][kVec];
 #pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        s[j] += v[j];
-        q[j] += v[j] * v[j];
+        for (int u = 0; u < kU; ++u)
+          load8<kVecIO>(x + (size_t)(t.r0 + i + u * kLanesR) * C + t.c, t.valid, v[u]);
+#pragma unroll
+        for (int u = 0; u < kU; ++u) acc(v[u], i + u * kLanesR);
+      }
+      for (; i < t.n; i += kLanesR) {
+        float v[kVec];
+        load8<kVecIO>(x + (size_t)(t.r0 + i) * C + t.c, t.valid, v);
+        acc(v, i);
       }
     }
+    write_partials(s, q, red, it % tiles, t.chunk, C, psum, psq);
   }
-  write_partials(p, s, q, psum, psq, C);
-}
+  grid.sync();
 
-template <typename T, bool kVecIO, bool kRelu, bool kRes>
-__global__ void __launch_bounds__(kThreads)
-bn_fwd_apply(const T* __restrict__ x, const T* __restrict__ res,
-             const float* __restrict__ gamma, const float* __restrict__ beta,
-             const float* __restrict__ psum, const float* __restrict__ psq,
-             T* __restrict__ y, float* __restrict__ mean_out, float* __restrict__ var_out,
-             int R, int C, int rows_per_chunk, int chunks, float inv_n, float eps) {
-  __shared__ float tot[2][kTileC];
-  __shared__ float s_mu[kTileC], s_mul[kTileC], s_beta[kTileC];
-  reduce_partials(psum, psq, C, chunks, tot);
-  __syncthreads();
-  if (threadIdx.x < kTileC) {
-    const int cc = blockIdx.x * kTileC + threadIdx.x;
-    float mu = 0.f, mul = 0.f, b = 0.f;
-    if (cc < C) {
-      mu = tot[0][threadIdx.x] * inv_n;
-      const float var = fmaxf(tot[1][threadIdx.x] * inv_n - mu * mu, 0.f);
-      mul = rsqrtf(var + eps) * gamma[cc];
-      b = beta[cc];
-      if (blockIdx.y == 0) {
-        mean_out[cc] = mu;
-        var_out[cc] = var;
+  // 2. each CTA totals its slices of 8 channels over every chunk, in a
+  // fixed order, and writes mean, var and the constants once; with few
+  // chunks each CTA totals its own tile in phase 3 instead
+  const bool own_totals = chunks <= kOwnTotalsChunks;
+  if (!own_totals) {
+    for (int sl = cta; sl * kSliceC < C; sl += n_ctas) {
+      const Slice* tot = slice_totals(psum, psq, C, chunks, sl, &red[0][0][0]);
+      const int c = sl * kSliceC + threadIdx.x;
+      if (threadIdx.x < kSliceC && c < C) {
+        const float mu = tot[0][threadIdx.x] * inv_n;
+        const float v = fmaxf(tot[1][threadIdx.x] * inv_n - mu * mu, 0.f);
+        mean[c] = mu;
+        var[c] = v;
+        cst[c] = mu;
+        cst[(size_t)C + c] = rsqrtf(v + eps) * gamma[c];
       }
     }
-    s_mu[threadIdx.x] = mu;
-    s_mul[threadIdx.x] = mul;
-    s_beta[threadIdx.x] = b;
+    grid.sync();
   }
-  __syncthreads();
-  const Place p = place(R, C, rows_per_chunk);
-  if (p.valid <= 0) return;
-  float mu[kVec], mul[kVec], b[kVec];
+
+  // 3. the elementwise pass, items and rows in reverse: the rows held on
+  // chip first, then the rest from the one read last
+  for (int it = last; it >= cta; it -= n_ctas) {
+    const Item t = item_at(it, tiles, R, C, rows_per_chunk, hold_rows, it == last);
+    const int col = threadIdx.x % kTileC, cc = (it % tiles) * kTileC + col;
+    if (own_totals) {
+      // the tile's partials over every chunk in a fixed order (thread t
+      // adds chunks t / 64, + 4, ... of channel t % 64, then the 4 groups
+      // meet in order), into the constants; the CTA of chunk 0 writes
+      // mean and var
+      const int grp = threadIdx.x / kTileC;
+      float a = 0.f, b = 0.f;
+      if (cc < C) {
+#pragma unroll 8
+        for (int k = grp; k < chunks; k += kTileGroups) {
+          a += __ldcg(psum + (size_t)k * C + cc);
+          b += __ldcg(psq + (size_t)k * C + cc);
+        }
+      }
+      red[1][grp][col] = a;
+      red[1][kTileGroups + grp][col] = b;
+      __syncthreads();
+      if (threadIdx.x < kTileC) {
+        float sa = 0.f, sb = 0.f;
 #pragma unroll
-  for (int j = 0; j < kVec; ++j) {
-    mu[j] = s_mu[p.tx * kVec + j];
-    mul[j] = s_mul[p.tx * kVec + j];
-    b[j] = s_beta[p.tx * kVec + j];
-  }
-  int r = p.r0 + p.ty;
-  auto row = [&](const float (&v)[kVec], const float (&rv)[kVec], int rr) {
-    float o[kVec];
+        for (int g = 0; g < kTileGroups; ++g) {
+          sa += red[1][g][col];
+          sb += red[1][kTileGroups + g][col];
+        }
+        float mu = 0.f, mul = 0.f, bt = 0.f;
+        if (cc < C) {
+          mu = sa * inv_n;
+          const float v = fmaxf(sb * inv_n - mu * mu, 0.f);
+          mul = rsqrtf(v + eps) * gamma[cc];
+          bt = beta[cc];
+          if (t.chunk == 0) {
+            mean[cc] = mu;
+            var[cc] = v;
+          }
+        }
+        red[0][0][col] = mu;
+        red[0][1][col] = mul;
+        red[0][2][col] = bt;
+      }
+    } else if (threadIdx.x < 3 * kTileC) {
+      // the tile's constants, read from L2 once a CTA into shared memory
+      const int which = threadIdx.x / kTileC;
+      float v = 0.f;
+      if (cc < C) v = which == 2 ? beta[cc] : __ldcg(cst + (size_t)which * C + cc);
+      red[0][which][col] = v;
+    }
+    __syncthreads();
+    float mu[kVec], mul[kVec], b[kVec];
 #pragma unroll
     for (int j = 0; j < kVec; ++j) {
-      float t = (v[j] - mu[j]) * mul[j] + b[j];
-      if (kRes) t += rv[j];
-      if (kRelu) t = fmaxf(t, 0.f);
-      o[j] = t;
+      mu[j] = red[0][0][tx * kVec + j];
+      mul[j] = red[0][1][tx * kVec + j];
+      b[j] = red[0][2][tx * kVec + j];
     }
-    store8<kVecIO>(y + (size_t)rr * C + p.c, p.valid, o);
-  };
-  for (; r + (kUnroll - 1) * kLanesR < p.r1; r += kUnroll * kLanesR) {
-    float v[kUnroll][kVec], rv[kUnroll][kVec];
+    __syncthreads();  // the next item overwrites them
+    if (t.valid <= 0) continue;
+    auto load_x = [&](int i, float (&v)[kVec]) {
+      if (i >= t.first_held)
+        load8<true>(held<T>(hold, hold_rows, i - t.first_held, 0), kVec, v);
+      else
+        load8<kVecIO>(x + (size_t)(t.r0 + i) * C + t.c, t.valid, v);
+    };
+    auto row = [&](const float (&v)[kVec], const float (&rv)[kVec], int i) {
+      float o[kVec];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      load8<kVecIO>(x + (size_t)(r + u * kLanesR) * C + p.c, p.valid, v[u]);
-      if (kRes) load8<kVecIO>(res + (size_t)(r + u * kLanesR) * C + p.c, p.valid, rv[u]);
+      for (int j = 0; j < kVec; ++j) {
+        float u = (v[j] - mu[j]) * mul[j] + b[j];
+        if (kRes) u += rv[j];
+        if (kRelu) u = fmaxf(u, 0.f);
+        o[j] = u;
+      }
+      store8<kVecIO>(y + (size_t)(t.r0 + i) * C + t.c, t.valid, o);
+    };
+    // this thread's rows are ty + 32 m
+    int m = t.n > ty ? (t.n - ty - 1) / kLanesR : -1;
+    for (; m >= kU - 1; m -= kU) {
+      float v[kU][kVec], rv[kU][kVec];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int i = ty + (m - u) * kLanesR;
+        load_x(i, v[u]);
+        if (kRes) load8<kVecIO>(res + (size_t)(t.r0 + i) * C + t.c, t.valid, rv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) row(v[u], rv[u], ty + (m - u) * kLanesR);
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) row(v[u], rv[u], r + u * kLanesR);
-  }
-  for (; r < p.r1; r += kLanesR) {
-    float v[kVec], rv[kVec];
-    load8<kVecIO>(x + (size_t)r * C + p.c, p.valid, v);
-    if (kRes) load8<kVecIO>(res + (size_t)r * C + p.c, p.valid, rv);
-    row(v, rv, r);
+    for (; m >= 0; --m) {
+      const int i = ty + m * kLanesR;
+      float v[kVec], rv[kVec];
+      load_x(i, v);
+      if (kRes) load8<kVecIO>(res + (size_t)(t.r0 + i) * C + t.c, t.valid, rv);
+      row(v, rv, i);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // K6
-
-constexpr int kBwdCtasPerSm = 2;              // resident CTAs an SM, by design
-constexpr int kWarpsCta = kThreads / 32;      // 8
-constexpr int kSliceC = 8;                    // channels a CTA totals after barrier 1
-constexpr int kSliceGroups = kThreads / kSliceC;  // 32 strided groups of chunks
 
 // the per-channel mean and rstd = rsqrt(var + eps) of a thread's 8 channels
 __device__ __forceinline__ void channel_consts(int c, int valid, const float* mean,
@@ -388,46 +511,15 @@ __device__ __forceinline__ void masked_grad(const T* dy, const T* y, size_t off,
   }
 }
 
-// One work item: channel tile `tile`, row chunk `chunk`.  n rows from r0;
-// the rows from `first_held` on (local index) stay on chip.
-struct Item {
-  int c, valid, r0, n, chunk, first_held;
-};
-
-__device__ __forceinline__ Item item_at(int it, int tiles, int R, int C, int rows_per_chunk,
-                                        int hold_rows, bool keep) {
-  Item t;
-  const int tile = it % tiles;  // neighbouring CTAs: neighbouring tiles of the same rows
-  t.chunk = it / tiles;
-  t.c = tile * kTileC + (threadIdx.x % kLanesC) * kVec;
-  t.valid = min(kVec, C - t.c);
-  t.r0 = t.chunk * rows_per_chunk;
-  t.n = min(R, t.r0 + rows_per_chunk) - t.r0;
-  t.first_held = keep ? max(0, t.n - hold_rows) : t.n;
-  return t;
-}
-
-// a held row's slot: g then x, each [hold_rows][8 channel lanes][8 values]
-// in T, so a warp's 4 rows x 8 lanes are 512 contiguous bytes (bf16)
-template <typename T>
-__device__ __forceinline__ T* held(unsigned char* hold, int hold_rows, int slot, int which) {
-  return reinterpret_cast<T*>(hold) +
-         ((size_t)which * hold_rows * kLanesC + (size_t)slot * kLanesC + threadIdx.x % kLanesC) *
-             kVec;
-}
-
 template <typename T, bool kVecIO, bool kRelu, bool kRes>
-__global__ void __launch_bounds__(kThreads, kBwdCtasPerSm)
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
 bn_bwd_fused_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* __restrict__ y,
                     const float* __restrict__ gamma, const float* __restrict__ mean,
                     const float* __restrict__ var, T* __restrict__ dx, T* __restrict__ dres,
                     float* __restrict__ dgamma, float* __restrict__ dbeta, float* ws, int R,
                     int C, int chunks, int rows_per_chunk, int hold_rows, float inv_n,
                     float eps) {
-  // rows of loads in flight a thread, within the registers two CTAs an SM
-  // leave: 4 of bf16, 2 of float32 (the same 64 bytes of each input), 1
-  // on the masked scalar path (ragged C, misaligned pointers)
-  constexpr int kU = !kVecIO ? 1 : sizeof(T) == 2 ? kUnroll : kUnroll / 2;
+  constexpr int kU = rows_in_flight<T, kVecIO>();
   extern __shared__ __align__(16) unsigned char hold[];
   __shared__ float red[2][kWarpsCta][kTileC];
   cg::grid_group grid = cg::this_grid();
@@ -437,7 +529,6 @@ bn_bwd_fused_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* 
   float* psgx = ws + (size_t)chunks * C;       // [chunks, C]
   float* tot = ws + 2 * (size_t)chunks * C;    // [2, C]: Sum g, Sum g * xhat
   const int ty = threadIdx.x / kLanesC, tx = threadIdx.x % kLanesC;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   // the CTA's items are blockIdx.x, + gridDim.x, ...; the last one keeps
   // its tail on chip
   const int cta = blockIdx.x, n_ctas = gridDim.x;
@@ -480,62 +571,22 @@ bn_bwd_fused_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* 
         acc(g, v, i);
       }
     }
-    // the 32 row lanes meet: the warp's 4 by shuffles, the 8 warps in
-    // order in shared memory
-#pragma unroll
-    for (int j = 0; j < kVec; ++j) {
-      sg[j] += __shfl_xor_sync(0xffffffffu, sg[j], 8);
-      sg[j] += __shfl_xor_sync(0xffffffffu, sg[j], 16);
-      sgx[j] += __shfl_xor_sync(0xffffffffu, sgx[j], 8);
-      sgx[j] += __shfl_xor_sync(0xffffffffu, sgx[j], 16);
-    }
-    if (lane < kLanesC) {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) {
-        red[0][warp][tx * kVec + j] = sg[j];
-        red[1][warp][tx * kVec + j] = sgx[j];
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < 2 * kTileC) {
-      const int which = threadIdx.x / kTileC, col = threadIdx.x % kTileC;
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarpsCta; ++w) sum += red[which][w][col];
-      const int cc = (it % tiles) * kTileC + col;
-      if (cc < C) (which ? psgx : psg)[(size_t)t.chunk * C + cc] = sum;
-    }
-    __syncthreads();
+    write_partials(sg, sgx, red, it % tiles, t.chunk, C, psg, psgx);
   }
   grid.sync();
 
   // 2. each CTA totals its slices of 8 channels over every chunk, in a
   // fixed order
-  float (*sred)[kSliceGroups][kSliceC] = reinterpret_cast<float (*)[kSliceGroups][kSliceC]>(red);
   for (int sl = cta; sl * kSliceC < C; sl += n_ctas) {
-    const int cc = sl * kSliceC + threadIdx.x % kSliceC, grp = threadIdx.x / kSliceC;
-    float a = 0.f, b = 0.f;
-    if (cc < C) {
-#pragma unroll 4
-      for (int k = grp; k < chunks; k += kSliceGroups) {
-        a += __ldcg(psg + (size_t)k * C + cc);
-        b += __ldcg(psgx + (size_t)k * C + cc);
-      }
-    }
-    sred[0][grp][threadIdx.x % kSliceC] = a;
-    sred[1][grp][threadIdx.x % kSliceC] = b;
-    __syncthreads();
+    const Slice* s = slice_totals(psg, psgx, C, chunks, sl, &red[0][0][0]);
     if (threadIdx.x < 2 * kSliceC) {
       const int which = threadIdx.x / kSliceC, col = threadIdx.x % kSliceC;
       const int c = sl * kSliceC + col;
-      float sum = 0.f;
-      for (int g = 0; g < kSliceGroups; ++g) sum += sred[which][g][col];
       if (c < C) {
-        tot[(size_t)which * C + c] = sum;
-        (which ? dgamma : dbeta)[c] = sum;
+        tot[(size_t)which * C + c] = s[which][col];
+        (which ? dgamma : dbeta)[c] = s[which][col];
       }
     }
-    __syncthreads();
   }
   grid.sync();
 
@@ -605,182 +656,209 @@ bn_bwd_fused_kernel(const T* __restrict__ dy, const T* __restrict__ x, const T* 
 // ---------------------------------------------------------------------------
 // host side
 
-template <typename T, bool kVecIO>
-int fwd_launch(const void* x, const void* res, const float* gamma, const float* beta,
-               void* y, float* mean, float* var, float* ws, int relu, int R, int C,
-               int chunks, int rows_per_chunk, float eps, cudaStream_t stream) {
-  const dim3 grid((C + kTileC - 1) / kTileC, chunks);
-  float* psum = ws;
-  float* psq = ws + (size_t)chunks * C;
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(res);
-  T* yt = static_cast<T*>(y);
-  bn_fwd_stats<T, kVecIO><<<grid, kThreads, 0, stream>>>(xt, psum, psq, R, C, rows_per_chunk);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const float inv_n = 1.0f / (float)R;
-#define BN_FWD_APPLY(RELU, RES)                                                         \
-  bn_fwd_apply<T, kVecIO, RELU, RES><<<grid, kThreads, 0, stream>>>(                    \
-      xt, rt, gamma, beta, psum, psq, yt, mean, var, R, C, rows_per_chunk, chunks, inv_n, \
-      eps)
-  if (relu && res) BN_FWD_APPLY(true, true);
-  else if (relu) BN_FWD_APPLY(true, false);
-  else if (res) BN_FWD_APPLY(false, true);
-  else BN_FWD_APPLY(false, false);
-#undef BN_FWD_APPLY
-  return (int)cudaGetLastError();
-}
-
-// K6's arguments, as the wrapper passes them
-struct BwdArgs {
-  const void *dy, *x, *y;
-  const float *gamma, *mean, *var;
-  void *dx, *dres;
-  float *dgamma, *dbeta, *ws;
+// One call's arguments, as the wrapper passes them.  K5 reads x (and res)
+// and writes y, mean and var; K6 reads dy, x, y (under ReLU), mean and var
+// and writes dx, dres (or null), dgamma and dbeta.
+struct Args {
+  const void *x, *res, *dy;
+  void *y, *dx, *dres;
+  const float *gamma, *beta;
+  float *mean, *var, *dgamma, *dbeta, *ws;
   int R, C, chunks, rows_per_chunk, hold_rows, ctas;
   float eps;
   cudaStream_t stream;
 };
 
 // The grid (the CTAs the card holds at once) and the dynamic shared memory
-// a CTA keeps rows in, found once per instantiation: an SM's shared memory
-// split between its kBwdCtasPerSm CTAs (fewer where the registers allow
-// fewer), less the per-block reservation and the static arrays, in whole
-// held rows (g and x of 64 channels)
-template <typename T, bool kVecIO, bool kRelu, bool kRes>
-cudaError_t bwd_resources(int* ctas, int* hold_bytes) {
-  static int s_ctas = 0, s_hold = 0;
-  if (!s_ctas) {
-    auto kernel = bn_bwd_fused_kernel<T, kVecIO, kRelu, kRes>;
-    int dev = 0, per_sm = 0, reserved = 0, optin = 0, sms = 0, occ = 0;
-    cudaFuncAttributes fa;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-    if (err != cudaSuccess) return err;
-    // CTAs an SM: kBwdCtasPerSm, or fewer if the registers allow fewer
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, 0);
-    if (err != cudaSuccess) return err;
-    const int per = max(1, min(occ, kBwdCtasPerSm));
-    const int row = 2 * kTileC * (int)sizeof(T);
-    int dyn = min(per_sm / per - reserved, optin) - (int)fa.sharedSizeBytes;
-    dyn = max(0, dyn / row * row);
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                 (int)cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, dyn);
-    if (err != cudaSuccess) return err;
-    if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
-    s_ctas = occ * sms;
-    s_hold = dyn;
-  }
-  *ctas = s_ctas;
-  *hold_bytes = s_hold;
+// a CTA keeps rows of `row` bytes in, for a kernel built for kCtasPerSm
+// CTAs an SM: an SM's shared memory split between its CTAs (fewer where
+// the registers allow fewer), less the per-block reservation and the
+// static arrays, in whole rows.  Found once per instantiation: `ctas` and
+// `hold` are its cache (0 until found).
+template <typename Kernel>
+cudaError_t find_resources(Kernel kernel, int row, int& ctas, int& hold) {
+  if (ctas) return cudaSuccess;
+  int dev = 0, per_sm = 0, reserved = 0, optin = 0, sms = 0, occ = 0;
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return err;
+  // CTAs an SM: kCtasPerSm, or fewer if the registers allow fewer
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int per = max(1, min(occ, kCtasPerSm));
+  int dyn = min(per_sm / per - reserved, optin) - (int)fa.sharedSizeBytes;
+  dyn = max(0, dyn / row * row);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, kThreads, dyn);
+  if (err != cudaSuccess) return err;
+  if (occ < 1) return cudaErrorCooperativeLaunchTooLarge;
+  ctas = occ * sms;
+  hold = dyn;
   return cudaSuccess;
 }
 
-// one cooperative launch of the persistent grid; the plan must be the one
-// the wrapper made from bwd_resources (the grid, the held rows, the chunks
-// covering R)
-template <typename T, bool kVecIO, bool kRelu, bool kRes>
-cudaError_t bwd_launch(const BwdArgs& a) {
-  int ctas = 0, hold = 0;
-  cudaError_t err = bwd_resources<T, kVecIO, kRelu, kRes>(&ctas, &hold);
-  if (err != cudaSuccess) return err;
-  if (a.ctas != ctas || a.hold_rows < 0 || a.hold_rows * 2 * kTileC * (int)sizeof(T) > hold ||
+// One cooperative launch of the persistent grid.  The plan must be the one
+// the wrapper made from the same resources (the grid, at most the rows of
+// `row` bytes that fit, chunks covering R with none empty); a grid the card
+// cannot hold at once is refused, not shrunk.
+template <typename Kernel>
+cudaError_t coop_launch(Kernel kernel, int row, int ctas, int hold, const Args& a,
+                        void** args) {
+  if (a.ctas != ctas || a.hold_rows < 0 || (long long)a.hold_rows * row > hold ||
       a.chunks < 1 || a.rows_per_chunk < 1 || (long long)a.chunks * a.rows_per_chunk < a.R ||
       (long long)(a.chunks - 1) * a.rows_per_chunk >= a.R)
     return cudaErrorInvalidValue;
-  const T* dy = static_cast<const T*>(a.dy);
-  const T* x = static_cast<const T*>(a.x);
-  const T* y = static_cast<const T*>(a.y);
-  const float *gamma = a.gamma, *mean = a.mean, *var = a.var;
-  T* dx = static_cast<T*>(a.dx);
-  T* dres = static_cast<T*>(a.dres);
-  float *dgamma = a.dgamma, *dbeta = a.dbeta, *ws = a.ws;
-  int R = a.R, C = a.C, chunks = a.chunks, rows = a.rows_per_chunk, hold_rows = a.hold_rows;
-  float inv_n = 1.0f / (float)a.R, eps = a.eps;
-  void* args[] = {&dy,     &x,     &y,  &gamma, &mean,   &var,  &dx,        &dres,  &dgamma,
-                  &dbeta,  &ws,    &R,  &C,     &chunks, &rows, &hold_rows, &inv_n, &eps};
-  err = cudaLaunchCooperativeKernel(bn_bwd_fused_kernel<T, kVecIO, kRelu, kRes>, dim3(ctas),
-                                    dim3(kThreads), args, (size_t)hold, a.stream);
+  cudaError_t err = cudaLaunchCooperativeKernel(kernel, dim3(ctas), dim3(kThreads), args,
+                                                (size_t)hold, a.stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// with ctas non-null: the resources; else the launch
 template <typename T, bool kVecIO, bool kRelu, bool kRes>
-cudaError_t bwd_entry(const BwdArgs* a, int* ctas, int* hold_bytes) {
-  if (ctas) return bwd_resources<T, kVecIO, kRelu, kRes>(ctas, hold_bytes);
-  return bwd_launch<T, kVecIO, kRelu, kRes>(*a);
+struct Fwd {
+  static constexpr int kRow = kTileC * (int)sizeof(T);  // a held row: x
+  static cudaError_t resources(int* ctas, int* hold) {
+    static int s_ctas = 0, s_hold = 0;
+    cudaError_t err =
+        find_resources(bn_fwd_fused_kernel<T, kVecIO, kRelu, kRes>, kRow, s_ctas, s_hold);
+    *ctas = s_ctas;
+    *hold = s_hold;
+    return err;
+  }
+  static cudaError_t launch(const Args& a) {
+    int ctas = 0, hold = 0;
+    cudaError_t err = resources(&ctas, &hold);
+    if (err != cudaSuccess) return err;
+    const T* x = static_cast<const T*>(a.x);
+    const T* res = static_cast<const T*>(a.res);
+    T* y = static_cast<T*>(a.y);
+    const float *gamma = a.gamma, *beta = a.beta;
+    float *mean = a.mean, *var = a.var, *ws = a.ws;
+    int R = a.R, C = a.C, chunks = a.chunks, rows = a.rows_per_chunk, hold_rows = a.hold_rows;
+    float inv_n = 1.0f / (float)a.R, eps = a.eps;
+    void* args[] = {&x, &res, &gamma, &beta, &y,    &mean,      &var,   &ws,
+                    &R, &C,   &chunks, &rows, &hold_rows, &inv_n, &eps};
+    return coop_launch(bn_fwd_fused_kernel<T, kVecIO, kRelu, kRes>, kRow, ctas, hold, a, args);
+  }
+};
+
+template <typename T, bool kVecIO, bool kRelu, bool kRes>
+struct Bwd {
+  static constexpr int kRow = 2 * kTileC * (int)sizeof(T);  // a held row: g and x
+  static cudaError_t resources(int* ctas, int* hold) {
+    static int s_ctas = 0, s_hold = 0;
+    cudaError_t err =
+        find_resources(bn_bwd_fused_kernel<T, kVecIO, kRelu, kRes>, kRow, s_ctas, s_hold);
+    *ctas = s_ctas;
+    *hold = s_hold;
+    return err;
+  }
+  static cudaError_t launch(const Args& a) {
+    int ctas = 0, hold = 0;
+    cudaError_t err = resources(&ctas, &hold);
+    if (err != cudaSuccess) return err;
+    const T* dy = static_cast<const T*>(a.dy);
+    const T* x = static_cast<const T*>(a.x);
+    const T* y = static_cast<const T*>(a.y);
+    const float *gamma = a.gamma, *mean = a.mean, *var = a.var;
+    T* dx = static_cast<T*>(a.dx);
+    T* dres = static_cast<T*>(a.dres);
+    float *dgamma = a.dgamma, *dbeta = a.dbeta, *ws = a.ws;
+    int R = a.R, C = a.C, chunks = a.chunks, rows = a.rows_per_chunk, hold_rows = a.hold_rows;
+    float inv_n = 1.0f / (float)a.R, eps = a.eps;
+    void* args[] = {&dy,    &x,     &y,  &gamma, &mean,   &var,  &dx,        &dres,  &dgamma,
+                    &dbeta, &ws,    &R,  &C,     &chunks, &rows, &hold_rows, &inv_n, &eps};
+    return coop_launch(bn_bwd_fused_kernel<T, kVecIO, kRelu, kRes>, kRow, ctas, hold, a, args);
+  }
+};
+
+// With `a` null: the instantiation's resources into ctas, hold; else its
+// launch.  Op is Fwd or Bwd.
+template <template <typename, bool, bool, bool> class Op, typename T, bool kVecIO, bool kRelu>
+cudaError_t by_res(int res, const Args* a, int* ctas, int* hold) {
+  if (res)
+    return a ? Op<T, kVecIO, kRelu, true>::launch(*a)
+             : Op<T, kVecIO, kRelu, true>::resources(ctas, hold);
+  return a ? Op<T, kVecIO, kRelu, false>::launch(*a)
+           : Op<T, kVecIO, kRelu, false>::resources(ctas, hold);
 }
-template <typename T, bool kVecIO, bool kRelu>
-cudaError_t bwd_res(int res, const BwdArgs* a, int* ctas, int* hold_bytes) {
-  return res ? bwd_entry<T, kVecIO, kRelu, true>(a, ctas, hold_bytes)
-             : bwd_entry<T, kVecIO, kRelu, false>(a, ctas, hold_bytes);
+template <template <typename, bool, bool, bool> class Op, typename T, bool kVecIO>
+cudaError_t by_relu(int relu, int res, const Args* a, int* ctas, int* hold) {
+  return relu ? by_res<Op, T, kVecIO, true>(res, a, ctas, hold)
+              : by_res<Op, T, kVecIO, false>(res, a, ctas, hold);
 }
-template <typename T, bool kVecIO>
-cudaError_t bwd_relu(int relu, int res, const BwdArgs* a, int* ctas, int* hold_bytes) {
-  return relu ? bwd_res<T, kVecIO, true>(res, a, ctas, hold_bytes)
-              : bwd_res<T, kVecIO, false>(res, a, ctas, hold_bytes);
-}
-cudaError_t bwd_dispatch(int dtype, int vec, int relu, int res, const BwdArgs* a, int* ctas,
-                         int* hold_bytes) {
+template <template <typename, bool, bool, bool> class Op>
+int dispatch(int dtype, int vec, int relu, int res, const Args* a, int* ctas, int* hold) {
+  cudaError_t err;
   if (dtype == 1)
-    return vec ? bwd_relu<__nv_bfloat16, true>(relu, res, a, ctas, hold_bytes)
-               : bwd_relu<__nv_bfloat16, false>(relu, res, a, ctas, hold_bytes);
-  return vec ? bwd_relu<float, true>(relu, res, a, ctas, hold_bytes)
-             : bwd_relu<float, false>(relu, res, a, ctas, hold_bytes);
+    err = vec ? by_relu<Op, __nv_bfloat16, true>(relu, res, a, ctas, hold)
+              : by_relu<Op, __nv_bfloat16, false>(relu, res, a, ctas, hold);
+  else
+    err = vec ? by_relu<Op, float, true>(relu, res, a, ctas, hold)
+              : by_relu<Op, float, false>(relu, res, a, ctas, hold);
+  return (int)err;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  vec: 1 when C % 8 == 0 and every [R, C]
-// pointer is 16-byte aligned.  res may be null (no residual).  ws holds
-// 2 * chunks * C floats.  Returns cudaGetLastError() of the launches (0 =
-// launched).
+// The grid (the CTAs the card holds at once) and the dynamic shared memory
+// each CTA keeps rows in, for one instantiation of K5 or K6.  dtype: 0 =
+// float32, 1 = bfloat16.  vec: 1 when C % 8 == 0 and every [R, C] pointer
+// is 16-byte aligned.  res: 1 with a residual.  Returns the CUDA error code
+// (0 = found).
+extern "C" int fused_batchnorm_fwd_resources(int dtype, int vec, int relu, int res, int* ctas,
+                                             int* hold_bytes) {
+  return dispatch<Fwd>(dtype, vec, relu, res, nullptr, ctas, hold_bytes);
+}
+extern "C" int fused_batchnorm_bwd_resources(int dtype, int vec, int relu, int res, int* ctas,
+                                             int* hold_bytes) {
+  return dispatch<Bwd>(dtype, vec, relu, res, nullptr, ctas, hold_bytes);
+}
+
+// K5.  res may be null (no residual).  ws holds (2 * chunks + 2) * C
+// floats; ctas and hold_rows come from fused_batchnorm_fwd_resources
+// (hold_rows at most hold_bytes / (64 * sizeof(x))), chunks * rows_per_chunk
+// covers R with no chunk empty.  Returns the CUDA error code of the
+// cooperative launch (0 = launched; cudaErrorInvalidValue for another plan).
 extern "C" int fused_batchnorm_fwd_launch(const void* x, const void* res, const void* gamma,
                                           const void* beta, void* y, void* mean, void* var,
                                           void* ws, int dtype, int vec, int relu, int R,
-                                          int C, int chunks, int rows_per_chunk, float eps,
-                                          void* stream) {
-  const float* g = static_cast<const float*>(gamma);
-  const float* b = static_cast<const float*>(beta);
-  float* m = static_cast<float*>(mean);
-  float* v = static_cast<float*>(var);
-  float* w = static_cast<float*>(ws);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    return vec ? fwd_launch<__nv_bfloat16, true>(x, res, g, b, y, m, v, w, relu, R, C, chunks,
-                                                 rows_per_chunk, eps, st)
-               : fwd_launch<__nv_bfloat16, false>(x, res, g, b, y, m, v, w, relu, R, C,
-                                                  chunks, rows_per_chunk, eps, st);
-  }
-  return vec ? fwd_launch<float, true>(x, res, g, b, y, m, v, w, relu, R, C, chunks,
-                                       rows_per_chunk, eps, st)
-             : fwd_launch<float, false>(x, res, g, b, y, m, v, w, relu, R, C, chunks,
-                                        rows_per_chunk, eps, st);
+                                          int C, int chunks, int rows_per_chunk, int hold_rows,
+                                          int ctas, float eps, void* stream) {
+  Args a{};
+  a.x = x;
+  a.res = res;
+  a.y = y;
+  a.gamma = static_cast<const float*>(gamma);
+  a.beta = static_cast<const float*>(beta);
+  a.mean = static_cast<float*>(mean);
+  a.var = static_cast<float*>(var);
+  a.ws = static_cast<float*>(ws);
+  a.R = R;
+  a.C = C;
+  a.chunks = chunks;
+  a.rows_per_chunk = rows_per_chunk;
+  a.hold_rows = hold_rows;
+  a.ctas = ctas;
+  a.eps = eps;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<Fwd>(dtype, vec, relu, res != nullptr, &a, nullptr, nullptr);
 }
 
-// K6's grid (the CTAs the card holds at once) and the dynamic shared memory
-// each CTA keeps rows in, for one instantiation (res: 1 with a residual).
-// Returns the CUDA error code (0 = found).
-extern "C" int fused_batchnorm_bwd_resources(int dtype, int vec, int relu, int res, int* ctas,
-                                             int* hold_bytes) {
-  return (int)bwd_dispatch(dtype, vec, relu, res, nullptr, ctas, hold_bytes);
-}
-
-// y may be null when relu is 0; dres may be null (no residual).  ws holds
-// (2 * chunks + 2) * C floats; ctas and hold_rows come from
+// K6.  y may be null when relu is 0; dres may be null (no residual).  ws
+// holds (2 * chunks + 2) * C floats; ctas and hold_rows come from
 // fused_batchnorm_bwd_resources (hold_rows at most hold_bytes / (128 *
 // sizeof(x))).  Returns the CUDA error code of the cooperative launch (0 =
 // launched); a grid the card cannot hold at once is refused, not shrunk.
@@ -791,24 +869,25 @@ extern "C" int fused_batchnorm_bwd_launch(const void* dy, const void* x, const v
                                           int vec, int relu, int R, int C, int chunks,
                                           int rows_per_chunk, int hold_rows, int ctas,
                                           float eps, void* stream) {
-  const BwdArgs a{dy,
-                  x,
-                  y,
-                  static_cast<const float*>(gamma),
-                  static_cast<const float*>(mean),
-                  static_cast<const float*>(var),
-                  dx,
-                  dres,
-                  static_cast<float*>(dgamma),
-                  static_cast<float*>(dbeta),
-                  static_cast<float*>(ws),
-                  R,
-                  C,
-                  chunks,
-                  rows_per_chunk,
-                  hold_rows,
-                  ctas,
-                  eps,
-                  static_cast<cudaStream_t>(stream)};
-  return (int)bwd_dispatch(dtype, vec, relu, dres != nullptr, &a, nullptr, nullptr);
+  Args a{};
+  a.dy = dy;
+  a.x = x;
+  a.y = const_cast<void*>(y);
+  a.gamma = static_cast<const float*>(gamma);
+  a.mean = static_cast<float*>(const_cast<void*>(mean));
+  a.var = static_cast<float*>(const_cast<void*>(var));
+  a.dx = dx;
+  a.dres = dres;
+  a.dgamma = static_cast<float*>(dgamma);
+  a.dbeta = static_cast<float*>(dbeta);
+  a.ws = static_cast<float*>(ws);
+  a.R = R;
+  a.C = C;
+  a.chunks = chunks;
+  a.rows_per_chunk = rows_per_chunk;
+  a.hold_rows = hold_rows;
+  a.ctas = ctas;
+  a.eps = eps;
+  a.stream = static_cast<cudaStream_t>(stream);
+  return dispatch<Bwd>(dtype, vec, relu, dres != nullptr, &a, nullptr, nullptr);
 }

@@ -1,12 +1,20 @@
-"""Paged continuous batching (the port of the default path of
-``tf_operator_tpu/models/batching.py::PagedContinuousBatchingDecoder``).
+"""Paged continuous batching (the port of
+``tf_operator_tpu/models/batching.py::PagedContinuousBatchingDecoder`` in
+its ``reserve="worst-case"`` mode).
 
 One pre-allocated block arena backs every seat through a per-seat
-block table, and admission is gated on blocks free.  The port keeps the
-JAX pool's ``reserve="worst-case"`` contract: admission reserves the
+block table, and admission is gated on blocks free.  The port has only
+the JAX pool's ``reserve="worst-case"`` contract: admission reserves the
 prompt's and the whole budget's blocks, and a request that does not fit
-waits at the head of the FIFO queue.  Preemption, swap, SLO tiers, lazy
-growth, disaggregation and speculation are not ported yet.
+waits at the head of the FIFO queue.  The JAX pool's default, and the
+JAX server's (``examples/serve_lm.py`` passes no ``reserve``), is
+``reserve="lazy"``: it admits a request on its prompt's blocks plus one
+and grows its table as it decodes, preempting a seat when the arena
+runs out.  The two admit alike while the arena holds every seat's worst
+case (the default ``kv_blocks``); below that the JAX pool runs requests
+together that the port queues, with the same greedy tokens.  Lazy
+growth, preemption, swap, SLO tiers, disaggregation and speculation are
+not ported yet.
 
 Admission (one request at a time, under the pool lock):
 

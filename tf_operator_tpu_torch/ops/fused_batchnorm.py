@@ -30,10 +30,12 @@ another dtype (``_Cfg.res_dtype``); ResNet never passes one, and the
 kernel here refuses it (the plain version takes any dtype).
 
 ``_build.launches`` counts ``fused_batchnorm_fwd`` and
-``fused_batchnorm_bwd`` once per kernel call (K5 is two launches on the
-card: partial sums, then the elementwise pass; K6 is one cooperative
-launch of a grid the card holds at once, whose row split and on-chip
-rows :func:`bwd_plan` sets), ``plain_calls`` the plain versions' calls.
+``fused_batchnorm_bwd`` once per kernel call, ``plain_calls`` the plain
+versions' calls.  K5 and K6 are each one cooperative launch of a grid
+the card holds at once (the occupancy query, :func:`fwd_resources` and
+:func:`bwd_resources`); :func:`fwd_plan` and :func:`bwd_plan` set the
+row split and the rows each CTA keeps on chip between its sums and its
+elementwise pass (K5 x, K6 g and x).
 """
 
 from __future__ import annotations
@@ -52,53 +54,26 @@ KERNEL_BWD = "fused_batchnorm_bwd"
 _SOURCE = "fused_batchnorm"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: channels of one CTA's tile, and the CTA's threads down the rows (the
-#: kernel's kTileC and kLanesR)
+#: kernels' kTileC and kLanesR)
 TILE_C = 64
 ROW_LANES = 32
-#: rows a thread keeps in flight (the kernel's kUnroll)
-UNROLL = 4
-#: CTAs a K5 launch aims at: two for each of the H100's 132 SMs
-TARGET_CTAS = 2 * 132
 
 #: plain-version calls since the last ``plain_calls.clear()``
 plain_calls: "collections.Counter[str]" = collections.Counter()
 
 
-def chunk_rows(r: int, c: int) -> Tuple[int, int]:
-    """(chunks, rows a chunk) of K5's row split: about
-    ``TARGET_CTAS`` CTAs over the channel tiles, no chunk of fewer than
-    ``ROW_LANES * UNROLL`` rows unless R is smaller, no empty chunk."""
-
-    tiles = -(-c // TILE_C)
-    chunks = max(1, min(-(-TARGET_CTAS // tiles), -(-r // (ROW_LANES * UNROLL))))
-    rows = -(-r // chunks)
-    return -(-r // rows), rows
-
-
-def bwd_plan(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> Tuple[int, int, int]:
-    """(chunks, rows a chunk, rows held on chip a chunk) of K6 on a grid
-    of ``ctas`` CTAs, each keeping up to ``hold_bytes`` of rows (g and x
-    of ``TILE_C`` channels, ``elem`` bytes a value) in shared memory.
-
-    The chunks are as many as fill the grid with the channel tiles' work
-    items (one item a CTA where the tiles fit), no chunk of fewer than
-    ``ROW_LANES`` rows unless R is smaller, no empty chunk; each chunk
-    keeps its last rows on chip, as many as fit.  Where the tiles exceed
-    the grid a CTA takes several items and keeps the last one's rows."""
-
+def _plan(r: int, c: int, ctas: int, hold_bytes: int, row_bytes: int) -> Tuple[int, int, int]:
     tiles = -(-c // TILE_C)
     chunks = max(1, min(ctas // tiles, r // ROW_LANES))
     rows = -(-r // chunks)
-    hold_rows = hold_bytes // (2 * TILE_C * elem)
-    return -(-r // rows), rows, min(rows, hold_rows)
+    return -(-r // rows), rows, min(rows, hold_bytes // row_bytes)
 
 
-def bwd_held_bytes(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> int:
-    """Bytes of g and x that K6 keeps on chip between its sums and its
-    elementwise pass, over every channel tile: each CTA keeps the tail
-    of its last item only."""
+def _held_values(r: int, c: int, ctas: int, plan: Tuple[int, int, int]) -> int:
+    """Values of one [R, C] tensor a grid of ``ctas`` keeps on chip under
+    ``plan``: each CTA keeps the tail of its last item only."""
 
-    chunks, rows, hold_rows = bwd_plan(r, c, ctas, hold_bytes, elem)
+    chunks, rows, hold_rows = plan
     tiles = -(-c // TILE_C)
     items = tiles * chunks
     held = 0
@@ -107,7 +82,44 @@ def bwd_held_bytes(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> int
         chunk, tile = divmod(last, tiles)
         n = min(r, (chunk + 1) * rows) - chunk * rows
         held += min(hold_rows, n) * min(TILE_C, c - tile * TILE_C)
-    return 2 * elem * held
+    return held
+
+
+def fwd_plan(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> Tuple[int, int, int]:
+    """(chunks, rows a chunk, rows held on chip a chunk) of K5 on a grid
+    of ``ctas`` CTAs, each keeping up to ``hold_bytes`` of rows of x
+    (``TILE_C`` channels, ``elem`` bytes a value) in shared memory.
+
+    The chunks are as many as fill the grid with the channel tiles' work
+    items (one item a CTA where the tiles fit), no chunk of fewer than
+    ``ROW_LANES`` rows unless R is smaller, no empty chunk; each chunk
+    keeps its last rows on chip, as many as fit.  Where the tiles exceed
+    the grid a CTA takes several items and keeps the last one's rows.
+    The split depends on the grid alone, so every instantiation on the
+    same grid adds the same values in the same order."""
+
+    return _plan(r, c, ctas, hold_bytes, TILE_C * elem)
+
+
+def fwd_held_bytes(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> int:
+    """Bytes of x that K5 keeps on chip between its sums and its
+    elementwise pass, over every channel tile."""
+
+    return elem * _held_values(r, c, ctas, fwd_plan(r, c, ctas, hold_bytes, elem))
+
+
+def bwd_plan(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> Tuple[int, int, int]:
+    """(chunks, rows a chunk, rows held on chip a chunk) of K6: the split
+    of :func:`fwd_plan`, each held row being g and x."""
+
+    return _plan(r, c, ctas, hold_bytes, 2 * TILE_C * elem)
+
+
+def bwd_held_bytes(r: int, c: int, ctas: int, hold_bytes: int, elem: int) -> int:
+    """Bytes of g and x that K6 keeps on chip between its sums and its
+    elementwise pass, over every channel tile."""
+
+    return 2 * elem * _held_values(r, c, ctas, bwd_plan(r, c, ctas, hold_bytes, elem))
 
 
 def fused_batchnorm_fwd_plain(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -190,31 +202,47 @@ def _launchers():
 
     lib = _build.load(_SOURCE)
     fwd = lib.fused_batchnorm_fwd_launch
-    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
+    fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                                    ctypes.c_void_p]
     fwd.restype = ctypes.c_int
     bwd = lib.fused_batchnorm_bwd_launch
     bwd.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_float,
                                                                     ctypes.c_void_p]
     bwd.restype = ctypes.c_int
-    res = lib.fused_batchnorm_bwd_resources
-    res.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
-    res.restype = ctypes.c_int
-    return fwd, bwd, res
+    resources = {}
+    for kernel in ("fwd", "bwd"):
+        res = getattr(lib, f"fused_batchnorm_{kernel}_resources")
+        res.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        res.restype = ctypes.c_int
+        resources[kernel] = res
+    return fwd, bwd, resources
+
+
+def _resources(kernel: str, dtype_code: int, vec: int, relu: int,
+               residual: int) -> Tuple[int, int]:
+    ctas, hold = ctypes.c_int(0), ctypes.c_int(0)
+    err = _launchers()[2][kernel](dtype_code, vec, relu, residual, ctypes.byref(ctas),
+                                  ctypes.byref(hold))
+    if err != 0:
+        raise RuntimeError(f"fused_batchnorm {kernel} kernel: occupancy query failed: CUDA "
+                           f"error {err}")
+    return ctas.value, hold.value
+
+
+@functools.cache
+def fwd_resources(dtype_code: int, vec: int, relu: int, residual: int) -> Tuple[int, int]:
+    """(CTAs the card holds at once, shared-memory bytes a CTA keeps rows
+    in) of the K5 instantiation, from the occupancy query on the current
+    device."""
+
+    return _resources("fwd", dtype_code, vec, relu, residual)
 
 
 @functools.cache
 def bwd_resources(dtype_code: int, vec: int, relu: int, residual: int) -> Tuple[int, int]:
-    """(CTAs the card holds at once, shared-memory bytes a CTA keeps rows
-    in) of the K6 instantiation, from the occupancy query on the current
-    device."""
+    """The same for the K6 instantiation."""
 
-    ctas, hold = ctypes.c_int(0), ctypes.c_int(0)
-    err = _launchers()[2](dtype_code, vec, relu, residual, ctypes.byref(ctas), ctypes.byref(hold))
-    if err != 0:
-        raise RuntimeError(f"fused_batchnorm backward kernel: occupancy query failed: CUDA "
-                           f"error {err}")
-    return ctas.value, hold.value
+    return _resources("bwd", dtype_code, vec, relu, residual)
 
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -223,9 +251,10 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def fused_batchnorm_fwd_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                              eps: float, relu: bool, residual2: Optional[torch.Tensor]):
-    """Launch K5 on the current stream: x2 [R, C] (float32 or bf16,
-    contiguous), gamma and beta float32 [C], residual2 None or like x2
-    -> (y2, mean, var).  Counts one launch of ``fused_batchnorm_fwd``."""
+    """Launch K5 on the current stream, one cooperative launch: x2 [R, C]
+    (float32 or bf16, contiguous), gamma and beta float32 [C], residual2
+    None or like x2 -> (y2, mean, var).  A launch the card refuses
+    raises.  Counts one launch of ``fused_batchnorm_fwd``."""
 
     _check_x(x2)
     r, c = x2.shape
@@ -236,13 +265,15 @@ def fused_batchnorm_fwd_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.
     y2 = torch.empty_like(x2)
     mean = torch.empty(c, dtype=torch.float32, device=x2.device)
     var = torch.empty_like(mean)
-    chunks, rows = chunk_rows(r, c)
-    ws = torch.empty(2 * chunks * c, dtype=torch.float32, device=x2.device)
     vec = _vector_io(c, x2, y2, *(() if residual2 is None else (residual2,)))
+    code = _DTYPE_CODES[x2.dtype]
+    ctas, hold = fwd_resources(code, vec, int(relu), int(residual2 is not None))
+    chunks, rows, hold_rows = fwd_plan(r, c, ctas, hold, x2.element_size())
+    ws = torch.empty((2 * chunks + 2) * c, dtype=torch.float32, device=x2.device)
     err = _launchers()[0](
         x2.data_ptr(), _ptr(residual2), gamma.data_ptr(), beta.data_ptr(), y2.data_ptr(),
         mean.data_ptr(), var.data_ptr(), ws.data_ptr(),
-        _DTYPE_CODES[x2.dtype], vec, int(relu), r, c, chunks, rows, float(eps),
+        code, vec, int(relu), r, c, chunks, rows, hold_rows, ctas, float(eps),
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     if err != 0:
