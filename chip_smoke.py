@@ -119,6 +119,28 @@ Phases, in order; any failure exits non-zero before the result line:
    have launched 32 layers x the decode steps run.
    Then one decode window of the same pool runs under torch.profiler:
    the device's busy share of the window and each kernel's share.
+7b. serving under arena pressure at full width: the same model behind
+   ``serve_lm``'s server, the pool at 8 slots, max_len 2048, bs 16, 8
+   steps per sync, in its default ``reserve="lazy"``.  Eight batch
+   requests (prompts of 390..410 bytes, none a multiple of 16, so each
+   straddle block is private; 128 new tokens; one seeded temperature
+   request with top_k 40) at once, and after two windows one
+   interactive request (700 bytes, 32 new tokens).  The arena is the
+   eight batch commits (``_commit_blocks``) plus 24 blocks, below the
+   sum of their worst cases.  Three runs, counts zeroed just before
+   and read just after each: K4 must have launched 32 layers x the
+   decode steps, every request must answer, the allocator must conserve
+   and the swap arena end empty.  (1) an unpressured pool at the
+   default arena: the reference tokens; (2) the pressured lazy pool:
+   at least one preemption, every victim batch, swap bytes out = in >
+   0, every request's token row identical to (1)'s, greedy and seeded;
+   (3) ``reserve="worst-case"`` at the same arena: identical tokens,
+   and fewer seats at once than lazy's eight.  Prints each run's peak
+   seats, preemptions (each victim's tier, blocks swapped to the host
+   and left live), demotions, decode tokens/s, TTFT by tier and peak
+   memory; each swap copy's device ms (CUDA events), blocks, bytes and
+   GB/s, beside a plain pinned-host copy of the largest swap's bytes
+   each way as the link's yardstick; all beside the card line.
 8. end to end: on ``llama_tiny`` (float32) the pool's greedy tokens
    through the kernel equal the plain contiguous ``generate`` on the
    card; at 7B width the first decode step's logits through the kernel
@@ -159,6 +181,7 @@ import threading
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 #: published H100 SXM peaks (NVIDIA data sheet): HBM3 rate and dense
@@ -629,6 +652,245 @@ def phase_decode_profile(pool):
     }
     log("decode window profile " + json.dumps(rec))
     return rec
+
+
+#: phase 7b: eight batch prompts in 390..410 bytes (none a multiple of
+#: 16, so each seat's straddle block is private), 128 new tokens each;
+#: the fourth is seeded temperature.  After two windows one interactive
+#: request of 700 bytes and 32 new tokens arrives
+PRESSURE_LENGTHS = (390, 393, 397, 399, 403, 405, 407, 410)
+PRESSURE_BUDGET = 128
+PRESSURE_INTERACTIVE = (700, 32)
+
+
+def _pressure_bodies(seed=5):
+    import random
+
+    rng = random.Random(seed)
+
+    def text(n):
+        return "".join(chr(rng.randrange(32, 127)) for _ in range(n))
+
+    bodies = [{"prompt": text(n), "max_new_tokens": PRESSURE_BUDGET, "tier": "batch"}
+              for n in PRESSURE_LENGTHS]
+    bodies[3].update(temperature=0.8, top_k=40, seed=4321)
+    n, budget = PRESSURE_INTERACTIVE
+    bodies.append({"prompt": text(n), "max_new_tokens": budget, "tier": "interactive"})
+    return bodies
+
+
+def pressure_kv_blocks(pool_cls, model, bodies):
+    """The arena of phase 7b from the pool's own commit formula: the
+    eight batch commits plus 24 blocks (three rounds of one block a
+    seat), which must lie below the sum of their worst cases."""
+
+    from tf_operator_tpu_torch.models.kv_blocks import blocks_for
+
+    probe = pool_cls(model, slots=1, kv_block_size=16, kv_blocks=1 + model.cfg.max_len // 16)
+    batch = [(len(b["prompt"]), b["max_new_tokens"]) for b in bodies if b["tier"] == "batch"]
+    lazy = sum(probe._commit_blocks(p, n) for p, n in batch)
+    worst = sum(blocks_for(p + n, 16) for p, n in batch)
+    del probe
+    kv_blocks = lazy + 24
+    if not lazy <= kv_blocks < worst:
+        raise AssertionError(f"phase 7b arena {kv_blocks}: lazy {lazy}, worst {worst}")
+    return kv_blocks, lazy, worst
+
+
+def _serve_pressure(model, bodies, *, kv_blocks, reserve, tag):
+    """The bodies through ``serve_lm``'s server over one pool: the batch
+    requests at once, the interactive one after two windows.  Counts
+    zeroed just before and read just after.  Returns (stats, rows by
+    prompt, pool)."""
+
+    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.serve_lm import Server
+
+    pool = PagedContinuousBatchingDecoder(model, slots=8, steps_per_sync=8, kv_block_size=16,
+                                          kv_blocks=kv_blocks, reserve=reserve)
+    # the token rows (the HTTP sample is bytes), and each preemption's
+    # tier and blocks: swapped to the host and left live on the device
+    rows, preempts = {}, []
+    result_wait, preempt = pool.result_wait, pool._preempt_seat_locked
+
+    def recording_wait(rid, timeout=None):
+        row = result_wait(rid, timeout)
+        if row is not None:
+            rows[rid] = row
+        return row
+
+    def logged_preempt(slot):
+        req = pool._active[slot]
+        freed = preempt(slot)
+        rec = pool.swap.peek(req.rid)
+        preempts.append({"rid": req.rid, "tier": req.tier, "tokens": len(req.tokens),
+                         "swapped": rec["n_blocks"], "live": len(rec["live"]),
+                         "freed": freed})
+        return freed
+
+    pool.result_wait = recording_wait
+    pool._preempt_seat_locked = logged_preempt
+    server = Server(pool).start()
+    results = [None] * len(bodies)
+
+    def send(i):
+        results[i] = _post(server.port, bodies[i])
+
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for t in threads[:-1]:
+            t.start()
+        peak = 0
+        while pool.dispatches["step"] < 2 and not server.fatal:
+            peak = max(peak, len(pool._active))
+            time.sleep(0.002)
+        threads[-1].start()
+        while any(t.is_alive() for t in threads) and time.perf_counter() - t0 < 900:
+            peak = max(peak, len(pool._active))
+            time.sleep(0.002)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+    finally:
+        server.close()
+    if server.fatal:
+        raise AssertionError(f"{tag}: decode loop died: {server.fatal[0]}")
+    for i, r in enumerate(results):
+        if r is None or r[0] != 200 or len(r[1]["sample"]) != bodies[i]["max_new_tokens"]:
+            raise AssertionError(f"{tag}: request {i} failed: {r}")
+    steps = pool.decode_steps
+    k4 = launches.get("paged_attention", 0)
+    if k4 != model.cfg.n_layers * steps or steps == 0:
+        raise AssertionError(f"{tag}: K4 launched {k4} times; {model.cfg.n_layers} layers x "
+                             f"{steps} decode steps")
+    pool.alloc.check()
+    if len(pool.swap) or pool.swap.swapped_blocks:
+        raise AssertionError(f"{tag}: the swap arena is not empty: {pool.swap.snapshot()}")
+    by_prompt = {}
+    for row in rows.values():
+        for b in bodies:
+            p = b["prompt"].encode()
+            if bytes(row[: len(p)].astype("uint8")) == p and len(row) == len(p) + b["max_new_tokens"]:
+                by_prompt[b["prompt"]] = row
+    recent = list(pool.recent)
+    ttft = {}
+    for r in recent:
+        ttft.setdefault(r["tier"], []).append(r["ttft_s"])
+    stats = {
+        "kv_blocks": kv_blocks, "reserve": reserve, "wall_s": wall, "decode_steps": steps,
+        "k4_launches": k4, "peak_seats": peak, "dispatches": dict(pool.dispatches),
+        "preemptions": pool.preemptions, "preempted": preempts,
+        # every other swap-out copied a queued request's live blocks
+        "demotions": pool.dispatches["swap_out"] - sum(1 for p in preempts if p["swapped"]),
+        "swap": pool.swap.snapshot(),
+        "decode_tokens_per_s": sum(r["tokens"] - 1 for r in recent) / pool.decode_seconds,
+        "ttft_s_by_tier": {t: {"mean": sum(v) / len(v), "max": max(v)} for t, v in ttft.items()},
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    return stats, by_prompt, pool
+
+
+def _swap_timings(pool):
+    """Each swap copy's device ms (CUDA events around it: the gathers or
+    scatters, the copy, and a fresh pinned buffer's allocation where the
+    allocator has none cached), blocks, bytes and GB/s; and by direction
+    the median and the largest."""
+
+    out = []
+    torch.cuda.synchronize()
+    for e in pool.swap_log:
+        ms = e["events"][0].elapsed_time(e["events"][1])
+        out.append({"direction": e["direction"], "blocks": e["blocks"], "bytes": e["bytes"],
+                    "ms": ms, "gb_per_s": e["bytes"] / ms / 1e6})
+    summary = {}
+    for d in ("out", "in"):
+        xs = [s for s in out if s["direction"] == d]
+        if xs:
+            summary[d] = {"copies": len(xs),
+                          "median_ms": statistics.median(s["ms"] for s in xs),
+                          "max_ms": max(s["ms"] for s in xs),
+                          "median_gb_per_s": statistics.median(s["gb_per_s"] for s in xs),
+                          "blocks": sum(s["blocks"] for s in xs),
+                          "bytes": sum(s["bytes"] for s in xs)}
+    return out, summary
+
+
+def _link_yardstick(nbytes):
+    """A plain pinned-host copy of ``nbytes`` each way (CUDA events over
+    20 copies after 3 warm-ups): the host link's yardstick for the swaps.
+    Also the host ms of pinning a fresh buffer of twice those bytes (a
+    size the caching host allocator has not seen in this run)."""
+
+    t0 = time.perf_counter()
+    fresh = torch.empty(2 * nbytes, dtype=torch.uint8, pin_memory=True)
+    pin_ms = (time.perf_counter() - t0) * 1e3
+    del fresh
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    d2h = time_ms(lambda: host.copy_(dev, non_blocking=True))
+    h2d = time_ms(lambda: dev.copy_(host, non_blocking=True))
+    return {"bytes": nbytes, "d2h_ms": d2h, "d2h_gb_per_s": nbytes / d2h / 1e6,
+            "h2d_ms": h2d, "h2d_gb_per_s": nbytes / h2d / 1e6,
+            "pin_fresh_bytes": 2 * nbytes, "pin_fresh_ms": pin_ms}
+
+
+def phase_pressure(model, card):
+    """Phase 7b: the pool under arena pressure at 7B width (module
+    docstring)."""
+
+    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
+
+    bodies = _pressure_bodies()
+    kv_blocks, lazy, worst = pressure_kv_blocks(PagedContinuousBatchingDecoder, model, bodies)
+    log(f"pressure arena: {kv_blocks} blocks; the batch commits {lazy}, their worst cases "
+        f"{worst}")
+    ref, want, pool = _serve_pressure(model, bodies, kv_blocks=None, reserve="lazy",
+                                      tag="unpressured")
+    del pool
+    free_device_memory()
+    lazy_stats, got, pool = _serve_pressure(model, bodies, kv_blocks=kv_blocks,
+                                            reserve="lazy", tag="pressured lazy")
+    swaps, swap_summary = _swap_timings(pool)
+    del pool
+    free_device_memory()
+    wc_stats, wc_rows, pool = _serve_pressure(model, bodies, kv_blocks=kv_blocks,
+                                              reserve="worst-case", tag="worst-case")
+    del pool
+    free_device_memory()
+    same = {b["prompt"][:12]: bool(np.array_equal(got.get(b["prompt"]), want.get(b["prompt"])))
+            for b in bodies}
+    same_wc = all(np.array_equal(wc_rows.get(b["prompt"]), want.get(b["prompt"]))
+                  for b in bodies)
+    if not len(want) == len(got) == len(wc_rows) == len(bodies):
+        raise AssertionError(f"phase 7b rows: {len(want)}, {len(got)}, {len(wc_rows)} of "
+                             f"{len(bodies)}")
+    outs = [s for s in swaps if s["direction"] == "out"]
+    yard = _link_yardstick(max(s["bytes"] for s in outs)) if outs else None
+    for tag, stats in (("unpressured", ref), ("pressured lazy", lazy_stats),
+                       ("worst-case", wc_stats)):
+        log(f"pressure {tag} ({card}) " + json.dumps(stats))
+    log(f"pressure swaps ({card}) " + json.dumps(swaps))
+    log(f"pressure swaps by direction ({card}) " + json.dumps(swap_summary))
+    log(f"pressure link yardstick ({card}) " + json.dumps(yard))
+    log("pressure token identity against the unpressured pool: " + json.dumps(same)
+        + f"; worst-case identical: {same_wc}")
+    victims = lazy_stats["preempted"]
+    if lazy_stats["preemptions"] < 1 or not outs:
+        raise AssertionError(f"phase 7b preempted nothing: {lazy_stats}")
+    if any(v["tier"] != "batch" for v in victims):
+        raise AssertionError(f"an interactive seat was preempted: {victims}")
+    swap = lazy_stats["swap"]
+    if not swap["bytes_out_total"] == swap["bytes_in_total"] > 0:
+        raise AssertionError(f"swap bytes out != in: {swap}")
+    if not all(same.values()) or not same_wc:
+        raise AssertionError("a pressured request's tokens differ from the unpressured pool's")
+    if not lazy_stats["peak_seats"] == 8 > wc_stats["peak_seats"]:
+        raise AssertionError(f"peak seats: lazy {lazy_stats['peak_seats']}, worst-case "
+                             f"{wc_stats['peak_seats']}")
+    return lazy_stats
 
 
 def phase_end_to_end(model7b):
@@ -1806,6 +2068,8 @@ def main():
     main_stats, pool = phase_main_path(model)
     phase_decode_profile(pool)
     del pool
+    free_device_memory()
+    phase_pressure(model, card)
     phase_end_to_end(model)
     # the pool holds reference cycles (the prefix cache's callbacks), so
     # the bf16 weights and arena go only with a collection

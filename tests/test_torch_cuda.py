@@ -48,6 +48,10 @@ tensor's largest value.  K5's own cases (every ResNet-50 class, more rows
 than the grid holds on chip, ragged shapes up to C = 20000): y as above,
 the moments within 1e-4 relative (sums of up to 401,408 rows a channel in
 another order), and the same bits from run to run.
+
+The paged pool's swap copies (preemption to pinned host memory and back
+into other block ids) are held bit for bit, and a preempted request's
+tokens, greedy and seeded, equal an undisturbed pool's exactly.
 """
 
 import numpy as np
@@ -197,6 +201,74 @@ def test_tiny_pool_through_the_kernel_matches_generate(dev):
     for p, rid in zip(prompts, rids):
         want = generate(model, torch.as_tensor(p[None]).to(dev), 10)[0].cpu().numpy()
         np.testing.assert_array_equal(pool.result(rid), want)
+
+
+def test_swap_round_trip_is_bit_exact_after_the_blocks_are_reused(dev):
+    """Swap-out of arena rows to pinned host memory, the freed rows
+    overwritten by another owner, swap-in to other ids: the rows come
+    back bit for bit, in every layer's K and V (bf16, as served)."""
+
+    cfg = llama_tiny(vocab_size=256, max_len=64)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 1, dev), dev)
+    pool = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=8, kv_blocks=12)
+    g = torch.Generator(device=dev).manual_seed(0)
+    for k, v in pool._arena:
+        for a in (k, v):
+            a.copy_(torch.randn(a.shape, generator=g, device=dev, dtype=torch.float32))
+    src, dst = [3, 7, 4], [9, 1, 12]
+    want = [(k[src].clone(), v[src].clone()) for k, v in pool._arena]
+    host = pool._swap_out(src)
+    assert host.device.type == "cpu" and host.is_pinned()
+    assert tuple(host.shape) == (cfg.n_layers, 2, 3, cfg.kv_heads, 8, cfg.head_dim)
+    for k, v in pool._arena:  # the freed blocks are reused and overwritten
+        k[src + dst] = 1.0
+        v[src + dst] = -1.0
+    pool._swap_in(host, dst)
+    torch.cuda.synchronize()
+    for (k, v), (wk, wv) in zip(pool._arena, want):
+        assert torch.equal(k[dst], wk) and torch.equal(v[dst], wv)
+    assert [(e["direction"], e["blocks"]) for e in pool.swap_log] == [("out", 3), ("in", 3)]
+    assert all(e["events"][0].elapsed_time(e["events"][1]) > 0 for e in pool.swap_log)
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["greedy", "seeded"])
+def test_tiny_pool_preempted_request_matches_an_undisturbed_pool(dev, seeded):
+    """The preemption scenario of ``tests/test_torch_preemption.py`` on
+    the card, through K4: a batch request preempted by an interactive
+    admission (its blocks swapped out, the freed blocks taken by the
+    interactive seat) resumes and decodes the tokens of an undisturbed
+    pool, greedy and seeded."""
+
+    cfg = llama_tiny(vocab_size=256, max_len=64, dtype=torch.float32)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 1, dev), dev)
+    r = np.random.default_rng(3)
+    prompt_a, prompt_i = r.integers(0, 256, 6), r.integers(0, 256, 33)
+
+    def kw():
+        if not seeded:
+            return {}
+        return dict(temperature=0.9, top_k=40,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+
+    solo = PagedContinuousBatchingDecoder(model, slots=4, kv_block_size=16, steps_per_sync=8)
+    rid = solo.submit(prompt_a, 24, **kw())
+    solo.run()
+    want = solo.result(rid)
+    pool = PagedContinuousBatchingDecoder(model, slots=4, kv_block_size=16, kv_blocks=4,
+                                          steps_per_sync=8)
+    _build.launches.clear()
+    a = pool.submit(prompt_a, 24, **kw())
+    pool.step()
+    pool.step()
+    i = pool.submit(prompt_i, 8, tier="interactive")
+    pool.run()
+    assert _build.launches[KERNEL] == cfg.n_layers * pool.decode_steps > 0
+    assert pool.preemptions == 1
+    assert pool.swap.bytes_out_total == pool.swap.bytes_in_total > 0
+    np.testing.assert_array_equal(pool.result(a), want)
+    assert pool.result(i).shape == (41,)
+    pool.alloc.check()
+    assert len(pool.swap) == 0
 
 
 FLASH_RTOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}

@@ -1,7 +1,8 @@
-"""The port's block allocator and prefix cache hold the invariants
-``tests/test_kv_blocks.py`` pins for the JAX package's: conservation
-(free + live == usable), no aliasing between live holders, a mapped
-block is never reclaimed, and chain keys diverge with their prefix."""
+"""The port's block allocator, prefix cache and swap arena hold the
+invariants ``tests/test_kv_blocks.py`` pins for the JAX package's:
+conservation (free + live == usable, and free + live + swapped across
+preemption), no aliasing between live holders, a mapped block is never
+reclaimed, and chain keys diverge with their prefix."""
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ from tf_operator_tpu_torch.models.kv_blocks import (
     SCRATCH_BLOCK,
     BlockAllocator,
     BlockError,
+    SwapArena,
     blocks_for,
 )
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, chain_keys
@@ -117,3 +119,115 @@ def test_prefix_cache_counts_per_request_and_lru():
     cache.record(True)
     cache.record(False)
     assert (cache.hits, cache.misses) == (1, 1)
+
+
+def test_swap_arena_accounting_and_cap_match_the_jax_arena():
+    """``tests/test_kv_blocks.py::TestSwapArena`` on the port's copy, with
+    the JAX arena run through the same calls beside it."""
+
+    from tf_operator_tpu.models.kv_blocks import SwapArena as JaxSwapArena
+
+    snaps = []
+    for cls in (SwapArena, JaxSwapArena):
+        s = cls(capacity_blocks=4)
+        assert s.admit(4) and not s.admit(5)
+        s.put(1, {"live": [], "blocks": [0, 1, 2]}, n_blocks=3, nbytes=300)
+        assert s.swapped_blocks == 3 and len(s) == 1
+        assert s.admit(1) and not s.admit(2)
+        assert s.peek(1)["n_blocks"] == 3 and s.peek(2) is None
+        with pytest.raises(Exception, match="already has a swap record"):
+            s.put(1, {}, n_blocks=0, nbytes=0)
+        rec = s.pop(1, nbytes=300)
+        assert rec["blocks"] == [0, 1, 2]
+        assert s.swapped_blocks == 0 and len(s) == 0
+        with pytest.raises(Exception, match="has no swap record"):
+            s.pop(1)
+        snaps.append(s.snapshot())
+        assert cls().admit(10**9)  # unbounded
+    assert snaps[0] == snaps[1] == {
+        "records": 0, "swapped_blocks": 0, "capacity_blocks": 4,
+        "bytes_out_total": 300, "bytes_in_total": 300}
+    with pytest.raises(BlockError):
+        SwapArena().pop(0)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_random_admit_preempt_resume_retire_conserves(seed):
+    """The pool's reference discipline under random admit / grow /
+    publish / preempt / resume / retire: the device side conserves,
+    each record's swapped + swap-exempt live blocks are its committed
+    set, and seats, cache and records explain every live block."""
+
+    r = np.random.default_rng(seed)
+    alloc = BlockAllocator(25, 16)  # 24 usable
+    swap = SwapArena()
+    seats = {}  # rid -> [bid, ...] in logical order
+    cache = []  # bids the prefix cache holds (one ref each)
+    rid_next = 0
+
+    def check_world():
+        alloc.check()
+        held = {b for refs in seats.values() for b in refs} | set(cache)
+        for rid in list(swap._records):
+            rec = swap.peek(rid)
+            held |= {b for _, b in rec["live"]}
+            assert rec["n_blocks"] + len(rec["live"]) == rec["committed"]
+        assert alloc.in_use == len(held)
+        assert alloc.free_count == alloc.usable - len(held)
+        assert swap.swapped_blocks == sum(
+            swap.peek(rid)["n_blocks"] for rid in list(swap._records))
+
+    def resume(rid):
+        rec = swap.peek(rid)
+        ids = alloc.alloc(rec["n_blocks"])
+        if ids is None:
+            return False
+        refs = [None] * rec["committed"]
+        for i, b in rec["live"]:
+            refs[i] = b
+        for j, i in enumerate(rec["blocks"]):
+            refs[i] = ids[j]
+        swap.pop(rid, nbytes=rec["n_blocks"] * 10)
+        seats[rid] = refs
+        return True
+
+    for _ in range(600):
+        op = r.integers(5)
+        if op == 0:  # admit: commit a few blocks, maybe publish one
+            ids = alloc.alloc(int(r.integers(1, 5)))
+            if ids is not None:
+                seats[rid_next] = list(ids)
+                if r.random() < 0.4:
+                    alloc.retain([ids[0]])
+                    cache.append(ids[0])
+                rid_next += 1
+        elif op == 1 and seats:  # lazy growth
+            ids = alloc.alloc(1)
+            if ids is not None:
+                seats[list(seats)[r.integers(len(seats))]].extend(ids)
+        elif op == 2 and seats:  # preempt: private blocks swap, exempt stay live
+            rid = list(seats)[r.integers(len(seats))]
+            refs = seats.pop(rid)
+            exempt = [(i, b) for i, b in enumerate(refs) if alloc.refcount(b) > 1]
+            private = [(i, b) for i, b in enumerate(refs) if alloc.refcount(b) == 1]
+            alloc.release([b for _, b in private])
+            swap.put(rid, {"live": exempt, "blocks": [i for i, _ in private],
+                           "committed": len(refs)},
+                     n_blocks=len(private), nbytes=len(private) * 10)
+        elif op == 3 and len(swap):
+            resume(list(swap._records)[r.integers(len(swap))])
+        elif op == 4 and seats:  # retire
+            alloc.release(seats.pop(list(seats)[r.integers(len(seats))]))
+        check_world()
+    for _ in range(1000):  # drain: resume everything, freeing room as needed
+        if not len(swap):
+            break
+        for rid in list(swap._records):
+            if not resume(rid):
+                if seats:
+                    alloc.release(seats.pop(list(seats)[0]))
+                elif cache:
+                    alloc.release([cache.pop()])
+        check_world()
+    assert not len(swap) and swap.swapped_blocks == 0
+    assert swap.bytes_in_total == swap.bytes_out_total

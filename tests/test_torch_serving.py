@@ -2,11 +2,13 @@
 the CPU (``llama_tiny``, float32, one bridged flax param tree).
 
 Greedy tokens must match byte for byte: the port's pool against JAX's
-``PagedContinuousBatchingDecoder(reserve="worst-case")`` on both its
-gather emulation (``paged_kernel="off"``) and the Pallas kernel in
-interpret mode, and the port's ``/generate`` against the JAX server's
-pool handler.  The JAX server's own pool reserves lazily; below the
-default arena it admits what the port queues, with the same tokens.
+``PagedContinuousBatchingDecoder`` on both its gather emulation
+(``paged_kernel="off"``) and the Pallas kernel in interpret mode, and
+the port's ``/generate`` against the JAX server's pool handler, in both
+SLO tiers.  Both pools reserve lazily by default; below the default
+arena both admit what their ``reserve="worst-case"`` mode queues, with
+the same tokens.  Preemption and swap are held in
+``tests/test_torch_preemption.py``.
 """
 
 import json
@@ -174,14 +176,17 @@ def _post(port, payload, headers=None):
         return exc.code, json.loads(exc.read())
 
 
-def test_serve_lm_matches_the_jax_server(tiny, tmp_path):
+@pytest.fixture(scope="module")
+def servers(tiny, tmp_path_factory):
+    """The JAX server's pool handler and the port's server over the same
+    exported weights: (port's port, JAX server's port, port's pool)."""
+
     jm, params, _ = tiny
-    npz = tmp_path / "params.npz"
+    art = tmp_path_factory.mktemp("artifact")
     flat = {"/".join(str(k.key) for k in path): np.asarray(v)
             for path, v in jax.tree_util.tree_leaves_with_path(params)}
-    np.savez(npz, **flat)
-    desc = describe_model(jm)
-    (tmp_path / "model.json").write_text(json.dumps(desc))
+    np.savez(art / "params.npz", **flat)
+    (art / "model.json").write_text(json.dumps(describe_model(jm)))
 
     from tests.testutil import load_serve_lm
 
@@ -192,68 +197,91 @@ def test_serve_lm_matches_the_jax_server(tiny, tmp_path):
     threading.Thread(target=jserver.serve_forever, daemon=True).start()
 
     model = serve_lm.load_model(resolve_device("cpu"), max_len=MAX_LEN,
-                                artifact=str(tmp_path))
+                                artifact=str(art))
     pool = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=16)
     server = serve_lm.Server(pool).start()
     try:
-        body = {"prompt": "the sharded tensor ", "max_new_tokens": 12, "seed": 4}
-        code, got = _post(server.port, body)
-        jcode, want = _post(jserver.server_address[1], body)
-        assert code == jcode == 200
-        assert got == {"prompt": want["prompt"], "sample": want["sample"],
-                       "seed": want["seed"]}
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{server.port}/healthz", timeout=30) as resp:
-            assert json.loads(resp.read()) == {"ok": True}
-        bad_tier = {"error": "tier must be 'interactive' or 'batch'"}
-        for bad, headers in (({"prompt": "", "max_new_tokens": 4}, None),
-                             ({"prompt": "x" * 60, "max_new_tokens": 8}, None),
-                             ({"prompt": "x", "temperature": -1}, None),
-                             ({"prompt": "x", "stop": 3}, None),
-                             ({"prompt": "x", "tier": "gold"}, None),
-                             # a falsy body tier is validated, not replaced
-                             ({"prompt": "x", "tier": ""}, {"x-slo-tier": "batch"}),
-                             ({"prompt": "x"}, {"x-slo-tier": "interactiv"}),
-                             ({"prompt": "x", "tier": "platinum"}, {"x-slo-tier": "batch"})):
-            code, got = _post(server.port, bad, headers)
-            jcode, want = _post(jserver.server_address[1], bad, headers)
-            assert code == jcode == 400
-            assert got == want
-            if "tier" in bad or headers:
-                assert got == bad_tier
-        # the body's valid tier wins over a bad header, in both servers
-        body = {"prompt": "the sharded tensor ", "max_new_tokens": 12, "tier": "batch"}
-        code, got = _post(server.port, body, {"x-slo-tier": "gold"})
-        jcode, want = _post(jserver.server_address[1], body, {"x-slo-tier": "gold"})
-        assert code == jcode == 200 and got["sample"] == want["sample"]
+        yield server.port, jserver.server_address[1], pool
     finally:
         server.close()
         jserver.shutdown()
         jserver.server_close()
 
 
-def test_interactive_tier_is_refused_until_slo_tiers_are_ported(tiny):
-    """A deliberate difference: the JAX server serves ``interactive``
-    with priority admission; the port has no SLO tiers yet and answers
-    a 400 that says so, from the body or the header, rather than serve
-    the request as batch."""
+def test_serve_lm_matches_the_jax_server(servers):
+    port, jport, _ = servers
+    body = {"prompt": "the sharded tensor ", "max_new_tokens": 12, "seed": 4}
+    code, got = _post(port, body)
+    jcode, want = _post(jport, body)
+    assert code == jcode == 200
+    assert got == {"prompt": want["prompt"], "sample": want["sample"],
+                   "seed": want["seed"]}
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
+        assert json.loads(resp.read()) == {"ok": True}
+    bad_tier = {"error": "tier must be 'interactive' or 'batch'"}
+    for bad, headers in (({"prompt": "", "max_new_tokens": 4}, None),
+                         ({"prompt": "x" * 60, "max_new_tokens": 8}, None),
+                         ({"prompt": "x", "temperature": -1}, None),
+                         ({"prompt": "x", "stop": 3}, None),
+                         ({"prompt": "x", "tier": "gold"}, None),
+                         # a falsy body tier is validated, not replaced
+                         ({"prompt": "x", "tier": ""}, {"x-slo-tier": "batch"}),
+                         ({"prompt": "x"}, {"x-slo-tier": "interactiv"}),
+                         ({"prompt": "x", "tier": "platinum"}, {"x-slo-tier": "batch"})):
+        code, got = _post(port, bad, headers)
+        jcode, want = _post(jport, bad, headers)
+        assert code == jcode == 400
+        assert got == want
+        if "tier" in bad or headers:
+            assert got == bad_tier
+    # the body's valid tier wins over a bad header, in both servers
+    body = {"prompt": "the sharded tensor ", "max_new_tokens": 12, "tier": "batch"}
+    code, got = _post(port, body, {"x-slo-tier": "gold"})
+    jcode, want = _post(jport, body, {"x-slo-tier": "gold"})
+    assert code == jcode == 200 and got["sample"] == want["sample"]
+
+
+@pytest.mark.parametrize("how", ["body", "header"])
+def test_interactive_tier_is_served_as_the_jax_server_serves_it(servers, how):
+    """``tier: interactive``, from the body or the ``x-slo-tier`` header,
+    is served with the JAX server's greedy sample and reaches the pool
+    as that tier; a body ``batch`` wins over the header."""
+
+    port, jport, pool = servers
+    for body in ({"prompt": "an interactive request ", "max_new_tokens": 10},
+                 {"prompt": "and another ", "max_new_tokens": 6, "seed": 9}):
+        headers = None
+        if how == "body":
+            body = dict(body, tier="interactive")
+        else:
+            headers = {"x-slo-tier": "interactive"}
+        code, got = _post(port, body, headers)
+        jcode, want = _post(jport, body, headers)
+        assert code == jcode == 200
+        assert got["sample"] == want["sample"]
+        assert pool.recent[-1]["tier"] == "interactive"
+        assert pool.recent[-1]["preemptions"] == 0
+    code, got = _post(port, {"prompt": "x", "max_new_tokens": 2, "tier": "batch"},
+                      {"x-slo-tier": "interactive"})
+    assert code == 200 and len(got["sample"]) == 2
+    assert pool.recent[-1]["tier"] == "batch"
+
+
+def test_kv_swap_blocks_flag_reaches_the_pool(tiny):
+    """``--kv-swap-blocks N`` caps the pool's swap arena at N blocks, as
+    the JAX server's flag does; without it the arena is unbounded and
+    the pool reserves lazily."""
 
     _, _, model = tiny
-    pool = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=16)
-    server = serve_lm.Server(pool).start()
-    try:
-        for body, headers in (({"prompt": "x", "tier": "interactive"}, None),
-                              ({"prompt": "x"}, {"x-slo-tier": "interactive"})):
-            code, got = _post(server.port, body, headers)
-            assert code == 400
-            assert got == {"error": serve_lm.INTERACTIVE_REFUSED}
-            assert "not ported" in got["error"]
-        code, got = _post(server.port, {"prompt": "x", "max_new_tokens": 2},
-                          {"x-slo-tier": "batch"})
-        assert code == 200 and len(got["sample"]) == 2
-        assert pool.dispatches["admission"] == 1
-    finally:
-        server.close()
+    parser = serve_lm.build_parser()
+    args = parser.parse_args(["--device", "cpu", "--batching", "2", "--kv-block-size", "8",
+                              "--kv-swap-blocks", "3"])
+    pool = serve_lm.build_pool(model, args)
+    assert pool.swap.capacity_blocks == 3
+    assert pool.swap.admit(3) and not pool.swap.admit(4)
+    assert (pool.reserve, pool.slots, pool.block_size) == ("lazy", 2, 8)
+    pool = serve_lm.build_pool(model, parser.parse_args(["--device", "cpu"]))
+    assert pool.swap.capacity_blocks is None and pool.reserve == "lazy"
 
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -307,10 +335,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 
 
 def test_lazy_jax_pool_admits_what_the_worst_case_port_queues(tiny):
-    """Below slots x max_len / block blocks the JAX pool as its server
-    builds it (no ``reserve``: lazy) admits two requests at once, where
-    the port (worst-case reservation only) queues the second; the greedy
-    tokens are the same either way."""
+    """Below slots x max_len / block blocks, both pools in their default
+    ``reserve="lazy"`` (the JAX server builds its pool with no
+    ``reserve``) admit two requests at once, and preempt one as they
+    grow; in ``reserve="worst-case"`` both queue the second.  The greedy
+    tokens are the same in all four runs and equal the port's
+    ``generate``."""
 
     jm, params, model = tiny
     r = np.random.default_rng(1)
@@ -319,22 +349,27 @@ def test_lazy_jax_pool_admits_what_the_worst_case_port_queues(tiny):
     # usable blocks hold one worst case, and two prompts' blocks + 1
     kv_blocks = 6
     assert kv_blocks < 2 * MAX_LEN // BS
-    jpool = JaxPool(jm, params, slots=2, steps_per_sync=4, kv_block_size=BS,
-                    kv_blocks=kv_blocks)
-    assert jpool.reserve == "lazy"
-    jrids = [jpool.submit(p, n) for p, n in mix]
-    jpool.step()
-    assert len(jpool._active) == 2 and not jpool._queue
-    jpool.run()
-    pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=4, kv_block_size=BS,
-                                          kv_blocks=kv_blocks)
-    rids = [pool.submit(p, n) for p, n in mix]
-    pool.step()
-    assert len(pool._active) == 1 and len(pool._queue) == 1
-    pool.run()
-    pool.alloc.check()
-    for rid, jrid, (p, n) in zip(rids, jrids, mix):
-        got = pool.result(rid)
-        np.testing.assert_array_equal(got, jpool.result(jrid))
-        want = generate(model, torch.as_tensor(p[None].astype(np.int64)), n).numpy()[0]
-        np.testing.assert_array_equal(got, want)
+    want = [generate(model, torch.as_tensor(p[None].astype(np.int64)), n).numpy()[0]
+            for p, n in mix]
+    seated = {1: ("worst-case",), 2: ("lazy",)}
+    for reserve in ("lazy", "worst-case"):
+        kw = {} if reserve == "lazy" else {"reserve": reserve}
+        jpool = JaxPool(jm, params, slots=2, steps_per_sync=4, kv_block_size=BS,
+                        kv_blocks=kv_blocks, **kw)
+        pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=4,
+                                              kv_block_size=BS, kv_blocks=kv_blocks, **kw)
+        assert jpool.reserve == pool.reserve == reserve
+        outs = []
+        for p_ in (jpool, pool):
+            rids = [p_.submit(p, n) for p, n in mix]
+            p_.step()
+            n_seated = len(p_._active)
+            assert reserve in seated[n_seated] and len(p_._queue) == 2 - n_seated
+            p_.run()
+            p_.alloc.check()
+            outs.append([p_.result(rid) for rid in rids])
+        # lazy: the two seats outgrow the six blocks and one is preempted
+        assert pool.preemptions == jpool.preemptions == (reserve == "lazy")
+        for got, jgot, w in zip(outs[1], outs[0], want):
+            np.testing.assert_array_equal(got, jgot)
+            np.testing.assert_array_equal(got, w)

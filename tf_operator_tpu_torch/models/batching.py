@@ -1,20 +1,43 @@
 """Paged continuous batching (the port of
-``tf_operator_tpu/models/batching.py::PagedContinuousBatchingDecoder`` in
-its ``reserve="worst-case"`` mode).
+``tf_operator_tpu/models/batching.py::PagedContinuousBatchingDecoder``).
 
 One pre-allocated block arena backs every seat through a per-seat
-block table, and admission is gated on blocks free.  The port has only
-the JAX pool's ``reserve="worst-case"`` contract: admission reserves the
-prompt's and the whole budget's blocks, and a request that does not fit
-waits at the head of the FIFO queue.  The JAX pool's default, and the
-JAX server's (``examples/serve_lm.py`` passes no ``reserve``), is
-``reserve="lazy"``: it admits a request on its prompt's blocks plus one
-and grows its table as it decodes, preempting a seat when the arena
-runs out.  The two admit alike while the arena holds every seat's worst
-case (the default ``kv_blocks``); below that the JAX pool runs requests
-together that the port queues, with the same greedy tokens.  Lazy
-growth, preemption, swap, SLO tiers, disaggregation and speculation are
-not ported yet.
+block table, and admission is gated on blocks free.
+
+Reservation (``reserve``):
+
+- ``"lazy"`` (the default, as in the JAX pool and the JAX server that
+  builds it): admission commits the prompt's blocks plus one decode
+  block (at least the first window's coverage, at most the worst
+  case).  Before each window every seat's table grows to cover the
+  positions the window will append; when the arena runs dry the pool
+  preempts a seat to the host and resumes it later, token-identically;
+- ``"worst-case"``: admission commits prompt + budget and nothing
+  grows.
+
+SLO tiers (``submit(..., tier=)``): ``"batch"`` (the default) and
+``"interactive"``.  Queued requests are admitted by priority: the
+higher effective rank first (a batch request queued longer than
+``age_boost_seconds`` orders like an interactive one), submit order
+within a rank; the top request gates the queue.  A shortfall of blocks
+is met in order by allocation, eviction of unmapped prefix-cache
+entries (LRU first), preemption of a seat (an admission or resume may
+take only a lower tier's seat; growth may take its own tier's or
+lower), and demotion of a queued preempted request's swap-exempt pins.
+A victim has decoded since it was seated; the lowest tier goes first,
+then the seat holding the most blocks, then the least progress.
+
+Preemption: the seat's private blocks (refcount 1) are gathered and
+copied to the host :class:`SwapArena` in one synchronous device->host
+copy (into pinned memory on CUDA); prefix-shared blocks are swap-exempt
+and stay live.  When the swap arena's cap refuses the copy the seat is
+parked without one (all its blocks stay live).  The seat's device row
+resets before any of its blocks is released, and the request re-queues.
+Resume uploads the host copies into fresh blocks, re-maps the live
+ones, allocates the first window's coverage and writes the seat's row
+at the first free slot.  A sampled request's ``torch.Generator`` stays
+with the request, untouched while it is parked, so the resumed draws
+continue the same stream.
 
 Admission (one request at a time, under the pool lock):
 
@@ -23,18 +46,20 @@ Admission (one request at a time, under the pool lock):
   logits seed the first sample);
 - the remainder is prefilled at its exact length on a contiguous view
   gathered from the seat's blocks (the JAX pool pads to a power-of-two
-  width and rolls the pad rows back; the eager port needs neither), and
-  exactly ``blocks_for(remainder)`` blocks are scattered back;
+  width, rolls the pad rows back, and so trims shared blocks that its
+  padded width would push past max_len; the eager port needs none of
+  it), and exactly ``blocks_for(remainder)`` blocks are scattered back;
 - the first token is sampled from the last prompt row;
 - every full prompt block is published in the prefix cache;
 - a budget-1 request retires at once.
 
 Decode: ``steps_per_sync`` steps per window over device-resident
-tables, lengths, temperatures, top-ks and last tokens.  Each step runs
-the paged decode branch (the CUDA paged-attention kernel on the card);
-the window's tokens reach the host in one fetch.  Finished seats retire
-in one batch that resets their table rows before their freed blocks can
-be allocated again.
+tables, lengths, temperatures, top-ks and last tokens.  The window's
+table growth lands in the device tables in one batched write before
+the window reads them.  Each step runs the paged decode branch (the
+CUDA paged-attention kernel on the card); the window's tokens reach
+the host in one fetch.  Finished seats retire in one batch that resets
+their table rows before their freed blocks can be allocated again.
 """
 
 from __future__ import annotations
@@ -58,6 +83,8 @@ from tf_operator_tpu_torch.models.decode import (
 from tf_operator_tpu_torch.models.kv_blocks import (
     SCRATCH_BLOCK,
     BlockAllocator,
+    BlockError,
+    SwapArena,
     blocks_for,
 )
 from tf_operator_tpu_torch.models.llama import LlamaLM
@@ -67,6 +94,11 @@ from tf_operator_tpu_torch.models.transformer import PagedCache
 #: the pool's static top-k width: a request's top_k thresholds within
 #: the top TOP_K_MAX candidates
 TOP_K_MAX = 64
+
+#: SLO tiers: admission order and the preemption policy key off this
+#: closed set.  Higher rank = served first; interactive preempts batch
+SLO_TIERS = ("batch", "interactive")
+_TIER_RANK = {t: i for i, t in enumerate(SLO_TIERS)}
 
 
 def _masked_scaled(logits: torch.Tensor, temps: torch.Tensor,
@@ -115,38 +147,66 @@ def _admission_sample(last: torch.Tensor, temperature: float,
     return sample_categorical(scaled[0], generator)
 
 
+
+
+def _nbytes(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.numel() * t.element_size()
+
+
 class _Request:
     __slots__ = ("rid", "prompt", "budget", "temperature", "top_k",
-                 "generator", "tokens", "done", "slot", "t_submit",
-                 "t_first", "prefix_tokens")
+                 "generator", "tier", "tokens", "done", "slot", "t_submit",
+                 "t_submit_mono", "t_first", "prefix_tokens", "swapped",
+                 "tokens_since_seat", "preemptions", "swapped_blocks")
 
-    def __init__(self, rid, prompt, budget, temperature, top_k, generator):
+    def __init__(self, rid, prompt, budget, temperature, top_k, generator, tier):
         self.rid = rid
         self.prompt = prompt  # np.ndarray [P] int32
         self.budget = budget
         self.temperature = temperature
         self.top_k = top_k  # None = no truncation
         self.generator = generator
+        self.tier = tier
         self.tokens: List[int] = []
         self.done = False
         self.slot: Optional[int] = None
         self.t_submit = time.perf_counter()
+        #: the priority clock (submit order, the age boost)
+        self.t_submit_mono = time.monotonic()
         self.t_first: Optional[float] = None
         self.prefix_tokens = 0
+        #: preempted: queued with a swap record
+        self.swapped = False
+        #: tokens decoded since the request last took a seat; a seat is
+        #: a preemption victim only once it has made progress
+        self.tokens_since_seat = 0
+        self.preemptions = 0
+        self.swapped_blocks = 0
 
 
 class PagedContinuousBatchingDecoder:
     """Fixed seats over one block arena (module docstring).
 
     Thread-safe: ``submit`` may be called from request threads while
-    one decode loop thread calls ``step``.  ``dispatches`` counts the pool's
-    device work by phase (admission / step / retire); ``recent`` keeps
+    one decode loop thread calls ``step``.  ``dispatches`` counts the
+    pool's device work by phase (admission / step / retire, and
+    swap_out / swap_in once a seat has been preempted); ``recent`` keeps
     the last finished requests' records (prompt and prefix-hit tokens,
-    time to first token, tokens)."""
+    time to first token, tokens, tier, preemptions and swapped blocks);
+    ``swap_log`` keeps one record per swap copy (direction, blocks,
+    bytes, host seconds, and on CUDA the events around it)."""
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
-                 kv_blocks: Optional[int] = None, kv_block_size: int = 16):
+                 kv_blocks: Optional[int] = None, kv_block_size: int = 16,
+                 reserve: str = "lazy", swap_blocks: Optional[int] = None,
+                 age_boost_seconds: float = 30.0):
         cfg = model.cfg
+        if reserve not in ("lazy", "worst-case"):
+            raise ValueError(
+                f"reserve must be 'lazy' or 'worst-case', got {reserve!r}"
+            )
+        self.reserve = reserve
+        self.age_boost_seconds = float(age_boost_seconds)
         self.device = model.device
         self.dmodel = decode_variant(model)
         self.pmodel = paged_decode_variant(model)
@@ -162,6 +222,9 @@ class PagedContinuousBatchingDecoder:
             )
         self.block_size = bs
         self.max_blocks = self.max_len // bs
+        #: a window's K appends straddle at most this many blocks: the
+        #: width of the growth written before each window
+        self._step_nbw = (self.steps_per_sync - 1) // bs + 2
         if kv_blocks is None:
             # the HBM a contiguous pool would pin: slots x max_len
             kv_blocks = self.slots * self.max_blocks
@@ -169,9 +232,14 @@ class PagedContinuousBatchingDecoder:
         self.num_blocks = int(kv_blocks) + 1
         self.alloc = BlockAllocator(self.num_blocks, bs)
         self._arena = paged_arena(model, self.num_blocks, bs)
+        #: preempted seats' private blocks wait here until resume
+        self.swap = SwapArena(capacity_blocks=swap_blocks)
+        self.preemptions = 0
+        self.swap_log: "collections.deque[dict]" = collections.deque(maxlen=256)
         dev = self.device
-        # device-resident seat state: written at admission, advanced by
-        # the step window, reset at retire — no per-step uploads
+        # device-resident seat state: written at admission and resume,
+        # advanced by the step window, reset at retire and preemption —
+        # no per-step uploads
         self._tables_dev = torch.full(
             (self.slots, self.max_blocks), SCRATCH_BLOCK, dtype=torch.int32, device=dev
         )
@@ -181,7 +249,9 @@ class PagedContinuousBatchingDecoder:
         self._last_tok = torch.zeros(self.slots, dtype=torch.long, device=dev)
         #: slot -> the sampled request's generator (greedy seats: none)
         self._generators: Dict[int, torch.Generator] = {}
-        #: slot -> physical ids behind the seat's table row, in order
+        #: slot -> physical ids behind the seat's table row, in logical
+        #: order (admission builds it, growth appends): what preemption
+        #: reads to know which block sits at which index
         self._seat_refs: Dict[int, List[int]] = {}
         #: shared prefix store — a block is evictable only while nothing
         #: maps it (refcount 1 = the cache's own reference)
@@ -206,11 +276,13 @@ class PagedContinuousBatchingDecoder:
 
     def submit(self, prompt_ids, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: Optional[int] = None,
-               generator: Optional[torch.Generator] = None) -> int:
+               generator: Optional[torch.Generator] = None,
+               tier: str = "batch") -> int:
         """Queue one request ([P] ids).  Returns its id; collect the
         output with ``result``/``result_wait``.  A sampled request
         (temperature > 0) draws from its own ``generator``, which must
-        live on the pool's device."""
+        live on the pool's device.  ``tier`` is its SLO tier (module
+        docstring)."""
 
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -235,6 +307,8 @@ class PagedContinuousBatchingDecoder:
                     f"top_k must be in [1, {TOP_K_MAX}] (the pool's static "
                     f"top-k width), got {top_k}"
                 )
+        if tier not in SLO_TIERS:
+            raise ValueError(f"tier must be one of {SLO_TIERS}, got {tier!r}")
         need = blocks_for(prompt.size + max_new_tokens, self.block_size)
         if need > self.alloc.usable:
             raise ValueError(
@@ -245,7 +319,7 @@ class PagedContinuousBatchingDecoder:
             rid = self._rid
             self._rid += 1
             req = _Request(rid, prompt, int(max_new_tokens), float(temperature),
-                           top_k, generator)
+                           top_k, generator, tier)
             self._results[rid] = req
             self._queue.append(req)
         return rid
@@ -290,11 +364,30 @@ class PagedContinuousBatchingDecoder:
 
     # -- admission ---------------------------------------------------------
 
+    def _commit_blocks(self, p_len: int, budget: int) -> int:
+        """Blocks admission commits for a request: the prompt's blocks
+        plus one decode block under lazy reservation (capped at the
+        worst case); the full prompt + budget in "worst-case" mode."""
+
+        bs = self.block_size
+        full = blocks_for(p_len + budget, bs)
+        if self.reserve != "lazy":
+            return full
+        # the first window's coverage rides along (equal to the +1
+        # decode block whenever K <= block_size): a seat that could not
+        # run one window would only be parked again
+        first = blocks_for(
+            min(p_len + self.steps_per_sync, max(p_len + budget - 1, 1)),
+            bs,
+        )
+        return min(max(blocks_for(p_len, bs) + 1, first), full)
+
     def _plan_admission(self, req: _Request):
-        """Reserve the request's blocks (caller holds the lock): the
-        longest cached prefix is retained first, fresh blocks cover the
-        rest of prompt + budget, and on shortfall unmapped prefix-cache
-        entries are evicted LRU-first.  None when the arena is full."""
+        """Reserve the request's commit blocks (caller holds the lock):
+        the longest cached prefix is retained first, fresh blocks cover
+        the rest of the commit, taken under pressure by
+        ``_alloc_blocks_locked`` with the right to preempt lower tiers
+        only.  None when the arena cannot give them."""
 
         bs = self.block_size
         p_len = req.prompt.size
@@ -309,40 +402,314 @@ class PagedContinuousBatchingDecoder:
             shared.append(int(bid))
         if shared:
             self.alloc.retain(shared)
-        total = blocks_for(p_len + req.budget, bs)
-        need = total - len(shared)
-        new = self.alloc.alloc(need)
-        while new is None:
-            if self.prefix.evict_lru(need=need - self.alloc.free_count) == 0:
-                if shared:
-                    self.alloc.release(shared)
-                return None
-            new = self.alloc.alloc(need)
+        total = max(self._commit_blocks(p_len, req.budget), len(shared))
+        new = self._alloc_blocks_locked(
+            total - len(shared), max_victim_rank=_TIER_RANK[req.tier] - 1,
+        )
+        if new is None:
+            if shared:
+                self.alloc.release(shared)
+            return None
         row = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
         row[: len(shared)] = shared
         row[len(shared) : total] = new
         return {"shared": shared, "new": new, "keys": keys, "row": row}
 
+    def _release_plan(self, plan) -> None:
+        refs = plan.get("shared", []) + plan.get("new", []) + plan.get("extra", [])
+        if refs:
+            self.alloc.release(refs)
+
+    # -- SLO-tier scheduling and preemption --------------------------------
+
+    def _effective_rank(self, req: _Request, now: float) -> int:
+        """Admission-order rank: the request's tier, with the bounded
+        anti-starvation boost (a batch request queued longer than
+        ``age_boost_seconds`` orders like an interactive one; the boost
+        grants no preemption rights)."""
+
+        rank = _TIER_RANK[req.tier]
+        if rank == 0 and now - req.t_submit_mono >= self.age_boost_seconds:
+            rank = _TIER_RANK["interactive"]
+        return rank
+
+    def _queue_sort_key(self, req: _Request, now: float):
+        """Highest effective rank first, submit order within a rank."""
+
+        return (-self._effective_rank(req, now), req.t_submit_mono, req.rid)
+
+    def _pick_queued_locked(self) -> int:
+        now = time.monotonic()
+        return min(
+            range(len(self._queue)),
+            key=lambda i: self._queue_sort_key(self._queue[i], now),
+        )
+
+    def _pick_victim_locked(self, max_rank: int,
+                            exclude_slot: Optional[int] = None) -> Optional[int]:
+        """Among active seats of tier rank <= ``max_rank`` that have
+        decoded since seating (the anti-livelock guard) and whose
+        preemption would free blocks the swap arena can take: the
+        lowest tier, then the most blocks, then the least progress.
+        A slot, or None."""
+
+        cands = []
+        for slot, r in self._active.items():
+            if slot == exclude_slot or _TIER_RANK[r.tier] > max_rank \
+                    or r.tokens_since_seat <= 0:
+                continue
+            refs = self._seat_refs.get(slot, [])
+            private = sum(1 for b in refs if self.alloc.refcount(b) == 1)
+            if private == 0 or not self.swap.admit(private):
+                continue
+            cands.append((slot, r, len(refs)))
+        if not cands:
+            return None
+        return min(
+            cands, key=lambda c: (_TIER_RANK[c[1].tier], -c[2], len(c[1].tokens), c[0]),
+        )[0]
+
+    def _alloc_blocks_locked(self, n: int, *, max_victim_rank: int,
+                             exclude_slot: Optional[int] = None,
+                             exclude_rid: Optional[int] = None):
+        """``n`` fresh blocks under pressure: allocation, then LRU
+        eviction of unmapped prefix-cache entries, then preemption of an
+        eligible seat (tier rank <= ``max_victim_rank``), then demotion
+        of a queued preempted request's live blocks.  Each round moves
+        real block claims, so the loop ends.  None when nothing is left
+        to evict, preempt or demote for this caller's tier."""
+
+        ids = self.alloc.alloc(n)
+        while ids is None:
+            if self.prefix.evict_lru(need=n - self.alloc.free_count) == 0:
+                victim = self._pick_victim_locked(max_victim_rank, exclude_slot)
+                if victim is not None:
+                    self._preempt_seat_locked(victim)
+                elif not self._demote_queued_locked(max_victim_rank, exclude_rid):
+                    return None
+            ids = self.alloc.alloc(n)
+        return ids
+
+    def _demote_queued_locked(self, max_rank: int,
+                              exclude_rid: Optional[int]) -> bool:
+        """The deadlock breaker for swap-exempt pins: a preempted queued
+        request keeps references on its prefix-published blocks, which
+        the cache cannot evict while they are above refcount 1, so a
+        pool with no seat to preempt could wedge.  Copy the live blocks
+        of the lowest-priority such request into its swap record and
+        release them (cache-only blocks become evictable).  True when a
+        demotion happened."""
+
+        now = time.monotonic()
+        cands = []
+        for q in self._queue:
+            if not q.swapped or q.rid == exclude_rid or _TIER_RANK[q.tier] > max_rank:
+                continue
+            rec = self.swap.peek(q.rid)
+            if rec is None or not rec["live"] or not self.swap.admit(len(rec["live"])):
+                continue
+            cands.append(q)
+        if not cands:
+            return False
+        q = max(cands, key=lambda r: self._queue_sort_key(r, now))
+        rec = self.swap.peek(q.rid)
+        live = rec["live"]
+        added = self._swap_out([b for _, b in live])
+        host = added if rec["host"] is None else torch.cat([rec["host"], added], dim=2)
+        merged = {"live": [], "blocks": rec["blocks"] + [i for i, _ in live],
+                  "host": host}
+        self.swap.pop(q.rid)
+        self.swap.put(q.rid, merged, n_blocks=rec["n_blocks"] + len(live),
+                      nbytes=_nbytes(added))
+        self.alloc.release([b for _, b in live])
+        q.swapped_blocks += len(live)
+        return True
+
+    # -- swap copies -------------------------------------------------------
+
+    def _swap_mark(self):
+        ev = None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        return time.perf_counter(), ev
+
+    def _log_swap(self, direction: str, blocks: int, nbytes: int, mark) -> None:
+        t0, ev0 = mark
+        ev1 = None
+        if ev0 is not None:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+        self.swap_log.append({
+            "direction": direction, "blocks": blocks, "bytes": nbytes,
+            "host_s": time.perf_counter() - t0,
+            "events": None if ev0 is None else (ev0, ev1),
+        })
+
+    def _swap_out(self, ids: List[int]) -> torch.Tensor:
+        """Arena rows ``ids`` of every layer's K and V as one host tensor
+        [layers, 2, n, Hkv, bs, D]: gathered on the device, then one
+        synchronous device->host copy (pinned on CUDA), so the record is
+        complete when this returns."""
+
+        mark = self._swap_mark()
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        k0 = self._arena[0][0]
+        shape = (len(self._arena), 2, len(ids)) + tuple(k0.shape[1:])
+        buf = torch.empty(shape, dtype=k0.dtype, device=self.device)
+        for i, pair in enumerate(self._arena):
+            for j, a in enumerate(pair):
+                torch.index_select(a, 0, idx, out=buf[i, j])
+        host = buf
+        if self.device.type == "cuda":
+            host = torch.empty(shape, dtype=k0.dtype, pin_memory=True)
+            host.copy_(buf)
+        self.dispatches["swap_out"] += 1
+        self._log_swap("out", len(ids), _nbytes(host), mark)
+        return host
+
+    def _swap_in(self, host: torch.Tensor, ids: List[int]) -> None:
+        """Write a record's host rows into arena rows ``ids``: one
+        synchronous host->device copy (the record may go once this
+        returns), then a scatter per layer's K and V."""
+
+        mark = self._swap_mark()
+        idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
+        dev = host.to(self.device)
+        for i, pair in enumerate(self._arena):
+            for j, a in enumerate(pair):
+                a.index_copy_(0, idx, dev[i, j])
+        self._log_swap("in", len(ids), _nbytes(host), mark)
+
+    # -- preemption and resume ---------------------------------------------
+
+    def _preempt_seat_locked(self, slot: int) -> int:
+        """Evict seat ``slot`` mid-decode (caller holds the lock): its
+        private blocks go to the host swap arena and are freed, its
+        prefix-shared blocks stay live (swap-exempt); when the swap
+        arena refuses, nothing is copied or freed and the request just
+        leaves its seat.  The device row resets before any block is
+        released; the request re-queues.  Returns the blocks freed."""
+
+        req = self._active.pop(slot)
+        refs = self._seat_refs.pop(slot)
+        req.slot = None
+        exempt = [(i, b) for i, b in enumerate(refs) if self.alloc.refcount(b) > 1]
+        private = [(i, b) for i, b in enumerate(refs) if self.alloc.refcount(b) == 1]
+        if private and not self.swap.admit(len(private)):
+            live, copied = exempt + private, []
+        else:
+            live, copied = exempt, private
+        host = self._swap_out([b for _, b in copied]) if copied else None
+        self._retire_device_locked([slot])
+        freed = self.alloc.release([b for _, b in copied]) if copied else 0
+        self.swap.put(
+            req.rid, {"live": live, "blocks": [i for i, _ in copied], "host": host},
+            n_blocks=len(copied), nbytes=_nbytes(host),
+        )
+        req.swapped = True
+        req.tokens_since_seat = 0
+        req.preemptions += 1
+        req.swapped_blocks += len(copied)
+        self.preemptions += 1
+        self._queue.append(req)
+        return freed
+
+    def _plan_resume_locked(self, req: _Request):
+        """Blocks for re-admitting a preempted request: replacements for
+        its swapped blocks plus the first window's coverage (a seat that
+        could not run one window would only be parked again).  Like a
+        fresh admission it may preempt lower tiers; it never demotes
+        itself."""
+
+        rec = self.swap.peek(req.rid)
+        if rec is None:
+            raise BlockError(
+                f"request {req.rid} is marked swapped but has no SwapArena "
+                "record — its KV cannot be restored"
+            )
+        n_up = len(rec["blocks"])
+        committed = len(rec["live"]) + n_up
+        length = req.prompt.size + len(req.tokens) - 1
+        cap = max(req.prompt.size + req.budget - 1, 1)
+        target = blocks_for(min(length + self.steps_per_sync, cap), self.block_size)
+        extra = max(0, target - committed)
+        ids = self._alloc_blocks_locked(
+            n_up + extra, max_victim_rank=_TIER_RANK[req.tier] - 1,
+            exclude_rid=req.rid,
+        )
+        if ids is None:
+            return None
+        return {"rec": rec, "new": ids[:n_up], "extra": ids[n_up:]}
+
+    def _seat_device_row(self, slot: int, row: np.ndarray, length: int,
+                         req: _Request, tok) -> None:
+        self._tables_dev[slot] = torch.as_tensor(row, device=self.device)
+        self._lengths_dev[slot] = length
+        self._temps_dev[slot] = req.temperature
+        self._topks_dev[slot] = req.top_k or 0
+        self._last_tok[slot] = tok
+
+    def _admit_swapped(self, req: _Request, slot: int, plan) -> None:
+        """Resume a preempted request at ``slot`` (caller holds the
+        lock): upload its host blocks into the fresh ids, re-map its
+        live blocks copy-free, and write the seat's table row, length,
+        sampling parameters and last token."""
+
+        rec, new, extra = plan["rec"], plan["new"], plan["extra"]
+        committed = len(rec["live"]) + len(new)
+        row = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
+        refs: List[int] = [SCRATCH_BLOCK] * committed
+        for i, bid in rec["live"]:
+            row[i] = refs[i] = bid
+        for j, i in enumerate(rec["blocks"]):
+            row[i] = refs[i] = new[j]
+        row[committed : committed + len(extra)] = extra
+        refs.extend(extra)
+        if new:
+            self._swap_in(rec["host"], new)
+        self._seat_device_row(slot, row, req.prompt.size + len(req.tokens) - 1,
+                              req, req.tokens[-1])
+        self.dispatches["swap_in"] += 1
+        self.swap.pop(req.rid, _nbytes(rec["host"]))
+        req.swapped = False
+        req.slot = slot
+        req.tokens_since_seat = 0
+        self._active[slot] = req
+        self._seat_refs[slot] = refs
+        if req.generator is not None:
+            self._generators[slot] = req.generator
+
+    @torch.inference_mode()
     def _admit(self) -> None:
-        """Seat queued requests in FIFO order while a seat and the head
-        request's blocks are free (the head gates the queue)."""
+        """Seat queued requests, resumed and fresh, in priority order
+        while a seat and the top request's blocks can be had (the top
+        request gates the queue; its plan may preempt lower tiers)."""
 
         while True:
             with self._lock:
                 if not self._queue or len(self._active) == self.slots:
                     return
-                req = self._queue[0]
-                plan = self._plan_admission(req)
+                idx = self._pick_queued_locked()
+                req = self._queue[idx]
+                if req.swapped:
+                    plan = self._plan_resume_locked(req)
+                else:
+                    plan = self._plan_admission(req)
                 if plan is None:
                     return
-                self._queue.pop(0)
+                self._queue.pop(idx)
+                # planning may itself have preempted seats
                 slot = min(s for s in range(self.slots) if s not in self._active)
                 try:
-                    self._admit_paged(req, slot, plan)
+                    if req.swapped:
+                        self._admit_swapped(req, slot, plan)
+                    else:
+                        self._admit_paged(req, slot, plan)
                 except BaseException:
-                    # the request survives a failed admission: its
-                    # reservation is rolled back and it keeps its place
-                    self.alloc.release(plan["shared"] + plan["new"])
+                    # the request survives a failed admission: its plan
+                    # is rolled back and it goes to the queue's head
+                    self._release_plan(plan)
                     self._queue.insert(0, req)
                     raise
 
@@ -361,11 +728,7 @@ class PagedContinuousBatchingDecoder:
         tok = _admission_sample(logits[0, -1], req.temperature, req.top_k,
                                 req.generator)
         scatter_block_view(self._arena, view, row, n_shared, n_fresh)
-        self._tables_dev[slot] = row
-        self._lengths_dev[slot] = p_len
-        self._temps_dev[slot] = req.temperature
-        self._topks_dev[slot] = req.top_k or 0
-        self._last_tok[slot] = tok
+        self._seat_device_row(slot, row, p_len, req, tok)
         self.dispatches["admission"] += 1
         req.tokens.append(int(tok))  # the admission's one host fetch
         req.t_first = time.perf_counter()
@@ -388,6 +751,7 @@ class PagedContinuousBatchingDecoder:
             self._finish_locked(req)
             return
         req.slot = slot
+        req.tokens_since_seat = 0
         self._active[slot] = req
         self._seat_refs[slot] = refs
         if req.generator is not None:
@@ -415,21 +779,82 @@ class PagedContinuousBatchingDecoder:
         req.slot = None
         self.recent.append({
             "rid": req.rid,
+            "tier": req.tier,
             "prompt_tokens": int(req.prompt.size),
             "prefix_tokens": int(req.prefix_tokens),
             "ttft_s": req.t_first - req.t_submit,
             "tokens": len(req.tokens),
+            "preemptions": req.preemptions,
+            "swapped_blocks": req.swapped_blocks,
         })
         self._done_cond.notify_all()
 
+    def _grow_seats_locked(self):
+        """Lazy growth before a window (caller holds the lock): every
+        active seat, in priority order, gets the blocks its next window
+        will append into (capped at its budget's last cached position).
+        On shortfall the tier policy preempts a seat of the grower's
+        tier or lower; a grower that still cannot be fed leaves its seat
+        (swapped, or parked without a copy) rather than append into
+        scratch.  Returns the [slots, G] host arrays of logical indices
+        and physical ids to write; unused entries index past the
+        table."""
+
+        G = self._step_nbw
+        gl = np.full((self.slots, G), self.max_blocks, np.int32)
+        gp = np.full((self.slots, G), SCRATCH_BLOCK, np.int32)
+        now = time.monotonic()
+        order = sorted(self._active.items(),
+                       key=lambda kv: self._queue_sort_key(kv[1], now))
+        for slot, req in order:
+            if slot not in self._active:
+                continue  # preempted as an earlier grower's victim
+            committed = len(self._seat_refs[slot])
+            length = req.prompt.size + len(req.tokens) - 1
+            cap = max(req.prompt.size + req.budget - 1, 1)
+            delta = blocks_for(min(length + self.steps_per_sync, cap),
+                               self.block_size) - committed
+            if delta <= 0:
+                continue
+            ids = self._alloc_blocks_locked(
+                delta, max_victim_rank=_TIER_RANK[req.tier], exclude_slot=slot,
+            )
+            if ids is None:
+                self._preempt_seat_locked(slot)
+                continue
+            gl[slot, :delta] = np.arange(committed, committed + delta, dtype=np.int32)
+            gp[slot, :delta] = ids
+            self._seat_refs[slot].extend(ids)
+        # a seat preempted after its growth was staged must not write
+        # freed (possibly re-owned) ids into its dead table row
+        for s in range(self.slots):
+            if s not in self._active:
+                gl[s] = self.max_blocks
+                gp[s] = SCRATCH_BLOCK
+        return gl, gp
+
+    def _write_growth(self, gl: np.ndarray, gp: np.ndarray) -> None:
+        """All of a window's growth into the device tables in one write
+        (one upload of (slot, index, id) triples), before the window
+        reads them."""
+
+        rows, cols = np.nonzero(gl < self.max_blocks)
+        if rows.size == 0:
+            return
+        triples = np.stack([rows, gl[rows, cols], gp[rows, cols]]).astype(np.int64)
+        t = torch.as_tensor(triples, device=self.device)
+        self._tables_dev[t[0], t[1]] = t[2].to(torch.int32)
+
     @torch.inference_mode()
     def step(self) -> int:
-        """Admit, run one window of ``steps_per_sync`` decode steps for
-        the active seats, retire the finished ones.  Returns the number
-        of seats still active."""
+        """Admit, grow the active seats' tables, run one window of
+        ``steps_per_sync`` decode steps for them, retire the finished
+        ones.  Returns the number of seats still active."""
 
         self._admit()
         with self._lock:
+            if self._active:
+                self._write_growth(*self._grow_seats_locked())
             if not self._active:
                 return 0
             enabled = np.zeros(self.slots, bool)
@@ -457,6 +882,7 @@ class PagedContinuousBatchingDecoder:
                 req = self._active[slot]
                 take = min(len(host), req.budget - len(req.tokens))
                 req.tokens.extend(int(t) for t in host[:take, slot])
+                req.tokens_since_seat += take
                 if len(req.tokens) >= req.budget:
                     finished.append(slot)
             if finished:

@@ -15,12 +15,15 @@ observable.  The allocator manages ids ``1 .. num_blocks-1``.
 
 Conservation invariant: at all times ``free + live == usable`` with no
 id both free and referenced.
+
+:class:`SwapArena` is the host side of preemption: the private blocks of
+a seat evicted mid-decode wait there until the request resumes.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 #: the global scratch block id (see module docstring)
 SCRATCH_BLOCK = 0
@@ -138,6 +141,91 @@ class BlockAllocator:
                 else:
                     self._refs[bid] = rc - 1
         return freed
+
+
+class SwapArena:
+    """Host-side store of swapped-out KV blocks (a copy of the JAX
+    package's ``SwapArena``).
+
+    Mid-decode preemption frees a victim seat's device blocks by parking
+    their content here: one record per preempted request, holding the
+    host copies of its private (refcount-1) blocks plus the bookkeeping
+    resume needs.  Prefix-cache-shared blocks are swap-exempt: they stay
+    on the device under their surviving refcounts and re-map copy-free
+    at resume, so a record covers only blocks nothing else holds.
+
+    ``capacity_blocks`` bounds the host footprint (None = unbounded).
+    ``admit`` answers whether a prospective swap fits; a full swap arena
+    means the scheduler parks the seat without a copy instead of
+    preempting it.
+
+    Conservation: device ``free + live`` plus this arena's
+    ``swapped_blocks`` accounts for every logical block any request
+    owns.
+    """
+
+    def __init__(self, capacity_blocks: Optional[int] = None):
+        self.capacity_blocks = (
+            None if capacity_blocks is None else int(capacity_blocks)
+        )
+        self._lock = threading.Lock()
+        self._records: Dict[int, Dict[str, Any]] = {}  # rid -> record
+        self.swapped_blocks = 0
+        self.bytes_out_total = 0  # cumulative device -> host
+        self.bytes_in_total = 0   # cumulative host -> device (resumes)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._records)
+
+    def admit(self, n_blocks: int) -> bool:
+        """Would ``n_blocks`` more swapped blocks fit the cap?"""
+
+        if self.capacity_blocks is None:
+            return True
+        with self._lock:
+            return self.swapped_blocks + int(n_blocks) <= self.capacity_blocks
+
+    def put(self, rid: int, record: Dict[str, Any], n_blocks: int,
+            nbytes: int) -> None:
+        """Store a preempted request's swap record (keyed by pool rid).
+        ``n_blocks``/``nbytes`` are the private blocks actually copied
+        (exempt blocks stay on the device and count zero here)."""
+
+        with self._lock:
+            if rid in self._records:
+                raise BlockError(f"request {rid} already has a swap record")
+            record = dict(record)
+            record["n_blocks"] = int(n_blocks)
+            self._records[rid] = record
+            self.swapped_blocks += int(n_blocks)
+            self.bytes_out_total += int(nbytes)
+
+    def peek(self, rid: int) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            return self._records.get(rid)
+
+    def pop(self, rid: int, nbytes: int = 0) -> Dict[str, Any]:
+        """Remove and return the record at resume (its blocks are being
+        uploaded back into freshly allocated device blocks)."""
+
+        with self._lock:
+            rec = self._records.pop(rid, None)
+            if rec is None:
+                raise BlockError(f"request {rid} has no swap record")
+            self.swapped_blocks -= rec["n_blocks"]
+            self.bytes_in_total += int(nbytes)
+            return rec
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "records": len(self._records),
+                "swapped_blocks": self.swapped_blocks,
+                "capacity_blocks": self.capacity_blocks,
+                "bytes_out_total": self.bytes_out_total,
+                "bytes_in_total": self.bytes_in_total,
+            }
 
 
 def blocks_for(tokens: int, block_size: int) -> int:

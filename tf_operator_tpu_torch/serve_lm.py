@@ -10,10 +10,19 @@ mode of ``examples/serve_lm.py``).
 ``temperature`` (quantised to a 0.05 grid), ``top_k``, ``seed``,
 ``stop`` and ``tier`` and answers ``{"prompt", "sample", "seed"}``;
 prompts are byte-level ids.  ``GET /healthz`` answers ``{"ok": true}``.
-Client errors are 400s with the JAX server's messages.  The SLO tier
-(the body's ``tier``, else the ``x-slo-tier`` header, else ``batch``)
-is validated as the JAX server does; ``interactive`` is refused with a
-400 until SLO tiers are ported, rather than served as batch.
+Client errors are 400s with the JAX server's messages.
+
+SLO tiers: the body's ``tier``, else the ``x-slo-tier`` header, else
+``batch``; anything but ``interactive`` or ``batch`` is a 400.  The
+pool reserves lazily (the prompt's blocks plus one, then growth at
+block boundaries), admits by priority (interactive first, batch
+boosted after 30 s in the queue), and under arena pressure preempts
+batch seats mid-decode, swapping their KV blocks to host memory and
+resuming them later with the same tokens (models/batching.py).
+``--kv-swap-blocks N`` caps the host swap arena at N blocks (default:
+unbounded); with both arenas full, requests wait in the queue or are
+parked without a copy rather than fail mid-decode (a cap that no
+victim fits can leave two parked requests waiting on each other).
 
 The weights come from a seed (``--model llama-7b|llama-tiny
 --init-seed N``, made on the device) or from an ``export_params``
@@ -50,12 +59,6 @@ from tf_operator_tpu_torch.models.registry import model_from_description
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
 from tf_operator_tpu_torch.ops.quant import state_bytes
 from tf_operator_tpu_torch.parallel.checkpoint import MODEL_FILE, PARAMS_FILE
-
-
-#: the answer to an interactive request: the pool has no SLO tiers yet,
-#: and serving one as batch would drop its priority without saying so
-INTERACTIVE_REFUSED = ("tier 'interactive' is not served: SLO tiers are not ported "
-                       "yet; send tier 'batch'")
 
 
 def decode_bytes(arr) -> str:
@@ -121,8 +124,6 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                 if tier not in ("interactive", "batch"):
                     return self._reply(400, {
                         "error": "tier must be 'interactive' or 'batch'"})
-                if tier == "interactive":
-                    return self._reply(400, {"error": INTERACTIVE_REFUSED})
                 if not text:
                     return self._reply(400, {"error": "empty prompt"})
                 if n_new < 1:
@@ -141,7 +142,7 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                     generator = torch.Generator(device=pool.device).manual_seed(seed)
                 rid = pool.submit(
                     ids.astype(np.int32), n_new, temperature=temperature,
-                    top_k=top_k, generator=generator,
+                    top_k=top_k, generator=generator, tier=tier,
                 )
                 while True:
                     row = pool.result_wait(rid, timeout=0.5)
@@ -240,7 +241,7 @@ def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
     return lm
 
 
-def main(argv: Optional[list] = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=["llama-7b", "llama-tiny"], default="llama-tiny")
     ap.add_argument("--init-seed", type=int, default=0)
@@ -255,9 +256,27 @@ def main(argv: Optional[list] = None) -> int:
     ap.add_argument("--batching", type=int, default=8, metavar="SLOTS")
     ap.add_argument("--kv-blocks", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
+    ap.add_argument("--kv-swap-blocks", type=int, default=None, metavar="N",
+                    help="cap the host swap arena of preempted seats at N blocks "
+                    "(default: unbounded); with both arenas full, requests wait "
+                    "or park without a copy")
     ap.add_argument("--steps-per-sync", type=int, default=8)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def build_pool(model: LlamaLM, args: argparse.Namespace) -> PagedContinuousBatchingDecoder:
+    """The pool the flags describe (the JAX server's: lazy reservation)."""
+
+    return PagedContinuousBatchingDecoder(
+        model, slots=args.batching, steps_per_sync=args.steps_per_sync,
+        kv_blocks=args.kv_blocks, kv_block_size=args.kv_block_size,
+        swap_blocks=args.kv_swap_blocks,
+    )
+
+
+def main(argv: Optional[list] = None) -> int:
+    args = build_parser().parse_args(argv)
     if args.batching < 1:
         raise SystemExit("--batching must be >= 1 (the pool is the only serving mode)")
     device = resolve_device(args.device)
@@ -265,11 +284,7 @@ def main(argv: Optional[list] = None) -> int:
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
         artifact=args.artifact, quantize=args.quantize,
     )
-    pool = PagedContinuousBatchingDecoder(
-        model, slots=args.batching, steps_per_sync=args.steps_per_sync,
-        kv_blocks=args.kv_blocks, kv_block_size=args.kv_block_size,
-    )
-    server = Server(pool, port=args.port).start()
+    server = Server(build_pool(model, args), port=args.port).start()
     print(f"serving on 127.0.0.1:{server.port} ({device})", flush=True)
     try:
         while not server.fatal:
