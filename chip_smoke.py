@@ -116,9 +116,27 @@ Phases, in order; any failure exits non-zero before the result line:
    greedy requests (prompts of 64..1500 bytes, two sharing a 512-byte
    prefix) and one seeded temperature request, 32 new tokens each.  The
    kernel counts are zeroed just before and read just after: K4 must
-   have launched 32 layers x the decode steps run.
+   have launched 32 layers x the decode steps run.  The records, read
+   over HTTP while the server runs (``check_records``): every reply's
+   ``request_id`` echoed in ``x-trace-id``; each ``/requests/<id>``
+   done with 32 tokens and step dispatches = windows, exactly one with a
+   prefix hit of >= 512 tokens; each ``/traces/<id>`` holding the six
+   lifecycle spans, ``dispatch.admission`` under ``admission``;
+   ``/metrics`` with 9 requests ok, 9 TTFT observations over the tiers
+   and the step dispatches of the pool's ledger; ``/slo``,
+   ``/debug/arena``, ``/alerts`` parse, and ``/debug/flightrecorder``'s
+   ndjson names every request.
    Then one decode window of the same pool runs under torch.profiler:
    the device's busy share of the window and each kernel's share.
+7c. what the records cost on the host: phase 7's nine requests, in this
+   process, through a bare pool (no ledger, no metrics) and through the
+   pool ``serve_lm.make_pool`` builds, in the order bare, plane, plane,
+   bare, bare, plane.  Each run: decode tokens/s, the median window ms
+   (the ledger's step seconds: up to the window's fetch) and the median
+   bookkeeping µs a window (``step()``'s wall less that, over windows
+   that admitted nothing); K4 = 32 x the decode steps.  Then each
+   side's median and spread (max - min), and whether the sides differ
+   by more than the spread, beside the card line.
 7b. serving under arena pressure at full width: the same model behind
    ``serve_lm``'s server, the pool at 8 slots, max_len 2048, bs 16, 8
    steps per sync, in its default ``reserve="lazy"``.  Eight batch
@@ -140,7 +158,14 @@ Phases, in order; any failure exits non-zero before the result line:
    and left live), demotions, decode tokens/s, TTFT by tier and peak
    memory; each swap copy's device ms (CUDA events), blocks, bytes and
    GB/s, beside a plain pinned-host copy of the largest swap's bytes
-   each way as the link's yardstick; all beside the card line.
+   each way as the link's yardstick; all beside the card line.  Each
+   run's records as in phase 7, and (``check_pressure_records``)
+   ``serve_preemptions_total{tier="batch"}`` = the preemptions with no
+   interactive series, ``kv_swap_bytes_total`` out = in = the swap
+   log's bytes, the autopsies' preemptions and swapped blocks = the
+   run's own preempt and demotion logs, the timeline's ``swapped``
+   series back to 0 (above 0 when a seat was preempted), both tiers on
+   ``/slo``.
 8. end to end: on ``llama_tiny`` (float32) the pool's greedy tokens
    through the kernel equal the plain contiguous ``generate`` on the
    card; at 7B width the first decode step's logits through the kernel
@@ -154,9 +179,10 @@ Phases, in order; any failure exits non-zero before the result line:
    read just after: K7 must have launched 225 (7 projections x 32
    layers + the head) x (decode steps + prefills of <= 64 rows), the
    GEMM route 225 x the longer prefills, K4 32 x the decode steps, and
-   no plain version may have run.  Prints the weight bytes bf16 ->
-   int8, decode tokens/s and TTFT beside phase 7's, peak memory and one
-   profiled decode window (busy share, K7's share of device time).
+   no plain version may have run.  The records as in phase 7.  Prints
+   the weight bytes bf16 -> int8, decode tokens/s and TTFT beside phase
+   7's, peak memory and one profiled decode window (busy share, K7's
+   share of device time).
 10. int8 end to end: ``llama_tiny`` (float32, int8 kernels) pool tokens
    through K7 equal the contiguous ``generate`` with the plain int8
    matmul; at 7B width the first paged decode step through K7 is within
@@ -169,6 +195,7 @@ Phases, in order; any failure exits non-zero before the result line:
    ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import gc
 import json
 import math
@@ -532,6 +559,8 @@ def _prompts(seed):
 
 
 def _post(port, body):
+    """(status, answer, seconds, x-trace-id header) of one /generate."""
+
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate", data=json.dumps(body).encode(),
         method="POST",
@@ -539,22 +568,124 @@ def _post(port, body):
     t0 = time.perf_counter()
     with urllib.request.urlopen(req, timeout=600) as resp:
         out = json.loads(resp.read())
-        return resp.status, out, time.perf_counter() - t0
+        return (resp.status, out, time.perf_counter() - t0,
+                resp.headers.get("x-trace-id"))
+
+
+def _get(port, path):
+    """(status, body bytes) of one GET."""
+
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=120) as resp:
+        return resp.status, resp.read()
+
+
+def _get_json(port, path):
+    status, body = _get(port, path)
+    if status != 200:
+        raise AssertionError(f"GET {path}: {status}")
+    return json.loads(body)
+
+
+def _metric(text, name, **labels):
+    """The value of one series of a Prometheus exposition (0 if absent)."""
+
+    want = ",".join(f'{k}="{v}"' for k, v in sorted(labels.items()))
+    head = f"{name}{{{want}}} " if want else f"{name} "
+    for line in text.splitlines():
+        if line.startswith(head):
+            return float(line[len(head):])
+    return 0.0
+
+
+def _metric_sum(text, name):
+    """The sum of every series of one family in an exposition."""
+
+    return sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+               if line.startswith(name + "{") or line.startswith(name + " "))
+
+
+def decode_steps(pool):
+    """Decode steps a pool ran: its ledger's windows x steps a window."""
+
+    return pool.ledger.count("step") * pool.steps_per_sync
+
+
+#: the lifecycle spans every served request's trace holds
+REQUEST_SPANS = ("serve.generate", "queue.wait", "admission", "dispatch.admission",
+                 "decode.window", "retire")
+
+
+def check_records(port, pool, results, tag):
+    """The serving plane's records of one phase, read over HTTP while
+    the server runs: each reply's ``request_id`` (echoed in x-trace-id),
+    its autopsy and trace; /metrics against the pool's own counts;
+    /slo, /debug/arena, /alerts and /debug/flightrecorder parse.
+    Returns the autopsies in request order and the exposition."""
+
+    autopsies = []
+    for i, r in enumerate(results):
+        rid = r[1].get("request_id")
+        if not rid or r[3] != rid:
+            raise AssertionError(f"{tag}: request {i} id {rid!r}, x-trace-id {r[3]!r}")
+        a = _get_json(port, f"/requests/{rid}")
+        if a["state"] != "done" or a["dispatches"].get("step") != a["windows"]:
+            raise AssertionError(f"{tag}: autopsy of request {i}: {a}")
+        trace = _get_json(port, f"/traces/{rid}")
+        spans = {s["spanId"]: s for s in trace["spans"]}
+        names = {s["name"] for s in spans.values()}
+        if not set(REQUEST_SPANS) <= names:
+            raise AssertionError(f"{tag}: trace of request {i} lacks "
+                                 f"{set(REQUEST_SPANS) - names}")
+        for s in spans.values():
+            if s["name"] == "dispatch.admission" and \
+                    spans.get(s["parentId"], {}).get("name") != "admission":
+                raise AssertionError(f"{tag}: dispatch.admission outside admission: {s}")
+        autopsies.append(a)
+    status, raw = _get(port, "/metrics")
+    text = raw.decode()
+    n = len(results)
+    ok = _metric(text, "serve_requests_total", status="200")
+    ttft = _metric_sum(text, "serve_ttft_seconds_count")
+    steps = _metric(text, "serving_dispatch_total", phase="step")
+    if not (status == 200 and ok == n and ttft == n and steps == pool.ledger.count("step")):
+        raise AssertionError(f"{tag}: /metrics requests_ok {ok}, ttft counts {ttft} of {n}, "
+                             f"step dispatches {steps} vs {pool.ledger.count('step')}")
+    slo = _get_json(port, "/slo")
+    arena = _get_json(port, "/debug/arena")
+    alerts = _get_json(port, "/alerts")
+    status, raw = _get(port, "/debug/flightrecorder")
+    dump = [json.loads(line) for line in raw.decode().splitlines()]
+    named = {r["id"] for r in dump if r["type"] == "request"}
+    if status != 200 or dump[0]["type"] != "meta" or \
+            not {a["id"] for a in autopsies} <= named:
+        raise AssertionError(f"{tag}: the flight recorder's dump names {sorted(named)}")
+    log(f"{tag} records: " + json.dumps({
+        "requests_ok": ok, "ttft_count": ttft, "step_dispatches": steps,
+        "slo_ttft": slo["histograms"]["serve_ttft_seconds"],
+        "arena_samples": len(arena["replicas"][0]["samples"]),
+        "alerts_firing": alerts["firing"], "flight_records": len(dump)}))
+    return autopsies, text, slo
+
+
+def _main_bodies():
+    """Phase 7's nine requests."""
+
+    bodies = [{"prompt": p, "max_new_tokens": 32} for p in _prompts(0)]
+    bodies.append({"prompt": "seeded temperature request: ", "max_new_tokens": 32,
+                   "temperature": 0.8, "top_k": 40, "seed": 1234})
+    return bodies
 
 
 def phase_main_path(model, tag="main path"):
-    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
     from tf_operator_tpu_torch.ops import _build
-    from tf_operator_tpu_torch.serve_lm import Server
+    from tf_operator_tpu_torch.serve_lm import Server, make_pool
 
     n_layers = model.cfg.n_layers
-    pool = PagedContinuousBatchingDecoder(model, slots=8, steps_per_sync=8,
-                                          kv_block_size=16)
+    pool = make_pool(model, model_label="llama-7b", slots=8, steps_per_sync=8,
+                     kv_block_size=16)
     server = Server(pool).start()
     try:
-        bodies = [{"prompt": p, "max_new_tokens": 32} for p in _prompts(0)]
-        bodies.append({"prompt": "seeded temperature request: ", "max_new_tokens": 32,
-                       "temperature": 0.8, "top_k": 40, "seed": 1234})
+        bodies = _main_bodies()
         results = [None] * len(bodies)
 
         def send(i):
@@ -575,26 +706,30 @@ def phase_main_path(model, tag="main path"):
         for i, r in enumerate(results):
             if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
                 raise AssertionError(f"request {i} failed: {r}")
-        steps = pool.decode_steps
+        steps = decode_steps(pool)
         k4 = launches.get("paged_attention", 0)
         if k4 != n_layers * steps or steps == 0:
             raise AssertionError(
                 f"K4 launched {k4} times; {n_layers} layers x {steps} decode steps "
                 f"= {n_layers * steps}")
-        recent = list(pool.recent)
-        hits = [r for r in recent if r["prefix_tokens"] >= 512]
+        autopsies, _, _ = check_records(server.port, pool, results, tag)
+        if any(a["tokens"] != 32 for a in autopsies):
+            raise AssertionError(f"{tag}: autopsy tokens {[a['tokens'] for a in autopsies]}")
+        hits = [a for a in autopsies if a["admission"]["prefix_hit_tokens"] >= 512]
         if len(hits) != 1:
-            raise AssertionError(f"expected one 512-token prefix hit, got {recent}")
-        decode_tokens = sum(r["tokens"] - 1 for r in recent)
+            raise AssertionError(f"expected one 512-token prefix hit, got {autopsies}")
+        decode_tokens = sum(a["tokens"] - 1 for a in autopsies)
         stats = {
             "requests": len(results), "wall_s": wall, "decode_steps": steps,
             "k4_launches": k4, "launches": launches,
-            "dispatches": dict(pool.dispatches),
+            "dispatches": {p: r["count"] for p, r in pool.ledger.snapshot().items()},
             "decode_tokens": decode_tokens,
-            "decode_tokens_per_s": decode_tokens / pool.decode_seconds,
-            "decode_window_s": pool.decode_seconds,
-            "ttft_s": {r["rid"]: round(r["ttft_s"], 4) for r in recent},
-            "prompt_tokens": {r["rid"]: r["prompt_tokens"] for r in recent},
+            "decode_tokens_per_s": decode_tokens / pool.ledger.seconds("step"),
+            "decode_window_s": pool.ledger.seconds("step"),
+            "ttft_s": {a["rid"]: a["ttft_seconds"] for a in autopsies},
+            "prompt_tokens": {a["rid"]: a["prompt_tokens"] for a in autopsies},
+            "prefill_rows": [a["prompt_tokens"] - a["admission"]["prefix_hit_tokens"]
+                             for a in autopsies],
             "http_latency_s": [round(r[2], 3) for r in results],
             "prefix_hit_rid": hits[0]["rid"],
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -604,6 +739,99 @@ def phase_main_path(model, tag="main path"):
         return stats, pool
     finally:
         server.close()
+
+
+#: phase 7c's runs, interleaved so that drift between them cancels
+PLANE_ORDER = ("bare", "plane", "plane", "bare", "bare", "plane")
+
+
+def _plane_run(model, side):
+    """Phase 7's nine requests through one pool, driven in this process
+    (the HTTP layer's per-request work is outside the decode window):
+    ``bare`` is the pool built with no ledger and no metrics, ``plane``
+    the pool as ``serve_lm`` builds it (``make_pool``).  Each ``step()``
+    is timed; a step that ran a window and admitted or resumed nothing
+    gives one bookkeeping sample: its wall less the window's wall up to
+    its fetch (the ledger's ``step`` seconds)."""
+
+    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.serve_lm import make_pool
+
+    kw = dict(slots=8, steps_per_sync=8, kv_block_size=16)
+    if side == "bare":
+        pool = PagedContinuousBatchingDecoder(model, **kw)
+    else:
+        pool = make_pool(model, model_label="llama-7b", **kw)
+    rids = []
+    for i, b in enumerate(_main_bodies()):
+        ids = np.frombuffer(b["prompt"].encode("ascii", "replace"), np.uint8).astype(np.int32)
+        gen = None
+        if b.get("temperature"):
+            gen = torch.Generator(device="cuda").manual_seed(b["seed"])
+        rids.append(pool.submit(ids, b["max_new_tokens"], temperature=b.get("temperature", 0.0),
+                                top_k=b.get("top_k"), generator=gen, trace_id=f"{side}-{i}"))
+    torch.cuda.synchronize()
+    _build.launches.clear()
+    windows, book = [], []
+    t0 = time.perf_counter()
+    while pool._queue or pool._active:
+        seated = pool.ledger.count("admission") + pool.ledger.count("swap_in")
+        w0, n0 = pool.ledger.seconds("step"), pool.ledger.count("step")
+        t_step = time.perf_counter()
+        pool.step()
+        dt = time.perf_counter() - t_step
+        if pool.ledger.count("step") > n0:
+            windows.append(pool.ledger.seconds("step") - w0)
+            if pool.ledger.count("admission") + pool.ledger.count("swap_in") == seated:
+                book.append(dt - windows[-1])
+    wall = time.perf_counter() - t0
+    if any(pool.result(r) is None for r in rids):
+        raise AssertionError(f"plane cost, {side}: a request did not finish")
+    k4 = _build.launches.get("paged_attention", 0)
+    steps = decode_steps(pool)
+    if k4 != model.cfg.n_layers * steps or steps == 0:
+        raise AssertionError(f"plane cost, {side}: K4 launched {k4} times for "
+                             f"{steps} decode steps")
+    tokens = sum(e["tokens"] - 1 for e in pool.request_log.recent(len(rids)))
+    if tokens != len(rids) * 31:
+        raise AssertionError(f"plane cost, {side}: {tokens} decode tokens")
+    rec = {"side": side, "wall_s": wall, "decode_steps": steps,
+           "k4_launches": k4, "windows": len(windows),
+           "decode_tokens_per_s": tokens / pool.ledger.seconds("step"),
+           "window_ms": statistics.median(windows) * 1e3,
+           "bookkeeping_us": statistics.median(book) * 1e6 if book else None,
+           "bookkeeping_samples_us": [round(b * 1e6, 1) for b in book]}
+    del pool
+    free_device_memory()
+    return rec
+
+
+def phase_plane_cost(model, card):
+    """Phase 7c: what the serving plane's records cost on the host.  The
+    same nine requests through a bare pool and a ``serve_lm`` pool, in
+    ``PLANE_ORDER``; for each side the median and spread (max - min)
+    over its runs of decode tokens/s, window ms and bookkeeping µs a
+    window."""
+
+    runs = [_plane_run(model, side) for side in PLANE_ORDER]
+    for r in runs:
+        log(f"plane cost run ({card}) " + json.dumps(r))
+    summary = {}
+    for side in ("bare", "plane"):
+        mine = [r for r in runs if r["side"] == side]
+        summary[side] = {}
+        for key in ("decode_tokens_per_s", "window_ms", "bookkeeping_us"):
+            xs = [r[key] for r in mine if r[key] is not None]
+            summary[side][key] = {"median": statistics.median(xs), "spread": max(xs) - min(xs),
+                                  "runs": xs}
+    diff = {key: summary["plane"][key]["median"] - summary["bare"][key]["median"]
+            for key in ("decode_tokens_per_s", "window_ms", "bookkeeping_us")}
+    beyond = {key: abs(diff[key]) > max(summary["bare"][key]["spread"],
+                                        summary["plane"][key]["spread"]) for key in diff}
+    log(f"plane cost ({card}) " + json.dumps({"summary": summary, "plane_minus_bare": diff,
+                                              "beyond_spread": beyond}))
+    return summary
 
 
 def phase_decode_profile(pool):
@@ -703,16 +931,17 @@ def _serve_pressure(model, bodies, *, kv_blocks, reserve, tag):
     zeroed just before and read just after.  Returns (stats, rows by
     prompt, pool)."""
 
-    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
     from tf_operator_tpu_torch.ops import _build
-    from tf_operator_tpu_torch.serve_lm import Server
+    from tf_operator_tpu_torch.serve_lm import Server, make_pool
 
-    pool = PagedContinuousBatchingDecoder(model, slots=8, steps_per_sync=8, kv_block_size=16,
-                                          kv_blocks=kv_blocks, reserve=reserve)
-    # the token rows (the HTTP sample is bytes), and each preemption's
-    # tier and blocks: swapped to the host and left live on the device
-    rows, preempts = {}, []
+    pool = make_pool(model, model_label="llama-7b", slots=8, steps_per_sync=8,
+                     kv_block_size=16, kv_blocks=kv_blocks, reserve=reserve)
+    # the token rows (the HTTP sample is bytes), each preemption's tier
+    # and blocks: swapped to the host and left live on the device, and
+    # each demotion's request and blocks
+    rows, preempts, demotions = {}, [], []
     result_wait, preempt = pool.result_wait, pool._preempt_seat_locked
+    demote = pool._demote_queued_locked
 
     def recording_wait(rid, timeout=None):
         row = result_wait(rid, timeout)
@@ -720,17 +949,28 @@ def _serve_pressure(model, bodies, *, kv_blocks, reserve, tag):
             rows[rid] = row
         return row
 
-    def logged_preempt(slot):
+    def logged_preempt(slot, reason):
         req = pool._active[slot]
-        freed = preempt(slot)
+        freed = preempt(slot, reason)
         rec = pool.swap.peek(req.rid)
         preempts.append({"rid": req.rid, "tier": req.tier, "tokens": len(req.tokens),
                          "swapped": rec["n_blocks"], "live": len(rec["live"]),
-                         "freed": freed})
+                         "freed": freed, "reason": reason})
         return freed
+
+    def logged_demote(max_rank, exclude_rid):
+        held = {q.rid: pool.swap.peek(q.rid)["n_blocks"] for q in pool._queue
+                if q.swapped and pool.swap.peek(q.rid) is not None}
+        done = demote(max_rank, exclude_rid)
+        for rid, n in held.items():
+            rec = pool.swap.peek(rid)
+            if rec is not None and rec["n_blocks"] != n:
+                demotions.append({"rid": rid, "blocks": rec["n_blocks"] - n})
+        return done
 
     pool.result_wait = recording_wait
     pool._preempt_seat_locked = logged_preempt
+    pool._demote_queued_locked = logged_demote
     server = Server(pool).start()
     results = [None] * len(bodies)
 
@@ -745,7 +985,7 @@ def _serve_pressure(model, bodies, *, kv_blocks, reserve, tag):
         for t in threads[:-1]:
             t.start()
         peak = 0
-        while pool.dispatches["step"] < 2 and not server.fatal:
+        while pool.ledger.count("step") < 2 and not server.fatal:
             peak = max(peak, len(pool._active))
             time.sleep(0.002)
         threads[-1].start()
@@ -754,14 +994,16 @@ def _serve_pressure(model, bodies, *, kv_blocks, reserve, tag):
             time.sleep(0.002)
         wall = time.perf_counter() - t0
         launches = dict(_build.launches)
+        for i, r in enumerate(results):
+            if r is None or r[0] != 200 or \
+                    len(r[1]["sample"]) != bodies[i]["max_new_tokens"]:
+                raise AssertionError(f"{tag}: request {i} failed: {r}")
+        autopsies, metrics_text, slo = check_records(server.port, pool, results, tag)
     finally:
         server.close()
     if server.fatal:
         raise AssertionError(f"{tag}: decode loop died: {server.fatal[0]}")
-    for i, r in enumerate(results):
-        if r is None or r[0] != 200 or len(r[1]["sample"]) != bodies[i]["max_new_tokens"]:
-            raise AssertionError(f"{tag}: request {i} failed: {r}")
-    steps = pool.decode_steps
+    steps = decode_steps(pool)
     k4 = launches.get("paged_attention", 0)
     if k4 != model.cfg.n_layers * steps or steps == 0:
         raise AssertionError(f"{tag}: K4 launched {k4} times; {model.cfg.n_layers} layers x "
@@ -775,22 +1017,68 @@ def _serve_pressure(model, bodies, *, kv_blocks, reserve, tag):
             p = b["prompt"].encode()
             if bytes(row[: len(p)].astype("uint8")) == p and len(row) == len(p) + b["max_new_tokens"]:
                 by_prompt[b["prompt"]] = row
-    recent = list(pool.recent)
     ttft = {}
-    for r in recent:
-        ttft.setdefault(r["tier"], []).append(r["ttft_s"])
+    for a in autopsies:
+        ttft.setdefault(a["tier"], []).append(a["ttft_seconds"])
     stats = {
         "kv_blocks": kv_blocks, "reserve": reserve, "wall_s": wall, "decode_steps": steps,
-        "k4_launches": k4, "peak_seats": peak, "dispatches": dict(pool.dispatches),
+        "k4_launches": k4, "peak_seats": peak,
+        "dispatches": {p: r["count"] for p, r in pool.ledger.snapshot().items()},
         "preemptions": pool.preemptions, "preempted": preempts,
-        # every other swap-out copied a queued request's live blocks
-        "demotions": pool.dispatches["swap_out"] - sum(1 for p in preempts if p["swapped"]),
+        "demotions": demotions,
         "swap": pool.swap.snapshot(),
-        "decode_tokens_per_s": sum(r["tokens"] - 1 for r in recent) / pool.decode_seconds,
+        "decode_tokens_per_s": sum(a["tokens"] - 1 for a in autopsies)
+        / pool.ledger.seconds("step"),
         "ttft_s_by_tier": {t: {"mean": sum(v) / len(v), "max": max(v)} for t, v in ttft.items()},
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
+    check_pressure_records(pool, autopsies, metrics_text, slo, preempts, demotions, tag)
     return stats, by_prompt, pool
+
+
+def check_pressure_records(pool, autopsies, text, slo, preempts, demotions, tag):
+    """Phase 7b's records against the pool's own counts: the preemption
+    counter by tier, the swap bytes counters against the swap log, the
+    autopsies' preemptions and swapped blocks against the phase's own
+    preempt and demotion logs, the timeline's swapped series, and both
+    tiers on /slo."""
+
+    n = pool.preemptions
+    batch = _metric(text, "serve_preemptions_total", model="llama-7b", replica="0",
+                    tier="batch")
+    interactive = "serve_preemptions_total{model=\"llama-7b\",replica=\"0\"," \
+        "tier=\"interactive\"}" in text
+    out = sum(e["bytes"] for e in pool.swap_log if e["direction"] == "out")
+    back = sum(e["bytes"] for e in pool.swap_log if e["direction"] == "in")
+    swap_out = _metric(text, "kv_swap_bytes_total", direction="out")
+    swap_in = _metric(text, "kv_swap_bytes_total", direction="in")
+    want_swapped = collections.Counter()
+    for p in preempts:
+        want_swapped[p["rid"]] += p["swapped"]
+    for d in demotions:
+        want_swapped[d["rid"]] += d["blocks"]
+    got_swapped = {a["rid"]: a["swapped_blocks"] for a in autopsies}
+    samples = pool.timeline.snapshot()["samples"]
+    tiers = {row["tier"] for row in slo["histograms"]["serve_ttft_seconds"]}
+    rec = {"preemptions": n, "counter_batch": batch, "interactive_series": interactive,
+           "swap_bytes": {"out": swap_out, "in": swap_in, "log_out": out, "log_in": back},
+           "autopsy_preempted": sum(a["preempted"] for a in autopsies),
+           "autopsy_swapped_blocks": got_swapped,
+           "timeline_max_swapped": max(s["swapped"] for s in samples),
+           "timeline_last_swapped": samples[-1]["swapped"], "slo_tiers": sorted(tiers)}
+    log(f"{tag} pressure records: " + json.dumps(rec))
+    if batch != n or interactive:
+        raise AssertionError(f"{tag}: serve_preemptions_total off: {rec}")
+    if not swap_out == swap_in == out == back:
+        raise AssertionError(f"{tag}: kv_swap_bytes_total off the swap log: {rec}")
+    if rec["autopsy_preempted"] != n or any(
+            got_swapped[rid] != want_swapped.get(rid, 0) for rid in got_swapped):
+        raise AssertionError(f"{tag}: autopsies off the preempt log: {rec}, "
+                             f"want {dict(want_swapped)}")
+    if n and rec["timeline_max_swapped"] <= 0 or rec["timeline_last_swapped"] != 0:
+        raise AssertionError(f"{tag}: the timeline's swapped series: {rec}")
+    if tiers != {"batch", "interactive"}:
+        raise AssertionError(f"{tag}: /slo tiers {tiers}")
 
 
 def _swap_timings(pool):
@@ -1446,18 +1734,17 @@ def phase_serve_artifact(trainer, export_dir):
     ``generate`` gives on the trained parameters in this process."""
 
     from tf_operator_tpu_torch.data.text import decode_bytes
-    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
     from tf_operator_tpu_torch.models.decode import generate
     from tf_operator_tpu_torch.ops import _build
-    from tf_operator_tpu_torch.serve_lm import Server, load_model
+    from tf_operator_tpu_torch.serve_lm import Server, load_model, make_pool
 
     prompt, n_new = "the sharded ", 32
     model = load_model(torch.device("cuda"), max_len=2048, artifact=export_dir)
-    pool = PagedContinuousBatchingDecoder(model, slots=2, steps_per_sync=8, kv_block_size=16)
+    pool = make_pool(model, model_label="llama", slots=2, steps_per_sync=8, kv_block_size=16)
     server = Server(pool).start()
     try:
         _build.launches.clear()
-        status, body, _ = _post(server.port, {"prompt": prompt, "max_new_tokens": n_new})
+        status, body, *_ = _post(server.port, {"prompt": prompt, "max_new_tokens": n_new})
         k4 = _build.launches.get("paged_attention", 0)
     finally:
         server.close()
@@ -1502,7 +1789,7 @@ def phase_int8_serving(bf16_stats):
     stats, pool = phase_main_path(model, tag="int8 main path")
     plain = dict(qm.plain_calls)
     n_proj = 7 * model.cfg.n_layers + 1
-    rows = [r["prompt_tokens"] - r["prefix_tokens"] for r in pool.recent]
+    rows = stats["prefill_rows"]
     short = sum(1 for r in rows if r <= qm.MAX_GEMV_ROWS)
     k7, gemm = stats["launches"].get(qm.KERNEL, 0), stats["launches"].get(qm.GEMM, 0)
     want = {"k7": n_proj * (stats["decode_steps"] + short),
@@ -2069,6 +2356,7 @@ def main():
     phase_decode_profile(pool)
     del pool
     free_device_memory()
+    phase_plane_cost(model, card)
     phase_pressure(model, card)
     phase_end_to_end(model)
     # the pool holds reference cycles (the prefix cache's callbacks), so

@@ -197,7 +197,7 @@ def test_tiny_pool_through_the_kernel_matches_generate(dev):
     _build.launches.clear()
     rids = [pool.submit(p, 10) for p in prompts]
     pool.run()
-    assert _build.launches[KERNEL] == cfg.n_layers * pool.decode_steps > 0
+    assert _build.launches[KERNEL] == cfg.n_layers * pool.ledger.count("step") * pool.steps_per_sync > 0
     for p, rid in zip(prompts, rids):
         want = generate(model, torch.as_tensor(p[None]).to(dev), 10)[0].cpu().numpy()
         np.testing.assert_array_equal(pool.result(rid), want)
@@ -262,7 +262,7 @@ def test_tiny_pool_preempted_request_matches_an_undisturbed_pool(dev, seeded):
     pool.step()
     i = pool.submit(prompt_i, 8, tier="interactive")
     pool.run()
-    assert _build.launches[KERNEL] == cfg.n_layers * pool.decode_steps > 0
+    assert _build.launches[KERNEL] == cfg.n_layers * pool.ledger.count("step") * pool.steps_per_sync > 0
     assert pool.preemptions == 1
     assert pool.swap.bytes_out_total == pool.swap.bytes_in_total > 0
     np.testing.assert_array_equal(pool.result(a), want)

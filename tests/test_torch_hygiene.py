@@ -62,7 +62,9 @@ def test_importing_every_module_loads_no_jax():
     mods = _port_modules()
     for m in ("models.batching", "ops.flash_attention", "ops.quant", "ops.quant_matmul",
               "ops.fused_batchnorm", "models.resnet", "resnet_dp", "parallel.trainer",
-              "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain"):
+              "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain",
+              "utils.metrics", "utils.trace", "utils.logging", "utils.flight",
+              "utils.alerts", "serve_lm"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -72,7 +72,15 @@ def _drained(pool):
 
 
 def _records(pool):
-    return {rec["rid"]: rec for rec in pool.recent}
+    """The pool's request autopsies by request id."""
+
+    return {rec["rid"]: rec for rec in pool.request_log.recent(256)}
+
+
+def _counts(pool):
+    """The pool's dispatch counts by phase, from its ledger."""
+
+    return {phase: row["count"] for phase, row in pool.ledger.snapshot().items()}
 
 
 def _preempt_scenario(pool, a_kw=None):
@@ -113,10 +121,10 @@ def test_preempted_then_resumed_is_token_identical(tiny, case):
     np.testing.assert_array_equal(got_a, want)
     assert got_i.shape == (41,)
     recs = _records(pool)
-    assert (recs[a]["tier"], recs[a]["preemptions"]) == ("batch", 1)
+    assert (recs[a]["tier"], recs[a]["preempted"]) == ("batch", 1)
     assert recs[a]["swapped_blocks"] == 2 and recs[a]["tokens"] == 24
-    assert (recs[i]["tier"], recs[i]["preemptions"]) == ("interactive", 0)
-    assert pool.dispatches["swap_out"] == pool.dispatches["swap_in"] == 1
+    assert (recs[i]["tier"], recs[i]["preempted"]) == ("interactive", 0)
+    assert pool.ledger.count("swap_out") == pool.ledger.count("swap_in") == 1
     assert pool.swap.bytes_out_total == pool.swap.bytes_in_total > 0
     assert [(e["direction"], e["blocks"]) for e in pool.swap_log] == [("out", 2), ("in", 2)]
     _drained(pool)
@@ -170,9 +178,9 @@ def test_the_same_mix_preempts_and_decodes_as_the_jax_pool(tiny, reserve):
         assert pool.preemptions >= 2
     assert pool.swap.bytes_out_total == jpool.swap.bytes_out_total
     assert pool.swap.bytes_in_total == jpool.swap.bytes_in_total
-    assert dict(pool.dispatches) == {
-        phase: jpool.ledger.count(phase) for phase in pool.dispatches}
-    victims = [rec for rec in pool.recent if rec["preemptions"]]
+    got = _counts(pool)
+    assert got == {phase: jpool.ledger.count(phase) for phase in got}
+    victims = [rec for rec in _records(pool).values() if rec["preempted"]]
     assert all(rec["tier"] == "batch" for rec in victims)  # batch never preempts interactive
     _drained(pool)
 
@@ -220,7 +228,7 @@ def test_worst_case_mode_never_grows_or_preempts_alone(tiny):
             assert committed.setdefault(req.rid, len(refs)) == len(refs) == 3
     assert all(pool.result(rid) is not None for rid in rids)
     assert pool.preemptions == 0
-    assert pool.dispatches["swap_out"] == pool.dispatches["swap_in"] == 0
+    assert pool.ledger.count("swap_out") == pool.ledger.count("swap_in") == 0
     _drained(pool)
 
 
@@ -279,15 +287,15 @@ def test_growth_window_is_still_one_dispatch(tiny):
     grew = False
     for _ in range(4):  # windows 2..5 cross into blocks 3 and 4
         committed0 = len(pool._seat_refs[0])
-        before = dict(pool.dispatches)
+        before = _counts(pool)
         pool.step()
         grew |= len(pool._seat_refs[0]) > committed0
-        after = dict(pool.dispatches)
+        after = _counts(pool)
         assert after == dict(before, step=before["step"] + 1)  # growth adds no dispatch
     assert grew, "scenario never crossed a block boundary"
     pool.run()
     assert pool.result(rid) is not None
-    assert set(pool.dispatches) == {"admission", "step", "retire"}
+    assert set(_counts(pool)) == {"admission", "step", "retire"}
     pool.alloc.check()
 
 
@@ -380,8 +388,8 @@ def test_full_swap_arena_parks_a_seat_without_a_copy(tiny):
     port = Pool(model, **kw)
     rids = [port.submit(p, b) for p, b in reqs]
     port.run()
-    assert port.dispatches["swap_out"] == 0 and port.dispatches["swap_in"] == 1
-    assert _records(port)[rids[0]]["preemptions"] == 1
+    assert port.ledger.count("swap_out") == 0 and port.ledger.count("swap_in") == 1
+    assert _records(port)[rids[0]]["preempted"] == 1
     assert _records(port)[rids[0]]["swapped_blocks"] == 0
     for got, jgot, w in zip(outs[0], outs[1], want):
         np.testing.assert_array_equal(got, w)

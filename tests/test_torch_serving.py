@@ -100,14 +100,15 @@ def test_pool_is_token_identical_to_jax(tiny, paged_kernel):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
     # the second shared-prefix request mapped both published blocks
-    recent = {rec["rid"]: rec for rec in pool.recent}
-    assert recent[3]["prefix_tokens"] == 2 * BS
-    assert recent[1]["prefix_tokens"] == 0
+    recent = {rec["rid"]: rec for rec in pool.request_log.recent(256)}
+    assert recent[3]["admission"]["prefix_hit_tokens"] == 2 * BS
+    assert recent[1]["admission"]["prefix_hit_tokens"] == 0
     assert pool.prefix.hits == jpool.prefix.hits
     # the same schedule: one admission per request, the same windows and
     # retire batches as the JAX pool's dispatch ledger
-    assert dict(pool.dispatches) == {
-        phase: jpool.ledger.count(phase) for phase in ("admission", "step", "retire")}
+    phases = ("admission", "step", "retire")
+    assert {phase: pool.ledger.count(phase) for phase in phases} == {
+        phase: jpool.ledger.count(phase) for phase in phases}
 
 
 def test_pool_matches_port_generate_and_frees_everything(tiny):
@@ -198,7 +199,7 @@ def servers(tiny, tmp_path_factory):
 
     model = serve_lm.load_model(resolve_device("cpu"), max_len=MAX_LEN,
                                 artifact=str(art))
-    pool = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=16)
+    pool = serve_lm.make_pool(model, slots=2, kv_block_size=16)
     server = serve_lm.Server(pool).start()
     try:
         yield server.port, jserver.server_address[1], pool
@@ -214,8 +215,9 @@ def test_serve_lm_matches_the_jax_server(servers):
     code, got = _post(port, body)
     jcode, want = _post(jport, body)
     assert code == jcode == 200
-    assert got == {"prompt": want["prompt"], "sample": want["sample"],
-                   "seed": want["seed"]}
+    assert set(got) == set(want) == {"prompt", "sample", "seed", "request_id"}
+    assert {k: got[k] for k in ("prompt", "sample", "seed")} == {
+        k: want[k] for k in ("prompt", "sample", "seed")}
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=30) as resp:
         assert json.loads(resp.read()) == {"ok": True}
     bad_tier = {"error": "tier must be 'interactive' or 'batch'"}
@@ -259,12 +261,12 @@ def test_interactive_tier_is_served_as_the_jax_server_serves_it(servers, how):
         jcode, want = _post(jport, body, headers)
         assert code == jcode == 200
         assert got["sample"] == want["sample"]
-        assert pool.recent[-1]["tier"] == "interactive"
-        assert pool.recent[-1]["preemptions"] == 0
+        last = pool.request_log.recent(1)[0]
+        assert (last["tier"], last["preempted"], last["state"]) == ("interactive", 0, "done")
     code, got = _post(port, {"prompt": "x", "max_new_tokens": 2, "tier": "batch"},
                       {"x-slo-tier": "interactive"})
     assert code == 200 and len(got["sample"]) == 2
-    assert pool.recent[-1]["tier"] == "batch"
+    assert pool.request_log.recent(1)[0]["tier"] == "batch"
 
 
 def test_kv_swap_blocks_flag_reaches_the_pool(tiny):

@@ -60,14 +60,33 @@ the window reads them.  Each step runs the paged decode branch (the
 CUDA paged-attention kernel on the card); the window's tokens reach
 the host in one fetch.  Finished seats retire in one batch that resets
 their table rows before their freed blocks can be allocated again.
+
+Records (the JAX pool's, at its sites): every group of device calls
+runs under ``self.dispatch(phase)`` (admission, step, retire, swap_out,
+swap_in), which the :class:`DispatchLedger` counts, times and, with a
+tracer, records as a ``dispatch.<phase>`` span.  Each request carries a
+trace id (given, or minted at submit) and an autopsy in the
+:class:`RequestLog`; its lifecycle spans (``queue.wait``, ``admission``,
+``decode.window``, ``preempt``, ``swap_out``, ``swap_in``, ``retire``)
+join that trace.  With a metrics registry the pool observes the SLO
+histograms (queue wait, TTFT, time per output token, by tier), sets
+the queue, in-flight and ``kv_blocks_*`` gauges at every refresh, and
+counts ``serve_preemptions_total`` and ``kv_swap_bytes_total``; each
+refresh also takes one :class:`ArenaTimeline` sample.  A pool built
+bare (no ledger, no metrics) counts its dispatches and keeps the
+autopsies and the timeline, as the JAX pool built bare does.  Nothing
+here reads a device tensor: gauges come from host counts, tokens from
+the window's one fetch.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 import time
-from typing import Dict, List, Optional
+from collections import OrderedDict
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -82,6 +101,7 @@ from tf_operator_tpu_torch.models.decode import (
 )
 from tf_operator_tpu_torch.models.kv_blocks import (
     SCRATCH_BLOCK,
+    ArenaTimeline,
     BlockAllocator,
     BlockError,
     SwapArena,
@@ -90,6 +110,7 @@ from tf_operator_tpu_torch.models.kv_blocks import (
 from tf_operator_tpu_torch.models.llama import LlamaLM
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, chain_keys
 from tf_operator_tpu_torch.models.transformer import PagedCache
+from tf_operator_tpu_torch.utils.metrics import DispatchLedger
 
 #: the pool's static top-k width: a request's top_k thresholds within
 #: the top TOP_K_MAX candidates
@@ -99,6 +120,10 @@ TOP_K_MAX = 64
 #: closed set.  Higher rank = served first; interactive preempts batch
 SLO_TIERS = ("batch", "interactive")
 _TIER_RANK = {t: i for i, t in enumerate(SLO_TIERS)}
+
+#: the pool's phase role on every kv_blocks_* gauge and its timeline
+#: (the JAX pool's default; the port has no disaggregated replicas)
+ROLE = "unified"
 
 
 def _masked_scaled(logits: torch.Tensor, temps: torch.Tensor,
@@ -147,17 +172,180 @@ def _admission_sample(last: torch.Tensor, temperature: float,
     return sample_categorical(scaled[0], generator)
 
 
-
-
 def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
+
+
+class RequestLog:
+    """Bounded ring of per-request lifecycle autopsies (a copy of the JAX
+    pool's ``RequestLog``, without the router's ``annotate`` and the
+    fabric's ``add_migrate``, which wait for multi-replica serving).
+
+    The trace store answers "show me the spans of trace T"; this log
+    answers the operator question one level up — "what happened to
+    REQUEST R": queue wait, admission accounting (width class, blocks
+    reserved, prefix-hit depth, prefill dispatches), decode-window and
+    token counts, the per-request dispatch share from the ledger, and
+    retirement (blocks freed) — one JSON-safe record per request,
+    keyed by the request id (= its trace id), served at
+    ``GET /requests/<id>`` on serve_lm and riding flight-recorder
+    dumps so a post-mortem names the requests in flight.
+
+    Bounded FIFO (oldest evicted past ``capacity``).  Entries are
+    mutated through the log's own lock, so an HTTP read never races a
+    decode-loop field write mid-serialization.
+    """
+
+    def __init__(self, capacity: int = 256):
+        self.capacity = max(1, int(capacity))
+        self._lock = threading.Lock()
+        self._entries: "OrderedDict[str, Dict[str, Any]]" = OrderedDict()
+        self.evicted = 0
+
+    def open(self, **fields) -> Dict[str, Any]:
+        """Insert a fresh entry (state=queued) and return it; the
+        pool mutates it through update/count_dispatch/add_window.
+
+        Id collisions (a client reusing an ``x-trace-id``): the plain
+        id resolves to the NEWEST request (matching the exemplar
+        store's latest-wins), and the older autopsy survives under
+        ``<id>~<rid>`` instead of being silently dropped (``~`` is
+        URL-unreserved, so the demoted id stays fetchable at
+        ``/requests/<id>~<rid>`` — ``#`` would be eaten as a URI
+        fragment)."""
+
+        entry: Dict[str, Any] = {
+            "state": "queued",
+            "submit_unix": time.time(),
+            "queue_wait_seconds": None,
+            "ttft_seconds": None,
+            "tpot_seconds": None,
+            "total_seconds": None,
+            "admission": None,
+            "windows": 0,
+            "tokens": 0,
+            "dispatches": {},
+            "retire": None,
+            "slot": None,
+            "tier": "batch",
+            # a seat can leave and come back — without these the
+            # autopsy would silently truncate at the first preemption
+            "preempted": 0,
+            "swapped_blocks": 0,
+            # disaggregated serving's fields, kept so the autopsy has
+            # the JAX pool's keys: which replica ran each phase, how
+            # many prefix blocks arrived over a fabric, and whether
+            # this is an internal fabric-publish prefill
+            "prefill_replica": None,
+            "decode_replica": None,
+            "migrated_blocks": 0,
+            "internal": False,
+        }
+        entry.update(fields)
+        with self._lock:
+            old = self._entries.pop(entry["id"], None)
+            if old is not None:
+                # rewrite the demoted entry's id too, so /requests
+                # listings and the lookup key agree
+                old["id"] = f"{old['id']}~{old['rid']}"
+                self._entries[old["id"]] = old
+            self._entries[entry["id"]] = entry
+            while len(self._entries) > self.capacity:
+                # evict finished autopsies first: an IN-FLIGHT entry
+                # is exactly the one an operator is debugging, and
+                # its dict is still being written — only when every
+                # entry is live does oldest-first keep the bound
+                victim = next(
+                    (k for k, e in self._entries.items()
+                     if e["state"] == "done"),
+                    None,
+                )
+                if victim is not None:
+                    del self._entries[victim]
+                else:
+                    self._entries.popitem(last=False)
+                self.evicted += 1
+        return entry
+
+    def update(self, entry: Dict[str, Any], **fields) -> None:
+        with self._lock:
+            entry.update(fields)
+
+    def count_dispatch(self, entry: Dict[str, Any], phase: str,
+                       n: int = 1) -> None:
+        """This request's share of the ledger: +n dispatches under
+        ``phase`` (shared dispatches like a decode window count once
+        per seated request — the share, not the global total)."""
+
+        with self._lock:
+            entry["dispatches"][phase] = (
+                entry["dispatches"].get(phase, 0) + n
+            )
+
+    def add_swap(self, entry: Dict[str, Any], blocks: int) -> None:
+        """More of this request's blocks moved host-side WITHOUT a
+        seat eviction (the queued-holder demotion path): count them
+        without bumping ``preempted``."""
+
+        with self._lock:
+            entry["swapped_blocks"] += int(blocks)
+
+    def count_preempt(self, entry: Dict[str, Any],
+                      swapped_blocks: int = 0) -> None:
+        """The seat left mid-decode: one preemption, with
+        its swapped-block share; the autopsy stays complete across the
+        leave-and-return."""
+
+        with self._lock:
+            entry["preempted"] += 1
+            entry["swapped_blocks"] += int(swapped_blocks)
+            entry["state"] = "preempted"
+            entry["slot"] = None
+
+    def add_window(self, entry: Dict[str, Any], tokens: int) -> None:
+        with self._lock:
+            entry["windows"] += 1
+            entry["tokens"] += int(tokens)
+            entry["dispatches"]["step"] = (
+                entry["dispatches"].get("step", 0) + 1
+            )
+
+    def _copy(self, entry: Dict[str, Any]) -> Dict[str, Any]:
+        # entries nest at most one dict deep — copy those too so the
+        # caller's JSON serialization never races a later mutation
+        return {
+            k: (dict(v) if isinstance(v, dict) else v)
+            for k, v in entry.items()
+        }
+
+    def get(self, request_id: str) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            entry = self._entries.get(request_id)
+            return self._copy(entry) if entry is not None else None
+
+    def recent(self, limit: int = 50) -> List[Dict[str, Any]]:
+        """Newest-first entry copies (list endpoints, flight dumps).
+        ``limit <= 0`` returns none — never the whole ring (the
+        ``[-0:]`` slice pitfall)."""
+
+        if limit <= 0:
+            return []
+        with self._lock:
+            items = [
+                self._copy(e) for e in list(self._entries.values())[-limit:]
+            ]
+        return items[::-1]
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
 
 
 class _Request:
     __slots__ = ("rid", "prompt", "budget", "temperature", "top_k",
                  "generator", "tier", "tokens", "done", "slot", "t_submit",
-                 "t_submit_mono", "t_first", "prefix_tokens", "swapped",
-                 "tokens_since_seat", "preemptions", "swapped_blocks")
+                 "t_submit_mono", "t_first", "swapped", "tokens_since_seat",
+                 "trace_id", "entry", "queue_waited")
 
     def __init__(self, rid, prompt, budget, temperature, top_k, generator, tier):
         self.rid = rid
@@ -170,37 +358,54 @@ class _Request:
         self.tokens: List[int] = []
         self.done = False
         self.slot: Optional[int] = None
+        #: the SLO clock (queue wait, TTFT, time per output token)
         self.t_submit = time.perf_counter()
-        #: the priority clock (submit order, the age boost)
+        #: the priority clock (submit order, the age boost) and the
+        #: lifecycle spans' clock
         self.t_submit_mono = time.monotonic()
         self.t_first: Optional[float] = None
-        self.prefix_tokens = 0
         #: preempted: queued with a swap record
         self.swapped = False
         #: tokens decoded since the request last took a seat; a seat is
         #: a preemption victim only once it has made progress
         self.tokens_since_seat = 0
-        self.preemptions = 0
-        self.swapped_blocks = 0
+        #: the request's identity: the trace its lifecycle spans join
+        #: and the key of its RequestLog autopsy ``entry``
+        self.trace_id: Optional[str] = None
+        self.entry: Optional[Dict[str, Any]] = None
+        #: the queue.wait span is emitted once
+        self.queue_waited = False
 
 
 class PagedContinuousBatchingDecoder:
     """Fixed seats over one block arena (module docstring).
 
     Thread-safe: ``submit`` may be called from request threads while
-    one decode loop thread calls ``step``.  ``dispatches`` counts the
-    pool's device work by phase (admission / step / retire, and
-    swap_out / swap_in once a seat has been preempted); ``recent`` keeps
-    the last finished requests' records (prompt and prefix-hit tokens,
-    time to first token, tokens, tier, preemptions and swapped blocks);
-    ``swap_log`` keeps one record per swap copy (direction, blocks,
-    bytes, host seconds, and on CUDA the events around it)."""
+    one decode loop thread calls ``step``.  ``ledger`` counts (and
+    times) the pool's device work by phase: a ``step`` dispatch is one
+    window of ``steps_per_sync`` decode steps, timed up to its fetch; ``request_log`` keeps each
+    request's autopsy; ``timeline`` the arena's occupancy history;
+    ``swap_log`` one record per swap copy (direction, blocks, bytes,
+    host seconds, and on CUDA the events around it).  ``metrics``
+    (default: the ledger's registry) receives the SLO histograms, the
+    gauges and the counters; ``model_label`` is their ``model`` label.
+    An HTTP read of the records takes their own locks, never the
+    pool's."""
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
                  kv_blocks: Optional[int] = None, kv_block_size: int = 16,
                  reserve: str = "lazy", swap_blocks: Optional[int] = None,
-                 age_boost_seconds: float = 30.0):
+                 age_boost_seconds: float = 30.0,
+                 ledger: Optional[DispatchLedger] = None, metrics=None,
+                 model_label: str = ""):
         cfg = model.cfg
+        self.ledger = ledger if ledger is not None else DispatchLedger()
+        self.metrics = metrics if metrics is not None else self.ledger.metrics
+        self.model_label = model_label or "unknown"
+        #: the ledger's tracer (None: no spans) carries the lifecycle
+        #: spans of every request
+        self.tracer = self.ledger.tracer
+        self.request_log = RequestLog()
         if reserve not in ("lazy", "worst-case"):
             raise ValueError(
                 f"reserve must be 'lazy' or 'worst-case', got {reserve!r}"
@@ -256,6 +461,7 @@ class PagedContinuousBatchingDecoder:
         #: shared prefix store — a block is evictable only while nothing
         #: maps it (refcount 1 = the cache's own reference)
         self.prefix = PrefixCache(
+            metrics=self.metrics,
             can_evict=lambda bid: self.alloc.refcount(bid) == 1,
             on_evict=lambda bid: self.alloc.release([bid]),
         )
@@ -265,24 +471,25 @@ class PagedContinuousBatchingDecoder:
         self._queue: List[_Request] = []
         self._active: Dict[int, _Request] = {}
         self._results: Dict[int, _Request] = {}
-        self.dispatches = collections.Counter(admission=0, step=0, retire=0)
-        #: decode steps run (each is one forward of every layer) and the
-        #: host wall of the windows that ran them, fetch included
-        self.decode_steps = 0
-        self.decode_seconds = 0.0
-        self.recent: "collections.deque[dict]" = collections.deque(maxlen=256)
+        #: one occupancy sample at each gauge refresh
+        self.timeline = ArenaTimeline(
+            block_size=bs, usable=self.alloc.usable, replica="0", role=ROLE,
+        )
+        self._update_kv_gauges()
 
     # -- public API --------------------------------------------------------
 
     def submit(self, prompt_ids, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
-               tier: str = "batch") -> int:
+               tier: str = "batch", trace_id: Optional[str] = None) -> int:
         """Queue one request ([P] ids).  Returns its id; collect the
         output with ``result``/``result_wait``.  A sampled request
         (temperature > 0) draws from its own ``generator``, which must
         live on the pool's device.  ``tier`` is its SLO tier (module
-        docstring)."""
+        docstring).  ``trace_id`` is its identity (serve_lm passes the
+        HTTP request's); without one the tracer mints one, and a pool
+        without a tracer names it ``treq-0-<rid>``."""
 
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -320,8 +527,20 @@ class PagedContinuousBatchingDecoder:
             self._rid += 1
             req = _Request(rid, prompt, int(max_new_tokens), float(temperature),
                            top_k, generator, tier)
+            if trace_id is not None:
+                req.trace_id = str(trace_id)
+            elif self.tracer is not None:
+                req.trace_id = self.tracer.mint_trace_id()
+            else:
+                req.trace_id = f"treq-0-{rid}"
+            req.entry = self.request_log.open(
+                id=req.trace_id, rid=rid, replica="0", model=self.model_label,
+                prompt_tokens=int(prompt.size), max_new_tokens=int(max_new_tokens),
+                tier=tier, internal=False,
+            )
             self._results[rid] = req
             self._queue.append(req)
+            self._update_gauges_locked()
         return rid
 
     def result(self, rid: int):
@@ -361,6 +580,155 @@ class PagedContinuousBatchingDecoder:
                 if not self._queue and not self._active:
                     return
             self.step()
+
+    # -- records -----------------------------------------------------------
+
+    def _labels(self, **extra) -> Dict[str, str]:
+        return dict(model=self.model_label, **extra)
+
+    def dispatch(self, phase: str, **attrs):
+        """``ledger.dispatch`` with the replica attribute on its span;
+        every group of device calls of the pool runs under one."""
+
+        attrs.setdefault("replica", "0")
+        return self.ledger.dispatch(phase, **attrs)
+
+    def _request_span(self, req: _Request, name: str, **attrs):
+        """A lifecycle span on ``req``'s trace, as a context manager
+        (a null one without a tracer).  Dispatches issued inside it
+        nest under it."""
+
+        if self.tracer is None:
+            return contextlib.nullcontext(None)
+        attrs.setdefault("rid", req.rid)
+        attrs.setdefault("replica", "0")
+        return self.tracer.start_span(name, trace_id=req.trace_id, attributes=attrs)
+
+    def _emit_span(self, req: _Request, name: str, start_mono: float,
+                   end_mono: float, **attrs) -> None:
+        """A finished lifecycle span with explicit endpoints."""
+
+        if self.tracer is None:
+            return
+        attrs.setdefault("rid", req.rid)
+        attrs.setdefault("replica", "0")
+        self.tracer.start_span(
+            name, trace_id=req.trace_id, attributes=attrs, start_mono=start_mono,
+        ).end(end_mono=end_mono)
+
+    def _emit_queue_wait(self, req: _Request) -> None:
+        """queue.wait: submit -> the first admission work, backdated to
+        the submit, once per request."""
+
+        if req.queue_waited:
+            return
+        req.queue_waited = True
+        self._emit_span(req, "queue.wait", req.t_submit_mono, time.monotonic())
+
+    def _observe_first_token(self, req: _Request, work_start: float) -> None:
+        """The first token reached the host: queue wait (submit -> first
+        device work) and TTFT (submit -> first token), once."""
+
+        if req.t_first is not None:
+            return
+        req.t_first = time.perf_counter()
+        wait = max(0.0, work_start - req.t_submit)
+        self.request_log.update(
+            req.entry, queue_wait_seconds=round(wait, 6),
+            ttft_seconds=round(req.t_first - req.t_submit, 6),
+        )
+        if self.metrics is None:
+            return
+        self.metrics.observe_histogram(
+            "serve_queue_wait_seconds", wait, exemplar=req.trace_id,
+            tier=req.tier, **self._labels(mode="pool"),
+        )
+        self.metrics.observe_histogram(
+            "serve_ttft_seconds", req.t_first - req.t_submit,
+            exemplar=req.trace_id, tier=req.tier, **self._labels(mode="pool"),
+        )
+
+    def _update_gauges_locked(self) -> None:
+        """The queue-depth and tokens-in-flight gauges, then the arena's
+        (caller holds the lock; host counts only)."""
+
+        if self.metrics is not None:
+            self.metrics.set("serve_admission_queue_depth", float(len(self._queue)),
+                             **self._labels())
+            inflight = sum(r.budget - len(r.tokens) for r in self._active.values()) \
+                + sum(r.budget - len(r.tokens) for r in self._queue)
+            self.metrics.set("serve_tokens_in_flight", float(max(0, inflight)),
+                             **self._labels())
+        self._update_kv_gauges()
+
+    def _queued_blocks(self) -> int:
+        """Block demand of the queue: a fresh request's admission commit,
+        a preempted one's blocks to upload (caller holds the lock)."""
+
+        total = 0
+        for r in self._queue:
+            if r.swapped:
+                rec = self.swap.peek(r.rid)
+                total += rec["n_blocks"] if rec is not None else 0
+            else:
+                total += self._commit_blocks(r.prompt.size, r.budget)
+        return total
+
+    def _update_kv_gauges(self) -> None:
+        """One timeline sample, then the ``kv_blocks_*`` gauges labelled
+        ``{model, replica, role}``: pressure is (in use + queued demand)
+        / usable; committed = allocated, reserved = the seats' worst
+        cases."""
+
+        free = float(self.alloc.free_count)
+        total = float(self.alloc.usable)
+        queued = float(self._queued_blocks())
+        reserved = float(sum(blocks_for(r.prompt.size + r.budget, self.block_size)
+                             for r in self._active.values()))
+        self.timeline.sample(
+            free=int(free), live=int(total - free), prefix_cached=len(self.prefix),
+            queued_demand=int(queued), seats_active=len(self._active),
+            swapped=int(self.swap.swapped_blocks),
+        )
+        if self.metrics is None:
+            return
+        labels = dict(model=self.model_label, replica="0", role=ROLE)
+        for name, value in (("kv_blocks_free", free), ("kv_blocks_total", total),
+                            ("kv_blocks_in_use", total - free),
+                            ("kv_blocks_committed", total - free),
+                            ("kv_blocks_reserved", reserved),
+                            ("kv_blocks_queued_demand", queued),
+                            ("kv_blocks_pressure", (total - free + queued) / total)):
+            self.metrics.set(name, value, **labels)
+
+    def _count_swap_bytes(self, direction: str, nbytes: int) -> None:
+        if self.metrics is not None and nbytes:
+            self.metrics.inc("kv_swap_bytes_total", float(nbytes), direction=direction)
+
+    def _finish_locked(self, req: _Request, blocks_freed: int) -> None:
+        """Retirement (caller holds the lock): the retire span, the
+        autopsy's final timings, time per output token, and the
+        waiters' wake-up."""
+
+        req.done = True
+        req.slot = None
+        now = time.monotonic()
+        self._emit_span(req, "retire", now, now, blocks_freed=blocks_freed,
+                        tokens=len(req.tokens))
+        t_done = time.perf_counter()
+        t_first = req.t_first if req.t_first is not None else t_done
+        tpot = (t_done - t_first) / max(1, len(req.tokens) - 1)
+        self.request_log.update(
+            req.entry, state="done", retire={"blocks_freed": int(blocks_freed)},
+            total_seconds=round(t_done - req.t_submit, 6), tpot_seconds=round(tpot, 6),
+            tokens=len(req.tokens),
+        )
+        if self.metrics is not None:
+            self.metrics.observe_histogram(
+                "serve_time_per_output_token_seconds", tpot, exemplar=req.trace_id,
+                tier=req.tier, **self._labels(mode="pool"),
+            )
+        self._done_cond.notify_all()
 
     # -- admission ---------------------------------------------------------
 
@@ -484,7 +852,7 @@ class PagedContinuousBatchingDecoder:
             if self.prefix.evict_lru(need=n - self.alloc.free_count) == 0:
                 victim = self._pick_victim_locked(max_victim_rank, exclude_slot)
                 if victim is not None:
-                    self._preempt_seat_locked(victim)
+                    self._preempt_seat_locked(victim, "pressure")
                 elif not self._demote_queued_locked(max_victim_rank, exclude_rid):
                     return None
             ids = self.alloc.alloc(n)
@@ -514,7 +882,9 @@ class PagedContinuousBatchingDecoder:
         q = max(cands, key=lambda r: self._queue_sort_key(r, now))
         rec = self.swap.peek(q.rid)
         live = rec["live"]
-        added = self._swap_out([b for _, b in live])
+        with self._request_span(q, "swap_out", blocks=len(live), reason="demote"):
+            with self.dispatch("swap_out", rid=q.rid, blocks=len(live)):
+                added = self._swap_out([b for _, b in live])
         host = added if rec["host"] is None else torch.cat([rec["host"], added], dim=2)
         merged = {"live": [], "blocks": rec["blocks"] + [i for i, _ in live],
                   "host": host}
@@ -522,7 +892,9 @@ class PagedContinuousBatchingDecoder:
         self.swap.put(q.rid, merged, n_blocks=rec["n_blocks"] + len(live),
                       nbytes=_nbytes(added))
         self.alloc.release([b for _, b in live])
-        q.swapped_blocks += len(live)
+        self._count_swap_bytes("out", _nbytes(added))
+        self.request_log.add_swap(q.entry, len(live))
+        self.request_log.count_dispatch(q.entry, "swap_out")
         return True
 
     # -- swap copies -------------------------------------------------------
@@ -564,7 +936,6 @@ class PagedContinuousBatchingDecoder:
         if self.device.type == "cuda":
             host = torch.empty(shape, dtype=k0.dtype, pin_memory=True)
             host.copy_(buf)
-        self.dispatches["swap_out"] += 1
         self._log_swap("out", len(ids), _nbytes(host), mark)
         return host
 
@@ -583,13 +954,15 @@ class PagedContinuousBatchingDecoder:
 
     # -- preemption and resume ---------------------------------------------
 
-    def _preempt_seat_locked(self, slot: int) -> int:
+    def _preempt_seat_locked(self, slot: int, reason: str) -> int:
         """Evict seat ``slot`` mid-decode (caller holds the lock): its
         private blocks go to the host swap arena and are freed, its
         prefix-shared blocks stay live (swap-exempt); when the swap
         arena refuses, nothing is copied or freed and the request just
         leaves its seat.  The device row resets before any block is
-        released; the request re-queues.  Returns the blocks freed."""
+        released; the request re-queues.  ``reason`` ("pressure": a
+        victim; "park": a grower that cannot be fed) tags its spans.
+        Returns the blocks freed."""
 
         req = self._active.pop(slot)
         refs = self._seat_refs.pop(slot)
@@ -600,8 +973,14 @@ class PagedContinuousBatchingDecoder:
             live, copied = exempt + private, []
         else:
             live, copied = exempt, private
-        host = self._swap_out([b for _, b in copied]) if copied else None
-        self._retire_device_locked([slot])
+        host = None
+        if copied:
+            with self._request_span(req, "swap_out", slot=slot, blocks=len(copied),
+                                    reason=reason):
+                with self.dispatch("swap_out", rid=req.rid, blocks=len(copied)):
+                    host = self._swap_out([b for _, b in copied])
+            self.request_log.count_dispatch(req.entry, "swap_out")
+        self._retire_device_locked([slot], [req])
         freed = self.alloc.release([b for _, b in copied]) if copied else 0
         self.swap.put(
             req.rid, {"live": live, "blocks": [i for i, _ in copied], "host": host},
@@ -609,9 +988,15 @@ class PagedContinuousBatchingDecoder:
         )
         req.swapped = True
         req.tokens_since_seat = 0
-        req.preemptions += 1
-        req.swapped_blocks += len(copied)
+        now = time.monotonic()
+        self._emit_span(req, "preempt", now, now, reason=reason, tier=req.tier,
+                        blocks_swapped=len(copied), blocks_live=len(live))
+        self.request_log.count_preempt(req.entry, swapped_blocks=len(copied))
         self.preemptions += 1
+        if self.metrics is not None:
+            self.metrics.inc("serve_preemptions_total", tier=req.tier,
+                             model=self.model_label, replica="0")
+        self._count_swap_bytes("out", _nbytes(host))
         self._queue.append(req)
         return freed
 
@@ -666,12 +1051,15 @@ class PagedContinuousBatchingDecoder:
             row[i] = refs[i] = new[j]
         row[committed : committed + len(extra)] = extra
         refs.extend(extra)
-        if new:
-            self._swap_in(rec["host"], new)
-        self._seat_device_row(slot, row, req.prompt.size + len(req.tokens) - 1,
-                              req, req.tokens[-1])
-        self.dispatches["swap_in"] += 1
-        self.swap.pop(req.rid, _nbytes(rec["host"]))
+        with self._request_span(req, "swap_in", slot=slot, blocks_uploaded=len(new),
+                                blocks_live=len(rec["live"])):
+            with self.dispatch("swap_in", rid=req.rid, blocks=len(new)):
+                if new:
+                    self._swap_in(rec["host"], new)
+                self._seat_device_row(slot, row, req.prompt.size + len(req.tokens) - 1,
+                                      req, req.tokens[-1])
+        nbytes = _nbytes(rec["host"])
+        self.swap.pop(req.rid, nbytes)
         req.swapped = False
         req.slot = slot
         req.tokens_since_seat = 0
@@ -679,6 +1067,9 @@ class PagedContinuousBatchingDecoder:
         self._seat_refs[slot] = refs
         if req.generator is not None:
             self._generators[slot] = req.generator
+        self._count_swap_bytes("in", nbytes)
+        self.request_log.count_dispatch(req.entry, "swap_in")
+        self.request_log.update(req.entry, state="active", slot=slot)
 
     @torch.inference_mode()
     def _admit(self) -> None:
@@ -697,6 +1088,7 @@ class PagedContinuousBatchingDecoder:
                 else:
                     plan = self._plan_admission(req)
                 if plan is None:
+                    self._update_gauges_locked()
                     return
                 self._queue.pop(idx)
                 # planning may itself have preempted seats
@@ -706,6 +1098,7 @@ class PagedContinuousBatchingDecoder:
                         self._admit_swapped(req, slot, plan)
                     else:
                         self._admit_paged(req, slot, plan)
+                    self._update_gauges_locked()
                 except BaseException:
                     # the request survives a failed admission: its plan
                     # is rolled back and it goes to the queue's head
@@ -721,18 +1114,26 @@ class PagedContinuousBatchingDecoder:
         prefix_len = n_shared * bs
         remainder = p_len - prefix_len
         n_fresh = blocks_for(remainder, bs)  # ceil: the straddle block too
-        row = torch.as_tensor(plan["row"], device=self.device)
-        view = gather_block_view(self._arena, row[: n_shared + n_fresh], prefix_len)
-        ids = torch.as_tensor(req.prompt[prefix_len:], device=self.device)[None]
-        logits = self.dmodel(ids, cache=view)
-        tok = _admission_sample(logits[0, -1], req.temperature, req.top_k,
-                                req.generator)
-        scatter_block_view(self._arena, view, row, n_shared, n_fresh)
-        self._seat_device_row(slot, row, p_len, req, tok)
-        self.dispatches["admission"] += 1
-        req.tokens.append(int(tok))  # the admission's one host fetch
-        req.t_first = time.perf_counter()
-        req.prefix_tokens = prefix_len
+        blocks_reserved = len(plan["shared"]) + len(plan["new"])
+        work_start = time.perf_counter()
+        self._emit_queue_wait(req)
+        with self._request_span(req, "admission", width=remainder, slot=slot,
+                                blocks_reserved=blocks_reserved,
+                                prefix_hit_tokens=prefix_len,
+                                prefix_hit_blocks=n_shared):
+            with self.dispatch("admission", rid=req.rid, width=remainder,
+                               prefix_tokens=prefix_len):
+                row = torch.as_tensor(plan["row"], device=self.device)
+                view = gather_block_view(self._arena, row[: n_shared + n_fresh],
+                                         prefix_len)
+                ids = torch.as_tensor(req.prompt[prefix_len:], device=self.device)[None]
+                logits = self.dmodel(ids, cache=view)
+                tok = _admission_sample(logits[0, -1], req.temperature, req.top_k,
+                                        req.generator)
+                scatter_block_view(self._arena, view, row, n_shared, n_fresh)
+                self._seat_device_row(slot, row, p_len, req, tok)
+                tok_h = int(tok)  # the admission's one host fetch, in its dispatch
+        req.tokens.append(tok_h)
         self.prefix.record(prefix_len > 0)
         # publish every full prompt block (final content: decode writes
         # start at p_len) under its chain key; the cache holds a ref
@@ -742,13 +1143,25 @@ class PagedContinuousBatchingDecoder:
                 bid = int(plan["row"][i])
                 self.alloc.retain([bid])
                 self.prefix.put(key, bid)
+        self.request_log.count_dispatch(req.entry, "admission")
+        self.request_log.update(
+            req.entry, state="active", slot=slot,
+            admission={
+                "width": int(remainder),
+                "blocks_reserved": blocks_reserved,
+                "prefix_hit_tokens": int(prefix_len),
+                "prefix_hit_blocks": n_shared,
+                "prefill_dispatches": 0,
+                "seconds": round(time.perf_counter() - work_start, 6),
+            },
+        )
+        self._observe_first_token(req, work_start)
         refs = plan["shared"] + plan["new"]
         if len(req.tokens) >= req.budget:
             # budget 1: done at admission.  Its blocks go straight back,
             # so the freshly written device row must be reset first
-            self._retire_device_locked([slot])
-            self.alloc.release(refs)
-            self._finish_locked(req)
+            self._retire_device_locked([slot], [req])
+            self._finish_locked(req, self.alloc.release(refs))
             return
         req.slot = slot
         req.tokens_since_seat = 0
@@ -759,35 +1172,23 @@ class PagedContinuousBatchingDecoder:
 
     # -- decode ------------------------------------------------------------
 
-    def _retire_device_locked(self, slots: List[int]) -> None:
+    def _retire_device_locked(self, slots: List[int], reqs: List[_Request]) -> None:
         """Reset the seats' device rows in one batch: table rows back to
         scratch, lengths/temps/top-ks to zero.  Required before their
         freed blocks re-allocate, or a dead seat's appends would land in
-        the new owner's blocks."""
+        the new owner's blocks.  ``reqs`` (the seats' requests) each
+        count the dispatch in their autopsy."""
 
-        idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
-        self._tables_dev[idx] = SCRATCH_BLOCK
-        self._lengths_dev[idx] = 0
-        self._temps_dev[idx] = 0.0
-        self._topks_dev[idx] = 0
+        with self.dispatch("retire", slots=len(slots)):
+            idx = torch.as_tensor(slots, dtype=torch.long, device=self.device)
+            self._tables_dev[idx] = SCRATCH_BLOCK
+            self._lengths_dev[idx] = 0
+            self._temps_dev[idx] = 0.0
+            self._topks_dev[idx] = 0
         for s in slots:
             self._generators.pop(s, None)
-        self.dispatches["retire"] += 1
-
-    def _finish_locked(self, req: _Request) -> None:
-        req.done = True
-        req.slot = None
-        self.recent.append({
-            "rid": req.rid,
-            "tier": req.tier,
-            "prompt_tokens": int(req.prompt.size),
-            "prefix_tokens": int(req.prefix_tokens),
-            "ttft_s": req.t_first - req.t_submit,
-            "tokens": len(req.tokens),
-            "preemptions": req.preemptions,
-            "swapped_blocks": req.swapped_blocks,
-        })
-        self._done_cond.notify_all()
+        for req in reqs:
+            self.request_log.count_dispatch(req.entry, "retire")
 
     def _grow_seats_locked(self):
         """Lazy growth before a window (caller holds the lock): every
@@ -820,7 +1221,7 @@ class PagedContinuousBatchingDecoder:
                 delta, max_victim_rank=_TIER_RANK[req.tier], exclude_slot=slot,
             )
             if ids is None:
-                self._preempt_seat_locked(slot)
+                self._preempt_seat_locked(slot, "park")
                 continue
             gl[slot, :delta] = np.arange(committed, committed + delta, dtype=np.int32)
             gp[slot, :delta] = ids
@@ -856,7 +1257,11 @@ class PagedContinuousBatchingDecoder:
             if self._active:
                 self._write_growth(*self._grow_seats_locked())
             if not self._active:
+                # the gauges refresh while only queueing too: a burst the
+                # arena cannot admit still ramps kv_blocks_pressure
+                self._update_gauges_locked()
                 return 0
+            seats_active = len(self._active)
             enabled = np.zeros(self.slots, bool)
             enabled[list(self._active)] = True
             enabled = torch.as_tensor(enabled, device=self.device)
@@ -865,16 +1270,15 @@ class PagedContinuousBatchingDecoder:
             cache = PagedCache(self._arena, tables, self._lengths_dev)
             toks = self._last_tok
             window = []
-            t0 = time.perf_counter()
-            for _ in range(self.steps_per_sync):
-                logits = self.pmodel(toks[:, None], cache=cache)
-                toks = _step_sample(logits[:, 0], self._temps_dev,
-                                    self._topks_dev, self._generators)
-                window.append(toks)
-            host = torch.stack(window).cpu().numpy()  # [K, S]: one fetch
-            self.decode_seconds += time.perf_counter() - t0
-            self.decode_steps += self.steps_per_sync
-            self.dispatches["step"] += 1
+            t_window0 = time.monotonic()
+            with self.dispatch("step", active=seats_active):
+                for _ in range(self.steps_per_sync):
+                    logits = self.pmodel(toks[:, None], cache=cache)
+                    toks = _step_sample(logits[:, 0], self._temps_dev,
+                                        self._topks_dev, self._generators)
+                    window.append(toks)
+                host = torch.stack(window).cpu().numpy()  # [K, S]: one fetch
+            t_window1 = time.monotonic()
             self._lengths_dev = torch.where(enabled, cache.lengths, self._lengths_dev)
             self._last_tok = torch.where(enabled, toks, self._last_tok)
             finished = []
@@ -883,13 +1287,16 @@ class PagedContinuousBatchingDecoder:
                 take = min(len(host), req.budget - len(req.tokens))
                 req.tokens.extend(int(t) for t in host[:take, slot])
                 req.tokens_since_seat += take
+                self._emit_span(req, "decode.window", t_window0, t_window1,
+                                tokens=take, seats_active=seats_active)
+                self.request_log.add_window(req.entry, take)
                 if len(req.tokens) >= req.budget:
                     finished.append(slot)
             if finished:
                 # device rows first, then the blocks (see _retire_device_locked)
-                self._retire_device_locked(finished)
-                for slot in finished:
-                    req = self._active.pop(slot)
-                    self.alloc.release(self._seat_refs.pop(slot))
-                    self._finish_locked(req)
+                reqs = [self._active.pop(slot) for slot in finished]
+                self._retire_device_locked(finished, reqs)
+                for slot, req in zip(finished, reqs):
+                    self._finish_locked(req, self.alloc.release(self._seat_refs.pop(slot)))
+            self._update_gauges_locked()
             return len(self._active)

@@ -18,11 +18,14 @@ id both free and referenced.
 
 :class:`SwapArena` is the host side of preemption: the private blocks of
 a seat evicted mid-decode wait there until the request resumes.
+:class:`ArenaTimeline` keeps the arena's occupancy history.
 """
 
 from __future__ import annotations
 
 import threading
+import time
+from collections import deque
 from typing import Any, Dict, List, Optional
 
 #: the global scratch block id (see module docstring)
@@ -226,6 +229,110 @@ class SwapArena:
                 "bytes_out_total": self.bytes_out_total,
                 "bytes_in_total": self.bytes_in_total,
             }
+
+
+class ArenaTimeline:
+    """Bounded ring of block-arena occupancy samples — the time-series
+    twin of the instantaneous ``kv_blocks_pressure`` gauge.
+
+    The gauge answers "how full is the arena NOW"; a stuck p99 needs
+    "how full was it while THAT request waited".  The paged pool
+    records one sample per decode window (plus admission/retire gauge
+    refreshes) — host arithmetic only, nothing touches the device, so
+    the no-hot-sync gate over the paged step loop is unaffected.
+    Served at ``GET /debug/arena`` on serve_lm, and the tail rides every
+    flight-recorder dump (a post-mortem shows the pressure history,
+    not just the final value).
+
+    Sample shape (all counts in BLOCKS): ``unix``, ``free``, ``live``
+    (allocated: seat-mapped + cache-held), ``prefix_cached`` (blocks
+    held by the prefix cache — a subset of live), ``queued_demand``
+    (block need of queued-but-unadmitted requests), ``seats_active``,
+    and ``swapped`` (blocks whose content currently lives host-side in
+    the SwapArena: without this series a preempted request's occupancy
+    history would silently truncate at its first eviction).
+    """
+
+    def __init__(self, capacity: int = 512, block_size: int = 0,
+                 usable: int = 0, replica: str = "", role: str = "unified"):
+        self.capacity = max(1, int(capacity))
+        self.block_size = int(block_size)
+        self.usable = int(usable)
+        self.replica = str(replica)
+        #: the replica's phase role — a disaggregated fleet's
+        #: /debug/arena strips are read per role (a prefill replica's
+        #: occupancy is churn, a decode replica's is residency)
+        self.role = str(role)
+        self._lock = threading.Lock()
+        self._samples: deque = deque(maxlen=self.capacity)
+        self.dropped = 0  # samples aged out of the ring
+
+    def sample(
+        self,
+        *,
+        free: int,
+        live: int,
+        prefix_cached: int,
+        queued_demand: int,
+        seats_active: int,
+        swapped: int = 0,
+    ) -> None:
+        rec = {
+            "unix": time.time(),
+            "free": int(free),
+            "live": int(live),
+            "prefix_cached": int(prefix_cached),
+            "queued_demand": int(queued_demand),
+            "seats_active": int(seats_active),
+            "swapped": int(swapped),
+        }
+        with self._lock:
+            # consecutive identical samples collapse to the first: an
+            # IDLE pool refreshes gauges every decode-loop tick (~200/s),
+            # and letting that flood the ring would age real
+            # transitions out within seconds of going quiet
+            if self._samples:
+                last = self._samples[-1]
+                if all(last[k] == rec[k] for k in rec if k != "unix"):
+                    return
+            if len(self._samples) == self._samples.maxlen:
+                self.dropped += 1
+            self._samples.append(rec)
+
+    def tail(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
+        """Oldest-first copy of the most recent ``limit`` samples.
+        ``None`` = all retained; ``limit <= 0`` = none — never the
+        whole ring (the ``[-0:]`` pitfall, same guard as
+        RequestLog.recent)."""
+
+        with self._lock:
+            items = list(self._samples)
+        if limit is None:
+            return items
+        return items[-limit:] if limit > 0 else []
+
+    def snapshot(self, limit: Optional[int] = None) -> Dict[str, Any]:
+        """The ``/debug/arena`` read: ring metadata + the sample tail
+        (``limit`` semantics as in :meth:`tail`)."""
+
+        with self._lock:
+            samples = list(self._samples)
+            dropped = self.dropped
+        if limit is not None:
+            samples = samples[-limit:] if limit > 0 else []
+        return {
+            "replica": self.replica,
+            "role": self.role,
+            "block_size": self.block_size,
+            "usable": self.usable,
+            "capacity": self.capacity,
+            "dropped": dropped,
+            "samples": samples,
+        }
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._samples)
 
 
 def blocks_for(tokens: int, block_size: int) -> int:

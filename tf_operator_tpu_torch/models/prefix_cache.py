@@ -48,17 +48,21 @@ class PrefixCache:
     driven eviction only).  ``can_evict(value)`` gates eviction;
     ``on_evict(value)`` runs after removal.  Hit/miss accounting is per
     request: callers walk the chain with ``peek`` and ``record`` once.
+    With a ``metrics`` registry, hits, misses and evictions also count
+    in ``serve_prefix_cache_{hits,misses,evictions}_total{mode="pool"}``.
     """
 
     def __init__(
         self,
         capacity: Optional[int] = None,
+        metrics=None,
         can_evict: Optional[Callable[[Any], bool]] = None,
         on_evict: Optional[Callable[[Any], None]] = None,
     ):
         self._lock = threading.Lock()
         self._entries: "OrderedDict[bytes, Any]" = OrderedDict()
         self.capacity = capacity
+        self.metrics = metrics
         self._can_evict = can_evict
         self._on_evict = on_evict
         self.hits = 0
@@ -91,6 +95,9 @@ class PrefixCache:
                 self.hits += 1
             else:
                 self.misses += 1
+        if self.metrics is not None:
+            name = "serve_prefix_cache_hits_total" if hit else "serve_prefix_cache_misses_total"
+            self.metrics.inc(name, mode="pool")
 
     def put(self, key: bytes, value: Any) -> None:
         """Insert/refresh; evicts LRU entries past ``capacity`` (the
@@ -120,4 +127,7 @@ class PrefixCache:
                 evicted += 1
                 if self._on_evict is not None:
                     self._on_evict(value)
+        if evicted and self.metrics is not None:
+            self.metrics.inc("serve_prefix_cache_evictions_total", float(evicted),
+                             mode="pool")
         return evicted

@@ -8,9 +8,28 @@ mode of ``examples/serve_lm.py``).
 
 ``POST /generate`` takes ``prompt``, ``max_new_tokens`` (default 32),
 ``temperature`` (quantised to a 0.05 grid), ``top_k``, ``seed``,
-``stop`` and ``tier`` and answers ``{"prompt", "sample", "seed"}``;
-prompts are byte-level ids.  ``GET /healthz`` answers ``{"ok": true}``.
-Client errors are 400s with the JAX server's messages.
+``stop`` and ``tier`` and answers ``{"prompt", "sample", "seed",
+"request_id"}``; prompts are byte-level ids.  Client errors are 400s
+with the JAX server's messages.  Every request runs under a
+``serve.generate`` span: an incoming ``x-trace-id`` (and
+``x-parent-span-id``) is adopted, else a trace is rooted; its id is the
+``request_id`` and is echoed in ``x-trace-id`` on every reply.
+
+The serving plane's records (the JAX server's endpoints):
+
+- ``GET /healthz``: ``{"ok": true}``;
+- ``GET /metrics``: the Prometheus text exposition (request, SLO,
+  dispatch, queue, ``kv_blocks_*``, preemption and swap families);
+- ``GET /traces`` and ``/traces/<id>``: the trace store;
+- ``GET /requests`` and ``/requests/<id>``: request autopsies;
+- ``GET /debug/arena``: the arena's occupancy timeline;
+- ``GET /slo``: per-tier quantiles of the SLO families and the load
+  gauges;
+- ``GET /alerts``: the alert engine's state over the default rules;
+- ``GET /debug/flightrecorder``: the flight recorder's ndjson dump.
+
+The JAX server's ``/debug/compiles``, ``/debug/memory``,
+``/debug/profile`` and ``/debug/fabric`` are not ported.
 
 SLO tiers: the body's ``tier``, else the ``x-slo-tier`` header, else
 ``batch``; anything but ``interactive`` or ``batch`` is a 400.  The
@@ -59,6 +78,15 @@ from tf_operator_tpu_torch.models.registry import model_from_description
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
 from tf_operator_tpu_torch.ops.quant import state_bytes
 from tf_operator_tpu_torch.parallel.checkpoint import MODEL_FILE, PARAMS_FILE
+from tf_operator_tpu_torch.utils import flight
+from tf_operator_tpu_torch.utils.alerts import AlertEngine, default_rules
+from tf_operator_tpu_torch.utils.metrics import (
+    SLO_BUCKETS,
+    DispatchLedger,
+    Metrics,
+    finite_summary,
+)
+from tf_operator_tpu_torch.utils.trace import TRACE_HEADER, Tracer, extract_headers
 
 
 def decode_bytes(arr) -> str:
@@ -68,33 +96,159 @@ def decode_bytes(arr) -> str:
     return b.decode("ascii", errors="replace")
 
 
-def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
-    """The request handler class over ``pool``.  ``fatal`` is the
-    decode loop's error list: once it holds an entry, waiting requests
-    answer 500 instead of hanging."""
+#: the serving SLO families: long-tail buckets, and /slo's summaries
+SLO_FAMILIES = (
+    "serve_ttft_seconds",
+    "serve_time_per_output_token_seconds",
+    "serve_queue_wait_seconds",
+    "serve_request_seconds",
+)
 
+#: /debug/arena returns at most this many samples of the timeline
+ARENA_SAMPLE_LIMIT = 160
+
+
+def make_pool(model: LlamaLM, *, model_label: str = "unknown",
+              metrics: Optional[Metrics] = None, tracer: Optional[Tracer] = None,
+              **pool_kw) -> PagedContinuousBatchingDecoder:
+    """The paged pool with its records, as the server serves it: one
+    ``Metrics`` registry (the SLO families on the long-tail buckets), one
+    ``Tracer`` and a ``DispatchLedger`` over both.  ``pool_kw`` are the
+    pool's own arguments."""
+
+    metrics = metrics if metrics is not None else Metrics()
+    tracer = tracer if tracer is not None else Tracer()
+    for fam in SLO_FAMILIES:
+        metrics.set_buckets(fam, SLO_BUCKETS)
+    return PagedContinuousBatchingDecoder(
+        model, ledger=DispatchLedger(metrics=metrics, tracer=tracer), metrics=metrics,
+        model_label=model_label, **pool_kw,
+    )
+
+
+def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
+    """The request handler class over ``pool`` (built by ``make_pool``).
+    ``fatal`` is the decode loop's error list: once it holds an entry,
+    waiting requests answer 500 instead of hanging.  The process flight
+    recorder attaches the pool's tracer, metrics, request log and
+    timeline; the handler's ``alert_engine`` evaluates the default
+    rules over the pool's registry (started by ``main``, not here)."""
+
+    if pool.metrics is None or pool.tracer is None:
+        raise ValueError("serve_lm serves a pool built with its records (make_pool)")
     max_len = pool.max_len
+    metrics, tracer, model_label = pool.metrics, pool.tracer, pool.model_label
+    recorder = flight.default_recorder
+    recorder.attach_tracer(tracer)
+    recorder.attach_metrics(metrics)
+    recorder.attach_request_log(pool.request_log)
+    recorder.attach_arena_timeline(pool.timeline)
+    alert_engine = AlertEngine(default_rules(), metrics=metrics, recorder=recorder)
+
+    def slo() -> dict:
+        def gauge_sum(name: str) -> float:
+            return sum(v for labels, v in metrics.gauge_series(name).items()
+                       if dict(labels).get("model", model_label) == model_label)
+
+        return {
+            "model": model_label,
+            "replicas": 1,
+            "histograms": {
+                fam: [{**dict(labels), **finite_summary(summary)}
+                      for labels, summary in sorted(
+                          metrics.histogram_family_merged(fam).items())]
+                for fam in SLO_FAMILIES
+            },
+            "gauges": {name: gauge_sum(name) for name in (
+                "serve_admission_queue_depth", "serve_tokens_in_flight",
+                "kv_blocks_free", "kv_blocks_in_use")},
+            "requests_ok": metrics.counter("serve_requests_total", status="200"),
+        }
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass
 
-        def _reply(self, code: int, payload: dict) -> None:
-            body = json.dumps(payload).encode()
+        def _send(self, code: int, body: bytes, ctype: str) -> None:
             self.send_response(code)
-            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
+            tid = getattr(self, "_trace_id", None)
+            if tid:  # echoed on every reply of a traced request
+                self.send_header(TRACE_HEADER, tid)
             self.end_headers()
             self.wfile.write(body)
 
+        def _reply(self, code: int, payload: dict) -> None:
+            t0 = getattr(self, "_t0", None)
+            if t0 is not None:  # a /generate request being answered
+                self._t0 = None
+                metrics.observe_histogram(
+                    "serve_request_seconds", time.perf_counter() - t0,
+                    exemplar=getattr(self, "_trace_id", None),
+                    route="/generate", model=model_label,
+                )
+                metrics.inc("serve_requests_total", status=str(code))
+                if code == 200 and isinstance(payload.get("sample"), str):
+                    metrics.inc("serve_tokens_generated_total",
+                                float(len(payload["sample"])))
+            self._send(code, json.dumps(payload).encode(), "application/json")
+
         def do_GET(self):
-            if self.path == "/healthz":
+            # a keep-alive connection reuses the handler: no stale id
+            self._trace_id = None
+            path = self.path
+            if path == "/healthz":
                 return self._reply(200, {"ok": True})
-            return self._reply(404, {"error": "unknown path"})
+            if path == "/metrics":
+                return self._send(200, metrics.exposition().encode(),
+                                  "text/plain; version=0.0.4")
+            if path == "/traces":
+                return self._reply(200, {"traces": tracer.store.summaries(50)})
+            if path.startswith("/traces/"):
+                t = tracer.store.trace(path[len("/traces/"):])
+                if t is None:
+                    return self._reply(404, {"error": "unknown trace id"})
+                return self._reply(200, t)
+            if path == "/requests":
+                return self._reply(200, {"requests": pool.request_log.recent(50)})
+            if path.startswith("/requests/"):
+                entry = pool.request_log.get(path[len("/requests/"):])
+                if entry is not None:
+                    return self._reply(200, entry)
+                return self._reply(404, {
+                    "error": "unknown request id (pool modes only; ids "
+                             "are trace ids — the /generate response's "
+                             "request_id / x-trace-id header)"})
+            if path == "/debug/arena":
+                return self._reply(200, {
+                    "replicas": [pool.timeline.snapshot(ARENA_SAMPLE_LIMIT)],
+                    "fabric": None,
+                })
+            if path == "/slo":
+                return self._reply(200, slo())
+            if path == "/alerts":
+                return self._reply(200, alert_engine.snapshot())
+            if path == "/debug/flightrecorder":
+                return self._send(200, recorder.dump_text().encode(),
+                                  "application/x-ndjson")
+            return self._reply(404, {"error": "try POST /generate"})
 
         def do_POST(self):
+            self._trace_id = None
             if self.path != "/generate":
                 return self._reply(404, {"error": "unknown path"})
+            # every request is a server span: an incoming x-trace-id /
+            # x-parent-span-id is adopted, else a trace is rooted; its
+            # id is the request's id in the pool
+            tid, parent = extract_headers(self.headers)
+            with tracer.start_span("serve.generate", kind="server", trace_id=tid,
+                                   parent_id=parent) as span:
+                self._trace_id = span.trace_id
+                self._generate(span)
+
+        def _generate(self, span):
+            self._t0 = time.perf_counter()
             try:
                 n = int(self.headers.get("Content-Length", 0))
                 req = json.loads(self.rfile.read(n) or b"{}")
@@ -133,17 +287,23 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                     return self._reply(400, {
                         "error": f"prompt({len(ids)}) + max_new_tokens({n_new}) "
                                  f"> max_len({max_len})"})
+                span.set_attribute("prompt_tokens", int(len(ids)))
+                span.set_attribute("max_new_tokens", n_new)
+                span.set_attribute("mode", "pool")
                 if top_k is not None and not 1 <= top_k <= TOP_K_MAX:
                     return self._reply(400, {
                         "error": f"top_k must be in [1, {TOP_K_MAX}] in "
                                  "--batching mode (static top-k width)"})
+                span.set_attribute("tier", tier)
                 generator = None
                 if temperature > 0.0:
                     generator = torch.Generator(device=pool.device).manual_seed(seed)
                 rid = pool.submit(
                     ids.astype(np.int32), n_new, temperature=temperature,
                     top_k=top_k, generator=generator, tier=tier,
+                    trace_id=span.trace_id,
                 )
+                span.set_attribute("rid", rid)
                 while True:
                     row = pool.result_wait(rid, timeout=0.5)
                     if row is not None:
@@ -156,25 +316,30 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                     cut = sample.find(stop)
                     if cut >= 0:
                         sample = sample[:cut]
-                return self._reply(200, {"prompt": text, "sample": sample, "seed": seed})
+                return self._reply(200, {"prompt": text, "sample": sample, "seed": seed,
+                                         "request_id": span.trace_id})
             except (ValueError, TypeError, KeyError, json.JSONDecodeError) as exc:
                 return self._reply(400, {"error": repr(exc)})
             except Exception as exc:  # serving must not die on one request
                 traceback.print_exc()
                 return self._reply(500, {"error": repr(exc)})
 
+    Handler.alert_engine = alert_engine
     return Handler
 
 
 class Server:
     """The HTTP server and the pool's decode loop thread, started together
-    and stopped together."""
+    and stopped together.  ``alert_engine`` is the handler's, not
+    started: ``main`` starts it."""
 
     def __init__(self, pool: PagedContinuousBatchingDecoder,
                  host: str = "127.0.0.1", port: int = 0):
         self.pool = pool
         self.fatal: list = []
-        self.httpd = ThreadingHTTPServer((host, port), build_handler(pool, self.fatal))
+        handler = build_handler(pool, self.fatal)
+        self.alert_engine = handler.alert_engine
+        self.httpd = ThreadingHTTPServer((host, port), handler)
         self.port = self.httpd.server_address[1]
         self._stop = threading.Event()
         self._threads = [
@@ -265,11 +430,24 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def build_pool(model: LlamaLM, args: argparse.Namespace) -> PagedContinuousBatchingDecoder:
-    """The pool the flags describe (the JAX server's: lazy reservation)."""
+def model_label_of(args: argparse.Namespace) -> str:
+    """The ``model`` label of the records: the artifact's ``model.json``
+    family, else the ``--model`` name."""
 
-    return PagedContinuousBatchingDecoder(
-        model, slots=args.batching, steps_per_sync=args.steps_per_sync,
+    if args.artifact:
+        with open(os.path.join(args.artifact, MODEL_FILE)) as f:
+            return json.load(f)["family"]
+    return args.model
+
+
+def build_pool(model: LlamaLM, args: argparse.Namespace,
+               metrics: Optional[Metrics] = None) -> PagedContinuousBatchingDecoder:
+    """The pool the flags describe (the JAX server's: lazy reservation),
+    with its records (``make_pool``) on ``metrics``."""
+
+    return make_pool(
+        model, model_label=model_label_of(args), metrics=metrics,
+        slots=args.batching, steps_per_sync=args.steps_per_sync,
         kv_blocks=args.kv_blocks, kv_block_size=args.kv_block_size,
         swap_blocks=args.kv_swap_blocks,
     )
@@ -284,7 +462,13 @@ def main(argv: Optional[list] = None) -> int:
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
         artifact=args.artifact, quantize=args.quantize,
     )
-    server = Server(build_pool(model, args), port=args.port).start()
+    # one registry for the process: the handler's /metrics and /slo,
+    # the alert engine and the flight recorder's metric deltas.  The
+    # recorder dumps on SIGTERM and on a fatal exception
+    metrics = Metrics()
+    flight.install(metrics=metrics)
+    server = Server(build_pool(model, args, metrics), port=args.port).start()
+    server.alert_engine.start()
     print(f"serving on 127.0.0.1:{server.port} ({device})", flush=True)
     try:
         while not server.fatal:
@@ -294,6 +478,7 @@ def main(argv: Optional[list] = None) -> int:
     except KeyboardInterrupt:
         return 0
     finally:
+        server.alert_engine.stop()
         server.close()
 
 
