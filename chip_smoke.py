@@ -22,7 +22,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the card: 7B decode shapes (S=8, H=Hkv=32, D=128, bs=16, MB=128,
    lengths 1..2048), the same with seats at the table's end beside
    short ones (one under a split, one on a split boundary, one just
-   past it), GQA (Hkv=8), K=1 and K=4, bf16 and float32, plus small
+   past it), GQA (Hkv=8), K=1 and K=4, bf16 and float32, the
+   speculative verify pass (K=5, MHA, bf16), plus small
    shapes covering the other block sizes and head dims; each case
    prints its split count and positions a split.  Each case
    holds the kernel to an absolute tolerance and, per output row (one
@@ -166,6 +167,44 @@ Phases, in order; any failure exits non-zero before the result line:
    run's own preempt and demotion logs, the timeline's ``swapped``
    series back to 0 (above 0 when a seat was preempted), both tiers on
    ``/slo``.
+7d. speculative serving at full width (run after phase 8): the same bf16 model as the
+   target and phase 9's int8 model (loaded here, while the bf16 one is
+   resident) as its self-draft, behind ``serve_lm``'s server built from
+   its flags (``--batching 8 --speculative --speculative-force --spec-k
+   4``, phase 7's arena), against the same server without
+   ``--speculative``, in the order plain, spec, spec, plain, plain,
+   spec.  Phase 7's nine requests, six ``tier: interactive`` (the 64-,
+   200- and 1500-byte prompts, both of the shared-prefix pair and the
+   seeded request), three batch, which decode plainly in the same
+   windows.  Counts zeroed just before and read just after each run.  On
+   every speculative run: ``serving_dispatch_total{phase="draft"}`` =
+   verify windows + the six interactive admissions,
+   ``{phase="verify"}`` = ``spec_windows``; each interactive autopsy
+   counts one ``draft`` and each batch one none; K4 launches = 32 x ((4
+   + 1) x draft windows + verify windows + plain steps); K7 launches =
+   225 x (4 + 1) x draft windows + 225 x the draft prefills of <= 64
+   rows, the GEMM route 225 x the longer ones; no plain int8 matmul;
+   the pool's K4 + K7 launches of draft and verify = their count;
+   ``/metrics`` shows both spec gauges and the three
+   ``serve_spec_*_total`` families at the pool's counts, and records as
+   in phase 7.  Across runs: every greedy token row equals the plain
+   run's, or at its first divergent position the two tokens are the
+   target's top two and their logit gap is within the difference
+   between a replay of the step pass (k_new 1) and of the verify pass
+   (k_new 5) at that position (both replays on the plain contiguous
+   path; printed); the seeded request gives the same tokens in each
+   speculative run, each within its top_k support of the replayed
+   logits up to ``SPEC_SUPPORT_TOL``.  Then one speculative window of
+   eight interactive seats under torch.profiler (busy share, K4 and K7
+   shares of device time).  Prints, each side's median and
+   spread of 3 runs beside the card line: the interactive requests'
+   decode tokens/s (median of tokens after the first over the time
+   after the first) and TTFT, all requests' decode tokens/s over the
+   decode dispatches' wall, the window's host wall; the speculative
+   side's acceptance rate, dispatches a token and launches a token; the
+   speedup (interactive decode tokens/s, speculative over plain), and
+   the ``spec record`` line that ``tf_operator_tpu_torch/
+   spec_measured.json`` (``serve_lm``'s guard) is written from.
 8. end to end: on ``llama_tiny`` (float32) the pool's greedy tokens
    through the kernel equal the plain contiguous ``generate`` on the
    card; at 7B width the first decode step's logits through the kernel
@@ -174,7 +213,8 @@ Phases, in order; any failure exits non-zero before the result line:
    attention differs) and with the contiguous (plain) path.
 9. int8 serving at full width: ``serve_lm.load_model(..., quantize=
    "int8")`` (what ``--quantize int8`` runs) quantizes the same seeded
-   float32 weights as they are made, and the same pool and requests as
+   float32 weights as they are made (before phase 7d, which drafts with
+   it), and the same pool and requests as
    phase 7 run behind the HTTP server.  Counts zeroed just before and
    read just after: K7 must have launched 225 (7 projections x 32
    layers + the head) x (decode steps + prefills of <= 64 rows), the
@@ -538,6 +578,8 @@ def phase_k4():
                                   k_new=1, dtype=torch.bfloat16)),
         ("bs32_d64_k2_bf16", dict(s=3, h=4, hkv=4, d=64, bs=32, mb=5, max_len=160,
                                   k_new=2, dtype=torch.bfloat16)),
+        # the speculative verify pass: spec_k + 1 = 5 query rows a head
+        ("7b_mha_k5_bf16", dict(mha, k_new=5, dtype=torch.bfloat16)),
     ]
     return [k4_case(n, seed=i, **kw) for i, (n, kw) in enumerate(cases)]
 
@@ -834,18 +876,19 @@ def phase_plane_cost(model, card):
     return summary
 
 
-def phase_decode_profile(pool):
+def phase_decode_profile(pool, tier="batch"):
     """Where one decode window's time goes: the pool (its server
-    stopped) admits 8 greedy requests, runs one window unprofiled, then
-    one under torch.profiler.  Prints the window's wall, the device's
-    busy share of it and the kernels' shares of device time.  The
-    profiler slows the host, so the busy share is a lower bound."""
+    stopped) admits 8 greedy requests of ``tier``, runs one window
+    unprofiled, then one under torch.profiler.  Prints the window's
+    wall, the device's busy share of it and the kernels' shares of
+    device time.  The profiler slows the host, so the busy share is a
+    lower bound."""
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     prompts = [(torch.arange(n) * 7 + 3) % 256 for n in (512, 700, 900, 1100, 300, 1500, 64, 200)]
-    rids = [pool.submit(p.numpy(), 2 * pool.steps_per_sync + 1) for p in prompts]
+    rids = [pool.submit(p.numpy(), 2 * pool.steps_per_sync + 1, tier=tier) for p in prompts]
     pool.step()  # admissions and a warm window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -872,6 +915,7 @@ def phase_decode_profile(pool):
         return None
     top = sorted(events, key=dev_us, reverse=True)[:6]
     rec = {
+        "tier": tier, "speculative": pool._spec_tier(tier),
         "window_steps": pool.steps_per_sync, "profiled_window_ms": wall_us / 1e3,
         "device_busy_ms": busy / 1e3, "device_busy_share": busy / wall_us,
         "k4_share_of_device": sum(dev_us(e) for e in events if "paged_attention" in e.key) / busy,
@@ -1250,6 +1294,298 @@ def phase_end_to_end(model7b):
             raise AssertionError(f"7B kernel-path logits off the {ref_name} path: {rec}")
     if not rec["first_token_equal"]:
         raise AssertionError(f"7B paged prefill's token off the contiguous one: {rec}")
+
+
+#: phase 7d: draft tokens a speculative window, and which of phase 7's
+#: nine requests speculate (tier interactive): the 64-byte prompt, the
+#: 200-byte one, both of the shared-prefix pair (the second admitted
+#: through a prefix hit), the 1500-byte one and the seeded request; the
+#: 380-, 700- and 900-byte ones are batch and decode plainly in the same
+#: windows
+SPEC_K = 4
+SPEC_INTERACTIVE = (0, 1, 3, 6, 7, 8)
+#: the runs of each side, interleaved so that drift between them cancels
+SPEC_ORDER = ("plain", "spec", "spec", "plain", "plain", "spec")
+#: a seeded token must lie within its top_k support of the replayed
+#: logits, up to this share of their largest magnitude (the replay runs
+#: the plain contiguous path, the served run K4 and other GEMM shapes)
+SPEC_SUPPORT_TOL = 1e-2
+
+
+def _spec_bodies():
+    bodies = _main_bodies()
+    for i, b in enumerate(bodies):
+        b["tier"] = "interactive" if i in SPEC_INTERACTIVE else "batch"
+    return bodies
+
+
+def _bf16_ulp(x):
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def _replay_logits(model, row, pos, k_new):
+    """Target logits at position ``pos`` of token row ``row`` on the plain
+    contiguous path, fed as the served pass fed it: ``k_new`` = 1 as a
+    decode step, 5 as the verify pass (the window ending at ``pos`` or
+    later, causal, so the rows after ``pos`` do not matter)."""
+
+    from tf_operator_tpu_torch.models.decode import decode_variant, init_cache
+
+    dmodel = decode_variant(model)
+    dev = model.device
+    start = max(1, pos - (k_new - 1))
+    ids = torch.as_tensor(row[: start + k_new], device=dev).long()[None]
+    with torch.inference_mode():
+        cache = init_cache(dmodel, 1, length=start + k_new)
+        dmodel(ids[:, :start], cache=cache)
+        return dmodel(ids[:, start:], cache=cache)[0, pos - start].float()
+
+
+def _spec_divergence(model, prompt, got, want):
+    """Where a speculative greedy row left the plain pool's: the first
+    divergent position, both tokens, and the target's top-2 logit gap
+    there from a replay of the step pass and of the verify pass, beside
+    the two replays' largest logit difference."""
+
+    p_len = len(prompt)
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    pos = p_len + j - 1  # the input position whose logits chose token j
+    row = np.concatenate([prompt, np.asarray(got, np.int64)])
+    step = _replay_logits(model, row, pos, 1)
+    verify = _replay_logits(model, row, pos, SPEC_K + 1)
+    diff = (step - verify).abs().max().item()
+
+    def gap(lg):
+        top = torch.topk(lg, 2)
+        return (top.values[0] - top.values[1]).item(), top.indices.tolist()
+
+    gaps = {"step": gap(step), "verify": gap(verify)}
+    floor = max(diff, _bf16_ulp(step.abs().max().item()))
+    tie = (min(g for g, _ in gaps.values()) <= floor
+           and {int(got[j]), int(want[j])} <= set(gaps["step"][1] + gaps["verify"][1]))
+    return {"position": j, "spec_token": int(got[j]), "plain_token": int(want[j]),
+            "top2_gap": {k: v[0] for k, v in gaps.items()},
+            "top2": {k: v[1] for k, v in gaps.items()},
+            "replay_max_abs_diff": diff, "tie_floor": floor, "tie": bool(tie)}
+
+
+def _spec_support(model, prompt, sample, top_k):
+    """The worst margin of a seeded row's tokens against their top_k
+    support on replayed logits: min over tokens of (logit(tok) - k-th
+    logit) / max |logit| (>= -SPEC_SUPPORT_TOL to pass)."""
+
+    from tf_operator_tpu_torch.models.decode import decode_variant, init_cache
+
+    dmodel = decode_variant(model)
+    row = np.concatenate([prompt, np.asarray(sample, np.int64)])
+    ids = torch.as_tensor(row, device=model.device).long()[None]
+    with torch.inference_mode():
+        logits = dmodel(ids, cache=init_cache(dmodel, 1, length=len(row)))[0].float()
+    worst = math.inf
+    for j, tok in enumerate(sample):
+        lg = logits[len(prompt) + j - 1]
+        kth = torch.topk(lg, top_k).values[-1]
+        worst = min(worst, ((lg[int(tok)] - kth) / lg.abs().max()).item())
+    return worst
+
+
+def _spec_run(model, draft, side):
+    """Phase 7d's nine requests through ``serve_lm`` over HTTP, the pool
+    built from ``serve_lm``'s flags: ``--batching 8`` (phase 7's arena),
+    and on the ``spec`` side ``--speculative --speculative-force --spec-k
+    4`` with ``draft``.  Counts zeroed just before the requests and read
+    just after."""
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+    from tf_operator_tpu_torch.serve_lm import (
+        Server,
+        build_parser,
+        build_pool,
+        refuse_speculative,
+    )
+
+    argv = ["--model", "llama-7b", "--max-len", "2048", "--batching", "8",
+            "--steps-per-sync", "8", "--kv-block-size", "16"]
+    if side == "spec":
+        argv += ["--speculative", "--speculative-force", "--spec-k", str(SPEC_K)]
+    args = build_parser().parse_args(argv)
+    refuse_speculative(args)
+    pool = build_pool(model, args, draft=draft if side == "spec" else None)
+    # the token rows by pool rid (the HTTP sample is bytes decoded as
+    # ASCII, which folds every byte >= 128 into one character)
+    rows, result_wait = {}, pool.result_wait
+
+    def recording_wait(rid, timeout=None):
+        row = result_wait(rid, timeout)
+        if row is not None:
+            rows[rid] = row
+        return row
+
+    pool.result_wait = recording_wait
+    server = Server(pool).start()
+    try:
+        bodies = _spec_bodies()
+        results = [None] * len(bodies)
+
+        def send(i):
+            results[i] = _post(server.port, bodies[i])
+
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        qm.plain_calls.clear()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.launches), dict(qm.plain_calls)
+        if server.fatal:
+            raise AssertionError(f"speculative {side}: decode loop died: {server.fatal[0]}")
+        for i, r in enumerate(results):
+            if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+                raise AssertionError(f"speculative {side}: request {i} failed: {r}")
+        autopsies, text, _ = check_records(server.port, pool, results, f"speculative {side}")
+        inter = [a for i, a in enumerate(autopsies) if i in SPEC_INTERACTIVE]
+        rates = [(a["tokens"] - 1) / (a["total_seconds"] - a["ttft_seconds"]) for a in inter]
+        decode_s = sum(pool.ledger.seconds(p) for p in ("step", "draft", "verify"))
+        rec = {
+            "side": side, "wall_s": wall, "windows": pool.windows,
+            "dispatches": {p: r["count"] for p, r in pool.ledger.snapshot().items()},
+            "launches": launches, "plain_int8_calls": plain,
+            "interactive_decode_tokens_per_s": statistics.median(rates),
+            "interactive_ttft_s": statistics.median(a["ttft_seconds"] for a in inter),
+            "decode_tokens_per_s": sum(a["tokens"] - 1 for a in autopsies) / decode_s,
+            "window_ms": decode_s / pool.windows * 1e3,
+            "dispatch_s": {p: pool.ledger.seconds(p) for p in ("step", "draft", "verify")},
+            "samples": [rows[a["rid"]][a["prompt_tokens"]:].tolist() for a in autopsies],
+        }
+        if side == "spec":
+            rec.update(_check_spec_run(pool, autopsies, text, launches, plain, bodies))
+        return rec
+    finally:
+        server.close()
+        del pool
+        free_device_memory()
+
+
+def _check_spec_run(pool, autopsies, text, launches, plain, bodies):
+    """Phase 7d's counts on one speculative run (module docstring)."""
+
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+
+    n_layers = pool.pmodel.cfg.n_layers
+    n_proj = 7 * n_layers + 1
+    w = pool.spec_windows
+    steps = pool.ledger.count("step") * pool.steps_per_sync
+    inter = [i for i in range(len(bodies)) if i in SPEC_INTERACTIVE]
+    rows = [len(bodies[i]["prompt"].encode()) for i in inter]
+    short = sum(1 for r in rows if r <= qm.MAX_GEMV_ROWS)
+    snap = pool.spec_snapshot()
+    want = {
+        "draft_dispatches": w + len(inter), "verify_dispatches": w,
+        "k4": n_layers * ((SPEC_K + 1) * w + w + steps),
+        "k7": n_proj * (SPEC_K + 1) * w + n_proj * short,
+        "gemm": n_proj * (len(inter) - short),
+        "spec_launches": n_layers * (SPEC_K + 2) * w + n_proj * (SPEC_K + 1) * w,
+    }
+    got = {
+        "draft_dispatches": _metric(text, "serving_dispatch_total", phase="draft"),
+        "verify_dispatches": _metric(text, "serving_dispatch_total", phase="verify"),
+        "k4": launches.get("paged_attention", 0), "k7": launches.get(qm.KERNEL, 0),
+        "gemm": launches.get(qm.GEMM, 0), "spec_launches": pool.spec_launches,
+    }
+    drafts = [a["dispatches"].get("draft", 0) for a in autopsies]
+    families = {name: _metric_sum(text, name) for name in (
+        "serve_spec_proposed_total", "serve_spec_accepted_total", "serve_spec_rollbacks_total",
+        "serve_spec_acceptance_rate", "serve_spec_dispatches_per_token")}
+    rec = {"spec_windows": w, "plain_steps": steps, "expected": want, "counted": got,
+           "autopsy_drafts": drafts, "spec_snapshot": snap, "spec_families": families}
+    gauges = [line.split(" ")[0] for line in text.splitlines()
+              if line.startswith("serve_spec_acceptance_rate ")
+              or line.startswith("serve_spec_dispatches_per_token ")]
+    if (got != want or sum(plain.values()) or w == 0
+            or drafts != [1 if i in SPEC_INTERACTIVE else 0 for i in range(len(bodies))]
+            or len(gauges) != 2 or families["serve_spec_proposed_total"] != snap["spec_proposed"]
+            or families["serve_spec_accepted_total"] != snap["spec_accepted"]
+            or families["serve_spec_rollbacks_total"] != snap["spec_rollbacks"]
+            or snap["spec_rollbacks"] == 0):
+        raise AssertionError(f"speculative run's counts off: {rec}, plain calls {plain}, "
+                             f"gauges {gauges}")
+    return rec
+
+
+def phase_speculative(model, draft, card):
+    """Phase 7d: speculative serving at 7B width (module docstring)."""
+
+    from tf_operator_tpu_torch.serve_lm import build_parser, build_pool
+
+    runs = [_spec_run(model, draft, side) for side in SPEC_ORDER]
+    # one speculative window of 8 interactive seats under the profiler
+    pool = build_pool(model, build_parser().parse_args(
+        ["--batching", "8", "--speculative", "--spec-k", str(SPEC_K)]), draft=draft)
+    phase_decode_profile(pool, tier="interactive")
+    del pool
+    free_device_memory()
+    for r in runs:
+        log(f"speculative run ({card}) " + json.dumps({k: v for k, v in r.items()
+                                                       if k != "samples"}))
+    plain = next(r for r in runs if r["side"] == "plain")["samples"]
+    bodies = _spec_bodies()
+    divergences = []
+    seeded = [i for i, b in enumerate(bodies) if b.get("temperature")]
+    for r in runs:
+        if r["side"] != "spec":
+            continue
+        for i, (got, want) in enumerate(zip(r["samples"], plain)):
+            if i in seeded or got == want:
+                continue
+            prompt = np.frombuffer(bodies[i]["prompt"].encode(), np.uint8).astype(np.int64)
+            d = _spec_divergence(model, prompt, got, want)
+            d["request"] = i
+            divergences.append(d)
+    spec_runs = [r for r in runs if r["side"] == "spec"]
+    seeded_samples = {tuple(r["samples"][i]) for r in spec_runs for i in seeded}
+    support = {}
+    for i in seeded:
+        prompt = np.frombuffer(bodies[i]["prompt"].encode(), np.uint8).astype(np.int64)
+        support[i] = _spec_support(model, prompt, spec_runs[0]["samples"][i],
+                                   bodies[i]["top_k"])
+    summary = {}
+    for side in ("plain", "spec"):
+        mine = [r for r in runs if r["side"] == side]
+        summary[side] = {}
+        for key in ("interactive_decode_tokens_per_s", "interactive_ttft_s",
+                    "decode_tokens_per_s", "window_ms"):
+            xs = [r[key] for r in mine]
+            summary[side][key] = {"median": statistics.median(xs),
+                                  "spread": max(xs) - min(xs), "runs": xs}
+    snaps = [r["spec_snapshot"] for r in spec_runs]
+    for key in ("acceptance_rate", "dispatches_per_token", "launches_per_token"):
+        xs = [s[key] for s in snaps]
+        summary["spec"][key] = {"median": statistics.median(xs),
+                                "spread": max(xs) - min(xs), "runs": xs}
+    speedup = (summary["spec"]["interactive_decode_tokens_per_s"]["median"]
+               / summary["plain"]["interactive_decode_tokens_per_s"]["median"])
+    rec = {"summary": summary, "spec_paged_speedup": speedup,
+           "greedy_divergences": divergences, "seeded_repeats": len(seeded_samples) == 1,
+           "seeded_support_margin": support}
+    log(f"speculative vs plain ({card}) " + json.dumps(rec))
+    name, limit = [x.strip() for x in card.split(",")]
+    log("spec record " + json.dumps({"spec_paged_speedup": {
+        "value": speedup, "card": name, "power_limit": limit,
+        "date": time.strftime("%Y-%m-%d"), "artifact": "chip_smoke.py phase 7d",
+        "config": f"llama_7b_shape bf16 target, int8 self-draft, spec_k {SPEC_K}, 8 slots, "
+                  "6 interactive speculating + 3 batch plain, interactive decode tokens/s "
+                  "(median of 3 runs each side)"}}))
+    if any(not d["tie"] for d in divergences):
+        raise AssertionError(f"speculative greedy rows off the plain pool's: {divergences}")
+    if len(seeded_samples) != 1 or any(m < -SPEC_SUPPORT_TOL for m in support.values()):
+        raise AssertionError(f"the seeded speculative request: samples {seeded_samples}, "
+                             f"support margins {support}")
+    return rec
 
 
 #: flash kernels (K1-K3) against their plain versions: kernel by kernel
@@ -1764,17 +2100,18 @@ def phase_serve_artifact(trainer, export_dir):
     return rec
 
 
-def phase_int8_serving(bf16_stats):
-    """Phase 9: the 7B int8 model through ``load_model(quantize="int8")``
-    behind the server; K7, GEMM-route and K4 counts; no plain calls."""
+def load_int8_7b():
+    """The 7B int8 model as ``--quantize int8`` loads it
+    (``load_model(quantize="int8")``: the seeded float32 draws quantized
+    as they are made), and its weight bytes against bf16's."""
 
     from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape
-    from tf_operator_tpu_torch.ops import quant_matmul as qm
     from tf_operator_tpu_torch.ops.quant import state_bytes
     from tf_operator_tpu_torch.serve_lm import load_model
 
     dev = torch.device("cuda")
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = load_model(dev, max_len=2048, model="llama-7b", init_seed=0, quantize="int8")
     torch.cuda.synchronize()
@@ -1783,8 +2120,17 @@ def phase_int8_serving(bf16_stats):
                                                  device="meta").state_dict()),
                "int8_bytes": state_bytes(model.state_dict()),
                "load_and_quantize_s": load_s,
-               "peak_during_load_gib": torch.cuda.max_memory_allocated() / 2**30}
+               "peak_during_load_gib": (torch.cuda.max_memory_allocated() - base) / 2**30}
     log("int8 weights " + json.dumps(weights))
+    return model
+
+
+def phase_int8_serving(bf16_stats, model):
+    """Phase 9: the 7B int8 model (``load_int8_7b``) behind the server;
+    K7, GEMM-route and K4 counts; no plain calls."""
+
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+
     qm.plain_calls.clear()
     stats, pool = phase_main_path(model, tag="int8 main path")
     plain = dict(qm.plain_calls)
@@ -2359,13 +2705,18 @@ def main():
     phase_plane_cost(model, card)
     phase_pressure(model, card)
     phase_end_to_end(model)
+    # the int8 model serves as phase 7d's self-draft and then as phase
+    # 9's model, so the weights are made and quantized once
+    int8_model = load_int8_7b()
+    phase_speculative(model, int8_model, card)
     # the pool holds reference cycles (the prefix cache's callbacks), so
     # the bf16 weights and arena go only with a collection
     del model
     free_device_memory()
     log(f"bf16 serving phases done at {time.perf_counter() - t0:.1f} s")
 
-    int8_stats, model = phase_int8_serving(main_stats)
+    int8_stats, model = phase_int8_serving(main_stats, int8_model)
+    del int8_model
     phase_int8_end_to_end(model)
     del model
     free_device_memory()

@@ -49,6 +49,10 @@ than the grid holds on chip, ragged shapes up to C = 20000): y as above,
 the moments within 1e-4 relative (sums of up to 401,408 rows a channel in
 another order), and the same bits from run to run.
 
+At the speculative verify shape (8 seats, spec_k 4, 7B width) K4 runs
+5 query rows a head and K7 40 rows, each held as above; a speculating
+tiny pool through both kernels decodes the plain pool's tokens.
+
 The paged pool's swap copies (preemption to pinned host memory and back
 into other block ids) are held bit for bit, and a preempted request's
 tokens, greedy and seeded, equal an undisturbed pool's exactly.
@@ -554,6 +558,59 @@ def test_tiny_int8_pool_through_the_kernel_matches_plain_generate(dev):
     for p, rid in zip(prompts, rids):
         want = generate(plain, torch.as_tensor(p[None]).to(dev), 10)[0].cpu().numpy()
         np.testing.assert_array_equal(pool.result(rid), want)
+
+
+#: the speculative verify pass at 7B width (8 seats, spec_k 4): K4 at
+#: k_new = 5 query rows a head (MHA), and K7 at M = 8 x 5 = 40 rows at
+#: each projection shape (the verify pass of an int8 target)
+VERIFY_K7_SHAPES = [(4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_verify_shape_k4_matches_plain(dev, dtype):
+    args = _rig(dev, 21, dtype=dtype, s=8, h=32, hkv=32, d=128, bs=16, mb=24, k_new=5)
+    before = _build.launches[KERNEL]
+    got = paged_attention_multi(*args)
+    torch.cuda.synchronize()
+    assert _build.launches[KERNEL] == before + 1
+    want = paged_attention_multi(*args, impl="plain")
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], err
+
+
+@pytest.mark.parametrize("k, n", VERIFY_K7_SHAPES, ids=lambda v: str(v))
+def test_verify_shape_k7_matches_plain(dev, k, n):
+    x, qt = _qm_inputs(dev, k + n, 40, k, n, torch.bfloat16)
+    _build.launches.clear()
+    got = qm.quant_matmul(x, qt, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _build.launches == {qm.KERNEL: 1}
+    want = qm.quant_matmul(x, qt, torch.bfloat16, impl="plain")
+    assert _row_rel(got, want) <= QM_RTOL[torch.bfloat16]
+
+
+def test_tiny_speculating_pool_through_the_kernels_matches_the_plain_pool(dev):
+    """float32 llama_tiny with its int8 self-draft: the speculating
+    pool's greedy tokens through K4 (k_new 1 and spec_k + 1) and K7
+    equal the plain pool's."""
+
+    cfg = llama_tiny(vocab_size=256, max_len=64, dtype=torch.float32)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 2, dev), dev)
+    draft = LlamaLM.from_state_dict(cfg, init_params(cfg, 2, dev, quantize=True), dev)
+    prompts = [np.arange(n) % 256 for n in (7, 9, 20)]
+    plain = PagedContinuousBatchingDecoder(model, slots=3, steps_per_sync=4, kv_block_size=8)
+    want = [plain.submit(p, 12, tier="interactive") for p in prompts]
+    plain.run()
+    spec = PagedContinuousBatchingDecoder(model, slots=3, steps_per_sync=4, kv_block_size=8,
+                                          draft_model=draft, spec_k=3)
+    _build.launches.clear()
+    rids = [spec.submit(p, 12, tier="interactive") for p in prompts]
+    spec.run()
+    assert _build.launches[KERNEL] > 0 and _build.launches[qm.KERNEL] > 0
+    for rid, w in zip(rids, want):
+        np.testing.assert_array_equal(spec.result(rid), plain.result(w))
+    snap = spec.spec_snapshot()
+    assert snap["spec_accepted"] > 0 and snap["launches_per_token"] > 0
 
 
 BN_SHAPES = [(4, 8, 8, 64), (8, 28, 28, 128), (2, 3, 3, 5), (34, 1, 1, 7), (1, 9, 5, 130),

@@ -610,10 +610,12 @@ def test_building_a_server_installs_nothing_process_wide(tiny):  # noqa: F811
 
 # -- the hot-sync lint twin ---------------------------------------------------
 
-#: the pool's step, growth, swap and records paths: none may read a CUDA
-#: tensor outside a ``with ...dispatch(...)`` block
+#: the pool's step (its plain and speculative windows), growth, swap and
+#: records paths: none may read a CUDA tensor outside a ``with
+#: ...dispatch(...)`` block
 HOT_METHODS = {
-    "step", "_write_growth", "_grow_seats_locked", "_alloc_blocks_locked",
+    "step", "_plain_window", "_spec_window", "_seat_mask", "_count_spec",
+    "_write_growth", "_grow_seats_locked", "_grow_row", "_alloc_blocks_locked",
     "_preempt_seat_locked", "_admit_swapped", "_plan_resume_locked",
     "_pick_victim_locked", "_demote_queued_locked", "_plan_admission",
     "_swap_out", "_swap_in", "_retire_device_locked", "_finish_locked",
@@ -721,9 +723,10 @@ def test_walker_catches_a_planted_sync():
 
 def test_dispatch_blocks_hold_the_fetches_they_time():
     """What serving_dispatch_seconds times on CUDA (utils/metrics.py):
-    the step block holds the window's one fetch, the admission block
-    its first token's, the swap blocks their synchronous copies; the
-    retire block holds no fetch and times its enqueue."""
+    the step block holds the window's one fetch, the verify block the
+    speculative window's, the admission block its first token's, the
+    swap blocks their synchronous copies; the retire and draft blocks
+    hold no fetch and time their enqueue."""
 
     holds = collections.defaultdict(set)
     for node in ast.walk(_pool_tree()):
@@ -735,8 +738,10 @@ def test_dispatch_blocks_hold_the_fetches_they_time():
                 f = child.func
                 holds[phase].add(f.attr if isinstance(f, ast.Attribute) else
                                  getattr(f, "id", ""))
-    assert set(holds) == {"admission", "step", "retire", "swap_out", "swap_in"}
-    assert "cpu" in holds["step"] and "int" in holds["admission"]
+    assert set(holds) == {"admission", "step", "draft", "verify", "retire", "swap_out",
+                          "swap_in"}
+    assert "cpu" in holds["step"] and "cpu" in holds["verify"] and "int" in holds["admission"]
+    assert not holds["draft"] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"})
     assert "_swap_out" in holds["swap_out"] and "_swap_in" in holds["swap_in"]
     assert not holds["retire"] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"})
     assert set(holds) <= set(metrics.DISPATCH_PHASES)

@@ -61,14 +61,39 @@ CUDA paged-attention kernel on the card); the window's tokens reach
 the host in one fetch.  Finished seats retire in one batch that resets
 their table rows before their freed blocks can be allocated again.
 
+Speculative decoding (``draft_model=``, ``spec_k``, ``spec_tiers``):
+requests of the tiers in ``spec_tiers`` decode through a draft model
+whose KV pages through the same allocator as the target's, in an arena
+twin of its own (a draft block is a block: refcounted, preemptable,
+counted in ``kv_blocks_pressure``; it is never prefix-shared).  A
+speculating request commits twice its blocks; its admission adds one
+``draft`` dispatch that prefills the full prompt through the draft.  A
+window partitions the seats: plain seats take the ``step`` dispatch,
+speculating seats one ``draft`` dispatch (spec_k + 1 draft steps over
+the shared lengths, each sampled through the plain sampler's transform,
+keeping its distribution q) and one ``verify`` dispatch (one target
+pass over the last token and the spec_k proposals, the paged attention
+at k_new = spec_k + 1).  Greedy seats accept a proposal while it equals
+the target's argmax; sampled seats accept while ``u * q(tok) <=
+p(tok)`` and draw the correction from ``clip(p - q, 0)`` (from p on full
+acceptance).  The lengths rewind in the same pass to ``L + accepted +
+1``, so the rejected appends of both arenas are dead by the length
+mask.  Each program masks the other partition's seats to scratch: a
+mixed window is 3 dispatches, an all-speculating one 2.  A sampled
+seat's draft, acceptance and correction draws all come from its
+request's generator.  Preemption swaps the draft blocks with the
+target's (or parks them live), and resume restores both at the same
+shared length.  ``spec_snapshot()`` gives the JAX pool's accounting
+plus ``launches_per_token``.
+
 Records (the JAX pool's, at its sites): every group of device calls
-runs under ``self.dispatch(phase)`` (admission, step, retire, swap_out,
-swap_in), which the :class:`DispatchLedger` counts, times and, with a
-tracer, records as a ``dispatch.<phase>`` span.  Each request carries a
-trace id (given, or minted at submit) and an autopsy in the
-:class:`RequestLog`; its lifecycle spans (``queue.wait``, ``admission``,
-``decode.window``, ``preempt``, ``swap_out``, ``swap_in``, ``retire``)
-join that trace.  With a metrics registry the pool observes the SLO
+runs under ``self.dispatch(phase)`` (admission, step, draft, verify,
+retire, swap_out, swap_in), which the :class:`DispatchLedger` counts,
+times and, with a tracer, records as a ``dispatch.<phase>`` span.
+Each request carries a trace id (given, or minted at submit) and an
+autopsy in the :class:`RequestLog`; its lifecycle spans
+(``queue.wait``, ``admission``, ``draft``, ``decode.window``,
+``preempt``, ``swap_out``, ``swap_in``, ``retire``) join that trace.  With a metrics registry the pool observes the SLO
 histograms (queue wait, TTFT, time per output token, by tier), sets
 the queue, in-flight and ``kv_blocks_*`` gauges at every refresh, and
 counts ``serve_preemptions_total`` and ``kv_swap_bytes_total``; each
@@ -104,12 +129,16 @@ from tf_operator_tpu_torch.models.kv_blocks import (
     ArenaTimeline,
     BlockAllocator,
     BlockError,
+    NotPageableError,
     SwapArena,
     blocks_for,
 )
 from tf_operator_tpu_torch.models.llama import LlamaLM
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, chain_keys
 from tf_operator_tpu_torch.models.transformer import PagedCache
+from tf_operator_tpu_torch.ops import _build
+from tf_operator_tpu_torch.ops import paged_attention as _pa
+from tf_operator_tpu_torch.ops import quant_matmul as _qm
 from tf_operator_tpu_torch.utils.metrics import DispatchLedger
 
 #: the pool's static top-k width: a request's top_k thresholds within
@@ -156,6 +185,62 @@ def _step_sample(logits: torch.Tensor, temps: torch.Tensor,
     return out
 
 
+def _spec_sample_with_dist(logits: torch.Tensor, temps: torch.Tensor,
+                           top_ks: torch.Tensor,
+                           generators: Dict[int, torch.Generator]):
+    """``_step_sample`` plus the distribution each sampled seat's token
+    was drawn from, the draft side of rejection sampling: (tok [S],
+    q [S, V] or None when no seat samples)."""
+
+    out = torch.argmax(logits, dim=-1)
+    if not generators:
+        return out, None
+    scaled = _masked_scaled(logits, temps, top_ks)
+    for slot, g in generators.items():
+        out[slot] = sample_categorical(scaled[slot], g)
+    return out, torch.softmax(scaled, dim=-1)
+
+
+def _spec_accept(logits: torch.Tensor, drafts: torch.Tensor, q: Optional[torch.Tensor],
+                 temps: torch.Tensor, top_ks: torch.Tensor,
+                 generators: Dict[int, torch.Generator]):
+    """Acceptance and correction of one verify pass: the target's
+    logits [S, K+1, V] over ``[x0, d1..dK]``, the proposals ``drafts``
+    [S, K] and their distributions ``q`` [S, K, V].  Greedy seats accept
+    d(t+1) while it equals the argmax of row t and correct with the
+    argmax of the first rejected row; sampled seats (those in
+    ``generators``) accept while ``u * q(d) <= p(d)``, with p and q the
+    distributions after the plain sampler's transform, and draw the
+    correction from ``clip(p - q, 0)`` at the first rejection (from p
+    after K acceptances).  Returns (accepted m [S], correction [S])."""
+
+    s, k1, v = logits.shape
+    k = k1 - 1
+    g = torch.argmax(logits, dim=-1)  # [S, K+1]
+    ok = drafts == g[:, :k]
+    if generators:
+        p = torch.softmax(_masked_scaled(
+            logits.reshape(s * k1, v), temps.repeat_interleave(k1),
+            top_ks.repeat_interleave(k1)), dim=-1).reshape(s, k1, v)
+        p_tok = torch.gather(p[:, :k], 2, drafts[..., None])[..., 0]
+        q_tok = torch.gather(q, 2, drafts[..., None])[..., 0]
+        u = torch.zeros((s, k), dtype=p.dtype, device=p.device)
+        for slot, gen in generators.items():
+            u[slot] = torch.rand(k, generator=gen, device=p.device)
+        ok = torch.where(temps[:, None] > 0.0, u * q_tok <= p_tok, ok)
+    m = torch.where(ok.all(dim=1), k, torch.argmax((~ok).int(), dim=1))
+    corr = torch.gather(g, 1, m[:, None])[:, 0]
+    if generators:
+        # q padded with a zero row: after K acceptances the correction
+        # is a draw from p (the bonus token)
+        q_pad = torch.cat([q, torch.zeros_like(q[:, :1])], dim=1)
+        at = m[:, None, None].expand(s, 1, v)
+        resid = (torch.gather(p, 1, at) - torch.gather(q_pad, 1, at))[:, 0].clamp_min(0.0)
+        for slot, gen in generators.items():
+            corr[slot] = sample_categorical(torch.log(resid[slot] + 1e-20), gen)
+    return m, corr
+
+
 def _admission_sample(last: torch.Tensor, temperature: float,
                       top_k: Optional[int],
                       generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -174,6 +259,14 @@ def _admission_sample(last: torch.Tensor, temperature: float,
 
 def _nbytes(t: Optional[torch.Tensor]) -> int:
     return 0 if t is None else t.numel() * t.element_size()
+
+
+def _cat_host(old: Optional[torch.Tensor], new: Optional[torch.Tensor]):
+    """Two swap copies [layers, 2, n, ...] of one record, in block order."""
+
+    if old is None or new is None:
+        return new if old is None else old
+    return torch.cat([old, new], dim=2)
 
 
 class RequestLog:
@@ -390,14 +483,22 @@ class PagedContinuousBatchingDecoder:
     (default: the ledger's registry) receives the SLO histograms, the
     gauges and the counters; ``model_label`` is their ``model`` label.
     An HTTP read of the records takes their own locks, never the
-    pool's."""
+    pool's.
+
+    ``draft_model`` (a ``LlamaLM`` with weights, for example the target's
+    int8 twin) turns on speculative decoding for the tiers in
+    ``spec_tiers``, ``spec_k`` proposals a window (module docstring).  It
+    takes the place of the JAX pool's ``draft_model`` + ``draft_params``
+    pair.  A configuration that cannot speculate raises here rather than
+    serve non-speculatively."""
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
                  kv_blocks: Optional[int] = None, kv_block_size: int = 16,
                  reserve: str = "lazy", swap_blocks: Optional[int] = None,
                  age_boost_seconds: float = 30.0,
                  ledger: Optional[DispatchLedger] = None, metrics=None,
-                 model_label: str = ""):
+                 model_label: str = "", draft_model: Optional[LlamaLM] = None,
+                 spec_k: int = 4, spec_tiers=("interactive",)):
         cfg = model.cfg
         self.ledger = ledger if ledger is not None else DispatchLedger()
         self.metrics = metrics if metrics is not None else self.ledger.metrics
@@ -427,9 +528,6 @@ class PagedContinuousBatchingDecoder:
             )
         self.block_size = bs
         self.max_blocks = self.max_len // bs
-        #: a window's K appends straddle at most this many blocks: the
-        #: width of the growth written before each window
-        self._step_nbw = (self.steps_per_sync - 1) // bs + 2
         if kv_blocks is None:
             # the HBM a contiguous pool would pin: slots x max_len
             kv_blocks = self.slots * self.max_blocks
@@ -437,9 +535,33 @@ class PagedContinuousBatchingDecoder:
         self.num_blocks = int(kv_blocks) + 1
         self.alloc = BlockAllocator(self.num_blocks, bs)
         self._arena = paged_arena(model, self.num_blocks, bs)
+        self.spec_enabled = draft_model is not None
+        self.spec_k = int(spec_k)
+        self.spec_tiers = tuple(spec_tiers)
+        #: slot -> physical ids behind a speculating seat's draft table
+        #: row, in logical order (all private: the draft never shares)
+        self._draft_refs: Dict[int, List[int]] = {}
+        self._draft_arena = self._draft_tables_dev = None
+        # the JAX pool's host counters: dispatches a token = 2 windows /
+        # emitted; the port adds the K4 + K7 launches of draft and verify
+        self.spec_windows = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollbacks = 0
+        self.spec_emitted = 0
+        self.spec_launches = 0
+        if self.spec_enabled:
+            self._init_draft(draft_model)
+        #: a window's appends (steps_per_sync, or spec_k + 1 for a
+        #: speculating seat) straddle at most this many blocks: the
+        #: width of the growth written before each window
+        adv = max(self.steps_per_sync, self.spec_k + 1 if self.spec_enabled else 1)
+        self._step_nbw = (adv - 1) // bs + 2
         #: preempted seats' private blocks wait here until resume
         self.swap = SwapArena(capacity_blocks=swap_blocks)
         self.preemptions = 0
+        #: decode windows run (a window may hold a step, a draft and a verify)
+        self.windows = 0
         self.swap_log: "collections.deque[dict]" = collections.deque(maxlen=256)
         dev = self.device
         # device-resident seat state: written at admission and resume,
@@ -476,6 +598,74 @@ class PagedContinuousBatchingDecoder:
             block_size=bs, usable=self.alloc.usable, replica="0", role=ROLE,
         )
         self._update_kv_gauges()
+
+    def _init_draft(self, draft: LlamaLM) -> None:
+        """Validate the speculative configuration (the JAX pool's checks
+        and messages) and build the draft's decode views, arena twin and
+        table rows."""
+
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k!r}")
+        bad = [t for t in self.spec_tiers if t not in _TIER_RANK]
+        if bad:
+            raise ValueError(
+                f"spec_tiers {bad} are not SLO tiers {SLO_TIERS} — failing instead of "
+                "silently serving them non-speculatively"
+            )
+        if draft.device.type == "meta":
+            # a module without weights: the JAX pool's draft_model
+            # given without draft_params
+            raise ValueError("draft_model requires draft weights: its parameters are on "
+                             "the meta device")
+        if draft.device != self.device:
+            raise ValueError(f"draft on {draft.device}, target on {self.device}: the "
+                             "speculative window runs both on one device")
+        if draft.cfg.max_len != self.max_len:
+            raise ValueError(
+                f"draft max_len={draft.cfg.max_len} != target max_len={self.max_len} — "
+                "the shared block tables need one geometry"
+            )
+        try:
+            self._draft_arena = paged_arena(draft, self.num_blocks, self.block_size)
+            self._draft_pmodel = paged_decode_variant(draft)
+        except NotPageableError as exc:
+            raise ValueError(
+                f"draft model cannot page: {exc} — failing instead of silently serving "
+                "non-speculatively"
+            ) from exc
+        self._draft_dmodel = decode_variant(draft)
+        self._draft_tables_dev = torch.full(
+            (self.slots, self.max_blocks), SCRATCH_BLOCK, dtype=torch.int32, device=self.device
+        )
+
+    def _spec_tier(self, tier: str) -> bool:
+        """True when requests of ``tier`` decode speculatively."""
+
+        return self.spec_enabled and tier in self.spec_tiers
+
+    def _spec_req(self, req: "_Request") -> bool:
+        return self._spec_tier(req.tier)
+
+    def spec_snapshot(self) -> Dict[str, float]:
+        """The JAX pool's speculative accounting (acceptance rate, and
+        dispatches a token: draft + verify dispatches over the tokens
+        delivered), plus ``launches_per_token``: the K4 and K7 launches of
+        those dispatches over the same tokens, what a dispatch costs in an
+        eager step (0 on the CPU, where the plain versions run)."""
+
+        windows, emitted = self.spec_windows, self.spec_emitted
+        return {
+            "spec_windows": float(windows),
+            "spec_proposed": float(self.spec_proposed),
+            "spec_accepted": float(self.spec_accepted),
+            "spec_rollbacks": float(self.spec_rollbacks),
+            "spec_emitted": float(emitted),
+            "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+            "dispatches_per_token": 2.0 * windows / emitted if emitted else float("inf"),
+            "launches_per_token": (self.spec_launches / emitted if emitted
+                                   else float("inf")),
+        }
 
     # -- public API --------------------------------------------------------
 
@@ -517,6 +707,9 @@ class PagedContinuousBatchingDecoder:
         if tier not in SLO_TIERS:
             raise ValueError(f"tier must be one of {SLO_TIERS}, got {tier!r}")
         need = blocks_for(prompt.size + max_new_tokens, self.block_size)
+        if self._spec_tier(tier):
+            # a speculating seat pins a draft twin of every target block
+            need *= 2
         if need > self.alloc.usable:
             raise ValueError(
                 f"request needs {need} KV blocks but the arena has only "
@@ -671,7 +864,9 @@ class PagedContinuousBatchingDecoder:
                 rec = self.swap.peek(r.rid)
                 total += rec["n_blocks"] if rec is not None else 0
             else:
-                total += self._commit_blocks(r.prompt.size, r.budget)
+                commit = self._commit_blocks(r.prompt.size, r.budget)
+                # the draft twin rides a speculating request's admission
+                total += 2 * commit if self._spec_req(r) else commit
         return total
 
     def _update_kv_gauges(self) -> None:
@@ -781,10 +976,26 @@ class PagedContinuousBatchingDecoder:
         row = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
         row[: len(shared)] = shared
         row[len(shared) : total] = new
-        return {"shared": shared, "new": new, "keys": keys, "row": row}
+        plan = {"shared": shared, "new": new, "keys": keys, "row": row,
+                "draft_new": [], "drow": None}
+        if self._spec_req(req):
+            # the draft twin: the same commit, all fresh (its KV depends
+            # on the draft's weights, so it is never prefix-shared)
+            dneed = self._commit_blocks(p_len, req.budget)
+            draft_new = self._alloc_blocks_locked(
+                dneed, max_victim_rank=_TIER_RANK[req.tier] - 1,
+            )
+            if draft_new is None:
+                self.alloc.release(shared + new)
+                return None
+            plan["draft_new"] = draft_new
+            plan["drow"] = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
+            plan["drow"][:dneed] = draft_new
+        return plan
 
     def _release_plan(self, plan) -> None:
-        refs = plan.get("shared", []) + plan.get("new", []) + plan.get("extra", [])
+        refs = [b for key in ("shared", "new", "extra", "draft_new", "draft_extra")
+                for b in plan.get(key, [])]
         if refs:
             self.alloc.release(refs)
 
@@ -828,9 +1039,10 @@ class PagedContinuousBatchingDecoder:
                 continue
             refs = self._seat_refs.get(slot, [])
             private = sum(1 for b in refs if self.alloc.refcount(b) == 1)
-            if private == 0 or not self.swap.admit(private):
+            dprivate = len(self._draft_refs.get(slot, []))
+            if private == 0 or not self.swap.admit(private + dprivate):
                 continue
-            cands.append((slot, r, len(refs)))
+            cands.append((slot, r, len(refs) + dprivate))
         if not cands:
             return None
         return min(
@@ -874,26 +1086,38 @@ class PagedContinuousBatchingDecoder:
             if not q.swapped or q.rid == exclude_rid or _TIER_RANK[q.tier] > max_rank:
                 continue
             rec = self.swap.peek(q.rid)
-            if rec is None or not rec["live"] or not self.swap.admit(len(rec["live"])):
+            if rec is None:
+                continue
+            n_live = len(rec["live"]) + len(rec["draft_live"])
+            if not n_live or not self.swap.admit(n_live):
                 continue
             cands.append(q)
         if not cands:
             return False
         q = max(cands, key=lambda r: self._queue_sort_key(r, now))
         rec = self.swap.peek(q.rid)
-        live = rec["live"]
-        with self._request_span(q, "swap_out", blocks=len(live), reason="demote"):
-            with self.dispatch("swap_out", rid=q.rid, blocks=len(live)):
-                added = self._swap_out([b for _, b in live])
-        host = added if rec["host"] is None else torch.cat([rec["host"], added], dim=2)
+        live, dlive = rec["live"], rec["draft_live"]
+        added = dadded = None
+        with self._request_span(q, "swap_out", blocks=len(live) + len(dlive),
+                                reason="demote"):
+            with self.dispatch("swap_out", rid=q.rid, blocks=len(live) + len(dlive)):
+                if live:
+                    added = self._swap_out([b for _, b in live])
+                if dlive:
+                    # a parked speculating seat's draft blocks pin the
+                    # arena as its target blocks do
+                    dadded = self._swap_out(dlive, self._draft_arena)
         merged = {"live": [], "blocks": rec["blocks"] + [i for i, _ in live],
-                  "host": host}
+                  "host": _cat_host(rec["host"], added), "draft_live": [],
+                  "draft_n": rec["draft_n"] + len(dlive),
+                  "draft_host": _cat_host(rec["draft_host"], dadded)}
+        nbytes = _nbytes(added) + _nbytes(dadded)
         self.swap.pop(q.rid)
-        self.swap.put(q.rid, merged, n_blocks=rec["n_blocks"] + len(live),
-                      nbytes=_nbytes(added))
-        self.alloc.release([b for _, b in live])
-        self._count_swap_bytes("out", _nbytes(added))
-        self.request_log.add_swap(q.entry, len(live))
+        self.swap.put(q.rid, merged, n_blocks=rec["n_blocks"] + len(live) + len(dlive),
+                      nbytes=nbytes)
+        self.alloc.release([b for _, b in live] + list(dlive))
+        self._count_swap_bytes("out", nbytes)
+        self.request_log.add_swap(q.entry, len(live) + len(dlive))
         self.request_log.count_dispatch(q.entry, "swap_out")
         return True
 
@@ -918,18 +1142,19 @@ class PagedContinuousBatchingDecoder:
             "events": None if ev0 is None else (ev0, ev1),
         })
 
-    def _swap_out(self, ids: List[int]) -> torch.Tensor:
-        """Arena rows ``ids`` of every layer's K and V as one host tensor
-        [layers, 2, n, Hkv, bs, D]: gathered on the device, then one
-        synchronous device->host copy (pinned on CUDA), so the record is
-        complete when this returns."""
+    def _swap_out(self, ids: List[int], arena=None) -> torch.Tensor:
+        """Rows ``ids`` of every layer's K and V of ``arena`` (default:
+        the target's) as one host tensor [layers, 2, n, Hkv, bs, D]:
+        gathered on the device, then one synchronous device->host copy
+        (pinned on CUDA), so the record is complete when this returns."""
 
+        arena = self._arena if arena is None else arena
         mark = self._swap_mark()
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
-        k0 = self._arena[0][0]
-        shape = (len(self._arena), 2, len(ids)) + tuple(k0.shape[1:])
+        k0 = arena[0][0]
+        shape = (len(arena), 2, len(ids)) + tuple(k0.shape[1:])
         buf = torch.empty(shape, dtype=k0.dtype, device=self.device)
-        for i, pair in enumerate(self._arena):
+        for i, pair in enumerate(arena):
             for j, a in enumerate(pair):
                 torch.index_select(a, 0, idx, out=buf[i, j])
         host = buf
@@ -939,15 +1164,17 @@ class PagedContinuousBatchingDecoder:
         self._log_swap("out", len(ids), _nbytes(host), mark)
         return host
 
-    def _swap_in(self, host: torch.Tensor, ids: List[int]) -> None:
-        """Write a record's host rows into arena rows ``ids``: one
-        synchronous host->device copy (the record may go once this
-        returns), then a scatter per layer's K and V."""
+    def _swap_in(self, host: torch.Tensor, ids: List[int], arena=None) -> None:
+        """Write a record's host rows into rows ``ids`` of ``arena``
+        (default: the target's): one synchronous host->device copy (the
+        record may go once this returns), then a scatter per layer's K
+        and V."""
 
+        arena = self._arena if arena is None else arena
         mark = self._swap_mark()
         idx = torch.as_tensor(ids, dtype=torch.long, device=self.device)
         dev = host.to(self.device)
-        for i, pair in enumerate(self._arena):
+        for i, pair in enumerate(arena):
             for j, a in enumerate(pair):
                 a.index_copy_(0, idx, dev[i, j])
         self._log_swap("in", len(ids), _nbytes(host), mark)
@@ -966,37 +1193,46 @@ class PagedContinuousBatchingDecoder:
 
         req = self._active.pop(slot)
         refs = self._seat_refs.pop(slot)
+        drefs = self._draft_refs.pop(slot, [])
         req.slot = None
         exempt = [(i, b) for i, b in enumerate(refs) if self.alloc.refcount(b) > 1]
         private = [(i, b) for i, b in enumerate(refs) if self.alloc.refcount(b) == 1]
-        if private and not self.swap.admit(len(private)):
-            live, copied = exempt + private, []
+        # a speculating seat's draft blocks (all private) go with its
+        # target blocks, so that it resumes without a draft re-prefill
+        if (private or drefs) and not self.swap.admit(len(private) + len(drefs)):
+            live, copied, dlive, dcopied = exempt + private, [], list(drefs), []
         else:
-            live, copied = exempt, private
-        host = None
-        if copied:
-            with self._request_span(req, "swap_out", slot=slot, blocks=len(copied),
+            live, copied, dlive, dcopied = exempt, private, [], list(drefs)
+        host = dhost = None
+        n_copied = len(copied) + len(dcopied)
+        if n_copied:
+            with self._request_span(req, "swap_out", slot=slot, blocks=n_copied,
                                     reason=reason):
-                with self.dispatch("swap_out", rid=req.rid, blocks=len(copied)):
-                    host = self._swap_out([b for _, b in copied])
+                with self.dispatch("swap_out", rid=req.rid, blocks=n_copied):
+                    if copied:
+                        host = self._swap_out([b for _, b in copied])
+                    if dcopied:
+                        dhost = self._swap_out(dcopied, self._draft_arena)
             self.request_log.count_dispatch(req.entry, "swap_out")
         self._retire_device_locked([slot], [req])
-        freed = self.alloc.release([b for _, b in copied]) if copied else 0
+        freed = self.alloc.release([b for _, b in copied] + dcopied) if n_copied else 0
+        nbytes = _nbytes(host) + _nbytes(dhost)
         self.swap.put(
-            req.rid, {"live": live, "blocks": [i for i, _ in copied], "host": host},
-            n_blocks=len(copied), nbytes=_nbytes(host),
+            req.rid, {"live": live, "blocks": [i for i, _ in copied], "host": host,
+                      "draft_live": dlive, "draft_n": len(dcopied), "draft_host": dhost},
+            n_blocks=n_copied, nbytes=nbytes,
         )
         req.swapped = True
         req.tokens_since_seat = 0
         now = time.monotonic()
         self._emit_span(req, "preempt", now, now, reason=reason, tier=req.tier,
-                        blocks_swapped=len(copied), blocks_live=len(live))
-        self.request_log.count_preempt(req.entry, swapped_blocks=len(copied))
+                        blocks_swapped=n_copied, blocks_live=len(live) + len(dlive))
+        self.request_log.count_preempt(req.entry, swapped_blocks=n_copied)
         self.preemptions += 1
         if self.metrics is not None:
             self.metrics.inc("serve_preemptions_total", tier=req.tier,
                              model=self.model_label, replica="0")
-        self._count_swap_bytes("out", _nbytes(host))
+        self._count_swap_bytes("out", nbytes)
         self._queue.append(req)
         return freed
 
@@ -1013,19 +1249,24 @@ class PagedContinuousBatchingDecoder:
                 f"request {req.rid} is marked swapped but has no SwapArena "
                 "record — its KV cannot be restored"
             )
-        n_up = len(rec["blocks"])
+        n_up, n_up_d = len(rec["blocks"]), rec["draft_n"]
         committed = len(rec["live"]) + n_up
         length = req.prompt.size + len(req.tokens) - 1
         cap = max(req.prompt.size + req.budget - 1, 1)
-        target = blocks_for(min(length + self.steps_per_sync, cap), self.block_size)
+        spec = self._spec_req(req)
+        adv = self.spec_k + 1 if spec else self.steps_per_sync
+        target = blocks_for(min(length + adv, cap), self.block_size)
         extra = max(0, target - committed)
+        dextra = max(0, target - len(rec["draft_live"]) - n_up_d) if spec else 0
         ids = self._alloc_blocks_locked(
-            n_up + extra, max_victim_rank=_TIER_RANK[req.tier] - 1,
+            n_up + extra + n_up_d + dextra, max_victim_rank=_TIER_RANK[req.tier] - 1,
             exclude_rid=req.rid,
         )
         if ids is None:
             return None
-        return {"rec": rec, "new": ids[:n_up], "extra": ids[n_up:]}
+        b, c = n_up + extra, n_up + extra + n_up_d
+        return {"rec": rec, "new": ids[:n_up], "extra": ids[n_up:b],
+                "draft_new": ids[b:c], "draft_extra": ids[c:]}
 
     def _seat_device_row(self, slot: int, row: np.ndarray, length: int,
                          req: _Request, tok) -> None:
@@ -1051,20 +1292,35 @@ class PagedContinuousBatchingDecoder:
             row[i] = refs[i] = new[j]
         row[committed : committed + len(extra)] = extra
         refs.extend(extra)
-        with self._request_span(req, "swap_in", slot=slot, blocks_uploaded=len(new),
-                                blocks_live=len(rec["live"])):
-            with self.dispatch("swap_in", rid=req.rid, blocks=len(new)):
+        # the draft twin: live blocks re-map, swapped ones upload into
+        # fresh ids, at the same shared length as the target, so the
+        # next draft window continues as if nothing had happened
+        spec = self._spec_req(req)
+        dnew, dlive = plan["draft_new"], rec["draft_live"]
+        drefs = list(dlive) + list(dnew) + list(plan["draft_extra"])
+        with self._request_span(req, "swap_in", slot=slot,
+                                blocks_uploaded=len(new) + len(dnew),
+                                blocks_live=len(rec["live"]) + len(dlive)):
+            with self.dispatch("swap_in", rid=req.rid, blocks=len(new) + len(dnew)):
                 if new:
                     self._swap_in(rec["host"], new)
+                if dnew:
+                    self._swap_in(rec["draft_host"], dnew, self._draft_arena)
                 self._seat_device_row(slot, row, req.prompt.size + len(req.tokens) - 1,
                                       req, req.tokens[-1])
-        nbytes = _nbytes(rec["host"])
+                if spec:
+                    drow = np.full((self.max_blocks,), SCRATCH_BLOCK, np.int32)
+                    drow[: len(drefs)] = drefs
+                    self._draft_tables_dev[slot] = torch.as_tensor(drow, device=self.device)
+        nbytes = _nbytes(rec["host"]) + _nbytes(rec["draft_host"])
         self.swap.pop(req.rid, nbytes)
         req.swapped = False
         req.slot = slot
         req.tokens_since_seat = 0
         self._active[slot] = req
         self._seat_refs[slot] = refs
+        if spec:
+            self._draft_refs[slot] = drefs
         if req.generator is not None:
             self._generators[slot] = req.generator
         self._count_swap_bytes("in", nbytes)
@@ -1159,16 +1415,39 @@ class PagedContinuousBatchingDecoder:
         refs = plan["shared"] + plan["new"]
         if len(req.tokens) >= req.budget:
             # budget 1: done at admission.  Its blocks go straight back,
-            # so the freshly written device row must be reset first
+            # so the freshly written device row must be reset first; the
+            # draft prefill never runs (nothing is left to speculate on)
             self._retire_device_locked([slot], [req])
-            self._finish_locked(req, self.alloc.release(refs))
+            self._finish_locked(req, self.alloc.release(refs + plan["draft_new"]))
             return
+        if self._spec_req(req):
+            self._draft_prefill_seat(req, slot, plan)
+            self._draft_refs[slot] = list(plan["draft_new"])
         req.slot = slot
         req.tokens_since_seat = 0
         self._active[slot] = req
         self._seat_refs[slot] = refs
         if req.generator is not None:
             self._generators[slot] = req.generator
+
+    def _draft_prefill_seat(self, req: _Request, slot: int, plan) -> None:
+        """One ``draft`` dispatch: the full prompt through the draft at
+        offset 0 into the plan's fresh draft blocks, and the seat's draft
+        table row.  The draft never maps a cached prefix (its KV depends on
+        its own weights), so a prefix-hit admission pays it too."""
+
+        p_len = req.prompt.size
+        n = blocks_for(p_len, self.block_size)
+        with self._request_span(req, "draft", width=p_len, slot=slot,
+                                blocks=len(plan["draft_new"])):
+            with self.dispatch("draft", rid=req.rid, width=p_len):
+                row = torch.as_tensor(plan["drow"], device=self.device)
+                view = gather_block_view(self._draft_arena, row[:n], 0)
+                ids = torch.as_tensor(req.prompt, device=self.device)[None]
+                self._draft_dmodel(ids, cache=view)
+                scatter_block_view(self._draft_arena, view, row, 0, n)
+                self._draft_tables_dev[slot] = row
+        self.request_log.count_dispatch(req.entry, "draft")
 
     # -- decode ------------------------------------------------------------
 
@@ -1185,6 +1464,9 @@ class PagedContinuousBatchingDecoder:
             self._lengths_dev[idx] = 0
             self._temps_dev[idx] = 0.0
             self._topks_dev[idx] = 0
+            if self.spec_enabled:
+                # freed draft blocks re-allocate as soon as target ones
+                self._draft_tables_dev[idx] = SCRATCH_BLOCK
         for s in slots:
             self._generators.pop(s, None)
         for req in reqs:
@@ -1193,64 +1475,91 @@ class PagedContinuousBatchingDecoder:
     def _grow_seats_locked(self):
         """Lazy growth before a window (caller holds the lock): every
         active seat, in priority order, gets the blocks its next window
-        will append into (capped at its budget's last cached position).
-        On shortfall the tier policy preempts a seat of the grower's
-        tier or lower; a grower that still cannot be fed leaves its seat
-        (swapped, or parked without a copy) rather than append into
-        scratch.  Returns the [slots, G] host arrays of logical indices
-        and physical ids to write; unused entries index past the
-        table."""
+        will append into (capped at its budget's last cached position):
+        ``steps_per_sync`` positions, or ``spec_k + 1`` for a speculating
+        seat, whose target and draft rows both grow.  On shortfall the
+        tier policy preempts a seat of the grower's tier or lower; a
+        grower that still cannot be fed leaves its seat (swapped, or
+        parked without a copy) rather than append into scratch.  Returns
+        the [slots, G] host arrays of logical indices and physical ids to
+        write into the target's tables and the draft's (None without a
+        draft); unused entries index past the table."""
 
         G = self._step_nbw
         gl = np.full((self.slots, G), self.max_blocks, np.int32)
         gp = np.full((self.slots, G), SCRATCH_BLOCK, np.int32)
+        gld = gl.copy() if self.spec_enabled else None
+        gpd = gp.copy() if self.spec_enabled else None
         now = time.monotonic()
         order = sorted(self._active.items(),
                        key=lambda kv: self._queue_sort_key(kv[1], now))
         for slot, req in order:
             if slot not in self._active:
                 continue  # preempted as an earlier grower's victim
-            committed = len(self._seat_refs[slot])
+            spec = self._spec_req(req)
             length = req.prompt.size + len(req.tokens) - 1
             cap = max(req.prompt.size + req.budget - 1, 1)
-            delta = blocks_for(min(length + self.steps_per_sync, cap),
-                               self.block_size) - committed
-            if delta <= 0:
+            adv = self.spec_k + 1 if spec else self.steps_per_sync
+            target = blocks_for(min(length + adv, cap), self.block_size)
+            if not self._grow_row(slot, req, self._seat_refs[slot], target, gl, gp):
                 continue
-            ids = self._alloc_blocks_locked(
-                delta, max_victim_rank=_TIER_RANK[req.tier], exclude_slot=slot,
-            )
-            if ids is None:
-                self._preempt_seat_locked(slot, "park")
-                continue
-            gl[slot, :delta] = np.arange(committed, committed + delta, dtype=np.int32)
-            gp[slot, :delta] = ids
-            self._seat_refs[slot].extend(ids)
+            if spec:
+                self._grow_row(slot, req, self._draft_refs[slot], target, gld, gpd)
         # a seat preempted after its growth was staged must not write
-        # freed (possibly re-owned) ids into its dead table row
+        # freed (possibly re-owned) ids into its dead table rows
         for s in range(self.slots):
             if s not in self._active:
                 gl[s] = self.max_blocks
                 gp[s] = SCRATCH_BLOCK
-        return gl, gp
+                if gld is not None:
+                    gld[s] = self.max_blocks
+                    gpd[s] = SCRATCH_BLOCK
+        return gl, gp, gld, gpd
 
-    def _write_growth(self, gl: np.ndarray, gp: np.ndarray) -> None:
-        """All of a window's growth into the device tables in one write
+    def _grow_row(self, slot: int, req: _Request, refs: List[int], target: int,
+                  gl: np.ndarray, gp: np.ndarray) -> bool:
+        """Stage one table row's growth to ``target`` blocks (``refs`` is
+        its list of physical ids, extended in place).  False when the
+        blocks cannot be had and the seat was parked instead."""
+
+        committed = len(refs)
+        delta = target - committed
+        if delta <= 0:
+            return True
+        ids = self._alloc_blocks_locked(
+            delta, max_victim_rank=_TIER_RANK[req.tier], exclude_slot=slot,
+        )
+        if ids is None:
+            self._preempt_seat_locked(slot, "park")
+            return False
+        gl[slot, :delta] = np.arange(committed, committed + delta, dtype=np.int32)
+        gp[slot, :delta] = ids
+        refs.extend(ids)
+        return True
+
+    def _write_growth(self, gl: np.ndarray, gp: np.ndarray, gld: Optional[np.ndarray],
+                      gpd: Optional[np.ndarray]) -> None:
+        """A window's growth into the device tables, one write a table
         (one upload of (slot, index, id) triples), before the window
         reads them."""
 
-        rows, cols = np.nonzero(gl < self.max_blocks)
-        if rows.size == 0:
-            return
-        triples = np.stack([rows, gl[rows, cols], gp[rows, cols]]).astype(np.int64)
-        t = torch.as_tensor(triples, device=self.device)
-        self._tables_dev[t[0], t[1]] = t[2].to(torch.int32)
+        for lo, ph, tables in ((gl, gp, self._tables_dev),
+                               (gld, gpd, self._draft_tables_dev)):
+            if lo is None:
+                continue
+            rows, cols = np.nonzero(lo < self.max_blocks)
+            if rows.size == 0:
+                continue
+            triples = np.stack([rows, lo[rows, cols], ph[rows, cols]]).astype(np.int64)
+            t = torch.as_tensor(triples, device=self.device)
+            tables[t[0], t[1]] = t[2].to(torch.int32)
 
     @torch.inference_mode()
     def step(self) -> int:
-        """Admit, grow the active seats' tables, run one window of
-        ``steps_per_sync`` decode steps for them, retire the finished
-        ones.  Returns the number of seats still active."""
+        """Admit, grow the active seats' tables, run one window for them
+        (the plain seats' ``steps_per_sync`` decode steps, the
+        speculating seats' draft and verify), retire the finished ones.
+        Returns the number of seats still active."""
 
         self._admit()
         with self._lock:
@@ -1262,33 +1571,31 @@ class PagedContinuousBatchingDecoder:
                 self._update_gauges_locked()
                 return 0
             seats_active = len(self._active)
-            enabled = np.zeros(self.slots, bool)
-            enabled[list(self._active)] = True
-            enabled = torch.as_tensor(enabled, device=self.device)
-            # empty seats read and write scratch only
-            tables = torch.where(enabled[:, None], self._tables_dev, SCRATCH_BLOCK)
-            cache = PagedCache(self._arena, tables, self._lengths_dev)
-            toks = self._last_tok
-            window = []
+            spec = {slot for slot, req in self._active.items() if self._spec_req(req)}
+            plain = [slot for slot in self._active if slot not in spec]
             t_window0 = time.monotonic()
-            with self.dispatch("step", active=seats_active):
-                for _ in range(self.steps_per_sync):
-                    logits = self.pmodel(toks[:, None], cache=cache)
-                    toks = _step_sample(logits[:, 0], self._temps_dev,
-                                        self._topks_dev, self._generators)
-                    window.append(toks)
-                host = torch.stack(window).cpu().numpy()  # [K, S]: one fetch
+            host = self._plain_window(plain) if plain else None
+            win = self._spec_window(sorted(spec)) if spec else None
             t_window1 = time.monotonic()
-            self._lengths_dev = torch.where(enabled, cache.lengths, self._lengths_dev)
-            self._last_tok = torch.where(enabled, toks, self._last_tok)
+            self.windows += 1
             finished = []
             for slot in sorted(self._active):
                 req = self._active[slot]
-                take = min(len(host), req.budget - len(req.tokens))
-                req.tokens.extend(int(t) for t in host[:take, slot])
+                if slot in spec:
+                    # verify rewound the length to L + accepted + 1; the
+                    # host hands out the accepted tokens and the correction
+                    n_tok = int(win[slot, -1])
+                    take = min(n_tok, req.budget - len(req.tokens))
+                    req.tokens.extend(int(t) for t in win[slot, :take])
+                    self._count_spec(req, n_tok - 1, take)
+                else:
+                    take = min(len(host), req.budget - len(req.tokens))
+                    req.tokens.extend(int(t) for t in host[:take, slot])
                 req.tokens_since_seat += take
                 self._emit_span(req, "decode.window", t_window0, t_window1,
                                 tokens=take, seats_active=seats_active)
+                # a speculative window counts as a step in the autopsy,
+                # as in the JAX pool
                 self.request_log.add_window(req.entry, take)
                 if len(req.tokens) >= req.budget:
                     finished.append(slot)
@@ -1297,6 +1604,103 @@ class PagedContinuousBatchingDecoder:
                 reqs = [self._active.pop(slot) for slot in finished]
                 self._retire_device_locked(finished, reqs)
                 for slot, req in zip(finished, reqs):
-                    self._finish_locked(req, self.alloc.release(self._seat_refs.pop(slot)))
+                    refs = self._seat_refs.pop(slot) + self._draft_refs.pop(slot, [])
+                    self._finish_locked(req, self.alloc.release(refs))
             self._update_gauges_locked()
             return len(self._active)
+
+    def _seat_mask(self, slots: List[int]) -> torch.Tensor:
+        mask = np.zeros(self.slots, bool)
+        mask[slots] = True
+        return torch.as_tensor(mask, device=self.device)
+
+    def _plain_window(self, slots: List[int]) -> np.ndarray:
+        """One ``step`` dispatch: ``steps_per_sync`` decode steps for the
+        seats ``slots`` (the others read and write scratch only and keep
+        their lengths, tokens and generators).  Returns the window's
+        tokens [K, S] (one fetch)."""
+
+        enabled = self._seat_mask(slots)
+        tables = torch.where(enabled[:, None], self._tables_dev, SCRATCH_BLOCK)
+        cache = PagedCache(self._arena, tables, self._lengths_dev)
+        gens = {s: self._generators[s] for s in slots if s in self._generators}
+        toks = self._last_tok
+        window = []
+        with self.dispatch("step", active=len(slots)):
+            for _ in range(self.steps_per_sync):
+                logits = self.pmodel(toks[:, None], cache=cache)
+                toks = _step_sample(logits[:, 0], self._temps_dev, self._topks_dev, gens)
+                window.append(toks)
+            host = torch.stack(window).cpu().numpy()  # [K, S]: one fetch
+        self._lengths_dev = torch.where(enabled, cache.lengths, self._lengths_dev)
+        self._last_tok = torch.where(enabled, toks, self._last_tok)
+        return host
+
+    def _spec_window(self, slots: List[int]) -> np.ndarray:
+        """The speculating seats' window: one ``draft`` dispatch (spec_k +
+        1 draft steps over the shared lengths; the last step's token is
+        discarded, its KV append is what counts) and one ``verify``
+        dispatch (one target pass over ``[x0, d1..dK]``, acceptance, the
+        correction and the lengths' rewind to L + accepted + 1).  The
+        other seats read and write scratch only.  Returns [S, K + 2]:
+        each seat's accepted tokens and correction (zero past them), then
+        their count, from the window's one fetch."""
+
+        K = self.spec_k
+        spec = self._seat_mask(slots)
+        gens = {s: self._generators[s] for s in slots if s in self._generators}
+        launched = _build.launches[_pa.KERNEL] + _build.launches[_qm.KERNEL]
+        with self.dispatch("draft", active=len(slots)):
+            tables = torch.where(spec[:, None], self._draft_tables_dev, SCRATCH_BLOCK)
+            cache = PagedCache(self._draft_arena, tables, self._lengths_dev)
+            toks = self._last_tok
+            d_toks, d_q = [], []
+            for i in range(K + 1):
+                logits = self._draft_pmodel(toks[:, None], cache=cache)[:, 0]
+                if i == K:
+                    break
+                toks, q = _spec_sample_with_dist(logits, self._temps_dev, self._topks_dev,
+                                                 gens)
+                d_toks.append(toks)
+                d_q.append(q)
+            drafts = torch.stack(d_toks, dim=1)  # [S, K]
+            q = torch.stack(d_q, dim=1) if gens else None  # [S, K, V]
+        with self.dispatch("verify", active=len(slots)):
+            tables = torch.where(spec[:, None], self._tables_dev, SCRATCH_BLOCK)
+            cache = PagedCache(self._arena, tables, self._lengths_dev)
+            fed = torch.cat([self._last_tok[:, None], drafts], dim=1)  # [S, K+1]
+            logits = self.pmodel(fed, cache=cache)
+            m, corr = _spec_accept(logits, drafts, q, self._temps_dev, self._topks_dev, gens)
+            # the rewind: appends past L + m + 1 are dead by the length mask
+            self._lengths_dev = torch.where(spec, self._lengths_dev + m + 1,
+                                            self._lengths_dev).to(torch.int32)
+            self._last_tok = torch.where(spec, corr, self._last_tok)
+            idx = torch.arange(K + 1, device=self.device)[None]
+            padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])], dim=1)
+            win = torch.where(idx == m[:, None], corr[:, None], padded)
+            win = torch.where(idx <= m[:, None], win, 0)
+            counts = torch.where(spec, m + 1, 0)
+            host = torch.cat([win, counts[:, None]], dim=1).cpu().numpy()  # one fetch
+        self.spec_launches += _build.launches[_pa.KERNEL] + _build.launches[_qm.KERNEL] \
+            - launched
+        self.spec_windows += 1
+        return host
+
+    def _count_spec(self, req: _Request, accepted: int, take: int) -> None:
+        """The speculative counters for one seat's window, host and
+        registry (``serve_spec_*_total{model, tier}``, the JAX pool's)."""
+
+        rollback = accepted < self.spec_k
+        self.spec_proposed += self.spec_k
+        self.spec_accepted += accepted
+        self.spec_emitted += take
+        self.spec_rollbacks += int(rollback)
+        if self.metrics is None:
+            return
+        self.metrics.inc("serve_spec_proposed_total", self.spec_k * 1.0,
+                         model=self.model_label, tier=req.tier)
+        self.metrics.inc("serve_spec_accepted_total", accepted * 1.0,
+                         model=self.model_label, tier=req.tier)
+        if rollback:
+            self.metrics.inc("serve_spec_rollbacks_total", model=self.model_label,
+                             tier=req.tier)

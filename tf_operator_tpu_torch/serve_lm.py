@@ -4,6 +4,7 @@ mode of ``examples/serve_lm.py``).
     python -m tf_operator_tpu_torch.serve_lm --model llama-7b --init-seed 0 --batching 8
     python -m tf_operator_tpu_torch.serve_lm --artifact DIR
     python -m tf_operator_tpu_torch.serve_lm --artifact DIR --quantize int8
+    python -m tf_operator_tpu_torch.serve_lm --model llama-7b --speculative --speculative-force
     curl -s localhost:8600/generate -d '{"prompt": "the sharded ", "max_new_tokens": 32}'
 
 ``POST /generate`` takes ``prompt``, ``max_new_tokens`` (default 32),
@@ -27,6 +28,21 @@ The serving plane's records (the JAX server's endpoints):
   gauges;
 - ``GET /alerts``: the alert engine's state over the default rules;
 - ``GET /debug/flightrecorder``: the flight recorder's ndjson dump.
+
+Speculative decoding (``--speculative``, ``--spec-k K``, ``--spec-tiers
+T1[,T2]``): the pool's speculative mode (models/batching.py), gated per
+SLO tier (interactive by default), with an int8 self-draft: the served
+model itself under ``--quantize int8``, else its int8 twin quantized
+from the same float32 weights (the artifact's npz or the seed's draws).
+``--speculative`` alone serves 4 slots, as the JAX server does.  A tier
+that is not an SLO tier, or a model the pool cannot page, fails
+startup.  ``/metrics`` then adds ``serve_spec_acceptance_rate`` and
+``serve_spec_dispatches_per_token`` (left out while no token has been
+emitted) to the ``serve_spec_*_total`` counters.  ``--speculative``
+refuses to start when the port's own record
+(``tf_operator_tpu_torch/spec_measured.json``, written from a card run of
+``chip_smoke.py``'s speculative phase) says speculation is slower than
+the plain pool; ``--speculative-force`` serves it anyway.
 
 The JAX server's ``/debug/compiles``, ``/debug/memory``,
 ``/debug/profile`` and ``/debug/fabric`` are not ported.
@@ -107,6 +123,53 @@ SLO_FAMILIES = (
 #: /debug/arena returns at most this many samples of the timeline
 ARENA_SAMPLE_LIMIT = 160
 
+#: the port's measured verdict on speculation: the ``spec_paged_speedup``
+#: row (the speculative pool's interactive decode tokens/s over the plain
+#: pool's at the same arena) from a card run of chip_smoke.py's
+#: speculative phase, with the card, its power limit, the date and the
+#: phase.  The JAX server's benchmarks/LAST_MEASURED.json row is the JAX
+#: pool's on another machine, so the port does not read it
+SPEC_RECORD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "spec_measured.json")
+
+
+def speculative_slowdown(ledger_path: Optional[str] = None):
+    """The measured speculative verdict: ``(speedup, row)`` from the
+    ``spec_paged_speedup`` row of the record (``SPEC_RECORD`` unless
+    ``ledger_path``), or ``(None, None)`` when nothing was measured."""
+
+    path = SPEC_RECORD if ledger_path is None else ledger_path
+    try:
+        with open(path) as f:
+            ledger = json.load(f)
+    except (OSError, json.JSONDecodeError):
+        return None, None
+    row = ledger.get("spec_paged_speedup") if isinstance(ledger, dict) else None
+    if not isinstance(row, dict) or "value" not in row:
+        return None, None
+    return row["value"], dict(row, metric="spec_paged_speedup")
+
+
+def refuse_speculative(args: argparse.Namespace, ledger_path: Optional[str] = None) -> None:
+    """The JAX server's guard: ``--speculative`` without
+    ``--speculative-force`` exits when the best measured speedup is
+    below 1 (a measured slowdown is not a feature); with no record it
+    serves."""
+
+    if not args.speculative or args.speculative_force:
+        return
+    best, row = speculative_slowdown(ledger_path)
+    if best is not None and best < 1.0:
+        raise SystemExit(
+            f"--speculative refused: the MEASURED speculative config is {best}x of "
+            f"the non-speculative paged pool at the same arena "
+            f"({row.get('config', 'int8 self-draft on the paged pool')}; {row['metric']}, "
+            f"{row.get('card', 'card not recorded')} at {row.get('power_limit')}, "
+            f"{row.get('artifact')}, "
+            f"{row.get('date')}) — serving it would be a measured slowdown, not a "
+            "feature.  Re-measure with `python3 chip_smoke.py` on the card, or pass "
+            "--speculative-force on a deployment whose dispatch economics differ."
+        )
+
 
 def make_pool(model: LlamaLM, *, model_label: str = "unknown",
               metrics: Optional[Metrics] = None, tracer: Optional[Tracer] = None,
@@ -165,6 +228,17 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
             "requests_ok": metrics.counter("serve_requests_total", status="200"),
         }
 
+    def spec_gauges() -> str:
+        # the JAX server's derived speculation gauges, after the
+        # registry's families (the serve_spec_*_total counters)
+        if not pool.spec_enabled:
+            return ""
+        snap = pool.spec_snapshot()
+        lines = [f"serve_spec_acceptance_rate {snap['acceptance_rate']:.4f}"]
+        if snap["dispatches_per_token"] != float("inf"):
+            lines.append(f"serve_spec_dispatches_per_token {snap['dispatches_per_token']:.4f}")
+        return "\n".join(lines) + "\n"
+
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass
@@ -201,7 +275,7 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
             if path == "/healthz":
                 return self._reply(200, {"ok": True})
             if path == "/metrics":
-                return self._send(200, metrics.exposition().encode(),
+                return self._send(200, (metrics.exposition() + spec_gauges()).encode(),
                                   "text/plain; version=0.0.4")
             if path == "/traces":
                 return self._reply(200, {"traces": tracer.store.summaries(50)})
@@ -373,14 +447,14 @@ class Server:
 
 def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
                init_seed: int = 0, artifact: Optional[str] = None,
-               quantize: Optional[str] = None) -> LlamaLM:
+               quantize: Optional[str] = None, what: str = "params") -> LlamaLM:
     """The model the flags name: the ``export_params`` directory
     ``artifact`` (``params.npz`` + ``model.json``) when given, else
     ``model``'s shape with weights made from ``init_seed`` on
     ``device``.  ``quantize="int8"`` holds the eligible kernels as int8,
     quantized from float32, and prints the weight bytes before and after
-    (before: the bf16 storage of the unquantized model; the JAX server
-    counts its float32 tree)."""
+    under ``what`` (before: the bf16 storage of the unquantized model;
+    the JAX server counts its float32 tree)."""
 
     if quantize not in (None, "int8"):
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
@@ -401,7 +475,7 @@ def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
     lm = LlamaLM.from_state_dict(cfg, state, device)
     if int8:
         before = state_bytes(LlamaLM(cfg, device="meta").state_dict())
-        print(f"int8 weights-only quantization: params {before / 1e6:.1f} MB -> "
+        print(f"int8 weights-only quantization: {what} {before / 1e6:.1f} MB -> "
               f"{state_bytes(lm.state_dict()) / 1e6:.1f} MB", flush=True)
     return lm
 
@@ -418,7 +492,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "the embedding stays bf16")
     ap.add_argument("--port", type=int, default=8600)
     ap.add_argument("--max-len", type=int, default=2048)
-    ap.add_argument("--batching", type=int, default=8, metavar="SLOTS")
+    ap.add_argument("--batching", type=int, default=None, metavar="SLOTS",
+                    help="the pool's seats (default 8; 4 with --speculative alone)")
     ap.add_argument("--kv-blocks", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--kv-swap-blocks", type=int, default=None, metavar="N",
@@ -427,6 +502,18 @@ def build_parser() -> argparse.ArgumentParser:
                     "or park without a copy")
     ap.add_argument("--steps-per-sync", type=int, default=8)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--speculative", action="store_true",
+                    help="speculate in the pool with an int8 self-draft, gated per SLO tier "
+                    "(--spec-tiers); refuses to start when the port's measured record "
+                    "(spec_measured.json) says it is slower than the plain pool")
+    ap.add_argument("--speculative-force", action="store_true",
+                    help="serve --speculative even though the measured record says it is "
+                    "a slowdown")
+    ap.add_argument("--spec-k", type=int, default=4, metavar="K",
+                    help="draft tokens proposed a window (the pool refuses K < 1)")
+    ap.add_argument("--spec-tiers", default=None, metavar="T1[,T2]",
+                    help="comma-separated SLO tiers that speculate (default: interactive); "
+                    "a tier that is not an SLO tier fails startup")
     return ap
 
 
@@ -440,34 +527,71 @@ def model_label_of(args: argparse.Namespace) -> str:
     return args.model
 
 
-def build_pool(model: LlamaLM, args: argparse.Namespace,
-               metrics: Optional[Metrics] = None) -> PagedContinuousBatchingDecoder:
-    """The pool the flags describe (the JAX server's: lazy reservation),
-    with its records (``make_pool``) on ``metrics``."""
+def slots_of(args: argparse.Namespace) -> int:
+    """``--batching``, else 8, or 4 under ``--speculative`` (the JAX
+    server's default for speculation alone)."""
 
+    if args.batching is not None:
+        return args.batching
+    return 4 if args.speculative else 8
+
+
+def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
+    """The int8 self-draft of ``--speculative``: the served model when it
+    already holds int8 kernels, else the same weights quantized from
+    their float32 source (the artifact's npz, or the seed's draws), never
+    from the bf16 storage, so that it is the JAX server's
+    ``quantize_tree(params)`` draft."""
+
+    if args.quantize == "int8":
+        return model
+    return load_model(model.device, max_len=args.max_len, model=args.model,
+                      init_seed=args.init_seed, artifact=args.artifact, quantize="int8",
+                      what="speculative draft")
+
+
+def build_pool(model: LlamaLM, args: argparse.Namespace,
+               metrics: Optional[Metrics] = None,
+               draft: Optional[LlamaLM] = None) -> PagedContinuousBatchingDecoder:
+    """The pool the flags describe (the JAX server's: lazy reservation),
+    with its records (``make_pool``) on ``metrics``.  Under
+    ``--speculative`` ``draft`` is the draft model (``load_draft``); the
+    tiers of ``--spec-tiers`` reach the pool unvalidated, so that its
+    constructor fails startup on a typo rather than serve
+    non-speculatively."""
+
+    spec_kw = {}
+    if args.speculative:
+        if draft is None:
+            raise ValueError("--speculative needs its draft model (load_draft)")
+        spec_kw = dict(draft_model=draft, spec_k=args.spec_k)
+        if args.spec_tiers is not None:
+            spec_kw["spec_tiers"] = tuple(args.spec_tiers.split(","))
     return make_pool(
         model, model_label=model_label_of(args), metrics=metrics,
-        slots=args.batching, steps_per_sync=args.steps_per_sync,
+        slots=slots_of(args), steps_per_sync=args.steps_per_sync,
         kv_blocks=args.kv_blocks, kv_block_size=args.kv_block_size,
-        swap_blocks=args.kv_swap_blocks,
+        swap_blocks=args.kv_swap_blocks, **spec_kw,
     )
 
 
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
-    if args.batching < 1:
+    if slots_of(args) < 1:
         raise SystemExit("--batching must be >= 1 (the pool is the only serving mode)")
+    refuse_speculative(args)
     device = resolve_device(args.device)
     model = load_model(
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
         artifact=args.artifact, quantize=args.quantize,
     )
+    draft = load_draft(model, args) if args.speculative else None
     # one registry for the process: the handler's /metrics and /slo,
     # the alert engine and the flight recorder's metric deltas.  The
     # recorder dumps on SIGTERM and on a fatal exception
     metrics = Metrics()
     flight.install(metrics=metrics)
-    server = Server(build_pool(model, args, metrics), port=args.port).start()
+    server = Server(build_pool(model, args, metrics, draft), port=args.port).start()
     server.alert_engine.start()
     print(f"serving on 127.0.0.1:{server.port} ({device})", flush=True)
     try:

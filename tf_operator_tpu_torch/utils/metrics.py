@@ -10,10 +10,11 @@ What ``serving_dispatch_seconds`` times on CUDA: a ``with
 ledger.dispatch(phase)`` block times the host wall of the block, that
 is the kernels' enqueue plus any device->host fetch inside it.  The
 pool's ``step`` block holds the window's one token fetch (``.cpu()``),
-its ``admission`` block the first token's (``int()``), and the swap
-copies are synchronous, so ``step``, ``admission``, ``swap_out`` and
-``swap_in`` time the device work too; ``retire`` times only its
-enqueue.  That is the ledger's contract: include the fetch you need in
+its ``verify`` block the speculative window's, its ``admission`` block
+the first token's (``int()``), and the swap copies are synchronous, so
+``step``, ``verify``, ``admission``, ``swap_out`` and ``swap_in`` time
+the device work too (``verify``'s fetch waits for the ``draft`` work
+queued before it); ``retire`` and ``draft`` time only their enqueue.  That is the ledger's contract: include the fetch you need in
 the block, and the block times the round trip.
 """
 
