@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --ab DIR    # phases 4d, 5 and 7: DIR's tree against this one
 
 Phases, in order; any failure exits non-zero before the result line:
 
@@ -88,6 +89,11 @@ Phases, in order; any failure exits non-zero before the result line:
    30`` in process.  Counts zeroed just before and read just after: K5
    and K6 must each launch 53 x (30 + 15) times (train_loop's steps and
    the benchmark's) and no plain version may run; the loss must fall.
+   ``train_loop``'s records (``check_loop_records``): the step-time
+   sentinel observed ``train_sync`` once a step (30), the sync ledger
+   and ``train_sync_total{phase}`` counted a ``window`` resolve a window
+   but the last and one ``final``, the ``train.<tag>`` heartbeat beat
+   once a window; the steady-state drift ratio is printed.
    Prints step ms, examples/s, model TFLOP/s (8.18 GFLOP an image
    forward, x3 for a step) and their share of the 989 TFLOPS peak, and
    peak memory.  Then one step under torch.profiler (busy share, K5's
@@ -102,7 +108,8 @@ Phases, in order; any failure exits non-zero before the result line:
    before and read just after: K1, K2 and K3 must each have launched
    12 x 30 times, no plain attention may have run, and the loss must
    fall.  Prints step ms, tokens/s, model TFLOP/s and their share of
-   the 989 TFLOPS peak, and peak memory.
+   the 989 TFLOPS peak, and peak memory.  ``train_loop``'s records as
+   in phase 4d (30 steps, 6 windows).
 6. train -> export -> serve: the exported artifact behind the port's
    ``serve_lm`` (K4 at Hkv 8) answers one greedy request with the
    bytes ``generate`` gives on the trained parameters in the process;
@@ -127,6 +134,23 @@ Phases, in order; any failure exits non-zero before the result line:
    and the step dispatches of the pool's ledger; ``/slo``,
    ``/debug/arena``, ``/alerts`` parse, and ``/debug/flightrecorder``'s
    ndjson names every request.
+   The cost plane (``check_costplane``), once the traffic has finished:
+   ``/debug/memory``'s ``weights`` = ``state_bytes`` of the model and
+   ``kv_arena`` = the arena's bytes, to the byte, the limit =
+   ``mem_get_info``'s total, coverage (the resident components over the
+   allocator's live bytes) >= 0.95, and the bytes left unaccounted;
+   ``/debug/compiles`` holds K4's library load and its variant classes,
+   each with its first-launch wall; ``/metrics`` carries every JAX
+   cost-plane family but ``serve_pool_compiles``, and
+   ``step_time_p50_seconds{signal="decode.window"}`` is within 10 % of
+   the median window wall of the pool's ``decode.window`` spans.  Then
+   the nine requests again (``phase_debug_pass``): no new compile event;
+   ``/debug/profile?seconds=2`` during the traffic writes a trace naming
+   K4's kernel and the driver thread's ``aten::`` ops, a second request
+   meanwhile gets 409 and one once the pool is idle 503; a watchdog
+   heartbeat with a 0.5 s deadline that never beats counts one
+   ``watchdog_stall_total`` and dumps one postmortem whose stacks name
+   the driver thread.
    Then one decode window of the same pool runs under torch.profiler:
    the device's busy share of the window and each kernel's share.
 7c. what the records cost on the host: phase 7's nine requests, in this
@@ -137,7 +161,9 @@ Phases, in order; any failure exits non-zero before the result line:
    bookkeeping µs a window (``step()``'s wall less that, over windows
    that admitted nothing); K4 = 32 x the decode steps.  Then each
    side's median and spread (max - min), and whether the sides differ
-   by more than the spread, beside the card line.
+   by more than the spread, beside the card line.  The records (the cost
+   plane included) must add under 1 ms of bookkeeping a window (the
+   plane side's median less the bare side's).
 7b. serving under arena pressure at full width: the same model behind
    ``serve_lm``'s server, the pool at 8 slots, max_len 2048, bs 16, 8
    steps per sync, in its default ``reserve="lazy"``.  Eight batch
@@ -184,7 +210,9 @@ Phases, in order; any failure exits non-zero before the result line:
    + 1) x draft windows + verify windows + plain steps); K7 launches =
    225 x (4 + 1) x draft windows + 225 x the draft prefills of <= 64
    rows, the GEMM route 225 x the longer ones; no plain int8 matmul;
-   the pool's K4 + K7 launches of draft and verify = their count;
+   the pool's K4 + K7 launches of draft and verify = their count; the
+   cost plane as in phase 7 with the draft's weights and arena twin in
+   ``weights`` and ``kv_arena``, and K7's routes on ``/debug/compiles``;
    ``/metrics`` shows both spec gauges and the three
    ``serve_spec_*_total`` families at the pool's counts, and records as
    in phase 7.  Across runs: every greedy token row equals the plain
@@ -219,7 +247,8 @@ Phases, in order; any failure exits non-zero before the result line:
    read just after: K7 must have launched 225 (7 projections x 32
    layers + the head) x (decode steps + prefills of <= 64 rows), the
    GEMM route 225 x the longer prefills, K4 32 x the decode steps, and
-   no plain version may have run.  The records as in phase 7.  Prints
+   no plain version may have run.  The records and the cost plane as in
+   phase 7 (K7's routes on ``/debug/compiles``), with its second pass.  Prints
    the weight bytes bf16 -> int8, decode tokens/s and TTFT beside phase
    7's, peak memory and one profiled decode window (busy share, K7's
    share of device time).
@@ -233,6 +262,14 @@ Phases, in order; any failure exits non-zero before the result line:
    ResNet path, at the [200704, 256] no-ReLU, no-residual class, where
    F.batch_norm computes the same function), the card line, and last
    ``{"ok": true, "device": {...}}``.
+
+``--ab DIR`` (``ab_main``): phases 4d, 5 and 7 of the tree unpacked at
+DIR (an earlier commit's ``git archive``, under the gitignored
+``build/``) and of this tree, each by its own ``chip_smoke.py`` in a
+process of its own, in the order parent, change, change, parent; each
+side's median and spread of the ResNet and llama step ms and phase 7's
+decode tokens/s, beside the card line.  The run logs go to
+``build/ab/``.
 """
 
 import collections
@@ -241,11 +278,13 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -443,9 +482,14 @@ def phase_build():
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
 
+    from tf_operator_tpu_torch.utils.costplane import default_costplane
+
     t0 = time.perf_counter()
     logs = _build.build_all()
-    log(f"built {sorted(logs)} together in {time.perf_counter() - t0:.1f} s")
+    log(f"built {sorted(logs)} together in {time.perf_counter() - t0:.1f} s; nvcc walls "
+        + json.dumps({e["program"]: e["first_call_seconds"]
+                      for e in default_costplane.compiles.snapshot()["events"]
+                      if e["trigger"] == "nvcc"}))
     for name in _build.sources():
         _build.load(name)
         report = [ln.strip() for ln in logs.get(name, "").splitlines()
@@ -628,6 +672,17 @@ def _get_json(port, path):
     return json.loads(body)
 
 
+def _get_status(port, path, timeout=300):
+    """(status, parsed JSON body) of one GET, error statuses included."""
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as exc:
+        return exc.code, json.loads(exc.read())
+
+
 def _metric(text, name, **labels):
     """The value of one series of a Prometheus exposition (0 if absent)."""
 
@@ -709,6 +764,213 @@ def check_records(port, pool, results, tag):
     return autopsies, text, slo
 
 
+#: the JAX cost plane's families on /metrics (all but the JAX server's
+#: serve_pool_compiles line); the drift ratio appears once the sentinel
+#: has frozen its reference (16 windows)
+COSTPLANE_FAMILIES = ("compile_total", "compile_seconds", "hbm_component_bytes",
+                      "hbm_device_limit_bytes", "hbm_headroom_bytes",
+                      "step_time_p50_seconds", "step_time_p99_seconds")
+#: the sentinel's p50 against the median of the pool's window walls
+SENTINEL_RTOL = 0.10
+#: the resident components' share of the allocator's live bytes
+MIN_COVERAGE = 0.95
+
+
+def _arena_bytes(arena):
+    return sum(k.nbytes + v.nbytes for k, v in arena)
+
+
+def _window_walls(pool):
+    """The pool's decode-window walls from its ``decode.window`` spans
+    (one span a seat, one wall a window), by the window's start."""
+
+    walls = {}
+    for summary in pool.tracer.store.summaries(1000):
+        for span in pool.tracer.store.trace(summary["traceId"])["spans"]:
+            if span["name"] == "decode.window":
+                walls[span["startMono"]] = span["duration"]
+    return walls
+
+
+def _strays(pool, models):
+    """What holds device memory that no component accounts: the other
+    pools alive before a collection and after it, and the largest device
+    tensors outside the models and the pool's arenas."""
+
+    import warnings
+
+    from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
+    from tf_operator_tpu_torch.utils.costplane import _leaves
+
+    def live(kind):
+        with warnings.catch_warnings():  # isinstance on deprecated module attributes
+            warnings.simplefilter("ignore")
+            return [o for o in gc.get_objects() if isinstance(o, kind)]
+
+    before = sum(1 for p in live(PagedContinuousBatchingDecoder) if p is not pool)
+    gc.collect()
+    after = sum(1 for p in live(PagedContinuousBatchingDecoder) if p is not pool)
+    known = {t.untyped_storage().data_ptr() for t in _leaves(
+        [models, pool._arena, pool._draft_arena]) if isinstance(t, torch.Tensor)}
+    strays = {t.untyped_storage().data_ptr(): t for t in live(torch.Tensor)
+              if t.is_cuda and t.untyped_storage().data_ptr() not in known}
+    big = sorted(strays.values(), key=lambda t: -t.untyped_storage().nbytes())[:6]
+    return {"other_pools_before_a_collection": before, "other_pools_after": after,
+            "largest_stray_tensors": [[list(t.shape), str(t.dtype),
+                                       t.untyped_storage().nbytes()] for t in big]}
+
+
+def check_costplane(port, pool, models, text, tag):
+    """The cost plane over HTTP once the phase's traffic has finished (a
+    window has ended): ``/debug/memory``'s weights = ``state_bytes`` of
+    ``models`` and kv_arena = the pool's arena (and its draft twin's) to
+    the byte, the limit = ``mem_get_info``'s total, coverage >=
+    ``MIN_COVERAGE``; ``/debug/compiles`` holds K4's library load and its
+    variant classes (K7's routes for an int8 model), each with its first
+    wall; ``/metrics`` (``text``) carries every cost-plane family, and the
+    sentinel's decode.window p50 agrees with the median window wall."""
+
+    from tf_operator_tpu_torch.ops.quant import state_bytes
+
+    mem = _get_json(port, "/debug/memory")
+    rows = [d for d in mem["devices"] if d["device"].startswith("cuda")]
+    if len(rows) != 1:
+        raise AssertionError(f"{tag}: /debug/memory devices {mem['devices']}")
+    row = rows[0]
+    comps = row["components"]
+    want = {"weights": sum(state_bytes(m.state_dict()) for m in models),
+            "kv_arena": _arena_bytes(pool._arena) + (
+                _arena_bytes(pool._draft_arena) if pool._draft_arena is not None else 0),
+            "limit": torch.cuda.mem_get_info()[1]}
+    resident = row["accounted_bytes"] - comps["program_tmp"]
+    rec = {"components": comps, "accounted_bytes": row["accounted_bytes"],
+           "backend_bytes": row["backend_bytes"], "coverage": row["coverage"],
+           "unaccounted_bytes": row["backend_bytes"] - resident,
+           "limit_bytes": row["limit_bytes"], "headroom_bytes": row["headroom_bytes"],
+           "expected": want}
+    if row["coverage"] < MIN_COVERAGE:
+        rec["strays"] = _strays(pool, models)
+    if (comps["weights"] != want["weights"] or comps["kv_arena"] != want["kv_arena"]
+            or row["limit_bytes"] != want["limit"] or row["coverage"] < MIN_COVERAGE):
+        raise AssertionError(f"{tag}: /debug/memory {json.dumps(rec, default=str)}")
+    compiles = _get_json(port, "/debug/compiles")
+    by = compiles["byProgram"]
+    k4 = by.get("ops.paged_attention", {}).get("byTrigger", {})
+    ring = {(e["program"], e["trigger"]): e["first_call_seconds"] for e in compiles["events"]}
+    need = [("csrc/paged_attention.cu", "load")] + [("ops.paged_attention", t) for t in k4]
+    if any(k.endswith("kernel_q") for m in models for k in m.state_dict()):
+        k7 = by.get("ops.quant_matmul", {}).get("byTrigger", {})
+        if not k7:
+            raise AssertionError(f"{tag}: no K7 class on /debug/compiles: {by}")
+        need += [("csrc/quant_matmul.cu", "load")] + [("ops.quant_matmul", t) for t in k7]
+    if not any(t.startswith("k_new=1,") for t in k4) or any(
+            ring.get(k, 0.0) <= 0.0 for k in need):
+        raise AssertionError(f"{tag}: /debug/compiles lacks {need} with a wall: "
+                             f"{json.dumps(compiles['events'])}")
+    rec["compiles"] = {"total": compiles["total"],
+                       "first_call_seconds": {f"{p} {t}": ring[(p, t)] for p, t in need}}
+    names = {line.split("{")[0].split(" ")[0] for line in text.splitlines()
+             if not line.startswith("#")}
+    missing = [f for f in COSTPLANE_FAMILIES
+               if f not in names and f + "_count" not in names]
+    walls = list(_window_walls(pool).values())
+    p50 = _metric(text, "step_time_p50_seconds", signal="decode.window")
+    median = statistics.median_low(walls)
+    rec.update(windows=len(walls), sentinel_p50_s=p50, median_window_s=median)
+    if missing or abs(p50 - median) > SENTINEL_RTOL * median:
+        raise AssertionError(f"{tag}: /metrics lacks {missing}, or the sentinel's p50 "
+                             f"{p50} is off the median window {median}")
+    log(f"{tag} cost plane ({card_line()}) " + json.dumps(rec))
+    return rec
+
+
+def phase_debug_pass(server, bodies, tag):
+    """The same requests again through the warm server, with the
+    operator's tools on it: the compile ledger gains no event; a
+    ``/debug/profile?seconds=2`` taken during the traffic writes a trace
+    that names K4's kernel and the driver thread's ``aten::`` ops, while
+    a second request meanwhile gets 409 and one once the pool is idle
+    503; a watchdog with a 0.5 s heartbeat that never beats counts one
+    ``watchdog_stall_total`` and dumps one postmortem whose stacks name
+    the driver thread (``serve.pool``)."""
+
+    from tf_operator_tpu_torch.utils import flight
+    from tf_operator_tpu_torch.utils.costplane import default_costplane
+    from tf_operator_tpu_torch.utils.watchdog import Watchdog
+
+    pool, port = server.pool, server.port
+    compiles0 = default_costplane.compiles.total()
+    starts0 = set(_window_walls(pool))
+    dog = Watchdog(metrics=pool.metrics, recorder=flight.default_recorder,
+                   check_interval=0.1)
+    dog.register("chip_smoke.stopped", deadline=0.5)
+    dog.start()
+    results = [None] * len(bodies)
+    answers = {}
+
+    def send(i):
+        results[i] = _post(port, bodies[i])
+
+    def profile():
+        answers["first"] = _get_status(port, "/debug/profile?seconds=2")
+
+    try:
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        t_end = time.perf_counter() + 60
+        while pool.in_flight() == 0 and time.perf_counter() < t_end:
+            time.sleep(0.001)
+        prof = threading.Thread(target=profile)
+        prof.start()
+        t_end = time.perf_counter() + 60
+        while not server.profiler.busy.locked() and time.perf_counter() < t_end:
+            time.sleep(0.001)
+        answers["concurrent"] = _get_status(port, "/debug/profile?seconds=2")
+        for t in threads + [prof]:
+            t.join(timeout=900)
+        answers["idle"] = _get_status(port, "/debug/profile?seconds=2")
+    finally:
+        dog.stop()
+    if any(r is None or r[0] != 200 for r in results) or server.fatal:
+        raise AssertionError(f"{tag} second pass: {results} {server.fatal}")
+    code, body = answers["first"]
+    if code != 200 or answers["concurrent"][0] != 409 or answers["idle"][0] != 503:
+        raise AssertionError(f"{tag}: /debug/profile answered {answers}")
+    art = body["artifact"]
+    with open(os.path.join(art, "trace.json")) as f:
+        trace = f.read()
+    files = sorted(os.listdir(art))
+    named = {"k4": "paged_attention_split_kernel" in trace, "aten": '"aten::' in trace}
+    shutil.rmtree(art, ignore_errors=True)
+    stalls = pool.metrics.counter("watchdog_stall_total", heartbeat="chip_smoke.stopped")
+    stacks = ""
+    if len(dog.dumps) == 1:
+        with open(dog.dumps[0]) as f:
+            for line in f:
+                r = json.loads(line)
+                if r["type"] == "log" and "thread stacks" in r["message"]:
+                    stacks = r["fields"]["stacks"]
+        os.remove(dog.dumps[0])
+    second = [w for t, w in sorted(_window_walls(pool).items()) if t not in starts0]
+    rec = {"new_compile_events": default_costplane.compiles.total() - compiles0,
+           "windows_ms": [round(w * 1e3, 1) for w in second],
+           "profile": {"files": files, "trace_bytes": len(trace), "names": named,
+                       "trace_only": "trace_only" in (
+                           torch._C._profiler._ExperimentalConfig.__init__.__doc__ or ""),
+                       "artifact_prefix_ok": os.path.basename(art).startswith(
+                           f"serve-profile-c{body['costplane']['compiles_at_start']}-"),
+                       "wall_seconds": body["wall_seconds"]},
+           "stalls": stalls, "dumps": len(dog.dumps),
+           "postmortem_names_driver": "--- thread serve.pool " in stacks}
+    log(f"{tag} debug pass ({card_line()}) " + json.dumps(rec))
+    if rec["new_compile_events"] or files != ["COSTPLANE.json", "trace.json"] or \
+            not all(named.values()) or not rec["profile"]["artifact_prefix_ok"] or \
+            stalls != 1 or rec["dumps"] != 1 or not rec["postmortem_names_driver"]:
+        raise AssertionError(f"{tag}: debug pass {json.dumps(rec)}")
+    return rec
+
+
 def _main_bodies():
     """Phase 7's nine requests."""
 
@@ -743,6 +1005,7 @@ def phase_main_path(model, tag="main path"):
             t.join(timeout=900)
         wall = time.perf_counter() - t0
         launches = dict(_build.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if server.fatal:
             raise AssertionError(f"decode loop died: {server.fatal[0]}")
         for i, r in enumerate(results):
@@ -754,7 +1017,7 @@ def phase_main_path(model, tag="main path"):
             raise AssertionError(
                 f"K4 launched {k4} times; {n_layers} layers x {steps} decode steps "
                 f"= {n_layers * steps}")
-        autopsies, _, _ = check_records(server.port, pool, results, tag)
+        autopsies, text, _ = check_records(server.port, pool, results, tag)
         if any(a["tokens"] != 32 for a in autopsies):
             raise AssertionError(f"{tag}: autopsy tokens {[a['tokens'] for a in autopsies]}")
         hits = [a for a in autopsies if a["admission"]["prefix_hit_tokens"] >= 512]
@@ -774,9 +1037,13 @@ def phase_main_path(model, tag="main path"):
                              for a in autopsies],
             "http_latency_s": [round(r[2], 3) for r in results],
             "prefix_hit_rid": hits[0]["rid"],
-            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "max_memory_allocated_gib": peak_gib,
         }
         log(f"{tag} " + json.dumps(stats))
+        # the cost plane, then the same requests again: read after the
+        # first pass's numbers, which the second pass would change
+        stats["costplane"] = check_costplane(server.port, pool, [model], text, tag)
+        stats["costplane"].update(phase_debug_pass(server, bodies, tag))
         log(f"seeded sample: {results[-1][1]['sample']!r}")
         return stats, pool
     finally:
@@ -785,6 +1052,9 @@ def phase_main_path(model, tag="main path"):
 
 #: phase 7c's runs, interleaved so that drift between them cancels
 PLANE_ORDER = ("bare", "plane", "plane", "bare", "bare", "plane")
+#: what the records (the cost plane included) may add to a decode
+#: window's host work: the median bookkeeping, plane less bare
+PLANE_BOOKKEEPING_US = 1000.0
 
 
 def _plane_run(model, side):
@@ -873,6 +1143,9 @@ def phase_plane_cost(model, card):
                                         summary["plane"][key]["spread"]) for key in diff}
     log(f"plane cost ({card}) " + json.dumps({"summary": summary, "plane_minus_bare": diff,
                                               "beyond_spread": beyond}))
+    if not diff["bookkeeping_us"] < PLANE_BOOKKEEPING_US:
+        raise AssertionError(f"the records cost {diff['bookkeeping_us']:.1f} us a decode "
+                             f"window, over {PLANE_BOOKKEEPING_US}")
     return summary
 
 
@@ -1432,6 +1705,7 @@ def _spec_run(model, draft, side):
             results[i] = _post(server.port, bodies[i])
 
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
         qm.plain_calls.clear()
         t0 = time.perf_counter()
@@ -1448,6 +1722,9 @@ def _spec_run(model, draft, side):
             if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
                 raise AssertionError(f"speculative {side}: request {i} failed: {r}")
         autopsies, text, _ = check_records(server.port, pool, results, f"speculative {side}")
+        if side == "spec":
+            # the draft's weights and arena twin are the server's too
+            check_costplane(server.port, pool, [model, draft], text, "speculative spec")
         inter = [a for i, a in enumerate(autopsies) if i in SPEC_INTERACTIVE]
         rates = [(a["tokens"] - 1) / (a["total_seconds"] - a["ttft_seconds"]) for a in inter]
         decode_s = sum(pool.ledger.seconds(p) for p in ("step", "draft", "verify"))
@@ -1467,8 +1744,6 @@ def _spec_run(model, draft, side):
         return rec
     finally:
         server.close()
-        del pool
-        free_device_memory()
 
 
 def _check_spec_run(pool, autopsies, text, launches, plain, bodies):
@@ -1522,7 +1797,13 @@ def phase_speculative(model, draft, card):
 
     from tf_operator_tpu_torch.serve_lm import build_parser, build_pool
 
-    runs = [_spec_run(model, draft, side) for side in SPEC_ORDER]
+    runs = []
+    for side in SPEC_ORDER:
+        runs.append(_spec_run(model, draft, side))
+        # the run's pool lives in cycles (its server's threads, the
+        # recording wait): collected here, once the run's frame is gone,
+        # so that its arenas are free before the next run's
+        free_device_memory()
     # one speculative window of 8 interactive seats under the profiler
     pool = build_pool(model, build_parser().parse_args(
         ["--batching", "8", "--speculative", "--spec-k", str(SPEC_K)]), draft=draft)
@@ -1925,6 +2206,41 @@ def training_flops_per_token(cfg, seq_len):
     return 6.0 * matmul + 6 * cfg.n_layers * h * d * seq_len
 
 
+def check_loop_records(loop, steps, k, tag):
+    """``train_loop``'s records of one run (its ``stats``): the sentinel
+    observed ``train_sync`` once a step resolved, the sync ledger counted
+    one ``window`` resolve a window but the last and one ``final``, the
+    exported ``train_sync_total{phase}`` moved by as much, and the
+    heartbeat beat once a window.  Returns them with the steady-state
+    drift ratio."""
+
+    from tf_operator_tpu_torch.utils.metrics import default_metrics
+
+    windows = -(-steps // k)
+    ledger, snap = loop["sync_ledger"], loop["sentinel"].snapshot().get("train_sync", {})
+    rec = {"windows": windows, "observations": snap.get("observations"),
+           "sync": {p: ledger.count(p) for p in ("step", "window", "final")},
+           "train_sync_total": {p: default_metrics.counter("train_sync_total", phase=p)
+                                - loop["train_sync_total_before"].get(p, 0.0)
+                                for p in ("window", "final")},
+           "heartbeat_beats": loop["heartbeat_beats"],
+           "drift_ratio": snap.get("drift_ratio"), "p50_s": snap.get("p50_seconds"),
+           "reference_p50_s": snap.get("reference_p50_seconds")}
+    log(f"{tag} loop records ({card_line()}) " + json.dumps(rec))
+    if (rec["observations"] != loop["resolved_at"][-1][0] or rec["observations"] != steps
+            or rec["sync"] != {"step": 0, "window": windows - 1, "final": 1}
+            or rec["train_sync_total"] != {"window": windows - 1, "final": 1}
+            or rec["heartbeat_beats"] != windows):
+        raise AssertionError(f"{tag}: train_loop's records {json.dumps(rec)}")
+    return rec
+
+
+def _sync_totals():
+    from tf_operator_tpu_torch.utils.metrics import default_metrics
+
+    return {p: default_metrics.counter("train_sync_total", phase=p) for p in ("window", "final")}
+
+
 def _steady_step_s(resolved_at):
     """Seconds per step between the first and the last loss resolve
     (the first window, which holds the warm-up, is left out)."""
@@ -1950,8 +2266,10 @@ def phase_train(data_dir, export_dir, steps):
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     fa.plain_calls.clear()
+    before = _sync_totals()
     out = llama_pretrain.run(args)
     torch.cuda.synchronize()
+    out["loop"]["train_sync_total_before"] = before
     launches = dict(_build.launches)
     plain = dict(fa.plain_calls)
     trainer, losses = out["trainer"], out["losses"]
@@ -1972,6 +2290,8 @@ def phase_train(data_dir, export_dir, steps):
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     stats["peak_share"] = stats["model_tflops"] * 1e12 / PEAK_OPS[torch.bfloat16]
+    stats["loop_records"] = check_loop_records(out["loop"], steps, args.steps_per_sync,
+                                               "llama train")
     log("train " + json.dumps(stats))
     want = cfg.n_layers * steps
     for kname in FLASH_KERNELS:
@@ -2512,8 +2832,10 @@ def phase_resnet_train():
     torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     fb.plain_calls.clear()
+    before = _sync_totals()
     out = resnet_dp.run(args)
     torch.cuda.synchronize()
+    out["loop"]["train_sync_total_before"] = before
     launches, plain = dict(_build.launches), dict(fb.plain_calls)
     losses, bench = out["losses"], out["benchmark"]
     n_norms = len(out["trainer"].model.norms())
@@ -2534,6 +2856,8 @@ def phase_resnet_train():
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
     stats["peak_share"] = stats["model_tflops"] * 1e12 / PEAK_OPS[torch.bfloat16]
+    stats["loop_records"] = check_loop_records(out["loop"], RESNET_STEPS,
+                                               args.steps_per_sync, "resnet train")
     log("resnet train " + json.dumps(stats))
     want = len(layers) * steps
     for kname in (fb.KERNEL_FWD, fb.KERNEL_BWD):
@@ -2633,11 +2957,87 @@ def _kernel_entry(name, source, replaces, launches, err, timing):
             "bound_by": timing["bound_by"], "library_ms": timing["library_ms"]}
 
 
+#: ``--ab``'s runs: an earlier commit's tree and this one in turns
+AB_ORDER = ("parent", "change", "change", "parent")
+
+#: one ``--ab`` run, in a tree's root: that tree's own phases 4d, 5 and 7
+AB_RUN = """
+import json, os, sys, tempfile, torch
+import chip_smoke as c
+from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape
+from tf_operator_tpu_torch.models.weights import init_params
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+c.phase_build()
+resnet = c.phase_resnet_train()[0]
+c.free_device_memory()
+tmp = tempfile.mkdtemp(prefix="chip_smoke_ab_")
+train = c.phase_train(os.path.join(tmp, "text"), os.path.join(tmp, "artifact"), c.TRAIN_STEPS)[0]
+c.free_device_memory()
+dev = torch.device("cuda")
+cfg = llama_7b_shape(max_len=2048)
+serve, pool = c.phase_main_path(LlamaLM.from_state_dict(cfg, init_params(cfg, 0, dev), dev))
+print("AB " + json.dumps({
+    "resnet_step_ms": resnet["step_ms_train_loop"], "llama_step_ms": train["step_ms"],
+    "decode_tokens_per_s": serve["decode_tokens_per_s"]}), flush=True)
+"""
+
+
+def ab_main(parent):
+    """``python3 chip_smoke.py --ab DIR``: phases 4d, 5 and 7 of the tree
+    unpacked at ``DIR`` (an earlier commit's ``git archive``) and of this
+    tree, each run by its own ``chip_smoke.py`` in a process of its own,
+    in ``AB_ORDER``; prints each run's ResNet and llama step ms and
+    decode tokens/s, then each side's median and spread (max - min)
+    beside the card line.  The libraries are built once here and shared:
+    a library's name hashes its source, so a tree whose sources are the
+    same finds them built."""
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
+        return 2
+    from tf_operator_tpu_torch.ops import _build
+
+    card = card_line()
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"parent": os.path.abspath(parent), "change": here}
+    subprocess.run([sys.executable, "-c", "import chip_smoke as c; c.phase_build()"],
+                   cwd=here, check=True, timeout=900)
+    parent_build = os.path.join(trees["parent"], os.path.relpath(_build.BUILD_DIR, here))
+    os.makedirs(parent_build, exist_ok=True)
+    for f in os.listdir(_build.BUILD_DIR):
+        if f.endswith(".so"):
+            shutil.copy2(os.path.join(_build.BUILD_DIR, f), parent_build)
+    out_dir = os.path.join(here, "build", "ab")
+    os.makedirs(out_dir, exist_ok=True)
+    runs = []
+    for i, side in enumerate(AB_ORDER):
+        proc = subprocess.run([sys.executable, "-c", AB_RUN], cwd=trees[side],
+                              capture_output=True, text=True, timeout=1500)
+        with open(os.path.join(out_dir, f"ab-{i}-{side}.log"), "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB ")]
+        if proc.returncode != 0 or not lines:
+            raise AssertionError(f"ab run {i} ({side}) exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        runs.append(dict(json.loads(lines[-1][3:]), side=side))
+        log(f"ab run ({card}) " + json.dumps(runs[-1]))
+    summary = {}
+    for side in ("parent", "change"):
+        mine = [r for r in runs if r["side"] == side]
+        summary[side] = {key: {"median": statistics.median(r[key] for r in mine),
+                               "spread": max(r[key] for r in mine) - min(r[key] for r in mine),
+                               "runs": [r[key] for r in mine]}
+                         for key in ("resnet_step_ms", "llama_step_ms", "decode_tokens_per_s")}
+    log(f"ab ({card}) " + json.dumps(summary))
+    print(card)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
         return 2
-    import shutil
     import tempfile
 
     from tf_operator_tpu_torch import resolve_device
@@ -2751,6 +3151,11 @@ def main():
             line["timing"][kname]))
     log("K5/K6 kernels-line class: " + json.dumps(list(BN_LINE_CLASS)) + "; per step "
         + json.dumps(bn_step))
+    from tf_operator_tpu_torch.utils.costplane import default_costplane
+
+    ledger = default_costplane.compiles.snapshot(limit=0)
+    log(f"compile ledger ({card}) " + json.dumps({"total": ledger["total"],
+                                                  "byProgram": ledger["byProgram"]}))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -2761,4 +3166,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        sys.exit(ab_main(sys.argv[2]))
     sys.exit(main())

@@ -869,3 +869,35 @@ def test_fused_batchnorm_forward_is_bit_identical_across_runs(dev, shape, dtype)
         again = fb.fused_batchnorm_fwd_cuda(*args)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def test_warmed_pool_records_its_k4_classes_once(dev):
+    """The card's twin of the steady-state pin
+    (``tests/test_torch_costplane.py``): a warm batch records K4's
+    variant classes (k_new, split count, dtype) in the process compile
+    ledger, each with its first-launch wall; a second batch of new prompt
+    widths records nothing."""
+
+    from tf_operator_tpu_torch.utils.costplane import default_costplane
+    from tf_operator_tpu_torch.utils.metrics import Metrics
+
+    cfg = llama_tiny(vocab_size=256, max_len=64, dtype=torch.float32)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 3, dev), dev)
+    pool = PagedContinuousBatchingDecoder(model, slots=4, steps_per_sync=4, kv_block_size=16,
+                                          metrics=Metrics())
+    ledger = default_costplane.compiles
+    r = np.random.default_rng(3)
+
+    def batch(lens):
+        rids = [pool.submit(r.integers(0, 256, n).astype(np.int32), 6) for n in lens]
+        pool.run()
+        return [pool.result(rid) for rid in rids]
+
+    batch([5, 17, 33])
+    k4 = [e for e in ledger.snapshot()["events"] if e["program"] == "ops.paged_attention"]
+    assert any(e["trigger"].startswith("k_new=1,") and e["trigger"].endswith(",f32")
+               and e["first_call_seconds"] > 0 for e in k4), k4
+    warm = ledger.total()
+    batch([6, 19, 40, 2])
+    assert ledger.total() == warm, ledger.snapshot(limit=8)["events"]
+

@@ -64,7 +64,8 @@ def test_importing_every_module_loads_no_jax():
               "ops.fused_batchnorm", "models.resnet", "resnet_dp", "parallel.trainer",
               "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain",
               "utils.metrics", "utils.trace", "utils.logging", "utils.flight",
-              "utils.alerts", "serve_lm"):
+              "utils.alerts", "utils.costplane", "utils.watchdog", "runtime.telemetry",
+              "serve_lm"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

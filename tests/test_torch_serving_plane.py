@@ -18,9 +18,11 @@
   time.
 
 Deliberate differences pinned here: ``/metrics`` lacks the JAX server's
-``serve_pool_compiles`` line and the cost plane's families
-(``COSTPLANE_FAMILIES``; the cost plane is not ported), and the flight
-recorder dumps under ``tempfile.gettempdir()``.
+``serve_pool_compiles`` line; on the CPU it lacks the compile ledger's
+families (``COSTPLANE_FAMILIES``), because the port records a compile
+only where a kernel is built, loaded or first launched, which never
+happens here (on the card ``chip_smoke.py`` phase 7 reads them); and
+the flight recorder dumps under ``tempfile.gettempdir()``.
 """
 
 import ast
@@ -57,10 +59,12 @@ from test_torch_serving import servers, tiny  # noqa: F401  (fixtures)
 
 torch.set_num_threads(2)
 
-#: families the JAX pool's device cost plane (``utils/costplane.py``)
-#: writes into the pool's registry; the cost plane is not ported
-COSTPLANE_FAMILIES = {"compile_seconds", "compile_total", "hbm_component_bytes",
-                      "step_time_p50_seconds", "step_time_p99_seconds"}
+#: the cost plane's compile families, left out of the comparisons on the
+#: CPU: the JAX pool records its jit compiles there; the port records a
+#: compile only where a kernel is built, loaded or first launched (never
+#: on the CPU), and what a process recorded before depends on the tests
+#: it ran, so the port side leaves them out too
+COSTPLANE_FAMILIES = {"compile_seconds", "compile_total"}
 
 
 # -- the copies -------------------------------------------------------------
@@ -427,7 +431,8 @@ def _families(reg):
 def test_pool_metric_families_match_the_jax_pool(pool_runs, scenario):
     jpool, pool, _ = pool_runs(scenario)
     want = {k: v for k, v in _families(jpool.metrics).items() if k not in COSTPLANE_FAMILIES}
-    assert _families(pool.metrics) == want
+    got = {k: v for k, v in _families(pool.metrics).items() if k not in COSTPLANE_FAMILIES}
+    assert got == want
     assert COSTPLANE_FAMILIES <= set(_families(jpool.metrics))
 
 
@@ -570,7 +575,7 @@ def test_servers_metrics_and_flight_recorder(servers):  # noqa: F811
     records = [json.loads(line) for line in raw.decode().splitlines()]
     assert records[0]["type"] == "meta"
     assert {r["id"] for r in records if r["type"] == "request"}
-    assert _get(port, "/debug/compiles")[0] == 404
+    assert _get(port, "/debug/compiles")[0] == 200
 
 
 def test_server_reads_never_take_the_pool_lock(servers):  # noqa: F811

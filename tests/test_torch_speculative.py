@@ -65,9 +65,9 @@ torch.set_num_threads(2)
 
 VOCAB, MAX_LEN = 96, 64
 
-#: families the JAX pool's device cost plane writes; not ported
-COSTPLANE_FAMILIES = {"compile_seconds", "compile_total", "hbm_component_bytes",
-                      "step_time_p50_seconds", "step_time_p99_seconds"}
+#: the cost plane's compile families, left out of the comparisons on the
+#: CPU, where the port records none (test_torch_serving_plane.py)
+COSTPLANE_FAMILIES = {"compile_seconds", "compile_total"}
 
 
 def _bridge(tree, max_len=MAX_LEN, vocab=VOCAB, **kw):
@@ -296,7 +296,8 @@ def test_spec_counters_and_families_match_the_jax_pool(mixed_runs):
     series = pool.metrics.counter_series("serve_spec_proposed_total")
     assert series == {(("model", "llama"), ("tier", "interactive")): pool.spec_proposed}
     want = {k: v for k, v in _families(jpool.metrics).items() if k not in COSTPLANE_FAMILIES}
-    assert _families(pool.metrics) == want
+    got = {k: v for k, v in _families(pool.metrics).items() if k not in COSTPLANE_FAMILIES}
+    assert got == want
 
 
 def test_mixed_tokens_equal_the_plain_pool_and_the_jax_pool(tiny, mixed_runs):

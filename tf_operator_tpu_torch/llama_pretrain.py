@@ -83,7 +83,7 @@ def model_config(name: str, seq_len: int):
 
 def run(args: argparse.Namespace) -> Dict:
     """Train as ``args`` say; returns the trainer, the losses, the
-    timings and the sample."""
+    timings, ``train_loop``'s ``stats`` (``loop``) and the sample."""
 
     device = resolve_device(args.device)
     cfg = model_config(args.model, args.seq_len)
@@ -102,7 +102,7 @@ def run(args: argparse.Namespace) -> Dict:
                         stats=stats)
     wall = time.perf_counter() - t0
     out = {"trainer": trainer, "losses": losses, "wall_s": wall,
-           "resolved_at": stats["resolved_at"], "sample": None}
+           "resolved_at": stats["resolved_at"], "loop": stats, "sample": None}
     if args.export_dir:
         export_params(trainer, args.export_dir)
         print(f"exported serving artifact to {args.export_dir}", flush=True)

@@ -99,9 +99,20 @@ the queue, in-flight and ``kv_blocks_*`` gauges at every refresh, and
 counts ``serve_preemptions_total`` and ``kv_swap_bytes_total``; each
 refresh also takes one :class:`ArenaTimeline` sample.  A pool built
 bare (no ledger, no metrics) counts its dispatches and keeps the
-autopsies and the timeline, as the JAX pool built bare does.  Nothing
-here reads a device tensor: gauges come from host counts, tokens from
-the window's one fetch.
+autopsies and the timeline, as the JAX pool built bare does.
+
+The device cost plane (``costplane=``, a ``utils/costplane.CostPlane``;
+one over the pool's registry when not passed, as in the JAX pool): the
+arena, and the draft twin's, register as ``kv_arena`` when made, the
+seats' device state (tables, lengths, temperatures, top-ks, last
+tokens) as ``other``; every refresh sets ``swap_staging`` (the swapped
+blocks' host bytes, under ``host:0``); every decode window's wall feeds
+the step-time sentinel as ``decode.window``.  A pool with no registry
+keeps no cost plane (the JAX pool's then writes to the process
+registry).  The pool registers no compiles: eager PyTorch builds no
+program per admission width, and the kernels record their own
+(``ops/_build.py``).  Nothing here reads a device tensor: gauges come
+from host counts, tokens from the window's one fetch.
 """
 
 from __future__ import annotations
@@ -139,6 +150,7 @@ from tf_operator_tpu_torch.models.transformer import PagedCache
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import paged_attention as _pa
 from tf_operator_tpu_torch.ops import quant_matmul as _qm
+from tf_operator_tpu_torch.utils.costplane import CostPlane, tree_device_bytes
 from tf_operator_tpu_torch.utils.metrics import DispatchLedger
 
 #: the pool's static top-k width: a request's top_k thresholds within
@@ -490,7 +502,8 @@ class PagedContinuousBatchingDecoder:
     ``spec_tiers``, ``spec_k`` proposals a window (module docstring).  It
     takes the place of the JAX pool's ``draft_model`` + ``draft_params``
     pair.  A configuration that cannot speculate raises here rather than
-    serve non-speculatively."""
+    serve non-speculatively.  ``costplane`` shares a cost plane (a
+    server's, over its registry; module docstring)."""
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
                  kv_blocks: Optional[int] = None, kv_block_size: int = 16,
@@ -498,10 +511,15 @@ class PagedContinuousBatchingDecoder:
                  age_boost_seconds: float = 30.0,
                  ledger: Optional[DispatchLedger] = None, metrics=None,
                  model_label: str = "", draft_model: Optional[LlamaLM] = None,
-                 spec_k: int = 4, spec_tiers=("interactive",)):
+                 spec_k: int = 4, spec_tiers=("interactive",), costplane=None):
         cfg = model.cfg
         self.ledger = ledger if ledger is not None else DispatchLedger()
         self.metrics = metrics if metrics is not None else self.ledger.metrics
+        #: the device cost plane (module docstring); None for a pool
+        #: with no registry
+        if costplane is None and self.metrics is not None:
+            costplane = CostPlane(metrics=self.metrics)
+        self.costplane = costplane
         self.model_label = model_label or "unknown"
         #: the ledger's tracer (None: no spans) carries the lifecycle
         #: spans of every request
@@ -535,6 +553,11 @@ class PagedContinuousBatchingDecoder:
         self.num_blocks = int(kv_blocks) + 1
         self.alloc = BlockAllocator(self.num_blocks, bs)
         self._arena = paged_arena(model, self.num_blocks, bs)
+        arena_bytes = sum(tree_device_bytes(self._arena).values())
+        #: a block's bytes on the host once swapped (the swap-staging gauge)
+        self._block_host_bytes = arena_bytes // self.num_blocks
+        if self.costplane is not None:
+            self.costplane.hbm.register_tree("kv_arena", self._arena)
         self.spec_enabled = draft_model is not None
         self.spec_k = int(spec_k)
         self.spec_tiers = tuple(spec_tiers)
@@ -574,6 +597,10 @@ class PagedContinuousBatchingDecoder:
         self._temps_dev = torch.zeros(self.slots, dtype=torch.float32, device=dev)
         self._topks_dev = torch.zeros(self.slots, dtype=torch.int32, device=dev)
         self._last_tok = torch.zeros(self.slots, dtype=torch.long, device=dev)
+        if self.costplane is not None:
+            self.costplane.hbm.register_tree("other", [
+                self._tables_dev, self._lengths_dev, self._temps_dev, self._topks_dev,
+                self._last_tok, self._draft_tables_dev])
         #: slot -> the sampled request's generator (greedy seats: none)
         self._generators: Dict[int, torch.Generator] = {}
         #: slot -> physical ids behind the seat's table row, in logical
@@ -628,6 +655,9 @@ class PagedContinuousBatchingDecoder:
         try:
             self._draft_arena = paged_arena(draft, self.num_blocks, self.block_size)
             self._draft_pmodel = paged_decode_variant(draft)
+            # the draft twin is arena memory too
+            if self.costplane is not None:
+                self.costplane.hbm.register_tree("kv_arena", self._draft_arena)
         except NotPageableError as exc:
             raise ValueError(
                 f"draft model cannot page: {exc} — failing instead of silently serving "
@@ -765,6 +795,12 @@ class PagedContinuousBatchingDecoder:
                 raise KeyError(f"request {rid} unknown or already collected")
         return np.concatenate([req.prompt, np.asarray(req.tokens, np.int32)])
 
+    def in_flight(self) -> int:
+        """Requests seated or queued: host counts, read without the
+        pool's lock (a decode window may hold it)."""
+
+        return len(self._active) + len(self._queue)
+
     def run(self) -> None:
         """Step until every submitted request has finished."""
 
@@ -885,6 +921,11 @@ class PagedContinuousBatchingDecoder:
             queued_demand=int(queued), seats_active=len(self._active),
             swapped=int(self.swap.swapped_blocks),
         )
+        if self.costplane is not None:
+            # host RAM pinned by preempted seats' blocks (host arithmetic)
+            self.costplane.hbm.set_component(
+                "swap_staging", self.swap.swapped_blocks * self._block_host_bytes,
+                device="host:0")
         if self.metrics is None:
             return
         labels = dict(model=self.model_label, replica="0", role=ROLE)
@@ -1578,6 +1619,9 @@ class PagedContinuousBatchingDecoder:
             win = self._spec_window(sorted(spec)) if spec else None
             t_window1 = time.monotonic()
             self.windows += 1
+            if self.costplane is not None:
+                # the window's host wall: one observation, no device call
+                self.costplane.sentinel.observe("decode.window", t_window1 - t_window0)
             finished = []
             for slot in sorted(self._active):
                 req = self._active[slot]

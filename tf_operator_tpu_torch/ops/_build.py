@@ -11,6 +11,13 @@ builds anew and an unchanged one is reused.
 ``launches`` counts kernel launches by kernel name: each wrapper adds
 one where it launches its kernel and nowhere else, so a run can show
 that its path went through the kernels.
+
+The process compile ledger (``utils/costplane.default_costplane``)
+records each source nvcc compiles (program ``csrc/<name>.cu``, trigger
+``nvcc``, that nvcc process's wall), each library load (trigger
+``load``, the ``ctypes`` load's wall) and, through
+:func:`record_first_launch`, the first launch of each kernel variant
+class a wrapper chooses.
 """
 
 from __future__ import annotations
@@ -22,7 +29,10 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Dict, List
+import time
+from typing import Dict, List, Optional, Tuple
+
+from tf_operator_tpu_torch.utils.costplane import abstract_shapes, default_costplane
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -37,6 +47,8 @@ launches: "collections.Counter[str]" = collections.Counter()
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+#: (program, class) of every kernel variant class launched in this process
+_classes: set = set()
 
 
 def _nvcc() -> str:
@@ -73,20 +85,33 @@ def build_all() -> Dict[str, str]:
         return {}
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
-    procs = {}
+    procs, walls = {}, {}
+
+    def wait(name, proc, t0):
+        # each nvcc's own wall: its waiter returns when it exits
+        logs[name] = proc.communicate()[0]
+        walls[name] = time.perf_counter() - t0
+
+    logs, failed, waiters = {}, [], []
     for name in todo:
         tmp = f"{_library_path(name)}.{os.getpid()}.tmp"
-        procs[name] = (tmp, subprocess.Popen(
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
-    logs, failed = {}, []
+        )
+        procs[name] = (tmp, proc)
+        waiters.append(threading.Thread(target=wait, args=(name, proc, t0)))
+        waiters[-1].start()
+    for t in waiters:
+        t.join()
     for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
         else:
             os.replace(tmp, _library_path(name))
+            default_costplane.compiles.record(f"csrc/{name}.cu", "nvcc",
+                                              seconds=walls[name])
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
     return logs
@@ -102,6 +127,34 @@ def load(name: str) -> ctypes.CDLL:
             path = _library_path(name)
             if not os.path.exists(path):
                 build_all()
+            t0 = time.perf_counter()
             lib = ctypes.CDLL(path)
+            default_costplane.compiles.record(f"csrc/{name}.cu", "load",
+                                              seconds=time.perf_counter() - t0)
             _libs[name] = lib
         return lib
+
+
+def first_launch(program: str, cls: Tuple) -> Optional[float]:
+    """The host clock before a launch of variant class ``cls`` of
+    ``program`` that has not launched in this process yet, else None:
+    one set lookup, no device call.  The wrapper passes the clock to
+    :func:`record_first_launch` after its launch."""
+
+    return time.perf_counter() if (program, cls) not in _classes else None
+
+
+def record_first_launch(program: str, cls: Tuple, trigger: str, t0: float,
+                        tensors=()) -> None:
+    """Record the first launch of ``cls`` in the process compile ledger:
+    ``trigger`` names the class, the wall is the launch's host wall
+    since ``t0`` (no synchronize: the enqueue and the driver's work on a
+    kernel's first launch), the shapes those of ``tensors``."""
+
+    seconds = time.perf_counter() - t0
+    with _lock:
+        if (program, cls) in _classes:
+            return
+        _classes.add((program, cls))
+    default_costplane.compiles.record(program, trigger, seconds=seconds,
+                                      shapes=abstract_shapes(tensors))

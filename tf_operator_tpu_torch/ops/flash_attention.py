@@ -31,7 +31,10 @@ for the kernel.  :func:`attention` sends calls with a bias or a mask to
 
 ``plain_calls`` counts calls of the plain versions (and of the
 dispatcher's masked route) by name, so a run on the card can show that
-no plain attention ran on its path.
+no plain attention ran on its path.  The first launch of each kernel's
+(causal / window, dtype) class is recorded in the process compile
+ledger (``_build.record_first_launch``, program
+``ops.flash_attention``).
 """
 
 from __future__ import annotations
@@ -57,6 +60,8 @@ KERNEL_DQ = "flash_attention_bwd_dq"
 KERNEL_DKV = "flash_attention_bwd_dkv"
 FLASH_IMPLS = ("plain", "cuda")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the compile ledger's program name for the kernels' variant classes
+PROGRAM = "ops.flash_attention"
 
 #: plain-version calls by name since the last ``plain_calls.clear()``
 plain_calls: "collections.Counter[str]" = collections.Counter()
@@ -236,6 +241,24 @@ def _raise_on(err: int, kernel: str) -> None:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
+def _launch(which: int, kernel: str, q, causal, window, *args) -> None:
+    """Launch kernel ``which`` of :func:`_launchers` with ``args``; count
+    it, and record the first launch of its (causal / window, dtype)
+    class in the compile ledger."""
+
+    fn = _launchers()[which]
+    cls = (kernel, bool(causal), window, q.dtype)
+    t_first = _build.first_launch(PROGRAM, cls)
+    _raise_on(fn(*args), kernel)
+    _build.launches[kernel] += 1
+    if t_first is not None:
+        mask = f"window={window}" if window is not None else (
+            "causal" if causal else "full")
+        _build.record_first_launch(
+            PROGRAM, cls, f"{kernel},{mask},{str(q.dtype).replace('torch.', '')}",
+            t_first, (q,))
+
+
 def _grad_out(t: torch.Tensor, grad_dtype: Optional[torch.dtype]):
     if grad_dtype not in (None, torch.float32, t.dtype):
         raise ValueError(f"grad_dtype must be None, float32 or {t.dtype}, got {grad_dtype}")
@@ -251,13 +274,12 @@ def flash_forward_cuda(q, k, v, causal: bool = False, window: Optional[int] = No
     _check_kernel_inputs("flash forward", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
-    err = _launchers()[0](
+    _launch(
+        0, KERNEL_FWD, q, causal, window,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         _DTYPE_CODES[q.dtype], *_shape_args(q, k, causal, window),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, KERNEL_FWD)
-    _build.launches[KERNEL_FWD] += 1
     return out, lse
 
 
@@ -271,14 +293,13 @@ def flash_backward_dq_cuda(q, k, v, do, lse, delta, causal: bool = False,
     _check_kernel_inputs("flash dq", q, k, v, rows=(("lse", lse), ("delta", delta)),
                          grads=(("dO", do),))
     dq, out_f32 = _grad_out(q, grad_dtype)
-    err = _launchers()[1](
+    _launch(
+        1, KERNEL_DQ, q, causal, window,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), _DTYPE_CODES[q.dtype], out_f32,
         *_shape_args(q, k, causal, window),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, KERNEL_DQ)
-    _build.launches[KERNEL_DQ] += 1
     return dq
 
 
@@ -293,14 +314,13 @@ def flash_backward_dkv_cuda(q, k, v, do, lse, delta, causal: bool = False,
                          grads=(("dO", do),))
     dk, out_f32 = _grad_out(k, grad_dtype)
     dv, _ = _grad_out(v, grad_dtype)
-    err = _launchers()[2](
+    _launch(
+        2, KERNEL_DKV, q, causal, window,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPE_CODES[q.dtype],
         out_f32, *_shape_args(q, k, causal, window),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(err, KERNEL_DKV)
-    _build.launches[KERNEL_DKV] += 1
     return dk, dv
 
 

@@ -35,7 +35,10 @@ versions' calls.  K5 and K6 are each one cooperative launch of a grid
 the card holds at once (the occupancy query, :func:`fwd_resources` and
 :func:`bwd_resources`); :func:`fwd_plan` and :func:`bwd_plan` set the
 row split and the rows each CTA keeps on chip between its sums and its
-elementwise pass (K5 x, K6 g and x).
+elementwise pass (K5 x, K6 g and x).  The first K5 launch of each class
+(the epilogue, the dtype and the [R, C] shape) is recorded in the
+process compile ledger as the JAX wrapper notes its classes (program
+``ops.fused_batchnorm``, trigger ``bn[+relu][+res]``).
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from tf_operator_tpu_torch.ops import _build
 
 KERNEL_FWD = "fused_batchnorm_fwd"
 KERNEL_BWD = "fused_batchnorm_bwd"
+#: the compile ledger's program name for K5's classes (the JAX wrapper's)
+PROGRAM = "ops.fused_batchnorm"
 _SOURCE = "fused_batchnorm"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: channels of one CTA's tile, and the CTA's threads down the rows (the
@@ -270,7 +275,10 @@ def fused_batchnorm_fwd_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.
     ctas, hold = fwd_resources(code, vec, int(relu), int(residual2 is not None))
     chunks, rows, hold_rows = fwd_plan(r, c, ctas, hold, x2.element_size())
     ws = torch.empty((2 * chunks + 2) * c, dtype=torch.float32, device=x2.device)
-    err = _launchers()[0](
+    launch = _launchers()[0]
+    cls = (bool(relu), residual2 is not None, x2.dtype, r, c)
+    t_first = _build.first_launch(PROGRAM, cls)
+    err = launch(
         x2.data_ptr(), _ptr(residual2), gamma.data_ptr(), beta.data_ptr(), y2.data_ptr(),
         mean.data_ptr(), var.data_ptr(), ws.data_ptr(),
         code, vec, int(relu), r, c, chunks, rows, hold_rows, ctas, float(eps),
@@ -279,6 +287,9 @@ def fused_batchnorm_fwd_cuda(x2: torch.Tensor, gamma: torch.Tensor, beta: torch.
     if err != 0:
         raise RuntimeError(f"fused_batchnorm forward kernel launch failed: CUDA error {err}")
     _build.launches[KERNEL_FWD] += 1
+    if t_first is not None:
+        variant = "bn" + ("+relu" if relu else "") + ("+res" if residual2 is not None else "")
+        _build.record_first_launch(PROGRAM, cls, variant, t_first, (x2,))
     return y2, mean, var
 
 

@@ -24,7 +24,9 @@ version explicitly (the reference the kernel is held against);
 ``impl="cuda"`` asks for the kernel.  The kernel splits each seat's
 context into up to ``MAX_SPLITS`` ranges sized from ``MB * bs`` alone
 (:func:`split_plan`); their partial softmaxes meet inside the one
-launch.
+launch.  The first launch of each variant class (``k_new``, the split
+count, the dtype) is recorded in the process compile ledger
+(``_build.record_first_launch``, program ``ops.paged_attention``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops.attention import dot_product_attention
 
 KERNEL = "paged_attention"
+#: the compile ledger's program name for the kernel's variant classes
+PROGRAM = "ops.paged_attention"
 PAGED_IMPLS = ("plain", "cuda")
 KERNEL_BLOCK_SIZES = (8, 12, 16, 32)
 KERNEL_HEAD_DIMS = (32, 64, 128)
@@ -53,6 +57,7 @@ TILE_BYTES = 4096
 STAGES = 3
 WARPS = 4
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_NAMES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _gathered_view(arena: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
@@ -199,7 +204,8 @@ def launch_plan(q: torch.Tensor, k_arena: torch.Tensor, tables: torch.Tensor):
 
 def paged_attention_multi_cuda(q, k_arena, v_arena, tables, lengths):
     """Launch the CUDA kernel (K4) on the current stream.  Counts one
-    launch in ``_build.launches[KERNEL]``."""
+    launch in ``_build.launches[KERNEL]``; records the first launch of
+    its (k_new, splits, dtype) class in the compile ledger."""
 
     _check_kernel_inputs(q, k_arena, v_arena, tables, lengths)
     s, k_new, h, d = q.shape
@@ -208,7 +214,10 @@ def paged_attention_multi_cuda(q, k_arena, v_arena, tables, lengths):
     if s == 0:
         return out
     splits, chunk = launch_plan(q, k_arena, tables)
-    err = _launcher()(
+    launch = _launcher()
+    cls = (k_new, splits, q.dtype)
+    t_first = _build.first_launch(PROGRAM, cls)
+    err = launch(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(),
         tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[q.dtype], s, hkv, bs, d, tables.shape[1], k_new,
@@ -218,6 +227,10 @@ def paged_attention_multi_cuda(q, k_arena, v_arena, tables, lengths):
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed: CUDA error {err}")
     _build.launches[KERNEL] += 1
+    if t_first is not None:
+        _build.record_first_launch(
+            PROGRAM, cls, f"k_new={k_new},splits={splits},{_DTYPE_NAMES[q.dtype]}", t_first,
+            (q, k_arena, tables))
     return out
 
 

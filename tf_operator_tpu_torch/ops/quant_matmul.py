@@ -31,6 +31,9 @@ the kernel is held against).  ``_build.launches`` counts
 ``quant_matmul`` (the kernel) and ``quant_matmul_gemm`` (the GEMM
 route) where each runs, and ``plain_calls`` the plain version's calls,
 so a run on the card can show that no plain version ran on its path.
+The first launch of each route and x dtype is recorded in the process
+compile ledger (``_build.record_first_launch``, program
+``ops.quant_matmul``).
 """
 
 from __future__ import annotations
@@ -54,6 +57,12 @@ MAX_GEMV_ROWS = 64
 #: the JAX package's N tile widths: N must be a multiple of one of them
 BLOCK_N_CANDIDATES = (512, 256, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the compile ledger's program name for the routes' first launches
+PROGRAM = "ops.quant_matmul"
+
+
+def _route_class(route: str, dtype: torch.dtype) -> str:
+    return f"route={route},{str(dtype).replace('torch.', '')}"
 
 #: plain-version calls since the last ``plain_calls.clear()``
 plain_calls: "collections.Counter[str]" = collections.Counter()
@@ -88,8 +97,12 @@ def quant_matmul_gemm(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor,
     eagerly, a temporary copy in ``dtype``), its sums kept in float32
     until after the scale as the JAX dot's are, then one cast."""
 
+    cls = ("gemm", dtype)
+    t_first = _build.first_launch(PROGRAM, cls)
     out = (torch.mm(x2, q2.to(dtype), out_dtype=torch.float32) * s2).to(dtype)
     _build.launches[GEMM] += 1
+    if t_first is not None:
+        _build.record_first_launch(PROGRAM, cls, _route_class(*cls), t_first, (x2, q2))
     return out
 
 
@@ -147,7 +160,10 @@ def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor) -> t
     out = torch.empty((m, n), dtype=x2.dtype, device=x2.device)
     if m == 0:
         return out
-    err = _launcher()(
+    launch = _launcher()
+    cls = ("kernel", x2.dtype)
+    t_first = _build.first_launch(PROGRAM, cls)
+    err = launch(
         x2.data_ptr(), q2.data_ptr(), s2.data_ptr(), out.data_ptr(),
         _DTYPE_CODES[x2.dtype], m, k, n,
         torch.cuda.current_stream(x2.device).cuda_stream,
@@ -155,6 +171,8 @@ def quant_matmul_cuda(x2: torch.Tensor, q2: torch.Tensor, s2: torch.Tensor) -> t
     if err != 0:
         raise RuntimeError(f"quant_matmul kernel launch failed: CUDA error {err}")
     _build.launches[KERNEL] += 1
+    if t_first is not None:
+        _build.record_first_launch(PROGRAM, cls, _route_class(*cls), t_first, (x2, q2))
     return out
 
 

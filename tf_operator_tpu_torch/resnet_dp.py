@@ -83,7 +83,8 @@ def build_trainer(args: argparse.Namespace, device, plain_kernels: bool = False)
 
 def run(args: argparse.Namespace) -> Dict:
     """Train as ``args`` say; returns the trainer, the losses, the
-    resolve times and the benchmark's numbers."""
+    resolve times, ``train_loop``'s ``stats`` (``loop``) and the
+    benchmark's numbers."""
 
     device = resolve_device(args.device)
     trainer = build_trainer(args, device)
@@ -97,7 +98,7 @@ def run(args: argparse.Namespace) -> Dict:
     bench = trainer.benchmark(batch, steps=max(args.steps // 2, 5), warmup=0)
     print(f"{tag}: {bench['examples_per_sec']:.1f} ex/s global", flush=True)
     return {"trainer": trainer, "batch": batch, "losses": losses, "wall_s": wall,
-            "resolved_at": stats["resolved_at"], "benchmark": bench}
+            "resolved_at": stats["resolved_at"], "loop": stats, "benchmark": bench}
 
 
 def main(argv: Optional[List[str]] = None) -> int:

@@ -1,7 +1,11 @@
 """Shared training-run plumbing (the port of
 ``tf_operator_tpu/runtime/harness.py``): the flags every training entry
-point takes, and the train loop with its loss-decrease guard.
-Telemetry, the watchdog and trace spans wait for the metrics slice."""
+point takes, and the train loop with its loss-decrease guard.  The loop
+resolves its losses through the sync ledger (``train_sync_*``), traces
+its windows, beats a ``train.<tag>`` heartbeat for the stall watchdog,
+feeds the step-time sentinel (``step_time_*{signal="train_sync"}``) and
+boots the pod telemetry server from the environment, as the JAX loop
+does (``train_loop``'s docstring)."""
 
 from __future__ import annotations
 
@@ -10,6 +14,7 @@ import sys
 import time
 from typing import Dict, Iterable, List, Optional
 
+import numpy as np
 import torch
 
 
@@ -34,10 +39,14 @@ def standard_parser(description: str, **defaults) -> argparse.ArgumentParser:
     return p
 
 
-def _resolve(pending: List[torch.Tensor]) -> List[float]:
-    """A window's device-side losses as host floats: one transfer."""
+def _resolve_losses(ledger, phase: str, pending: List) -> List[float]:
+    """A window's device-side losses as host floats through the sync
+    ledger: stacked on the device first, so the window is one counted
+    transfer."""
 
-    return torch.stack([t.float() for t in pending]).cpu().tolist()
+    if all(isinstance(t, torch.Tensor) for t in pending):
+        pending = torch.stack([t.detach().float().reshape(-1) for t in pending])
+    return np.asarray(ledger.resolve(phase, pending), dtype=np.float64).reshape(-1).tolist()
 
 
 def train_loop(
@@ -48,7 +57,10 @@ def train_loop(
     start_step: int = 0,
     tag: str = "train",
     assert_decreasing: bool = True,
+    tracer=None,
     steps_per_sync: int = 1,
+    sync_ledger=None,
+    watchdog=None,
     stats: Optional[Dict] = None,
 ) -> List[float]:
     """Run ``steps`` steps, print the summary, and (by default) fail
@@ -56,12 +68,60 @@ def train_loop(
     more steps.
 
     ``batch_or_batches``: one batch reused every step, or an iterator of
-    batches.  With ``steps_per_sync`` K > 1 the losses stay on the
+    batches.  ``steps_per_sync`` (K): with K > 1 the losses stay on the
     device and each K-step window is resolved after the next window has
-    been dispatched, so the host rides one window behind the device.
+    been dispatched, so the host rides one window behind the device: one
+    ``window``-phase resolve a window and one ``final`` at the end, each
+    a single transfer.  K = 1 resolves every step (one ``step``-phase
+    sync a step, the debugging baseline).
+
+    Every resolve goes through ``sync_ledger`` (a
+    ``utils/metrics.StepSyncLedger``; one over the default registry
+    when not passed), which counts ``train_sync_total{phase}`` and times
+    ``train_sync_seconds{phase}``; with an iterator, each ``data.load``
+    wait is recorded there too.  If the trainer has a ``sync_ledger``,
+    it is pointed at the loop's for the run.
+
+    Traced (``tracer``, default the process tracer): one ``train <tag>``
+    trace, rooted under the environment's span context
+    (``runtime/telemetry.trace_context_from_env``); K = 1 keeps a
+    ``step N`` span a step, K > 1 a ``steps a..b`` span a window, each
+    split into ``data.load`` / ``train.step`` children, with the
+    ledger's ``sync.<phase>`` spans marking the resolves.
+
+    The loop registers a ``train.<tag>`` heartbeat on ``watchdog``
+    (default: the process watchdog, utils/watchdog.py), beaten once a
+    window; sets ``train_window_steps_per_second`` on the ledger's
+    registry; and feeds the step-time sentinel (``utils/costplane``, on
+    the ledger's registry) the window's wall a step, once for each step
+    of the window, as ``train_sync``.  The pod telemetry server boots
+    when ``TPUJOB_TELEMETRY_PORT`` is set (``runtime/telemetry``).  All
+    of it is host arithmetic: the window gains no sync.
+
     ``stats``, when given, receives ``resolved_at``: (steps resolved so
     far, host time) after each resolve, from which a caller reads the
-    steady-state step time."""
+    steady-state step time; ``sync_ledger``, ``sentinel`` and
+    ``heartbeat_beats``."""
+
+    from tf_operator_tpu_torch.runtime.telemetry import (
+        maybe_start_from_env as _maybe_start_telemetry,
+        trace_context_from_env,
+    )
+    from tf_operator_tpu_torch.utils.costplane import StepTimeSentinel, default_costplane
+    from tf_operator_tpu_torch.utils.metrics import StepSyncLedger, default_metrics
+    from tf_operator_tpu_torch.utils.trace import default_tracer
+    from tf_operator_tpu_torch.utils.watchdog import default_watchdog
+
+    _maybe_start_telemetry()
+    env_trace_id, env_parent_id = trace_context_from_env()
+    tr = tracer if tracer is not None else default_tracer
+    ledger = (sync_ledger if sync_ledger is not None
+              else StepSyncLedger(metrics=default_metrics, tracer=tr))
+    dog = watchdog if watchdog is not None else default_watchdog
+    hb = dog.register(f"train.{tag}")
+    mreg = getattr(ledger, "metrics", None)
+    sentinel = (StepTimeSentinel(metrics=mreg) if mreg is not None
+                else default_costplane.sentinel)
 
     batches: Optional[Iterable[Dict]] = None
     fixed = None
@@ -70,29 +130,73 @@ def train_loop(
     else:
         fixed = batch_or_batches
     k = max(1, int(steps_per_sync))
-    losses: List[float] = []
-    pending: List[torch.Tensor] = []
-    resolved_at = []
+    prev_trainer_ledger = getattr(trainer, "sync_ledger", None)
+    if prev_trainer_ledger is not None:
+        trainer.sync_ledger = ledger
 
-    def resolve(window):
-        losses.extend(_resolve(window))
+    losses: List[float] = []
+    pending: List = []
+    resolved_at = []
+    t_prev = time.perf_counter()
+
+    def resolve(phase: str, window: List) -> None:
+        losses.extend(_resolve_losses(ledger, phase, window))
         resolved_at.append((len(losses), time.perf_counter()))
 
-    step = start_step
-    while step < steps:
-        n = min(k, steps - step)
-        window = []
-        for _ in range(n):
-            batch = next(batches) if batches is not None else fixed
-            window.append(trainer.train_step(batch)["loss"])
-        if pending:
-            resolve(pending)
-        pending = window
-        step += n
-    if pending:
-        resolve(pending)
+    def observe(n_steps: int) -> None:
+        # the window's host wall since the previous one: the throughput
+        # gauge, and one sentinel observation of its per-step wall for
+        # each of its steps
+        nonlocal t_prev
+        now_t = time.perf_counter()
+        if now_t > t_prev:
+            if mreg is not None:
+                mreg.set("train_window_steps_per_second", n_steps / (now_t - t_prev))
+            for _ in range(n_steps):
+                sentinel.observe("train_sync", (now_t - t_prev) / n_steps)
+        t_prev = now_t
+
+    def one_step():
+        if batches is not None:
+            with tr.span("data.load"):
+                t_load = time.perf_counter()
+                batch = next(batches)
+                ledger.record("data.load", time.perf_counter() - t_load)
+        else:
+            batch = fixed
+        with tr.span("train.step"):
+            return trainer.train_step(batch)["loss"]
+
+    try:
+        with tr.span(f"train {tag}", trace_id=env_trace_id, parent_id=env_parent_id,
+                     attributes={"startStep": start_step, "steps": steps,
+                                 "stepsPerSync": k}):
+            step = start_step
+            while step < steps:
+                n = min(k, steps - step)
+                name = f"step {step}" if k == 1 else f"steps {step}..{step + n}"
+                with tr.span(name, attributes=None if k == 1 else {"k": n}):
+                    window = [one_step() for _ in range(n)]
+                ledger.step(n)
+                hb.beat()
+                observe(n)
+                step += n
+                if k == 1:
+                    resolve("step", window)
+                    continue
+                # the previous window, now that this one is queued
+                if pending:
+                    resolve("window", pending)
+                pending = window
+            if pending:
+                resolve("final", pending)
+    finally:
+        dog.unregister(hb.name)
+        if prev_trainer_ledger is not None:
+            trainer.sync_ledger = prev_trainer_ledger
     if stats is not None:
-        stats["resolved_at"] = resolved_at
+        stats.update(resolved_at=resolved_at, sync_ledger=ledger, sentinel=sentinel,
+                     heartbeat_beats=hb.beats)
 
     if losses:
         first, last = losses[0], sum(losses[-5:]) / len(losses[-5:])

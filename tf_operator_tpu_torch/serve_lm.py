@@ -27,7 +27,30 @@ The serving plane's records (the JAX server's endpoints):
 - ``GET /slo``: per-tier quantiles of the SLO families and the load
   gauges;
 - ``GET /alerts``: the alert engine's state over the default rules;
-- ``GET /debug/flightrecorder``: the flight recorder's ndjson dump.
+- ``GET /debug/flightrecorder``: the flight recorder's ndjson dump;
+- ``GET /debug/compiles``: the compile ledger (``utils/costplane.py``):
+  the process ledger, where the kernels record each nvcc build, each
+  library load and the first launch of each kernel variant class,
+  mirrored into the server's registry (``compile_total``,
+  ``compile_seconds`` on ``/metrics``);
+- ``GET /debug/memory``: the device-memory accountant: the weights, the
+  KV arena (and the draft twin's), the seats' device state, swap
+  staging on the host and the window's peak transient by device, with
+  the limit, the headroom and the coverage of what the caching
+  allocator says is live;
+- ``GET /debug/profile?seconds=N`` (0 < N <= 30, default 1):
+  ``torch.profiler`` over the live decode loop, started and stopped on
+  the pool's driver thread between windows (``WindowProfiler``); the
+  answer names the artifact directory
+  (``serve-profile-c<compiles>-...``, under ``$TPUJOB_PROFILE_DIR`` or
+  the temporary directory) that holds ``trace.json``, a Chrome trace,
+  and ``COSTPLANE.json``.  400 for a bad ``seconds``, 503 when no
+  request is seated or queued, 409 while another profile runs; only
+  ``/debug/profile`` itself or with a query matches.
+
+The driver thread beats a ``serving.pool`` heartbeat on the process
+watchdog (``utils/watchdog.py``); ``main`` starts the watchdog when
+``TPUJOB_WATCHDOG=1`` (deadline ``TPUJOB_WATCHDOG_DEADLINE``).
 
 Speculative decoding (``--speculative``, ``--spec-k K``, ``--spec-tiers
 T1[,T2]``): the pool's speculative mode (models/batching.py), gated per
@@ -44,8 +67,7 @@ refuses to start when the port's own record
 ``chip_smoke.py``'s speculative phase) says speculation is slower than
 the plain pool; ``--speculative-force`` serves it anyway.
 
-The JAX server's ``/debug/compiles``, ``/debug/memory``,
-``/debug/profile`` and ``/debug/fabric`` are not ported.
+The JAX server's ``/debug/fabric`` is not ported.
 
 SLO tiers: the body's ``tier``, else the ``x-slo-tier`` header, else
 ``batch``; anything but ``interactive`` or ``batch`` is a 400.  The
@@ -75,6 +97,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import tempfile
 import threading
 import time
 import traceback
@@ -96,6 +119,7 @@ from tf_operator_tpu_torch.ops.quant import state_bytes
 from tf_operator_tpu_torch.parallel.checkpoint import MODEL_FILE, PARAMS_FILE
 from tf_operator_tpu_torch.utils import flight
 from tf_operator_tpu_torch.utils.alerts import AlertEngine, default_rules
+from tf_operator_tpu_torch.utils.costplane import CostPlane, default_costplane
 from tf_operator_tpu_torch.utils.metrics import (
     SLO_BUCKETS,
     DispatchLedger,
@@ -103,6 +127,7 @@ from tf_operator_tpu_torch.utils.metrics import (
     finite_summary,
 )
 from tf_operator_tpu_torch.utils.trace import TRACE_HEADER, Tracer, extract_headers
+from tf_operator_tpu_torch.utils.watchdog import default_watchdog, maybe_start_from_env
 
 
 def decode_bytes(arr) -> str:
@@ -122,6 +147,12 @@ SLO_FAMILIES = (
 
 #: /debug/arena returns at most this many samples of the timeline
 ARENA_SAMPLE_LIMIT = 160
+
+#: /debug/profile's longest capture (seconds), the JAX server's
+PROFILE_MAX_SECONDS = 30.0
+
+#: the driver thread's heartbeat on the process watchdog
+POOL_HEARTBEAT = "serving.pool"
 
 #: the port's measured verdict on speculation: the ``spec_paged_speedup``
 #: row (the speculative pool's interactive decode tokens/s over the plain
@@ -176,17 +207,102 @@ def make_pool(model: LlamaLM, *, model_label: str = "unknown",
               **pool_kw) -> PagedContinuousBatchingDecoder:
     """The paged pool with its records, as the server serves it: one
     ``Metrics`` registry (the SLO families on the long-tail buckets), one
-    ``Tracer`` and a ``DispatchLedger`` over both.  ``pool_kw`` are the
-    pool's own arguments."""
+    ``Tracer`` and a ``DispatchLedger`` over both, and one ``CostPlane``
+    over the registry whose compile ledger is the process ledger (where
+    the kernels record), with the weights registered (the model's, and a
+    draft model's that holds other storage).  ``pool_kw`` are the pool's
+    own arguments."""
 
     metrics = metrics if metrics is not None else Metrics()
     tracer = tracer if tracer is not None else Tracer()
     for fam in SLO_FAMILIES:
         metrics.set_buckets(fam, SLO_BUCKETS)
+    costplane = CostPlane(metrics=metrics, compiles=default_costplane.compiles)
+    draft = pool_kw.get("draft_model")
+    costplane.hbm.register_tree("weights", [model] if draft is None else [model, draft])
     return PagedContinuousBatchingDecoder(
         model, ledger=DispatchLedger(metrics=metrics, tracer=tracer), metrics=metrics,
-        model_label=model_label, **pool_kw,
+        model_label=model_label, costplane=costplane, **pool_kw,
     )
+
+
+class WindowProfiler:
+    """``GET /debug/profile``'s capture.  ``torch.profiler`` records the
+    CPU ops of the thread that starts it (and every kernel on the
+    device), so the request thread hands the capture to the pool's
+    driver thread, which starts and stops it between decode windows
+    (``tick``); the request thread waits, then writes the Chrome trace
+    off the decode loop.  Where the profiler can skip building its
+    Python events (``trace_only``), it does: the trace is all the
+    capture keeps.  ``busy`` admits one capture at a time: the profiler
+    is process-wide state."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.busy = threading.Lock()
+        self._job: Optional[dict] = None
+
+    def capture(self, seconds: float, path: str, timeout: float) -> None:
+        """Hand a capture of ``seconds`` writing the trace to ``path`` to
+        the driver and wait for it (the caller holds ``busy``).  Raises
+        RuntimeError when the capture failed or did not end in
+        ``timeout`` seconds."""
+
+        job = {"seconds": seconds, "done": threading.Event(), "prof": None, "error": None}
+        self._job = job
+        if not job["done"].wait(timeout):
+            self._job = None
+            raise RuntimeError(f"the decode loop ran no capture in {timeout:.0f} s")
+        if job["error"]:
+            raise RuntimeError(job["error"])
+        job["prof"].export_chrome_trace(path)
+
+    def tick(self) -> None:
+        """On the driver thread, between windows: start the handed
+        capture, or stop the running one once its seconds have passed."""
+
+        job = self._job
+        if job is None:
+            return
+        try:
+            if job["prof"] is None:
+                job["prof"] = _profiler(self.device)
+                job["prof"].__enter__()
+                job["t0"] = time.perf_counter()
+                return
+            if time.perf_counter() - job["t0"] < job["seconds"]:
+                return
+            job["prof"].__exit__(None, None, None)
+        except Exception as exc:  # a profiler fault must not end the decode loop
+            job["error"] = repr(exc)
+        self._job = None
+        job["done"].set()
+
+    def cancel(self) -> None:
+        """Stop a running capture (the driver thread has stopped)."""
+
+        job, self._job = self._job, None
+        if job is not None:
+            if job["prof"] is not None:
+                job["prof"].__exit__(None, None, None)
+            job["error"] = "the server closed during the capture"
+            job["done"].set()
+
+
+def _profiler(device: torch.device):
+    """A ``torch.profiler.profile`` of the CPU and, on a card, the CUDA
+    activity; ``trace_only`` where this PyTorch has it."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    try:
+        config = torch._C._profiler._ExperimentalConfig(trace_only=True)
+    except TypeError:  # a PyTorch without the option builds its events
+        return profile(activities=activities)
+    return profile(activities=activities, experimental_config=config)
 
 
 def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
@@ -201,6 +317,8 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
         raise ValueError("serve_lm serves a pool built with its records (make_pool)")
     max_len = pool.max_len
     metrics, tracer, model_label = pool.metrics, pool.tracer, pool.model_label
+    costplane = pool.costplane
+    profiler = WindowProfiler(pool.device)
     recorder = flight.default_recorder
     recorder.attach_tracer(tracer)
     recorder.attach_metrics(metrics)
@@ -306,7 +424,66 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
             if path == "/debug/flightrecorder":
                 return self._send(200, recorder.dump_text().encode(),
                                   "application/x-ndjson")
+            if path == "/debug/compiles":
+                return self._reply(200, {"model": model_label,
+                                         **costplane.compiles.snapshot()})
+            if path == "/debug/memory":
+                return self._reply(200, {"model": model_label, **costplane.hbm.snapshot()})
+            if path == "/debug/profile" or path.startswith("/debug/profile?"):
+                # exact or with a query: /debug/profileX is a 404
+                return self._profile()
             return self._reply(404, {"error": "try POST /generate"})
+
+        def _profile(self):
+            """The JAX server's /debug/profile over ``WindowProfiler``:
+            the checks in its order (400, 503, 409), then the capture,
+            its artifact directory and the cost plane's context."""
+
+            seconds = 1.0
+            query = self.path.split("?", 1)[1] if "?" in self.path else ""
+            for part in query.split("&"):
+                if part.startswith("seconds="):
+                    try:
+                        seconds = float(part.split("=", 1)[1])
+                    except ValueError:
+                        return self._reply(400, {"error": "seconds must be a number"})
+            if not 0.0 < seconds <= PROFILE_MAX_SECONDS:
+                return self._reply(400, {"error": "seconds must be in (0, 30]"})
+            if pool.in_flight() == 0:
+                return self._reply(503, {
+                    "error": "decode loop idle: no active seats or queued requests to "
+                             "profile — send traffic first, then re-request"})
+            if not profiler.busy.acquire(blocking=False):
+                return self._reply(409, {"error": "a profile is already running "
+                                                  "(torch.profiler is process-global)"})
+            try:
+                base = os.environ.get("TPUJOB_PROFILE_DIR")
+                if base:
+                    os.makedirs(base, exist_ok=True)
+                # the compile count at capture names the artifact
+                compiles0 = costplane.compiles.total()
+                out_dir = tempfile.mkdtemp(prefix=f"serve-profile-c{compiles0}-",
+                                           dir=base or None)
+                t0 = time.perf_counter()
+                profiler.capture(seconds, os.path.join(out_dir, "trace.json"),
+                                 timeout=seconds + 120.0)
+                context = {
+                    "compiles_at_start": compiles0,
+                    "compiles_during_window": costplane.compiles.total() - compiles0,
+                    "compile_programs": costplane.compiles.snapshot(limit=8)["byProgram"],
+                    "step_time": costplane.sentinel.snapshot(),
+                }
+                with open(os.path.join(out_dir, "COSTPLANE.json"), "w") as f:
+                    json.dump(context, f, indent=2, sort_keys=True)
+                return self._reply(200, {
+                    "artifact": out_dir, "seconds": seconds,
+                    "wall_seconds": round(time.perf_counter() - t0, 3),
+                    "costplane": context,
+                })
+            except Exception as exc:  # a profiler fault must not end the server
+                return self._reply(500, {"error": repr(exc)})
+            finally:
+                profiler.busy.release()
 
         def do_POST(self):
             self._trace_id = None
@@ -399,13 +576,17 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                 return self._reply(500, {"error": repr(exc)})
 
     Handler.alert_engine = alert_engine
+    Handler.costplane = costplane
+    Handler.profiler = profiler
     return Handler
 
 
 class Server:
     """The HTTP server and the pool's decode loop thread, started together
     and stopped together.  ``alert_engine`` is the handler's, not
-    started: ``main`` starts it."""
+    started: ``main`` starts it.  The driver thread beats the
+    ``serving.pool`` heartbeat on the process watchdog and runs the
+    handler's profiler between windows."""
 
     def __init__(self, pool: PagedContinuousBatchingDecoder,
                  host: str = "127.0.0.1", port: int = 0):
@@ -413,6 +594,7 @@ class Server:
         self.fatal: list = []
         handler = build_handler(pool, self.fatal)
         self.alert_engine = handler.alert_engine
+        self.profiler = handler.profiler
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.port = self.httpd.server_address[1]
         self._stop = threading.Event()
@@ -423,14 +605,24 @@ class Server:
         ]
 
     def _drive(self) -> None:
-        while not self._stop.is_set():
-            try:
-                if self.pool.step() == 0:
-                    time.sleep(0.005)
-            except Exception as exc:  # a dead decode loop must surface as 500s
-                traceback.print_exc()
-                self.fatal.append(repr(exc))
-                return
+        # the liveness-critical thread: a wedge here hangs every queued
+        # client, so it beats the process watchdog's heartbeat
+        hb = default_watchdog.register(POOL_HEARTBEAT)
+        try:
+            while not self._stop.is_set():
+                try:
+                    hb.beat()
+                    self.profiler.tick()
+                    if self.pool.step() == 0:
+                        time.sleep(0.005)
+                except Exception as exc:  # a dead decode loop must surface as 500s
+                    traceback.print_exc()
+                    self.fatal.append(repr(exc))
+                    return
+        finally:
+            # another server's driver may have registered the name since
+            if default_watchdog.heartbeats().get(POOL_HEARTBEAT) is hb:
+                default_watchdog.unregister(POOL_HEARTBEAT)
 
     def start(self) -> "Server":
         for t in self._threads:
@@ -443,6 +635,7 @@ class Server:
         self.httpd.server_close()
         for t in self._threads:
             t.join(timeout=30)
+        self.profiler.cancel()
 
 
 def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
@@ -591,6 +784,8 @@ def main(argv: Optional[list] = None) -> int:
     # recorder dumps on SIGTERM and on a fatal exception
     metrics = Metrics()
     flight.install(metrics=metrics)
+    # TPUJOB_WATCHDOG=1 adds the stall monitor over the same registry
+    maybe_start_from_env(metrics=metrics)
     server = Server(build_pool(model, args, metrics, draft), port=args.port).start()
     server.alert_engine.start()
     print(f"serving on 127.0.0.1:{server.port} ({device})", flush=True)
