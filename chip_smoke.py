@@ -86,14 +86,16 @@ Phases, in order; any failure exits non-zero before the result line:
    spread).
 4d. ResNet-50 training, the main path of K5 and K6: ``resnet_dp --norm
    fused --model resnet50 --image-size 224 --batch-per-device 64 --steps
-   30`` in process.  Counts zeroed just before and read just after: K5
-   and K6 must each launch 53 x (30 + 15) times (train_loop's steps and
+   192`` in process.  Counts zeroed just before and read just after: K5
+   and K6 must each launch 53 x (192 + 96) times (train_loop's steps and
    the benchmark's) and no plain version may run; the loss must fall.
    ``train_loop``'s records (``check_loop_records``): the step-time
-   sentinel observed ``train_sync`` once a step (30), the sync ledger
-   and ``train_sync_total{phase}`` counted a ``window`` resolve a window
-   but the last and one ``final``, the ``train.<tag>`` heartbeat beat
-   once a window; the steady-state drift ratio is printed.
+   sentinel observed ``train_sync`` once a window (24 windows of 8) and
+   froze its drift reference at the 16th, the sync ledger and
+   ``train_sync_total{phase}`` counted a ``window`` resolve a window but
+   the last and one ``final``, the ``train.<tag>`` heartbeat beat once a
+   window; the drift ratio (the p50 of all 24 windows over the first
+   16's) is printed.
    Prints step ms, examples/s, model TFLOP/s (8.18 GFLOP an image
    forward, x3 for a step) and their share of the 989 TFLOPS peak, and
    peak memory.  Then one step under torch.profiler (busy share, K5's
@@ -103,13 +105,13 @@ Phases, in order; any failure exits non-zero before the result line:
    ``--norm fused``, 3 steps each (step ms, the largest relative loss
    difference).
 5. the training main path: ``llama_pretrain`` at llama-wide (full
-   depth, 12 layers), seq 2048 x batch 4, 30 steps on the byte corpus
+   depth, 12 layers), seq 2048 x batch 4, 120 steps on the byte corpus
    generated in a temporary directory.  The counts are zeroed just
    before and read just after: K1, K2 and K3 must each have launched
-   12 x 30 times, no plain attention may have run, and the loss must
+   12 x 120 times, no plain attention may have run, and the loss must
    fall.  Prints step ms, tokens/s, model TFLOP/s and their share of
    the 989 TFLOPS peak, and peak memory.  ``train_loop``'s records as
-   in phase 4d (30 steps, 6 windows).
+   in phase 4d (120 steps, 24 windows of 5).
 6. train -> export -> serve: the exported artifact behind the port's
    ``serve_lm`` (K4 at Hkv 8) answers one greedy request with the
    bytes ``generate`` gives on the trained parameters in the process;
@@ -145,12 +147,18 @@ Phases, in order; any failure exits non-zero before the result line:
    ``step_time_p50_seconds{signal="decode.window"}`` is within 10 % of
    the median window wall of the pool's ``decode.window`` spans.  Then
    the nine requests again (``phase_debug_pass``): no new compile event;
-   ``/debug/profile?seconds=2`` during the traffic writes a trace naming
-   K4's kernel and the driver thread's ``aten::`` ops, a second request
-   meanwhile gets 409 and one once the pool is idle 503; a watchdog
-   heartbeat with a 0.5 s deadline that never beats counts one
-   ``watchdog_stall_total`` and dumps one postmortem whose stacks name
-   the driver thread.
+   ``/debug/profile?seconds=2`` during the traffic, started, stopped and
+   exported on its request's thread, writes a trace of the CUDA activity
+   naming K4's kernel (and K7's for the int8 model); the windows it
+   covered against the pass's others, and the capture's start,
+   recording, stop and export walls, are printed; the profiler's stop
+   and the export hold the interpreter lock, so the window they overlap
+   stalls, and it must stay within twice the longest window outside
+   the capture plus the stop and export walls (``_profile_windows``);
+   a second request meanwhile gets 409 and one once the pool is
+   idle 503; a watchdog heartbeat with a 0.5 s deadline that never beats
+   counts one ``watchdog_stall_total`` and dumps one postmortem whose
+   stacks name the driver thread.
    Then one decode window of the same pool runs under torch.profiler:
    the device's busy share of the window and each kernel's share.
 7c. what the records cost on the host: phase 7's nine requests, in this
@@ -257,7 +265,55 @@ Phases, in order; any failure exits non-zero before the result line:
    matmul; at 7B width the first paged decode step through K7 is within
    a stated bound of the same step with the plain int8 matmul (K4 in
    both), with the same argmax.
-11. the kernels line (K1, K2, K3 from the training path, K4 from the
+11. the JAX server's default mode (run after phase 7d, bf16): the same
+   7B model behind ``serve_lm`` built from its flags with no
+   ``--batching`` and ``--prompt-cache 4`` (the chunked decoder, max_len
+   2048), over HTTP: phase 7's nine bodies one at a time, then three new
+   ones (100, 300 and 600 bytes, the last seeded) at once on their own
+   threads, then those three again one at a time.  Counts zeroed just
+   before and read just after.  Checks: every answer 200 with the JAX
+   server's keys; the repeats' rows equal their first rows exactly;
+   ``serve_prompt_cache_hits`` = 3 =
+   ``serve_prefix_cache_hits_total{mode="chunked"}``;
+   ``serving_dispatch_total{phase="prefill"}`` = the binary chunks of
+   the 12 prompts that missed, ``{phase="decode"}`` = the 15 requests;
+   15 TTFT observations under ``mode="chunked"``; no kernel launched
+   (the contiguous decode branch reaches none in bf16); each greedy row
+   equals phase 7's paged row for the same body, or its first
+   divergence is a tie of the two paths (``_path_divergence``: the
+   logits that chose that token computed again on each path as it ran,
+   the chunked decoder's binary-chunk prefill and decode steps, and the
+   paged admission's one-shot prefill past its prefix hit and K4 steps
+   at 8 seats; each replay must choose its path's served token, the
+   margin between the two tokens on each replay must be within what the
+   two paths move those two logits, and the replays' difference within
+   phase 8's bound).  Prints each
+   request's HTTP latency (the JAX definition of its TTFT), the
+   sequential prefill and decode seconds, decode tokens/s (31 tokens a
+   request over the decode dispatches' wall) and peak memory.
+9b. (run after phase 9) phase 11 on the int8 model: K7 = 225 x (31
+   steps a request + the prefill chunks of <= 64 rows), the GEMM route
+   225 x the wider chunks, no K4 and no plain int8 matmul; greedy rows
+   against phase 9's paged rows; decode tokens/s beside phase 11's.
+12. the contiguous slot pool (after phase 11): the same seeded bf16
+   weights under ``llama_7b_shape(max_len=2048, window=1024)``, built
+   with ``LlamaLM.from_state_dict`` over the same storage (a
+   ``variant(window=...)`` is a shallow copy whose attention layers
+   keep their own config; both are checked), behind ``serve_lm`` built
+   from ``--batching 8``, which must print the JAX server's ``paged pool
+   unavailable (...); serving the contiguous slot pool`` line.  Phase
+   7's nine bodies at once; the 1,500-byte prompt prefills in chunks
+   capped at 1,024 and its cache wraps.  Checks: the records
+   (``check_records`` with the staged path's spans); dispatches
+   ``prefill`` = the capped chunks, ``sample`` = ``scatter`` = 9,
+   ``admission`` = 0; no kernel launched; peak seats = the 8 slots
+   (the nine bodies are sent at once; polled every 2 ms); ``/debug/memory``'s ``kv_arena`` = the slot stack, 8 x 32
+   layers x 2 x 32 heads x 1,024 x 128 x 2 B = 4 GiB, and ``weights`` =
+   ``state_bytes``; each greedy row equals the chunked decoder's row on
+   the same windowed model, or its first divergence is a bf16 tie.
+   Prints decode tokens/s, window ms, TTFT and peak memory, then one
+   steady window of eight seats under torch.profiler (as phase 7's).
+13. the kernels line (K1, K2, K3 from the training path, K4 from the
    serving path, K7 from the int8 serving path, K5 and K6 from the
    ResNet path, at the [200704, 256] no-ReLU, no-residual class, where
    F.batch_norm computes the same function), the card line, and last
@@ -701,6 +757,23 @@ def _metric_sum(text, name):
                if line.startswith(name + "{") or line.startswith(name + " "))
 
 
+def record_rows(pool):
+    """The token rows a pool hands out, by its request id (the HTTP
+    sample is bytes decoded as ASCII, which folds every byte >= 128 into
+    one character): a dict filled as ``result_wait`` returns rows."""
+
+    rows, result_wait = {}, pool.result_wait
+
+    def recording_wait(rid, timeout=None):
+        row = result_wait(rid, timeout)
+        if row is not None:
+            rows[rid] = row
+        return row
+
+    pool.result_wait = recording_wait
+    return rows
+
+
 def decode_steps(pool):
     """Decode steps a pool ran: its ledger's windows x steps a window."""
 
@@ -712,12 +785,19 @@ REQUEST_SPANS = ("serve.generate", "queue.wait", "admission", "dispatch.admissio
                  "decode.window", "retire")
 
 
-def check_records(port, pool, results, tag):
+#: the lifecycle spans of a request that the contiguous pool seats on
+#: its staged path (prefilled on the submitter's thread, then scattered)
+STAGED_SPANS = ("serve.generate", "queue.wait", "admission", "dispatch.prefill",
+                "dispatch.sample", "dispatch.scatter", "decode.window", "retire")
+
+
+def check_records(port, pool, results, tag, spans=REQUEST_SPANS):
     """The serving plane's records of one phase, read over HTTP while
     the server runs: each reply's ``request_id`` (echoed in x-trace-id),
-    its autopsy and trace; /metrics against the pool's own counts;
-    /slo, /debug/arena, /alerts and /debug/flightrecorder parse.
-    Returns the autopsies in request order and the exposition."""
+    its autopsy and its trace (holding ``spans``, the seating dispatch
+    under ``admission``); /metrics against the pool's own counts; /slo,
+    /debug/arena, /alerts and /debug/flightrecorder parse.  Returns the
+    autopsies in request order and the exposition."""
 
     autopsies = []
     for i, r in enumerate(results):
@@ -728,15 +808,15 @@ def check_records(port, pool, results, tag):
         if a["state"] != "done" or a["dispatches"].get("step") != a["windows"]:
             raise AssertionError(f"{tag}: autopsy of request {i}: {a}")
         trace = _get_json(port, f"/traces/{rid}")
-        spans = {s["spanId"]: s for s in trace["spans"]}
-        names = {s["name"] for s in spans.values()}
-        if not set(REQUEST_SPANS) <= names:
+        by_id = {s["spanId"]: s for s in trace["spans"]}
+        names = {s["name"] for s in by_id.values()}
+        if not set(spans) <= names:
             raise AssertionError(f"{tag}: trace of request {i} lacks "
-                                 f"{set(REQUEST_SPANS) - names}")
-        for s in spans.values():
-            if s["name"] == "dispatch.admission" and \
-                    spans.get(s["parentId"], {}).get("name") != "admission":
-                raise AssertionError(f"{tag}: dispatch.admission outside admission: {s}")
+                                 f"{set(spans) - names}")
+        for s in by_id.values():
+            if s["name"] in ("dispatch.admission", "dispatch.scatter") and \
+                    by_id.get(s["parentId"], {}).get("name") != "admission":
+                raise AssertionError(f"{tag}: {s['name']} outside admission: {s}")
         autopsies.append(a)
     status, raw = _get(port, "/metrics")
     text = raw.decode()
@@ -759,7 +839,7 @@ def check_records(port, pool, results, tag):
     log(f"{tag} records: " + json.dumps({
         "requests_ok": ok, "ttft_count": ttft, "step_dispatches": steps,
         "slo_ttft": slo["histograms"]["serve_ttft_seconds"],
-        "arena_samples": len(arena["replicas"][0]["samples"]),
+        "arena_samples": [len(r["samples"]) for r in arena["replicas"]],
         "alerts_firing": alerts["firing"], "flight_records": len(dump)}))
     return autopsies, text, slo
 
@@ -772,6 +852,10 @@ COSTPLANE_FAMILIES = ("compile_total", "compile_seconds", "hbm_component_bytes",
                       "step_time_p50_seconds", "step_time_p99_seconds")
 #: the sentinel's p50 against the median of the pool's window walls
 SENTINEL_RTOL = 0.10
+#: the windows after which the step-time sentinel freezes its drift
+#: reference (``StepTimeSentinel``'s warmup); a drift ratio read at
+#: exactly this many windows is 1 by construction
+SENTINEL_WARMUP = 16
 #: the resident components' share of the allocator's live bytes
 MIN_COVERAGE = 0.95
 
@@ -884,15 +968,68 @@ def check_costplane(port, pool, models, text, tag):
     return rec
 
 
+#: the kernel names a /debug/profile trace of a decode window must hold
+#: (the capture records the CUDA activity alone): K4's, and K7's for an
+#: int8 model
+PROFILE_KERNELS = {"k4": "paged_attention_split_kernel", "k7": "quant_matmul_bf16_kernel"}
+
+
+#: the slack, as a share of the longest window outside a capture, of the
+#: stall bound below: one more window, for what else holds the
+#: interpreter lock in the pass (the watchdog's postmortem, admissions,
+#: the switch interval); a loop held for the recording too (2 s) still
+#: breaks it
+PROFILE_STALL_SLACK = 1.0
+
+
+def _profile_windows(windows, capture):
+    """Decode windows ({start: wall}) of a pass against a capture's
+    stages (``ProfileCapture.last``: starting, recording, stopping,
+    exporting): the walls, in ms, of the windows that overlap each stage
+    and of those outside the capture, each stage's wall, and whether the
+    windows the recording covers stay inside the spread of those
+    outside.  On a card the profiler's stop and the trace's export hold
+    the interpreter lock, so the window they overlap stalls; its bound:
+    no longer than the longest window outside the capture, plus the stop
+    and the export, plus ``PROFILE_STALL_SLACK`` of that window.  A loop
+    held for the recording too, or longer than the lock is held, breaks
+    it (``stall_within_bound``)."""
+
+    def overlapping(lo, hi):
+        return [w for t, w in windows.items() if t < hi and t + w > lo]
+
+    stages = ("starting", "recording", "stopping", "exporting")
+    rec = {stage: [round(w * 1e3, 1) for w in overlapping(*capture[stage])]
+           for stage in stages}
+    lo, hi = capture["starting"][0], capture["exporting"][1]
+    rec["outside"] = sorted(round(w * 1e3, 1) for t, w in windows.items()
+                            if not (t < hi and t + w > lo))
+    rec.update({k: capture[k] for k in ("start_s", "record_s", "stop_s", "export_s")})
+    if rec["recording"] and rec["outside"]:
+        rec["recording_inside_spread"] = max(rec["recording"]) <= max(rec["outside"])
+    held = rec["stopping"] + rec["exporting"]
+    if held and rec["outside"]:
+        longest = max(rec["outside"])
+        rec["stall_ms"] = max(held) - statistics.median(rec["outside"])
+        rec["stall_bound_ms"] = round(longest * (1 + PROFILE_STALL_SLACK)
+                                      + (capture["stop_s"] + capture["export_s"]) * 1e3, 1)
+        rec["stall_within_bound"] = max(held) <= rec["stall_bound_ms"]
+    return rec
+
+
 def phase_debug_pass(server, bodies, tag):
     """The same requests again through the warm server, with the
     operator's tools on it: the compile ledger gains no event; a
-    ``/debug/profile?seconds=2`` taken during the traffic writes a trace
-    that names K4's kernel and the driver thread's ``aten::`` ops, while
-    a second request meanwhile gets 409 and one once the pool is idle
-    503; a watchdog with a 0.5 s heartbeat that never beats counts one
-    ``watchdog_stall_total`` and dumps one postmortem whose stacks name
-    the driver thread (``serve.pool``)."""
+    ``/debug/profile?seconds=2`` taken during the traffic, started,
+    stopped and exported on its request's thread, writes a trace that
+    names K4's kernel (and K7's for an int8 model), while a second
+    request meanwhile gets 409 and one once the pool is idle 503; the
+    windows the capture covered against the pass's others, and the
+    capture's start, recording, stop and export walls, with the stalled
+    window held to its bound (``_profile_windows``); a watchdog with a
+    0.5 s heartbeat that never beats counts one ``watchdog_stall_total``
+    and dumps one postmortem whose stacks name the driver thread
+    (``serve.pool``)."""
 
     from tf_operator_tpu_torch.utils import flight
     from tf_operator_tpu_torch.utils.costplane import default_costplane
@@ -941,7 +1078,8 @@ def phase_debug_pass(server, bodies, tag):
     with open(os.path.join(art, "trace.json")) as f:
         trace = f.read()
     files = sorted(os.listdir(art))
-    named = {"k4": "paged_attention_split_kernel" in trace, "aten": '"aten::' in trace}
+    int8 = any(k.endswith("kernel_q") for k in pool.dmodel.state_dict())
+    named = {k: v in trace for k, v in PROFILE_KERNELS.items() if k == "k4" or int8}
     shutil.rmtree(art, ignore_errors=True)
     stalls = pool.metrics.counter("watchdog_stall_total", heartbeat="chip_smoke.stopped")
     stacks = ""
@@ -952,20 +1090,23 @@ def phase_debug_pass(server, bodies, tag):
                 if r["type"] == "log" and "thread stacks" in r["message"]:
                     stacks = r["fields"]["stacks"]
         os.remove(dog.dumps[0])
-    second = [w for t, w in sorted(_window_walls(pool).items()) if t not in starts0]
+    second = {t: w for t, w in sorted(_window_walls(pool).items()) if t not in starts0}
     rec = {"new_compile_events": default_costplane.compiles.total() - compiles0,
-           "windows_ms": [round(w * 1e3, 1) for w in second],
+           "windows_ms": [round(w * 1e3, 1) for w in second.values()],
            "profile": {"files": files, "trace_bytes": len(trace), "names": named,
+                       "aten_ops_in_trace": '"aten::' in trace,
                        "trace_only": "trace_only" in (
                            torch._C._profiler._ExperimentalConfig.__init__.__doc__ or ""),
                        "artifact_prefix_ok": os.path.basename(art).startswith(
                            f"serve-profile-c{body['costplane']['compiles_at_start']}-"),
-                       "wall_seconds": body["wall_seconds"]},
+                       "wall_seconds": body["wall_seconds"],
+                       "windows": _profile_windows(second, server.profiler.last)},
            "stalls": stalls, "dumps": len(dog.dumps),
            "postmortem_names_driver": "--- thread serve.pool " in stacks}
     log(f"{tag} debug pass ({card_line()}) " + json.dumps(rec))
     if rec["new_compile_events"] or files != ["COSTPLANE.json", "trace.json"] or \
             not all(named.values()) or not rec["profile"]["artifact_prefix_ok"] or \
+            rec["profile"]["windows"].get("stall_within_bound") is False or \
             stalls != 1 or rec["dumps"] != 1 or not rec["postmortem_names_driver"]:
         raise AssertionError(f"{tag}: debug pass {json.dumps(rec)}")
     return rec
@@ -987,6 +1128,7 @@ def phase_main_path(model, tag="main path"):
     n_layers = model.cfg.n_layers
     pool = make_pool(model, model_label="llama-7b", slots=8, steps_per_sync=8,
                      kv_block_size=16)
+    rows = record_rows(pool)
     server = Server(pool).start()
     try:
         bodies = _main_bodies()
@@ -1040,6 +1182,10 @@ def phase_main_path(model, tag="main path"):
             "max_memory_allocated_gib": peak_gib,
         }
         log(f"{tag} " + json.dumps(stats))
+        # the token rows in body order (phase 11 holds the chunked
+        # decoder's to them)
+        stats["rows"] = [rows[a["rid"]][a["prompt_tokens"]:].tolist() for a in autopsies]
+        stats["prefix_hits"] = [a["admission"]["prefix_hit_tokens"] for a in autopsies]
         # the cost plane, then the same requests again: read after the
         # first pass's numbers, which the second pass would change
         stats["costplane"] = check_costplane(server.port, pool, [model], text, tag)
@@ -1048,6 +1194,325 @@ def phase_main_path(model, tag="main path"):
         return stats, pool
     finally:
         server.close()
+
+
+# -- phases 11 and 12: the chunked decoder and the contiguous slot pool -------
+
+#: the chunked server's prompt cache (``--prompt-cache``)
+CHUNKED_PROMPT_CACHE = 4
+#: phase 11's three new bodies, sent at once and then repeated: greedy,
+#: greedy and seeded (their prompts are not among phase 7's)
+CHUNKED_NEW_LENGTHS = (100, 300, 600)
+
+
+def _chunked_new_bodies():
+    import random
+
+    rng = random.Random(11)
+    bodies = [{"prompt": "".join(chr(rng.randrange(32, 127)) for _ in range(n)),
+               "max_new_tokens": 32} for n in CHUNKED_NEW_LENGTHS]
+    bodies[-1].update(temperature=0.8, top_k=40, seed=99)
+    return bodies
+
+
+def _chunked_server(model):
+    """``serve_lm`` built from its flags with no ``--batching`` (the
+    chunked decoder) and ``--prompt-cache 4`` at max_len 2048, and the
+    token rows it hands out by prompt bytes, in order."""
+
+    from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
+    from tf_operator_tpu_torch.serve_lm import Server, build_decoder, build_parser
+
+    args = build_parser().parse_args(["--model", "llama-7b", "--max-len", "2048",
+                                      "--prompt-cache", str(CHUNKED_PROMPT_CACHE)])
+    decoder = build_decoder(model, args)
+    if not isinstance(decoder, ChunkedServingDecoder):
+        raise AssertionError(f"serve_lm's default mode built {type(decoder).__name__}")
+    rows = collections.defaultdict(list)
+    generate = decoder.generate
+
+    def recording(prompt_ids, n, **kw):
+        out = generate(prompt_ids, n, **kw)
+        p = prompt_ids.shape[1]
+        rows[bytes(prompt_ids[0].tolist())].append(out[0, p:].tolist())
+        return out
+
+    decoder.generate = recording
+    return Server(decoder, model_label="llama-7b").start(), rows
+
+
+def _send_each(port, bodies):
+    """The answers to the bodies sent one at a time."""
+
+    results = []
+    for b in bodies:
+        results.append(_post(port, b))
+    return results
+
+
+def _send_at_once(port, bodies):
+    """The answers to the bodies sent at once, each on its own thread."""
+
+    results = [None] * len(bodies)
+
+    def send(i):
+        results[i] = _post(port, bodies[i])
+
+    threads = [threading.Thread(target=send, args=(i,)) for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    return results
+
+
+def _chunk_counts(bodies, max_chunk=None):
+    """The chunked prefill's dispatches of each body's prompt (its binary
+    chunks, capped at ``max_chunk``) and how many chunks are <= 64 rows
+    (K7's) or wider (the GEMM route's)."""
+
+    from tf_operator_tpu_torch.models.decode import window_chunks
+    from tf_operator_tpu_torch.ops.quant_matmul import MAX_GEMV_ROWS
+
+    widths = [w for b in bodies for w in window_chunks(len(b["prompt"].encode()), max_chunk)]
+    return {"chunks": len(widths), "short": sum(1 for w in widths if w <= MAX_GEMV_ROWS),
+            "long": sum(1 for w in widths if w > MAX_GEMV_ROWS)}
+
+
+def _check_ok(results, tag):
+    for i, r in enumerate(results):
+        if r is None or r[0] != 200 or len(r[1]["sample"]) != 32 \
+                or set(r[1]) != {"prompt", "sample", "seed"}:
+            raise AssertionError(f"{tag}: request {i} failed: {r}")
+
+
+def _greedy_against(model, bodies, got_rows, want_rows, tag, prefix_hits=None):
+    """Each greedy body's row against another path's: equal, or its first
+    divergence a bf16 tie: as ``_spec_divergence`` rules for two rows of
+    one attention path, or, given the paged rows' ``prefix_hits``, as
+    ``_path_divergence`` rules for a chunked decoder's row against a
+    paged pool's.  Returns the records of the divergent rows."""
+
+    divergent = []
+    for i, b in enumerate(bodies):
+        if b.get("temperature"):
+            continue
+        got, want = got_rows[i], want_rows[i]
+        if got == want:
+            continue
+        prompt = np.frombuffer(b["prompt"].encode(), np.uint8).astype(np.int64)
+        if prefix_hits is None:
+            d = _spec_divergence(model, prompt, got, want)
+        else:
+            d = _path_divergence(model, prompt, got, want, prefix_hits[i])
+        d["body"] = i
+        divergent.append(d)
+        if not d["tie"]:
+            raise AssertionError(f"{tag}: body {i} left the other path's row at a non-tie: {d}")
+    return divergent
+
+
+def phase_chunked(model, card, paged, tag="chunked"):
+    """Phase 11 (and, on the int8 model, phase 9b): ``serve_lm``'s default
+    mode at 7B width over HTTP.  Phase 7's nine bodies one at a time, then
+    three new ones at once, then those three again.  Counts zeroed just
+    before and read just after.  Checks (module docstring), the greedy
+    rows against ``paged``, phase 7's (or 9's) stats: its rows and prefix
+    hits; returns the run's numbers."""
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+
+    int8 = any(k.endswith("kernel_q") for k in model.state_dict())
+    server, rows = _chunked_server(model)
+    decoder = server.decoder
+    try:
+        bodies, new = _main_bodies(), _chunked_new_bodies()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        qm.plain_calls.clear()
+        t0 = time.perf_counter()
+        seq = _send_each(server.port, bodies)
+        seq_decode_s = decoder.ledger.seconds("decode")
+        seq_prefill_s = decoder.ledger.seconds("prefill")
+        at_once = _send_at_once(server.port, new)
+        repeats = _send_each(server.port, new)
+        wall = time.perf_counter() - t0
+        launches, plain = dict(_build.launches), dict(qm.plain_calls)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for part, results in (("sequential", seq), ("at once", at_once),
+                              ("repeats", repeats)):
+            _check_ok(results, f"{tag} {part}")
+        _, raw = _get(server.port, "/metrics")
+        text = raw.decode()
+    finally:
+        server.close()
+    n_req = len(bodies) + 2 * len(new)
+    counts = _chunk_counts(bodies + new)
+    steps = n_req * 31  # a request's first token comes from its prefill's logits
+    n_proj = 7 * model.cfg.n_layers + 1
+    want = {"prompt_cache_hits": 3.0, "prefix_cache_hits_chunked": 3.0,
+            "prefill_dispatches": float(counts["chunks"]), "decode_dispatches": float(n_req),
+            "ttft_observations": float(n_req),
+            "k7": n_proj * (steps + counts["short"]) if int8 else 0,
+            "gemm": n_proj * counts["long"] if int8 else 0, "k4": 0, "plain_int8": 0,
+            "other_launches": 0}
+    got = {"prompt_cache_hits": _metric(text, "serve_prompt_cache_hits"),
+           "prefix_cache_hits_chunked": _metric(text, "serve_prefix_cache_hits_total",
+                                                mode="chunked"),
+           "prefill_dispatches": _metric(text, "serving_dispatch_total", phase="prefill"),
+           "decode_dispatches": _metric(text, "serving_dispatch_total", phase="decode"),
+           "ttft_observations": _metric(text, "serve_ttft_seconds_count", mode="chunked",
+                                        model="llama-7b"),
+           "k7": launches.get(qm.KERNEL, 0), "gemm": launches.get(qm.GEMM, 0),
+           "k4": launches.get("paged_attention", 0), "plain_int8": sum(plain.values()),
+           "other_launches": sum(n for k, n in launches.items()
+                                 if k not in (qm.KERNEL, qm.GEMM, "paged_attention"))}
+    order = [rows[b["prompt"].encode()] for b in new]
+    repeat_equal = all(len(r) == 2 and r[0] == r[1] for r in order)
+    seq_rows = [rows[b["prompt"].encode()][0] for b in bodies]
+    decode_tokens = 31 * len(bodies)
+    stats = {
+        "tag": tag, "int8": int8, "requests": n_req, "wall_s": wall,
+        "expected": want, "counted": got, "launches": launches,
+        "repeats_equal_first_rows": repeat_equal,
+        "ttft_s": [round(r[2], 4) for r in seq],
+        "sequential_prefill_s": seq_prefill_s, "sequential_decode_s": seq_decode_s,
+        "decode_tokens_per_s": decode_tokens / seq_decode_s,
+        "max_memory_allocated_gib": peak_gib,
+    }
+    stats["against_paged_pool"] = _greedy_against(model, bodies, seq_rows, paged["rows"], tag,
+                                                   prefix_hits=paged["prefix_hits"])
+    log(f"{tag} ({card}) " + json.dumps(stats))
+    if got != want or not repeat_equal:
+        raise AssertionError(f"{tag}: counts or repeats off: {json.dumps(stats)}")
+    stats["rows"] = seq_rows
+    return stats
+
+
+#: phase 12's rolling window (the contiguous pool serves it at 8 slots)
+WINDOW_7B = 1024
+
+
+def phase_contiguous(model, card):
+    """Phase 12: the contiguous slot pool at 7B width with a rolling
+    window of 1024, the bf16 weights shared with ``model``, behind
+    ``serve_lm`` built from ``--batching 8`` (module docstring)."""
+
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch.models.batching import ContinuousBatchingDecoder
+    from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
+    from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops.quant import state_bytes
+    from tf_operator_tpu_torch.serve_lm import Server, build_decoder, build_parser
+
+    dev = model.device
+    cfg = llama_7b_shape(max_len=2048, window=WINDOW_7B)
+    # a variant() is a shallow copy whose attention layers keep their own
+    # config, so it would not take the window: the model is rebuilt
+    # around the same storage instead
+    shallow = model.variant(window=WINDOW_7B)
+    wmodel = LlamaLM.from_state_dict(cfg, model.state_dict(), dev)
+    shared = all(a.data_ptr() == b.data_ptr() for a, b in zip(
+        model.state_dict().values(), wmodel.state_dict().values()))
+    layer_window = {"variant": shallow.layers[0].self_attn.cfg.window,
+                    "rebuilt": wmodel.layers[0].self_attn.cfg.window}
+    if layer_window != {"variant": None, "rebuilt": WINDOW_7B} or not shared:
+        raise AssertionError(f"contiguous: the windowed model {layer_window}, shared {shared}")
+    bodies = _main_bodies()
+    # the reference rows: the chunked decoder on the same windowed model
+    ref = ChunkedServingDecoder(wmodel)
+    t_ref = time.perf_counter()
+    ref_rows = []
+    for b in bodies:
+        ids = torch.as_tensor(np.frombuffer(b["prompt"].encode(), np.uint8).astype(np.int64))
+        gen = None
+        if b.get("temperature"):
+            gen = torch.Generator(device=dev).manual_seed(b["seed"])
+        out = ref.generate(ids[None], 32, temperature=b.get("temperature", 0.0),
+                           top_k=b.get("top_k"), generator=gen)
+        ref_rows.append(out[0, ids.numel():].tolist())
+    ref_s = time.perf_counter() - t_ref
+    del ref
+    args = build_parser().parse_args(["--model", "llama-7b", "--max-len", "2048",
+                                      "--batching", "8"])
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        pool = build_decoder(wmodel, args)
+    line = out.getvalue().strip()
+    if type(pool) is not ContinuousBatchingDecoder or not line.startswith(
+            "paged pool unavailable (") or "serving the contiguous slot pool" not in line:
+        raise AssertionError(f"contiguous: serve_lm built {type(pool).__name__}: {line!r}")
+    rows = record_rows(pool)
+    server = Server(pool).start()
+    peak = [0]
+    polling = threading.Event()
+
+    def poll():
+        while not polling.is_set():
+            peak[0] = max(peak[0], len(pool._active))
+            time.sleep(0.002)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        poller.start()
+        t0 = time.perf_counter()
+        results = _send_at_once(server.port, bodies)
+        wall = time.perf_counter() - t0
+        polling.set()
+        launches = dict(_build.launches)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if server.fatal:
+            raise AssertionError(f"contiguous: decode loop died: {server.fatal[0]}")
+        for i, r in enumerate(results):
+            if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+                raise AssertionError(f"contiguous: request {i} failed: {r}")
+        autopsies, text, _ = check_records(server.port, pool, results, "contiguous",
+                                           spans=STAGED_SPANS)
+        mem = _get_json(server.port, "/debug/memory")
+    finally:
+        polling.set()
+        server.close()
+    pool_rows = [rows[a["rid"]][a["prompt_tokens"]:].tolist() for a in autopsies]
+    counts = _chunk_counts(bodies, WINDOW_7B)
+    want = {"prefill": counts["chunks"], "sample": len(bodies), "scatter": len(bodies),
+            "admission": 0}
+    dispatches = {p: pool.ledger.count(p) for p in want}
+    (row,) = [d for d in mem["devices"] if d["device"].startswith("cuda")]
+    slot_bytes = 8 * cfg.n_layers * 2 * cfg.kv_heads * WINDOW_7B * cfg.head_dim * 2
+    memory = {"kv_arena": row["components"]["kv_arena"], "expected_kv_arena": slot_bytes,
+              "weights": row["components"]["weights"],
+              "expected_weights": state_bytes(wmodel.state_dict()),
+              "coverage": row["coverage"]}
+    decode_tokens = sum(a["tokens"] - 1 for a in autopsies)
+    stats = {
+        "window": WINDOW_7B, "slots": pool.slots, "fallback_line": line, "wall_s": wall,
+        "dispatches": dispatches, "expected_dispatches": want, "launches": launches,
+        "peak_seats": peak[0], "memory": memory, "reference_rows_s": ref_s,
+        "decode_tokens_per_s": decode_tokens / pool.ledger.seconds("step"),
+        "window_ms": pool.ledger.seconds("step") / pool.ledger.count("step") * 1e3,
+        "ttft_s": {a["rid"]: a["ttft_seconds"] for a in autopsies},
+        "max_memory_allocated_gib": peak_gib,
+        "against_chunked": _greedy_against(wmodel, bodies, pool_rows, ref_rows, "contiguous"),
+        "seeded_equal": pool_rows[-1] == ref_rows[-1],
+    }
+    log(f"contiguous pool ({card}) " + json.dumps(stats))
+    # where a steady window goes, its prefills done
+    stats["profile"] = phase_decode_profile(pool)
+    if (dispatches != want or launches or peak[0] != pool.slots
+            or memory["kv_arena"] != slot_bytes
+            or memory["weights"] != memory["expected_weights"]
+            or any(a["tokens"] != 32 for a in autopsies)):
+        raise AssertionError(f"contiguous: {json.dumps(stats)}")
+    del pool, wmodel
+    return stats
 
 
 #: phase 7c's runs, interleaved so that drift between them cancels
@@ -1642,6 +2107,109 @@ def _spec_divergence(model, prompt, got, want):
             "replay_max_abs_diff": diff, "tie_floor": floor, "tie": bool(tie)}
 
 
+def _chunked_replay_logits(model, prompt, row, j):
+    """The logits that chose token ``j`` of a chunked decoder's row
+    ``row``, computed again as the decoder computed them: the prompt
+    prefilled in its binary chunks (the first token from the last
+    chunk's last row), then the row's tokens before ``j`` fed one decode
+    step each."""
+
+    from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder, init_cache
+
+    dec = ChunkedServingDecoder(model)
+    p = len(prompt)
+    ids = torch.as_tensor(np.concatenate([prompt, np.asarray(row[:j], np.int64)]),
+                          device=model.device).long()[None]
+    with torch.inference_mode():
+        cache, offset = init_cache(dec.dmodel, 1), 0
+        for width in dec._chunks(p):
+            last = dec.dmodel(ids[:, offset : offset + width], cache=cache)[:, -1]
+            offset += width
+        for i in range(j):
+            last = dec.dmodel(ids[:, p + i : p + i + 1], cache=cache)[:, 0]
+    return last[0].float()
+
+
+def _paged_replay_logits(model, prompt, row, j, hit, slots=8):
+    """The logits that chose token ``j`` of a paged pool's row ``row``,
+    computed again as the pool computed them: the admission's one-shot
+    prefill of the prompt past its ``hit`` prefix-cache tokens over a
+    view of the seat's blocks (the first token from its last row), then
+    the row's tokens before ``j`` one decode step each through K4 at the
+    pool's ``slots`` seats, the others on the scratch block as the pool
+    runs them, so that every projection has the served row count.  The
+    hit's blocks are prefilled here one-shot; the pool read them from
+    the request that published them."""
+
+    from tf_operator_tpu_torch.models.decode import (
+        decode_variant,
+        gather_block_view,
+        paged_arena,
+        paged_decode_variant,
+        scatter_block_view,
+    )
+    from tf_operator_tpu_torch.models.transformer import PagedCache
+
+    dev, bs, p = model.device, 16, len(prompt)
+    n = -(-(p + j) // bs)
+    arena = paged_arena(model, n + 1, bs)
+    tables = torch.zeros((slots, model.cfg.max_len // bs), dtype=torch.int32, device=dev)
+    tables[0, :n] = torch.arange(1, n + 1, dtype=torch.int32, device=dev)
+    ids = torch.as_tensor(np.concatenate([prompt, np.asarray(row[:j], np.int64)]),
+                          device=dev).long()[None]
+    dmodel = decode_variant(model)
+    shared, seat = hit // bs, -(-p // bs)
+    with torch.inference_mode():
+        if shared:
+            view = gather_block_view(arena, tables[0, :shared], 0)
+            dmodel(ids[:, :hit], cache=view)
+            scatter_block_view(arena, view, tables[0], 0, shared)
+        view = gather_block_view(arena, tables[0, :seat], hit)
+        last = dmodel(ids[:, hit:p], cache=view)[0, -1]
+        scatter_block_view(arena, view, tables[0], shared, seat - shared)
+        pmodel = paged_decode_variant(model)
+        toks = torch.zeros((slots, 1), dtype=torch.long, device=dev)
+        lengths = torch.zeros(slots, dtype=torch.int32, device=dev)
+        for i in range(j):
+            toks[0, 0], lengths[0] = ids[0, p + i], p + i
+            last = pmodel(toks, cache=PagedCache(arena, tables, lengths.clone()))[0, 0]
+    return last.float()
+
+
+def _path_divergence(model, prompt, got, want, hit):
+    """Where a chunked decoder's greedy row (``got``) left the paged
+    pool's (``want``): the first divergent position j and both tokens a
+    and b, with the logits that chose token j computed again on each
+    path as it ran (``_chunked_replay_logits``; ``_paged_replay_logits``
+    with the body's ``hit``).  A tie: each replay chooses its path's
+    served token (a on the chunked one, b on the paged one), so the
+    divergence is the two paths' arithmetic and no other input; on each
+    replay the margin between a and b is within the floor, the amount by
+    which the two paths move those two logits (|c[a] - q[a]| +
+    |c[b] - q[b]|, at least a bf16 ulp of the largest logit: with both
+    replays faithful the two margins add up to at most it); and the
+    replays' largest difference over the vocabulary stays within phase
+    8's bound on the two paths (``LOGITS_REL_TOL``)."""
+
+    j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    chunked = _chunked_replay_logits(model, prompt, got, j)
+    paged = _paged_replay_logits(model, prompt, got, j, hit)
+    a, b = int(got[j]), int(want[j])
+    diff = (chunked - paged).abs().max().item()
+    scale = chunked.abs().max().item()
+    moved = {t: abs((chunked[t] - paged[t]).item()) for t in (a, b)}
+    floor = max(moved[a] + moved[b], _bf16_ulp(scale))
+    margins = {"chunked": (chunked[a] - chunked[b]).item(),
+               "paged": (paged[b] - paged[a]).item()}
+    replayed = {"chunked": int(chunked.argmax()), "paged": int(paged.argmax())}
+    tie = (replayed == {"chunked": a, "paged": b} and max(margins.values()) <= floor
+           and diff <= LOGITS_REL_TOL["contiguous"] * scale)
+    return {"position": j, "prefix_hit": hit, "chunked_token": a, "paged_token": b,
+            "margins": margins, "moved": {"a": moved[a], "b": moved[b]},
+            "replayed_argmax": replayed, "tie_floor": floor,
+            "replay_max_abs_diff": diff, "max_abs_logit": scale, "tie": bool(tie)}
+
+
 def _spec_support(model, prompt, sample, top_k):
     """The worst margin of a seeded row's tokens against their top_k
     support on replayed logits: min over tokens of (logit(tok) - k-th
@@ -1685,17 +2253,7 @@ def _spec_run(model, draft, side):
     args = build_parser().parse_args(argv)
     refuse_speculative(args)
     pool = build_pool(model, args, draft=draft if side == "spec" else None)
-    # the token rows by pool rid (the HTTP sample is bytes decoded as
-    # ASCII, which folds every byte >= 128 into one character)
-    rows, result_wait = {}, pool.result_wait
-
-    def recording_wait(rid, timeout=None):
-        row = result_wait(rid, timeout)
-        if row is not None:
-            rows[rid] = row
-        return row
-
-    pool.result_wait = recording_wait
+    rows = record_rows(pool)
     server = Server(pool).start()
     try:
         bodies = _spec_bodies()
@@ -2207,12 +2765,13 @@ def training_flops_per_token(cfg, seq_len):
 
 
 def check_loop_records(loop, steps, k, tag):
-    """``train_loop``'s records of one run (its ``stats``): the sentinel
-    observed ``train_sync`` once a step resolved, the sync ledger counted
-    one ``window`` resolve a window but the last and one ``final``, the
-    exported ``train_sync_total{phase}`` moved by as much, and the
-    heartbeat beat once a window.  Returns them with the steady-state
-    drift ratio."""
+    """``train_loop``'s records of one run (its ``stats``): every step's
+    loss resolved, the sentinel observed ``train_sync`` once a window
+    and froze its drift reference (``SENTINEL_WARMUP`` windows) with
+    windows after it, the sync ledger counted one ``window`` resolve a
+    window but the last and one ``final``, the exported
+    ``train_sync_total{phase}`` moved by as much, and the heartbeat beat
+    once a window.  Returns them with the drift ratio."""
 
     from tf_operator_tpu_torch.utils.metrics import default_metrics
 
@@ -2227,7 +2786,8 @@ def check_loop_records(loop, steps, k, tag):
            "drift_ratio": snap.get("drift_ratio"), "p50_s": snap.get("p50_seconds"),
            "reference_p50_s": snap.get("reference_p50_seconds")}
     log(f"{tag} loop records ({card_line()}) " + json.dumps(rec))
-    if (rec["observations"] != loop["resolved_at"][-1][0] or rec["observations"] != steps
+    if (loop["resolved_at"][-1][0] != steps or rec["observations"] != windows
+            or rec["drift_ratio"] is None or windows <= SENTINEL_WARMUP
             or rec["sync"] != {"step": 0, "window": windows - 1, "final": 1}
             or rec["train_sync_total"] != {"window": windows - 1, "final": 1}
             or rec["heartbeat_beats"] != windows):
@@ -2575,9 +3135,11 @@ BN_LINE_CLASS = (200704, 256, False, False)
 #: K5 and K6 are timed this many times at every class; the step totals
 #: are reported as the median of the repeats and their spread
 BN_REPEATS = 3
-#: ResNet training of the main path: resnet_dp's own 30 steps, then its
-#: benchmark's max(30 // 2, 5)
-RESNET_STEPS = 30
+#: ResNet training of the main path: resnet_dp's own 192 steps (24
+#: windows of 8: the step-time sentinel, fed once a window, freezes its
+#: drift reference at the 16th, and the 8 after it are what the drift
+#: ratio compares), then its benchmark's 192 // 2
+RESNET_STEPS = 192
 #: one-step parity at ResNet-50, batch 64, 224 px: the first step through
 #: K5 / K6 against the same step through their plain versions (same init,
 #: same batch; only the norms' arithmetic differs).  bf16 activations
@@ -2817,9 +3379,9 @@ def phase_bn(batch=64, image=224):
 
 def phase_resnet_train():
     """The ResNet main path: ``resnet_dp --norm fused --model resnet50
-    --image-size 224 --batch-per-device 64 --steps 30`` in process.  The
+    --image-size 224 --batch-per-device 64 --steps 192`` in process.  The
     counts are zeroed just before and read just after: K5 and K6 must
-    each launch 53 x (30 + 15) times and no plain version may run."""
+    each launch 53 x (192 + 96) times and no plain version may run."""
 
     from tf_operator_tpu_torch import resnet_dp
     from tf_operator_tpu_torch.ops import _build
@@ -2945,9 +3507,11 @@ def phase_resnet_ab(args, batch):
     return rec
 
 
-#: training steps of the main path (the loss-decrease guard of
-#: train_loop needs 20 or more)
-TRAIN_STEPS = 30
+#: training steps of the main path: 24 windows of 5 (the step-time
+#: sentinel, fed once a window, freezes its drift reference at the 16th,
+#: and the 8 after it are what the drift ratio compares; the
+#: loss-decrease guard of train_loop needs 20 or more)
+TRAIN_STEPS = 120
 
 
 def _kernel_entry(name, source, replaces, launches, err, timing):
@@ -3109,6 +3673,9 @@ def main():
     # 9's model, so the weights are made and quantized once
     int8_model = load_int8_7b()
     phase_speculative(model, int8_model, card)
+    chunked = phase_chunked(model, card, main_stats, tag="chunked bf16")
+    free_device_memory()
+    phase_contiguous(model, card)
     # the pool holds reference cycles (the prefix cache's callbacks), so
     # the bf16 weights and arena go only with a collection
     del model
@@ -3117,6 +3684,11 @@ def main():
 
     int8_stats, model = phase_int8_serving(main_stats, int8_model)
     del int8_model
+    int8_chunked = phase_chunked(model, card, int8_stats, tag="chunked int8")
+    log(f"chunked decode ({card}) " + json.dumps({
+        side: {k: r[k] for k in ("decode_tokens_per_s", "max_memory_allocated_gib")}
+        for side, r in (("bf16", chunked), ("int8", int8_chunked))}))
+    free_device_memory()
     phase_int8_end_to_end(model)
     del model
     free_device_memory()

@@ -496,10 +496,11 @@ def test_debug_profile_answers_as_the_jax_server(profile_servers, tmp_path):
             assert json.loads(got[1]) == json.loads(want[1]), path
     answers = {}
     for p in (port, jport):
-        # three long requests through the one seat keep the loop busy
+        # eight long requests through the one seat keep the loop busy for
+        # the whole capture, which starts as soon as one is queued
         gens = [threading.Thread(target=_post, args=(p, {"prompt": f"profile me {i} ",
                                                          "max_new_tokens": 48}))
-                for i in range(3)]
+                for i in range(8)]
         for t in gens:
             t.start()
         deadline = time.time() + 30
@@ -521,7 +522,8 @@ def test_debug_profile_answers_as_the_jax_server(profile_servers, tmp_path):
     assert sorted(os.listdir(art)) == ["COSTPLANE.json", "trace.json"]
     with open(os.path.join(art, "trace.json")) as f:
         trace = json.load(f)
-    # the driver thread's ops are in the trace (the capture ran there)
+    # the driver thread's ops are in the trace (on the CPU the capture
+    # records every thread, from the request's)
     assert any(str(e.get("name", "")).startswith("aten::") for e in trace["traceEvents"])
     with open(os.path.join(art, "COSTPLANE.json")) as f:
         assert json.load(f) == got["costplane"]
@@ -547,6 +549,47 @@ def test_debug_profile_is_refused_while_another_capture_runs(tiny):  # noqa: F81
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+def test_the_decode_loop_keeps_stepping_while_a_capture_stops(tiny, tmp_path,  # noqa: F811
+                                                             monkeypatch):
+    """The capture starts, stops and exports on the request's thread:
+    while its stop runs, the pool's driver thread completes windows (a
+    stop on the driver thread would hold them, and this one would wait
+    out its deadline with none)."""
+
+    _, _, model = tiny
+    monkeypatch.setenv("TPUJOB_PROFILE_DIR", str(tmp_path))
+    pool = serve_lm.make_pool(model, slots=1, steps_per_sync=2, kv_block_size=16)
+    real, grew = serve_lm._profiler, []
+
+    def slow_stop(device):
+        prof = real(device)
+        stop = prof.__exit__
+
+        def __exit__(*exc):
+            w0, deadline = pool.windows, time.monotonic() + 60
+            while pool.windows < w0 + 2 and time.monotonic() < deadline:
+                time.sleep(0.005)
+            grew.append(pool.windows - w0)
+            return stop(*exc)
+
+        prof.__exit__ = __exit__
+        return prof
+
+    monkeypatch.setattr(serve_lm, "_profiler", slow_stop)
+    server = serve_lm.Server(pool).start()
+    try:
+        rids = [pool.submit(np.arange(1, 9, dtype=np.int32) + i, 48) for i in range(12)]
+        status, body = _get(server.port, "/debug/profile?seconds=0.1")
+        assert status == 200, body
+        assert grew and grew[0] >= 2
+        last = server.profiler.last
+        assert last["stop_s"] > 0 and last["stopping"][0] == last["recording"][1]
+        for rid in rids:
+            assert pool.result_wait(rid, timeout=120) is not None
+    finally:
+        server.close()
 
 
 # -- a warmed pool records no compile event on new prompt widths ------------------

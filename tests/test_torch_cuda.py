@@ -56,6 +56,10 @@ tiny pool through both kernels decodes the plain pool's tokens.
 The paged pool's swap copies (preemption to pinned host memory and back
 into other block ids) are held bit for bit, and a preempted request's
 tokens, greedy and seeded, equal an undisturbed pool's exactly.
+
+The chunked decoder and the contiguous slot pool on an int8 llama_tiny
+(full cache and a rolling window of 8) give on the card, through K7, the
+rows their plain versions give on the CPU.
 """
 
 import numpy as np
@@ -901,3 +905,56 @@ def test_warmed_pool_records_its_k4_classes_once(dev):
     batch([6, 19, 40, 2])
     assert ledger.total() == warm, ledger.snapshot(limit=8)["events"]
 
+
+
+def _int8_tiny_pair(dev, window=None):
+    """The same int8 llama_tiny (float32 activations) on the CPU and on
+    the card, from one state made on the CPU."""
+
+    cfg = llama_tiny(vocab_size=256, max_len=64, window=window, dtype=torch.float32)
+    state = init_params(cfg, 4, "cpu", quantize=True)
+    return LlamaLM.from_state_dict(cfg, state, "cpu"), LlamaLM.from_state_dict(cfg, state, dev)
+
+
+@pytest.mark.parametrize("window", [None, 8], ids=["full", "window8"])
+def test_chunked_decoder_on_the_card_gives_its_cpu_rows(dev, window):
+    """The chunked decoder through K7 (M = 1 decode steps, prefill chunks
+    of <= 64 rows; the MLP's N = 352 takes the GEMM route) on the card:
+    the rows its plain version gives on the CPU, a prompt-cache hit
+    included."""
+
+    from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
+
+    cpu, card = _int8_tiny_pair(dev, window)
+    prompts = [torch.as_tensor((np.arange(n) * 7 % 256)[None]) for n in (5, 21, 37)]
+    want = [ChunkedServingDecoder(cpu).generate(p, 12).numpy() for p in prompts]
+    dec = ChunkedServingDecoder(card, prompt_cache=2)
+    _build.launches.clear()
+    for p, w in zip(prompts + prompts[-1:], want + want[-1:]):
+        np.testing.assert_array_equal(dec.generate(p, 12).numpy(), w)
+    assert dec.prompt_cache_hits == 1
+    assert _build.launches[qm.KERNEL] > 0
+
+
+@pytest.mark.parametrize("window", [None, 8], ids=["full", "window8"])
+def test_slot_pool_on_the_card_gives_its_cpu_rows(dev, window):
+    """The contiguous slot pool through K7 (M = slots) on the card, the
+    rolling cache's wrap included: the rows its plain version gives on
+    the CPU."""
+
+    from tf_operator_tpu_torch.models.batching import ContinuousBatchingDecoder
+
+    cpu, card = _int8_tiny_pair(dev, window)
+    prompts = [np.arange(n) * 5 % 256 for n in (7, 21, 13)]
+
+    def rows(model):
+        pool = ContinuousBatchingDecoder(model, slots=2, steps_per_sync=4)
+        rids = [pool.submit(p, 14) for p in prompts]
+        pool.run()
+        return [pool.result(r) for r in rids]
+
+    want = rows(cpu)
+    _build.launches.clear()
+    for got, w in zip(rows(card), want):
+        np.testing.assert_array_equal(got, w)
+    assert _build.launches[qm.KERNEL] > 0

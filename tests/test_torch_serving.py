@@ -282,7 +282,7 @@ def test_kv_swap_blocks_flag_reaches_the_pool(tiny):
     assert pool.swap.capacity_blocks == 3
     assert pool.swap.admit(3) and not pool.swap.admit(4)
     assert (pool.reserve, pool.slots, pool.block_size) == ("lazy", 2, 8)
-    pool = serve_lm.build_pool(model, parser.parse_args(["--device", "cpu"]))
+    pool = serve_lm.build_pool(model, parser.parse_args(["--device", "cpu", "--batching", "8"]))
     assert pool.swap.capacity_blocks is None and pool.reserve == "lazy"
 
 

@@ -22,7 +22,8 @@ Deliberate differences pinned here: ``/metrics`` lacks the JAX server's
 families (``COSTPLANE_FAMILIES``), because the port records a compile
 only where a kernel is built, loaded or first launched, which never
 happens here (on the card ``chip_smoke.py`` phase 7 reads them); and
-the flight recorder dumps under ``tempfile.gettempdir()``.
+the flight recorder dumps under ``$TPUJOB_FLIGHT_DIR``, or the
+temporary directory where the JAX copy's default is /tmp.
 """
 
 import ast
@@ -278,7 +279,8 @@ def _fill_recorder(rec, tracer, log, timeline, m):
     timeline.sample(free=3, live=5, prefix_cached=1, queued_demand=2, seats_active=1)
 
 
-def test_flight_recorder_copy_dumps_the_same_sections(monkeypatch, tmp_path):
+@pytest.mark.parametrize("flight_dir", [None, "flights"])
+def test_flight_recorder_copy_dumps_the_same_sections(monkeypatch, tmp_path, flight_dir):
     monkeypatch.setattr(time, "time", lambda: 1.7e9)
     dumps = []
     for rec, tracer, log, tl, m in (
@@ -295,9 +297,16 @@ def test_flight_recorder_copy_dumps_the_same_sections(monkeypatch, tmp_path):
         assert sorted(p) == sorted(j)
         if p["type"] in ("meta", "log", "metrics", "request", "arena"):
             assert p == j
+    # the dump's directory: $TPUJOB_FLIGHT_DIR (made when missing), else
+    # the temporary directory
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    want = str(tmp_path / flight_dir) if flight_dir else str(tmp_path)
+    if flight_dir:
+        monkeypatch.setenv("TPUJOB_FLIGHT_DIR", want)
+    else:
+        monkeypatch.delenv("TPUJOB_FLIGHT_DIR", raising=False)
     path = flight.FlightRecorder().dump(reason="test")
-    assert os.path.dirname(path) == str(tmp_path) and path.endswith("-test.jsonl")
+    assert os.path.dirname(path) == want and path.endswith("-test.jsonl")
 
 
 # -- the pools --------------------------------------------------------------
@@ -615,11 +624,12 @@ def test_building_a_server_installs_nothing_process_wide(tiny):  # noqa: F811
 
 # -- the hot-sync lint twin ---------------------------------------------------
 
-#: the pool's step (its plain and speculative windows), growth, swap and
-#: records paths: none may read a CUDA tensor outside a ``with
-#: ...dispatch(...)`` block
+#: the pools' steps (the contiguous window, the paged plain and
+#: speculative windows), admission, growth, swap and records paths:
+#: none may read a CUDA tensor outside a ``with ...dispatch(...)`` block
 HOT_METHODS = {
     "step", "_plain_window", "_spec_window", "_seat_mask", "_count_spec",
+    "_admit_fused", "_scatter", "_seat_row", "_observe_window",
     "_write_growth", "_grow_seats_locked", "_grow_row", "_alloc_blocks_locked",
     "_preempt_seat_locked", "_admit_swapped", "_plan_resume_locked",
     "_pick_victim_locked", "_demote_queued_locked", "_plan_admission",
@@ -657,7 +667,12 @@ def _dispatch_phase(node):
     return None
 
 
-def find_hot_syncs(tree, methods, cls="PagedContinuousBatchingDecoder"):
+#: the pool classes whose bodies the lint walks (the paged pool and the
+#: contiguous pool it extends)
+POOL_CLASSES = ("ContinuousBatchingDecoder", "PagedContinuousBatchingDecoder")
+
+
+def find_hot_syncs(tree, methods, classes=POOL_CLASSES):
     offenders, seen = [], set()
 
     def visit(node, inside):
@@ -676,7 +691,7 @@ def find_hot_syncs(tree, methods, cls="PagedContinuousBatchingDecoder"):
             visit(child, inside)
 
     for node in ast.walk(tree):
-        if isinstance(node, ast.ClassDef) and node.name == cls:
+        if isinstance(node, ast.ClassDef) and node.name in classes:
             for fn in node.body:
                 if isinstance(fn, ast.FunctionDef) and fn.name in methods:
                     seen.add(fn.name)
@@ -717,21 +732,22 @@ def test_walker_catches_a_planted_sync():
     assert seen == {"step"}
     assert [o.split(" ")[1] for o in offenders] == ["item", "tolist", "torch.cuda.synchronize",
                                                     "tolist"]
-    # and it catches a sync planted in the real step
+    # and it catches a sync planted in each pool's real step
     tree = _pool_tree()
     for node in ast.walk(tree):
         if isinstance(node, ast.FunctionDef) and node.name == "step":
             node.body.insert(0, ast.parse("self._lengths_dev.cpu()").body[0])
     offenders, _ = find_hot_syncs(tree, HOT_METHODS)
-    assert [o.split(" ")[1] for o in offenders] == ["cpu"]
+    assert [o.split(" ")[1] for o in offenders] == ["cpu"] * len(POOL_CLASSES)
 
 
 def test_dispatch_blocks_hold_the_fetches_they_time():
     """What serving_dispatch_seconds times on CUDA (utils/metrics.py):
     the step block holds the window's one fetch, the verify block the
-    speculative window's, the admission block its first token's, the
-    swap blocks their synchronous copies; the retire and draft blocks
-    hold no fetch and time their enqueue."""
+    speculative window's, the admission and sample blocks their first
+    token's, the swap blocks their synchronous copies; the retire,
+    draft, prefill and scatter blocks hold no fetch and time their
+    enqueue."""
 
     holds = collections.defaultdict(set)
     for node in ast.walk(_pool_tree()):
@@ -744,8 +760,11 @@ def test_dispatch_blocks_hold_the_fetches_they_time():
                 holds[phase].add(f.attr if isinstance(f, ast.Attribute) else
                                  getattr(f, "id", ""))
     assert set(holds) == {"admission", "step", "draft", "verify", "retire", "swap_out",
-                          "swap_in"}
+                          "swap_in", "prefill", "sample", "scatter"}
     assert "cpu" in holds["step"] and "cpu" in holds["verify"] and "int" in holds["admission"]
+    assert "int" in holds["sample"]
+    for phase in ("prefill", "scatter"):
+        assert not holds[phase] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"}), phase
     assert not holds["draft"] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"})
     assert "_swap_out" in holds["swap_out"] and "_swap_in" in holds["swap_in"]
     assert not holds["retire"] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"})

@@ -563,7 +563,7 @@ def test_speculative_flags_reach_the_pool(tiny):
     assert serve_lm.slots_of(args) == 4  # --speculative alone: 4 seats
     pool = serve_lm.build_pool(model, args, draft=int8)
     assert (pool.slots, pool.spec_k, pool.spec_tiers) == (4, 3, ("interactive", "batch"))
-    assert serve_lm.slots_of(parser.parse_args([])) == 8
+    assert serve_lm.slots_of(parser.parse_args([])) == 0  # the chunked decoder
     assert serve_lm.slots_of(parser.parse_args(["--speculative", "--batching", "6"])) == 6
     assert serve_lm.load_draft(model, parser.parse_args(["--quantize", "int8"])) is model
     with pytest.raises(ValueError, match="not SLO tiers"):

@@ -13,12 +13,13 @@ twin of ``tests/test_watchdog.py``.
 - A frozen ``train_loop`` (its data iterator hangs) dumps its last
   spans and every thread's stack.
 
-The postmortem lands under the flight recorder's directory
-(``tempfile.gettempdir()``; the JAX copy reads ``TPUJOB_FLIGHT_DIR``).
+The postmortem lands under the flight recorder's directory,
+``$TPUJOB_FLIGHT_DIR``, in both copies.
 """
 
 import collections
 import json
+import os
 import threading
 import time
 
@@ -44,12 +45,9 @@ SIDES = ((j_metrics, j_flight, j_trace, j_watchdog), (metrics, flight, trace, wa
 
 @pytest.fixture
 def flight_dirs(tmp_path, monkeypatch):
-    """Both copies' postmortems under ``tmp_path``."""
+    """Both copies' postmortems under ``tmp_path`` (``$TPUJOB_FLIGHT_DIR``)."""
 
-    (tmp_path / "jax").mkdir()
-    (tmp_path / "port").mkdir()
-    monkeypatch.setenv("TPUJOB_FLIGHT_DIR", str(tmp_path / "jax"))
-    monkeypatch.setattr(flight.tempfile, "gettempdir", lambda: str(tmp_path / "port"))
+    monkeypatch.setenv("TPUJOB_FLIGHT_DIR", str(tmp_path))
     return tmp_path
 
 
@@ -88,7 +86,8 @@ def test_missed_deadline_fires_once_per_episode(flight_dirs):
                          [(r["message"], sorted(r["fields"])) for r in stacks]))
     assert sections[1] == sections[0]
     assert sections[1][1] == "stall-loop"
-    assert str(flight_dirs / "port") in dog.dumps[0]
+    # the port's dump (the last side's) under $TPUJOB_FLIGHT_DIR
+    assert os.path.dirname(dog.dumps[0]) == str(flight_dirs)
 
 
 def test_beat_ends_episode_and_next_stall_refires(flight_dirs):
@@ -245,17 +244,33 @@ def test_train_loop_records_equal_the_jax_loop(case):
 
 def test_train_loop_stats_carry_the_ledger_sentinel_and_beats():
     stats = {}
-    steps, k = 20, 5
+    # 16 windows: the sentinel freezes its drift reference at the 16th
+    steps, k = 80, 5
     harness.train_loop(FakeTrainer(_series(steps), tensors=True), {"x": 0}, steps,
                        steps_per_sync=k, stats=stats, tracer=trace.Tracer(seed=1),
                        sync_ledger=metrics.StepSyncLedger(metrics=metrics.Metrics()),
                        watchdog=Watchdog())
     snap = stats["sentinel"].snapshot()["train_sync"]
-    assert snap["observations"] == steps and snap["drift_ratio"] is not None
+    assert snap["observations"] == steps // k and snap["drift_ratio"] is not None
     assert stats["heartbeat_beats"] == steps // k
     assert stats["sync_ledger"].count("window") == steps // k - 1
     assert stats["sync_ledger"].count("final") == 1
-    assert [n for n, _ in stats["resolved_at"]] == [5, 10, 15, 20]
+    assert [n for n, _ in stats["resolved_at"]] == list(range(5, steps + 1, 5))
+
+
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_train_loop_feeds_the_sentinel_once_a_window(k):
+    """As the JAX loop does: one ``train_sync`` observation a K-step
+    window (the last window may be short), its wall over its steps."""
+
+    stats, steps = {}, 30
+    harness.train_loop(FakeTrainer(_series(steps), tensors=True), {"x": 0}, steps,
+                       steps_per_sync=k, stats=stats, tracer=trace.Tracer(seed=2),
+                       sync_ledger=metrics.StepSyncLedger(metrics=metrics.Metrics()),
+                       watchdog=Watchdog())
+    windows = -(-steps // k)
+    assert stats["sentinel"].snapshot()["train_sync"]["observations"] == windows
+    assert stats["heartbeat_beats"] == windows
 
 
 def test_frozen_train_loop_dumps_last_spans(flight_dirs):

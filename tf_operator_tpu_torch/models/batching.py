@@ -1,8 +1,35 @@
-"""Paged continuous batching (the port of
-``tf_operator_tpu/models/batching.py::PagedContinuousBatchingDecoder``).
+"""Continuous batching (the port of ``tf_operator_tpu/models/batching.py``):
+the contiguous slot pool, ``ContinuousBatchingDecoder``, and the paged
+pool built on it, ``PagedContinuousBatchingDecoder``.  The two share the
+records, the queue, ``submit``, ``result`` / ``result_wait``, ``run``,
+the SLO observations, spans and gauges, and the samplers.
 
-One pre-allocated block arena backs every seat through a per-seat
-block table, and admission is gated on blocks free.
+The contiguous pool (the JAX server's pool for a rolling-window model,
+which the paged pool refuses): every seat owns a row of one slot stack,
+per layer K/V [slots, Hkv, cache_len, D] with cache_len = max_len, or
+the window for a rolling cache, plus a per-slot write index and, for a
+rolling cache, per-slot slot positions.  Admission is FIFO into any free
+slot:
+
+- without a rolling cache, one ``admission`` dispatch prefills the
+  prompt at its exact length straight into the slot's rows, samples the
+  first token and seats it (the JAX pool pads to a power-of-two width
+  and rolls the index back: the same greedy tokens);
+- a rolling cache takes the staged path: the prompt prefills in chunks
+  capped at the window (one ``prefill`` dispatch each) into a fresh
+  batch-1 cache and the first token is sampled (one ``sample``
+  dispatch), on the submitter's thread while one of 2 x slots staging
+  permits is free, else at admission with the pool lock dropped; the
+  primed cache is then copied into the slot (one ``scatter`` dispatch).
+
+A ``step`` dispatch runs ``steps_per_sync`` decode steps of the whole
+stack, each row at its own position, and fetches the window's tokens
+once.  A free slot's rows are never read: its steps write only its own
+rows (its index rewinds after each window), which the next admission
+overwrites first; a seat's steps past its budget land in its own rows.
+
+The paged pool: one pre-allocated block arena backs every seat through
+a per-seat block table, and admission is gated on blocks free.
 
 Reservation (``reserve``):
 
@@ -130,10 +157,13 @@ import torch
 from tf_operator_tpu_torch.models.decode import (
     decode_variant,
     gather_block_view,
+    init_cache,
+    max_window_chunk,
     paged_arena,
     paged_decode_variant,
     sample_categorical,
     scatter_block_view,
+    window_chunks,
 )
 from tf_operator_tpu_torch.models.kv_blocks import (
     SCRATCH_BLOCK,
@@ -146,7 +176,7 @@ from tf_operator_tpu_torch.models.kv_blocks import (
 )
 from tf_operator_tpu_torch.models.llama import LlamaLM
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, chain_keys
-from tf_operator_tpu_torch.models.transformer import PagedCache
+from tf_operator_tpu_torch.models.transformer import DecodeCache, PagedCache
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import paged_attention as _pa
 from tf_operator_tpu_torch.ops import quant_matmul as _qm
@@ -450,7 +480,7 @@ class _Request:
     __slots__ = ("rid", "prompt", "budget", "temperature", "top_k",
                  "generator", "tier", "tokens", "done", "slot", "t_submit",
                  "t_submit_mono", "t_first", "swapped", "tokens_since_seat",
-                 "trace_id", "entry", "queue_waited")
+                 "trace_id", "entry", "queue_waited", "staged", "has_permit")
 
     def __init__(self, rid, prompt, budget, temperature, top_k, generator, tier):
         self.rid = rid
@@ -480,43 +510,41 @@ class _Request:
         self.entry: Optional[Dict[str, Any]] = None
         #: the queue.wait span is emitted once
         self.queue_waited = False
+        #: the contiguous pool's staged path: (primed batch-1 cache, first
+        #: token) until seated, and whether it holds a staging permit
+        self.staged = None
+        self.has_permit = False
 
 
-class PagedContinuousBatchingDecoder:
-    """Fixed seats over one block arena (module docstring).
+class ContinuousBatchingDecoder:
+    """Fixed seats over one contiguous slot stack: the port of the JAX
+    package's ``ContinuousBatchingDecoder``, the serving pool of a
+    rolling-window model (which the paged pool refuses) and the base of
+    :class:`PagedContinuousBatchingDecoder` (module docstring).
 
     Thread-safe: ``submit`` may be called from request threads while
     one decode loop thread calls ``step``.  ``ledger`` counts (and
-    times) the pool's device work by phase: a ``step`` dispatch is one
-    window of ``steps_per_sync`` decode steps, timed up to its fetch; ``request_log`` keeps each
-    request's autopsy; ``timeline`` the arena's occupancy history;
-    ``swap_log`` one record per swap copy (direction, blocks, bytes,
-    host seconds, and on CUDA the events around it).  ``metrics``
-    (default: the ledger's registry) receives the SLO histograms, the
-    gauges and the counters; ``model_label`` is their ``model`` label.
-    An HTTP read of the records takes their own locks, never the
-    pool's.
+    times) the pool's device work by phase: ``admission``, ``step`` (a
+    window of ``steps_per_sync`` decode steps, timed up to its fetch)
+    and, on the staged path, ``prefill``, ``sample`` and ``scatter``;
+    ``request_log`` keeps each request's autopsy.  ``metrics`` (default:
+    the ledger's registry) receives the SLO histograms and the gauges;
+    ``model_label`` is their ``model`` label.  ``costplane`` shares a
+    cost plane (a server's, over its registry); one is made over the
+    pool's registry when not given, and a pool with no registry keeps
+    none.  An HTTP read of the records takes their own locks, never the
+    pool's."""
 
-    ``draft_model`` (a ``LlamaLM`` with weights, for example the target's
-    int8 twin) turns on speculative decoding for the tiers in
-    ``spec_tiers``, ``spec_k`` proposals a window (module docstring).  It
-    takes the place of the JAX pool's ``draft_model`` + ``draft_params``
-    pair.  A configuration that cannot speculate raises here rather than
-    serve non-speculatively.  ``costplane`` shares a cost plane (a
-    server's, over its registry; module docstring)."""
+    #: speculative decoding and the arena timeline are the paged pool's
+    spec_enabled = False
+    spec_tiers: tuple = ()
+    timeline: Optional[ArenaTimeline] = None
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
-                 kv_blocks: Optional[int] = None, kv_block_size: int = 16,
-                 reserve: str = "lazy", swap_blocks: Optional[int] = None,
-                 age_boost_seconds: float = 30.0,
                  ledger: Optional[DispatchLedger] = None, metrics=None,
-                 model_label: str = "", draft_model: Optional[LlamaLM] = None,
-                 spec_k: int = 4, spec_tiers=("interactive",), costplane=None):
-        cfg = model.cfg
+                 model_label: str = "", costplane=None):
         self.ledger = ledger if ledger is not None else DispatchLedger()
         self.metrics = metrics if metrics is not None else self.ledger.metrics
-        #: the device cost plane (module docstring); None for a pool
-        #: with no registry
         if costplane is None and self.metrics is not None:
             costplane = CostPlane(metrics=self.metrics)
         self.costplane = costplane
@@ -525,177 +553,50 @@ class PagedContinuousBatchingDecoder:
         #: spans of every request
         self.tracer = self.ledger.tracer
         self.request_log = RequestLog()
-        if reserve not in ("lazy", "worst-case"):
-            raise ValueError(
-                f"reserve must be 'lazy' or 'worst-case', got {reserve!r}"
-            )
-        self.reserve = reserve
-        self.age_boost_seconds = float(age_boost_seconds)
         self.device = model.device
         self.dmodel = decode_variant(model)
-        self.pmodel = paged_decode_variant(model)
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         self.steps_per_sync = max(1, int(steps_per_sync))
-        self.max_len = cfg.max_len
-        bs = int(kv_block_size)
-        if bs < 1 or self.max_len % bs:
-            raise ValueError(
-                f"kv_block_size={bs} must divide max_len={self.max_len}"
-            )
-        self.block_size = bs
-        self.max_blocks = self.max_len // bs
-        if kv_blocks is None:
-            # the HBM a contiguous pool would pin: slots x max_len
-            kv_blocks = self.slots * self.max_blocks
-        #: arena rows = usable blocks + the scratch block (id 0)
-        self.num_blocks = int(kv_blocks) + 1
-        self.alloc = BlockAllocator(self.num_blocks, bs)
-        self._arena = paged_arena(model, self.num_blocks, bs)
-        arena_bytes = sum(tree_device_bytes(self._arena).values())
-        #: a block's bytes on the host once swapped (the swap-staging gauge)
-        self._block_host_bytes = arena_bytes // self.num_blocks
-        if self.costplane is not None:
-            self.costplane.hbm.register_tree("kv_arena", self._arena)
-        self.spec_enabled = draft_model is not None
-        self.spec_k = int(spec_k)
-        self.spec_tiers = tuple(spec_tiers)
-        #: slot -> physical ids behind a speculating seat's draft table
-        #: row, in logical order (all private: the draft never shares)
-        self._draft_refs: Dict[int, List[int]] = {}
-        self._draft_arena = self._draft_tables_dev = None
-        # the JAX pool's host counters: dispatches a token = 2 windows /
-        # emitted; the port adds the K4 + K7 launches of draft and verify
-        self.spec_windows = 0
-        self.spec_proposed = 0
-        self.spec_accepted = 0
-        self.spec_rollbacks = 0
-        self.spec_emitted = 0
-        self.spec_launches = 0
-        if self.spec_enabled:
-            self._init_draft(draft_model)
-        #: a window's appends (steps_per_sync, or spec_k + 1 for a
-        #: speculating seat) straddle at most this many blocks: the
-        #: width of the growth written before each window
-        adv = max(self.steps_per_sync, self.spec_k + 1 if self.spec_enabled else 1)
-        self._step_nbw = (adv - 1) // bs + 2
-        #: preempted seats' private blocks wait here until resume
-        self.swap = SwapArena(capacity_blocks=swap_blocks)
-        self.preemptions = 0
-        #: decode windows run (a window may hold a step, a draft and a verify)
+        self.max_len = model.cfg.max_len
+        #: decode windows run
         self.windows = 0
-        self.swap_log: "collections.deque[dict]" = collections.deque(maxlen=256)
-        dev = self.device
-        # device-resident seat state: written at admission and resume,
-        # advanced by the step window, reset at retire and preemption —
-        # no per-step uploads
-        self._tables_dev = torch.full(
-            (self.slots, self.max_blocks), SCRATCH_BLOCK, dtype=torch.int32, device=dev
-        )
-        self._lengths_dev = torch.zeros(self.slots, dtype=torch.int32, device=dev)
-        self._temps_dev = torch.zeros(self.slots, dtype=torch.float32, device=dev)
-        self._topks_dev = torch.zeros(self.slots, dtype=torch.int32, device=dev)
-        self._last_tok = torch.zeros(self.slots, dtype=torch.long, device=dev)
-        if self.costplane is not None:
-            self.costplane.hbm.register_tree("other", [
-                self._tables_dev, self._lengths_dev, self._temps_dev, self._topks_dev,
-                self._last_tok, self._draft_tables_dev])
-        #: slot -> the sampled request's generator (greedy seats: none)
-        self._generators: Dict[int, torch.Generator] = {}
-        #: slot -> physical ids behind the seat's table row, in logical
-        #: order (admission builds it, growth appends): what preemption
-        #: reads to know which block sits at which index
-        self._seat_refs: Dict[int, List[int]] = {}
-        #: shared prefix store — a block is evictable only while nothing
-        #: maps it (refcount 1 = the cache's own reference)
-        self.prefix = PrefixCache(
-            metrics=self.metrics,
-            can_evict=lambda bid: self.alloc.refcount(bid) == 1,
-            on_evict=lambda bid: self.alloc.release([bid]),
-        )
         self._lock = threading.Lock()
         self._done_cond = threading.Condition(self._lock)
         self._rid = 0
         self._queue: List[_Request] = []
         self._active: Dict[int, _Request] = {}
         self._results: Dict[int, _Request] = {}
-        #: one occupancy sample at each gauge refresh
-        self.timeline = ArenaTimeline(
-            block_size=bs, usable=self.alloc.usable, replica="0", role=ROLE,
-        )
-        self._update_kv_gauges()
+        #: slot -> the sampled request's generator (greedy seats: none)
+        self._generators: Dict[int, torch.Generator] = {}
+        self._init_pool_cache()
 
-    def _init_draft(self, draft: LlamaLM) -> None:
-        """Validate the speculative configuration (the JAX pool's checks
-        and messages) and build the draft's decode views, arena twin and
-        table rows."""
+    def _init_pool_cache(self) -> None:
+        """The slot stack and the seats' device state (the paged pool
+        builds its block arena instead)."""
 
-        if self.spec_k < 1:
-            raise ValueError(f"spec_k must be >= 1, got {self.spec_k!r}")
-        bad = [t for t in self.spec_tiers if t not in _TIER_RANK]
-        if bad:
-            raise ValueError(
-                f"spec_tiers {bad} are not SLO tiers {SLO_TIERS} — failing instead of "
-                "silently serving them non-speculatively"
-            )
-        if draft.device.type == "meta":
-            # a module without weights: the JAX pool's draft_model
-            # given without draft_params
-            raise ValueError("draft_model requires draft weights: its parameters are on "
-                             "the meta device")
-        if draft.device != self.device:
-            raise ValueError(f"draft on {draft.device}, target on {self.device}: the "
-                             "speculative window runs both on one device")
-        if draft.cfg.max_len != self.max_len:
-            raise ValueError(
-                f"draft max_len={draft.cfg.max_len} != target max_len={self.max_len} — "
-                "the shared block tables need one geometry"
-            )
-        try:
-            self._draft_arena = paged_arena(draft, self.num_blocks, self.block_size)
-            self._draft_pmodel = paged_decode_variant(draft)
-            # the draft twin is arena memory too
-            if self.costplane is not None:
-                self.costplane.hbm.register_tree("kv_arena", self._draft_arena)
-        except NotPageableError as exc:
-            raise ValueError(
-                f"draft model cannot page: {exc} — failing instead of silently serving "
-                "non-speculatively"
-            ) from exc
-        self._draft_dmodel = decode_variant(draft)
-        self._draft_tables_dev = torch.full(
-            (self.slots, self.max_blocks), SCRATCH_BLOCK, dtype=torch.int32, device=self.device
-        )
-
-    def _spec_tier(self, tier: str) -> bool:
-        """True when requests of ``tier`` decode speculatively."""
-
-        return self.spec_enabled and tier in self.spec_tiers
-
-    def _spec_req(self, req: "_Request") -> bool:
-        return self._spec_tier(req.tier)
-
-    def spec_snapshot(self) -> Dict[str, float]:
-        """The JAX pool's speculative accounting (acceptance rate, and
-        dispatches a token: draft + verify dispatches over the tokens
-        delivered), plus ``launches_per_token``: the K4 and K7 launches of
-        those dispatches over the same tokens, what a dispatch costs in an
-        eager step (0 on the CPU, where the plain versions run)."""
-
-        windows, emitted = self.spec_windows, self.spec_emitted
-        return {
-            "spec_windows": float(windows),
-            "spec_proposed": float(self.spec_proposed),
-            "spec_accepted": float(self.spec_accepted),
-            "spec_rollbacks": float(self.spec_rollbacks),
-            "spec_emitted": float(emitted),
-            "acceptance_rate": (self.spec_accepted / self.spec_proposed
-                                if self.spec_proposed else 0.0),
-            "dispatches_per_token": 2.0 * windows / emitted if emitted else float("inf"),
-            "launches_per_token": (self.spec_launches / emitted if emitted
-                                   else float("inf")),
-        }
+        dev = self.device
+        #: widths of a rolling cache's staged prefill are capped at the
+        #: window; None = every admission is one dispatch
+        self._max_chunk = max_window_chunk(self.dmodel.cfg)
+        #: eager staged prefills each hold a primed batch-1 cache on the
+        #: device until seated; the permits bound them at 2 x slots, and
+        #: past that a request primes lazily at admission
+        self._staging = threading.BoundedSemaphore(max(1, 2 * self.slots))
+        #: slots picked by a staged admission whose prefill runs with the
+        #: lock dropped
+        self._reserved: set = set()
+        self._cache = init_cache(self.dmodel, self.slots)
+        self._cache.index = torch.zeros(self.slots, dtype=torch.long, device=dev)
+        self._last_tok = torch.zeros(self.slots, dtype=torch.long, device=dev)
+        self._temps_dev = torch.zeros(self.slots, dtype=torch.float32, device=dev)
+        self._topks_dev = torch.zeros(self.slots, dtype=torch.int32, device=dev)
+        if self.costplane is not None:
+            self.costplane.hbm.register_tree("kv_arena", self._cache.layers)
+            self.costplane.hbm.register_tree("other", [
+                self._cache.index, self._cache.pos, self._last_tok, self._temps_dev,
+                self._topks_dev])
 
     # -- public API --------------------------------------------------------
 
@@ -706,10 +607,12 @@ class PagedContinuousBatchingDecoder:
         """Queue one request ([P] ids).  Returns its id; collect the
         output with ``result``/``result_wait``.  A sampled request
         (temperature > 0) draws from its own ``generator``, which must
-        live on the pool's device.  ``tier`` is its SLO tier (module
-        docstring).  ``trace_id`` is its identity (serve_lm passes the
-        HTTP request's); without one the tracer mints one, and a pool
-        without a tracer names it ``treq-0-<rid>``."""
+        live on the pool's device.  ``tier`` is its SLO tier.
+        ``trace_id`` is its identity (serve_lm passes the HTTP request's);
+        without one the tracer mints one, and a pool without a tracer
+        names it ``treq-0-<rid>``.  On the contiguous pool's staged path
+        the prompt prefills here, on the caller's thread, while a staging
+        permit is free."""
 
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -736,35 +639,43 @@ class PagedContinuousBatchingDecoder:
                 )
         if tier not in SLO_TIERS:
             raise ValueError(f"tier must be one of {SLO_TIERS}, got {tier!r}")
-        need = blocks_for(prompt.size + max_new_tokens, self.block_size)
-        if self._spec_tier(tier):
-            # a speculating seat pins a draft twin of every target block
-            need *= 2
-        if need > self.alloc.usable:
-            raise ValueError(
-                f"request needs {need} KV blocks but the arena has only "
-                f"{self.alloc.usable} — admission could never succeed"
-            )
+        self._check_fits(prompt.size, max_new_tokens, tier)
         with self._lock:
             rid = self._rid
             self._rid += 1
-            req = _Request(rid, prompt, int(max_new_tokens), float(temperature),
-                           top_k, generator, tier)
-            if trace_id is not None:
-                req.trace_id = str(trace_id)
-            elif self.tracer is not None:
-                req.trace_id = self.tracer.mint_trace_id()
-            else:
-                req.trace_id = f"treq-0-{rid}"
-            req.entry = self.request_log.open(
-                id=req.trace_id, rid=rid, replica="0", model=self.model_label,
-                prompt_tokens=int(prompt.size), max_new_tokens=int(max_new_tokens),
-                tier=tier, internal=False,
-            )
+        req = _Request(rid, prompt, int(max_new_tokens), float(temperature), top_k,
+                       generator, tier)
+        if trace_id is not None:
+            req.trace_id = str(trace_id)
+        elif self.tracer is not None:
+            req.trace_id = self.tracer.mint_trace_id()
+        else:
+            req.trace_id = f"treq-0-{rid}"
+        req.entry = self.request_log.open(
+            id=req.trace_id, rid=rid, replica="0", model=self.model_label,
+            prompt_tokens=int(prompt.size), max_new_tokens=int(max_new_tokens),
+            tier=tier, internal=False,
+        )
+        self._stage(req)
+        with self._lock:
             self._results[rid] = req
-            self._queue.append(req)
+            if req.staged is not None and len(req.tokens) >= req.budget:
+                # budget 1, prefilled eagerly: complete without a seat
+                self._release_staged(req)
+                self._finish_locked(req, 0)
+            else:
+                self._queue.append(req)
             self._update_gauges_locked()
         return rid
+
+    def _check_fits(self, p_len: int, max_new_tokens: int, tier: str) -> None:
+        """Refuse a request that no admission could ever seat (every
+        slot holds any request that fits max_len)."""
+
+    def _spec_tier(self, tier: str) -> bool:
+        """True when requests of ``tier`` decode speculatively."""
+
+        return self.spec_enabled and tier in self.spec_tiers
 
     def result(self, rid: int):
         """[P + n] int32 (prompt + generated), or None if not done.
@@ -878,8 +789,8 @@ class PagedContinuousBatchingDecoder:
         )
 
     def _update_gauges_locked(self) -> None:
-        """The queue-depth and tokens-in-flight gauges, then the arena's
-        (caller holds the lock; host counts only)."""
+        """The queue-depth and tokens-in-flight gauges (caller holds the
+        lock; host counts only)."""
 
         if self.metrics is not None:
             self.metrics.set("serve_admission_queue_depth", float(len(self._queue)),
@@ -888,6 +799,462 @@ class PagedContinuousBatchingDecoder:
                 + sum(r.budget - len(r.tokens) for r in self._queue)
             self.metrics.set("serve_tokens_in_flight", float(max(0, inflight)),
                              **self._labels())
+
+    def _finish_locked(self, req: _Request, blocks_freed: int) -> None:
+        """Retirement (caller holds the lock): the retire span, the
+        autopsy's final timings, time per output token, and the
+        waiters' wake-up."""
+
+        req.done = True
+        req.slot = None
+        now = time.monotonic()
+        self._emit_span(req, "retire", now, now, blocks_freed=blocks_freed,
+                        tokens=len(req.tokens))
+        t_done = time.perf_counter()
+        t_first = req.t_first if req.t_first is not None else t_done
+        tpot = (t_done - t_first) / max(1, len(req.tokens) - 1)
+        self.request_log.update(
+            req.entry, state="done", retire={"blocks_freed": int(blocks_freed)},
+            total_seconds=round(t_done - req.t_submit, 6), tpot_seconds=round(tpot, 6),
+            tokens=len(req.tokens),
+        )
+        if self.metrics is not None:
+            self.metrics.observe_histogram(
+                "serve_time_per_output_token_seconds", tpot, exemplar=req.trace_id,
+                tier=req.tier, **self._labels(mode="pool"),
+            )
+        self._done_cond.notify_all()
+
+    def _observe_window(self, t_window0: float, t_window1: float) -> None:
+        """One decode window ran: its count, and its host wall as one
+        sentinel observation (no device call)."""
+
+        self.windows += 1
+        if self.costplane is not None:
+            self.costplane.sentinel.observe("decode.window", t_window1 - t_window0)
+
+    # -- the contiguous pool's admission ------------------------------------
+
+    def _stage(self, req: _Request) -> None:
+        """The staged path of a rolling cache: prefill now, on the
+        submitter's thread, while a staging permit is free (past the
+        permits the request primes at admission instead)."""
+
+        if self._max_chunk is None or not self._staging.acquire(blocking=False):
+            return
+        req.has_permit = True
+        try:
+            self._prefill_request(req)
+        except BaseException:
+            req.has_permit = False
+            self._staging.release()
+            raise
+
+    def _release_staged(self, req: _Request) -> None:
+        req.staged = None
+        if req.has_permit:
+            req.has_permit = False
+            self._staging.release()
+
+    @torch.inference_mode()
+    def _prefill_request(self, req: _Request) -> None:
+        """A staged admission's device work with no pool lock held: the
+        prompt in chunks capped at the window (one ``prefill`` dispatch
+        each) into a fresh batch-1 rolling cache, and the first token
+        (one ``sample`` dispatch, its fetch inside)."""
+
+        work_start = time.perf_counter()
+        # queue.wait ends at the first device work; seating comes later
+        self._emit_queue_wait(req)
+        cache = init_cache(self.dmodel, 1)
+        off = 0
+        for width in window_chunks(req.prompt.size, self._max_chunk):
+            ids = torch.as_tensor(req.prompt[off : off + width], device=self.device)[None]
+            with self.dispatch("prefill", rid=req.rid):
+                last = self.dmodel(ids, cache=cache)[0, -1]
+            self.request_log.count_dispatch(req.entry, "prefill")
+            off += width
+        with self.dispatch("sample", rid=req.rid):
+            tok = _admission_sample(last, req.temperature, req.top_k, req.generator)
+            tok_h = int(tok)
+        req.staged = (cache, tok)
+        req.tokens.append(tok_h)
+        self.request_log.count_dispatch(req.entry, "sample")
+        self._observe_first_token(req, work_start)
+
+    def _seat_row(self, slot: int, length: int, req: _Request, tok) -> None:
+        self._cache.index[slot] = length
+        self._last_tok[slot] = tok
+        self._temps_dev[slot] = req.temperature
+        self._topks_dev[slot] = req.top_k or 0
+
+    def _scatter(self, slot: int, req: _Request) -> None:
+        """Seat a staged request: its batch-1 cache (and slot positions)
+        into the slot's rows, and the seat's state."""
+
+        cache, tok = req.staged
+        for (sk, sv), (rk, rv) in zip(self._cache.layers, cache.layers):
+            sk[slot] = rk[0]
+            sv[slot] = rv[0]
+        self._cache.pos[slot] = cache.pos[0]
+        self._seat_row(slot, req.prompt.size, req, tok)
+
+    @torch.inference_mode()
+    def _admit_fused(self, req: _Request, slot: int) -> None:
+        """Seat one request in one ``admission`` dispatch (caller holds
+        the lock): the prompt at its exact length straight into the
+        slot's rows (positions past it are masked until written), the
+        first token from its last row, and the seat's state."""
+
+        p_len = req.prompt.size
+        work_start = time.perf_counter()
+        self._emit_queue_wait(req)
+        with self._request_span(req, "admission", width=p_len, slot=slot):
+            with self.dispatch("admission", rid=req.rid, width=p_len):
+                view = DecodeCache([(k[slot : slot + 1], v[slot : slot + 1])
+                                    for k, v in self._cache.layers])
+                ids = torch.as_tensor(req.prompt, device=self.device)[None]
+                logits = self.dmodel(ids, cache=view)
+                tok = _admission_sample(logits[0, -1], req.temperature, req.top_k,
+                                        req.generator)
+                self._seat_row(slot, p_len, req, tok)
+                tok_h = int(tok)  # the admission's one host fetch, in its dispatch
+        req.tokens.append(tok_h)
+        self.request_log.count_dispatch(req.entry, "admission")
+        self.request_log.update(
+            req.entry, state="active", slot=slot,
+            admission={"width": int(p_len), "prefill_dispatches": 0,
+                       "seconds": round(time.perf_counter() - work_start, 6)},
+        )
+        self._observe_first_token(req, work_start)
+        if len(req.tokens) >= req.budget:
+            # budget 1: the admission token completed it; the slot's rows
+            # are dead and the slot stays free
+            self._finish_locked(req, 0)
+        else:
+            self._take_seat(req, slot)
+
+    def _take_seat(self, req: _Request, slot: int) -> None:
+        req.slot = slot
+        self._active[slot] = req
+        if req.generator is not None:
+            self._generators[slot] = req.generator
+
+    def _admit(self) -> None:
+        """Seat queued requests in submit order while a slot is free.
+        Without a rolling cache each admission is one dispatch under the
+        lock; a rolling cache's staged request prefills with the lock
+        dropped (when it was not staged at submit), then is scattered
+        into its slot under the lock.  A failed admission puts the
+        request back at the queue's head."""
+
+        while True:
+            with self._lock:
+                if not self._queue:
+                    return
+                free = [s for s in range(self.slots)
+                        if s not in self._active and s not in self._reserved]
+                if not free:
+                    return
+                req = self._queue.pop(0)
+                slot = free[0]
+                if self._max_chunk is None:
+                    try:
+                        self._admit_fused(req, slot)
+                        self._update_gauges_locked()
+                    except BaseException:
+                        self._queue.insert(0, req)
+                        raise
+                    continue
+                self._reserved.add(slot)
+            try:
+                if req.staged is None:
+                    self._prefill_request(req)
+            except BaseException:
+                with self._lock:
+                    self._reserved.discard(slot)
+                    self._queue.insert(0, req)
+                raise
+            with self._lock:
+                self._reserved.discard(slot)
+                if len(req.tokens) >= req.budget:
+                    # budget 1 primed at admission: done without the seat
+                    self._release_staged(req)
+                    self._finish_locked(req, 0)
+                    self._update_gauges_locked()
+                    continue
+                with self._request_span(req, "admission", slot=slot, path="staged"):
+                    with self.dispatch("scatter", rid=req.rid):
+                        self._scatter(slot, req)
+                self._release_staged(req)
+                self.request_log.count_dispatch(req.entry, "scatter")
+                self.request_log.update(
+                    req.entry, state="active", slot=slot,
+                    admission={"width": None,
+                               "prefill_dispatches": req.entry["dispatches"].get("prefill", 0),
+                               "path": "staged"},
+                )
+                self._take_seat(req, slot)
+                self._update_gauges_locked()
+
+    # -- the contiguous pool's decode -----------------------------------------
+
+    @torch.inference_mode()
+    def step(self) -> int:
+        """Admit, run one window of ``steps_per_sync`` decode steps over
+        the slot stack (one ``step`` dispatch, one fetch), hand out the
+        tokens and retire the finished seats.  Returns the number of
+        seats still active."""
+
+        self._admit()
+        with self._lock:
+            if not self._active:
+                return 0
+            seats_active = len(self._active)
+            slots = sorted(self._active)
+            enabled = self._seat_mask(slots)
+            gens = {s: self._generators[s] for s in slots if s in self._generators}
+            t_window0 = time.monotonic()
+            toks = self._last_tok
+            window = []
+            with self.dispatch("step", active=seats_active):
+                # every slot steps; a free slot writes only its own dead
+                # rows, which the next admission overwrites before any read
+                for _ in range(self.steps_per_sync):
+                    logits = self.dmodel(toks[:, None], cache=self._cache)
+                    toks = _step_sample(logits[:, 0], self._temps_dev, self._topks_dev, gens)
+                    window.append(toks)
+                host = torch.stack(window).cpu().numpy()  # [K, S]: one fetch
+            # free slots rewind, so their writes stay at the rows' start
+            self._cache.index = torch.where(enabled, self._cache.index, 0)
+            self._last_tok = torch.where(enabled, toks, self._last_tok)
+            t_window1 = time.monotonic()
+            self._observe_window(t_window0, t_window1)
+            for slot in slots:
+                req = self._active[slot]
+                take = min(len(host), req.budget - len(req.tokens))
+                req.tokens.extend(int(t) for t in host[:take, slot])
+                self._emit_span(req, "decode.window", t_window0, t_window1,
+                                tokens=take, seats_active=seats_active)
+                self.request_log.add_window(req.entry, take)
+                if len(req.tokens) >= req.budget:
+                    # its steps past the budget wrote only its own rows
+                    del self._active[slot]
+                    self._generators.pop(slot, None)
+                    self._finish_locked(req, 0)
+            self._update_gauges_locked()
+            return len(self._active)
+
+    def _seat_mask(self, slots: List[int]) -> torch.Tensor:
+        mask = np.zeros(self.slots, bool)
+        mask[slots] = True
+        return torch.as_tensor(mask, device=self.device)
+
+
+class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
+    """Fixed seats over one block arena (module docstring).
+
+    Thread-safe: ``submit`` may be called from request threads while
+    one decode loop thread calls ``step``.  ``ledger`` counts (and
+    times) the pool's device work by phase: a ``step`` dispatch is one
+    window of ``steps_per_sync`` decode steps, timed up to its fetch; ``request_log`` keeps each
+    request's autopsy; ``timeline`` the arena's occupancy history;
+    ``swap_log`` one record per swap copy (direction, blocks, bytes,
+    host seconds, and on CUDA the events around it).  ``metrics``
+    (default: the ledger's registry) receives the SLO histograms, the
+    gauges and the counters; ``model_label`` is their ``model`` label.
+    An HTTP read of the records takes their own locks, never the
+    pool's.
+
+    ``draft_model`` (a ``LlamaLM`` with weights, for example the target's
+    int8 twin) turns on speculative decoding for the tiers in
+    ``spec_tiers``, ``spec_k`` proposals a window (module docstring).  It
+    takes the place of the JAX pool's ``draft_model`` + ``draft_params``
+    pair.  A configuration that cannot speculate raises here rather than
+    serve non-speculatively.  ``costplane`` shares a cost plane (a
+    server's, over its registry; module docstring)."""
+
+    def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
+                 kv_blocks: Optional[int] = None, kv_block_size: int = 16,
+                 reserve: str = "lazy", swap_blocks: Optional[int] = None,
+                 age_boost_seconds: float = 30.0,
+                 ledger: Optional[DispatchLedger] = None, metrics=None,
+                 model_label: str = "", draft_model: Optional[LlamaLM] = None,
+                 spec_k: int = 4, spec_tiers=("interactive",), costplane=None):
+        if reserve not in ("lazy", "worst-case"):
+            raise ValueError(
+                f"reserve must be 'lazy' or 'worst-case', got {reserve!r}"
+            )
+        super().__init__(model, slots=slots, steps_per_sync=steps_per_sync, ledger=ledger,
+                         metrics=metrics, model_label=model_label, costplane=costplane)
+        self.reserve = reserve
+        self.age_boost_seconds = float(age_boost_seconds)
+        self.pmodel = paged_decode_variant(model)
+        bs = int(kv_block_size)
+        if bs < 1 or self.max_len % bs:
+            raise ValueError(
+                f"kv_block_size={bs} must divide max_len={self.max_len}"
+            )
+        self.block_size = bs
+        self.max_blocks = self.max_len // bs
+        if kv_blocks is None:
+            # the HBM a contiguous pool would pin: slots x max_len
+            kv_blocks = self.slots * self.max_blocks
+        #: arena rows = usable blocks + the scratch block (id 0)
+        self.num_blocks = int(kv_blocks) + 1
+        self.alloc = BlockAllocator(self.num_blocks, bs)
+        self._arena = paged_arena(model, self.num_blocks, bs)
+        arena_bytes = sum(tree_device_bytes(self._arena).values())
+        #: a block's bytes on the host once swapped (the swap-staging gauge)
+        self._block_host_bytes = arena_bytes // self.num_blocks
+        if self.costplane is not None:
+            self.costplane.hbm.register_tree("kv_arena", self._arena)
+        self.spec_enabled = draft_model is not None
+        self.spec_k = int(spec_k)
+        self.spec_tiers = tuple(spec_tiers)
+        #: slot -> physical ids behind a speculating seat's draft table
+        #: row, in logical order (all private: the draft never shares)
+        self._draft_refs: Dict[int, List[int]] = {}
+        self._draft_arena = self._draft_tables_dev = None
+        # the JAX pool's host counters: dispatches a token = 2 windows /
+        # emitted; the port adds the K4 + K7 launches of draft and verify
+        self.spec_windows = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_rollbacks = 0
+        self.spec_emitted = 0
+        self.spec_launches = 0
+        if self.spec_enabled:
+            self._init_draft(draft_model)
+        #: a window's appends (steps_per_sync, or spec_k + 1 for a
+        #: speculating seat) straddle at most this many blocks: the
+        #: width of the growth written before each window
+        adv = max(self.steps_per_sync, self.spec_k + 1 if self.spec_enabled else 1)
+        self._step_nbw = (adv - 1) // bs + 2
+        #: preempted seats' private blocks wait here until resume
+        self.swap = SwapArena(capacity_blocks=swap_blocks)
+        self.preemptions = 0
+        self.swap_log: "collections.deque[dict]" = collections.deque(maxlen=256)
+        dev = self.device
+        # device-resident seat state: written at admission and resume,
+        # advanced by the step window, reset at retire and preemption —
+        # no per-step uploads
+        self._tables_dev = torch.full(
+            (self.slots, self.max_blocks), SCRATCH_BLOCK, dtype=torch.int32, device=dev
+        )
+        self._lengths_dev = torch.zeros(self.slots, dtype=torch.int32, device=dev)
+        self._temps_dev = torch.zeros(self.slots, dtype=torch.float32, device=dev)
+        self._topks_dev = torch.zeros(self.slots, dtype=torch.int32, device=dev)
+        self._last_tok = torch.zeros(self.slots, dtype=torch.long, device=dev)
+        if self.costplane is not None:
+            self.costplane.hbm.register_tree("other", [
+                self._tables_dev, self._lengths_dev, self._temps_dev, self._topks_dev,
+                self._last_tok, self._draft_tables_dev])
+        #: slot -> physical ids behind the seat's table row, in logical
+        #: order (admission builds it, growth appends): what preemption
+        #: reads to know which block sits at which index
+        self._seat_refs: Dict[int, List[int]] = {}
+        #: shared prefix store — a block is evictable only while nothing
+        #: maps it (refcount 1 = the cache's own reference)
+        self.prefix = PrefixCache(
+            metrics=self.metrics,
+            can_evict=lambda bid: self.alloc.refcount(bid) == 1,
+            on_evict=lambda bid: self.alloc.release([bid]),
+        )
+        #: one occupancy sample at each gauge refresh
+        self.timeline = ArenaTimeline(
+            block_size=bs, usable=self.alloc.usable, replica="0", role=ROLE,
+        )
+        self._update_kv_gauges()
+
+    def _init_pool_cache(self) -> None:
+        """No slot stack: the arena is built by ``__init__``."""
+
+    def _stage(self, req: _Request) -> None:
+        """Nothing at submit: admission does the device work."""
+
+    def _init_draft(self, draft: LlamaLM) -> None:
+        """Validate the speculative configuration (the JAX pool's checks
+        and messages) and build the draft's decode views, arena twin and
+        table rows."""
+
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k!r}")
+        bad = [t for t in self.spec_tiers if t not in _TIER_RANK]
+        if bad:
+            raise ValueError(
+                f"spec_tiers {bad} are not SLO tiers {SLO_TIERS} — failing instead of "
+                "silently serving them non-speculatively"
+            )
+        if draft.device.type == "meta":
+            # a module without weights: the JAX pool's draft_model
+            # given without draft_params
+            raise ValueError("draft_model requires draft weights: its parameters are on "
+                             "the meta device")
+        if draft.device != self.device:
+            raise ValueError(f"draft on {draft.device}, target on {self.device}: the "
+                             "speculative window runs both on one device")
+        if draft.cfg.max_len != self.max_len:
+            raise ValueError(
+                f"draft max_len={draft.cfg.max_len} != target max_len={self.max_len} — "
+                "the shared block tables need one geometry"
+            )
+        try:
+            self._draft_arena = paged_arena(draft, self.num_blocks, self.block_size)
+            self._draft_pmodel = paged_decode_variant(draft)
+            # the draft twin is arena memory too
+            if self.costplane is not None:
+                self.costplane.hbm.register_tree("kv_arena", self._draft_arena)
+        except NotPageableError as exc:
+            raise ValueError(
+                f"draft model cannot page: {exc} — failing instead of silently serving "
+                "non-speculatively"
+            ) from exc
+        self._draft_dmodel = decode_variant(draft)
+        self._draft_tables_dev = torch.full(
+            (self.slots, self.max_blocks), SCRATCH_BLOCK, dtype=torch.int32, device=self.device
+        )
+
+    def _spec_req(self, req: "_Request") -> bool:
+        return self._spec_tier(req.tier)
+
+    def spec_snapshot(self) -> Dict[str, float]:
+        """The JAX pool's speculative accounting (acceptance rate, and
+        dispatches a token: draft + verify dispatches over the tokens
+        delivered), plus ``launches_per_token``: the K4 and K7 launches of
+        those dispatches over the same tokens, what a dispatch costs in an
+        eager step (0 on the CPU, where the plain versions run)."""
+
+        windows, emitted = self.spec_windows, self.spec_emitted
+        return {
+            "spec_windows": float(windows),
+            "spec_proposed": float(self.spec_proposed),
+            "spec_accepted": float(self.spec_accepted),
+            "spec_rollbacks": float(self.spec_rollbacks),
+            "spec_emitted": float(emitted),
+            "acceptance_rate": (self.spec_accepted / self.spec_proposed
+                                if self.spec_proposed else 0.0),
+            "dispatches_per_token": 2.0 * windows / emitted if emitted else float("inf"),
+            "launches_per_token": (self.spec_launches / emitted if emitted
+                                   else float("inf")),
+        }
+
+    def _check_fits(self, p_len: int, max_new_tokens: int, tier: str) -> None:
+        need = blocks_for(p_len + max_new_tokens, self.block_size)
+        if self._spec_tier(tier):
+            # a speculating seat pins a draft twin of every target block
+            need *= 2
+        if need > self.alloc.usable:
+            raise ValueError(
+                f"request needs {need} KV blocks but the arena has only "
+                f"{self.alloc.usable} — admission could never succeed"
+            )
+
+    def _update_gauges_locked(self) -> None:
+        """The base gauges, then the arena's (caller holds the lock;
+        host counts only)."""
+
+        super()._update_gauges_locked()
         self._update_kv_gauges()
 
     def _queued_blocks(self) -> int:
@@ -940,31 +1307,6 @@ class PagedContinuousBatchingDecoder:
     def _count_swap_bytes(self, direction: str, nbytes: int) -> None:
         if self.metrics is not None and nbytes:
             self.metrics.inc("kv_swap_bytes_total", float(nbytes), direction=direction)
-
-    def _finish_locked(self, req: _Request, blocks_freed: int) -> None:
-        """Retirement (caller holds the lock): the retire span, the
-        autopsy's final timings, time per output token, and the
-        waiters' wake-up."""
-
-        req.done = True
-        req.slot = None
-        now = time.monotonic()
-        self._emit_span(req, "retire", now, now, blocks_freed=blocks_freed,
-                        tokens=len(req.tokens))
-        t_done = time.perf_counter()
-        t_first = req.t_first if req.t_first is not None else t_done
-        tpot = (t_done - t_first) / max(1, len(req.tokens) - 1)
-        self.request_log.update(
-            req.entry, state="done", retire={"blocks_freed": int(blocks_freed)},
-            total_seconds=round(t_done - req.t_submit, 6), tpot_seconds=round(tpot, 6),
-            tokens=len(req.tokens),
-        )
-        if self.metrics is not None:
-            self.metrics.observe_histogram(
-                "serve_time_per_output_token_seconds", tpot, exemplar=req.trace_id,
-                tier=req.tier, **self._labels(mode="pool"),
-            )
-        self._done_cond.notify_all()
 
     # -- admission ---------------------------------------------------------
 
@@ -1618,10 +1960,7 @@ class PagedContinuousBatchingDecoder:
             host = self._plain_window(plain) if plain else None
             win = self._spec_window(sorted(spec)) if spec else None
             t_window1 = time.monotonic()
-            self.windows += 1
-            if self.costplane is not None:
-                # the window's host wall: one observation, no device call
-                self.costplane.sentinel.observe("decode.window", t_window1 - t_window0)
+            self._observe_window(t_window0, t_window1)
             finished = []
             for slot in sorted(self._active):
                 req = self._active[slot]
@@ -1652,11 +1991,6 @@ class PagedContinuousBatchingDecoder:
                     self._finish_locked(req, self.alloc.release(refs))
             self._update_gauges_locked()
             return len(self._active)
-
-    def _seat_mask(self, slots: List[int]) -> torch.Tensor:
-        mask = np.zeros(self.slots, bool)
-        mask[slots] = True
-        return torch.as_tensor(mask, device=self.device)
 
     def _plain_window(self, slots: List[int]) -> np.ndarray:
         """One ``step`` dispatch: ``steps_per_sync`` decode steps for the

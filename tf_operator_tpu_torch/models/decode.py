@@ -1,10 +1,18 @@
-"""Autoregressive generation with a KV cache, and the paged arena's
-helpers (the port of ``tf_operator_tpu/models/decode.py``).
+"""Autoregressive generation with a KV cache, the serving decoder of
+one request at a time, and the paged arena's helpers (the port of
+``tf_operator_tpu/models/decode.py``).
 
 - :func:`init_cache` / :func:`generate`: the contiguous cache
   [B, Hkv, max_len, D] per layer.  Prefill and decode share one path
   (the decode branch handles s_new = prompt length and s_new = 1).
-  Rolling the cache back is ``cache.index = n``.
+  Rolling the cache back is :func:`set_cache_index`.  A model whose
+  window is shorter than max_len gets a rolling cache of ``window``
+  slots with each slot's absolute position (-1 = empty), and
+  ``generate`` feeds a longer prompt in window-sized chunks.
+- :class:`ChunkedServingDecoder`: ``serve_lm``'s default mode.  The
+  prompt is prefilled in its binary chunks (capped at the window for a
+  rolling cache), then decoded token by token, with an optional LRU of
+  exact-prompt snapshots (``prompt_cache``).
 - :func:`paged_arena`, :func:`gather_block_view`,
   :func:`scatter_block_view`: the serving cache as fixed-size token
   blocks over one pre-allocated tensor per layer, addressed through
@@ -18,11 +26,61 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tf_operator_tpu_torch.models.kv_blocks import NotPageableError
 from tf_operator_tpu_torch.models.llama import LlamaLM
+from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, exact_key
 from tf_operator_tpu_torch.models.transformer import DecodeCache
+from tf_operator_tpu_torch.utils.metrics import DispatchLedger
+
+
+def binary_chunks(n: int) -> list:
+    """Binary decomposition of n, largest chunk first: the power-of-two
+    prefill widths of the chunked decoder and the slot pool."""
+
+    out, bit = [], 1 << n.bit_length()
+    while n:
+        bit >>= 1
+        if n >= bit:
+            out.append(bit)
+            n -= bit
+    return out
+
+
+def window_chunks(n: int, max_chunk: Optional[int]) -> list:
+    """``binary_chunks`` capped for a rolling cache: no width exceeds
+    ``max_chunk`` (the largest power of two <= window), because the
+    cache takes at most ``window`` tokens an apply.  None = no cap."""
+
+    if max_chunk is None or n <= max_chunk:
+        return binary_chunks(n)
+    full, rem = divmod(n, max_chunk)
+    return [max_chunk] * full + binary_chunks(rem)
+
+
+def max_window_chunk(cfg) -> Optional[int]:
+    """The largest power-of-two prefill width a rolling cache accepts,
+    or None for a non-rolling config."""
+
+    w = cfg.window
+    if w is not None and w < cfg.max_len:
+        return 1 << (w.bit_length() - 1)
+    return None
+
+
+def set_cache_index(cache: DecodeCache, n) -> DecodeCache:
+    """Roll a non-rolling cache back to ``n`` (an int, or one per row):
+    the decode branch masks by the index, so rows at positions >= n are
+    invisible from then on, with no copy.  A rolling cache's slot
+    positions cannot be rolled back, so it is refused."""
+
+    if cache.pos is not None:
+        raise ValueError("a rolling-window cache cannot be rolled back by its index "
+                         "(its slots record wrapped positions)")
+    cache.index = n
+    return cache
 
 
 def decode_variant(model: LlamaLM) -> LlamaLM:
@@ -38,7 +96,7 @@ def paged_decode_variant(model: LlamaLM) -> LlamaLM:
     if cfg.window is not None and cfg.window < cfg.max_len:
         raise NotPageableError(
             "rolling-window caches are not pageable (wrap state aliases "
-            "positions)"
+            "positions); use ContinuousBatchingDecoder"
         )
     return model.variant(decode=True, paged=True)
 
@@ -64,19 +122,60 @@ def sample_categorical(logits: torch.Tensor,
     return torch.argmax(logits.float() - torch.log(e), dim=-1)
 
 
+def _rolling(cfg) -> bool:
+    return cfg.window is not None and cfg.window < cfg.max_len
+
+
 def init_cache(model: LlamaLM, batch_size: int,
                length: Optional[int] = None) -> DecodeCache:
     """Empty contiguous cache for ``batch_size`` rows: zeros
-    [B, Hkv, length (default max_len), D] per layer, index 0."""
+    [B, Hkv, length, D] per layer, index 0.  ``length`` defaults to
+    max_len, or to the window for a rolling cache, whose slot positions
+    start at -1 (empty: 0 would admit an unwritten slot as position 0)."""
 
     cfg = model.cfg
-    length = cfg.max_len if length is None else int(length)
+    rolling = _rolling(cfg)
+    if length is None:
+        length = cfg.window if rolling else cfg.max_len
+    length = int(length)
     shape = (batch_size, cfg.kv_heads, length, cfg.head_dim)
 
     def z():
         return torch.zeros(shape, dtype=cfg.dtype, device=model.device)
 
-    return DecodeCache([(z(), z()) for _ in range(cfg.n_layers)], 0)
+    pos = (torch.full((batch_size, length), -1, dtype=torch.long, device=model.device)
+           if rolling else None)
+    return DecodeCache([(z(), z()) for _ in range(cfg.n_layers)], 0, pos)
+
+
+def _sampler(temperature: float, top_k: Optional[int],
+             generator: Optional[torch.Generator]):
+    """Logits [B, V] -> tokens [B]: the argmax at temperature 0, else a
+    draw over logits / temperature (truncated to the top_k) from
+    ``generator``."""
+
+    def sample(logits):
+        if temperature == 0.0:
+            return torch.argmax(logits, dim=-1)
+        logits = logits / temperature
+        if top_k is not None:
+            logits = top_k_mask(logits, top_k)
+        return sample_categorical(logits, generator)
+
+    return sample
+
+
+def _decode_loop(dmodel: LlamaLM, cache: DecodeCache, last: torch.Tensor, n: int,
+                 sample) -> torch.Tensor:
+    """``n`` tokens [B, n] from the logits of the last prompt row ``last``
+    [B, V]: each sampled token is fed back through the cache."""
+
+    tok = sample(last)
+    out = [tok]
+    for _ in range(n - 1):
+        tok = sample(dmodel(tok[:, None], cache=cache)[:, 0])
+        out.append(tok)
+    return torch.stack(out, dim=1)
 
 
 @torch.inference_mode()
@@ -92,7 +191,10 @@ def generate(
     """Sample ``max_new_tokens`` continuations of prompt_ids [B, P].
     Returns [B, P + N] int64 ids.  temperature 0 = greedy; otherwise a
     categorical draw over logits / temperature, truncated to the top_k
-    logits when given, from ``generator``."""
+    logits when given, from ``generator``.  A rolling cache takes a
+    prompt longer than the window in window-sized chunks (the same
+    cache as a one-shot prefill: the slots behind the band are dead
+    either way)."""
 
     dmodel = decode_variant(model)
     cfg = dmodel.cfg
@@ -109,25 +211,136 @@ def generate(
             "temperature sampling needs an explicit torch.Generator — "
             "otherwise every call returns identical tokens"
         )
-
-    def sample(logits):
-        if temperature == 0.0:
-            return torch.argmax(logits, dim=-1)
-        logits = logits / temperature
-        if top_k is not None:
-            logits = top_k_mask(logits, top_k)
-        return sample_categorical(logits, generator)
-
     ids = prompt_ids.to(dmodel.device)
     cache = init_cache(dmodel, b)
-    logits = dmodel(ids, cache=cache)
-    tok = sample(logits[:, -1])
-    out = [tok]
-    for _ in range(max_new_tokens - 1):
-        logits = dmodel(tok[:, None], cache=cache)
-        tok = sample(logits[:, 0])
-        out.append(tok)
-    return torch.cat([ids.long(), torch.stack(out, dim=1)], dim=1)
+    w = cfg.window if _rolling(cfg) and p > cfg.window else p
+    for off in range(0, p, w):
+        logits = dmodel(ids[:, off : off + w], cache=cache)
+    toks = _decode_loop(dmodel, cache, logits[:, -1], max_new_tokens,
+                        _sampler(temperature, top_k, generator))
+    return torch.cat([ids.long(), toks], dim=1)
+
+
+class ChunkedServingDecoder:
+    """One request at a time for serving (``serve_lm``'s default mode):
+    the port of the JAX package's ``ChunkedServingDecoder``.
+
+    - The prompt is prefilled in its binary chunks (37 = 32 + 4 + 1),
+      capped at the largest power of two <= window for a rolling cache:
+      the same widths as the JAX decoder, one ``prefill`` dispatch each
+      on ``ledger``, then one ``decode`` dispatch that samples the
+      tokens and fetches them.
+    - ``prompt_cache`` > 0 keeps an LRU of that many exact-prompt
+      snapshots (``PrefixCache`` keyed by ``exact_key``, counting
+      ``serve_prefix_cache_{hits,misses,evictions}_total{mode="chunked"}``
+      on the ledger's registry).  A snapshot is a copy of the prompt's
+      filled cache slots (and a rolling cache's slot positions) with the
+      last prompt row's logits; a hit copies it into a fresh cache and
+      decodes there, so no decode loop ever writes a stored entry, and
+      concurrent hits on one entry share nothing but reads.
+
+    Deliberate differences from the JAX decoder: it decodes exactly
+    ``max_new_tokens`` steps (the JAX decoder runs a power-of-two budget
+    to bound its compiles and keeps the first n tokens: the same tokens);
+    it compiles nothing, so it has no ``compile_count``; sampled requests
+    draw from a ``torch.Generator``.  Thread-safe: every request builds
+    its own cache, and the prompt cache and ledger take their own locks.
+    """
+
+    def __init__(self, model: LlamaLM, prompt_cache: int = 0,
+                 ledger: Optional[DispatchLedger] = None):
+        self.ledger = ledger if ledger is not None else DispatchLedger()
+        self.dmodel = decode_variant(model)
+        self.device = self.dmodel.device
+        self.max_len = self.dmodel.cfg.max_len
+        self._max_chunk = max_window_chunk(self.dmodel.cfg)
+        self._prompt_cache = (
+            PrefixCache(capacity=int(prompt_cache), metrics=self.ledger.metrics,
+                        mode="chunked")
+            if int(prompt_cache) > 0 else None
+        )
+
+    @property
+    def prompt_cache_hits(self) -> int:
+        return 0 if self._prompt_cache is None else self._prompt_cache.hits
+
+    def _chunks(self, n: int) -> list:
+        return window_chunks(n, self._max_chunk)
+
+    def _snapshot(self, cache: DecodeCache, p: int, last: torch.Tensor):
+        """The prompt's filled slots, slot positions and last logits,
+        each a copy."""
+
+        n = min(p, cache.layers[0][0].shape[2])
+        layers = [(k[:, :, :n].clone(), v[:, :, :n].clone()) for k, v in cache.layers]
+        pos = None if cache.pos is None else cache.pos.clone()
+        return layers, pos, last.clone()
+
+    def _restore(self, snap, b: int, p: int):
+        """A fresh cache primed from a snapshot (the stored tensors are
+        only read), and the last prompt row's logits."""
+
+        layers, pos, last = snap
+        cache = init_cache(self.dmodel, b)
+        n = layers[0][0].shape[2]
+        for (ck, cv), (sk, sv) in zip(cache.layers, layers):
+            ck[:, :, :n] = sk
+            cv[:, :, :n] = sv
+        if pos is not None:
+            cache.pos.copy_(pos)
+        cache.index = p
+        return cache, last
+
+    @torch.inference_mode()
+    def generate(
+        self,
+        prompt_ids: torch.Tensor,
+        max_new_tokens: int,
+        *,
+        temperature: float = 0.0,
+        top_k: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
+        """``max_new_tokens`` continuations of prompt_ids [B, P] (the
+        JAX decoder's validation and messages).  Returns [B, P + N]
+        int64 ids on the host."""
+
+        b, p = prompt_ids.shape
+        if p < 1:
+            raise ValueError("prompt must contain at least one token")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if p + max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({p}) + max_new_tokens ({max_new_tokens}) exceeds "
+                f"max_len={self.max_len}"
+            )
+        if temperature == 0.0:
+            top_k = None  # greedy ignores top_k
+        elif generator is None:
+            raise ValueError("temperature sampling needs an explicit torch.Generator")
+        sample = _sampler(temperature, top_k, generator)
+        host_ids = prompt_ids.cpu()
+        key = snap = None
+        if self._prompt_cache is not None:
+            key = exact_key(host_ids.numpy().astype(np.int32))
+            snap = self._prompt_cache.get(key)  # counts the hit or miss
+        if snap is not None:
+            cache, last = self._restore(snap, b, p)
+        else:
+            ids = host_ids.to(self.device)
+            cache, offset = init_cache(self.dmodel, b), 0
+            for width in self._chunks(p):
+                with self.ledger.dispatch("prefill"):
+                    last = self.dmodel(ids[:, offset : offset + width], cache=cache)[:, -1]
+                offset += width
+            if key is not None:
+                self._prompt_cache.put(key, self._snapshot(cache, p, last))
+        with self.ledger.dispatch("decode"):
+            toks = _decode_loop(self.dmodel, cache, last, max_new_tokens, sample).cpu()
+        return torch.cat([host_ids.long(), toks], dim=1)
 
 
 def paged_arena(model: LlamaLM, num_blocks: int, block_size: int
@@ -140,7 +353,7 @@ def paged_arena(model: LlamaLM, num_blocks: int, block_size: int
     if cfg.window is not None and cfg.window < cfg.max_len:
         raise NotPageableError(
             "rolling-window caches are not pageable (wrap state aliases "
-            "positions); they wait for the contiguous pool"
+            "positions); use ContinuousBatchingDecoder"
         )
     if cfg.max_len % block_size:
         raise ValueError(

@@ -142,7 +142,7 @@ class LlamaLM(nn.Module):
             x = layer(x, cache, i, cfg.plain_kernels)
         s_new = input_ids.shape[1]
         if isinstance(cache, DecodeCache):
-            cache.index += s_new
+            cache.advance(s_new)
         elif isinstance(cache, PagedCache):
             cache.lengths = cache.lengths + s_new
         x = self.ln_final(x)

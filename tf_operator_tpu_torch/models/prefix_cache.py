@@ -1,5 +1,5 @@
-"""Content-addressed prefix cache (a copy of the pool's half of
-``tf_operator_tpu/models/prefix_cache.py``).
+"""Content-addressed prefix cache (a copy of the pool's and the chunked
+decoder's half of ``tf_operator_tpu/models/prefix_cache.py``).
 
 Keys are rolling token-hash CHAIN keys: the key of block i hashes the
 previous block's key together with block i's tokens, so a key addresses
@@ -11,7 +11,9 @@ The paged pool stores physical block ids as values.  A hit maps the
 block into the new seat's table copy-free; the ``can_evict`` hook
 (allocator refcount == 1: only the cache holds the block) guarantees a
 shared block is never evicted, and so never rewritten, while any seat
-maps it.
+maps it.  The chunked decoder keys whole-prompt snapshots by
+``exact_key`` (a chain of one maximal block) and reads them with
+``get``.
 """
 
 from __future__ import annotations
@@ -41,21 +43,36 @@ def chain_keys(tokens, block_size: int) -> List[bytes]:
     return keys
 
 
+def exact_key(arr) -> bytes:
+    """Whole-array content key for exact-prompt snapshot reuse: shape
+    and dtype are part of the key (raw bytes alone collide across
+    reshapes, [1, 4] against [2, 2], and across dtypes)."""
+
+    a = np.asarray(arr)
+    h = hashlib.sha256()
+    h.update(repr((a.shape, a.dtype.str)).encode())
+    h.update(a.tobytes())
+    return h.digest()
+
+
 class PrefixCache:
     """Refcount-aware LRU keyed by chain keys.  Thread-safe.
 
     ``capacity`` bounds the entry count (None = unbounded, pressure-
     driven eviction only).  ``can_evict(value)`` gates eviction;
     ``on_evict(value)`` runs after removal.  Hit/miss accounting is per
-    request: callers walk the chain with ``peek`` and ``record`` once.
-    With a ``metrics`` registry, hits, misses and evictions also count
-    in ``serve_prefix_cache_{hits,misses,evictions}_total{mode="pool"}``.
+    request: callers walk the chain with ``peek`` and ``record`` once
+    (an exact-prompt client reads with ``get``).  With a ``metrics``
+    registry, hits, misses and evictions also count in
+    ``serve_prefix_cache_{hits,misses,evictions}_total{mode=...}``,
+    ``mode`` being the client ("pool" or "chunked").
     """
 
     def __init__(
         self,
         capacity: Optional[int] = None,
         metrics=None,
+        mode: str = "pool",
         can_evict: Optional[Callable[[Any], bool]] = None,
         on_evict: Optional[Callable[[Any], None]] = None,
     ):
@@ -63,6 +80,7 @@ class PrefixCache:
         self._entries: "OrderedDict[bytes, Any]" = OrderedDict()
         self.capacity = capacity
         self.metrics = metrics
+        self.mode = mode
         self._can_evict = can_evict
         self._on_evict = on_evict
         self.hits = 0
@@ -97,7 +115,15 @@ class PrefixCache:
                 self.misses += 1
         if self.metrics is not None:
             name = "serve_prefix_cache_hits_total" if hit else "serve_prefix_cache_misses_total"
-            self.metrics.inc(name, mode="pool")
+            self.metrics.inc(name, mode=self.mode)
+
+    def get(self, key: bytes):
+        """``peek`` and ``record`` in one call: the exact-prompt client's
+        read."""
+
+        value = self.peek(key)
+        self.record(value is not None)
+        return value
 
     def put(self, key: bytes, value: Any) -> None:
         """Insert/refresh; evicts LRU entries past ``capacity`` (the
@@ -129,5 +155,5 @@ class PrefixCache:
                     self._on_evict(value)
         if evicted and self.metrics is not None:
             self.metrics.inc("serve_prefix_cache_evictions_total", float(evicted),
-                             mode="pool")
+                             mode=self.mode)
         return evicted

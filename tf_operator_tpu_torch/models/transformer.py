@@ -26,7 +26,14 @@ Attention has three branches, chosen by the cache passed in:
   ``ops/flash_attention.attention`` (the flash kernels on the card,
   their plain versions on the CPU);
 - a :class:`DecodeCache`: the contiguous decode branch — new K/V are
-  written at the running index, queries attend to every filled slot;
+  written at the running index (shared by the batch, or one per row
+  for the slot pool), queries attend to every filled slot.  A model
+  whose window is shorter than max_len gets a rolling cache of
+  ``window`` slots that records each slot's absolute position: the
+  rows attend over [the buffer before the write, the new chunk], so an
+  in-chunk write never hides a key that an earlier row of the chunk
+  still sees, and RoPE is applied at write time with absolute
+  positions;
 - a :class:`PagedCache`: the paged decode branch — each seat's new K/V
   are appended in place to its block in the arena, and attention reads
   the arena through ``ops/paged_attention`` (the CUDA kernel on the
@@ -45,7 +52,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -115,12 +122,37 @@ class TransformerConfig:
 
 @dataclasses.dataclass
 class DecodeCache:
-    """Contiguous cache: per layer (K, V) [B, Hkv, L, D] and the running
-    write index shared by the batch.  Setting ``index`` back to n rolls
-    the cache back: slots >= n are masked from then on."""
+    """Contiguous cache: per layer (K, V) [B, Hkv, L, D] and the write
+    index: an int shared by the batch, or an int64 tensor [B] holding
+    each row's own (the slot pool's seats).  ``pos`` marks a rolling
+    cache (window < max_len; L is then the window): [B, L] int64, the
+    absolute position each slot holds, -1 for an empty one.  Setting
+    ``index`` back to n rolls a non-rolling cache back: slots >= n are
+    masked from then on (``decode.set_cache_index``)."""
 
     layers: List[Tuple[torch.Tensor, torch.Tensor]]
-    index: int = 0
+    index: Union[int, torch.Tensor] = 0
+    pos: Optional[torch.Tensor] = None
+
+    def positions(self, s_new: int, device) -> torch.Tensor:
+        """The absolute positions of ``s_new`` new rows: [S] for a
+        shared index, [B, S] for per-row ones."""
+
+        steps = torch.arange(s_new, device=device)
+        if isinstance(self.index, torch.Tensor):
+            return self.index[:, None] + steps
+        return self.index + steps
+
+    def advance(self, s_new: int) -> None:
+        """After every layer has written ``s_new`` rows: a rolling cache
+        records their positions in the slots they took, and the index
+        moves on."""
+
+        if self.pos is not None:
+            b, length = self.pos.shape
+            row_pos = self.positions(s_new, self.pos.device).expand(b, s_new)
+            self.pos.scatter_(1, row_pos % length, row_pos)
+        self.index = self.index + s_new
 
 
 @dataclasses.dataclass
@@ -272,32 +304,74 @@ class MultiHeadAttention(nn.Module):
 
     def _decode(self, q, k, v, cache: DecodeCache, layer: int, plain: bool):
         cfg = self.cfg
-        if cfg.window is not None and cfg.window < cfg.max_len:
-            raise NotImplementedError(
-                "rolling-window decode caches are not ported yet"
-            )
         ck, cv = cache.layers[layer]
-        idx, s_new = cache.index, q.shape[2]
-        end = idx + s_new
-        if end > ck.shape[2]:
+        b, _, s_new, _ = q.shape
+        cache_len = ck.shape[2]
+        rolling = cfg.window is not None and cfg.window < cfg.max_len
+        if rolling != (cache.pos is not None):
             raise ValueError(
-                f"cache holds {ck.shape[2]} positions; writing {s_new} at "
-                f"index {idx} overflows it"
+                f"window={cfg.window}, max_len={cfg.max_len} needs "
+                f"{'a rolling' if rolling else 'a non-rolling'} cache "
+                "(decode.init_cache builds the right one)"
             )
-        row_pos = torch.arange(idx, end, device=q.device)
+        if rolling and s_new > cache_len:
+            raise ValueError(
+                f"windowed rolling decode prefills at most window="
+                f"{cfg.window} tokens per apply (got {s_new}); feed "
+                "the prompt in chunks <= window — models/decode.py's "
+                "generate()/ChunkedServingDecoder do this"
+            )
+        row_pos = cache.positions(s_new, q.device)  # [S] or [B, S]
+        per_row = row_pos.ndim == 2
         if cfg.rope:
-            q, k = apply_rope(q, k, positions=row_pos, theta=cfg.rope_theta)
-        ck[:, :, idx:end] = k.to(ck.dtype)
-        cv[:, :, idx:end] = v.to(cv.dtype)
-        # causal over absolute positions; slots past `end` are unfilled
-        # and left out, which drops only masked (zero-weight) columns
-        cols = torch.arange(end, device=q.device)[None, :]
-        vis = cols <= row_pos[:, None]
-        if cfg.window is not None:
-            vis &= row_pos[:, None] - cols < cfg.window
-        out = dot_product_attention(
-            q, ck[:, :, :end], cv[:, :, :end], mask=vis[None, None]
-        )
+            q, k = apply_rope(q, k, positions=row_pos[:, None] if per_row else row_pos,
+                              theta=cfg.rope_theta)
+        if not rolling and not per_row:
+            idx, end = cache.index, cache.index + s_new
+            if end > cache_len:
+                raise ValueError(
+                    f"cache holds {cache_len} positions; writing {s_new} at "
+                    f"index {idx} overflows it"
+                )
+            ck[:, :, idx:end] = k.to(ck.dtype)
+            cv[:, :, idx:end] = v.to(cv.dtype)
+            # causal over absolute positions; slots past `end` are
+            # unfilled and left out, which drops only masked
+            # (zero-weight) columns
+            cols = torch.arange(end, device=q.device)[None, :]
+            vis = cols <= row_pos[:, None]
+            if cfg.window is not None:
+                vis &= row_pos[:, None] - cols < cfg.window
+            out = dot_product_attention(
+                q, ck[:, :, :end], cv[:, :, :end], mask=vis[None, None]
+            )
+            return self.out(out.transpose(1, 2), plain)
+        qpos = row_pos.expand(b, s_new)
+        if rolling:
+            # read [the buffer before the write, the new chunk]: the
+            # buffer holds the latest position of each slot below the
+            # index, the chunk the rest, so every position any row needs
+            # is present once however the writes wrap
+            kpos = torch.cat([cache.pos, qpos], dim=1)[:, None, :]
+            keys = torch.cat([ck, k.to(ck.dtype)], dim=2)
+            vals = torch.cat([cv, v.to(cv.dtype)], dim=2)
+            vis = (kpos >= 0) & (kpos <= qpos[:, :, None])
+            vis &= qpos[:, :, None] - kpos < cfg.window
+            at = qpos % cache_len
+        else:
+            # per-row writes past the cache's end (a seat's steps after
+            # its budget) land on its own last slot, which no kept token
+            # reads again
+            keys, vals = ck, cv
+            kpos = torch.arange(cache_len, device=q.device)[None, None, :]
+            vis = kpos <= qpos[:, :, None]
+            if cfg.window is not None:
+                vis &= qpos[:, :, None] - kpos < cfg.window
+            at = qpos.clamp(max=cache_len - 1)
+        rows = torch.arange(b, device=q.device)[:, None].expand(b, s_new)
+        ck[rows, :, at] = k.transpose(1, 2).to(ck.dtype)
+        cv[rows, :, at] = v.transpose(1, 2).to(cv.dtype)
+        out = dot_product_attention(q, keys, vals, mask=vis[:, None])
         return self.out(out.transpose(1, 2), plain)
 
     def _paged(self, q, k, v, cache: PagedCache, layer: int, plain: bool):

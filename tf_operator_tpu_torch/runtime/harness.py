@@ -93,8 +93,8 @@ def train_loop(
     (default: the process watchdog, utils/watchdog.py), beaten once a
     window; sets ``train_window_steps_per_second`` on the ledger's
     registry; and feeds the step-time sentinel (``utils/costplane``, on
-    the ledger's registry) the window's wall a step, once for each step
-    of the window, as ``train_sync``.  The pod telemetry server boots
+    the ledger's registry) the window's wall a step, once a window (as
+    the JAX loop does), as ``train_sync``.  The pod telemetry server boots
     when ``TPUJOB_TELEMETRY_PORT`` is set (``runtime/telemetry``).  All
     of it is host arithmetic: the window gains no sync.
 
@@ -145,15 +145,14 @@ def train_loop(
 
     def observe(n_steps: int) -> None:
         # the window's host wall since the previous one: the throughput
-        # gauge, and one sentinel observation of its per-step wall for
-        # each of its steps
+        # gauge, and one sentinel observation of its per-step wall (one
+        # a window, as the JAX loop feeds it)
         nonlocal t_prev
         now_t = time.perf_counter()
         if now_t > t_prev:
             if mreg is not None:
                 mreg.set("train_window_steps_per_second", n_steps / (now_t - t_prev))
-            for _ in range(n_steps):
-                sentinel.observe("train_sync", (now_t - t_prev) / n_steps)
+            sentinel.observe("train_sync", (now_t - t_prev) / n_steps)
         t_prev = now_t
 
     def one_step():

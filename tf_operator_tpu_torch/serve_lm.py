@@ -1,11 +1,23 @@
-"""LM serving over HTTP through the paged pool (the port of the pool
-mode of ``examples/serve_lm.py``).
+"""LM serving over HTTP (the port of ``examples/serve_lm.py``).
 
-    python -m tf_operator_tpu_torch.serve_lm --model llama-7b --init-seed 0 --batching 8
-    python -m tf_operator_tpu_torch.serve_lm --artifact DIR
-    python -m tf_operator_tpu_torch.serve_lm --artifact DIR --quantize int8
-    python -m tf_operator_tpu_torch.serve_lm --model llama-7b --speculative --speculative-force
+    python -m tf_operator_tpu_torch.serve_lm --model llama-7b --init-seed 0 --max-len 2048
+    python -m tf_operator_tpu_torch.serve_lm --artifact DIR --prompt-cache 4
+    python -m tf_operator_tpu_torch.serve_lm --artifact DIR --batching 8 --quantize int8
+    python -m tf_operator_tpu_torch.serve_lm --model llama-7b --batching 8 --speculative --speculative-force
     curl -s localhost:8600/generate -d '{"prompt": "the sharded ", "max_new_tokens": 32}'
+
+The serving mode follows the JAX server's flags (``build_decoder``):
+
+- ``--batching 0`` (the default): one request at a time through
+  ``ChunkedServingDecoder`` (models/decode.py), on the request's own
+  thread; ``--prompt-cache N`` keeps an LRU of N exact-prompt snapshots
+  (refused beside ``--batching``, with the JAX server's message);
+- ``--batching SLOTS``: the paged pool (models/batching.py), driven by
+  one decode loop thread;
+- ``--batching SLOTS`` on a model the paged pool refuses (a rolling
+  window shorter than max_len): it prints ``paged pool unavailable
+  (...); serving the contiguous slot pool`` and serves
+  ``ContinuousBatchingDecoder``; ``--speculative`` is refused there.
 
 ``POST /generate`` takes ``prompt``, ``max_new_tokens`` (default 32),
 ``temperature`` (quantised to a 0.05 grid), ``top_k``, ``seed``,
@@ -39,18 +51,29 @@ The serving plane's records (the JAX server's endpoints):
   the limit, the headroom and the coverage of what the caching
   allocator says is live;
 - ``GET /debug/profile?seconds=N`` (0 < N <= 30, default 1):
-  ``torch.profiler`` over the live decode loop, started and stopped on
-  the pool's driver thread between windows (``WindowProfiler``); the
-  answer names the artifact directory
+  ``torch.profiler`` over the live decode loop, started, stopped and
+  exported on the request's thread (``ProfileCapture``).  The loop keeps
+  stepping while it records; on a card the trace holds the CUDA
+  activity alone (no host ops), and the profiler's stop and the trace's
+  export hold the interpreter lock, so the one decode window they
+  overlap stalls for about as long as they take (seconds on a busy
+  card).  The answer names the artifact directory
   (``serve-profile-c<compiles>-...``, under ``$TPUJOB_PROFILE_DIR`` or
   the temporary directory) that holds ``trace.json``, a Chrome trace,
-  and ``COSTPLANE.json``.  400 for a bad ``seconds``, 503 when no
-  request is seated or queued, 409 while another profile runs; only
-  ``/debug/profile`` itself or with a query matches.
+  and ``COSTPLANE.json``.  400 for a bad ``seconds``, 503 when a pool
+  has no request seated or queued, 409 while another profile runs;
+  only ``/debug/profile`` itself or with a query matches.
 
-The driver thread beats a ``serving.pool`` heartbeat on the process
-watchdog (``utils/watchdog.py``); ``main`` starts the watchdog when
-``TPUJOB_WATCHDOG=1`` (deadline ``TPUJOB_WATCHDOG_DEADLINE``).
+In the chunked mode the records are the JAX server's without a pool:
+``/generate`` answers ``{"prompt", "sample", "seed"}``, its span and SLO
+observations carry ``mode="chunked"`` (queue wait 0, TTFT and time per
+output token from the generate's wall), ``top_k`` has no upper bound,
+``/metrics`` adds ``serve_prompt_cache_hits``, ``/requests`` is empty
+and ``/debug/arena`` lists no replica.
+
+A pool's driver thread beats a ``serving.pool`` heartbeat on the
+process watchdog (``utils/watchdog.py``); ``main`` starts the watchdog
+when ``TPUJOB_WATCHDOG=1`` (deadline ``TPUJOB_WATCHDOG_DEADLINE``).
 
 Speculative decoding (``--speculative``, ``--spec-k K``, ``--spec-tiers
 T1[,T2]``): the pool's speculative mode (models/batching.py), gated per
@@ -58,7 +81,7 @@ SLO tier (interactive by default), with an int8 self-draft: the served
 model itself under ``--quantize int8``, else its int8 twin quantized
 from the same float32 weights (the artifact's npz or the seed's draws).
 ``--speculative`` alone serves 4 slots, as the JAX server does.  A tier
-that is not an SLO tier, or a model the pool cannot page, fails
+that is not an SLO tier, or a model the paged pool refuses, fails
 startup.  ``/metrics`` then adds ``serve_spec_acceptance_rate`` and
 ``serve_spec_dispatches_per_token`` (left out while no token has been
 emitted) to the ``serve_spec_*_total`` counters.  ``--speculative``
@@ -88,8 +111,17 @@ read with numpy, and ``model.json``).  ``--quantize int8`` holds the
 projection kernels (every ``kernel`` of >= 4096 elements; the embedding
 stays bf16) as int8 with per-output-channel scales, quantized from the
 float32 weights as they are made or read (ops/quant.py); their products
-then run the int8 matmul (the CUDA kernel K7 on the card).  The server
-runs on CUDA unless ``--device cpu``.
+then run the int8 matmul (the CUDA kernel K7 on the card).
+
+The flags are the JAX server's but for these differences:
+``--artifact`` is optional, ``--model``, ``--init-seed``,
+``--steps-per-sync`` and ``--device cuda|cpu`` (for ``--platform``) are
+the port's own, and ``--paged-kernel`` takes ``auto`` and ``on`` (the
+kernel on the card, its plain version for CPU tensors) and refuses
+``off`` and ``interpret``, because the port never falls back from its
+kernel on the card.  ``--replicas``, ``--roles``, ``--fabric-port`` and
+``--fabric-peers`` are not ported.  The server runs on CUDA unless
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -110,8 +142,11 @@ import torch
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.batching import (
     TOP_K_MAX,
+    ContinuousBatchingDecoder,
     PagedContinuousBatchingDecoder,
 )
+from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
+from tf_operator_tpu_torch.models.kv_blocks import NotPageableError
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape, llama_tiny
 from tf_operator_tpu_torch.models.registry import model_from_description
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
@@ -202,128 +237,145 @@ def refuse_speculative(args: argparse.Namespace, ledger_path: Optional[str] = No
         )
 
 
-def make_pool(model: LlamaLM, *, model_label: str = "unknown",
-              metrics: Optional[Metrics] = None, tracer: Optional[Tracer] = None,
-              **pool_kw) -> PagedContinuousBatchingDecoder:
-    """The paged pool with its records, as the server serves it: one
-    ``Metrics`` registry (the SLO families on the long-tail buckets), one
-    ``Tracer`` and a ``DispatchLedger`` over both, and one ``CostPlane``
-    over the registry whose compile ledger is the process ledger (where
-    the kernels record), with the weights registered (the model's, and a
-    draft model's that holds other storage).  ``pool_kw`` are the pool's
-    own arguments."""
+def _records(metrics: Optional[Metrics], tracer: Optional[Tracer]) -> DispatchLedger:
+    """The server's records: one ``Metrics`` registry (the SLO families
+    on the long-tail buckets) and one ``Tracer``, under a
+    ``DispatchLedger``."""
 
     metrics = metrics if metrics is not None else Metrics()
     tracer = tracer if tracer is not None else Tracer()
     for fam in SLO_FAMILIES:
         metrics.set_buckets(fam, SLO_BUCKETS)
-    costplane = CostPlane(metrics=metrics, compiles=default_costplane.compiles)
+    return DispatchLedger(metrics=metrics, tracer=tracer)
+
+
+def make_pool(model: LlamaLM, *, model_label: str = "unknown",
+              metrics: Optional[Metrics] = None, tracer: Optional[Tracer] = None,
+              pool_class=PagedContinuousBatchingDecoder,
+              **pool_kw) -> ContinuousBatchingDecoder:
+    """A pool (``pool_class``: the paged pool, or the contiguous one) with
+    its records, as the server serves it: the server's records
+    (``_records``) and one ``CostPlane`` over the registry whose compile
+    ledger is the process ledger (where the kernels record), with the
+    weights registered (the model's, and a draft model's that holds
+    other storage).  ``pool_kw`` are the pool's own arguments."""
+
+    ledger = _records(metrics, tracer)
+    costplane = CostPlane(metrics=ledger.metrics, compiles=default_costplane.compiles)
     draft = pool_kw.get("draft_model")
     costplane.hbm.register_tree("weights", [model] if draft is None else [model, draft])
-    return PagedContinuousBatchingDecoder(
-        model, ledger=DispatchLedger(metrics=metrics, tracer=tracer), metrics=metrics,
-        model_label=model_label, costplane=costplane, **pool_kw,
+    return pool_class(
+        model, ledger=ledger, metrics=ledger.metrics, model_label=model_label,
+        costplane=costplane, **pool_kw,
     )
 
 
-class WindowProfiler:
-    """``GET /debug/profile``'s capture.  ``torch.profiler`` records the
-    CPU ops of the thread that starts it (and every kernel on the
-    device), so the request thread hands the capture to the pool's
-    driver thread, which starts and stops it between decode windows
-    (``tick``); the request thread waits, then writes the Chrome trace
-    off the decode loop.  Where the profiler can skip building its
-    Python events (``trace_only``), it does: the trace is all the
-    capture keeps.  ``busy`` admits one capture at a time: the profiler
-    is process-wide state."""
+def make_chunked(model: LlamaLM, *, prompt_cache: int = 0,
+                 metrics: Optional[Metrics] = None,
+                 tracer: Optional[Tracer] = None) -> ChunkedServingDecoder:
+    """The chunked decoder with the server's records (``_records``): its
+    ``prefill`` and ``decode`` dispatches and its prompt cache's counters
+    land in the server's registry."""
+
+    return ChunkedServingDecoder(model, prompt_cache=prompt_cache,
+                                 ledger=_records(metrics, tracer))
+
+
+class ProfileCapture:
+    """``GET /debug/profile``'s capture, run on the request's thread, off
+    the decode loop (a pool's driver thread, or the chunked mode's
+    request threads), which keeps stepping while it records.  On a card
+    it records the CUDA activity alone, so the trace names kernels and no
+    host ops: CUPTI records every kernel of the process, whichever thread
+    launched it, where recording a host-bound loop's CPU ops slowed the
+    windows it covered.  There the profiler's stop and the export hold
+    the interpreter lock for their whole wall (seconds for a trace of a
+    busy 7B decode loop), so the decode window they overlap stalls that
+    long.  On the CPU it records the ops of every thread
+    (``profile_all_threads``, where this PyTorch has it).  ``busy`` admits
+    one capture at a time (the profiler is process-wide state); ``last``
+    holds the last capture's walls (start, recording, stop, export) and
+    the monotonic span of each stage."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.busy = threading.Lock()
-        self._job: Optional[dict] = None
+        self.last: Optional[dict] = None
 
-    def capture(self, seconds: float, path: str, timeout: float) -> None:
-        """Hand a capture of ``seconds`` writing the trace to ``path`` to
-        the driver and wait for it (the caller holds ``busy``).  Raises
-        RuntimeError when the capture failed or did not end in
-        ``timeout`` seconds."""
+    def capture(self, seconds: float, path: str) -> None:
+        """Record ``seconds`` and write the Chrome trace to ``path`` (the
+        caller holds ``busy``)."""
 
-        job = {"seconds": seconds, "done": threading.Event(), "prof": None, "error": None}
-        self._job = job
-        if not job["done"].wait(timeout):
-            self._job = None
-            raise RuntimeError(f"the decode loop ran no capture in {timeout:.0f} s")
-        if job["error"]:
-            raise RuntimeError(job["error"])
-        job["prof"].export_chrome_trace(path)
-
-    def tick(self) -> None:
-        """On the driver thread, between windows: start the handed
-        capture, or stop the running one once its seconds have passed."""
-
-        job = self._job
-        if job is None:
-            return
+        prof = _profiler(self.device)
+        marks = [time.monotonic()]
+        prof.__enter__()
+        marks.append(time.monotonic())
         try:
-            if job["prof"] is None:
-                job["prof"] = _profiler(self.device)
-                job["prof"].__enter__()
-                job["t0"] = time.perf_counter()
-                return
-            if time.perf_counter() - job["t0"] < job["seconds"]:
-                return
-            job["prof"].__exit__(None, None, None)
-        except Exception as exc:  # a profiler fault must not end the decode loop
-            job["error"] = repr(exc)
-        self._job = None
-        job["done"].set()
-
-    def cancel(self) -> None:
-        """Stop a running capture (the driver thread has stopped)."""
-
-        job, self._job = self._job, None
-        if job is not None:
-            if job["prof"] is not None:
-                job["prof"].__exit__(None, None, None)
-            job["error"] = "the server closed during the capture"
-            job["done"].set()
+            time.sleep(seconds)
+        finally:
+            marks.append(time.monotonic())
+            prof.__exit__(None, None, None)
+            marks.append(time.monotonic())
+        prof.export_chrome_trace(path)
+        marks.append(time.monotonic())
+        stages = ("starting", "recording", "stopping", "exporting")
+        self.last = {**{stage: (a, b) for stage, a, b in zip(stages, marks, marks[1:])},
+                     **{wall: b - a for wall, a, b in zip(
+                         ("start_s", "record_s", "stop_s", "export_s"), marks, marks[1:])}}
 
 
 def _profiler(device: torch.device):
-    """A ``torch.profiler.profile`` of the CPU and, on a card, the CUDA
-    activity; ``trace_only`` where this PyTorch has it."""
+    """A ``torch.profiler.profile`` of the CUDA activity on a card, of
+    every thread's CPU ops on the CPU; ``trace_only`` where this PyTorch
+    has it (the trace is all a capture keeps)."""
 
     from torch.profiler import ProfilerActivity, profile
 
-    activities = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    try:
-        config = torch._C._profiler._ExperimentalConfig(trace_only=True)
-    except TypeError:  # a PyTorch without the option builds its events
-        return profile(activities=activities)
-    return profile(activities=activities, experimental_config=config)
+    cuda = device.type == "cuda"
+    activities = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
+    for options in ({"trace_only": True, "profile_all_threads": not cuda},
+                    {"profile_all_threads": not cuda}):
+        try:
+            config = torch._C._profiler._ExperimentalConfig(**options)
+        except TypeError:  # a PyTorch without the option
+            continue
+        return profile(activities=activities, experimental_config=config)
+    return profile(activities=activities)
 
 
-def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
-    """The request handler class over ``pool`` (built by ``make_pool``).
-    ``fatal`` is the decode loop's error list: once it holds an entry,
-    waiting requests answer 500 instead of hanging.  The process flight
-    recorder attaches the pool's tracer, metrics, request log and
-    timeline; the handler's ``alert_engine`` evaluates the default
-    rules over the pool's registry (started by ``main``, not here)."""
+def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
+    """The request handler class over ``decoder``: a pool built by
+    ``make_pool``, or a chunked decoder built by ``make_chunked`` (whose
+    records carry ``model_label``).  ``fatal`` is a pool's decode loop
+    error list: once it holds an entry, waiting requests answer 500
+    instead of hanging.  The process flight recorder attaches the
+    tracer and metrics, and a pool's request log and timeline; the
+    handler's ``alert_engine`` evaluates the default rules over the
+    registry (started by ``main``, not here).  In the chunked mode the
+    handler's cost plane is its own, over the registry and the process
+    compile ledger, with the weights registered, as the JAX server's."""
 
-    if pool.metrics is None or pool.tracer is None:
-        raise ValueError("serve_lm serves a pool built with its records (make_pool)")
-    max_len = pool.max_len
-    metrics, tracer, model_label = pool.metrics, pool.tracer, pool.model_label
-    costplane = pool.costplane
-    profiler = WindowProfiler(pool.device)
+    pool = decoder if isinstance(decoder, ContinuousBatchingDecoder) else None
+    metrics, tracer = decoder.ledger.metrics, decoder.ledger.tracer
+    if metrics is None or tracer is None:
+        raise ValueError("serve_lm serves a decoder built with its records "
+                         "(make_pool, make_chunked)")
+    max_len = decoder.max_len
+    if pool is not None:
+        model_label, costplane = pool.model_label, pool.costplane
+    else:
+        model_label = model_label or "unknown"
+        costplane = CostPlane(metrics=metrics, compiles=default_costplane.compiles)
+        costplane.hbm.register_tree("weights", [decoder.dmodel])
+    profiler = ProfileCapture(decoder.device)
     recorder = flight.default_recorder
     recorder.attach_tracer(tracer)
     recorder.attach_metrics(metrics)
-    recorder.attach_request_log(pool.request_log)
-    recorder.attach_arena_timeline(pool.timeline)
+    timeline = pool.timeline if pool is not None else None
+    if pool is not None:
+        recorder.attach_request_log(pool.request_log)
+    if timeline is not None:
+        recorder.attach_arena_timeline(timeline)
     alert_engine = AlertEngine(default_rules(), metrics=metrics, recorder=recorder)
 
     def slo() -> dict:
@@ -346,9 +398,21 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
             "requests_ok": metrics.counter("serve_requests_total", status="200"),
         }
 
-    def spec_gauges() -> str:
-        # the JAX server's derived speculation gauges, after the
-        # registry's families (the serve_spec_*_total counters)
+    def observe_slo(queue_wait: float, ttft: float, tpot: float, exemplar: str) -> None:
+        # the chunked mode's first token reaches the host with the
+        # others, so TTFT is the generate's wall (the JAX server's)
+        for fam, value in (("serve_queue_wait_seconds", queue_wait),
+                           ("serve_ttft_seconds", ttft),
+                           ("serve_time_per_output_token_seconds", tpot)):
+            metrics.observe_histogram(fam, value, exemplar=exemplar, model=model_label,
+                                      mode="chunked")
+
+    def extra_gauges() -> str:
+        # the JAX server's lines after the registry's families: a
+        # speculating pool's derived gauges (the serve_spec_*_total
+        # counters ride the registry), the chunked decoder's hits
+        if pool is None:
+            return f"serve_prompt_cache_hits {decoder.prompt_cache_hits}\n"
         if not pool.spec_enabled:
             return ""
         snap = pool.spec_snapshot()
@@ -393,7 +457,7 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
             if path == "/healthz":
                 return self._reply(200, {"ok": True})
             if path == "/metrics":
-                return self._send(200, (metrics.exposition() + spec_gauges()).encode(),
+                return self._send(200, (metrics.exposition() + extra_gauges()).encode(),
                                   "text/plain; version=0.0.4")
             if path == "/traces":
                 return self._reply(200, {"traces": tracer.store.summaries(50)})
@@ -403,9 +467,11 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                     return self._reply(404, {"error": "unknown trace id"})
                 return self._reply(200, t)
             if path == "/requests":
-                return self._reply(200, {"requests": pool.request_log.recent(50)})
+                return self._reply(200, {
+                    "requests": pool.request_log.recent(50) if pool is not None else []})
             if path.startswith("/requests/"):
-                entry = pool.request_log.get(path[len("/requests/"):])
+                entry = (pool.request_log.get(path[len("/requests/"):])
+                         if pool is not None else None)
                 if entry is not None:
                     return self._reply(200, entry)
                 return self._reply(404, {
@@ -414,7 +480,8 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                              "request_id / x-trace-id header)"})
             if path == "/debug/arena":
                 return self._reply(200, {
-                    "replicas": [pool.timeline.snapshot(ARENA_SAMPLE_LIMIT)],
+                    "replicas": [] if timeline is None else [
+                        timeline.snapshot(ARENA_SAMPLE_LIMIT)],
                     "fabric": None,
                 })
             if path == "/slo":
@@ -435,9 +502,10 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
             return self._reply(404, {"error": "try POST /generate"})
 
         def _profile(self):
-            """The JAX server's /debug/profile over ``WindowProfiler``:
-            the checks in its order (400, 503, 409), then the capture,
-            its artifact directory and the cost plane's context."""
+            """The JAX server's /debug/profile over ``ProfileCapture``:
+            the checks in its order (400, 503 for an idle pool, 409),
+            then the capture, its artifact directory and the cost
+            plane's context."""
 
             seconds = 1.0
             query = self.path.split("?", 1)[1] if "?" in self.path else ""
@@ -449,7 +517,7 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                         return self._reply(400, {"error": "seconds must be a number"})
             if not 0.0 < seconds <= PROFILE_MAX_SECONDS:
                 return self._reply(400, {"error": "seconds must be in (0, 30]"})
-            if pool.in_flight() == 0:
+            if pool is not None and pool.in_flight() == 0:
                 return self._reply(503, {
                     "error": "decode loop idle: no active seats or queued requests to "
                              "profile — send traffic first, then re-request"})
@@ -465,8 +533,7 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                 out_dir = tempfile.mkdtemp(prefix=f"serve-profile-c{compiles0}-",
                                            dir=base or None)
                 t0 = time.perf_counter()
-                profiler.capture(seconds, os.path.join(out_dir, "trace.json"),
-                                 timeout=seconds + 120.0)
+                profiler.capture(seconds, os.path.join(out_dir, "trace.json"))
                 context = {
                     "compiles_at_start": compiles0,
                     "compiles_during_window": costplane.compiles.total() - compiles0,
@@ -540,15 +607,18 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                                  f"> max_len({max_len})"})
                 span.set_attribute("prompt_tokens", int(len(ids)))
                 span.set_attribute("max_new_tokens", n_new)
+                generator = None
+                if temperature > 0.0:
+                    generator = torch.Generator(device=decoder.device).manual_seed(seed)
+                if pool is None:
+                    return self._chunked(span, text, ids, n_new, temperature, top_k,
+                                         generator, seed, stop)
                 span.set_attribute("mode", "pool")
                 if top_k is not None and not 1 <= top_k <= TOP_K_MAX:
                     return self._reply(400, {
                         "error": f"top_k must be in [1, {TOP_K_MAX}] in "
                                  "--batching mode (static top-k width)"})
                 span.set_attribute("tier", tier)
-                generator = None
-                if temperature > 0.0:
-                    generator = torch.Generator(device=pool.device).manual_seed(seed)
                 rid = pool.submit(
                     ids.astype(np.int32), n_new, temperature=temperature,
                     top_k=top_k, generator=generator, tier=tier,
@@ -562,11 +632,7 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                     if fatal:
                         return self._reply(500, {
                             "error": f"decode loop died: {fatal[0]}"})
-                sample = decode_bytes(row[len(ids):])
-                if stop:
-                    cut = sample.find(stop)
-                    if cut >= 0:
-                        sample = sample[:cut]
+                sample = _cut(decode_bytes(row[len(ids):]), stop)
                 return self._reply(200, {"prompt": text, "sample": sample, "seed": seed,
                                          "request_id": span.trace_id})
             except (ValueError, TypeError, KeyError, json.JSONDecodeError) as exc:
@@ -575,34 +641,61 @@ def build_handler(pool: PagedContinuousBatchingDecoder, fatal: list):
                 traceback.print_exc()
                 return self._reply(500, {"error": repr(exc)})
 
+        def _chunked(self, span, text, ids, n_new, temperature, top_k, generator, seed,
+                     stop):
+            """One request through the chunked decoder, on this thread."""
+
+            span.set_attribute("mode", "chunked")
+            t_gen = time.perf_counter()
+            out = decoder.generate(torch.as_tensor(ids.astype(np.int64))[None], n_new,
+                                   temperature=temperature, top_k=top_k,
+                                   generator=generator)
+            wall = time.perf_counter() - t_gen
+            observe_slo(0.0, wall, wall / n_new, span.trace_id)
+            sample = _cut(decode_bytes(out[0, len(ids):].numpy()), stop)
+            return self._reply(200, {"prompt": text, "sample": sample, "seed": seed})
+
     Handler.alert_engine = alert_engine
     Handler.costplane = costplane
     Handler.profiler = profiler
     return Handler
 
 
-class Server:
-    """The HTTP server and the pool's decode loop thread, started together
-    and stopped together.  ``alert_engine`` is the handler's, not
-    started: ``main`` starts it.  The driver thread beats the
-    ``serving.pool`` heartbeat on the process watchdog and runs the
-    handler's profiler between windows."""
+def _cut(sample: str, stop: Optional[str]) -> str:
+    """The sample up to the first ``stop``, the JAX server's contract."""
 
-    def __init__(self, pool: PagedContinuousBatchingDecoder,
-                 host: str = "127.0.0.1", port: int = 0):
-        self.pool = pool
+    if stop:
+        cut = sample.find(stop)
+        if cut >= 0:
+            return sample[:cut]
+    return sample
+
+
+class Server:
+    """The HTTP server and, for a pool, its decode loop thread, started
+    together and stopped together.  ``alert_engine`` is the handler's,
+    not started: ``main`` starts it.  A pool's driver thread beats the
+    ``serving.pool`` heartbeat on the process watchdog; the chunked mode
+    has no driver thread (each request decodes on its own thread) and so
+    no heartbeat.  ``model_label`` labels a chunked decoder's records
+    (a pool carries its own)."""
+
+    def __init__(self, decoder, host: str = "127.0.0.1", port: int = 0,
+                 model_label: Optional[str] = None):
+        self.decoder = decoder
+        self.pool = decoder if isinstance(decoder, ContinuousBatchingDecoder) else None
         self.fatal: list = []
-        handler = build_handler(pool, self.fatal)
+        handler = build_handler(decoder, self.fatal, model_label)
         self.alert_engine = handler.alert_engine
         self.profiler = handler.profiler
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.port = self.httpd.server_address[1]
         self._stop = threading.Event()
-        self._threads = [
-            threading.Thread(target=self._drive, name="serve.pool", daemon=True),
-            threading.Thread(target=self.httpd.serve_forever, name="serve.http",
-                             daemon=True),
-        ]
+        self._threads = [threading.Thread(target=self.httpd.serve_forever,
+                                          name="serve.http", daemon=True)]
+        if self.pool is not None:
+            self._threads.insert(0, threading.Thread(target=self._drive, name="serve.pool",
+                                                     daemon=True))
 
     def _drive(self) -> None:
         # the liveness-critical thread: a wedge here hangs every queued
@@ -612,7 +705,6 @@ class Server:
             while not self._stop.is_set():
                 try:
                     hb.beat()
-                    self.profiler.tick()
                     if self.pool.step() == 0:
                         time.sleep(0.005)
                 except Exception as exc:  # a dead decode loop must surface as 500s
@@ -635,7 +727,6 @@ class Server:
         self.httpd.server_close()
         for t in self._threads:
             t.join(timeout=30)
-        self.profiler.cancel()
 
 
 def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
@@ -673,6 +764,17 @@ def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
     return lm
 
 
+def _paged_kernel_mode(value: str) -> str:
+    """``--paged-kernel``'s value: ``auto`` or ``on``; any other, ``off``
+    and ``interpret`` included, is refused at parse time."""
+
+    if value not in ("auto", "on"):
+        raise argparse.ArgumentTypeError(
+            f"{value!r} refused: the port has no fallback from its kernels on the card "
+            "(a CUDA tensor reaches the kernel or the call raises); use auto or on")
+    return value
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--model", choices=["llama-7b", "llama-tiny"], default="llama-tiny")
@@ -684,15 +786,26 @@ def build_parser() -> argparse.ArgumentParser:
                     help="weights-only int8 for the projection kernels (ops/quant.py); "
                     "the embedding stays bf16")
     ap.add_argument("--port", type=int, default=8600)
-    ap.add_argument("--max-len", type=int, default=2048)
-    ap.add_argument("--batching", type=int, default=None, metavar="SLOTS",
-                    help="the pool's seats (default 8; 4 with --speculative alone)")
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--prompt-cache", type=int, default=0, metavar="N",
+                    help="LRU of N prompt-KV snapshots in the chunked decoder: an exact "
+                    "repeat prompt skips prefill; each entry holds the prompt's K/V")
+    ap.add_argument("--batching", type=int, default=0, metavar="SLOTS",
+                    help="serve through a continuous-batching pool of this many slots "
+                    "(the paged pool; the contiguous slot pool for a rolling-window "
+                    "model); 0 = one request at a time through the chunked decoder")
     ap.add_argument("--kv-blocks", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--kv-swap-blocks", type=int, default=None, metavar="N",
                     help="cap the host swap arena of preempted seats at N blocks "
                     "(default: unbounded); with both arenas full, requests wait "
                     "or park without a copy")
+    ap.add_argument("--paged-kernel", type=_paged_kernel_mode, default="auto",
+                    metavar="{auto,on}",
+                    help="accepted for the reference's command lines: the paged decode "
+                    "step always runs the kernel on the card (its plain version for CPU "
+                    "tensors); 'off' and 'interpret' are refused, because the port never "
+                    "falls back from its kernel")
     ap.add_argument("--steps-per-sync", type=int, default=8)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--speculative", action="store_true",
@@ -721,12 +834,12 @@ def model_label_of(args: argparse.Namespace) -> str:
 
 
 def slots_of(args: argparse.Namespace) -> int:
-    """``--batching``, else 8, or 4 under ``--speculative`` (the JAX
-    server's default for speculation alone)."""
+    """``--batching``, or 4 under ``--speculative`` alone (the JAX
+    server's default for speculation); 0 = the chunked decoder."""
 
-    if args.batching is not None:
-        return args.batching
-    return 4 if args.speculative else 8
+    if args.speculative and args.batching <= 0:
+        return 4
+    return args.batching
 
 
 def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
@@ -746,12 +859,13 @@ def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
 def build_pool(model: LlamaLM, args: argparse.Namespace,
                metrics: Optional[Metrics] = None,
                draft: Optional[LlamaLM] = None) -> PagedContinuousBatchingDecoder:
-    """The pool the flags describe (the JAX server's: lazy reservation),
-    with its records (``make_pool``) on ``metrics``.  Under
+    """The paged pool the flags describe (the JAX server's: lazy
+    reservation), with its records (``make_pool``) on ``metrics``.  Under
     ``--speculative`` ``draft`` is the draft model (``load_draft``); the
     tiers of ``--spec-tiers`` reach the pool unvalidated, so that its
     constructor fails startup on a typo rather than serve
-    non-speculatively."""
+    non-speculatively.  A model the paged pool refuses raises
+    ``NotPageableError``."""
 
     spec_kw = {}
     if args.speculative:
@@ -768,10 +882,39 @@ def build_pool(model: LlamaLM, args: argparse.Namespace,
     )
 
 
+def build_decoder(model: LlamaLM, args: argparse.Namespace,
+                  metrics: Optional[Metrics] = None, draft: Optional[LlamaLM] = None):
+    """The decoder the flags describe, as the JAX server places them:
+    the chunked decoder for ``--batching 0``; the paged pool
+    (``build_pool``) for more slots; and, where the paged pool refuses
+    the model (a rolling-window cache), the contiguous slot pool after
+    the JAX server's line.  ``--prompt-cache`` beside a pool and
+    ``--speculative`` on a model the paged pool refuses raise the JAX
+    server's errors."""
+
+    slots = slots_of(args)
+    if slots <= 0:
+        return make_chunked(model, prompt_cache=args.prompt_cache, metrics=metrics)
+    if args.prompt_cache:
+        raise ValueError(
+            "--prompt-cache applies to the chunked decoder; the batching pool consumes "
+            "the shared PREFIX cache (models/prefix_cache.py) instead — drop one of the "
+            "flags"
+        )
+    try:
+        return build_pool(model, args, metrics, draft)
+    except NotPageableError as exc:
+        if args.speculative:
+            raise ValueError(f"--speculative requires the paged pool: {exc}") from exc
+        print(f"paged pool unavailable ({exc}); serving the contiguous slot pool",
+              flush=True)
+        return make_pool(model, model_label=model_label_of(args), metrics=metrics,
+                         pool_class=ContinuousBatchingDecoder, slots=slots,
+                         steps_per_sync=args.steps_per_sync)
+
+
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
-    if slots_of(args) < 1:
-        raise SystemExit("--batching must be >= 1 (the pool is the only serving mode)")
     refuse_speculative(args)
     device = resolve_device(args.device)
     model = load_model(
@@ -786,7 +929,8 @@ def main(argv: Optional[list] = None) -> int:
     flight.install(metrics=metrics)
     # TPUJOB_WATCHDOG=1 adds the stall monitor over the same registry
     maybe_start_from_env(metrics=metrics)
-    server = Server(build_pool(model, args, metrics, draft), port=args.port).start()
+    server = Server(build_decoder(model, args, metrics, draft), port=args.port,
+                    model_label=model_label_of(args)).start()
     server.alert_engine.start()
     print(f"serving on 127.0.0.1:{server.port} ({device})", flush=True)
     try:

@@ -243,9 +243,9 @@ class FlightRecorder:
 
     def dump(self, fileobj=None, path: Optional[str] = None, reason: str = "") -> str:
         """Write the JSONL snapshot.  With ``path`` (or neither arg) a
-        file under ``tempfile.gettempdir()`` is created and its path
-        returned (the JAX copy reads ``$TPUJOB_FLIGHT_DIR``, default
-        /tmp; the port adds no environment variable); with ``fileobj`` the lines stream there and
+        file under ``$TPUJOB_FLIGHT_DIR`` (default: the temporary
+        directory, /tmp unless ``TMPDIR`` says otherwise) is created and
+        its path returned; with ``fileobj`` the lines stream there and
         the return value is "".  Never raises — a dying process calls
         this from signal/excepthook context."""
 
@@ -265,7 +265,8 @@ class FlightRecorder:
                     fileobj.write(json.dumps(r) + "\n")
                 return ""
             if path is None:
-                d = tempfile.gettempdir()
+                d = os.environ.get("TPUJOB_FLIGHT_DIR") or tempfile.gettempdir()
+                os.makedirs(d, exist_ok=True)
                 path = os.path.join(
                     d,
                     f"flight-{os.getpid()}-{seq}"

@@ -12,7 +12,7 @@ background thread; the first missed deadline of a stall episode
     (exemplar linkage: the log names the waterfall that was in flight),
   - dumps every thread's stack plus the flight recorder's rings
     (utils/flight.py) to one JSONL postmortem file, under the flight
-    recorder's directory (``tempfile.gettempdir()``).
+    recorder's directory (``$TPUJOB_FLIGHT_DIR``, else the temporary directory).
 
 A later beat ends the episode (and logs recovery), so a slow-but-alive
 loop produces one diagnosis per stall, not a log storm.
