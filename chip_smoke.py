@@ -313,7 +313,49 @@ Phases, in order; any failure exits non-zero before the result line:
    the same windowed model, or its first divergence is a bf16 tie.
    Prints decode tokens/s, window ms, TTFT and peak memory, then one
    steady window of eight seats under torch.profiler (as phase 7's).
-13. the kernels line (K1, K2, K3 from the training path, K4 from the
+13. multi-replica and disaggregated serving (after phase 12), the bf16
+   7B model, 8 slots, block 16, phase 7's nine bodies at once, each part
+   collected after its run:
+   13a (``phase_fleet``): ``serve_lm --batching 8 --replicas 2`` in
+   process.  Checks: every request ok, its trace one ``route`` span
+   naming replica 0 or 1; ``kv_blocks_free`` for both replicas on
+   ``/metrics``; ``/slo`` one merged TTFT row of 9; ``/debug/memory``'s
+   weights = ``state_bytes`` (once) and ``kv_arena`` = 2 x the arena, to
+   the byte; K4 = 32 x the decode steps (the shared ledger's, = both
+   replicas' windows x 8); both arena timelines, ``/debug/fabric`` 404;
+   the records as phase 7's; each greedy row equal to phase 7's or its
+   first divergence a tie (``_pair_divergence`` on the two paths' paged
+   replays with each body's prefix hit); the seeded body's row equals
+   phase 7's (the same path: no prefix hit, M = 8 steps).
+   13b (``phase_disaggregated``): ``--roles prefill=1,decode=2``.
+   Checks: the prefill replica ran no window (so no K4 launch: K4 = 32 x
+   the decode replicas' steps); each body's autopsy names replica 0 for
+   the prefill and its decode replica, holds one ``migrate_in`` with
+   ``migrated_blocks`` = its ``migrate`` span's blocks, and a prefix hit
+   of every full block before its last token; its trace has both route
+   spans; ``kv_migrate_bytes_total{direction="out"}`` = the fabric's
+   publishes x 8,388,608 and ``{direction="in"}`` = the migrated blocks x
+   8,388,608; 9 TTFT observations, none under ``role="prefill"``; no
+   publish failure; the greedy rows equal 13a's or tie (the disaggregated
+   replay takes its prefix from a one-shot prefill of the whole prompt,
+   as the prefill replica published it); the seeded body repeats.
+   Prints each replica's windows and decode tokens/s, each request's
+   publish wall and TTFT, each ``migrate_out`` / ``migrate_in`` copy's ms
+   and GB/s, and the fabric's host bytes.
+   13c (``phase_fleet_http``): two ``python -m
+   tf_operator_tpu_torch.serve_lm --model llama-7b --batching 8
+   --kv-blocks 256`` processes on the card: A with ``--fabric-port P
+   --fabric-peers ''``, B with ``--fabric-peers 127.0.0.1:P``.  Phase 7's
+   first three bodies (and the fifth) go to A, then the three to B.
+   Checks: B's samples equal A's; each of B's autopsies holds one
+   ``migrate_in`` and no ``prefill``; B's pulled blocks = its
+   ``/debug/fabric`` hits, and ``kv_migrate_bytes_total{transport="http"}``
+   and the bytes pulled = them x 8,388,608; then A stops and B gets the
+   fifth body: answered (by recompute) with
+   ``kv_fabric_pull_failures_total{reason="peer_dead"}`` >= 1.  Prints the
+   pods' boot wall, latencies, A's fabric host bytes and a port client's
+   HTTP pull ms a block from A.
+14. the kernels line (K1, K2, K3 from the training path, K4 from the
    serving path, K7 from the int8 serving path, K5 and K6 from the
    ResNet path, at the [200704, 256] no-ReLU, no-residual class, where
    F.batch_norm computes the same function), the card line, and last
@@ -1014,6 +1056,7 @@ def _profile_windows(windows, capture):
         rec["stall_bound_ms"] = round(longest * (1 + PROFILE_STALL_SLACK)
                                       + (capture["stop_s"] + capture["export_s"]) * 1e3, 1)
         rec["stall_within_bound"] = max(held) <= rec["stall_bound_ms"]
+        rec["under_twice_longest_outside"] = max(held) < 2 * longest
     return rec
 
 
@@ -1095,6 +1138,7 @@ def phase_debug_pass(server, bodies, tag):
            "windows_ms": [round(w * 1e3, 1) for w in second.values()],
            "profile": {"files": files, "trace_bytes": len(trace), "names": named,
                        "aten_ops_in_trace": '"aten::' in trace,
+                       "events": trace.count('"ph"'), "mb": len(trace) / 1e6,
                        "trace_only": "trace_only" in (
                            torch._C._profiler._ExperimentalConfig.__init__.__doc__ or ""),
                        "artifact_prefix_ok": os.path.basename(art).startswith(
@@ -1512,6 +1556,477 @@ def phase_contiguous(model, card):
             or any(a["tokens"] != 32 for a in autopsies)):
         raise AssertionError(f"contiguous: {json.dumps(stats)}")
     del pool, wmodel
+    return stats
+
+
+# -- phase 13: multi-replica and disaggregated serving -----------------------
+
+#: phase 13c's pods: each ``serve_lm`` process's model flags, and the
+#: model's KV geometry (layers, KV heads, head dim; block 16, bf16)
+POD_MODEL_FLAGS = ["--model", "llama-7b", "--init-seed", "0", "--max-len", "2048"]
+POD_KV = (32, 32, 128)
+#: a 7B bf16 KV block: 32 layers x (K, V) x 16 tokens x 32 heads x 128 x 2 B
+BLOCK_BYTES_7B = POD_KV[0] * 2 * 16 * POD_KV[1] * POD_KV[2] * 2
+
+
+def _fleet_server(model, flags):
+    """``serve_lm`` built from its flags at 7B width (max_len 2048, 8
+    slots, block 16) plus ``flags``, in this process, and each replica's
+    token rows by its pool-local request id."""
+
+    from tf_operator_tpu_torch.models.pool_router import PoolRouter
+    from tf_operator_tpu_torch.serve_lm import Server, build_decoder, build_parser
+
+    args = build_parser().parse_args(["--model", "llama-7b", "--max-len", "2048",
+                                      "--batching", "8"] + flags)
+    router = build_decoder(model, args)
+    if not isinstance(router, PoolRouter):
+        raise AssertionError(f"serve_lm {flags} built {type(router).__name__}")
+    rows = {p.replica_label: record_rows(p) for p in router.pools}
+    return Server(router).start(), router, rows
+
+
+def _replica_windows(traces):
+    """Each replica's decode-window walls ({replica: {start: wall}}) from
+    the ``decode.window`` spans of ``traces`` (one span a seat, one wall
+    a window)."""
+
+    out = collections.defaultdict(dict)
+    for trace in traces:
+        for span in trace["spans"]:
+            if span["name"] == "decode.window":
+                out[span["attributes"]["replica"]][span["startMono"]] = span["duration"]
+    return out
+
+
+def _fleet_run(model, flags, tag):
+    """Phase 7's nine bodies at once through ``_fleet_server``, counts
+    zeroed just before and read just after: (results, autopsies in body
+    order, each body's token row, /metrics text, /slo, the records'
+    traces, the router, the counts, the wall, the other reads).  The
+    counts: the launches, the decode steps (the shared ledger's) and each
+    replica's windows.  Then the seeded body once more."""
+
+    from tf_operator_tpu_torch.ops import _build
+
+    server, router, rows = _fleet_server(model, flags)
+    try:
+        bodies = _main_bodies()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        t0 = time.perf_counter()
+        results = _send_at_once(server.port, bodies)
+        wall = time.perf_counter() - t0
+        counts = {"launches": dict(_build.launches),
+                  "decode_steps": decode_steps(router.pools[0]),
+                  "windows": {p.replica_label: p.windows for p in router.pools}}
+        if server.fatal:
+            raise AssertionError(f"{tag}: a decode loop died: {server.fatal[0]}")
+        for i, r in enumerate(results):
+            if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+                raise AssertionError(f"{tag}: request {i} failed: {r}")
+        autopsies, text, slo = check_records(server.port, router.pools[0], results, tag)
+        traces = [_get_json(server.port, f"/traces/{r[1]['request_id']}") for r in results]
+        memory = _get_json(server.port, "/debug/memory")
+        arena = _get_json(server.port, "/debug/arena")
+        fabric = _get_status(server.port, "/debug/fabric")
+        extra = {"memory": memory, "arena": arena, "fabric": fabric,
+                 "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        if any(b.get("temperature") for b in bodies):
+            # the seeded body again: the same tokens through the same path
+            extra["seeded_repeat"] = _post(server.port, bodies[-1])
+    finally:
+        server.close()
+    body_rows = [rows[a["replica"]][a["rid"]][a["prompt_tokens"]:].tolist() for a in autopsies]
+    return (results, autopsies, body_rows, text, slo, traces, router, counts, wall, extra)
+
+
+def _window_stats(router, autopsies, traces, counts):
+    """Each replica's decode windows, their median wall and its decode
+    tokens/s (tokens after the first of the requests it decoded over its
+    windows' wall)."""
+
+    walls = _replica_windows(traces)
+    out = {}
+    for p in router.pools:
+        w = list(walls.get(p.replica_label, {}).values())
+        tokens = sum(a["tokens"] - 1 for a in autopsies if a["replica"] == p.replica_label)
+        out[p.replica_label] = {
+            "role": p.role, "windows": counts["windows"][p.replica_label],
+            "median_window_ms": statistics.median(w) * 1e3 if w else None,
+            "decode_tokens": tokens, "decode_tokens_per_s": tokens / sum(w) if w else None}
+    return out
+
+
+def _judge_rows(model, bodies, got_rows, want_rows, replays, names, tag):
+    """Each greedy body's row against another path's: equal, or its first
+    divergence a tie of the two paths (``_pair_divergence``, with the
+    body's replays ``replays(i)``).  Returns the divergent rows' records."""
+
+    divergent = []
+    for i, b in enumerate(bodies):
+        if b.get("temperature") or got_rows[i] == want_rows[i]:
+            continue
+        prompt = np.frombuffer(b["prompt"].encode(), np.uint8).astype(np.int64)
+        d = _pair_divergence(model, prompt, got_rows[i], want_rows[i], replays(i), names)
+        d["body"] = i
+        divergent.append(d)
+        if not d["tie"]:
+            raise AssertionError(f"{tag}: body {i} left the other path's row at a non-tie: {d}")
+    return divergent
+
+
+def phase_fleet(model, card, paged):
+    """Phase 13a: ``serve_lm --batching 8 --replicas 2`` at 7B width
+    (module docstring); ``paged`` is phase 7's stats (rows, prefix
+    hits)."""
+
+    from tf_operator_tpu_torch.ops.quant import state_bytes
+
+    tag = "fleet"
+    bodies = _main_bodies()
+    (results, autopsies, rows, text, slo, traces, router, counts, wall,
+     extra) = _fleet_run(model, ["--replicas", "2"], tag)
+    launches, steps = counts["launches"], counts["decode_steps"]
+    replica_steps = sum(counts["windows"].values()) * router.pools[0].steps_per_sync
+    routed = [[s["attributes"] for s in t["spans"] if s["name"] == "route"] for t in traces]
+    labels = [f'kv_blocks_free{{model="llama-7b",replica="{r}",role="unified"}}'
+              for r in ("0", "1")]
+    ttft_rows = slo["histograms"]["serve_ttft_seconds"]
+    (row,) = [d for d in extra["memory"]["devices"]
+              if d["device"].startswith(model.device.type)]
+    memory = {"weights": row["components"]["weights"],
+              "expected_weights": state_bytes(model.state_dict()),
+              "kv_arena": row["components"]["kv_arena"],
+              "expected_kv_arena": 2 * _arena_bytes(router.pools[0]._arena),
+              "coverage": row["coverage"]}
+    hits = [a["admission"]["prefix_hit_tokens"] for a in autopsies]
+    stats = {
+        "wall_s": wall, "launches": launches, "decode_steps": steps,
+        "replica_steps": replica_steps,
+        "replicas": _window_stats(router, autopsies, traces, counts),
+        "routes": [[r["replica"] for r in rs] for rs in routed], "prefix_hits": hits,
+        "ttft_s": [a["ttft_seconds"] for a in autopsies], "memory": memory,
+        "slo_ttft_rows": ttft_rows, "peak_gib": extra["peak_gib"],
+        "seeded_equal_phase_7": rows[-1] == paged["rows"][-1],
+        # a repeat may map the first one's prompt block (a prefix hit the
+        # first had not), so only 13b, where both take the same path,
+        # holds it
+        "seeded_repeat_equal": extra["seeded_repeat"][1]["sample"] == results[-1][1]["sample"],
+    }
+    stats["against_phase_7"] = _judge_rows(
+        model, bodies, rows, paged["rows"],
+        lambda i: (lambda m, p, r, j: _paged_replay_logits(m, p, r, j, hits[i]),
+                   lambda m, p, r, j: _paged_replay_logits(m, p, r, j, paged["prefix_hits"][i])),
+        ("fleet", "paged"), tag)
+    log(f"fleet ({card}) " + json.dumps(stats))
+    k4 = launches.get("paged_attention", 0)
+    bad = []
+    if k4 != model.cfg.n_layers * steps or steps != replica_steps or steps == 0:
+        bad.append(f"K4 {k4} against 32 x {steps} decode steps ({replica_steps} by replica)")
+    if any(len(rs) != 1 or rs[0]["replica"] not in ("0", "1") or rs[0]["phase"] != "unified"
+           for rs in routed):
+        bad.append(f"route spans {routed}")
+    if any(label not in text for label in labels):
+        bad.append("kv_blocks_free lacks a replica")
+    if len(ttft_rows) != 1 or ttft_rows[0]["count"] != len(bodies) or "replica" in ttft_rows[0]:
+        bad.append(f"/slo TTFT rows {ttft_rows}")
+    if memory["weights"] != memory["expected_weights"] or \
+            memory["kv_arena"] != memory["expected_kv_arena"]:
+        bad.append(f"/debug/memory {memory}")
+    if {r["replica"] for r in extra["arena"]["replicas"]} != {"0", "1"} or \
+            extra["fabric"][0] != 404 or not all(counts["windows"].values()):
+        bad.append("the arena timelines, /debug/fabric's 404 or a replica's windows")
+    if not stats["seeded_equal_phase_7"]:
+        bad.append("the seeded body left phase 7's row")
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+    stats["rows"] = rows
+    del router
+    free_device_memory()
+    return stats
+
+
+def phase_disaggregated(model, card, fleet):
+    """Phase 13b: ``serve_lm --batching 8 --roles prefill=1,decode=2`` at
+    7B width (module docstring); ``fleet`` is 13a's stats (rows, prefix
+    hits)."""
+
+    tag = "disaggregated"
+    bodies = _main_bodies()
+    (results, autopsies, rows, text, slo, traces, router, counts, wall,
+     extra) = _fleet_run(model, ["--roles", "prefill=1,decode=2"], tag)
+    pre, decs = router.pools[0], router.pools[1:]
+    fabric = pre.fabric.snapshot()
+    block = pre._block_host_bytes
+    launches, steps, windows = counts["launches"], counts["decode_steps"], counts["windows"]
+    routes = [{s["attributes"]["phase"]: s for s in t["spans"] if s["name"] == "route"}
+              for t in traces]
+    migrate_spans = [[s["attributes"]["blocks"] for s in t["spans"] if s["name"] == "migrate"]
+                     for t in traces]
+    usable = [(len(b["prompt"].encode()) - 1) // 16 for b in bodies]
+    pulled = sum(a["migrated_blocks"] for a in autopsies)
+    handshake = [{"publish_ms": routes[i]["prefill"]["duration"] * 1e3
+                  if "prefill" in routes[i] else None,
+                  "ttft_s": a["ttft_seconds"],
+                  "after_publish_s": a["ttft_seconds"] - routes[i]["prefill"]["duration"]
+                  if "prefill" in routes[i] else None,
+                  "decode_queue_wait_s": a["queue_wait_seconds"]}
+                 for i, a in enumerate(autopsies)]
+
+    def copies(pool):
+        out = []
+        for e in pool.migrate_log:
+            ms = e["events"][0].elapsed_time(e["events"][1]) if e["events"] else None
+            out.append({"direction": e["direction"], "blocks": e["blocks"], "bytes": e["bytes"],
+                        "host_ms": e["host_s"] * 1e3, "device_ms": ms,
+                        "gb_per_s": e["bytes"] / ms / 1e6 if ms else None})
+        return out
+
+    counted = {
+        "migrate_out_bytes": _metric(text, "kv_migrate_bytes_total", direction="out",
+                                     transport="local"),
+        "migrate_in_bytes": _metric(text, "kv_migrate_bytes_total", direction="in",
+                                    transport="local"),
+        "ttft_observations": _metric_sum(text, "serve_ttft_seconds_count"),
+        "ttft_prefill_role": sum(float(line.rsplit(" ", 1)[1]) for line in text.splitlines()
+                                 if line.startswith("serve_ttft_seconds_count{")
+                                 and 'role="prefill"' in line),
+        "publish_failures": _metric(text, "serve_fabric_publish_failures_total",
+                                    model="llama-7b"),
+        "k4": launches.get("paged_attention", 0),
+    }
+    want = {"migrate_out_bytes": float(fabric["publishes"] * BLOCK_BYTES_7B),
+            "migrate_in_bytes": float(pulled * BLOCK_BYTES_7B),
+            "ttft_observations": float(len(bodies)), "ttft_prefill_role": 0.0,
+            "publish_failures": 0.0, "k4": model.cfg.n_layers * steps}
+    hits = [a["admission"]["prefix_hit_tokens"] for a in autopsies]
+    stats = {
+        "wall_s": wall, "launches": launches, "decode_steps": steps,
+        "replicas": _window_stats(router, autopsies, traces, counts), "counted": counted,
+        "expected": want,
+        "fabric": fabric, "fabric_host_bytes": fabric["bytes_published"],
+        "handshake": handshake, "prefix_hits": hits,
+        "migrated_blocks": [a["migrated_blocks"] for a in autopsies],
+        "migrate_copies": {"out": copies(pre), "in": [c for d in decs for c in copies(d)]},
+        "peak_gib": extra["peak_gib"],
+        "seeded_repeat_equal": extra["seeded_repeat"][1]["sample"] == results[-1][1]["sample"],
+    }
+    stats["against_fleet"] = _judge_rows(
+        model, bodies, rows, fleet["rows"],
+        lambda i: (lambda m, p, r, j: _paged_replay_logits(m, p, r, j, hits[i], migrated=True),
+                   lambda m, p, r, j: _paged_replay_logits(m, p, r, j,
+                                                           fleet["prefix_hits"][i])),
+        ("disaggregated", "fleet"), tag)
+    log(f"disaggregated ({card}) " + json.dumps(stats))
+    bad = []
+    if block != BLOCK_BYTES_7B or counted != want:
+        bad.append(f"block bytes {block}, counts {counted} against {want}")
+    if windows["0"] or pre.ledger is not decs[0].ledger or \
+            steps != sum(windows.values()) * pre.steps_per_sync:
+        bad.append(f"the prefill replica stepped ({windows} windows)")
+    for i, a in enumerate(autopsies):
+        spans = migrate_spans[i]
+        ok = (a["prefill_replica"] == "0" and a["decode_replica"] in ("1", "2")
+              and a["replica"] == a["decode_replica"]
+              and set(routes[i]) == {"prefill", "decode"}
+              and routes[i]["decode"]["attributes"]["role"] == "decode"
+              and a["admission"]["prefix_hit_tokens"] == usable[i] * 16)
+        if usable[i] > 0:
+            ok = ok and a["dispatches"].get("migrate_in") == len(spans) == 1 \
+                and a["migrated_blocks"] == spans[0] > 0
+        if not ok:
+            bad.append(f"body {i}: autopsy {a}, migrate spans {spans}")
+    if not stats["seeded_repeat_equal"]:
+        bad.append("the seeded body did not repeat")
+    if bad:
+        raise AssertionError(f"{tag}: {bad}")
+    del router, pre, decs
+    free_device_memory()
+    return stats
+
+
+#: phase 13c: the first three of phase 7's bodies go to pod A and then
+#: to pod B; A also serves the fourth body that B gets only once A has
+#: stopped (its 700 bytes: phase 7's fifth)
+HTTP_FLEET_BODIES = 3
+HTTP_FLEET_FOURTH = 4
+#: each pod's arena (``--kv-blocks``): two 7B pods on one card
+HTTP_FLEET_KV_BLOCKS = 256
+#: blocks the HTTP pull timing reads from pod A
+HTTP_PULL_TIMED = 16
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_pod(flags, tag):
+    """One ``python -m tf_operator_tpu_torch.serve_lm`` at 7B width with
+    ``flags``; returns (process, its lines, the serving port, the fabric
+    server's address) once it serves.  A reader thread keeps its output
+    (stdout and stderr together) in the lines."""
+
+    import queue
+
+    cmd = [sys.executable, "-m", "tf_operator_tpu_torch.serve_lm"] + POD_MODEL_FLAGS + [
+        "--batching", "8", "--kv-blocks", str(HTTP_FLEET_KV_BLOCKS), "--port", "0"] + flags
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines, q = [], queue.Queue()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            q.put(line)
+        q.put(None)
+
+    threading.Thread(target=read, daemon=True).start()
+    return proc, lines, q
+
+
+def _await_pod(proc, lines, q, tag, timeout=300):
+    """(serving port, fabric address) of a spawned pod once it prints
+    them."""
+
+    import queue
+
+    port = addr = None
+    t_end = time.monotonic() + timeout
+    while port is None and time.monotonic() < t_end:
+        try:
+            line = q.get(timeout=max(0.1, t_end - time.monotonic()))
+        except queue.Empty:
+            break
+        if line is None:
+            break
+        m = re.match(r"fabric server on (\S+) ", line)
+        if m:
+            addr = m.group(1)
+        m = re.match(r"serving on 127\.0\.0\.1:(\d+) ", line)
+        if m:
+            port = int(m.group(1))
+    if port is None or addr is None:
+        proc.kill()
+        raise AssertionError(f"{tag}: the pod did not serve: {lines[-40:]}")
+    return port, addr
+
+
+def _stop_pod(proc):
+    if proc.poll() is None:
+        proc.terminate()
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
+def _time_http_pulls(addr, arena_like, n):
+    """A port client's pulls of ``n`` of the blocks pod ``addr`` lists,
+    each timed: (ms a block, MB/s)."""
+
+    from tf_operator_tpu_torch.models.fabric_service import FleetFabric
+    from tf_operator_tpu_torch.models.prefix_cache import PrefixFabric
+
+    client = FleetFabric(PrefixFabric(model_label="llama-7b"), peers=[addr],
+                         request_timeout=30.0)
+    client.register_template(arena_like)
+    with urllib.request.urlopen(f"http://{addr}/fabric/index", timeout=60) as resp:
+        keys = [bytes.fromhex(k) for k in json.loads(resp.read())["keys"]][:n]
+    walls = []
+    for key in keys:
+        t0 = time.perf_counter()
+        rec = client.get(key)
+        walls.append(time.perf_counter() - t0)
+        if rec is None or rec.get("transport") != "http" or rec["nbytes"] != BLOCK_BYTES_7B:
+            raise AssertionError(f"fleet over HTTP: timed pull of {key.hex()} gave {rec}")
+    ms = statistics.median(walls) * 1e3
+    return {"blocks": len(keys), "median_ms_a_block": ms,
+            "mb_per_s": BLOCK_BYTES_7B / (ms / 1e3) / 1e6, "walls_ms": [w * 1e3 for w in walls]}
+
+
+def phase_fleet_http(card):
+    """Phase 13c: two ``serve_lm`` processes on the card sharing blocks
+    over HTTP (module docstring)."""
+
+    tag = "fleet over HTTP"
+    fabric_port = _free_port()
+    a_proc, a_lines, a_q = _spawn_pod(["--fabric-port", str(fabric_port), "--fabric-peers",
+                                       ""], "pod A")
+    b_proc, b_lines, b_q = _spawn_pod(["--fabric-peers", f"127.0.0.1:{fabric_port}"], "pod B")
+    bodies = _main_bodies()[:HTTP_FLEET_BODIES]
+    fourth = _main_bodies()[HTTP_FLEET_FOURTH]
+    try:
+        t0 = time.perf_counter()
+        a_port, a_addr = _await_pod(a_proc, a_lines, a_q, "pod A")
+        b_port, b_addr = _await_pod(b_proc, b_lines, b_q, "pod B")
+        boot_s = time.perf_counter() - t0
+        got_a = _send_at_once(a_port, bodies + [fourth])
+        got_b = _send_at_once(b_port, bodies)
+        for part, results in (("A", got_a), ("B", got_b)):
+            for i, r in enumerate(results):
+                if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+                    raise AssertionError(f"{tag}: pod {part} request {i}: {r}")
+        autopsies = [_get_json(b_port, f"/requests/{r[1]['request_id']}") for r in got_b]
+        fab_b = _get_json(b_port, "/debug/fabric")["fabric"]
+        fab_a = _get_json(a_port, "/debug/fabric")["fabric"]
+        text_b = _get(b_port, "/metrics")[1].decode()
+        layers, heads, head_dim = POD_KV
+        arena_like = [(torch.empty((2, heads, 16, head_dim), dtype=torch.bfloat16,
+                                   device="meta"),) * 2 for _ in range(layers)]
+        pulls = _time_http_pulls(a_addr, arena_like, HTTP_PULL_TIMED)
+        # A stops; B gets the body only A served: the index B read from A
+        # names its blocks, the pulls find A dead, and B recomputes
+        _stop_pod(a_proc)
+        got_4 = _post(b_port, fourth)
+        text_b4 = _get(b_port, "/metrics")[1].decode()
+        fab_b4 = _get_json(b_port, "/debug/fabric")["fabric"]
+    finally:
+        _stop_pod(a_proc)
+        _stop_pod(b_proc)
+    pulled = sum(a.get("pulled_blocks", 0) for a in autopsies)
+    stats = {
+        "boot_s": boot_s, "fabric_port": fabric_port, "b_fabric": b_addr,
+        "samples_equal": [ra[1]["sample"] == rb[1]["sample"] for ra, rb in zip(got_a, got_b)],
+        "a_exit": a_proc.returncode,
+        "pulled_blocks": [a.get("pulled_blocks", 0) for a in autopsies],
+        "b_dispatches": [a["dispatches"] for a in autopsies],
+        "b_pulls": fab_b["pulls"], "b_bytes_pulled": fab_b["bytes_pulled"],
+        "a_fabric_host_bytes": fab_a["bytes_published"], "a_blocks": fab_a["blocks"],
+        "http_migrate_in_bytes": _metric(text_b, "kv_migrate_bytes_total", direction="in",
+                                         transport="http"),
+        "http_pulls": pulls,
+        "b_latency_s": [round(r[2], 3) for r in got_b], "a_latency_s": [round(r[2], 3)
+                                                                        for r in got_a],
+        "fourth": {"status": got_4[0], "latency_s": got_4[2],
+                   "peer_dead": sum(float(line.rsplit(" ", 1)[1])
+                                    for line in text_b4.splitlines()
+                                    if line.startswith("kv_fabric_pull_failures_total{")
+                                    and 'reason="peer_dead"' in line),
+                   "sample_equals_a": got_4[1]["sample"] == got_a[-1][1]["sample"],
+                   "pull_failures": fab_b4["pull_failures"], "peers": fab_b4["peers"]},
+    }
+    log(f"fleet over HTTP ({card}) " + json.dumps(stats))
+    bad = []
+    if not all(stats["samples_equal"]):
+        bad.append("B's samples left A's")
+    if pulled != fab_b["pulls"].get("hit") or pulled == 0 or \
+            stats["http_migrate_in_bytes"] != pulled * BLOCK_BYTES_7B or \
+            fab_b["bytes_pulled"] != pulled * BLOCK_BYTES_7B:
+        bad.append(f"pulled {pulled} blocks, {stats['http_migrate_in_bytes']} bytes")
+    if any("prefill" in d for d in stats["b_dispatches"]) or \
+            any(d.get("migrate_in") != 1 for d in stats["b_dispatches"]):
+        bad.append("B's dispatches")
+    if got_4[0] != 200 or len(got_4[1]["sample"]) != 32 or stats["fourth"]["peer_dead"] < 1:
+        bad.append("the fourth body after A stopped")
+    if bad:
+        raise AssertionError(f"{tag}: {bad}; A: {a_lines[-20:]}; B: {b_lines[-20:]}")
     return stats
 
 
@@ -2130,7 +2645,7 @@ def _chunked_replay_logits(model, prompt, row, j):
     return last[0].float()
 
 
-def _paged_replay_logits(model, prompt, row, j, hit, slots=8):
+def _paged_replay_logits(model, prompt, row, j, hit, slots=8, migrated=False):
     """The logits that chose token ``j`` of a paged pool's row ``row``,
     computed again as the pool computed them: the admission's one-shot
     prefill of the prompt past its ``hit`` prefix-cache tokens over a
@@ -2139,7 +2654,9 @@ def _paged_replay_logits(model, prompt, row, j, hit, slots=8):
     pool's ``slots`` seats, the others on the scratch block as the pool
     runs them, so that every projection has the served row count.  The
     hit's blocks are prefilled here one-shot; the pool read them from
-    the request that published them."""
+    the request that published them.  ``migrated``: they come from a
+    one-shot prefill of the whole prompt, as a prefill replica's
+    publish computes them before a decode replica pulls them."""
 
     from tf_operator_tpu_torch.models.decode import (
         decode_variant,
@@ -2161,9 +2678,10 @@ def _paged_replay_logits(model, prompt, row, j, hit, slots=8):
     shared, seat = hit // bs, -(-p // bs)
     with torch.inference_mode():
         if shared:
-            view = gather_block_view(arena, tables[0, :shared], 0)
-            dmodel(ids[:, :hit], cache=view)
-            scatter_block_view(arena, view, tables[0], 0, shared)
+            width, nb = (p, seat) if migrated else (hit, shared)
+            view = gather_block_view(arena, tables[0, :nb], 0)
+            dmodel(ids[:, :width], cache=view)
+            scatter_block_view(arena, view, tables[0], 0, nb)
         view = gather_block_view(arena, tables[0, :seat], hit)
         last = dmodel(ids[:, hit:p], cache=view)[0, -1]
         scatter_block_view(arena, view, tables[0], shared, seat - shared)
@@ -2176,38 +2694,52 @@ def _paged_replay_logits(model, prompt, row, j, hit, slots=8):
     return last.float()
 
 
-def _path_divergence(model, prompt, got, want, hit):
-    """Where a chunked decoder's greedy row (``got``) left the paged
-    pool's (``want``): the first divergent position j and both tokens a
-    and b, with the logits that chose token j computed again on each
-    path as it ran (``_chunked_replay_logits``; ``_paged_replay_logits``
-    with the body's ``hit``).  A tie: each replay chooses its path's
-    served token (a on the chunked one, b on the paged one), so the
-    divergence is the two paths' arithmetic and no other input; on each
-    replay the margin between a and b is within the floor, the amount by
-    which the two paths move those two logits (|c[a] - q[a]| +
-    |c[b] - q[b]|, at least a bf16 ulp of the largest logit: with both
+def _pair_divergence(model, prompt, got, want, replays, names):
+    """Where greedy row ``got`` left row ``want``, two paths' rows of the
+    same prompt: the first divergent position j and both tokens a and b,
+    with the logits that chose token j computed again on each path as it
+    ran (``replays``: one ``fn(model, prompt, row, j)`` a path, both fed
+    ``got``'s tokens before j, which are ``want``'s).  A tie: each replay
+    chooses its path's served token (a on the first, b on the second),
+    so the divergence is the two paths' arithmetic and no other input; on
+    each replay the margin between a and b is within the floor, the
+    amount by which the two paths move those two logits (|x[a] - y[a]| +
+    |x[b] - y[b]|, at least a bf16 ulp of the largest logit: with both
     replays faithful the two margins add up to at most it); and the
     replays' largest difference over the vocabulary stays within phase
-    8's bound on the two paths (``LOGITS_REL_TOL``)."""
+    8's bound on two paths (``LOGITS_REL_TOL``).  ``names`` label the two
+    paths in the record."""
 
     j = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
-    chunked = _chunked_replay_logits(model, prompt, got, j)
-    paged = _paged_replay_logits(model, prompt, got, j, hit)
+    x, y = (fn(model, prompt, got, j) for fn in replays)
+    first, second = names
     a, b = int(got[j]), int(want[j])
-    diff = (chunked - paged).abs().max().item()
-    scale = chunked.abs().max().item()
-    moved = {t: abs((chunked[t] - paged[t]).item()) for t in (a, b)}
+    diff = (x - y).abs().max().item()
+    scale = x.abs().max().item()
+    moved = {t: abs((x[t] - y[t]).item()) for t in (a, b)}
     floor = max(moved[a] + moved[b], _bf16_ulp(scale))
-    margins = {"chunked": (chunked[a] - chunked[b]).item(),
-               "paged": (paged[b] - paged[a]).item()}
-    replayed = {"chunked": int(chunked.argmax()), "paged": int(paged.argmax())}
-    tie = (replayed == {"chunked": a, "paged": b} and max(margins.values()) <= floor
+    margins = {first: (x[a] - x[b]).item(), second: (y[b] - y[a]).item()}
+    replayed = {first: int(x.argmax()), second: int(y.argmax())}
+    tie = (replayed == {first: a, second: b} and max(margins.values()) <= floor
            and diff <= LOGITS_REL_TOL["contiguous"] * scale)
-    return {"position": j, "prefix_hit": hit, "chunked_token": a, "paged_token": b,
+    return {"position": j, f"{first}_token": a, f"{second}_token": b,
             "margins": margins, "moved": {"a": moved[a], "b": moved[b]},
             "replayed_argmax": replayed, "tie_floor": floor,
             "replay_max_abs_diff": diff, "max_abs_logit": scale, "tie": bool(tie)}
+
+
+def _path_divergence(model, prompt, got, want, hit):
+    """Where a chunked decoder's greedy row (``got``) left the paged
+    pool's (``want``), judged by ``_pair_divergence`` on the chunked
+    decoder's replay (``_chunked_replay_logits``) and the paged pool's
+    with the body's prefix ``hit`` (``_paged_replay_logits``)."""
+
+    d = _pair_divergence(
+        model, prompt, got, want,
+        (_chunked_replay_logits, lambda m, p, r, j: _paged_replay_logits(m, p, r, j, hit)),
+        ("chunked", "paged"))
+    d["prefix_hit"] = hit
+    return d
 
 
 def _spec_support(model, prompt, sample, top_k):
@@ -3676,6 +4208,11 @@ def main():
     chunked = phase_chunked(model, card, main_stats, tag="chunked bf16")
     free_device_memory()
     phase_contiguous(model, card)
+    free_device_memory()
+    fleet = phase_fleet(model, card, main_stats)
+    phase_disaggregated(model, card, fleet)
+    phase_fleet_http(card)
+    free_device_memory()
     # the pool holds reference cycles (the prefix cache's callbacks), so
     # the bf16 weights and arena go only with a collection
     del model

@@ -566,7 +566,7 @@ def _jax_flags():
 
 #: the port's own flags, and the JAX server's flags it leaves out
 PORT_ONLY_FLAGS = {"--model", "--init-seed", "--steps-per-sync", "--device"}
-NOT_PORTED_FLAGS = {"--platform", "--replicas", "--roles", "--fabric-port", "--fabric-peers"}
+NOT_PORTED_FLAGS = {"--platform"}
 
 
 def test_flags_match_the_reference_or_are_listed(capsys):

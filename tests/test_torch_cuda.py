@@ -55,12 +55,17 @@ tiny pool through both kernels decodes the plain pool's tokens.
 
 The paged pool's swap copies (preemption to pinned host memory and back
 into other block ids) are held bit for bit, and a preempted request's
-tokens, greedy and seeded, equal an undisturbed pool's exactly.
+tokens, greedy and seeded, equal an undisturbed pool's exactly; so are
+a fabric migration's (a prefill replica's publish, a decode replica's
+pull into its own arena).
 
 The chunked decoder and the contiguous slot pool on an int8 llama_tiny
 (full cache and a rolling window of 8) give on the card, through K7, the
 rows their plain versions give on the CPU.
 """
+
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -69,6 +74,7 @@ import torch
 from tf_operator_tpu_torch.models.batching import PagedContinuousBatchingDecoder
 from tf_operator_tpu_torch.models.decode import generate
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_tiny
+from tf_operator_tpu_torch.models.prefix_cache import PrefixFabric, chain_keys
 from tf_operator_tpu_torch.models.weights import init_params
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -237,6 +243,50 @@ def test_swap_round_trip_is_bit_exact_after_the_blocks_are_reused(dev):
         assert torch.equal(k[dst], wk) and torch.equal(v[dst], wv)
     assert [(e["direction"], e["blocks"]) for e in pool.swap_log] == [("out", 3), ("in", 3)]
     assert all(e["events"][0].elapsed_time(e["events"][1]) > 0 for e in pool.swap_log)
+
+
+def test_fabric_migrate_round_trip_is_bit_exact(dev):
+    """A prefill replica publishes a prompt's blocks into the fabric (one
+    ``migrate_out``: a gather and a pinned device->host copy); a decode
+    replica pulls them into its own arena (one ``migrate_in``): the rows
+    arrive bit for bit, in every layer's K and V (bf16, as served), the
+    fabric's records hold the same words, and the pulled request's row
+    equals a uniform pool's."""
+
+    cfg = llama_tiny(vocab_size=256, max_len=64)
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 1, dev), dev)
+    fabric = PrefixFabric(model_label="t")
+    pools = [PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=8, role=role,
+                                            fabric=fabric, replica_label=role[0])
+             for role in ("prefill", "decode")]
+    pre, dec = pools
+    prompt = np.arange(29) % 256  # three full blocks before the last token
+    out = {}
+    th = threading.Thread(target=lambda: out.update(pub=pre.publish_to_fabric(prompt,
+                                                                              timeout=120)))
+    th.start()
+    while th.is_alive():
+        pre.step()
+        time.sleep(0.001)
+    assert out["pub"] == {"publishable": 3, "published": 3, "computed": 1}
+    keys = chain_keys(prompt, 8)[:3]
+    src = [pre.prefix.peek(k) for k in keys]
+    rid = dec.submit(prompt, 6)
+    dec.run()
+    dst = [dec.prefix.peek(k) for k in keys]
+    torch.cuda.synchronize()
+    for (k, v), (dk, dv) in zip(pre._arena, dec._arena):
+        assert torch.equal(k[src], dk[dst]) and torch.equal(v[src], dv[dst])
+    words = fabric.get(keys[1])["kv"][0][0]
+    assert words.dtype == np.uint16 and np.array_equal(
+        words, pre._arena[0][0][src[1]][None].cpu().view(torch.int16).numpy().view(np.uint16))
+    assert [e["direction"] for e in pre.migrate_log] == ["migrate_out"]
+    assert [e["direction"] for e in dec.migrate_log] == ["migrate_in"]
+    assert dec.ledger.count("migrate_in") == 1 and pre.windows == 0
+    uniform = PagedContinuousBatchingDecoder(model, slots=2, kv_block_size=8)
+    urid = uniform.submit(prompt, 6)
+    uniform.run()
+    np.testing.assert_array_equal(dec.result(rid), uniform.result(urid))
 
 
 @pytest.mark.parametrize("seeded", [False, True], ids=["greedy", "seeded"])

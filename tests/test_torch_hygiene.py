@@ -65,7 +65,8 @@ def test_importing_every_module_loads_no_jax():
               "parallel.checkpoint", "runtime.harness", "data.text", "llama_pretrain",
               "utils.metrics", "utils.trace", "utils.logging", "utils.flight",
               "utils.alerts", "utils.costplane", "utils.watchdog", "runtime.telemetry",
-              "serve_lm"):
+              "models.pool_router", "models.fabric_service", "models.prefix_cache",
+              "backend.retry", "serve_lm"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

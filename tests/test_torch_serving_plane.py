@@ -636,6 +636,7 @@ HOT_METHODS = {
     "_swap_out", "_swap_in", "_retire_device_locked", "_finish_locked",
     "_update_gauges_locked", "_update_kv_gauges", "_queued_blocks",
     "_observe_first_token", "_emit_span", "_count_swap_bytes",
+    "_migrate_in_locked", "_fabric_host", "_count_migrate_bytes", "publish_to_fabric",
 }
 #: attribute calls that read a device tensor on the host
 FORBIDDEN_ATTRS = {"item", "cpu", "tolist", "numpy"}
@@ -745,9 +746,9 @@ def test_dispatch_blocks_hold_the_fetches_they_time():
     """What serving_dispatch_seconds times on CUDA (utils/metrics.py):
     the step block holds the window's one fetch, the verify block the
     speculative window's, the admission and sample blocks their first
-    token's, the swap blocks their synchronous copies; the retire,
-    draft, prefill and scatter blocks hold no fetch and time their
-    enqueue."""
+    token's, the swap and fabric-migration blocks their synchronous
+    copies; the retire, draft, prefill and scatter blocks hold no fetch
+    and time their enqueue."""
 
     holds = collections.defaultdict(set)
     for node in ast.walk(_pool_tree()):
@@ -760,12 +761,14 @@ def test_dispatch_blocks_hold_the_fetches_they_time():
                 holds[phase].add(f.attr if isinstance(f, ast.Attribute) else
                                  getattr(f, "id", ""))
     assert set(holds) == {"admission", "step", "draft", "verify", "retire", "swap_out",
-                          "swap_in", "prefill", "sample", "scatter"}
+                          "swap_in", "prefill", "sample", "scatter", "migrate_out",
+                          "migrate_in"}
     assert "cpu" in holds["step"] and "cpu" in holds["verify"] and "int" in holds["admission"]
     assert "int" in holds["sample"]
     for phase in ("prefill", "scatter"):
         assert not holds[phase] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"}), phase
     assert not holds["draft"] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"})
     assert "_swap_out" in holds["swap_out"] and "_swap_in" in holds["swap_in"]
+    assert "_swap_out" in holds["migrate_out"] and "_swap_in" in holds["migrate_in"]
     assert not holds["retire"] & (FORBIDDEN_ATTRS | {"int", "_swap_out", "copy_"})
     assert set(holds) <= set(metrics.DISPATCH_PHASES)

@@ -113,17 +113,38 @@ target's (or parks them live), and resume restores both at the same
 shared length.  ``spec_snapshot()`` gives the JAX pool's accounting
 plus ``launches_per_token``.
 
+Replicas and the fabric (``replica_label``, ``role``, ``fabric``; the
+router of models/pool_router.py fronts the replicas): with a fabric
+(``prefix_cache.PrefixFabric``, or ``fabric_service.FleetFabric`` across
+processes) the admission, after mapping the longest local prefix,
+pulls the chain's missing tail from the fabric, uploads it into fresh
+blocks in one ``migrate_in`` dispatch and adds it to the local prefix
+cache; ``publish_to_fabric`` (a prefill replica's half) runs an internal
+budget-1 request through the normal admission, its throwaway first
+token greedy, and copies the prompt's full blocks to the host in one
+``migrate_out`` dispatch, into the fabric.  Internal requests keep an
+autopsy (``internal``) but observe no SLO histogram.  A request the
+router backdated (``submit(..., t_submit=, t_submit_mono=)``) measures
+TTFT from the router's entry and its queue wait from this pool's.
+``load_components()`` splits the routing pressure by phase: queued
+block demand and blocks in use, each over the usable blocks (the
+contiguous pool counts requests).
+
 Records (the JAX pool's, at its sites): every group of device calls
 runs under ``self.dispatch(phase)`` (admission, step, draft, verify,
-retire, swap_out, swap_in), which the :class:`DispatchLedger` counts,
+retire, swap_out, swap_in, migrate_out, migrate_in), which the
+:class:`DispatchLedger` counts,
 times and, with a tracer, records as a ``dispatch.<phase>`` span.
 Each request carries a trace id (given, or minted at submit) and an
 autopsy in the :class:`RequestLog`; its lifecycle spans
 (``queue.wait``, ``admission``, ``draft``, ``decode.window``,
-``preempt``, ``swap_out``, ``swap_in``, ``retire``) join that trace.  With a metrics registry the pool observes the SLO
-histograms (queue wait, TTFT, time per output token, by tier), sets
-the queue, in-flight and ``kv_blocks_*`` gauges at every refresh, and
-counts ``serve_preemptions_total`` and ``kv_swap_bytes_total``; each
+``preempt``, ``swap_out``, ``swap_in``, ``migrate``, ``retire``) join
+that trace and carry the replica.  With a metrics registry the pool
+observes the SLO histograms (queue wait, TTFT, time per output token,
+by tier; by replica and role under a fleet), sets the queue, in-flight
+and ``kv_blocks_*{model, replica, role}`` gauges at every refresh, and
+counts ``serve_preemptions_total``, ``kv_swap_bytes_total`` and
+``kv_migrate_bytes_total{direction, transport}``; each
 refresh also takes one :class:`ArenaTimeline` sample.  A pool built
 bare (no ledger, no metrics) counts its dispatches and keeps the
 autopsies and the timeline, as the JAX pool built bare does.
@@ -133,7 +154,7 @@ one over the pool's registry when not passed, as in the JAX pool): the
 arena, and the draft twin's, register as ``kv_arena`` when made, the
 seats' device state (tables, lengths, temperatures, top-ks, last
 tokens) as ``other``; every refresh sets ``swap_staging`` (the swapped
-blocks' host bytes, under ``host:0``); every decode window's wall feeds
+blocks' host bytes, under ``host:<replica>``); every decode window's wall feeds
 the step-time sentinel as ``decode.window``.  A pool with no registry
 keeps no cost plane (the JAX pool's then writes to the process
 registry).  The pool registers no compiles: eager PyTorch builds no
@@ -192,9 +213,13 @@ TOP_K_MAX = 64
 SLO_TIERS = ("batch", "interactive")
 _TIER_RANK = {t: i for i, t in enumerate(SLO_TIERS)}
 
-#: the pool's phase role on every kv_blocks_* gauge and its timeline
-#: (the JAX pool's default; the port has no disaggregated replicas)
-ROLE = "unified"
+#: replica phase roles (disaggregated serving): a "prefill" replica
+#: prefills prompts and publishes their finished blocks into the
+#: prefix-cache fabric; a "decode" replica admits by mapping published
+#: chains (pulling the missing tail through the fabric) and decodes;
+#: "unified" (the default) does both.  The role labels every kv_blocks_*
+#: gauge, and every SLO observation of a replica that is not unified
+REPLICA_ROLES = ("unified", "prefill", "decode")
 
 
 def _masked_scaled(logits: torch.Tensor, temps: torch.Tensor,
@@ -313,8 +338,7 @@ def _cat_host(old: Optional[torch.Tensor], new: Optional[torch.Tensor]):
 
 class RequestLog:
     """Bounded ring of per-request lifecycle autopsies (a copy of the JAX
-    pool's ``RequestLog``, without the router's ``annotate`` and the
-    fabric's ``add_migrate``, which wait for multi-replica serving).
+    pool's ``RequestLog``).
 
     The trace store answers "show me the spans of trace T"; this log
     answers the operator question one level up — "what happened to
@@ -367,10 +391,11 @@ class RequestLog:
             # autopsy would silently truncate at the first preemption
             "preempted": 0,
             "swapped_blocks": 0,
-            # disaggregated serving's fields, kept so the autopsy has
-            # the JAX pool's keys: which replica ran each phase, how
-            # many prefix blocks arrived over a fabric, and whether
-            # this is an internal fabric-publish prefill
+            # disaggregated serving: which replica ran each phase (the
+            # router annotates both), how many prefix blocks arrived
+            # over the fabric instead of being computed here, and
+            # whether this is an internal fabric-publish prefill
+            # (excluded from the user-facing SLO observations)
             "prefill_replica": None,
             "decode_replica": None,
             "migrated_blocks": 0,
@@ -416,6 +441,23 @@ class RequestLog:
             entry["dispatches"][phase] = (
                 entry["dispatches"].get(phase, 0) + n
             )
+
+    def add_migrate(self, entry: Dict[str, Any], blocks: int) -> None:
+        """``blocks`` prefix blocks arrived through the fabric instead of
+        being prefilled here."""
+
+        with self._lock:
+            entry["migrated_blocks"] += int(blocks)
+
+    def annotate(self, request_id: str, **fields) -> None:
+        """Update a live entry by id (the router's cross-replica
+        attribution: it learns the prefill / decode split only after the
+        pools opened the entry).  No-op for an unknown id."""
+
+        with self._lock:
+            entry = self._entries.get(request_id)
+            if entry is not None:
+                entry.update(fields)
 
     def add_swap(self, entry: Dict[str, Any], blocks: int) -> None:
         """More of this request's blocks moved host-side WITHOUT a
@@ -479,10 +521,12 @@ class RequestLog:
 class _Request:
     __slots__ = ("rid", "prompt", "budget", "temperature", "top_k",
                  "generator", "tier", "tokens", "done", "slot", "t_submit",
-                 "t_submit_mono", "t_first", "swapped", "tokens_since_seat",
-                 "trace_id", "entry", "queue_waited", "staged", "has_permit")
+                 "t_submit_mono", "t_local", "t_local_mono", "t_first", "swapped",
+                 "tokens_since_seat", "trace_id", "entry", "queue_waited", "staged",
+                 "has_permit", "internal")
 
-    def __init__(self, rid, prompt, budget, temperature, top_k, generator, tier):
+    def __init__(self, rid, prompt, budget, temperature, top_k, generator, tier,
+                 internal=False):
         self.rid = rid
         self.prompt = prompt  # np.ndarray [P] int32
         self.budget = budget
@@ -493,11 +537,16 @@ class _Request:
         self.tokens: List[int] = []
         self.done = False
         self.slot: Optional[int] = None
-        #: the SLO clock (queue wait, TTFT, time per output token)
+        #: the SLO clock (TTFT, time per output token); the router
+        #: backdates it to its own entry, so TTFT spans a handshake
         self.t_submit = time.perf_counter()
-        #: the priority clock (submit order, the age boost) and the
-        #: lifecycle spans' clock
+        #: the priority clock (submit order, the age boost), backdated
+        #: with it
         self.t_submit_mono = time.monotonic()
+        #: this pool's own submit: the queue wait and the queue.wait span
+        #: measure this replica's queue only
+        self.t_local = self.t_submit
+        self.t_local_mono = self.t_submit_mono
         self.t_first: Optional[float] = None
         #: preempted: queued with a swap record
         self.swapped = False
@@ -514,6 +563,9 @@ class _Request:
         #: token) until seated, and whether it holds a staging permit
         self.staged = None
         self.has_permit = False
+        #: a fabric-publish prefill: real pool work, but no user request,
+        #: so it stays out of the SLO histograms
+        self.internal = internal
 
 
 class ContinuousBatchingDecoder:
@@ -535,20 +587,30 @@ class ContinuousBatchingDecoder:
     none.  An HTTP read of the records takes their own locks, never the
     pool's."""
 
-    #: speculative decoding and the arena timeline are the paged pool's
+    #: speculative decoding, the arena timeline, phase roles and the
+    #: fabric are the paged pool's
     spec_enabled = False
     spec_tiers: tuple = ()
     timeline: Optional[ArenaTimeline] = None
+    role = "unified"
+    fabric = None
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
                  ledger: Optional[DispatchLedger] = None, metrics=None,
-                 model_label: str = "", costplane=None):
+                 model_label: str = "", replica_label: str = "", costplane=None):
         self.ledger = ledger if ledger is not None else DispatchLedger()
         self.metrics = metrics if metrics is not None else self.ledger.metrics
         if costplane is None and self.metrics is not None:
             costplane = CostPlane(metrics=self.metrics)
         self.costplane = costplane
         self.model_label = model_label or "unknown"
+        #: set under the multi-replica router (models/pool_router.py):
+        #: non-empty adds {replica} to every SLO observation and queue
+        #: gauge; spans, autopsies, the timeline and the kv_blocks_*
+        #: gauges carry it always (else "0")
+        self.replica_label = replica_label
+        #: the label the pool's records carry ("0" for an unlabelled pool)
+        self.replica = replica_label or "0"
         #: the ledger's tracer (None: no spans) carries the lifecycle
         #: spans of every request
         self.tracer = self.ledger.tracer
@@ -603,16 +665,23 @@ class ContinuousBatchingDecoder:
     def submit(self, prompt_ids, max_new_tokens: int, *,
                temperature: float = 0.0, top_k: Optional[int] = None,
                generator: Optional[torch.Generator] = None,
-               tier: str = "batch", trace_id: Optional[str] = None) -> int:
+               tier: str = "batch", trace_id: Optional[str] = None,
+               internal: bool = False, t_submit: Optional[float] = None,
+               t_submit_mono: Optional[float] = None) -> int:
         """Queue one request ([P] ids).  Returns its id; collect the
         output with ``result``/``result_wait``.  A sampled request
         (temperature > 0) draws from its own ``generator``, which must
         live on the pool's device.  ``tier`` is its SLO tier.
         ``trace_id`` is its identity (serve_lm passes the HTTP request's);
         without one the tracer mints one, and a pool without a tracer
-        names it ``treq-0-<rid>``.  On the contiguous pool's staged path
-        the prompt prefills here, on the caller's thread, while a staging
-        permit is free."""
+        names it ``treq-<replica>-<rid>``.  ``internal`` marks a
+        fabric-publish prefill, kept out of the SLO observations.
+        ``t_submit`` / ``t_submit_mono`` (``time.perf_counter`` /
+        ``time.monotonic``) backdate the SLO and priority clocks to an
+        earlier entry: the disaggregated router's, so that TTFT spans the
+        whole handshake.  On the contiguous pool's staged path the prompt
+        prefills here, on the caller's thread, while a staging permit is
+        free."""
 
         prompt = np.asarray(prompt_ids, np.int32).reshape(-1)
         if prompt.size < 1:
@@ -644,17 +713,21 @@ class ContinuousBatchingDecoder:
             rid = self._rid
             self._rid += 1
         req = _Request(rid, prompt, int(max_new_tokens), float(temperature), top_k,
-                       generator, tier)
+                       generator, tier, internal=bool(internal))
+        if t_submit is not None:
+            req.t_submit = float(t_submit)
+        if t_submit_mono is not None:
+            req.t_submit_mono = float(t_submit_mono)
         if trace_id is not None:
             req.trace_id = str(trace_id)
         elif self.tracer is not None:
             req.trace_id = self.tracer.mint_trace_id()
         else:
-            req.trace_id = f"treq-0-{rid}"
+            req.trace_id = f"treq-{self.replica}-{rid}"
         req.entry = self.request_log.open(
-            id=req.trace_id, rid=rid, replica="0", model=self.model_label,
-            prompt_tokens=int(prompt.size), max_new_tokens=int(max_new_tokens),
-            tier=tier, internal=False,
+            id=req.trace_id, rid=rid, replica=self.replica,
+            model=self.model_label, prompt_tokens=int(prompt.size),
+            max_new_tokens=int(max_new_tokens), tier=tier, internal=bool(internal),
         )
         self._stage(req)
         with self._lock:
@@ -712,6 +785,21 @@ class ContinuousBatchingDecoder:
 
         return len(self._active) + len(self._queue)
 
+    def load_score(self) -> float:
+        """The multi-replica router's routing pressure: the sum of
+        ``load_components``."""
+
+        components = self.load_components()
+        return components["prefill"] + components["decode"]
+
+    def load_components(self) -> Dict[str, float]:
+        """``load_score`` split by phase: ``prefill`` the queued requests
+        (admission work to do), ``decode`` the seated ones (the paged pool
+        counts blocks instead)."""
+
+        with self._lock:
+            return {"prefill": float(len(self._queue)), "decode": float(len(self._active))}
+
     def run(self) -> None:
         """Step until every submitted request has finished."""
 
@@ -724,13 +812,22 @@ class ContinuousBatchingDecoder:
     # -- records -----------------------------------------------------------
 
     def _labels(self, **extra) -> Dict[str, str]:
-        return dict(model=self.model_label, **extra)
+        """{model[, replica][, role]} + extra: the replica key only under
+        the router, the role only when not unified (``/slo`` merges both
+        away)."""
+
+        out = dict(model=self.model_label, **extra)
+        if self.replica_label:
+            out["replica"] = self.replica_label
+        if self.role != "unified":
+            out["role"] = self.role
+        return out
 
     def dispatch(self, phase: str, **attrs):
         """``ledger.dispatch`` with the replica attribute on its span;
         every group of device calls of the pool runs under one."""
 
-        attrs.setdefault("replica", "0")
+        attrs.setdefault("replica", self.replica)
         return self.ledger.dispatch(phase, **attrs)
 
     def _request_span(self, req: _Request, name: str, **attrs):
@@ -741,7 +838,7 @@ class ContinuousBatchingDecoder:
         if self.tracer is None:
             return contextlib.nullcontext(None)
         attrs.setdefault("rid", req.rid)
-        attrs.setdefault("replica", "0")
+        attrs.setdefault("replica", self.replica)
         return self.tracer.start_span(name, trace_id=req.trace_id, attributes=attrs)
 
     def _emit_span(self, req: _Request, name: str, start_mono: float,
@@ -751,33 +848,35 @@ class ContinuousBatchingDecoder:
         if self.tracer is None:
             return
         attrs.setdefault("rid", req.rid)
-        attrs.setdefault("replica", "0")
+        attrs.setdefault("replica", self.replica)
         self.tracer.start_span(
             name, trace_id=req.trace_id, attributes=attrs, start_mono=start_mono,
         ).end(end_mono=end_mono)
 
     def _emit_queue_wait(self, req: _Request) -> None:
-        """queue.wait: submit -> the first admission work, backdated to
-        the submit, once per request."""
+        """queue.wait: this pool's submit -> the first admission work,
+        backdated to the submit, once per request (a handshake's phases
+        have their own spans)."""
 
         if req.queue_waited:
             return
         req.queue_waited = True
-        self._emit_span(req, "queue.wait", req.t_submit_mono, time.monotonic())
+        self._emit_span(req, "queue.wait", req.t_local_mono, time.monotonic())
 
     def _observe_first_token(self, req: _Request, work_start: float) -> None:
-        """The first token reached the host: queue wait (submit -> first
-        device work) and TTFT (submit -> first token), once."""
+        """The first token reached the host: queue wait (this pool's
+        submit -> first device work) and TTFT (the request's submit ->
+        first token), once.  An internal request observes nothing."""
 
         if req.t_first is not None:
             return
         req.t_first = time.perf_counter()
-        wait = max(0.0, work_start - req.t_submit)
+        wait = max(0.0, work_start - req.t_local)
         self.request_log.update(
             req.entry, queue_wait_seconds=round(wait, 6),
             ttft_seconds=round(req.t_first - req.t_submit, 6),
         )
-        if self.metrics is None:
+        if self.metrics is None or req.internal:
             return
         self.metrics.observe_histogram(
             "serve_queue_wait_seconds", wait, exemplar=req.trace_id,
@@ -818,7 +917,7 @@ class ContinuousBatchingDecoder:
             total_seconds=round(t_done - req.t_submit, 6), tpot_seconds=round(tpot, 6),
             tokens=len(req.tokens),
         )
-        if self.metrics is not None:
+        if self.metrics is not None and not req.internal:
             self.metrics.observe_histogram(
                 "serve_time_per_output_token_seconds", tpot, exemplar=req.trace_id,
                 tier=req.tier, **self._labels(mode="pool"),
@@ -1072,21 +1171,41 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
     takes the place of the JAX pool's ``draft_model`` + ``draft_params``
     pair.  A configuration that cannot speculate raises here rather than
     serve non-speculatively.  ``costplane`` shares a cost plane (a
-    server's, over its registry; module docstring)."""
+    server's, over its registry; module docstring).
+
+    ``replica_label`` and ``role`` (``REPLICA_ROLES``) place the pool in a
+    fleet (models/pool_router.py).  ``fabric`` (a
+    ``prefix_cache.PrefixFabric``, or a ``fabric_service.FleetFabric``,
+    which gets the arena's template) is the migration transport: with one,
+    admission pulls the missing tail of a prompt's chain from it (one
+    ``migrate_in`` dispatch) and ``publish_to_fabric`` pushes a prompt's
+    finished blocks into it (one ``migrate_out`` dispatch); a prefill
+    replica needs one."""
 
     def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
                  kv_blocks: Optional[int] = None, kv_block_size: int = 16,
                  reserve: str = "lazy", swap_blocks: Optional[int] = None,
                  age_boost_seconds: float = 30.0,
                  ledger: Optional[DispatchLedger] = None, metrics=None,
-                 model_label: str = "", draft_model: Optional[LlamaLM] = None,
+                 model_label: str = "", replica_label: str = "", role: str = "unified",
+                 fabric=None, draft_model: Optional[LlamaLM] = None,
                  spec_k: int = 4, spec_tiers=("interactive",), costplane=None):
+        if role not in REPLICA_ROLES:
+            raise ValueError(f"role must be one of {REPLICA_ROLES}, got {role!r}")
+        if role == "prefill" and fabric is None:
+            raise ValueError(
+                "a prefill-role replica is pointless without a prefix-cache fabric to "
+                "publish into — pass fabric="
+            )
         if reserve not in ("lazy", "worst-case"):
             raise ValueError(
                 f"reserve must be 'lazy' or 'worst-case', got {reserve!r}"
             )
+        self.role = role
+        self.fabric = fabric
         super().__init__(model, slots=slots, steps_per_sync=steps_per_sync, ledger=ledger,
-                         metrics=metrics, model_label=model_label, costplane=costplane)
+                         metrics=metrics, model_label=model_label,
+                         replica_label=replica_label, costplane=costplane)
         self.reserve = reserve
         self.age_boost_seconds = float(age_boost_seconds)
         self.pmodel = paged_decode_variant(model)
@@ -1109,6 +1228,9 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         self._block_host_bytes = arena_bytes // self.num_blocks
         if self.costplane is not None:
             self.costplane.hbm.register_tree("kv_arena", self._arena)
+        if fabric is not None and hasattr(fabric, "register_template"):
+            # a fleet fabric rebuilds pulled blocks against this arena
+            fabric.register_template(self._arena)
         self.spec_enabled = draft_model is not None
         self.spec_k = int(spec_k)
         self.spec_tiers = tuple(spec_tiers)
@@ -1135,6 +1257,9 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         self.swap = SwapArena(capacity_blocks=swap_blocks)
         self.preemptions = 0
         self.swap_log: "collections.deque[dict]" = collections.deque(maxlen=256)
+        #: one record per fabric copy, as ``swap_log``'s
+        #: (``migrate_out`` / ``migrate_in``)
+        self.migrate_log: "collections.deque[dict]" = collections.deque(maxlen=256)
         dev = self.device
         # device-resident seat state: written at admission and resume,
         # advanced by the step window, reset at retire and preemption —
@@ -1163,7 +1288,8 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         )
         #: one occupancy sample at each gauge refresh
         self.timeline = ArenaTimeline(
-            block_size=bs, usable=self.alloc.usable, replica="0", role=ROLE,
+            block_size=bs, usable=self.alloc.usable, replica=self.replica,
+            role=self.role,
         )
         self._update_kv_gauges()
 
@@ -1292,10 +1418,13 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
             # host RAM pinned by preempted seats' blocks (host arithmetic)
             self.costplane.hbm.set_component(
                 "swap_staging", self.swap.swapped_blocks * self._block_host_bytes,
-                device="host:0")
+                device=f"host:{self.replica}")
         if self.metrics is None:
             return
-        labels = dict(model=self.model_label, replica="0", role=ROLE)
+        # {role} on every kv_blocks_* gauge, unified included, so that an
+        # autoscaler scales the prefill and decode classes apart
+        labels = dict(model=self.model_label, replica=self.replica,
+                      role=self.role)
         for name, value in (("kv_blocks_free", free), ("kv_blocks_total", total),
                             ("kv_blocks_in_use", total - free),
                             ("kv_blocks_committed", total - free),
@@ -1307,6 +1436,26 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
     def _count_swap_bytes(self, direction: str, nbytes: int) -> None:
         if self.metrics is not None and nbytes:
             self.metrics.inc("kv_swap_bytes_total", float(nbytes), direction=direction)
+
+    def _count_migrate_bytes(self, direction: str, nbytes: int,
+                             transport: str = "local") -> None:
+        """``kv_migrate_bytes_total{direction, transport}``: ``http`` marks
+        the bytes that crossed the cross-pod fabric's wire."""
+
+        if self.metrics is not None and nbytes:
+            self.metrics.inc("kv_migrate_bytes_total", float(nbytes), direction=direction,
+                             transport=transport)
+
+    def load_components(self) -> Dict[str, float]:
+        """Block pressure split by phase: ``prefill`` the queued block
+        demand, ``decode`` the blocks live in the arena, each over the
+        usable blocks.  The disaggregated router picks the prefill replica
+        by the first and the decode replica by the second."""
+
+        with self._lock:
+            queued = self._queued_blocks()
+        usable = max(1, self.alloc.usable)
+        return {"prefill": queued / usable, "decode": self.alloc.in_use / usable}
 
     # -- admission ---------------------------------------------------------
 
@@ -1348,6 +1497,11 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
             shared.append(int(bid))
         if shared:
             self.alloc.retain(shared)
+        if self.fabric is not None:
+            # the chain's missing tail through the fabric, after the local
+            # retain, so that a pressured allocation inside the pull never
+            # reclaims a local hit of this plan
+            self._migrate_in_locked(req, keys, shared, p_len)
         total = max(self._commit_blocks(p_len, req.budget), len(shared))
         new = self._alloc_blocks_locked(
             total - len(shared), max_victim_rank=_TIER_RANK[req.tier] - 1,
@@ -1519,17 +1673,20 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         if ev0 is not None:
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
-        self.swap_log.append({
+        log = self.migrate_log if direction.startswith("migrate") else self.swap_log
+        log.append({
             "direction": direction, "blocks": blocks, "bytes": nbytes,
             "host_s": time.perf_counter() - t0,
             "events": None if ev0 is None else (ev0, ev1),
         })
 
-    def _swap_out(self, ids: List[int], arena=None) -> torch.Tensor:
+    def _swap_out(self, ids: List[int], arena=None, direction: str = "out") -> torch.Tensor:
         """Rows ``ids`` of every layer's K and V of ``arena`` (default:
         the target's) as one host tensor [layers, 2, n, Hkv, bs, D]:
         gathered on the device, then one synchronous device->host copy
-        (pinned on CUDA), so the record is complete when this returns."""
+        (pinned on CUDA), so the record is complete when this returns.
+        ``direction`` files the copy's record (``migrate_out``: a fabric
+        publish's)."""
 
         arena = self._arena if arena is None else arena
         mark = self._swap_mark()
@@ -1544,14 +1701,16 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         if self.device.type == "cuda":
             host = torch.empty(shape, dtype=k0.dtype, pin_memory=True)
             host.copy_(buf)
-        self._log_swap("out", len(ids), _nbytes(host), mark)
+        self._log_swap(direction, len(ids), _nbytes(host), mark)
         return host
 
-    def _swap_in(self, host: torch.Tensor, ids: List[int], arena=None) -> None:
+    def _swap_in(self, host: torch.Tensor, ids: List[int], arena=None,
+                 direction: str = "in") -> None:
         """Write a record's host rows into rows ``ids`` of ``arena``
         (default: the target's): one synchronous host->device copy (the
         record may go once this returns), then a scatter per layer's K
-        and V."""
+        and V.  ``direction`` files the copy's record (``migrate_in``: a
+        fabric pull's)."""
 
         arena = self._arena if arena is None else arena
         mark = self._swap_mark()
@@ -1560,7 +1719,151 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         for i, pair in enumerate(arena):
             for j, a in enumerate(pair):
                 a.index_copy_(0, idx, dev[i, j])
-        self._log_swap("in", len(ids), _nbytes(host), mark)
+        self._log_swap(direction, len(ids), _nbytes(host), mark)
+
+    # -- KV-block migration over the prefix-cache fabric --------------------
+
+    def _fabric_host(self, kvs) -> torch.Tensor:
+        """Fabric records' host forms (``fabric_service.host_block``) as
+        one host tensor [layers, 2, n, Hkv, bs, D] in the arena's dtype,
+        the layout ``_swap_in`` uploads."""
+
+        first = kvs[0][0][0]
+        buf = np.empty((len(kvs[0]), 2, len(kvs)) + first.shape[1:], first.dtype)
+        for b, kv in enumerate(kvs):
+            for i, pair in enumerate(kv):
+                for j in (0, 1):
+                    buf[i, j, b] = pair[j][0]
+        if buf.dtype == np.uint16:  # a bf16 block's words
+            return torch.from_numpy(buf.view(np.int16)).view(torch.bfloat16)
+        return torch.from_numpy(buf)
+
+    def _migrate_in_locked(self, req: _Request, keys, shared: List[int], p_len: int) -> None:
+        """Pull the chain's missing tail from the fabric (caller holds the
+        lock; ``shared`` holds the retained local hits and is extended in
+        place).  The records stay pinned from lookup to upload; the pulled
+        blocks are uploaded into fresh ids in one ``migrate_in`` dispatch,
+        published in the local prefix cache (its reference becomes the
+        cache's) and retained once more for the seat: from then on they
+        are local hits.  A shortfall of blocks skips the pull, and the
+        admission recomputes those positions, as it does when a prefill
+        replica died mid-publish."""
+
+        limit = (p_len - 1) // self.block_size
+        fetch = []  # (key, record), chain-consecutive
+        for i in range(len(shared), limit):
+            if self.prefix.peek(keys[i]) is not None:
+                # the local cache still holds this link (an evicted head
+                # with a live tail): pulling it would put over the live
+                # entry and leak its block; the remainder recomputes
+                break
+            rec = self.fabric.get(keys[i], pin=True)
+            if rec is None:
+                break
+            fetch.append((keys[i], rec))
+        if limit > len(shared):
+            # per request, only where something could have been pulled
+            self.fabric.record(bool(fetch))
+        if not fetch:
+            return
+        ids = self._alloc_blocks_locked(len(fetch),
+                                        max_victim_rank=_TIER_RANK[req.tier] - 1)
+        if ids is None:
+            for key, _ in fetch:
+                self.fabric.unpin(key)
+            return
+        n = len(fetch)
+        nbytes = sum(rec["nbytes"] for _, rec in fetch)
+        with self._request_span(req, "migrate", blocks=n, bytes=nbytes):
+            with self.dispatch("migrate_in", rid=req.rid, blocks=n):
+                self._swap_in(self._fabric_host([rec["kv"] for _, rec in fetch]), ids,
+                              direction="migrate_in")
+        for (key, _), bid in zip(fetch, ids):
+            self.prefix.put(key, int(bid))  # the cache owns the allocation
+            self.alloc.retain([int(bid)])  # and the seat one more
+            shared.append(int(bid))
+            self.fabric.unpin(key)
+        pulled = [rec for _, rec in fetch if rec.get("transport") == "http"]
+        nbytes_http = sum(rec["nbytes"] for rec in pulled)
+        self._count_migrate_bytes("in", nbytes - nbytes_http)
+        if pulled:
+            self._count_migrate_bytes("in", nbytes_http, transport="http")
+        self.request_log.add_migrate(req.entry, n)
+        self.request_log.count_dispatch(req.entry, "migrate_in")
+        if pulled:
+            self.request_log.update(req.entry, fabric_peer=pulled[0].get("peer", ""),
+                                    pulled_blocks=len(pulled))
+
+    def publish_to_fabric(self, prompt_ids, *, tier: str = "batch",
+                          trace_id: Optional[str] = None,
+                          timeout: Optional[float] = None) -> Dict[str, int]:
+        """The prefill replica's half of the migration: make every full
+        block of ``prompt_ids`` available in the fabric.  Blocks the
+        fabric holds cost nothing; for the rest an internal budget-1
+        request prefills the prompt through the normal admission
+        (publishing the full blocks in the local prefix cache and retiring
+        at once; its throwaway sample is greedy, so no generator is
+        consumed), then one ``migrate_out`` dispatch gathers the blocks to
+        the host and into the fabric.  Blocks until the internal prefill
+        completes (a driver thread must be stepping this pool); raises
+        TimeoutError past ``timeout``.  Returns {"publishable",
+        "published", "computed"}."""
+
+        if self.fabric is None:
+            raise ValueError("this replica has no prefix-cache fabric to publish into")
+        from tf_operator_tpu_torch.models.fabric_service import block_nbytes, host_block
+
+        prompt = np.array(prompt_ids, np.int32).reshape(-1)
+        n_pub = int(prompt.size) // self.block_size
+        out = {"publishable": n_pub, "published": 0, "computed": 0}
+        if n_pub == 0:
+            return out
+        keys = chain_keys(prompt, self.block_size)[:n_pub]
+        missing = [k for k in keys if k not in self.fabric]
+        self.fabric.record(hit=not missing)
+        if not missing:
+            return out
+        with self._lock:
+            have_local = all(self.prefix.peek(k) is not None for k in missing)
+        if not have_local:
+            rid = self.submit(prompt, 1, tier=tier, trace_id=trace_id, internal=True)
+            if self.result_wait(rid, timeout=timeout) is None:
+                raise TimeoutError(
+                    f"fabric publish prefill timed out after {timeout}s "
+                    "(is this replica's driver thread running?)"
+                )
+            out["computed"] = 1
+        with self._lock:
+            publish = []
+            for k in missing:
+                if k in self.fabric:
+                    continue  # a concurrent publisher won the race
+                bid = self.prefix.peek(k)
+                if bid is None:
+                    # evicted since the admission: publish what survives;
+                    # the decode side recomputes the rest
+                    continue
+                publish.append((k, int(bid)))
+            if not publish:
+                return out
+            bids = [b for _, b in publish]
+            # pinned against reclaim for the gather
+            self.alloc.retain(bids)
+            try:
+                with self.dispatch("migrate_out", blocks=len(bids)):
+                    host = self._swap_out(bids, direction="migrate_out")
+            finally:
+                self.alloc.release(bids)
+            nbytes_total = 0
+            for j, (k, _) in enumerate(publish):
+                kv = host_block([(host[i, 0, j : j + 1], host[i, 1, j : j + 1])
+                                 for i in range(host.shape[0])])
+                nb = block_nbytes(kv)
+                self.fabric.put(k, kv, nb)
+                nbytes_total += nb
+            out["published"] = len(publish)
+            self._count_migrate_bytes("out", nbytes_total)
+        return out
 
     # -- preemption and resume ---------------------------------------------
 
@@ -1614,7 +1917,7 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
         self.preemptions += 1
         if self.metrics is not None:
             self.metrics.inc("serve_preemptions_total", tier=req.tier,
-                             model=self.model_label, replica="0")
+                             model=self.model_label, replica=self.replica)
         self._count_swap_bytes("out", nbytes)
         self._queue.append(req)
         return freed

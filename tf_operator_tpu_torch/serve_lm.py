@@ -90,7 +90,26 @@ refuses to start when the port's own record
 ``chip_smoke.py``'s speculative phase) says speculation is slower than
 the plain pool; ``--speculative-force`` serves it anyway.
 
-The JAX server's ``/debug/fabric`` is not ported.
+Multi-replica and disaggregated serving (the JAX server's flags, which
+need ``--batching``): ``--replicas N`` runs N pool replicas over the one
+model (its weights held and registered once), each with its own arena
+and driver thread (heartbeat ``serving.pool<i>``), behind one admission
+queue (models/pool_router.py: least blocks in use).  ``/metrics`` labels
+each replica's series ``{replica}``, ``/slo`` merges them,
+``/requests`` and ``/debug/arena`` merge the replicas' logs and
+timelines.  ``--roles prefill=1,decode=2`` phase-splits the fleet: a
+prompt with a full block before its last token prefills on a prefill
+replica, which publishes its blocks into a shared host-side
+``PrefixFabric``; a decode replica maps the chain and pulls only its
+missing tail (one ``migrate_in`` dispatch), and TTFT spans the whole
+handshake.  ``--fabric-peers HOST:PORT,...`` (may be empty) and
+``--fabric-port P`` (or ``$TPUJOB_FABRIC_PORT``) make the fabric a
+fleet's: local misses pull published blocks from peers over HTTP
+(models/fabric_service.py, the JAX wire), each request's prompt is
+published before its admission, and a ``FabricServer`` exports this
+process's blocks on ``P`` (any free port when only peers are given).
+``GET /debug/fabric`` reads the fabric (404 without one);
+``/debug/arena`` carries its snapshot.
 
 SLO tiers: the body's ``tier``, else the ``x-slo-tier`` header, else
 ``batch``; anything but ``interactive`` or ``batch`` is a 400.  The
@@ -119,9 +138,7 @@ The flags are the JAX server's but for these differences:
 the port's own, and ``--paged-kernel`` takes ``auto`` and ``on`` (the
 kernel on the card, its plain version for CPU tensors) and refuses
 ``off`` and ``interpret``, because the port never falls back from its
-kernel on the card.  ``--replicas``, ``--roles``, ``--fabric-port`` and
-``--fabric-peers`` are not ported.  The server runs on CUDA unless
-``--device cpu``.
+kernel on the card.  The server runs on CUDA unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -146,8 +163,11 @@ from tf_operator_tpu_torch.models.batching import (
     PagedContinuousBatchingDecoder,
 )
 from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
+from tf_operator_tpu_torch.models.fabric_service import FabricServer, FleetFabric
 from tf_operator_tpu_torch.models.kv_blocks import NotPageableError
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape, llama_tiny
+from tf_operator_tpu_torch.models.pool_router import PoolRouter
+from tf_operator_tpu_torch.models.prefix_cache import PrefixFabric
 from tf_operator_tpu_torch.models.registry import model_from_description
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
 from tf_operator_tpu_torch.ops.quant import state_bytes
@@ -186,8 +206,16 @@ ARENA_SAMPLE_LIMIT = 160
 #: /debug/profile's longest capture (seconds), the JAX server's
 PROFILE_MAX_SECONDS = 30.0
 
-#: the driver thread's heartbeat on the process watchdog
+#: the driver thread's heartbeat on the process watchdog (a fleet's
+#: replica i beats ``serving.pool<i>``)
 POOL_HEARTBEAT = "serving.pool"
+
+#: the fabric server's port a deployment may inject (the JAX bootstrap's
+#: ``ENV_FABRIC_PORT``)
+ENV_FABRIC_PORT = "TPUJOB_FABRIC_PORT"
+
+#: a fleet-mode publish waits this long for its prefill
+PUBLISH_TIMEOUT_S = 120.0
 
 #: the port's measured verdict on speculation: the ``spec_paged_speedup``
 #: row (the speculative pool's interactive decode tokens/s over the plain
@@ -249,25 +277,87 @@ def _records(metrics: Optional[Metrics], tracer: Optional[Tracer]) -> DispatchLe
     return DispatchLedger(metrics=metrics, tracer=tracer)
 
 
+def parse_roles(spec: str) -> "list[str]":
+    """``--roles prefill=1,decode=2`` -> ["prefill", "decode", "decode"]
+    (the JAX server's rules and messages): roles from
+    ``REPLICA_ROLES``; a spec with a prefill replica needs a decode or
+    unified one, and one with a decode replica needs a prefill one."""
+
+    roles: "list[str]" = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        if "=" not in part:
+            raise ValueError(f"--roles entries are role=count, got {part!r}")
+        role, _, count = part.partition("=")
+        role = role.strip()
+        if role not in ("prefill", "decode", "unified"):
+            raise ValueError(f"unknown role {role!r} (prefill|decode|unified)")
+        try:
+            n = int(count)
+        except ValueError:
+            raise ValueError(f"--roles count must be an int, got {count!r}")
+        if n < 0:
+            raise ValueError(f"--roles count must be >= 0, got {n}")
+        roles.extend([role] * n)
+    if not roles:
+        raise ValueError("--roles declared no replicas")
+    if "prefill" in roles and not any(r in ("decode", "unified") for r in roles):
+        raise ValueError(
+            "--roles with prefill replicas needs at least one decode/unified replica "
+            "(prefill replicas never decode)"
+        )
+    if "decode" in roles and "prefill" not in roles:
+        raise ValueError(
+            "--roles with decode replicas needs at least one prefill replica (use "
+            "unified=N for a non-split fleet)"
+        )
+    return roles
+
+
 def make_pool(model: LlamaLM, *, model_label: str = "unknown",
               metrics: Optional[Metrics] = None, tracer: Optional[Tracer] = None,
-              pool_class=PagedContinuousBatchingDecoder,
-              **pool_kw) -> ContinuousBatchingDecoder:
+              pool_class=PagedContinuousBatchingDecoder, replicas: int = 1,
+              roles: Optional[list] = None, fabric_peers: Optional[list] = None,
+              **pool_kw):
     """A pool (``pool_class``: the paged pool, or the contiguous one) with
     its records, as the server serves it: the server's records
     (``_records``) and one ``CostPlane`` over the registry whose compile
     ledger is the process ledger (where the kernels record), with the
     weights registered (the model's, and a draft model's that holds
-    other storage).  ``pool_kw`` are the pool's own arguments."""
+    other storage).  ``pool_kw`` are the pool's own arguments.
 
+    With ``replicas`` > 1 (or ``roles``, one a replica) it is a
+    ``PoolRouter`` over that many pools of the one model, which share the
+    records and the cost plane (the weights registered once, each arena
+    added), labelled ``"0"``, ``"1"``, ...  A prefill role, or
+    ``fabric_peers`` (a list, empty for discovery by announcement), gives
+    the paged replicas one ``PrefixFabric``, made a ``FleetFabric`` over
+    those peers by the second; the contiguous pool takes a label only."""
+
+    n = max(1, int(replicas))
+    role_list = list(roles) if roles else ["unified"] * n
+    if len(role_list) != n:
+        raise ValueError(f"--roles declares {len(role_list)} replicas but --replicas says {n}")
     ledger = _records(metrics, tracer)
     costplane = CostPlane(metrics=ledger.metrics, compiles=default_costplane.compiles)
     draft = pool_kw.get("draft_model")
     costplane.hbm.register_tree("weights", [model] if draft is None else [model, draft])
-    return pool_class(
-        model, ledger=ledger, metrics=ledger.metrics, model_label=model_label,
-        costplane=costplane, **pool_kw,
-    )
+    fabric = None
+    if "prefill" in role_list or fabric_peers is not None:
+        fabric = PrefixFabric(metrics=ledger.metrics, model_label=model_label)
+        if fabric_peers is not None:
+            fabric = FleetFabric(fabric, peers=fabric_peers, metrics=ledger.metrics,
+                                 model_label=model_label)
+    pools = []
+    for i, role in enumerate(role_list):
+        kw = dict(pool_kw, replica_label=str(i) if n > 1 else "")
+        if pool_class is not ContinuousBatchingDecoder:
+            kw.update(role=role, fabric=fabric)
+        pools.append(pool_class(model, ledger=ledger, metrics=ledger.metrics,
+                                model_label=model_label, costplane=costplane, **kw))
+    return pools[0] if n == 1 else PoolRouter(pools, tracer=ledger.tracer)
 
 
 def make_chunked(model: LlamaLM, *, prompt_cache: int = 0,
@@ -343,40 +433,71 @@ def _profiler(device: torch.device):
     return profile(activities=activities)
 
 
-def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
-    """The request handler class over ``decoder``: a pool built by
-    ``make_pool``, or a chunked decoder built by ``make_chunked`` (whose
-    records carry ``model_label``).  ``fatal`` is a pool's decode loop
-    error list: once it holds an entry, waiting requests answer 500
-    instead of hanging.  The process flight recorder attaches the
-    tracer and metrics, and a pool's request log and timeline; the
-    handler's ``alert_engine`` evaluates the default rules over the
-    registry (started by ``main``, not here).  In the chunked mode the
-    handler's cost plane is its own, over the registry and the process
-    compile ledger, with the weights registered, as the JAX server's."""
+def replicas_of(decoder) -> list:
+    """The pools behind ``decoder``: a router's replicas, a pool alone,
+    or none (the chunked decoder)."""
 
-    pool = decoder if isinstance(decoder, ContinuousBatchingDecoder) else None
-    metrics, tracer = decoder.ledger.metrics, decoder.ledger.tracer
+    if isinstance(decoder, PoolRouter):
+        return decoder.pools
+    return [decoder] if isinstance(decoder, ContinuousBatchingDecoder) else []
+
+
+def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
+    """The request handler class over ``decoder``: a pool or a fleet's
+    ``PoolRouter`` built by ``make_pool``, or a chunked decoder built by
+    ``make_chunked`` (whose records carry ``model_label``).  ``fatal`` is
+    the decode loops' error list: once it holds an entry, waiting
+    requests answer 500 instead of hanging.  The process flight recorder
+    attaches the tracer and metrics, and each replica's request log and
+    timeline; the handler's ``alert_engine`` evaluates the default rules
+    over the registry (started by ``main``, not here).  In the chunked
+    mode the handler's cost plane is its own, over the registry and the
+    process compile ledger, with the weights registered, as the JAX
+    server's.  ``Handler.pool_fabric`` is the replicas' fabric (None
+    without one), which ``main`` exports."""
+
+    replicas = replicas_of(decoder)
+    router = decoder if isinstance(decoder, PoolRouter) else None
+    pool = decoder if replicas else None
+    head = replicas[0] if replicas else decoder
+    metrics, tracer = head.ledger.metrics, head.ledger.tracer
     if metrics is None or tracer is None:
         raise ValueError("serve_lm serves a decoder built with its records "
                          "(make_pool, make_chunked)")
-    max_len = decoder.max_len
+    max_len = head.max_len
     if pool is not None:
-        model_label, costplane = pool.model_label, pool.costplane
+        model_label, costplane = head.model_label, head.costplane
     else:
         model_label = model_label or "unknown"
         costplane = CostPlane(metrics=metrics, compiles=default_costplane.compiles)
         costplane.hbm.register_tree("weights", [decoder.dmodel])
-    profiler = ProfileCapture(decoder.device)
+    fabric = head.fabric if pool is not None else None
+    profiler = ProfileCapture(head.device)
     recorder = flight.default_recorder
     recorder.attach_tracer(tracer)
     recorder.attach_metrics(metrics)
-    timeline = pool.timeline if pool is not None else None
-    if pool is not None:
-        recorder.attach_request_log(pool.request_log)
-    if timeline is not None:
-        recorder.attach_arena_timeline(timeline)
+    for p in replicas:
+        recorder.attach_request_log(p.request_log)
+        if p.timeline is not None:
+            recorder.attach_arena_timeline(p.timeline)
     alert_engine = AlertEngine(default_rules(), metrics=metrics, recorder=recorder)
+
+    def recent_requests(limit: int = 50) -> list:
+        if router is not None:
+            return router.recent_requests(limit)
+        return pool.request_log.recent(limit) if pool is not None else []
+
+    def request_autopsy(req_id: str):
+        if router is not None:
+            return router.request_autopsy(req_id)
+        return pool.request_log.get(req_id) if pool is not None else None
+
+    def arena_snapshots() -> list:
+        return [p.timeline.snapshot(ARENA_SAMPLE_LIMIT) for p in replicas
+                if p.timeline is not None]
+
+    def in_flight() -> int:
+        return sum(p.in_flight() for p in replicas)
 
     def slo() -> dict:
         def gauge_sum(name: str) -> float:
@@ -385,7 +506,7 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
 
         return {
             "model": model_label,
-            "replicas": 1,
+            "replicas": max(1, len(replicas)),
             "histograms": {
                 fam: [{**dict(labels), **finite_summary(summary)}
                       for labels, summary in sorted(
@@ -410,10 +531,11 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
     def extra_gauges() -> str:
         # the JAX server's lines after the registry's families: a
         # speculating pool's derived gauges (the serve_spec_*_total
-        # counters ride the registry), the chunked decoder's hits
+        # counters ride the registry; a fleet's router has none), the
+        # chunked decoder's hits
         if pool is None:
             return f"serve_prompt_cache_hits {decoder.prompt_cache_hits}\n"
-        if not pool.spec_enabled:
+        if router is not None or not pool.spec_enabled:
             return ""
         snap = pool.spec_snapshot()
         lines = [f"serve_spec_acceptance_rate {snap['acceptance_rate']:.4f}"]
@@ -467,11 +589,9 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
                     return self._reply(404, {"error": "unknown trace id"})
                 return self._reply(200, t)
             if path == "/requests":
-                return self._reply(200, {
-                    "requests": pool.request_log.recent(50) if pool is not None else []})
+                return self._reply(200, {"requests": recent_requests(50)})
             if path.startswith("/requests/"):
-                entry = (pool.request_log.get(path[len("/requests/"):])
-                         if pool is not None else None)
+                entry = request_autopsy(path[len("/requests/"):])
                 if entry is not None:
                     return self._reply(200, entry)
                 return self._reply(404, {
@@ -480,10 +600,15 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
                              "request_id / x-trace-id header)"})
             if path == "/debug/arena":
                 return self._reply(200, {
-                    "replicas": [] if timeline is None else [
-                        timeline.snapshot(ARENA_SAMPLE_LIMIT)],
-                    "fabric": None,
+                    "replicas": arena_snapshots(),
+                    "fabric": fabric.snapshot() if fabric is not None else None,
                 })
+            if path == "/debug/fabric":
+                if fabric is None:
+                    return self._reply(404, {
+                        "error": "no prefix fabric (start with --roles prefill=... or "
+                                 "--fabric-peers)"})
+                return self._reply(200, {"model": model_label, "fabric": fabric.snapshot()})
             if path == "/slo":
                 return self._reply(200, slo())
             if path == "/alerts":
@@ -517,7 +642,7 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
                         return self._reply(400, {"error": "seconds must be a number"})
             if not 0.0 < seconds <= PROFILE_MAX_SECONDS:
                 return self._reply(400, {"error": "seconds must be in (0, 30]"})
-            if pool is not None and pool.in_flight() == 0:
+            if pool is not None and in_flight() == 0:
                 return self._reply(503, {
                     "error": "decode loop idle: no active seats or queued requests to "
                              "profile — send traffic first, then re-request"})
@@ -609,7 +734,7 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
                 span.set_attribute("max_new_tokens", n_new)
                 generator = None
                 if temperature > 0.0:
-                    generator = torch.Generator(device=decoder.device).manual_seed(seed)
+                    generator = torch.Generator(device=head.device).manual_seed(seed)
                 if pool is None:
                     return self._chunked(span, text, ids, n_new, temperature, top_k,
                                          generator, seed, stop)
@@ -619,6 +744,21 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
                         "error": f"top_k must be in [1, {TOP_K_MAX}] in "
                                  "--batching mode (static top-k width)"})
                 span.set_attribute("tier", tier)
+                if fabric is not None and router is None:
+                    # fleet mode, one replica: this prompt's full blocks
+                    # become fleet-visible before its admission (the first
+                    # pod to see a prefix prefills and publishes it; the
+                    # others find it and pull it).  A failed publish never
+                    # fails the request: the admission recomputes
+                    try:
+                        pub = pool.publish_to_fabric(
+                            ids.astype(np.int32), tier=tier, trace_id=span.trace_id,
+                            timeout=PUBLISH_TIMEOUT_S)
+                        span.set_attribute("fabric_published", pub["published"])
+                    except Exception as exc:
+                        metrics.inc("serve_fabric_publish_failures_total",
+                                    model=model_label)
+                        span.set_attribute("fabric_publish_error", repr(exc))
                 rid = pool.submit(
                     ids.astype(np.int32), n_new, temperature=temperature,
                     top_k=top_k, generator=generator, tier=tier,
@@ -658,6 +798,7 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
     Handler.alert_engine = alert_engine
     Handler.costplane = costplane
     Handler.profiler = profiler
+    Handler.pool_fabric = fabric
     return Handler
 
 
@@ -672,40 +813,48 @@ def _cut(sample: str, stop: Optional[str]) -> str:
 
 
 class Server:
-    """The HTTP server and, for a pool, its decode loop thread, started
-    together and stopped together.  ``alert_engine`` is the handler's,
-    not started: ``main`` starts it.  A pool's driver thread beats the
-    ``serving.pool`` heartbeat on the process watchdog; the chunked mode
-    has no driver thread (each request decodes on its own thread) and so
-    no heartbeat.  ``model_label`` labels a chunked decoder's records
-    (a pool carries its own)."""
+    """The HTTP server and, for a pool, one decode loop thread a replica,
+    started together and stopped together.  ``alert_engine`` is the
+    handler's, not started: ``main`` starts it.  A pool's driver thread
+    (``serve.pool``) beats the ``serving.pool`` heartbeat on the process
+    watchdog; a fleet's replica i runs ``serve.pool<i>`` beating
+    ``serving.pool<i>``.  The chunked mode has no driver thread (each
+    request decodes on its own thread) and so no heartbeat.
+    ``model_label`` labels a chunked decoder's records (a pool carries
+    its own).  ``pool`` is the pool or the fleet's router, ``replicas``
+    its pools and ``fabric`` their fabric."""
 
     def __init__(self, decoder, host: str = "127.0.0.1", port: int = 0,
                  model_label: Optional[str] = None):
         self.decoder = decoder
-        self.pool = decoder if isinstance(decoder, ContinuousBatchingDecoder) else None
+        self.replicas = replicas_of(decoder)
+        self.pool = decoder if self.replicas else None
         self.fatal: list = []
         handler = build_handler(decoder, self.fatal, model_label)
         self.alert_engine = handler.alert_engine
         self.profiler = handler.profiler
+        self.fabric = handler.pool_fabric
         self.httpd = ThreadingHTTPServer((host, port), handler)
         self.port = self.httpd.server_address[1]
         self._stop = threading.Event()
         self._threads = [threading.Thread(target=self.httpd.serve_forever,
                                           name="serve.http", daemon=True)]
-        if self.pool is not None:
-            self._threads.insert(0, threading.Thread(target=self._drive, name="serve.pool",
-                                                     daemon=True))
+        one = len(self.replicas) == 1
+        for i, p in enumerate(self.replicas):
+            suffix = "" if one else str(i)
+            self._threads.insert(i, threading.Thread(
+                target=self._drive, args=(p, POOL_HEARTBEAT + suffix),
+                name="serve.pool" + suffix, daemon=True))
 
-    def _drive(self) -> None:
+    def _drive(self, pool, heartbeat: str) -> None:
         # the liveness-critical thread: a wedge here hangs every queued
         # client, so it beats the process watchdog's heartbeat
-        hb = default_watchdog.register(POOL_HEARTBEAT)
+        hb = default_watchdog.register(heartbeat)
         try:
             while not self._stop.is_set():
                 try:
                     hb.beat()
-                    if self.pool.step() == 0:
+                    if pool.step() == 0:
                         time.sleep(0.005)
                 except Exception as exc:  # a dead decode loop must surface as 500s
                     traceback.print_exc()
@@ -713,8 +862,8 @@ class Server:
                     return
         finally:
             # another server's driver may have registered the name since
-            if default_watchdog.heartbeats().get(POOL_HEARTBEAT) is hb:
-                default_watchdog.unregister(POOL_HEARTBEAT)
+            if default_watchdog.heartbeats().get(heartbeat) is hb:
+                default_watchdog.unregister(heartbeat)
 
     def start(self) -> "Server":
         for t in self._threads:
@@ -794,6 +943,27 @@ def build_parser() -> argparse.ArgumentParser:
                     help="serve through a continuous-batching pool of this many slots "
                     "(the paged pool; the contiguous slot pool for a rolling-window "
                     "model); 0 = one request at a time through the chunked decoder")
+    ap.add_argument("--replicas", type=int, default=1, metavar="N",
+                    help="run N pool replicas behind one admission queue "
+                    "(models/pool_router.py: least blocks in use; per-replica gauges on "
+                    "/metrics, merged quantiles on /slo).  Requires --batching")
+    ap.add_argument("--roles", default=None, metavar="ROLE=N,...",
+                    help="phase-split the replica fleet, e.g. 'prefill=1,decode=2': prefill "
+                    "replicas prefill prompts and publish their blocks into the prefix-cache "
+                    "fabric, decode replicas map the published chain (pulling the missing "
+                    "tail: migrate_in) and decode.  Implies --replicas = the total; requires "
+                    "--batching and a pageable model.  Default: every replica 'unified'")
+    ap.add_argument("--fabric-port", type=int, default=None, metavar="PORT",
+                    help="export this process's prefix-fabric store on 127.0.0.1:PORT "
+                    "(GET /fabric/index, /fabric/blocks/<key>, POST /fabric/publish; "
+                    "models/fabric_service.py).  Default: $TPUJOB_FABRIC_PORT when set, "
+                    "else no fabric server.  Requires --batching")
+    ap.add_argument("--fabric-peers", default=None, metavar="HOST:PORT,...",
+                    help="static peers of the cross-pod KV fabric: local prefix-cache misses "
+                    "pull published blocks from them over HTTP (one migrate_in dispatch, "
+                    "hash-checked, recompute on any failure), and local publishes announce "
+                    "to them.  May be empty ('') for discovery by announcement.  Requires "
+                    "--batching")
     ap.add_argument("--kv-blocks", type=int, default=None)
     ap.add_argument("--kv-block-size", type=int, default=16)
     ap.add_argument("--kv-swap-blocks", type=int, default=None, metavar="N",
@@ -842,6 +1012,50 @@ def slots_of(args: argparse.Namespace) -> int:
     return args.batching
 
 
+def fleet_of(args: argparse.Namespace) -> dict:
+    """The fleet the flags describe, checked as the JAX server checks
+    them (its exits and messages): ``replicas``, ``roles`` (None or one a
+    replica), ``fabric_port`` (``--fabric-port``, else a positive
+    ``$TPUJOB_FABRIC_PORT`` under ``--batching``, else None) and
+    ``fabric_peers`` (None, or a list: empty when only a fabric port was
+    given, for discovery by announcement)."""
+
+    replicas = args.replicas
+    if replicas > 1 and not args.batching:
+        raise SystemExit("--replicas requires --batching SLOTS")
+    roles = None
+    if args.roles:
+        if not args.batching:
+            raise SystemExit("--roles requires --batching SLOTS")
+        try:
+            roles = parse_roles(args.roles)
+        except ValueError as exc:
+            raise SystemExit(f"bad --roles: {exc}")
+        if replicas > 1 and replicas != len(roles):
+            raise SystemExit(f"--roles declares {len(roles)} replicas but --replicas says "
+                             f"{replicas} — drop one of the flags")
+        replicas = len(roles)
+    fabric_port = args.fabric_port
+    if fabric_port is None:
+        try:
+            env_port = int(os.environ.get(ENV_FABRIC_PORT, "0") or "0")
+        except ValueError:
+            env_port = 0
+        if env_port > 0 and args.batching:
+            fabric_port = env_port
+    peers = None
+    if args.fabric_peers is not None:
+        if not args.batching:
+            raise SystemExit("--fabric-peers requires --batching SLOTS")
+        peers = [p.strip() for p in args.fabric_peers.split(",") if p.strip()]
+    if args.fabric_port is not None and not args.batching:
+        raise SystemExit("--fabric-port requires --batching SLOTS")
+    if fabric_port is not None and peers is None:
+        peers = []  # fleet mode: discovery by announcement
+    return {"replicas": max(1, replicas), "roles": roles, "fabric_port": fabric_port,
+            "fabric_peers": peers}
+
+
 def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
     """The int8 self-draft of ``--speculative``: the served model when it
     already holds int8 kernels, else the same weights quantized from
@@ -858,14 +1072,17 @@ def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
 
 def build_pool(model: LlamaLM, args: argparse.Namespace,
                metrics: Optional[Metrics] = None,
-               draft: Optional[LlamaLM] = None) -> PagedContinuousBatchingDecoder:
+               draft: Optional[LlamaLM] = None, fleet: Optional[dict] = None):
     """The paged pool the flags describe (the JAX server's: lazy
-    reservation), with its records (``make_pool``) on ``metrics``.  Under
-    ``--speculative`` ``draft`` is the draft model (``load_draft``); the
-    tiers of ``--spec-tiers`` reach the pool unvalidated, so that its
-    constructor fails startup on a typo rather than serve
-    non-speculatively.  A model the paged pool refuses raises
-    ``NotPageableError``."""
+    reservation), with its records (``make_pool``) on ``metrics``; a
+    ``PoolRouter`` over the fleet of ``--replicas`` / ``--roles``, with
+    the fabric of ``--roles`` / ``--fabric-peers`` (``fleet``, or
+    ``fleet_of(args)`` when None).  Under
+    ``--speculative`` ``draft`` is the draft model (``load_draft``), each
+    replica with its own draft arena; the tiers of ``--spec-tiers`` reach
+    the pool unvalidated, so that its constructor fails startup on a typo
+    rather than serve non-speculatively.  A model the paged pool refuses
+    raises ``NotPageableError``."""
 
     spec_kw = {}
     if args.speculative:
@@ -874,8 +1091,10 @@ def build_pool(model: LlamaLM, args: argparse.Namespace,
         spec_kw = dict(draft_model=draft, spec_k=args.spec_k)
         if args.spec_tiers is not None:
             spec_kw["spec_tiers"] = tuple(args.spec_tiers.split(","))
+    fleet = fleet or fleet_of(args)
     return make_pool(
         model, model_label=model_label_of(args), metrics=metrics,
+        replicas=fleet["replicas"], roles=fleet["roles"], fabric_peers=fleet["fabric_peers"],
         slots=slots_of(args), steps_per_sync=args.steps_per_sync,
         kv_blocks=args.kv_blocks, kv_block_size=args.kv_block_size,
         swap_blocks=args.kv_swap_blocks, **spec_kw,
@@ -883,16 +1102,19 @@ def build_pool(model: LlamaLM, args: argparse.Namespace,
 
 
 def build_decoder(model: LlamaLM, args: argparse.Namespace,
-                  metrics: Optional[Metrics] = None, draft: Optional[LlamaLM] = None):
+                  metrics: Optional[Metrics] = None, draft: Optional[LlamaLM] = None,
+                  fleet: Optional[dict] = None):
     """The decoder the flags describe, as the JAX server places them:
-    the chunked decoder for ``--batching 0``; the paged pool
+    the chunked decoder for ``--batching 0``; the paged pool or fleet
     (``build_pool``) for more slots; and, where the paged pool refuses
-    the model (a rolling-window cache), the contiguous slot pool after
-    the JAX server's line.  ``--prompt-cache`` beside a pool and
-    ``--speculative`` on a model the paged pool refuses raise the JAX
-    server's errors."""
+    the model (a rolling-window cache), the contiguous slot pool (as many
+    replicas, a label each) after the JAX server's line.
+    ``--prompt-cache`` beside a pool, and ``--speculative``, a fabric or
+    ``--roles`` on a model the paged pool refuses raise the JAX server's
+    errors."""
 
     slots = slots_of(args)
+    fleet = fleet or fleet_of(args)
     if slots <= 0:
         return make_chunked(model, prompt_cache=args.prompt_cache, metrics=metrics)
     if args.prompt_cache:
@@ -901,21 +1123,43 @@ def build_decoder(model: LlamaLM, args: argparse.Namespace,
             "the shared PREFIX cache (models/prefix_cache.py) instead — drop one of the "
             "flags"
         )
+    if fleet["roles"]:
+        print(f"disaggregated roles: {','.join(fleet['roles'])}", flush=True)
     try:
-        return build_pool(model, args, metrics, draft)
+        return build_pool(model, args, metrics, draft, fleet)
     except NotPageableError as exc:
         if args.speculative:
             raise ValueError(f"--speculative requires the paged pool: {exc}") from exc
+        if (fleet["roles"] and "prefill" in fleet["roles"]) or \
+                fleet["fabric_peers"] is not None:
+            # the fabric is block-granular: no contiguous fleet under it
+            raise ValueError(f"--roles requires the paged pool: {exc}") from exc
         print(f"paged pool unavailable ({exc}); serving the contiguous slot pool",
               flush=True)
         return make_pool(model, model_label=model_label_of(args), metrics=metrics,
-                         pool_class=ContinuousBatchingDecoder, slots=slots,
-                         steps_per_sync=args.steps_per_sync)
+                         pool_class=ContinuousBatchingDecoder, replicas=fleet["replicas"],
+                         slots=slots, steps_per_sync=args.steps_per_sync)
+
+
+def start_fabric_server(server: Server, fleet: dict) -> Optional[FabricServer]:
+    """In fleet mode (``fleet_of``'s ``fabric_peers`` not None), a
+    ``FabricServer`` over ``server``'s fabric on the fleet's fabric port
+    (any free one when None), its address stamped as the fabric's
+    advertise; else None."""
+
+    if server.fabric is None or fleet["fabric_peers"] is None:
+        return None
+    fabric_server = FabricServer(server.fabric, port=fleet["fabric_port"] or 0).start()
+    server.fabric.set_advertise(fabric_server.addr)
+    print(f"fabric server on {fabric_server.addr} "
+          f"(peers: {','.join(fleet['fabric_peers']) or 'announce-only'})", flush=True)
+    return fabric_server
 
 
 def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     refuse_speculative(args)
+    fleet = fleet_of(args)  # the flag errors exit before the weights load
     device = resolve_device(args.device)
     model = load_model(
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
@@ -929,8 +1173,9 @@ def main(argv: Optional[list] = None) -> int:
     flight.install(metrics=metrics)
     # TPUJOB_WATCHDOG=1 adds the stall monitor over the same registry
     maybe_start_from_env(metrics=metrics)
-    server = Server(build_decoder(model, args, metrics, draft), port=args.port,
+    server = Server(build_decoder(model, args, metrics, draft, fleet), port=args.port,
                     model_label=model_label_of(args)).start()
+    fabric_server = start_fabric_server(server, fleet)
     server.alert_engine.start()
     print(f"serving on 127.0.0.1:{server.port} ({device})", flush=True)
     try:
@@ -942,6 +1187,9 @@ def main(argv: Optional[list] = None) -> int:
         return 0
     finally:
         server.alert_engine.stop()
+        if fabric_server is not None:
+            fabric_server.stop()
+            server.fabric.stop()
         server.close()
 
 
