@@ -120,6 +120,27 @@ Phases, in order; any failure exits non-zero before the result line:
    together), and the one-step parity: the first step's loss and grad
    norm through the kernels against the same step with the plain
    attention, same weights and batch.
+5b. the operator's multi-process jobs (``phase_multiprocess``), each
+   rank a process spawned here with the ``TPUJOB_*`` environment written
+   here, all on the one card (so gloo: NCCL refuses two ranks on one
+   GPU); the kernels are phase 2's builds.  (1) 2 ranks:
+   ``dist_psum`` on CUDA tensors (the reference's line), then
+   ``psum_hierarchical`` over fsdp against the flat all-reduce on card
+   tensors (``PSUM_ATOL``) and a 64 MiB sync probe.  (2) llama-wide at
+   full width (12 layers, seq 2048) through ``llama_pretrain``: one
+   process on 8 rows (the yardstick), one process on 4 rows (memory
+   only), then 2 ranks over ``{"sp": 1, "fsdp": 2}`` at 4 rows each, 4
+   steps (``phase_llama_fsdp``); each rank's losses against the
+   yardstick's (``DIST_LOSS_RTOL``) and its gathered weights against
+   the yardstick's leaf by leaf (``DIST_WEIGHT_RTOL``), K1, K2 and K3 =
+   12 x 4 launches a rank and no plain attention; prints per rank the
+   step wall, the collectives' calls, bytes and host seconds by stage,
+   the training state it holds between steps (``resident_bytes``) and
+   ``max_memory_allocated`` beside the 4-row process's.  (3) ``dist_multislice`` as 2 slices x 2
+   hosts (``MEGASCALE_*`` / ``TPU_WORKER_*`` written here), after
+   ``psum_hierarchical`` through all three stages on card tensors: the
+   reference's line on every rank, and the ``MULTISLICE_LEDGER`` with
+   ``dcn_bytes_ratio`` <= 1 / intra + 1e-3.
 7. serving at full width: ``llama_7b_shape`` with seeded bf16
    weights, the paged pool (8 slots, max_len 2048, bs 16, 8 steps per
    sync) behind ``serve_lm``'s HTTP server on 127.0.0.1:0; 8 concurrent
@@ -3476,6 +3497,282 @@ def phase_parity(args, batch):
     return rec
 
 
+#: phase 5b's llama-wide job: steps and rows a rank (the one-process
+#: yardstick trains on both ranks' rows at once); every step is resolved
+#: (K = 1), so the steady step wall is the resolves' slope after the
+#: first step
+DIST_STEPS = 4
+DIST_BATCH = 4
+#: phase 5b: each loss of the 2-rank fsdp run against the one-process
+#: run on the same global batch, relative.  bf16 compute: each rank's
+#: weight gradients are rounded to bf16 over its 4 rows where the one
+#: process rounds them over all 8, and Adam carries that into the
+#: weights; read 1.0e-5 over 4 steps and 1.3e-4 over 6
+DIST_LOSS_RTOL = 1e-3
+#: the gathered weights after the run against the yardstick's, leaf by
+#: leaf: the largest over the leaves of |w - w_one| / |w_one| (L2 norms);
+#: read 1.3e-3 (a query kernel).  A sync that drops the other rank's
+#: gradients (chip_fault_probe.py) read 9.0e-2 here and 8.7e-3 on the
+#: losses
+DIST_WEIGHT_RTOL = 1e-2
+#: the psum checks' bound, float32 sums of 2 or 4 terms in another order
+PSUM_ATOL = 1e-5
+PSUM_SHAPES = [(1024, 33), (4097,), (16, 8, 4), (2048, 64)]
+
+
+def _rank_env(rank, n, port, extra=None):
+    """The ``TPUJOB_*`` environment of rank ``rank`` in a job of ``n``
+    processes on this host, its coordinator at 127.0.0.1:``port``."""
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("TPUJOB_", "MEGASCALE_", "TPU_WORKER"))}
+    env.update({"TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                "TPUJOB_NUM_PROCESSES": str(n), "TPUJOB_PROCESS_ID": str(rank),
+                "TPUJOB_REPLICA_TYPE": "worker", "TPUJOB_REPLICA_INDEX": str(rank),
+                "TPUJOB_NAME": "chip-smoke"})
+    env.update(extra(rank) if extra else {})
+    return env
+
+
+def _run_ranks(n, code, tag, extra=None, timeout=600):
+    """``python -c code`` as ranks 0..n-1 of one job (``n`` = 0: one
+    process outside any job), all started together from the repo root;
+    returns each rank's ``RANK {...}`` record and its output lines."""
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    envs = ([_rank_env(r, n, port, extra) for r in range(n)] if n else
+            [{k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}])
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for env in envs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = out.splitlines()
+        if p.returncode != 0:
+            raise AssertionError(f"{tag}: rank {r} exited {p.returncode}: {lines[-40:]}")
+        got = [ln for ln in lines if ln.startswith("RANK ")]
+        recs.append(dict(json.loads(got[-1][5:]), lines=lines) if got else {"lines": lines})
+    log(f"{tag}: {max(1, n)} process(es) in {wall:.1f} s")
+    return recs
+
+
+def _check_psum(mesh, device, tag):
+    """``psum_hierarchical`` on card tensors against the flat all-reduce
+    (bucketed leaves whole, the last leaf fsdp-sharded along dim 0),
+    and the sync probe's walls."""
+
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.parallel import collectives
+
+    rank = dist.get_rank()
+    g = torch.Generator(device=device).manual_seed(rank)
+    xs = [torch.randn(s, generator=g, device=device) for s in PSUM_SHAPES]
+    specs = [None] * (len(xs) - 1) + [("fsdp", None)]
+    hier = collectives.psum_hierarchical([x.clone() for x in xs], mesh, shardings=specs,
+                                         bucket_bytes=64 << 10)
+    flat = [x.clone() for x in xs]
+    for x in flat:
+        dist.all_reduce(x)
+    fsdp = mesh.shape["fsdp"]
+    shard = flat[-1].chunk(fsdp, 0)[mesh.index(("fsdp",), rank)]
+    err = max([(h - f).abs().max().item() for h, f in zip(hier[:-1], flat[:-1])]
+              + [(hier[-1] - shard).abs().max().item()])
+    if not err <= PSUM_ATOL or any(h.device != torch.device(device) for h in hier):
+        raise AssertionError(f"{tag}: psum_hierarchical off the flat all-reduce by {err}")
+    probe = collectives.measure_sync_seconds(mesh, device, nbytes=64 << 20, repeats=3)
+    return {"psum_max_abs_err": err, "sync_probe": probe}
+
+
+def rank_psum():
+    """Phase 5b's 2-rank job: ``dist_psum`` on CUDA tensors, then
+    ``psum_hierarchical`` over fsdp on card tensors."""
+
+    from tf_operator_tpu_torch import dist_psum
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime.bootstrap import from_env, initialize
+
+    assert dist_psum.main([]) == 0
+    ctx = initialize("cuda")
+    rec = _check_psum(make_mesh({"fsdp": -1}), ctx.device, "2-rank psum")
+    print("RANK " + json.dumps(dict(rec, rank=ctx.process_id, backend=ctx.backend,
+                                    device=str(ctx.device), job=from_env().job_name)),
+          flush=True)
+
+
+def rank_multislice():
+    """Phase 5b's 4-rank job (2 slices x 2 hosts): ``psum_hierarchical``
+    through all three stages on card tensors, then ``dist_multislice``."""
+
+    from tf_operator_tpu_torch import dist_multislice
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.runtime.bootstrap import initialize
+
+    ctx = initialize("cuda")
+    rec = _check_psum(make_mesh({"dp": 2, "fsdp": -1}), ctx.device, "4-rank psum")
+    assert dist_multislice.main([]) == 0
+    print("RANK " + json.dumps(dict(rec, rank=ctx.process_id, backend=ctx.backend)),
+          flush=True)
+
+
+def rank_llama(data_dir, batch_per_device, save=None, compare=None):
+    """One process of phase 5b's llama-wide run through ``llama_pretrain``
+    (a rank of the fsdp job, or a one-process run): its losses, K1-K3
+    launches, step wall, collectives by stage, the training state it
+    holds between steps, peak memory.  ``save``: write the weights
+    after the run there; ``compare``: (rank 0) hold the gathered
+    weights against the ones written there, leaf by leaf."""
+
+    from tf_operator_tpu_torch import llama_pretrain
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+    from tf_operator_tpu_torch.runtime.harness import gather_params
+
+    args = llama_pretrain.parse_args([
+        "--model", "llama-wide", "--seq-len", "2048", "--batch-per-device",
+        str(batch_per_device), "--steps", str(DIST_STEPS), "--steps-per-sync", "1",
+        "--data-dir", data_dir, "--generate", "0"])
+    _build.launches.clear()
+    fa.plain_calls.clear()
+    out = llama_pretrain.run(args)
+    torch.cuda.synchronize()
+    launches, plain = dict(_build.launches), dict(fa.plain_calls)
+    trainer = out["trainer"]
+    resident = trainer.resident_bytes()
+    peak = torch.cuda.max_memory_allocated()
+    params = gather_params(trainer)
+    rank, n = world()
+    rec = {"rank": rank, "world": n, "losses": out["losses"],
+           "launches": {k: launches.get(k, 0) for k in FLASH_KERNELS}, "plain_calls": plain,
+           "step_ms": _steady_step_s(out["resolved_at"]) * 1e3, "wall_s": out["wall_s"],
+           "collectives": trainer.collective_stats.snapshot() if n > 1 else {},
+           "resident_bytes": resident, "max_memory_allocated_gib": peak / 2**30}
+    if save:
+        torch.save({k: v.cpu() for k, v in params.items()}, save)
+    if compare and rank == 0:
+        want = torch.load(compare)
+        rel = {k: float((params[k].float() - w.to(params[k].device)).norm()
+                        / w.to(params[k].device).norm()) for k, w in want.items()}
+        leaf = max(rel, key=rel.get)
+        rec["weights"] = {"leaves": len(rel), "same_names": sorted(rel) == sorted(params),
+                          "max_rel": rel[leaf], "max_leaf": leaf}
+    print("RANK " + json.dumps(rec), flush=True)
+
+
+def phase_llama_fsdp(tmp, card):
+    """Phase 5b (2): llama-wide at full width, one process on the global
+    batch (the yardstick) and on 4 rows (memory), then 2 ranks over
+    fsdp 2; raises with the readings if a rank is off the yardstick."""
+
+    data_dir = os.path.join(tmp, "text")
+    yard = os.path.join(tmp, "yardstick.pt")
+    code = "import chip_smoke as c; c.rank_llama({!r}, {}, save={!r}, compare={!r})"
+    one = _run_ranks(0, code.format(data_dir, 2 * DIST_BATCH, yard, None),
+                     "llama-wide yardstick")[0]
+    one4 = _run_ranks(0, code.format(data_dir, DIST_BATCH, None, None),
+                      "llama-wide one process, 4 rows")[0]
+    ranks = _run_ranks(2, code.format(data_dir, DIST_BATCH, None, yard), "llama-wide fsdp 2")
+    want = DIST_STEPS * 12
+    rows, bad = [], []
+    for rec in ranks:
+        rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], one["losses"])]
+        rows.append({k: rec[k] for k in ("rank", "world", "launches", "step_ms", "wall_s",
+                                        "collectives", "resident_bytes",
+                                        "max_memory_allocated_gib")}
+                    | {"loss_rel_max": max(rel), "losses": rec["losses"]})
+        if rec["world"] != 2 or len(rec["losses"]) != DIST_STEPS:
+            raise AssertionError(f"llama-wide fsdp 2: rank {rec['rank']}: {rec}")
+        if any(rec["launches"][k] != want for k in FLASH_KERNELS) or sum(
+                rec["plain_calls"].values()):
+            raise AssertionError(f"llama-wide fsdp 2: rank {rec['rank']} launched "
+                                 f"{rec['launches']} (want {want} each), plain "
+                                 f"{rec['plain_calls']}")
+        if not max(rel) <= DIST_LOSS_RTOL:
+            bad.append(f"rank {rec['rank']} losses {rec['losses']} against {one['losses']}: "
+                       f"{max(rel):.3g} relative")
+    weights = ranks[0]["weights"]
+    rows[0]["weights"] = weights
+    if not (weights["same_names"] and weights["max_rel"] <= DIST_WEIGHT_RTOL):
+        bad.append(f"weights against the yardstick's {weights}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        bad.append("the ranks' global losses differ")
+    summary = {
+        "yardstick": {k: one[k] for k in ("losses", "step_ms", "wall_s", "resident_bytes",
+                                          "max_memory_allocated_gib")},
+        "one_process_4_rows": {k: one4[k] for k in ("resident_bytes",
+                                                    "max_memory_allocated_gib")},
+        "ranks": rows, "loss_rtol": DIST_LOSS_RTOL, "weight_rtol": DIST_WEIGHT_RTOL}
+    log(f"llama-wide fsdp 2 ({card}) " + json.dumps(summary))
+    if bad:
+        raise AssertionError("llama-wide fsdp 2 off the yardstick: " + "; ".join(bad))
+    return summary
+
+
+def phase_multiprocess(card):
+    """Phase 5b: the operator's multi-process jobs on the one card, each
+    rank a process spawned here with the ``TPUJOB_*`` environment written
+    here (the kernels were built by phase 2; a rank loads them)."""
+
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    summary = {}
+    try:
+        # 1. two ranks: dist_psum on CUDA tensors and the psum plan
+        recs = _run_ranks(2, "import chip_smoke as c; c.rank_psum()", "2-rank psum")
+        for r, rec in enumerate(recs):
+            line = f"process {r}/2: allgather ok -> [0.0, 1.0]"
+            if line not in rec["lines"] or rec["backend"] != "gloo":
+                raise AssertionError(f"2-rank psum: rank {r}: {rec['lines'][-20:]}")
+        summary["psum_2"] = [{k: rec[k] for k in ("backend", "device", "psum_max_abs_err",
+                                                  "sync_probe")} for rec in recs]
+        log(f"2-rank psum ({card}) " + json.dumps(summary["psum_2"]))
+
+        # 2. llama-wide at full width against one process
+        summary["llama_fsdp"] = phase_llama_fsdp(tmp, card)
+
+        # 3. dist_multislice as 2 slices x 2 hosts
+        def slice_env(r):
+            s, h = r // 2, r % 2
+            return {"MEGASCALE_NUM_SLICES": "2", "MEGASCALE_SLICE_ID": str(s),
+                    "TPU_WORKER_ID": str(h),
+                    "TPU_WORKER_HOSTNAMES": f"slice{s}-host0,slice{s}-host1"}
+
+        recs = _run_ranks(4, "import chip_smoke as c; c.rank_multislice()", "multislice 2x2",
+                          extra=slice_env)
+        for r, rec in enumerate(recs):
+            want_line = f"process {r}/4: slice {r // 2}/2 worker {r % 2} megascale ok"
+            if not any(ln.startswith(want_line) for ln in rec["lines"]):
+                raise AssertionError(f"multislice: rank {r}: {rec['lines'][-20:]}")
+        ledger = json.loads([ln for ln in recs[0]["lines"]
+                             if ln.startswith("MULTISLICE_LEDGER ")][-1].split(" ", 1)[1])
+        intra = ledger["intra_slice_size"]
+        if not (ledger["grad_sync"] == "hierarchical" and intra == 2
+                and ledger["axis_fabric"] == {"dp": "dcn", "fsdp": "ici"}
+                and ledger["dcn_bytes_ratio"] <= 1 / intra + 1e-3):
+            raise AssertionError(f"multislice ledger {ledger}")
+        summary["multislice"] = {"ledger": ledger, "ranks": [
+            {k: rec[k] for k in ("rank", "backend", "psum_max_abs_err", "sync_probe")}
+            for rec in recs]}
+        log(f"multislice 2x2 ({card}) " + json.dumps(summary["multislice"]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return summary
+
+
 def phase_serve_artifact(trainer, export_dir):
     """Train -> export -> serve: the port's serve_lm on the exported
     artifact (K4 at Hkv 8) answers one greedy request with the tokens
@@ -4186,6 +4483,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     free_device_memory()
     log(f"training phases done at {time.perf_counter() - t0:.1f} s")
+    phase_multiprocess(card)
+    log(f"multi-process phase done at {time.perf_counter() - t0:.1f} s")
 
     dev = resolve_device()
     cfg = llama_7b_shape(max_len=2048)

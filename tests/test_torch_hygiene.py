@@ -31,7 +31,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_fault_probe.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -66,7 +66,9 @@ def test_importing_every_module_loads_no_jax():
               "utils.metrics", "utils.trace", "utils.logging", "utils.flight",
               "utils.alerts", "utils.costplane", "utils.watchdog", "runtime.telemetry",
               "models.pool_router", "models.fabric_service", "models.prefix_cache",
-              "backend.retry", "serve_lm"):
+              "backend.retry", "serve_lm", "bootstrap.tpu_env", "runtime.bootstrap",
+              "parallel.mesh", "parallel.sharding", "parallel.collectives", "models.mnist",
+              "dist_psum", "dist_mnist", "dist_multislice"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

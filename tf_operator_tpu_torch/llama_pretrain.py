@@ -1,17 +1,26 @@
-"""Byte-level llama pretraining on one device, then a sample (the port
-of ``examples/llama_pretrain.py``).
+"""Byte-level llama pretraining, then a sample (the port of
+``examples/llama_pretrain.py``), on one device or as one rank of a job.
 
     python -m tf_operator_tpu_torch.llama_pretrain --model llama-wide \\
         --seq-len 2048 --batch-per-device 4 --steps 30
     python -m tf_operator_tpu_torch.llama_pretrain --device cpu \\
         --model llama-tiny --seq-len 128 --batch-per-device 8 --steps 30
 
-The corpus (data/text.py) is generated once under ``--data-dir``; the
-trainer (parallel/trainer.py) runs AdamW with a 10-update warmup on
+Under the operator (the ``TPUJOB_*`` environment) the process first
+joins the job's world (``runtime/bootstrap.initialize``) and the N ranks
+train one model over the mesh ``{"sp": 1, "fsdp": N}`` with the llama
+family's logical shardings, as the JAX entry does: each rank keeps its
+shard of the masters and trains on its rows of the global batch
+(``--batch-per-device`` x N).  The coordinator generates the corpus
+(data/text.py) under ``--data-dir``; the others wait for it.
+
+The trainer (parallel/trainer.py) runs AdamW with a 10-update warmup on
 float32 master weights, computing in bf16; attention runs the flash
-kernels on the card.  ``--export-dir`` writes a serving artifact
-(``params.npz`` + ``model.json``) that ``serve_lm --artifact`` serves;
-``--generate N`` samples N greedy bytes after training.
+kernels on the card, at each rank's local batch.  ``--export-dir``
+writes a serving artifact (``params.npz`` + ``model.json``) that
+``serve_lm --artifact`` serves; ``--generate N`` samples N greedy bytes
+after training.  In a job both gather the weights first (every rank),
+and process 0 writes and samples.
 
 Weights are random from seed 0.  The moe family (``--family``) and
 sequence parallelism (``--sp``) wait for later slices; the parser
@@ -29,8 +38,14 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches, decode_bytes, ensure_text
-from tf_operator_tpu_torch.device import resolve_device
+from tf_operator_tpu_torch.data.text import (
+    TextBatches,
+    as_lm_batches,
+    decode_bytes,
+    ensure_text,
+    text_meta,
+    wait_for_dataset,
+)
 from tf_operator_tpu_torch.models.decode import generate
 from tf_operator_tpu_torch.models.llama import (
     LlamaLM,
@@ -41,8 +56,15 @@ from tf_operator_tpu_torch.models.llama import (
 )
 from tf_operator_tpu_torch.models.weights import init_params
 from tf_operator_tpu_torch.parallel.checkpoint import export_params
+from tf_operator_tpu_torch.parallel.mesh import make_mesh
 from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
-from tf_operator_tpu_torch.runtime.harness import standard_parser, train_loop
+from tf_operator_tpu_torch.runtime.bootstrap import entry_device, initialize, world
+from tf_operator_tpu_torch.runtime.harness import (
+    batch_sizes,
+    gather_params,
+    standard_parser,
+    train_loop,
+)
 
 MODELS = ("llama-tiny", "llama-wide")
 INIT_SEED = 0
@@ -85,32 +107,47 @@ def run(args: argparse.Namespace) -> Dict:
     """Train as ``args`` say; returns the trainer, the losses, the
     timings, ``train_loop``'s ``stats`` (``loop``) and the sample."""
 
-    device = resolve_device(args.device)
+    ctx = initialize(args.device)
+    rank, n = world()
+    device = entry_device(args.device, ctx)
     cfg = model_config(args.model, args.seq_len)
     model = LlamaLM.from_state_dict(
         cfg, init_params(cfg, INIT_SEED, device, trainable=True), device, trainable=True)
     loss_fn = (functools.partial(llama_loss_chunked, n_chunks=args.chunked_loss)
                if args.chunked_loss else llama_loss)
+    mesh = make_mesh({"sp": 1, "fsdp": n}) if n > 1 else None
     trainer = Trainer(model, TrainerConfig(learning_rate=args.learning_rate, warmup_steps=10),
-                      loss_fn)
-    ensure_text(args.data_dir, seq_len=args.seq_len)
-    batches = as_lm_batches(TextBatches(args.data_dir, args.batch_per_device, seed=INIT_SEED))
+                      loss_fn, mesh=mesh, shardings="logical")
+    if rank == 0:
+        ensure_text(args.data_dir, seq_len=args.seq_len)
+    else:
+        wait_for_dataset(args.data_dir, meta=text_meta(seq_len=args.seq_len))
+    global_batch, _ = batch_sizes(args.batch_per_device)
+    shard = (trainer.batch_index, n) if mesh is not None else (0, 1)
+    batches = as_lm_batches(TextBatches(args.data_dir, global_batch, seed=INIT_SEED,
+                                        shard=shard))
+    tag = f"{args.model} bytes seq={args.seq_len} batch={args.batch_per_device}"
+    if mesh is not None:
+        tag += f" fsdp={n} sp=1"
     stats: Dict = {}
     t0 = time.perf_counter()
     losses = train_loop(trainer, batches, args.steps, steps_per_sync=args.steps_per_sync,
-                        tag=f"{args.model} bytes seq={args.seq_len} batch={args.batch_per_device}",
-                        stats=stats)
+                        tag=tag, stats=stats)
     wall = time.perf_counter() - t0
     out = {"trainer": trainer, "losses": losses, "wall_s": wall,
            "resolved_at": stats["resolved_at"], "loop": stats, "sample": None}
     if args.export_dir:
         export_params(trainer, args.export_dir)
-        print(f"exported serving artifact to {args.export_dir}", flush=True)
+        if rank == 0:
+            print(f"exported serving artifact to {args.export_dir}", flush=True)
     n_new = min(args.generate, args.seq_len - len(PROMPT))
-    if args.generate and n_new < 1:
+    if args.generate:
+        # the gather is collective: every rank takes part, process 0 samples
+        gather_params(trainer)
+    if args.generate and rank == 0 and n_new < 1:
         print(f"seq-len {args.seq_len} leaves no room after the {len(PROMPT)}-byte "
               "prompt; skipping generation", flush=True)
-    elif args.generate:
+    elif args.generate and rank == 0:
         prompt = torch.as_tensor(np.frombuffer(PROMPT.encode(), np.uint8)[None].astype(np.int64))
         ids = generate(trainer.model, prompt.to(device), n_new)
         out["sample"] = decode_bytes(ids[0, len(PROMPT):].cpu().numpy())

@@ -109,6 +109,14 @@ class LlamaLM(nn.Module):
     def device(self) -> torch.device:
         return self.ln_final.scale.device
 
+    @staticmethod
+    def flax_path(name: str) -> str:
+        """The flax param path of a parameter name (models/weights.py)."""
+
+        from tf_operator_tpu_torch.models.weights import name_to_flax_path
+
+        return name_to_flax_path(name)
+
     def forward(self, input_ids: torch.Tensor, *, mode: str = "full",
                 cache=None) -> torch.Tensor:
         """mode="full": ids [B, S] -> float32 logits [B, S, V].

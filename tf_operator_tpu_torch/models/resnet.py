@@ -36,9 +36,19 @@ tree onto ``state_dict()`` keys one to one: convolution kernels HWIO ->
 OIHW, the Dense kernel kept ``[in, out]``.  :func:`init_resnet` draws a
 seeded state in flax's distributions.
 
+Batch statistics across ranks.  In a job whose batch is split over
+ranks (``Trainer`` under a mesh), the trainer hands the model the batch
+axes' process group (:meth:`ResNet.set_batch_group`), and the stock
+norm all-reduces each batch's sum and sum of squares over it before it
+divides: the statistics are the global batch's, as the JAX program's
+are under pjit, and the backward reduces their gradients the same way.
+The fused norm (K5 / K6) reduces within its launch, one rank's rows, so
+it is refused with a group, as the JAX package refuses its Pallas norm
+on more than one device.
+
 Not ported yet: the ``space_to_depth`` stem, ``bn_fold`` /
-``fold_batchnorm`` (eval-mode folding), ``bn_param_dtype`` (float32
-only) and multi-device statistics.
+``fold_batchnorm`` (eval-mode folding) and ``bn_param_dtype`` (float32
+only).
 """
 
 from __future__ import annotations
@@ -69,16 +79,26 @@ def same_padding(size: int, k: int, s: int) -> Tuple[int, int]:
 
 def stock_batchnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     eps: float = EPSILON, relu: bool = False,
-                    residual: Optional[torch.Tensor] = None):
+                    residual: Optional[torch.Tensor] = None, group=None):
     """The stock train-mode graph, differentiated by autograd: flax
     ``nn.BatchNorm``'s op order (float32 fast-variance statistics, float32
     normalize, one cast to x's dtype), then ``residual +``, then ReLU (the
-    JAX package's ``_fusedbn_xla``).  Returns ``(y, mean, var)``."""
+    JAX package's ``_fusedbn_xla``).  Returns ``(y, mean, var)``.
+    ``group``: the ranks that hold the rest of the batch (equal row
+    counts); the sums are all-reduced over it (module docstring)."""
 
     red = tuple(range(x.ndim - 1))
     xf = x.float()
-    mean = xf.mean(red)
-    mean2 = (xf * xf).mean(red)
+    if group is None:
+        mean = xf.mean(red)
+        mean2 = (xf * xf).mean(red)
+    else:
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        rows = xf.numel() // xf.shape[-1] * dist.get_world_size(group)
+        sums = all_reduce(torch.stack([xf.sum(red), (xf * xf).sum(red)]), group=group)
+        mean, mean2 = sums[0] / rows, sums[1] / rows
     var = torch.clamp_min(mean2 - mean * mean, 0.0)
     mul = torch.rsqrt(var + eps) * scale
     y = ((xf - mean) * mul + bias).to(x.dtype)
@@ -97,6 +117,8 @@ class BatchNorm(nn.Module):
                  dtype: torch.dtype = torch.bfloat16, device=None):
         super().__init__()
         self.norm, self.plain_kernels, self.dtype = norm, plain_kernels, dtype
+        #: the batch axes' process group of a job (None: this rank's rows)
+        self.group = None
         self.scale = nn.Parameter(torch.ones(features, dtype=torch.float32, device=device))
         self.bias = nn.Parameter(torch.zeros(features, dtype=torch.float32, device=device))
         self.register_buffer("mean", torch.zeros(features, dtype=torch.float32, device=device))
@@ -112,11 +134,15 @@ class BatchNorm(nn.Module):
                 y = residual + y
             return torch.relu(y) if relu else y
         if self.norm == "fused":
+            if self.group is not None:
+                raise NotImplementedError("the fused norm reduces one rank's rows: it is not "
+                                          "ported to a batch split over ranks")
             y, mean, var = fused_batchnorm(
                 x, self.scale, self.bias, eps=EPSILON, relu=relu, residual=residual,
                 impl="plain" if self.plain_kernels else None)
         else:
-            y, mean, var = stock_batchnorm(x, self.scale, self.bias, EPSILON, relu, residual)
+            y, mean, var = stock_batchnorm(x, self.scale, self.bias, EPSILON, relu, residual,
+                                           self.group)
         with torch.no_grad():
             self.mean.copy_(MOMENTUM * self.mean + (1 - MOMENTUM) * mean)
             self.var.copy_(MOMENTUM * self.var + (1 - MOMENTUM) * var)
@@ -127,6 +153,9 @@ class Conv(nn.Module):
     """flax ``nn.Conv(use_bias=False)`` on NHWC input: a float32 OIHW
     ``kernel`` cast to ``dtype`` at use, ``"SAME"`` padding unless
     ``padding`` is given."""
+
+    #: the kernel's dims in flax's HWIO order (parallel/sharding.py)
+    flax_order = {"kernel": (3, 2, 0, 1)}
 
     def __init__(self, cin: int, features: int, k: int, stride: int = 1, *,
                  padding: Optional[Tuple[int, int]] = None, dtype=torch.bfloat16, device=None):
@@ -267,6 +296,13 @@ class ResNet(nn.Module):
 
     def norms(self) -> List[BatchNorm]:
         return [m for m in self.modules() if isinstance(m, BatchNorm)]
+
+    def set_batch_group(self, group) -> None:
+        """Reduce every norm's train-mode statistics over ``group``, the
+        ranks holding the rest of the batch (None: this rank's rows)."""
+
+        for bn in self.norms():
+            bn.group = group
 
 
 def resnet18(num_classes: int = 1000, **kw) -> ResNet:

@@ -100,6 +100,15 @@ def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     return tree
 
 
+def mnist_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
+    """A flax ``MnistCNN``'s ``params`` as the port's ``MnistCNN``
+    state_dict (models/mnist.py): the scope path joined by dots, each
+    array as it is (the port keeps the flax layout)."""
+
+    return {path.replace("/", "."): torch.from_numpy(np.array(a, dtype=np.float32))
+            for path, a in _flatten(params).items()}
+
+
 def save_npz(state: Mapping[str, torch.Tensor], path: str) -> None:
     """Write ``state`` as an npz of flat flax-path keys (float32),
     through a temporary file so a reader never sees half of it."""

@@ -5,7 +5,8 @@ resolves its losses through the sync ledger (``train_sync_*``), traces
 its windows, beats a ``train.<tag>`` heartbeat for the stall watchdog,
 feeds the step-time sentinel (``step_time_*{signal="train_sync"}``) and
 boots the pod telemetry server from the environment, as the JAX loop
-does (``train_loop``'s docstring)."""
+does (``train_loop``'s docstring).  In a joined world every rank runs the
+loop; its summary line names the rank and the world."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ def standard_parser(description: str, **defaults) -> argparse.ArgumentParser:
     p.add_argument("--steps", type=int, default=defaults.get("steps", 30))
     p.add_argument("--batch-per-device", type=int,
                    default=defaults.get("batch_per_device", 32),
-                   help="examples per step (one device, so the whole batch)")
+                   help="examples per step on each rank (one device a rank)")
     p.add_argument("--learning-rate", type=float,
                    default=defaults.get("learning_rate", 0.1))
     p.add_argument(
@@ -37,6 +38,24 @@ def standard_parser(description: str, **defaults) -> argparse.ArgumentParser:
     )
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     return p
+
+
+def gather_params(trainer) -> Dict[str, torch.Tensor]:
+    """The trained parameters, whole, by name.  COLLECTIVE under a mesh:
+    every rank must call it (the fsdp shards are gathered into each
+    rank's model); afterwards every rank holds the full weights."""
+
+    trainer.gather()
+    return {n: p.detach() for n, p in zip(trainer.names, trainer.params)}
+
+
+def batch_sizes(batch_per_device: int):
+    """(global, per-process) batch sizes for the joined world (one
+    device a rank)."""
+
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    return batch_per_device * world()[1], max(batch_per_device, 1)
 
 
 def _resolve_losses(ledger, phase: str, pending: List) -> List[float]:
@@ -198,8 +217,11 @@ def train_loop(
                      heartbeat_beats=hb.beats)
 
     if losses:
+        from tf_operator_tpu_torch.runtime.bootstrap import world
+
+        rank, n = world()
         first, last = losses[0], sum(losses[-5:]) / len(losses[-5:])
-        print(f"process 0/1 [{tag}]: steps {start_step}..{steps} "
+        print(f"process {rank}/{n} [{tag}]: steps {start_step}..{steps} "
               f"loss {first:.4f} -> {last:.4f}", flush=True)
         if assert_decreasing and start_step == 0 and steps >= 20 and not last < first:
             print("loss did not decrease", file=sys.stderr, flush=True)

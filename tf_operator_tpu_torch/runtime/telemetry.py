@@ -32,10 +32,11 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Tuple
 
-#: the environment the JAX package's ``bootstrap/tpu_env.py`` names
-ENV_TELEMETRY_PORT = "TPUJOB_TELEMETRY_PORT"
-ENV_TRACE_ID = "TPUJOB_TRACE_ID"
-ENV_PARENT_SPAN_ID = "TPUJOB_PARENT_SPAN_ID"
+from tf_operator_tpu_torch.bootstrap.tpu_env import (
+    ENV_PARENT_SPAN_ID,
+    ENV_TELEMETRY_PORT,
+    ENV_TRACE_ID,
+)
 
 
 def trace_context_from_env(environ=None) -> Tuple[Optional[str], Optional[str]]:

@@ -156,6 +156,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch.bootstrap.tpu_env import ENV_FABRIC_PORT
 from tf_operator_tpu_torch.device import resolve_device
 from tf_operator_tpu_torch.models.batching import (
     TOP_K_MAX,
@@ -210,9 +211,6 @@ PROFILE_MAX_SECONDS = 30.0
 #: replica i beats ``serving.pool<i>``)
 POOL_HEARTBEAT = "serving.pool"
 
-#: the fabric server's port a deployment may inject (the JAX bootstrap's
-#: ``ENV_FABRIC_PORT``)
-ENV_FABRIC_PORT = "TPUJOB_FABRIC_PORT"
 
 #: a fleet-mode publish waits this long for its prefill
 PUBLISH_TIMEOUT_S = 120.0
