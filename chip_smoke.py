@@ -141,6 +141,27 @@ Phases, in order; any failure exits non-zero before the result line:
    ``psum_hierarchical`` through all three stages on card tensors: the
    reference's line on every rank, and the ``MULTISLICE_LEDGER`` with
    ``dcn_bytes_ratio`` <= 1 / intra + 1e-3.
+5c. sequence parallelism (inside phase 5b's jobs): (a)
+   (``phase_sp_attention``) 2 ranks of ``ring_attention`` and
+   ``ulysses_attention`` at llama-wide's attention shape (global B 4,
+   H 16, Hkv 8, S 2048, D 128, bf16, causal), forward and backward,
+   against one process's K1 forward and K2 / K3 backward on the whole
+   sequence (each rank's chunk, ``FLASH_RTOL`` of the largest value),
+   and a windowed ring (``SP_WINDOW``, a boundary hop on rank 1): K1-K3
+   launches a rank as the schedule reckons them, the boundary blocks
+   counted apart, no plain attention, the bytes each collective moved;
+   (b) (``phase_sp_llama``) ``llama_pretrain --sp 2 --sp-impl
+   ring|ulysses`` as 2-rank jobs
+   at llama-wide width, seq 2048, the global batch of phase 5b's
+   yardstick (4 rows a rank of 2 = 8 rows, each rank its half of the
+   sequence), ``DIST_STEPS`` steps: each rank's losses against the
+   yardstick's (``DIST_LOSS_RTOL``), rank 0's weights against the
+   yardstick's leaf by leaf (``DIST_WEIGHT_RTOL``: the gradients' sum
+   over sp), K1-K3 launches = 12 x steps x (r
+   + 1) on rank r of the causal ring and 12 x steps under Ulysses, no
+   plain attention, no boundary block; prints per rank the step ms,
+   the collectives' share of the wall and bytes by stage, and
+   ``max_memory_allocated``.
 7. serving at full width: ``llama_7b_shape`` with seeded bf16
    weights, the paged pool (8 slots, max_len 2048, bs 16, 8 steps per
    sync) behind ``serve_lm``'s HTTP server on 127.0.0.1:0; 8 concurrent
@@ -3627,38 +3648,45 @@ def rank_multislice():
           flush=True)
 
 
-def rank_llama(data_dir, batch_per_device, save=None, compare=None):
-    """One process of phase 5b's llama-wide run through ``llama_pretrain``
-    (a rank of the fsdp job, or a one-process run): its losses, K1-K3
-    launches, step wall, collectives by stage, the training state it
-    holds between steps, peak memory.  ``save``: write the weights
-    after the run there; ``compare``: (rank 0) hold the gathered
-    weights against the ones written there, leaf by leaf."""
+def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
+    """One process of phase 5b's (or 5c's) llama-wide run through
+    ``llama_pretrain`` (a rank of the job, or a one-process run): its
+    losses, K1-K3 launches, step wall, collectives by stage, the
+    training state it holds between steps, peak memory.  ``save``:
+    write the weights after the run there; ``compare``: (rank 0) hold
+    the gathered weights against the ones written there, leaf by leaf;
+    ``extra``: more flags (``--sp``, ``--sp-impl``)."""
 
     from tf_operator_tpu_torch import llama_pretrain
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_attention as ra
     from tf_operator_tpu_torch.runtime.bootstrap import world
     from tf_operator_tpu_torch.runtime.harness import gather_params
 
     args = llama_pretrain.parse_args([
         "--model", "llama-wide", "--seq-len", "2048", "--batch-per-device",
         str(batch_per_device), "--steps", str(DIST_STEPS), "--steps-per-sync", "1",
-        "--data-dir", data_dir, "--generate", "0"])
+        "--data-dir", data_dir, "--generate", "0", *extra])
     _build.launches.clear()
     fa.plain_calls.clear()
+    ra.boundary_blocks.clear()
     out = llama_pretrain.run(args)
     torch.cuda.synchronize()
     launches, plain = dict(_build.launches), dict(fa.plain_calls)
+    boundary = dict(ra.boundary_blocks)
     trainer = out["trainer"]
     resident = trainer.resident_bytes()
     peak = torch.cuda.max_memory_allocated()
     params = gather_params(trainer)
     rank, n = world()
+    collectives = trainer.collective_stats.snapshot() if n > 1 else {}
     rec = {"rank": rank, "world": n, "losses": out["losses"],
            "launches": {k: launches.get(k, 0) for k in FLASH_KERNELS}, "plain_calls": plain,
+           "boundary_blocks": boundary,
            "step_ms": _steady_step_s(out["resolved_at"]) * 1e3, "wall_s": out["wall_s"],
-           "collectives": trainer.collective_stats.snapshot() if n > 1 else {},
+           "collectives": collectives,
+           "collective_share": sum(v["seconds"] for v in collectives.values()) / out["wall_s"],
            "resident_bytes": resident, "max_memory_allocated_gib": peak / 2**30}
     if save:
         torch.save({k: v.cpu() for k, v in params.items()}, save)
@@ -3672,19 +3700,49 @@ def rank_llama(data_dir, batch_per_device, save=None, compare=None):
     print("RANK " + json.dumps(rec), flush=True)
 
 
+#: one process of phases 5b and 5c's llama-wide runs: data dir, rows a
+#: process, save, compare, extra flags
+LLAMA_RANK = "import chip_smoke as c; c.rank_llama({!r}, {}, save={!r}, compare={!r}, extra={!r})"
+
+
+def _llama_paths(tmp):
+    """The text data and the yardstick's weights of phases 5b and 5c."""
+
+    return os.path.join(tmp, "text"), os.path.join(tmp, "yardstick.pt")
+
+
+def llama_yardstick(tmp):
+    """Phases 5b and 5c's yardstick: llama-wide in one process on the
+    global batch (2 x ``DIST_BATCH`` rows), its weights written under
+    ``tmp``; its record."""
+
+    data_dir, yard = _llama_paths(tmp)
+    return _run_ranks(0, LLAMA_RANK.format(data_dir, 2 * DIST_BATCH, yard, None, ()),
+                      "llama-wide yardstick")[0]
+
+
+def _weights_off(rec, bad):
+    """Rank 0's gathered weights against the yardstick's (``rec`` from
+    ``rank_llama(compare=)``): appends to ``bad`` if a leaf is missing or
+    the largest relative difference is over ``DIST_WEIGHT_RTOL``."""
+
+    weights = rec["weights"]
+    if not (weights["same_names"] and weights["max_rel"] <= DIST_WEIGHT_RTOL):
+        bad.append(f"weights against the yardstick's {weights}")
+    return weights
+
+
 def phase_llama_fsdp(tmp, card):
     """Phase 5b (2): llama-wide at full width, one process on the global
     batch (the yardstick) and on 4 rows (memory), then 2 ranks over
     fsdp 2; raises with the readings if a rank is off the yardstick."""
 
-    data_dir = os.path.join(tmp, "text")
-    yard = os.path.join(tmp, "yardstick.pt")
-    code = "import chip_smoke as c; c.rank_llama({!r}, {}, save={!r}, compare={!r})"
-    one = _run_ranks(0, code.format(data_dir, 2 * DIST_BATCH, yard, None),
-                     "llama-wide yardstick")[0]
-    one4 = _run_ranks(0, code.format(data_dir, DIST_BATCH, None, None),
+    data_dir, yard = _llama_paths(tmp)
+    one = llama_yardstick(tmp)
+    one4 = _run_ranks(0, LLAMA_RANK.format(data_dir, DIST_BATCH, None, None, ()),
                       "llama-wide one process, 4 rows")[0]
-    ranks = _run_ranks(2, code.format(data_dir, DIST_BATCH, None, yard), "llama-wide fsdp 2")
+    ranks = _run_ranks(2, LLAMA_RANK.format(data_dir, DIST_BATCH, None, yard, ()),
+                       "llama-wide fsdp 2")
     want = DIST_STEPS * 12
     rows, bad = [], []
     for rec in ranks:
@@ -3703,10 +3761,7 @@ def phase_llama_fsdp(tmp, card):
         if not max(rel) <= DIST_LOSS_RTOL:
             bad.append(f"rank {rec['rank']} losses {rec['losses']} against {one['losses']}: "
                        f"{max(rel):.3g} relative")
-    weights = ranks[0]["weights"]
-    rows[0]["weights"] = weights
-    if not (weights["same_names"] and weights["max_rel"] <= DIST_WEIGHT_RTOL):
-        bad.append(f"weights against the yardstick's {weights}")
+    rows[0]["weights"] = _weights_off(ranks[0], bad)
     if ranks[0]["losses"] != ranks[1]["losses"]:
         bad.append("the ranks' global losses differ")
     summary = {
@@ -3719,6 +3774,150 @@ def phase_llama_fsdp(tmp, card):
     if bad:
         raise AssertionError("llama-wide fsdp 2 off the yardstick: " + "; ".join(bad))
     return summary
+
+
+#: phase 5c(a): the sp attention at llama-wide's attention shape, and
+#: the windowed ring's window (a boundary hop on rank 1 of 2)
+SP_ATTN = dict(b=4, h=16, hkv=8, s=2048, d=128)
+SP_WINDOW = 1536
+SP_CASES = (("ring", None), ("ulysses", None), ("ring", SP_WINDOW))
+#: phase 5c(b): the schedules ``llama_pretrain --sp 2`` runs
+SP_IMPLS = ("ring", "ulysses")
+
+
+def _sp_reckon(impl, window, r):
+    """(K1-K3 launches each, boundary blocks each way) of rank ``r`` of 2
+    in one causal forward and backward of 5c(a)."""
+
+    if impl == "ulysses":
+        return 1, 0
+    if window is None:
+        return r + 1, 0  # the diagonal, and rank 0's hop from rank 1 masked
+    # the hop from rank 0 to rank 1 is crossed by the band's edge
+    return 1, r
+
+
+def rank_sp_attention():
+    """Phase 5c(a), one rank of 2: each schedule on this rank's chunk of
+    one seeded global input, forward and backward, against one
+    process's K1 forward and K2 / K3 backward on the whole sequence."""
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import ring_attention as ra
+    from tf_operator_tpu_torch.ops.ulysses_attention import ulysses_attention
+    from tf_operator_tpu_torch.parallel.collectives import CollectiveStats
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.parallel.sharding import sequence_chunk
+    from tf_operator_tpu_torch.runtime.bootstrap import initialize
+
+    ctx = initialize("cuda")
+    rank, dev = ctx.process_id, ctx.device
+    mesh = make_mesh({"sp": ctx.num_processes})
+    c = SP_ATTN
+    g = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((c["b"], c["h"], c["s"], c["d"]), generator=g, device=dev).bfloat16()
+    k, v = (torch.randn((c["b"], c["hkv"], c["s"], c["d"]), generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    do = torch.randn(q.shape, generator=g, device=dev).bfloat16()
+    chunk = lambda t: sequence_chunk(t, mesh, rank, dim=2).contiguous()  # noqa: E731
+    rows = []
+    for impl, window in SP_CASES:
+        out, lse = fa.flash_forward_cuda(q, k, v, True, window)
+        delta = (do.float() * out.float()).sum(-1)
+        want = (out, fa.flash_backward_dq_cuda(q, k, v, do, lse, delta, True, window),
+                *fa.flash_backward_dkv_cuda(q, k, v, do, lse, delta, True, window))
+        qq, kk, vv = (chunk(t).requires_grad_() for t in (q, k, v))
+        torch.cuda.synchronize()
+        _build.launches.clear()
+        fa.plain_calls.clear()
+        ra.boundary_blocks.clear()
+        mesh.stats = CollectiveStats()
+        t0 = time.perf_counter()
+        fn = ra.ring_attention if impl == "ring" else ulysses_attention
+        o = fn(qq, kk, vv, mesh, causal=True, window=window)
+        got = (o, *torch.autograd.grad(o, (qq, kk, vv), chunk(do)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {kname: _build.launches.get(kname, 0) for kname in FLASH_KERNELS}
+        rel = {name: _tensor_rel(a, chunk(b)) for name, a, b in
+               zip(("out", "dq", "dk", "dv"), got, want)}
+        rows.append({"impl": impl, "window": window, "rel": rel, "tol": FLASH_RTOL[torch.bfloat16],
+                     "launches": launches, "plain_calls": dict(fa.plain_calls),
+                     "boundary_blocks": dict(ra.boundary_blocks), "ms": wall * 1e3,
+                     "collectives": mesh.stats.snapshot(), "want": _sp_reckon(impl, window, rank)})
+        del got, want, o
+    print("RANK " + json.dumps({"rank": rank, "cases": rows}), flush=True)
+
+
+def phase_sp_attention(card):
+    """Phase 5c(a) (module docstring): the sp attention at llama-wide's
+    attention shape against one process; raises with the readings if a
+    rank is off."""
+
+    ranks = _run_ranks(2, "import chip_smoke as c; c.rank_sp_attention()", "sp attention")
+    bad = []
+    for rec in ranks:
+        for row in rec["cases"]:
+            want_k, want_b = row["want"]
+            tag = f"rank {rec['rank']} {row['impl']} window={row['window']}"
+            if any(not (math.isfinite(e) and e <= row["tol"]) for e in row["rel"].values()):
+                bad.append(f"{tag}: {row['rel']} over {row['tol']}")
+            if any(row["launches"][k] != want_k for k in FLASH_KERNELS) or row["plain_calls"]:
+                bad.append(f"{tag}: launched {row['launches']} (want {want_k} each), plain "
+                           f"{row['plain_calls']}")
+            if row["boundary_blocks"] != ({"window_block_fwd": want_b,
+                                           "window_block_bwd": want_b} if want_b else {}):
+                bad.append(f"{tag}: boundary blocks {row['boundary_blocks']} (want {want_b})")
+    attention = [{"rank": rec["rank"], "cases": rec["cases"]} for rec in ranks]
+    log(f"sp attention ({card}) " + json.dumps(attention))
+    if bad:
+        raise AssertionError("sp attention: " + "; ".join(bad))
+    return attention
+
+
+def phase_sp_llama(tmp, card, yardstick, impls=SP_IMPLS):
+    """Phase 5c(b) (module docstring): ``llama_pretrain --sp 2`` with
+    each schedule against the yardstick (``llama_yardstick``: its losses
+    ``yardstick``, its weights under ``tmp``) on the same global batch,
+    loss by loss and rank 0's weights leaf by leaf; raises with the
+    readings if a rank is off."""
+
+    data_dir, yard = _llama_paths(tmp)
+    jobs, bad = {}, []
+    for impl in impls:
+        extra = ("--sp", "2", "--sp-impl", impl)
+        ranks = _run_ranks(2, LLAMA_RANK.format(data_dir, DIST_BATCH, None, yard, extra),
+                           f"llama-wide sp 2 {impl}")
+        rows = []
+        for rec in ranks:
+            want = DIST_STEPS * 12 * (rec["rank"] + 1 if impl == "ring" else 1)
+            rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], yardstick)]
+            rows.append({k: rec[k] for k in ("rank", "launches", "step_ms", "wall_s",
+                                            "collective_share", "collectives",
+                                            "max_memory_allocated_gib")}
+                        | {"loss_rel_max": max(rel), "losses": rec["losses"],
+                           "launches_reckoned": want})
+            if rec["world"] != 2 or len(rec["losses"]) != DIST_STEPS:
+                raise AssertionError(f"llama-wide sp 2 {impl}: rank {rec['rank']}: {rec}")
+            if any(rec["launches"][k] != want for k in FLASH_KERNELS) or sum(
+                    rec["plain_calls"].values()) or rec["boundary_blocks"]:
+                bad.append(f"{impl} rank {rec['rank']} launched {rec['launches']} (want "
+                           f"{want} each), plain {rec['plain_calls']}, boundary "
+                           f"{rec['boundary_blocks']}")
+            if not max(rel) <= DIST_LOSS_RTOL:
+                bad.append(f"{impl} rank {rec['rank']} losses {rec['losses']} against "
+                           f"{yardstick}: {max(rel):.3g} relative")
+        off = []
+        rows[0]["weights"] = _weights_off(ranks[0], off)
+        bad += [f"{impl}: {msg}" for msg in off]
+        jobs[impl] = rows
+    log(f"llama-wide sp 2 ({card}) " + json.dumps({"yardstick": yardstick, "jobs": jobs,
+                                                   "loss_rtol": DIST_LOSS_RTOL,
+                                                   "weight_rtol": DIST_WEIGHT_RTOL}))
+    if bad:
+        raise AssertionError("llama-wide sp 2 off the yardstick: " + "; ".join(bad))
+    return jobs
 
 
 def phase_multiprocess(card):
@@ -3743,6 +3942,11 @@ def phase_multiprocess(card):
 
         # 2. llama-wide at full width against one process
         summary["llama_fsdp"] = phase_llama_fsdp(tmp, card)
+
+        # 5c. sequence parallelism, against the same yardstick
+        summary["sp"] = {"attention": phase_sp_attention(card),
+                         "llama": phase_sp_llama(
+                             tmp, card, summary["llama_fsdp"]["yardstick"]["losses"])}
 
         # 3. dist_multislice as 2 slices x 2 hosts
         def slice_env(r):

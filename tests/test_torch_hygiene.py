@@ -68,7 +68,8 @@ def test_importing_every_module_loads_no_jax():
               "models.pool_router", "models.fabric_service", "models.prefix_cache",
               "backend.retry", "serve_lm", "bootstrap.tpu_env", "runtime.bootstrap",
               "parallel.mesh", "parallel.sharding", "parallel.collectives", "models.mnist",
-              "dist_psum", "dist_mnist", "dist_multislice"):
+              "dist_psum", "dist_mnist", "dist_multislice", "ops.ring_attention",
+              "ops.ulysses_attention"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

@@ -192,7 +192,9 @@ def test_trainer_leaf_order_is_the_jax_flatten_order():
 
 
 LEDGER_MESHES = [({"dp": 2, "fsdp": -1}, 2), ({"dp": 4, "fsdp": -1}, 2), ({"dp": -1}, 2),
-                 ({"dp": 2, "fsdp": -1}, 1), ({"dp": 8}, 4)]
+                 ({"dp": 2, "fsdp": -1}, 1), ({"dp": 8}, 4),
+                 # sequence parallelism: sp is an ici axis the weights replicate over
+                 ({"dp": 2, "sp": 2, "fsdp": -1}, 2), ({"sp": 2, "fsdp": -1}, 1)]
 
 
 @pytest.mark.parametrize("shape,slices", LEDGER_MESHES, ids=lambda v: str(v))
@@ -279,11 +281,14 @@ def test_stage_collectives_are_fixed_per_backend(monkeypatch):
 
 def test_unported_axes_are_refused():
     for shape, word in (({"fsdp": 2, "tp": 2}, "tensor parallelism"),
-                        ({"sp": 2, "dp": 2}, "sequence parallelism"),
+                        ({"sp": 2, "tp": 2}, "tensor parallelism"),
                         ({"ep": 4}, "expert parallelism"), ({"pp": 2, "dp": 2}, "pipeline")):
         with pytest.raises(NotImplementedError, match=word):
             sharding.check_mesh(mesh.make_mesh(shape, world=4))
     sharding.check_mesh(mesh.make_mesh({"dp": 2, "fsdp": 2}, world=4))
+    # sequence parallelism is ported
+    sharding.check_mesh(mesh.make_mesh({"sp": 2, "dp": 2}, world=4))
+    sharding.check_mesh(mesh.make_mesh({"sp": 2, "fsdp": 2}, world=4))
 
 
 @pytest.mark.parametrize("grad_sync", ["auto", "flat", "hierarchical"])

@@ -3,8 +3,9 @@ the port's one-process runs and the JAX package.
 
 Each world is 2 or 4 processes of this file (``python -m
 tests.test_torch_multiprocess WORKER DIR``) with the ``TPUJOB_*``
-environment written here, each world on its own free port; a worker
-writes what it measured under DIR and the test compares.  The JAX
+environment written by ``tests/torch_world.py``, each world on its own
+port below the host's ephemeral range; a worker writes what it measured
+under DIR and the test compares.  The JAX
 side runs in the test process on its virtual CPU devices.
 
 - ``psum_hierarchical`` (2 slices x 2 ranks, all three stages) equals
@@ -43,65 +44,24 @@ side runs in the test process on its virtual CPU devices.
 
 import json
 import os
-import socket
-import subprocess
 import sys
 import time
 
 import numpy as np
 import pytest
 import torch
+from torch_world import run_world
 
 torch.set_num_threads(2)
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB, SEQ, BATCH, LLAMA_STEPS = 256, 32, 4, 6
 MNIST_STEPS, MNIST_BATCH = 6, 8
 RESNET_STEPS, RESNET_BATCH = 2, 4
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
-def _rank_env(rank: int, n: int, port: int, extra=None):
-    env = dict(os.environ)
-    for k in [k for k in env if k.startswith(("TPUJOB_", "MEGASCALE_", "TPU_WORKER"))]:
-        env.pop(k)
-    env.update({"TPUJOB_COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
-                "TPUJOB_NUM_PROCESSES": str(n), "TPUJOB_PROCESS_ID": str(rank),
-                "TPUJOB_REPLICA_TYPE": "worker", "TPUJOB_REPLICA_INDEX": str(rank),
-                "TPUJOB_NAME": "port-world", "OMP_NUM_THREADS": "1",
-                "PYTHONPATH": ROOT, "TPUJOB_NO_SUITE_RECORD": "1"})
-    env.update((extra or {}).get(rank, {}))
-    return env
-
-
-def _world(n: int, argv, extra=None, timeout=240):
-    """Run ``argv`` as ranks 0..n-1 of one world; returns their stdouts."""
-
-    port = _free_port()
-    procs = [subprocess.Popen(argv, cwd=ROOT, env=_rank_env(r, n, port, extra),
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(n)]
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
-    return outs
-
-
 def _workers(n: int, worker: str, tmp, extra=None):
-    return _world(n, [sys.executable, "-m", "tests.test_torch_multiprocess", worker,
-                      str(tmp)], extra)
+    return run_world(n, [sys.executable, "-m", "tests.test_torch_multiprocess", worker,
+                         str(tmp)], extra)
 
 
 # -- workers (run in the ranks) ----------------------------------------------
@@ -130,6 +90,7 @@ def worker_psum(out_dir):
     flat = [x.clone() for x in xs]
     for x in flat:
         torch.distributed.all_reduce(x)
+    mesh.stats = collectives.CollectiveStats()  # the flat plan's stages alone
     plan = collectives.build_grad_sync_plan([(x.shape, x.dtype) for x in xs], PSUM_SPECS, mesh,
                                             mode="flat")
     flat_plan = plan.apply([x.clone() for x in xs])

@@ -524,8 +524,15 @@ def test_servers_answer_request_ids_and_echo_trace_ids(servers):  # noqa: F811
         assert headers[TRACE_HEADER] == got["request_id"]
         code, got, headers = _post(p, body, {TRACE_HEADER: f"client-trace-{p}"})
         assert got["request_id"] == headers[TRACE_HEADER] == f"client-trace-{p}"
-        code, raw, _ = _get(p, f"/traces/client-trace-{p}")
-        names = {s["name"] for s in json.loads(raw)["spans"]}
+        # both servers end the serve.generate span when the handler
+        # returns, after the reply is written: read until it has ended
+        deadline = time.monotonic() + 30
+        while True:
+            code, raw, _ = _get(p, f"/traces/client-trace-{p}")
+            names = {s["name"] for s in json.loads(raw)["spans"]}
+            if "serve.generate" in names or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
         assert {"serve.generate", "queue.wait", "admission", "dispatch.admission",
                 "decode.window", "retire"} <= names
 

@@ -323,9 +323,15 @@ def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "loss" in out and "sample:" in out
     assert sorted(os.listdir(tmp_path / "art")) == ["model.json", "params.npz"]
-    for bad in (["--sp", "2"], ["--family", "moe"]):
+    # sequence parallelism is ported: --sp must divide the sequence
+    args = llama_pretrain.parse_args(argv + ["--sp", "2", "--sp-impl", "ulysses"])
+    assert (args.sp, args.sp_impl) == (2, "ulysses")
+    for bad in (["--sp", "3"], ["--sp", "0"], ["--sp-impl", "tree"], ["--family", "moe"]):
         with pytest.raises(SystemExit):
             llama_pretrain.parse_args(argv + bad)
+    # outside a job there is no sp line to split over
+    with pytest.raises(ValueError, match="does not divide the job's 1 processes"):
+        llama_pretrain.run(llama_pretrain.parse_args(argv + ["--sp", "2"]))
 
 
 def test_the_reference_manifest_argv_parses():

@@ -15,7 +15,10 @@ several processes the coordinator writes the corpus and the others wait
 for its commit record (:func:`wait_for_dataset`); every process draws
 the same global batch and keeps its rows ``[i * local, (i + 1) * local)``
 (``shard=(i, n)``), so a one-process run on the global batch sees
-exactly the rows a job of n processes trains on together.
+exactly the rows a job of n processes trains on together.  Under
+sequence parallelism n is the batch shards (dp x fsdp), not the
+processes: the ranks of one sp line take the same shard and the trainer
+cuts each its chunk of the sequence.
 """
 
 from __future__ import annotations

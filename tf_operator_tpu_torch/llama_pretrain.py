@@ -8,11 +8,15 @@
 
 Under the operator (the ``TPUJOB_*`` environment) the process first
 joins the job's world (``runtime/bootstrap.initialize``) and the N ranks
-train one model over the mesh ``{"sp": 1, "fsdp": N}`` with the llama
-family's logical shardings, as the JAX entry does: each rank keeps its
-shard of the masters and trains on its rows of the global batch
-(``--batch-per-device`` x N).  The coordinator generates the corpus
-(data/text.py) under ``--data-dir``; the others wait for it.
+train one model over the mesh ``{"sp": SP, "fsdp": N // SP}`` with the
+llama family's logical shardings, as the JAX entry does: each rank
+keeps its shard of the masters and trains on its rows of the global
+batch (``--batch-per-device`` x N rows).  With ``--sp SP`` above 1 the
+SP ranks of an sp line read the same rows and each trains on its chunk
+of the sequence, attention running the ``--sp-impl`` schedule (``ring``:
+K/V hops, ``ulysses``: the heads <-> sequence all-to-all); SP must
+divide N.  The coordinator generates the corpus (data/text.py) under
+``--data-dir``; the others wait for it.
 
 The trainer (parallel/trainer.py) runs AdamW with a 10-update warmup on
 float32 master weights, computing in bf16; attention runs the flash
@@ -20,11 +24,11 @@ kernels on the card, at each rank's local batch.  ``--export-dir``
 writes a serving artifact (``params.npz`` + ``model.json``) that
 ``serve_lm --artifact`` serves; ``--generate N`` samples N greedy bytes
 after training.  In a job both gather the weights first (every rank),
-and process 0 writes and samples.
+and process 0 writes and samples (decoding ignores sp, as the
+reference's does).
 
-Weights are random from seed 0.  The moe family (``--family``) and
-sequence parallelism (``--sp``) wait for later slices; the parser
-refuses their flags.
+Weights are random from seed 0.  The moe family (``--family``) waits
+for a later slice; the parser refuses its flag.
 """
 
 from __future__ import annotations
@@ -85,6 +89,8 @@ def parser() -> argparse.ArgumentParser:
                    help="write a serving artifact here after training")
     p.add_argument("--generate", type=int, default=48,
                    help="greedy bytes to sample after training (0 = none)")
+    p.add_argument("--sp", type=int, default=1, help="sequence-parallel axis size")
+    p.add_argument("--sp-impl", choices=["ring", "ulysses"], default="ring")
     return p
 
 
@@ -93,14 +99,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.steps < 1 or args.batch_per_device < 1 or args.seq_len < 2:
         p.error("--steps, --batch-per-device must be >= 1 and --seq-len >= 2")
+    if args.sp < 1 or args.seq_len % args.sp:
+        p.error(f"--sp must be >= 1 and divide --seq-len ({args.seq_len})")
     return args
 
 
-def model_config(name: str, seq_len: int):
+def model_config(name: str, seq_len: int, **kw):
+    """The model's config; ``kw``: the sequence-parallel mesh and
+    sp_impl."""
+
     if name == "llama-wide":
-        return llama_wide(max_len=seq_len)
+        return llama_wide(max_len=seq_len, **kw)
     # byte-level: the tiny model's vocab is the 256 bytes
-    return llama_tiny(vocab_size=256, max_len=seq_len)
+    return llama_tiny(vocab_size=256, max_len=seq_len, **kw)
 
 
 def run(args: argparse.Namespace) -> Dict:
@@ -109,26 +120,28 @@ def run(args: argparse.Namespace) -> Dict:
 
     ctx = initialize(args.device)
     rank, n = world()
+    if n % args.sp:
+        raise ValueError(f"--sp {args.sp} does not divide the job's {n} processes")
     device = entry_device(args.device, ctx)
-    cfg = model_config(args.model, args.seq_len)
+    mesh = make_mesh({"sp": args.sp, "fsdp": n // args.sp}) if n > 1 else None
+    cfg = model_config(args.model, args.seq_len, mesh=mesh, sp_impl=args.sp_impl)
     model = LlamaLM.from_state_dict(
         cfg, init_params(cfg, INIT_SEED, device, trainable=True), device, trainable=True)
     loss_fn = (functools.partial(llama_loss_chunked, n_chunks=args.chunked_loss)
                if args.chunked_loss else llama_loss)
-    mesh = make_mesh({"sp": 1, "fsdp": n}) if n > 1 else None
     trainer = Trainer(model, TrainerConfig(learning_rate=args.learning_rate, warmup_steps=10),
                       loss_fn, mesh=mesh, shardings="logical")
     if rank == 0:
         ensure_text(args.data_dir, seq_len=args.seq_len)
     else:
         wait_for_dataset(args.data_dir, meta=text_meta(seq_len=args.seq_len))
-    global_batch, _ = batch_sizes(args.batch_per_device)
-    shard = (trainer.batch_index, n) if mesh is not None else (0, 1)
-    batches = as_lm_batches(TextBatches(args.data_dir, global_batch, seed=INIT_SEED,
-                                        shard=shard))
+    global_batch, _ = batch_sizes(args.batch_per_device, mesh)
+    shard = (trainer.batch_index, trainer.batch_ranks) if mesh is not None else (0, 1)
+    batches = (trainer.shard_batch(b) for b in as_lm_batches(
+        TextBatches(args.data_dir, global_batch, seed=INIT_SEED, shard=shard)))
     tag = f"{args.model} bytes seq={args.seq_len} batch={args.batch_per_device}"
     if mesh is not None:
-        tag += f" fsdp={n} sp=1"
+        tag += f" fsdp={n // args.sp} sp={args.sp}({args.sp_impl})"
     stats: Dict = {}
     t0 = time.perf_counter()
     losses = train_loop(trainer, batches, args.steps, steps_per_sync=args.steps_per_sync,

@@ -204,13 +204,46 @@ def _next_token(logits: torch.Tensor, targets: torch.Tensor, reduction: str):
                            reduction=reduction)
 
 
+def _sp_targets(model: LlamaLM, ids: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """Under sequence parallelism ``ids`` [B, S/n] is this rank's chunk
+    of the sequence: (the next-token targets of its positions, how many
+    of them have one, the B * (S - 1) targets of the whole sequence).
+    The target of the chunk's last position is the first token of the
+    next chunk, received from the next rank of the sp line (the halo
+    XLA exchanges for the reference's global ``ids[:, 1:]``); the last
+    chunk's last position has none."""
+
+    from tf_operator_tpu_torch.ops.ring_attention import sp_line
+    from tf_operator_tpu_torch.parallel.collectives import ppermute
+
+    line = sp_line(model.cfg.mesh)
+    b, s = ids.shape
+    first_of_next = ppermute(ids[:, :1], line.group, line.stats, "loss_halo", shift=-1)
+    targets = torch.cat([ids[:, 1:], first_of_next], dim=1)
+    valid = s - 1 if line.index == line.size - 1 else s
+    return targets, valid, b * (s * line.size - 1)
+
+
 def llama_loss(model: LlamaLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss on ``batch["input_ids"]`` [B, S]: float32
     cross-entropy of the head's logits (cast to float32), averaged over
     the B * (S - 1) targets, and the token accuracy (the counterpart of
-    ``lm_loss``).  Returns (loss, {"token_accuracy": ...})."""
+    ``lm_loss``).  Returns (loss, {"token_accuracy": ...}).
+
+    Under sequence parallelism (``model.cfg.sp_enabled``) ``input_ids``
+    is this rank's chunk and both values are its share of the whole
+    sequence's: its targets' sum over the whole sequence's B * (S - 1)
+    targets (:func:`_sp_targets`), so that their sum over the sp line
+    is the mean (the trainer sums them there)."""
 
     ids = batch["input_ids"]
+    if model.cfg.sp_enabled:
+        targets, valid, count = _sp_targets(model, ids)
+        logits = model(ids)[:, :valid]
+        targets = targets[:, :valid]
+        loss = _next_token(logits, targets, "sum") / count
+        acc = (logits.detach().argmax(-1) == targets).sum().float() / count
+        return loss, {"token_accuracy": acc}
     logits = model(ids)[:, :-1]
     targets = ids[:, 1:]
     loss = _next_token(logits, targets, "mean")
@@ -225,12 +258,19 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
     chunk's hidden states are kept for the backward and the full
     [B, S, V] float32 logits never exist.  The chunk count is the
     largest count <= ``n_chunks`` that divides S - 1 (the JAX rule).
-    The same math up to summation order."""
+    The same math up to summation order.  Under sequence parallelism
+    it takes :func:`llama_loss`'s shares: the chunk's targets, over the
+    whole sequence's count, the chunk count dividing the positions that
+    have a target."""
 
     ids = batch["input_ids"]
-    h = model(ids, mode="hidden")[:, :-1]
-    tgt = ids[:, 1:]
-    b, s, _ = h.shape
+    if model.cfg.sp_enabled:
+        tgt, valid, denom = _sp_targets(model, ids)
+    else:
+        tgt, valid, denom = ids[:, 1:], ids.shape[1] - 1, ids.shape[0] * (ids.shape[1] - 1)
+    h = model(ids, mode="hidden")[:, :valid]
+    tgt = tgt[:, :valid]
+    s = h.shape[1]
     c = max(1, min(n_chunks, s))
     while s % c:
         c -= 1
@@ -247,5 +287,4 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
                                  use_reentrant=False)
         loss = loss + part
         hits = hits + n_hit
-    denom = b * s
     return loss / denom, {"token_accuracy": hits.float() / denom}

@@ -16,8 +16,9 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 #: description keys that only shape the JAX runtime, or that the port
 #: sets itself when it serves (decode, paged, plain_kernels)
 _IGNORED = ("sp_impl", "paged", "decode", "plain_kernels")
-#: config fields of the port that a description leaves out
-_PORT_ONLY = ("decode", "paged", "plain_kernels")
+#: config fields of the port that a description leaves out (the mesh
+#: is the training job's, as the reference's description drops it)
+_PORT_ONLY = ("decode", "paged", "plain_kernels", "mesh")
 
 
 def describe_model(model) -> Dict[str, Any]:
@@ -27,12 +28,12 @@ def describe_model(model) -> Dict[str, Any]:
 
     if not isinstance(model, LlamaLM):
         raise ValueError(f"only the llama family is ported, got {type(model).__name__}")
-    cfg = {k: v for k, v in dataclasses.asdict(model.cfg).items() if k not in _PORT_ONLY}
+    cfg = {f.name: getattr(model.cfg, f.name) for f in dataclasses.fields(model.cfg)
+           if f.name not in _PORT_ONLY}
     names = {v: k for k, v in _DTYPES.items()}
     cfg["dtype"] = names[model.cfg.dtype]
-    # the JAX config's fields the port does not have, at their values
-    # for a single-device llama
-    cfg["sp_impl"] = "ring"
+    # the JAX config's field the port keeps apart, at its value for a
+    # llama that does not serve through the paged pool
     cfg["paged"] = None
     return {"family": "llama", "config": cfg}
 

@@ -24,7 +24,12 @@ Attention has three branches, chosen by the cache passed in:
 
 - no cache: the causal forward over the whole sequence, through
   ``ops/flash_attention.attention`` (the flash kernels on the card,
-  their plain versions on the CPU);
+  their plain versions on the CPU).  With sequence parallelism (a
+  ``cfg.mesh`` whose sp axis is above 1) each rank holds its chunk of
+  the sequence: RoPE takes the chunk's global positions and attention
+  runs ``ops/ring_attention`` or ``ops/ulysses_attention`` by
+  ``cfg.sp_impl``, as the reference's dispatch does for self-attention
+  with no mask or bias;
 - a :class:`DecodeCache`: the contiguous decode branch — new K/V are
   written at the running index (shared by the batch, or one per row
   for the slot pool), queries attend to every filled slot.  A model
@@ -62,7 +67,9 @@ from tf_operator_tpu_torch.ops.flash_attention import attention
 from tf_operator_tpu_torch.ops.paged_attention import paged_attention_multi
 from tf_operator_tpu_torch.ops.quant import QTensor
 from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul_2d
+from tf_operator_tpu_torch.ops.ring_attention import ring_attention
 from tf_operator_tpu_torch.ops.rotary import apply_rope
+from tf_operator_tpu_torch.ops.ulysses_attention import ulysses_attention
 
 #: flax's RMSNorm epsilon
 NORM_EPS = 1e-6
@@ -97,8 +104,19 @@ class TransformerConfig:
     #: their plain versions everywhere (the reference on the card).  The
     #: paged attention follows PagedCache.impl
     plain_kernels: bool = False
+    #: sequence parallelism: the mesh (parallel/mesh.py) whose sp axis
+    #: splits the sequence (sp 1 or None: every rank sees the whole of
+    #: it), and the schedule, "ring" (K/V hops) or "ulysses" (the
+    #: heads <-> sequence all-to-all; the heads must split over sp).
+    #: Decoding ignores both, as the reference does
+    mesh: Optional[object] = None
+    sp_impl: str = "ring"
 
     def __post_init__(self):
+        if self.sp_impl not in ("ring", "ulysses"):
+            raise ValueError(
+                f"sp_impl must be 'ring' or 'ulysses', got {self.sp_impl!r}"
+            )
         if self.paged:
             if not self.decode:
                 raise ValueError("paged attention requires decode=True")
@@ -118,6 +136,10 @@ class TransformerConfig:
     @property
     def kv_heads(self) -> int:
         return self.n_kv_heads or self.n_heads
+
+    @property
+    def sp_enabled(self) -> bool:
+        return self.mesh is not None and self.mesh.shape.get("sp", 1) > 1
 
 
 @dataclasses.dataclass
@@ -296,10 +318,31 @@ class MultiHeadAttention(nn.Module):
             return self._paged(q, k, v, cache, layer, plain)
         if isinstance(cache, DecodeCache):
             return self._decode(q, k, v, cache, layer, plain)
+        if cfg.sp_enabled:
+            return self._sequence_parallel(q, k, v, plain)
         if cfg.rope:
             q, k = apply_rope(q, k, theta=cfg.rope_theta)
         out = attention(q, k, v, causal=True, window=cfg.window,
                         impl="plain" if plain else None)
+        return self.out(out.transpose(1, 2), plain)
+
+    def _sequence_parallel(self, q, k, v, plain: bool):
+        """This rank's chunk of the sequence: RoPE at the chunk's global
+        positions (the reference's arrays are global, so its positions
+        are global for free), then the sp schedule of ``cfg.sp_impl``.
+        K/V enter at Hkv width and travel that way."""
+
+        from tf_operator_tpu_torch.runtime.bootstrap import world
+
+        cfg = self.cfg
+        s = q.shape[2]
+        if cfg.rope:
+            start = cfg.mesh.index(("sp",), world()[0]) * s
+            q, k = apply_rope(q, k, positions=torch.arange(start, start + s, device=q.device),
+                              theta=cfg.rope_theta)
+        sp_attn = ulysses_attention if cfg.sp_impl == "ulysses" else ring_attention
+        out = sp_attn(q, k, v, cfg.mesh, causal=True, window=cfg.window,
+                      use_flash=False if plain else None)
         return self.out(out.transpose(1, 2), plain)
 
     def _decode(self, q, k, v, cache: DecodeCache, layer: int, plain: bool):

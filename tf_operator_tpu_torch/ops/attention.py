@@ -72,3 +72,13 @@ def dot_product_attention(
     wg = weights.reshape(b, hkv, group, sq, sk)
     out = torch.matmul(wg.float(), v.float()[:, :, None])
     return out.reshape(b, h, sq, d).to(v.dtype)
+
+
+def repeat_kv_heads(a: torch.Tensor, group: int) -> torch.Tensor:
+    """GQA: expand [B, Hkv, S, D] K/V to the query-head width, each head
+    repeated ``group`` times in place (``jnp.repeat(a, group, axis=1)``).
+    Only the paths that cannot stay at Hkv width use it: the plain ring's
+    blocks and the window's boundary blocks (ops/ring_attention.py), and
+    Ulysses when the KV heads do not split over the sp axis."""
+
+    return a if group == 1 else a.repeat_interleave(group, dim=1)

@@ -29,6 +29,26 @@ Each stage calls one collective, the same on every backend
 on the tensors' own device, so no stage makes a host copy.  Nothing is
 tried and caught.
 
+Sequence parallelism (ops/ring_attention.py, ops/ulysses_attention.py)
+adds two collectives over a mesh line:
+
+- :func:`ppermute`, the ring's ``lax.ppermute`` (a shift of one
+  neighbour): ``torch.distributed.batch_isend_irecv`` of one send and
+  one receive;
+- :func:`all_to_all`, ``lax.all_to_all(tiled=True)``:
+  ``torch.distributed.all_to_all_single`` on the parts stacked along a
+  new leading dimension.
+
+NCCL takes both on CUDA tensors, and gloo takes both on CPU tensors and
+``all_to_all_single`` on CUDA tensors (PyTorch 2.11 on the H100
+machine).  Gloo's send and receive on a CUDA tensor abort the process
+there (``writev ... Bad address``: the device pointer read as host
+memory), so the ring's ppermute on gloo copies a CUDA tensor to the CPU
+for the call and back after it: the ``host`` transport, the one
+exception (:func:`host_staged`).  The route is fixed by the collective,
+the backend and the tensor's device before the call and recorded in the
+stats beside the stage.
+
 Byte accounting (``ledger()``): the JAX plan's, payload bytes per rank per step: a stage-2 all-reduce of an
 F-byte fragment counts F toward dcn, a stage-3 gather counts (full -
 fragment) toward ici; the intra-slice reduction is not counted.  Two
@@ -37,8 +57,9 @@ the topology-blind state), and the flat program on the same mesh, where
 an ici-sharded gradient's dp all-reduce moves only its shard
 (``flat_mesh_dcn_bytes``).
 
-``stats`` counts what the collectives of a plan (and of the trainer's
-parameter gather) actually did: calls, the bytes handed to each call
+The mesh's ``stats`` counts what the collectives over its groups (a
+plan's, the trainer's parameter gather, the sequence-parallel attention
+and loss) actually did: calls, the bytes handed to each call
 (the full-width buffer of a reduce-scatter or all-gather, the tensor of
 an all-reduce) and the host wall of the calls.  On gloo a call returns
 when its data is in place, so the wall is the collective's time; on
@@ -59,16 +80,20 @@ from tf_operator_tpu_torch.parallel.mesh import AXIS_DP, FABRIC_ICI, Mesh, mesh_
 DEFAULT_BUCKET_BYTES = 4 << 20
 
 class CollectiveStats:
-    """Calls, bytes and host seconds of collectives, by stage name."""
+    """Calls, bytes and host seconds of collectives, by stage name, and
+    the route (``device`` or ``host``) of a ppermute or all-to-all
+    stage."""
 
     def __init__(self):
         self.by_stage: Dict[str, Dict[str, float]] = {}
 
-    def add(self, stage: str, nbytes: int, seconds: float) -> None:
+    def add(self, stage: str, nbytes: int, seconds: float, route: Optional[str] = None) -> None:
         s = self.by_stage.setdefault(stage, {"calls": 0, "bytes": 0, "seconds": 0.0})
         s["calls"] += 1
         s["bytes"] += int(nbytes)
         s["seconds"] += seconds
+        if route is not None:
+            s["route"] = route
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         return {k: dict(v) for k, v in self.by_stage.items()}
@@ -121,6 +146,89 @@ def all_gather(out: torch.Tensor, inp: torch.Tensor, group, stats: CollectiveSta
     return out
 
 
+def host_staged(kind: str, backend: str, device_type: str) -> bool:
+    """Whether a ``kind`` collective (``"ppermute"`` or ``"all_to_all"``)
+    on ``backend`` copies tensors on ``device_type`` to the CPU for the
+    call and back after it (the ``host`` transport): only gloo's
+    ppermute of a CUDA tensor (module docstring).  Read before the call."""
+
+    return kind == "ppermute" and backend == "gloo" and device_type == "cuda"
+
+
+def _timed_call(call, t: torch.Tensor, group, kind: str, stats: CollectiveStats,
+                stage: str) -> torch.Tensor:
+    """Run ``call(send, recv)`` on the route :func:`host_staged` gives
+    and return ``recv``: ``send`` is ``t`` and ``recv`` a new tensor of
+    its shape, both on the CPU for the host route."""
+
+    import torch.distributed as dist
+
+    host = host_staged(kind, dist.get_backend(group), t.device.type)
+    route = "host" if host else "device"
+    t0 = time.perf_counter()
+    if host:
+        send = t.cpu()
+        recv = torch.empty_like(send)
+        call(send, recv)
+        recv = recv.to(t.device)
+    else:
+        recv = torch.empty_like(t)
+        call(t, recv)
+    stats.add(stage, _nbytes(t), time.perf_counter() - t0, route=route)
+    return recv
+
+
+def ppermute(t: torch.Tensor, group, stats: CollectiveStats, stage: str,
+             shift: int = 1) -> torch.Tensor:
+    """``lax.ppermute`` over the ring of ``group`` (a mesh line, its
+    ranks in coordinate order) with the permutation j -> (j + shift) % n:
+    a new tensor holding the ``t`` of the rank ``shift`` places back.
+    One ``batch_isend_irecv`` (a send and a receive, posted together);
+    a one-rank line copies."""
+
+    import torch.distributed as dist
+
+    if group is None:
+        return t.clone()
+    ranks = dist.get_process_group_ranks(group)
+    me = ranks.index(dist.get_rank())
+    n = len(ranks)
+    dst, src = ranks[(me + shift) % n], ranks[(me - shift) % n]
+    t = t.contiguous()
+
+    def call(send, recv):
+        ops = [dist.P2POp(dist.isend, send, dst, group),
+               dist.P2POp(dist.irecv, recv, src, group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+
+    return _timed_call(call, t, group, "ppermute", stats, stage)
+
+
+def all_to_all(t: torch.Tensor, group, stats: CollectiveStats, stage: str, *,
+               split_dim: int, concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)`` over ``group``: ``t`` cut into n
+    equal parts along ``split_dim``, part j sent to the line's j-th rank,
+    and the parts received concatenated along ``concat_dim`` in rank
+    order.  One ``all_to_all_single``; a one-rank line copies."""
+
+    import torch.distributed as dist
+
+    if group is None:
+        return t.clone()
+    n = dist.get_world_size(group)
+    if t.shape[split_dim] % n:
+        raise ValueError(f"all_to_all: dimension {split_dim} of {tuple(t.shape)} does not "
+                         f"split {n} ways")
+    inp = torch.stack(t.chunk(n, split_dim))
+
+    def call(send, recv):
+        dist.all_to_all_single(recv, send, group=group)
+
+    out = _timed_call(call, inp, group, "all_to_all", stats, stage)
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
 def scatter_dim(x: torch.Tensor, dim: int, group, n: int, stats: CollectiveStats,
                 stage: str) -> torch.Tensor:
     """Stage 1 of the direct route: ``x`` summed over ``group``, this
@@ -166,6 +274,16 @@ def _spec_divisor(spec, mesh: Mesh, ici: Tuple[str, ...]) -> int:
     return div
 
 
+def _ici_split(spec, ici: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The ici axes ``spec`` splits a leaf over, in mesh order."""
+
+    named = set()
+    for entry in spec or ():
+        if entry is not None:
+            named.update(entry if isinstance(entry, tuple) else (entry,))
+    return tuple(ax for ax in ici if ax in named)
+
+
 def _ici_dim(spec, ici: Tuple[str, ...]) -> int:
     dims = [i for i, entry in enumerate(spec)
             if entry is not None
@@ -194,7 +312,8 @@ class GradSyncPlan:
     dcn_axis: str
     ici: Tuple[str, ...]
     n_ici: int
-    #: per leaf: ("direct", divisor, dim) or ("bucket", bucket, slot)
+    #: per leaf: ("direct", divisor, dim, the ici axes it is split over)
+    #: or ("bucket", bucket, slot)
     routes: List[Tuple]
     buckets: List[_Bucket]
     flat_blind_dcn_bytes: int
@@ -204,7 +323,12 @@ class GradSyncPlan:
     dcn_collectives: int
     ici_collectives: int
     mode: str = "hierarchical"
-    stats: CollectiveStats = dataclasses.field(default_factory=CollectiveStats)
+
+    @property
+    def stats(self) -> CollectiveStats:
+        """Where the plan's collectives count: its mesh's."""
+
+        return self.mesh.stats
 
     @property
     def dcn_bytes_ratio(self) -> float:
@@ -213,6 +337,16 @@ class GradSyncPlan:
     @property
     def dcn_bytes_ratio_vs_flat_mesh(self) -> float:
         return self.dcn_bytes / self.flat_mesh_dcn_bytes if self.flat_mesh_dcn_bytes else 0.0
+
+    def __post_init__(self):
+        # a group's first use is collective (parallel/mesh.py): make
+        # every group the plan uses now, at the same point on every rank
+        self._groups()
+        for route in self.routes:
+            if route[0] == "direct":
+                self.mesh.group(route[3])
+                self.mesh.group((self.dcn_axis,) + tuple(ax for ax in self.ici
+                                                         if ax not in route[3]))
 
     def _groups(self):
         return (self.mesh.group(self.ici), self.mesh.group((self.dcn_axis,)),
@@ -223,11 +357,15 @@ class GradSyncPlan:
         this rank's shard along its sharded dimension (an unsharded one
         whole, reduced over dp)."""
 
-        _, div, dim = self.routes[i]
-        intra, dcn, _ = self._groups()
+        _, div, dim, axes = self.routes[i]
+        # stage 2 also sums over the ici axes the leaf is replicated over
+        # (sp: every rank of a sequence-parallel line holds the weights)
+        rest = tuple(ax for ax in self.ici if ax not in axes)
+        dcn = self.mesh.group((self.dcn_axis,) + rest)
         if div == 1:
             return all_reduce(grad.clone(), dcn, self.stats, "stage2_all_reduce")
-        frag = scatter_dim(grad, dim, intra, div, self.stats, "stage1_reduce_scatter")
+        frag = scatter_dim(grad, dim, self.mesh.group(axes), div, self.stats,
+                           "stage1_reduce_scatter")
         return all_reduce(frag, dcn, self.stats, "stage2_all_reduce").movedim(0, dim)
 
     def apply(self, grads: Sequence[Optional[torch.Tensor]],
@@ -289,12 +427,14 @@ class GradSyncPlan:
 
 def build_grad_sync_plan(leaves: Sequence[Tuple[Sequence[int], torch.dtype]],
                          specs: Optional[Sequence[Any]], mesh: Mesh, *,
-                         bucket_bytes: int = DEFAULT_BUCKET_BYTES, mode: str = "hierarchical"
-                         ) -> GradSyncPlan:
+                         bucket_bytes: int = DEFAULT_BUCKET_BYTES, mode: str = "hierarchical") -> GradSyncPlan:
     """Route every gradient leaf (``(shape, dtype)``, in the order the
     plan will be applied) and compute the byte ledger.  ``specs``: each
     leaf's spec (``parallel/sharding``), or None to treat every leaf as
-    replicated."""
+    replicated.  The plan's collectives count in ``mesh.stats``.
+
+    The sum runs over every ici axis, so over sp too: a sequence-parallel
+    rank holds every weight, and its gradient is its chunk's share."""
 
     if mode not in ("hierarchical", "flat"):
         raise ValueError(f"mode must be hierarchical|flat, got {mode!r}")
@@ -329,7 +469,8 @@ def build_grad_sync_plan(leaves: Sequence[Tuple[Sequence[int], torch.dtype]],
         div = _spec_divisor(specs[i], mesh, ici)
         flat_mesh_bytes += nbytes // div
         if div > 1 or not dtype.is_floating_point:
-            routes[i] = ("direct", div, _ici_dim(specs[i], ici) if div > 1 else None)
+            routes[i] = ("direct", div, _ici_dim(specs[i], ici) if div > 1 else None,
+                         _ici_split(specs[i], ici))
             direct += 1
             dcn_bytes += nbytes // div
             continue

@@ -13,7 +13,8 @@ rank's fsdp group.
 fixed order: at construction the lines of each axis of size > 1 (in
 ``AXIS_ORDER``) and of the batch axes together; any other combination
 of axes on its first :meth:`Mesh.group` call, which every rank makes at
-the same point of the same program.
+the same point of the same program.  Axes of size 1 are dropped from a
+combination first: ("dp", "sp") at dp 1 is the sp group.
 """
 
 from __future__ import annotations
@@ -58,17 +59,23 @@ class Mesh:
     axis_names = AXIS_ORDER
 
     def __init__(self, ranks: np.ndarray, slice_ids: np.ndarray, distributed: bool):
+        from tf_operator_tpu_torch.parallel.collectives import CollectiveStats
+
         self.ranks = ranks
         self.slice_ids = slice_ids
         self.shape: Dict[str, int] = dict(zip(AXIS_ORDER, ranks.shape))
         self.size = int(ranks.size)
         self._distributed = distributed
         self._groups: Dict[Tuple[str, ...], object] = {}
+        #: what the collectives over this mesh's groups did (the
+        #: trainer's grad sync and gathers, the sequence-parallel
+        #: attention and loss), by stage
+        self.stats = CollectiveStats()
         if distributed:
             for ax in AXIS_ORDER:
                 if self.shape[ax] > 1:
                     self._make_groups((ax,))
-            if math.prod(self.shape[ax] for ax in BATCH_AXES) > 1:
+            if all(self.shape[ax] > 1 for ax in BATCH_AXES):
                 self._make_groups(BATCH_AXES)
 
     def _lines(self, axes: Tuple[str, ...]) -> np.ndarray:
@@ -114,8 +121,9 @@ class Mesh:
         The first call for a combination not made at construction is
         collective (module docstring)."""
 
-        axes = tuple(ax for ax in AXIS_ORDER if ax in tuple(axes))
-        if not self._distributed or math.prod(self.shape[ax] for ax in axes) <= 1:
+        # axes of size 1 change no line: ("dp", "sp") at dp 1 is the sp group
+        axes = tuple(ax for ax in AXIS_ORDER if ax in tuple(axes) and self.shape[ax] > 1)
+        if not self._distributed or not axes:
             return None
         if axes not in self._groups:
             self._make_groups(axes)

@@ -22,7 +22,11 @@ the permutation in ``flax_order`` (``{leaf: order}``: the port's
 dimension i is flax's ``order[i]``), so the auto-rule picks the flax
 dimension it would pick in the reference.
 
-Only dp and fsdp are ported: :func:`check_mesh` refuses any other axis
+The batch is laid out as the reference's logical rules lay it out:
+rows over ("dp", "fsdp"), the sequence ("seq") over sp
+(:func:`sequence_chunk`); the parameters are replicated over sp.
+
+dp, fsdp and sp are ported: :func:`check_mesh` refuses any other axis
 of size above 1.
 """
 
@@ -84,21 +88,37 @@ LLAMA_PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 Spec = Tuple[Any, ...]
 
 #: axes the port shards over; the others wait for the features named
-_PORTED_AXES = ("dp", "fsdp")
-_WAITING = {"sp": "sequence parallelism", "tp": "tensor parallelism",
+_PORTED_AXES = ("dp", "fsdp", "sp")
+_WAITING = {"tp": "tensor parallelism",
             "ep": "expert parallelism (the moe family)",
             "pp": "pipeline parallelism (pipelined_lm)"}
 
 
 def check_mesh(mesh: Mesh) -> None:
-    """Refuse a mesh with an axis of size above 1 other than dp and
-    fsdp."""
+    """Refuse a mesh with an axis of size above 1 other than dp, fsdp
+    and sp."""
 
     bad = [ax for ax, n in mesh.shape.items() if n > 1 and ax not in _PORTED_AXES]
     if bad:
         raise NotImplementedError(
             "mesh axes " + ", ".join(f"{ax}={mesh.shape[ax]} ({_WAITING[ax]})" for ax in bad)
-            + " are not ported yet: the port shards over dp and fsdp only")
+            + " are not ported yet: the port shards over dp, fsdp and sp only")
+
+
+def sequence_chunk(x, mesh: Mesh, rank: int, dim: int = 1):
+    """``rank``'s chunk of ``x`` (a tensor or an array) along its
+    sequence dimension ``dim`` ("seq" over sp: the chunk at the rank's
+    coordinate on its sp line), a view; ``x`` itself at sp 1.  Refuses a
+    length that does not divide."""
+
+    n = mesh.shape[AXIS_SP]
+    if n <= 1:
+        return x
+    s = x.shape[dim]
+    if s % n:
+        raise ValueError(f"seq {s} does not divide over {n} '{AXIS_SP}' shards")
+    i, c = mesh.index((AXIS_SP,), rank), s // n
+    return x[(slice(None),) * dim + (slice(i * c, (i + 1) * c),)]
 
 
 def fsdp_spec(shape: Sequence[int], fsdp_size: int) -> Optional[int]:

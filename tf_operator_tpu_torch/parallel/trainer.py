@@ -25,17 +25,25 @@ step does over a device mesh:
   there.  So a rank holds one module's full weights at a time and never
   every full gradient at once; ``gather`` makes the whole model full
   (``gather_params``, ``export_params``), ``release`` frees it;
-- the gradients are summed over the batch axes (dp and fsdp) by the
-  grad-sync plan (``parallel/collectives.py``): a sharded parameter's
-  is reduce-scattered to its shard, a replicated one's all-reduced
-  (``grad_sync="flat"``) or reduced in three stages across slices
-  (``"hierarchical"``; ``"auto"`` picks it when the mesh spans slices),
-  then divided by the batch ranks: the mean over the global batch;
+- the gradients are summed over the batch axes (dp and fsdp) and sp
+  by the grad-sync plan (``parallel/collectives.py``): a sharded
+  parameter's is reduce-scattered to its shard, a replicated one's
+  all-reduced (``grad_sync="flat"``) or reduced in three stages across
+  slices (``"hierarchical"``; ``"auto"`` picks it when the mesh spans
+  slices), then divided by the batch ranks: the mean over the global
+  batch;
+- with sequence parallelism (an sp axis above 1, for a model built on
+  the mesh: ``TransformerConfig(mesh=...)``) the ranks of an sp line
+  hold the same rows and each its chunk of the sequence
+  (``shard_batch`` cuts it); every weight is replicated over sp, and
+  the loss of each rank is its chunk's share of its rows' mean
+  (``models/llama.llama_loss``), so summing over sp gives the rows'
+  gradient and metrics;
 - the clip's global norm sums the squares of every shard over fsdp, so
   it is the one-device norm, and the clip keeps optax's (g / n) * c;
   the decay mask reads the unsharded ndim;
 - the step's loss and metrics are global means, all-reduced on the
-  device and left there;
+  device over the whole mesh and left there;
 - a model with train-mode batch statistics (ResNet's BatchNorm) is
   given the batch axes' group, so its statistics are the global
   batch's (``set_batch_group``).
@@ -272,6 +280,7 @@ class Trainer:
         from tf_operator_tpu_torch.parallel.collectives import build_grad_sync_plan
         from tf_operator_tpu_torch.parallel.mesh import (
             AXIS_FSDP,
+            AXIS_SP,
             BATCH_AXES,
             data_parallel_size,
             slice_count,
@@ -289,6 +298,12 @@ class Trainer:
         rank, world_size = world()
         if mesh.size != world_size:
             raise ValueError(f"a mesh of {mesh.size} ranks in a world of {world_size}")
+        self._sp = mesh.shape[AXIS_SP]
+        if self._sp > 1 and getattr(getattr(self.model, "cfg", None), "mesh", None) is not mesh:
+            raise ValueError(f"a mesh with sp={self._sp} needs a model built on it "
+                             "(TransformerConfig(mesh=..., sp_impl=...)): its loss must be "
+                             "its sequence chunk's share")
+        self._rank = rank
         shapes = {n: tuple(p.shape) for n, p in zip(self.names, self.params)}
         if shardings == "fsdp":
             specs = fsdp_shardings(shapes, mesh, flax_orders=_flax_orders(self.model))
@@ -305,9 +320,12 @@ class Trainer:
         self.batch_ranks = data_parallel_size(mesh)
         self.batch_index = mesh.index(BATCH_AXES, rank)
         self._batch_group = mesh.group(BATCH_AXES)
-        #: batch shards replicated across processes (a mesh whose dp x
-        #: fsdp is below the world): disjoint per-process data is unsafe
-        self._batch_replicated = world_size > 1 and self.batch_ranks < world_size
+        #: the metrics' sum: over the batch ranks and the sp lines
+        self._metrics_group = mesh.group(BATCH_AXES + (AXIS_SP,))
+        #: batch shards replicated across processes other than by sp (a
+        #: mesh whose dp x fsdp x sp is below the world): disjoint
+        #: per-process data is unsafe
+        self._batch_replicated = world_size > 1 and self.batch_ranks * self._sp < world_size
         #: the indices of the sharded parameters
         self._sharded = [i for i, d in enumerate(self._dims) if d is not None]
         with torch.no_grad():
@@ -335,8 +353,9 @@ class Trainer:
             [specs[self.names[i]] for i in self._order], mesh, mode=grad_sync)
         #: the hierarchical plan (None under flat sync, as in the JAX trainer)
         self.grad_sync_plan = self._plan if grad_sync == "hierarchical" else None
-        #: calls, bytes and host seconds of the step's collectives by stage
-        self.collective_stats = self._plan.stats
+        #: calls, bytes and host seconds of the step's collectives by
+        #: stage (the mesh's: the sp attention and loss count there too)
+        self.collective_stats = mesh.stats
         self._pos = {i: pos for pos, i in enumerate(self._order)}
         #: the sharded gradients summed in this step's backward, by plan position
         self._done: Dict[int, torch.Tensor] = {}
@@ -504,13 +523,14 @@ class Trainer:
         return out  # type: ignore[return-value]
 
     def _global_means(self, metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each metric's mean over the batch ranks, reduced on the device."""
+        """Each metric summed over sp (the chunks' shares) and averaged
+        over the batch ranks, reduced on the device."""
 
         from tf_operator_tpu_torch.parallel.collectives import all_reduce
 
         keys = sorted(metrics)
         v = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
-        all_reduce(v, self._batch_group, self.collective_stats, "metrics_all_reduce")
+        all_reduce(v, self._metrics_group, self.collective_stats, "metrics_all_reduce")
         v = v / self.batch_ranks
         return {k: v[i] for i, k in enumerate(keys)}
 
@@ -519,12 +539,26 @@ class Trainer:
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in batch.items()}
 
+    def _sequence_chunks(self, batch) -> Dict[str, torch.Tensor]:
+        """Each leaf [rows, seq, ...] cut to this rank's chunk of the
+        sequence (the batch's "seq" axis over sp); the batch itself at
+        sp 1."""
+
+        from tf_operator_tpu_torch.parallel.sharding import sequence_chunk
+
+        if self.mesh is None or self._sp <= 1:
+            return batch
+        return {k: sequence_chunk(torch.as_tensor(v), self.mesh, self._rank)
+                for k, v in batch.items()}
+
     def shard_batch(self, batch) -> Dict[str, torch.Tensor]:
         """The batch on this rank's device.  One process: ``batch`` is the
         global batch.  Several: each passes its local shard (its rows of
-        the global batch, ``batch_index``).  Raises where the mesh
-        replicates batch shards across processes: disjoint local data
-        would then differ between ranks that must hold the same rows."""
+        the global batch, ``batch_index``: the ranks of an sp line pass
+        the same rows, and each keeps its chunk of the sequence).  Raises
+        where the mesh replicates batch shards across processes: disjoint
+        local data would then differ between ranks that must hold the
+        same rows."""
 
         if self.mesh is not None and self._batch_replicated:
             raise ValueError(
@@ -533,11 +567,12 @@ class Trainer:
                 "DISJOINT data would silently diverge — use "
                 "shard_global_batch with an identical global batch, or "
                 "give the mesh a dp/fsdp extent >= the process count")
-        return self._to_device(batch)
+        return self._to_device(self._sequence_chunks(batch))
 
     def shard_global_batch(self, batch) -> Dict[str, torch.Tensor]:
-        """This rank's rows of an identical global ``batch`` (every
-        process passes the same one), on its device."""
+        """This rank's rows (and chunk of the sequence) of an identical
+        global ``batch`` (every process passes the same one), on its
+        device."""
 
         if self.mesh is None:
             return self._to_device(batch)
@@ -546,7 +581,7 @@ class Trainer:
             v = torch.as_tensor(v)
             local = v.shape[0] // self.batch_ranks
             out[k] = v[self.batch_index * local:(self.batch_index + 1) * local]
-        return self._to_device(out)
+        return self._to_device(self._sequence_chunks(out))
 
     # -- steps -------------------------------------------------------------
     def _forward_backward(self, batch) -> Dict[str, torch.Tensor]:

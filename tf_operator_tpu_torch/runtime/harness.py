@@ -49,13 +49,22 @@ def gather_params(trainer) -> Dict[str, torch.Tensor]:
     return {n: p.detach() for n, p in zip(trainer.names, trainer.params)}
 
 
-def batch_sizes(batch_per_device: int):
+def batch_sizes(batch_per_device: int, mesh=None):
     """(global, per-process) batch sizes for the joined world (one
-    device a rank)."""
+    device a rank): the global batch is ``batch_per_device`` a rank, as
+    the reference's is a device.  The per-process rows are the global
+    batch over the batch axes of ``mesh`` (dp x fsdp): the ranks of one
+    sp line read the same rows (each keeps its chunk of the sequence).
+    Without a mesh every rank is a batch shard."""
 
     from tf_operator_tpu_torch.runtime.bootstrap import world
 
-    return batch_per_device * world()[1], max(batch_per_device, 1)
+    global_batch = batch_per_device * world()[1]
+    if mesh is None:
+        return global_batch, max(batch_per_device, 1)
+    from tf_operator_tpu_torch.parallel.mesh import local_batch_size
+
+    return global_batch, local_batch_size(mesh, global_batch)
 
 
 def _resolve_losses(ledger, phase: str, pending: List) -> List[float]:

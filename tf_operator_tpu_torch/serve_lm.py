@@ -810,6 +810,16 @@ def _cut(sample: str, stop: Optional[str]) -> str:
     return sample
 
 
+class _BurstHTTPServer(ThreadingHTTPServer):
+    """The server's listener.  socketserver's listen backlog of 5 drops
+    the connections of a burst of clients beyond it while the accept
+    thread waits for the interpreter lock, and each dropped client
+    retries a second or more later: a request sent during a burst could
+    then reach a pool that had gone idle."""
+
+    request_queue_size = 128
+
+
 class Server:
     """The HTTP server and, for a pool, one decode loop thread a replica,
     started together and stopped together.  ``alert_engine`` is the
@@ -832,7 +842,7 @@ class Server:
         self.alert_engine = handler.alert_engine
         self.profiler = handler.profiler
         self.fabric = handler.pool_fabric
-        self.httpd = ThreadingHTTPServer((host, port), handler)
+        self.httpd = _BurstHTTPServer((host, port), handler)
         self.port = self.httpd.server_address[1]
         self._stop = threading.Event()
         self._threads = [threading.Thread(target=self.httpd.serve_forever,
