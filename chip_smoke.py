@@ -397,11 +397,38 @@ Phases, in order; any failure exits non-zero before the result line:
    ``kv_fabric_pull_failures_total{reason="peer_dead"}`` >= 1.  Prints the
    pods' boot wall, latencies, A's fabric host bytes and a port client's
    HTTP pull ms a block from A.
-14. the kernels line (K1, K2, K3 from the training path, K4 from the
-   serving path, K7 from the int8 serving path, K5 and K6 from the
-   ResNet path, at the [200704, 256] no-ReLU, no-residual class, where
-   F.batch_norm computes the same function), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+14. the encoder workloads (``phase_encoders``, run after phase 6's
+   parity and before phase 5b): (a) K1, K2 and K3 at the three
+   encoders' attention shapes, bf16, D 64, non-causal (``ENCODER_FLASH``:
+   BERT-base [32, 12, 128, 64], ViT-B/16 [32, 12, 196, 64], T5-base's
+   cross-attention q [4, 12, 32, 64] against k, v [4, 12, 64, 64]) against
+   their plain versions at ``FLASH_RTOL``, each kernel's time (CUDA
+   events, 20 launches after 3 warm-ups), its bound (bytes or products,
+   whichever is larger), the plain version's and SDPA's forward and
+   backward times; (b) ``bert_pretrain`` at bert_base, seq 128 x batch
+   32, (c) ``t5_multihost`` at t5_base (the entry's defaults: batch 4,
+   encoder 64, decoder 32), (d) ``vit_classify`` at vit_b16, 224 px x
+   batch 32, 1000 classes, each through its entry's ``run`` for
+   ``ENCODER_STEPS`` steps at dropout 0.1 and its entry's optimizer.
+   Counts zeroed just before and read just after each: K1, K2 and K3
+   must each launch 12 x the steps run (ViT's benchmark steps included),
+   the plain attention must not run, except T5's 24 biased
+   self-attentions a forward, and the loss must fall.  Prints step ms,
+   examples/s, model TFLOP/s (``encoder_flops_per_example``) and their
+   share of the 989 TFLOPS peak, and peak memory; then each family's
+   one-step parity at dropout 0, kernels against the plain attention on
+   the same weights and batch: loss and grad norm at ``PARITY_RTOL`` x
+   sqrt(8,188 / the targets its loss averages), phase 6's tolerances
+   scaled from llama's 8,188 targets to BERT's labelled positions, T5's
+   128 targets and ViT's 32 images; beside them the same step in float32
+   (what bf16 itself moves) and the plain forward with P rounded to bf16
+   as K1 rounds it.
+15. the kernels line (K1, K2, K3 from the training paths: llama's and
+   the three encoders', each counted around its own run, with the
+   counts by path; K4 from the serving path, K7 from the int8 serving
+   path, K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
+   no-residual class, where F.batch_norm computes the same function),
+   the card line, and last ``{"ok": true, "device": {...}}``.
 
 ``--ab DIR`` (``ab_main``): phases 4d, 5 and 7 of the tree unpacked at
 DIR (an earlier commit's ``git archive``, under the gitignored
@@ -3052,7 +3079,13 @@ def _tensor_rel(got, want):
 
 
 def flash_case(name, *, b, h, hkv, sq, sk, d, dtype, causal, window=None, seed=0,
-               timed=False):
+               timed=False, queued=False):
+    """K1-K3 at one shape against their plain versions; ``timed``: each
+    kernel's, its plain version's and SDPA's times beside the bound;
+    ``queued``: also each kernel's and SDPA's device time with their
+    launches queued behind a device sleep (``device_ms``), for shapes
+    whose kernels take less than their wrappers' host time."""
+
     from tf_operator_tpu_torch.ops import flash_attention as fa
 
     dev = torch.device("cuda")
@@ -3126,7 +3159,17 @@ def flash_case(name, *, b, h, hkv, sq, sk, d, dtype, causal, window=None, seed=0
                 "flops": FLASH_UNITS[kname] * unit,
             }
             rec["timing"][kname]["share_of_bound"] = rec["timing"][kname]["bound_ms"] / ms
+            if queued:
+                dev_ms = time_ms_queued(kernel_fn[kname])
+                rec["timing"][kname]["device_ms"] = dev_ms
+                rec["timing"][kname]["device_share_of_bound"] = max(t_ops, t_bytes) / dev_ms
         rec["sdpa_ms"] = library
+        if queued:
+            rec["sdpa_device_ms"] = {
+                "fwd": time_ms_queued(lambda: sdpa(q, k, v, is_causal=causal,
+                                                   enable_gqa=hkv != h)),
+                "bwd": time_ms_queued(lambda: torch.autograd.grad(so, (sq_, sk_, sv_), do,
+                                                                  retain_graph=True))}
     log("flash " + json.dumps(rec))
     if bad:
         raise AssertionError(f"flash {name}: errors over the tolerance {FLASH_RTOL[dtype]}: {bad}")
@@ -3516,6 +3559,253 @@ def phase_parity(args, batch):
         if not (math.isfinite(r["rel"]) and r["rel"] <= r["tol"]):
             raise AssertionError(f"one-step parity: {key} off the plain step: {rec}")
     return rec
+
+
+#: phase 14: K1-K3 at the encoder workloads' attention shapes (bf16, D
+#: 64, non-causal): BERT-base at seq 128 x batch 32, ViT-B/16 at 224 px
+#: (196 patches: the second 128-row tile holds 68 rows) x batch 32, and
+#: T5-base's cross-attention (decoder 32 against encoder 64, batch 4)
+ENCODER_FLASH = (
+    ("bert_base_s128_b32", dict(b=32, h=12, hkv=12, sq=128, sk=128, d=64)),
+    ("vit_b16_s196_b32", dict(b=32, h=12, hkv=12, sq=196, sk=196, d=64)),
+    ("t5_base_cross_sq32_sk64_b4", dict(b=4, h=12, hkv=12, sq=32, sk=64, d=64)),
+)
+#: phase 14's training runs: steps of train_loop (the loss guard needs 20
+#: or more), resolved in windows of 5
+ENCODER_STEPS = 40
+#: T5's self-attentions carry the relative-position bias and run the
+#: plain attention: one call a layer of each stack a forward
+T5_PLAIN_PER_FORWARD = 24
+
+
+def encoder_flops_per_example(family, cfg, **shape):
+    """Model flops of one trained example (forward + backward = 3x the
+    forward), phase 5's definition: 6 x the matmul parameters each token
+    passes through (no embedding gather), plus the attention products,
+    2 x 2 * H * D flops a (query, key) pair x 3, non-causal (a causal
+    pair counted half, as phase 5 counts it)."""
+
+    e, h, d, m, n = cfg.hidden, cfg.n_heads, cfg.head_dim, cfg.mlp_dim, cfg.n_layers
+    hd = h * d
+    layer = 4 * e * hd + 2 * e * m
+    pair = 12 * hd
+    if family == "bert":
+        s = shape["seq"]
+        return s * (6.0 * (n * layer + e * e + e * cfg.vocab_size) + n * pair * s)
+    if family == "vit":
+        s, p = shape["patches"], shape["patch"]
+        return 6.0 * (s * (p * p * 3 * e + n * layer) + e * shape["classes"]) + n * pair * s * s
+    se, sd = shape["enc"], shape["dec"]
+    matmul = (se * n * layer + sd * n * (layer + 2 * e * hd) + se * n * 2 * e * hd
+              + sd * e * cfg.vocab_size)
+    return 6.0 * matmul + n * pair * (se * se + sd * sd / 2 + sd * se)
+
+
+def _encoder_run(name, entry, argv, family, shape, per_example):
+    """One encoder entry through its own ``run`` at full width: counts
+    zeroed just before and read just after; K1-K3 must each launch 12 x
+    the train steps run (the loop's and, for ViT, the benchmark's), the
+    plain attention only where the family's biased self-attentions send
+    it (T5: ``T5_PLAIN_PER_FORWARD`` calls a step), and the loss must
+    fall."""
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    args = entry.parse_args(argv)
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fa.plain_calls.clear()
+    out = entry.run(args)
+    torch.cuda.synchronize()
+    launches = {k: _build.launches.get(k, 0) for k in FLASH_KERNELS}
+    plain = dict(fa.plain_calls)
+    trainer, losses = out["trainer"], out["losses"]
+    cfg = trainer.model.cfg
+    steps = trainer.host_step
+    step_s = _steady_step_s(out["resolved_at"])
+    rows = next(iter(out["batch"].values())).shape[0]
+    flops = per_example * rows / step_s
+    rec = {"model": name, "layers": cfg.n_layers, "dropout": cfg.dropout, "shape": shape,
+           "rows": rows, "steps": steps, "params": sum(p.numel() for p in trainer.params),
+           "loss_first": losses[0], "loss_last5": sum(losses[-5:]) / 5,
+           "losses": [round(x, 4) for x in losses], "launches": launches,
+           "plain_calls": plain, "wall_s": out["wall_s"], "step_ms": step_s * 1e3,
+           "examples_per_s": rows / step_s, "flops_per_example": per_example,
+           "model_tflops": flops / 1e12, "peak_share": flops / PEAK_OPS[torch.bfloat16],
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if "benchmark" in out:
+        rec["benchmark"] = out["benchmark"]
+    log(f"encoder train ({card_line()}) " + json.dumps(rec))
+    want = cfg.n_layers * steps
+    for kname in FLASH_KERNELS:
+        if launches[kname] != want:
+            raise AssertionError(f"{name}: {kname} launched {launches[kname]} times; "
+                                 f"{cfg.n_layers} layers x {steps} steps = {want}")
+    want_plain = {"dot_product_attention": T5_PLAIN_PER_FORWARD * steps} if family == "t5" else {}
+    if {k: v for k, v in plain.items() if v} != want_plain:
+        raise AssertionError(f"{name}: plain attention calls {plain}, want {want_plain}")
+    if not rec["loss_last5"] < rec["loss_first"]:
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    return rec, trainer, out["batch"]
+
+
+#: the targets phase 6's llama parity averages its loss over (4 rows x
+#: 2047 next tokens), on which ``PARITY_RTOL`` was read
+LLAMA_PARITY_TARGETS = 4 * 2047
+
+
+def _plain_forward_bf16_p(q, k, v, causal=False, window=None):
+    """K1's plain version with the probabilities rounded to q's dtype
+    before the PV product (its row sums float32), the rounding K1's
+    tensor cores take: the plain step under it shows how far one such
+    rounding choice moves a loss."""
+
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    fa.plain_calls[fa.KERNEL_FWD] += 1
+    b, h, sq, d = q.shape
+    logits = fa._logits(q, k, causal, window)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True).clamp_min(1e-37)
+    out = torch.matmul(p.to(q.dtype).float(), v.float()[:, :, None]) / l
+    return out.reshape(b, h, sq, d).to(q.dtype), (m + torch.log(l))[..., 0].reshape(b, h, sq)
+
+
+def _float32_plain(cfg):
+    """``cfg`` computing in float32 with the plain attention."""
+
+    import dataclasses
+
+    if hasattr(cfg, "base"):
+        return dataclasses.replace(cfg, base=_float32_plain(cfg.base))
+    return dataclasses.replace(cfg, dtype=torch.float32, plain_kernels=True)
+
+
+def _encoder_parity(name, family_cls, cfg, loss_fn, batch, targets, lr):
+    """The first step through the kernels against the same step with the
+    plain attention (same weights at dropout 0, same batch; only the
+    attention differs): the loss and the grad norm each at its
+    ``PARITY_RTOL`` x sqrt(``LLAMA_PARITY_TARGETS`` / ``targets``).  Both
+    are means over ``targets`` of what the attention's roundings move, so
+    their differences shrink as the square root of that count, and
+    llama's tolerances were read over 8,188 targets.  Printed beside:
+    ``p_rounding``, how far rounding P to bf16 in the plain forward
+    (``_plain_forward_bf16_p``) moves the same loss, one rounding choice
+    at this count; and the same step in float32 with the plain
+    attention, against which each bf16 step's loss and grad norm show
+    what computing in bf16 moves at all."""
+
+    from tf_operator_tpu_torch.models.weights import init_params
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    state = init_params(cfg, 0, dev, trainable=True, family=family_cls)
+    model = family_cls.from_state_dict(cfg, state, dev, trainable=True)
+    tcfg = TrainerConfig(learning_rate=lr)
+    got = Trainer(model, tcfg, loss_fn).compute_grads(batch)
+    plain_model = model.variant(plain_kernels=True)
+    fa.plain_calls.clear()
+    want = Trainer(plain_model, tcfg, loss_fn).compute_grads(batch)
+    layers = (cfg.base if hasattr(cfg, "base") else cfg).n_layers
+    if fa.plain_calls[fa.KERNEL_FWD] != layers:
+        raise AssertionError(f"{name}: the plain step did not run the plain attention: "
+                             f"{dict(fa.plain_calls)}")
+    exact, fa.flash_forward_plain = fa.flash_forward_plain, _plain_forward_bf16_p
+    try:
+        with torch.no_grad():
+            rounded = float(loss_fn(plain_model, batch)[0])
+    finally:
+        fa.flash_forward_plain = exact
+    f32 = family_cls.from_state_dict(_float32_plain(cfg), state, dev, trainable=True)
+    del state
+    truth = Trainer(f32, tcfg, loss_fn).compute_grads(batch)
+    del f32
+    free_device_memory()
+    rec = {"targets": targets,
+           "p_rounding": {"plain_bf16_p": rounded,
+                          "rel": abs(rounded - float(want["loss"])) / abs(float(want["loss"])),
+                          "kernels_rel": abs(float(got["loss"]) - rounded) / abs(rounded)},
+           "float32": {key: {"value": float(truth[key]),
+                             "kernels_rel": abs(float(got[key]) / float(truth[key]) - 1),
+                             "plain_rel": abs(float(want[key]) / float(truth[key]) - 1)}
+                       for key in PARITY_RTOL}}
+    scale = math.sqrt(LLAMA_PARITY_TARGETS / targets)
+    tols = {key: tol * scale for key, tol in PARITY_RTOL.items()}
+    for key, tol in tols.items():
+        a, b = float(got[key]), float(want[key])
+        rec[key] = {"kernels": a, "plain": b, "rel": abs(a - b) / abs(b), "tol": tol}
+    log(f"{name} one-step parity (dropout 0) " + json.dumps(rec))
+    for key in tols:
+        r = rec[key]
+        if not (math.isfinite(r["rel"]) and r["rel"] <= r["tol"]):
+            raise AssertionError(f"{name} one-step parity: {key} off the plain step: {rec}")
+    return rec
+
+
+def phase_encoders(card):
+    """Phase 14: the reference's encoder workloads at full width.  (a) K1-K3
+    at the three attention shapes against their plain versions, timed
+    beside their bounds and SDPA; (b) ``bert_pretrain`` at bert_base,
+    seq 128 x batch 32; (c) ``t5_multihost`` at t5_base (the entry's
+    defaults: batch 4, encoder 64, decoder 32); (d) ``vit_classify`` at
+    vit_b16, 224 px x batch 32, 1000 classes (then its benchmark line):
+    each through its entry point at dropout 0.1 and its entry's optimizer
+    (``_encoder_run``), then its one-step parity at dropout 0
+    (``_encoder_parity``).  Returns the flash records and the runs."""
+
+    from tf_operator_tpu_torch import bert_pretrain, t5_multihost, vit_classify
+    from tf_operator_tpu_torch.models import bert, t5, vit
+
+    flash = [flash_case(n, seed=100 + i, dtype=torch.bfloat16, causal=False, timed=True,
+                        queued=True, **kw)
+             for i, (n, kw) in enumerate(ENCODER_FLASH)]
+    log(f"encoder flash shapes ({card}) " + json.dumps(
+        {r["case"]: {**{k: {f: round(t[f], 5) for f in ("ms", "device_ms", "bound_ms",
+                                                         "plain_ms", "library_ms")}
+                        | {"bound_by": t["bound_by"]} for k, t in r["timing"].items()},
+                     "sdpa_device_ms": r["sdpa_device_ms"]} for r in flash}))
+    steps = ["--steps", str(ENCODER_STEPS), "--steps-per-sync", "5"]
+    runs = {}
+    bcfg = bert.bert_base(max_len=128)
+    runs["bert_pretrain"], trainer, batch = _encoder_run(
+        "bert_base", bert_pretrain,
+        ["--model", "bert_base", "--seq-len", "128", "--batch-per-device", "32"] + steps,
+        "bert", {"seq": 128}, encoder_flops_per_example("bert", bcfg, seq=128))
+    del trainer
+    free_device_memory()
+    runs["bert_pretrain"]["parity"] = _encoder_parity(
+        "bert_base", bert.BertForPretraining, bert.bert_base(max_len=128, dropout=0.0),
+        bert.mlm_loss, batch, int((batch["labels"] >= 0).sum()), 1e-4)
+    del batch
+    tcfg = t5.t5_base()
+    runs["t5_multihost"], trainer, batch = _encoder_run(
+        "t5_base", t5_multihost, ["--model", "t5_base"] + steps, "t5",
+        {"enc": 64, "dec": 32}, encoder_flops_per_example("t5", tcfg, enc=64, dec=32))
+    del trainer
+    free_device_memory()
+    runs["t5_multihost"]["parity"] = _encoder_parity(
+        "t5_base", t5.T5, t5.t5_base(dropout=0.0), t5.seq2seq_loss, batch,
+        batch["targets"].numel(), 1e-4)
+    del batch
+    vcfg = vit.vit_b16()
+    runs["vit_classify"], trainer, batch = _encoder_run(
+        "vit_b16", vit_classify,
+        ["--model", "vit_b16", "--image-size", "224", "--num-classes", "1000",
+         "--batch-per-device", "32"] + steps, "vit",
+        {"patches": 196, "patch": 16, "classes": 1000},
+        encoder_flops_per_example("vit", vcfg.base, patches=196, patch=16, classes=1000))
+    del trainer
+    free_device_memory()
+    runs["vit_classify"]["parity"] = _encoder_parity(
+        "vit_b16", vit.ViT, vit.vit_b16(dropout=0.0), vit.vit_loss, batch,
+        batch["label"].numel(), 3e-3)
+    del batch
+    free_device_memory()
+    return flash, runs
 
 
 #: phase 5b's llama-wide job: steps and rows a rank (the one-process
@@ -4687,6 +4977,8 @@ def main():
         shutil.rmtree(tmp, ignore_errors=True)
     free_device_memory()
     log(f"training phases done at {time.perf_counter() - t0:.1f} s")
+    _, encoder_runs = phase_encoders(card)
+    log(f"encoder phase done at {time.perf_counter() - t0:.1f} s")
     phase_multiprocess(card)
     log(f"multi-process phase done at {time.perf_counter() - t0:.1f} s")
 
@@ -4744,10 +5036,14 @@ def main():
     errs = {"flash_attention_fwd": "fwd", "flash_attention_bwd_dq": "dq",
             "flash_attention_bwd_dkv": "dkv"}
     for kname in FLASH_KERNELS:
-        kernels.insert(-1, _kernel_entry(
+        # each path's launches, counted from zero around its own run
+        by_path = {"llama_pretrain": train_stats["launches"].get(kname, 0),
+                   **{path: r["launches"][kname] for path, r in encoder_runs.items()}}
+        entry = _kernel_entry(
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
-            train_stats["launches"].get(kname, 0), wide["max_abs_err"][errs[kname]],
-            wide["timing"][kname]))
+            sum(by_path.values()), wide["max_abs_err"][errs[kname]], wide["timing"][kname])
+        entry["launches_by_path"] = by_path
+        kernels.insert(-1, entry)
     step = k7_decode_step(k7)
     kernels.append(_kernel_entry(
         "quant_matmul", "tf_operator_tpu_torch/csrc/quant_matmul.cu",

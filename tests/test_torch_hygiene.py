@@ -69,7 +69,8 @@ def test_importing_every_module_loads_no_jax():
               "backend.retry", "serve_lm", "bootstrap.tpu_env", "runtime.bootstrap",
               "parallel.mesh", "parallel.sharding", "parallel.collectives", "models.mnist",
               "dist_psum", "dist_mnist", "dist_multislice", "ops.ring_attention",
-              "ops.ulysses_attention"):
+              "ops.ulysses_attention", "models.bert", "models.t5", "models.vit",
+              "bert_pretrain", "t5_multihost", "vit_classify"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

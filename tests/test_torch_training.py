@@ -47,6 +47,7 @@ from tf_operator_tpu_torch.models.llama import (
     llama_wide,
 )
 from tf_operator_tpu_torch.models.registry import describe_model, model_from_description
+from tf_operator_tpu_torch.models.transformer import set_dropout_rng
 from tf_operator_tpu_torch.models.weights import from_flax_params, init_params, load_npz
 from tf_operator_tpu_torch.parallel.checkpoint import export_params
 from tf_operator_tpu_torch.parallel.trainer import (
@@ -249,11 +250,16 @@ def test_trainable_and_serving_storage():
     ids = torch.as_tensor(np.random.default_rng(0).integers(0, VOCAB, (2, 16)))
     with torch.no_grad():
         torch.testing.assert_close(train(ids), serve(ids), atol=0, rtol=0)
+    # dropout acts only in a training forward, with the model's generator
     dropout = LlamaLM.from_state_dict(llama_tiny(vocab_size=VOCAB, dropout=0.1), state, "cpu",
                                       trainable=True)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        dropout(ids)
-    dropout.eval()(ids)
+    with torch.no_grad():
+        torch.testing.assert_close(dropout(ids), train(ids), atol=0, rtol=0)
+        with pytest.raises(ValueError, match="dropout_rng"):
+            dropout(ids, train=True)
+        set_dropout_rng(dropout, torch.Generator().manual_seed(0))
+        assert not torch.equal(dropout(ids, train=True), train(ids))
+        torch.testing.assert_close(dropout.eval()(ids), train(ids), atol=0, rtol=0)
 
 
 def test_export_serves_what_training_left(tmp_path):

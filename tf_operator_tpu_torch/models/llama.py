@@ -4,8 +4,6 @@ and of ``models/gpt.py``'s ``lm_loss``)."""
 
 from __future__ import annotations
 
-import copy
-import dataclasses
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
@@ -18,14 +16,15 @@ from tf_operator_tpu_torch.models.transformer import (
     DecoderLayer,
     DenseGeneral,
     Embed,
+    Family,
     PagedCache,
     RMSNorm,
     TransformerConfig,
+    dropout,
 )
-from tf_operator_tpu_torch.ops.quant import QTensor
 
 
-class LlamaLM(nn.Module):
+class LlamaLM(Family):
     """Decoder-only LM over a TransformerConfig with rope=True.
 
     Parameter names follow the flax tree (``tok_embed.embedding``,
@@ -35,75 +34,21 @@ class LlamaLM(nn.Module):
     ``trainable=True`` builds float32 master parameters that take
     gradients (models/transformer.py: the two storage modes).  A serving
     model built from a state whose kernels are QTensors holds them as
-    int8 (the JAX package's ``quantize_tree`` -> ``apply``)."""
+    int8 (the JAX package's ``quantize_tree`` -> ``apply``):
+    ``from_state_dict`` and ``variant`` are :class:`Family`'s."""
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         self.tok_embed = Embed(cfg, device, trainable)
         self.layers = nn.ModuleList(
-            DecoderLayer(cfg, device, trainable) for _ in range(cfg.n_layers)
+            DecoderLayer(cfg, device, trainable, activation="swiglu")
+            for _ in range(cfg.n_layers)
         )
         self.ln_final = RMSNorm(cfg, device, trainable)
         self.lm_head = DenseGeneral(
             (cfg.hidden,), (cfg.vocab_size,), cfg, False, device, trainable
         )
-
-    @classmethod
-    def from_state_dict(cls, cfg: TransformerConfig,
-                        state: Mapping[str, object], device, *,
-                        trainable: bool = False) -> "LlamaLM":
-        """Build the model around ``state`` (name -> tensor, array or
-        QTensor), each entry moved to ``device`` and cast to its
-        parameter's storage dtype.  A serving model adopts entries already
-        in place without a copy, so 7B-width weights are never held
-        twice, holds a QTensor kernel as int8
-        (``DenseGeneral.hold_int8``), and is returned in eval mode; a
-        trainable model copies every entry (the optimizer updates its
-        parameters in place), refuses QTensors, and is returned in train
-        mode."""
-
-        model = cls(cfg, device="meta", trainable=trainable)
-        expected = dict(model.named_parameters())
-        if set(state) != set(expected):
-            missing = sorted(set(expected) - set(state))
-            extra = sorted(set(state) - set(expected))
-            raise ValueError(
-                f"state does not match the model: missing {missing[:4]}, "
-                f"unexpected {extra[:4]}"
-            )
-        placed, held = {}, set()
-        for name, value in state.items():
-            p = expected[name]
-            if not isinstance(value, QTensor):
-                value = torch.as_tensor(value)
-            if tuple(value.shape) != tuple(p.shape):
-                raise ValueError(
-                    f"{name}: shape {tuple(value.shape)} != {tuple(p.shape)}"
-                )
-            if isinstance(value, QTensor):
-                module, leaf = name.rsplit(".", 1)
-                dense = model.get_submodule(module)
-                if leaf != "kernel" or not isinstance(dense, DenseGeneral):
-                    raise ValueError(f"{name}: only dense kernels are held as int8")
-                dense.hold_int8(QTensor(value.q.to(device), value.scale.to(device)))
-                held.update(f"{module}.{b}" for b in ("kernel_q", "kernel_scale"))
-                continue
-            placed[name] = value.to(device=device, dtype=p.dtype, copy=trainable)
-        missing, unexpected = model.load_state_dict(placed, strict=False, assign=True)
-        if unexpected or set(missing) != held:
-            raise ValueError(f"state does not load: missing {sorted(set(missing) - held)[:4]}, "
-                             f"unexpected {unexpected[:4]}")
-        return model.train(trainable)
-
-    def variant(self, **changes) -> "LlamaLM":
-        """The same weights under a config with ``changes`` (e.g.
-        decode=True): a shallow copy, so no parameter or int8 kernel is
-        duplicated (the pool's decode views share the int8 modules)."""
-
-        v = copy.copy(self)
-        v.cfg = dataclasses.replace(self.cfg, **changes)
-        return v
 
     @property
     def device(self) -> torch.device:
@@ -118,14 +63,16 @@ class LlamaLM(nn.Module):
         return name_to_flax_path(name)
 
     def forward(self, input_ids: torch.Tensor, *, mode: str = "full",
-                cache=None) -> torch.Tensor:
+                cache=None, train: bool = False) -> torch.Tensor:
         """mode="full": ids [B, S] -> float32 logits [B, S, V].
         mode="hidden": ids -> post-ln_final hidden states [B, S, E].
         mode="head": input_ids is already a hidden-state tensor; apply
         only the lm_head.
 
         ``cache`` (decode configs only) is a DecodeCache or, for a paged
-        config, a PagedCache; it is advanced by the new positions."""
+        config, a PagedCache; it is advanced by the new positions.
+        ``train``: a training forward, whose dropout (at ``cfg.dropout``)
+        draws from ``dropout_rng``; a decode forward never trains."""
 
         if mode not in ("full", "hidden", "head"):
             raise ValueError(f"mode must be full|hidden|head, got {mode!r}")
@@ -141,13 +88,12 @@ class LlamaLM(nn.Module):
             raise ValueError(
                 f"paged={cfg.paged} does not match a {type(cache).__name__}"
             )
-        if self.training and cfg.dropout > 0:
-            raise NotImplementedError(
-                f"dropout {cfg.dropout} in training is not ported; use dropout=0"
-            )
-        x = self.tok_embed(input_ids)
+        if train and cache is not None:
+            raise ValueError("a decode forward does not train")
+        rng = self.dropout_generator(train)
+        x = dropout(self.tok_embed(input_ids), cfg.dropout, rng)
         for i, layer in enumerate(self.layers):
-            x = layer(x, cache, i, cfg.plain_kernels)
+            x = layer(x, cache, i, cfg.plain_kernels, rng=rng)
         s_new = input_ids.shape[1]
         if isinstance(cache, DecodeCache):
             cache.advance(s_new)
@@ -161,8 +107,10 @@ class LlamaLM(nn.Module):
 
 def llama_tiny(vocab_size: int = 1024, max_len: int = 256,
                n_kv_heads: Optional[int] = 2, **kw) -> TransformerConfig:
-    """Test-scale shape (GQA 4q:2kv by default)."""
+    """Test-scale shape (GQA 4q:2kv by default), no dropout, as the
+    reference's ``llama_tiny`` (``dropout=`` overrides it)."""
 
+    kw.setdefault("dropout", 0.0)
     return TransformerConfig(
         vocab_size=vocab_size, hidden=128, n_heads=4, head_dim=32,
         n_layers=2, mlp_dim=352, max_len=max_len, rope=True,
@@ -173,8 +121,9 @@ def llama_tiny(vocab_size: int = 1024, max_len: int = 256,
 def llama_7b_shape(vocab_size: int = 32000, max_len: int = 4096,
                    **kw) -> TransformerConfig:
     """The canonical 7B shape: 32 layers, hidden 4096, 32 heads x 128,
-    MLP 11008."""
+    MLP 11008, no dropout (the reference's)."""
 
+    kw.setdefault("dropout", 0.0)
     return TransformerConfig(
         vocab_size=vocab_size, hidden=4096, n_heads=32, head_dim=128,
         n_layers=32, mlp_dim=11008, max_len=max_len, rope=True,
@@ -239,12 +188,12 @@ def llama_loss(model: LlamaLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, to
     ids = batch["input_ids"]
     if model.cfg.sp_enabled:
         targets, valid, count = _sp_targets(model, ids)
-        logits = model(ids)[:, :valid]
+        logits = model(ids, train=model.training)[:, :valid]
         targets = targets[:, :valid]
         loss = _next_token(logits, targets, "sum") / count
         acc = (logits.detach().argmax(-1) == targets).sum().float() / count
         return loss, {"token_accuracy": acc}
-    logits = model(ids)[:, :-1]
+    logits = model(ids, train=model.training)[:, :-1]
     targets = ids[:, 1:]
     loss = _next_token(logits, targets, "mean")
     acc = (logits.detach().argmax(-1) == targets).float().mean()
@@ -268,7 +217,7 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
         tgt, valid, denom = _sp_targets(model, ids)
     else:
         tgt, valid, denom = ids[:, 1:], ids.shape[1] - 1, ids.shape[0] * (ids.shape[1] - 1)
-    h = model(ids, mode="hidden")[:, :valid]
+    h = model(ids, mode="hidden", train=model.training)[:, :valid]
     tgt = tgt[:, :valid]
     s = h.shape[1]
     c = max(1, min(n_chunks, s))

@@ -1,5 +1,9 @@
-"""Transformer components (the port of the decoder half of
-``tf_operator_tpu/models/transformer.py``).
+"""Transformer components (the port of
+``tf_operator_tpu/models/transformer.py``): the llama decoder's blocks
+and the encoder half (LayerNorm with a bias, gelu / relu MLPs with
+biases, non-causal and cross-attention with a mask or a bias, the
+encoder layer, the generic decoder layer and the tied head), which the
+BERT, T5 and ViT families build on.
 
 Parameters keep the flax layout — a dense kernel is [in..., out...],
 the attention projections are [E, H, D] and the output projection is
@@ -18,13 +22,25 @@ each product.  Two storage modes, chosen when a model is built:
   as flax does.  It is never quantized (the JAX package quantizes for
   serving only).
 
-Norm scales are float32 in both, as flax applies them.
+Norm scales and biases are float32 in both, as flax applies them, and
+so is T5's relative-position table (its bias is added to float32
+logits).
+
+Dropout (flax's ``nn.Dropout``, at the reference's sites: the
+attention's and the MLP's outputs and each family's embedding sum) acts
+only in a forward called with ``train=True``, and draws its masks from
+the generator the model holds (``Family.dropout_rng``, which the
+``Trainer`` sets): never from the global generator, and never in a
+decode or serving forward, which passes no ``train``.
 
 Attention has three branches, chosen by the cache passed in:
 
-- no cache: the causal forward over the whole sequence, through
-  ``ops/flash_attention.attention`` (the flash kernels on the card,
-  their plain versions on the CPU).  With sequence parallelism (a
+- no cache: the forward over the whole sequence (causal in a decoder,
+  not in an encoder or a cross-attention, whose K/V come from ``kv``),
+  through ``ops/flash_attention.attention`` (the flash kernels on the
+  card, their plain versions on the CPU; a ``mask`` or a ``bias`` sends
+  it to the plain ``dot_product_attention``, as the reference's
+  dispatcher sends it to XLA).  With sequence parallelism (a
   ``cfg.mesh`` whose sp axis is above 1) each rank holds its chunk of
   the sequence: RoPE takes the chunk's global positions and attention
   runs ``ops/ring_attention`` or ``ops/ulysses_attention`` by
@@ -55,6 +71,7 @@ package returns new ones).
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import List, Optional, Tuple, Union
@@ -84,9 +101,9 @@ class TransformerConfig:
     n_layers: int = 12
     mlp_dim: int = 3072
     max_len: int = 512
-    #: training dropout; only 0 is ported (a model in training mode
-    #: with dropout > 0 raises)
-    dropout: float = 0.0
+    #: training dropout: the rate of flax's nn.Dropout at the
+    #: reference's sites (a forward with train=True only)
+    dropout: float = 0.1
     dtype: torch.dtype = torch.bfloat16
     #: grouped-query attention: number of K/V heads (None = MHA)
     n_kv_heads: Optional[int] = None
@@ -191,6 +208,21 @@ class PagedCache:
     impl: Optional[str] = None
 
 
+def dropout(x: torch.Tensor, rate: float, rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: ``x`` itself without a generator (a
+    forward that does not train) or at rate 0; zeros at rate 1; else each
+    element kept with probability 1 - rate, drawn from ``rng`` on x's
+    device, and the kept ones divided by 1 - rate."""
+
+    if rng is None or rate == 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=rng, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def _param(shape, dtype, device, trainable: bool) -> nn.Parameter:
     """A serving parameter stored in ``dtype`` without gradients, or a
     trainable float32 master parameter."""
@@ -283,25 +315,68 @@ class RMSNorm(nn.Module):
         return (xf * mul).to(self.dtype)
 
 
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm``: float32 statistics with the fast variance
+    max(E[x^2] - E[x]^2, 0), eps 1e-6, (x - mean) times rsqrt(var + eps)
+    folded with the float32 scale, plus the float32 bias, one cast to
+    ``cfg.dtype``."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 features: Optional[int] = None):
+        super().__init__()
+        self.dtype = cfg.dtype
+        n = features or cfg.hidden
+        self.scale = _param((n,), torch.float32, device, trainable)
+        self.bias = _param((n,), torch.float32, device, trainable)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp_min((xf * xf).mean(dim=-1, keepdim=True) - mean * mean, 0.0)
+        mul = torch.rsqrt(var + NORM_EPS) * self.scale
+        return ((xf - mean) * mul + self.bias).to(self.dtype)
+
+
+def norm(cfg: TransformerConfig, rms: bool, device=None, trainable: bool = False) -> nn.Module:
+    """The reference's ``LayerNorm(cfg, rms=...)``: flax's RMSNorm or
+    LayerNorm."""
+
+    return (RMSNorm if rms else LayerNorm)(cfg, device, trainable)
+
+
 class Embed(nn.Module):
     """Token embedding [V, E], looked up and then cast to ``cfg.dtype``
-    (the same numbers as flax's cast of the whole table)."""
+    (the same numbers as flax's cast of the whole table), and the tied
+    head (:meth:`attend`)."""
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         self.dtype = cfg.dtype
         self.embedding = _param((cfg.vocab_size, cfg.hidden), cfg.dtype, device, trainable)
 
-    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+    def forward(self, ids: torch.Tensor, attend: bool = False) -> torch.Tensor:
+        if attend:
+            # x [B, S, E] . table^T in x's dtype (``Embed.attend``)
+            return torch.matmul(ids, self.embedding.to(ids.dtype).t())
         return self.embedding[ids.long()].to(self.dtype)
+
+    def attend(self, x: torch.Tensor) -> torch.Tensor:
+        """The tied head: logits [B, S, V] of hidden states ``x`` against
+        the table.  Through the module's call, so that a sharded trainer's
+        hooks gather the table for it."""
+
+        return self(x, attend=True)
 
 
 class MultiHeadAttention(nn.Module):
-    """Causal self-attention with rope and GQA."""
+    """Self- or cross-attention with rope and GQA: causal in a decoder,
+    not in an encoder (``causal``, as the reference's field)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 causal: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.causal = causal
         h, hkv, d, e = cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.hidden
         bias = cfg.attn_bias
         self.query = DenseGeneral((e,), (h, d), cfg, bias, device, trainable)
@@ -310,27 +385,47 @@ class MultiHeadAttention(nn.Module):
         self.out = DenseGeneral((h, d), (e,), cfg, bias, device, trainable)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, *, kv: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``kv`` [B, Sk, E]: cross-attention to it (None: self-attention);
+        ``mask`` (bool, True = attend) and ``bias`` broadcast to the
+        logits [B, H, Sq, Sk]; ``rng``: the output's dropout masks (a
+        training forward only)."""
+
         cfg = self.cfg
+        is_self = kv is None
+        kv_in = x if is_self else kv
         # [B, S, H, D] -> [B, H, S, D]
-        q, k, v = (m(x, plain).transpose(1, 2) for m in (self.query, self.key, self.value))
-        if isinstance(cache, PagedCache):
-            return self._paged(q, k, v, cache, layer, plain)
-        if isinstance(cache, DecodeCache):
+        q = self.query(x, plain).transpose(1, 2)
+        k, v = (m(kv_in, plain).transpose(1, 2) for m in (self.key, self.value))
+        if cache is not None:
+            if not is_self or mask is not None or bias is not None:
+                raise ValueError("decode builds its own masks over the cache: no kv, mask "
+                                 "or bias (left-align prompts)")
+            if isinstance(cache, PagedCache):
+                return self._paged(q, k, v, cache, layer, plain)
             return self._decode(q, k, v, cache, layer, plain)
-        if cfg.sp_enabled:
-            return self._sequence_parallel(q, k, v, plain)
-        if cfg.rope:
-            q, k = apply_rope(q, k, theta=cfg.rope_theta)
-        out = attention(q, k, v, causal=True, window=cfg.window,
-                        impl="plain" if plain else None)
-        return self.out(out.transpose(1, 2), plain)
+        if cfg.window is not None and is_self and not self.causal:
+            raise NotImplementedError(
+                "sliding-window attention is defined for causal self-attention; encoder "
+                "self-attention does not support it (cross-attention layers ignore it)")
+        if cfg.sp_enabled and is_self and mask is None and bias is None:
+            out = self._sequence_parallel(q, k, v, plain)
+        else:
+            if cfg.rope and is_self:
+                q, k = apply_rope(q, k, theta=cfg.rope_theta)
+            out = attention(q, k, v, causal=self.causal, bias=bias, mask=mask,
+                            window=cfg.window if self.causal and is_self else None,
+                            impl="plain" if plain else None)
+        return dropout(self.out(out.transpose(1, 2), plain), cfg.dropout, rng)
 
     def _sequence_parallel(self, q, k, v, plain: bool):
         """This rank's chunk of the sequence: RoPE at the chunk's global
         positions (the reference's arrays are global, so its positions
         are global for free), then the sp schedule of ``cfg.sp_impl``.
-        K/V enter at Hkv width and travel that way."""
+        K/V enter at Hkv width and travel that way.  Returns the
+        attention's output [B, H, S, D]."""
 
         from tf_operator_tpu_torch.runtime.bootstrap import world
 
@@ -341,9 +436,8 @@ class MultiHeadAttention(nn.Module):
             q, k = apply_rope(q, k, positions=torch.arange(start, start + s, device=q.device),
                               theta=cfg.rope_theta)
         sp_attn = ulysses_attention if cfg.sp_impl == "ulysses" else ring_attention
-        out = sp_attn(q, k, v, cfg.mesh, causal=True, window=cfg.window,
-                      use_flash=False if plain else None)
-        return self.out(out.transpose(1, 2), plain)
+        return sp_attn(q, k, v, cfg.mesh, causal=self.causal, window=cfg.window,
+                       use_flash=False if plain else None)
 
     def _decode(self, q, k, v, cache: DecodeCache, layer: int, plain: bool):
         cfg = self.cfg
@@ -449,31 +543,224 @@ class MultiHeadAttention(nn.Module):
         return self.out(out, plain)
 
 
+#: the MLP's activations (the reference's ``MlpBlock.activation``)
+ACTIVATIONS = ("gelu", "relu", "swiglu")
+
+
 class MlpBlock(nn.Module):
-    """llama's gated MLP: silu(gate) * up, no biases."""
+    """The reference's MLP: llama's gated ``swiglu`` (silu(gate) * up, no
+    biases), or a ``gelu`` (flax's, the tanh form) or ``relu`` MLP with
+    biases; dropout on its output."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 activation: str = "gelu"):
         super().__init__()
+        if activation not in ACTIVATIONS:
+            raise ValueError(f"activation must be one of {ACTIVATIONS}, got {activation!r}")
+        self.activation = activation
+        self.rate = cfg.dropout
         e, m = cfg.hidden, cfg.mlp_dim
-        self.wi_gate = DenseGeneral((e,), (m,), cfg, False, device, trainable)
-        self.wi_up = DenseGeneral((e,), (m,), cfg, False, device, trainable)
-        self.wo = DenseGeneral((m,), (e,), cfg, False, device, trainable)
+        if activation == "swiglu":
+            self.wi_gate = DenseGeneral((e,), (m,), cfg, False, device, trainable)
+            self.wi_up = DenseGeneral((e,), (m,), cfg, False, device, trainable)
+            self.wo = DenseGeneral((m,), (e,), cfg, False, device, trainable)
+        else:
+            self.wi = DenseGeneral((e,), (m,), cfg, True, device, trainable)
+            self.wo = DenseGeneral((m,), (e,), cfg, True, device, trainable)
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
-        return self.wo(nn.functional.silu(self.wi_gate(x, plain)) * self.wi_up(x, plain), plain)
+    def forward(self, x: torch.Tensor, plain: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.activation == "swiglu":
+            y = nn.functional.silu(self.wi_gate(x, plain)) * self.wi_up(x, plain)
+        elif self.activation == "gelu":
+            y = nn.functional.gelu(self.wi(x, plain), approximate="tanh")
+        else:
+            y = nn.functional.relu(self.wi(x, plain))
+        return dropout(self.wo(y, plain), self.rate, rng)
+
+
+class EncoderLayer(nn.Module):
+    """Pre-norm encoder block: non-causal self-attention, then the MLP;
+    ``rms`` / ``activation`` give the T5 flavour (RMSNorm + relu), the
+    defaults BERT's and ViT's (LayerNorm + gelu)."""
+
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 rms: bool = False, activation: str = "gelu"):
+        super().__init__()
+        self.ln_attn = norm(cfg, rms, device, trainable)
+        self.attn = MultiHeadAttention(cfg, device, trainable)
+        self.ln_mlp = norm(cfg, rms, device, trainable)
+        self.mlp = MlpBlock(cfg, device, trainable, activation)
+
+    def forward(self, x: torch.Tensor, mask=None, bias=None, plain: bool = False,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.attn(self.ln_attn(x), plain=plain, mask=mask, bias=bias, rng=rng)
+        return x + self.mlp(self.ln_mlp(x), plain, rng)
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm decoder block: causal self-attention, then the MLP."""
+    """Pre-norm decoder block (RMSNorm): causal self-attention, the
+    cross-attention to the encoder's output when ``cross`` (T5), then the
+    MLP (``activation``: llama's ``swiglu``, T5's ``relu``)."""
 
-    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
+    def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
+                 cross: bool = False, activation: str = "relu"):
         super().__init__()
         self.ln_self = RMSNorm(cfg, device, trainable)
-        self.self_attn = MultiHeadAttention(cfg, device, trainable)
+        self.self_attn = MultiHeadAttention(cfg, device, trainable, causal=True)
+        if cross:
+            self.ln_cross = RMSNorm(cfg, device, trainable)
+            self.cross_attn = MultiHeadAttention(cfg, device, trainable)
+        self.cross = cross
         self.ln_mlp = RMSNorm(cfg, device, trainable)
-        self.mlp = MlpBlock(cfg, device, trainable)
+        self.mlp = MlpBlock(cfg, device, trainable, activation)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0,
-                plain: bool = False) -> torch.Tensor:
-        x = x + self.self_attn(self.ln_self(x), cache, layer, plain)
-        return x + self.mlp(self.ln_mlp(x), plain)
+                plain: bool = False, *, enc: Optional[torch.Tensor] = None,
+                self_bias: Optional[torch.Tensor] = None,
+                enc_mask: Optional[torch.Tensor] = None,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = x + self.self_attn(self.ln_self(x), cache, layer, plain, bias=self_bias, rng=rng)
+        if self.cross:
+            x = x + self.cross_attn(self.ln_cross(x), plain=plain, kv=enc, mask=enc_mask,
+                                    rng=rng)
+        return x + self.mlp(self.ln_mlp(x), plain, rng)
+
+
+def _dropout_generator(model: nn.Module, train: bool) -> Optional[torch.Generator]:
+    """The generator of a forward's dropout masks: None unless it trains
+    at a rate above 0; then the model's, which must be set."""
+
+    if not train or model.cfg.dropout == 0.0:
+        return None
+    if model.dropout_rng is None:
+        raise ValueError(
+            f"a training forward at dropout {model.cfg.dropout} draws its masks from the "
+            "model's dropout_rng, and none is set: the Trainer sets it, or "
+            "set_dropout_rng(model, torch.Generator(...))")
+    return model.dropout_rng
+
+
+def refuse_sequence_parallel(cfg: TransformerConfig, family: str) -> None:
+    """The encoder families run without sequence parallelism: it is
+    ported for the llama family."""
+
+    if cfg.sp_enabled:
+        raise NotImplementedError(f"sequence parallelism is ported for the llama family; "
+                                  f"{family} runs with sp 1")
+
+
+def set_dropout_rng(model: nn.Module, rng: Optional[torch.Generator]) -> None:
+    """Hand ``rng`` to every module of ``model`` that draws dropout masks
+    (each :class:`Family` in it)."""
+
+    for m in model.modules():
+        if isinstance(m, Family):
+            m.dropout_rng = rng
+
+
+def global_count(model: nn.Module, count: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """A loss's denominator over the global batch: ``(total, ranks)``,
+    ``count`` (the positions this rank's loss counts) summed over the
+    model's batch group (``Family.set_batch_group``) and that group's
+    size; (count, 1) without one.  A rank's ``sum / total * ranks``,
+    averaged over the ranks as the ``Trainer`` averages, is the mean over
+    the global batch that the reference's loss takes over its global
+    array, whatever each rank counts."""
+
+    group = getattr(model, "batch_group", None)
+    if group is None:
+        return count, 1
+    import torch.distributed as dist
+
+    total = count.detach().float().clone()
+    dist.all_reduce(total, group=group)
+    return total, dist.get_world_size(group)
+
+
+class Family(nn.Module):
+    """What every model family of the port shares: building around a
+    state (:meth:`from_state_dict`), a view under another config
+    (:meth:`variant`), the dropout generator of its training forwards
+    (``dropout_rng``, set by the ``Trainer``) and the ranks that hold the
+    rest of the batch (``batch_group``, :meth:`set_batch_group`)."""
+
+    #: the generator of the training forwards' dropout masks
+    dropout_rng: Optional[torch.Generator] = None
+    #: the batch axes' process group (None: this rank holds the batch)
+    batch_group = None
+
+    def dropout_generator(self, train: bool) -> Optional[torch.Generator]:
+        return _dropout_generator(self, train)
+
+    def set_batch_group(self, group) -> None:
+        """The ranks that hold the rest of the batch (the ``Trainer``
+        sets them under a mesh): a loss whose count differs between ranks
+        takes its denominator over them (:func:`global_count`)."""
+
+        self.batch_group = group
+
+    @classmethod
+    def from_state_dict(cls, cfg, state, device, *, trainable: bool = False, **kw):
+        """Build the model around ``state`` (name -> tensor, array or
+        QTensor), each entry moved to ``device`` and cast to its
+        parameter's storage dtype.  A serving model adopts entries already
+        in place without a copy, so 7B-width weights are never held
+        twice, holds a QTensor kernel as int8
+        (``DenseGeneral.hold_int8``), and is returned in eval mode; a
+        trainable model copies every entry (the optimizer updates its
+        parameters in place), refuses QTensors, and is returned in train
+        mode.  ``kw``: the family's other constructor arguments."""
+
+        model = cls(cfg, device="meta", trainable=trainable, **kw)
+        expected = dict(model.named_parameters())
+        if set(state) != set(expected):
+            missing = sorted(set(expected) - set(state))
+            extra = sorted(set(state) - set(expected))
+            raise ValueError(
+                f"state does not match the model: missing {missing[:4]}, "
+                f"unexpected {extra[:4]}"
+            )
+        placed, held = {}, set()
+        for name, value in state.items():
+            p = expected[name]
+            if not isinstance(value, QTensor):
+                value = torch.as_tensor(value)
+            if tuple(value.shape) != tuple(p.shape):
+                raise ValueError(
+                    f"{name}: shape {tuple(value.shape)} != {tuple(p.shape)}"
+                )
+            if isinstance(value, QTensor):
+                module, leaf = name.rsplit(".", 1)
+                dense = model.get_submodule(module)
+                if leaf != "kernel" or not isinstance(dense, DenseGeneral):
+                    raise ValueError(f"{name}: only dense kernels are held as int8")
+                dense.hold_int8(QTensor(value.q.to(device), value.scale.to(device)))
+                held.update(f"{module}.{b}" for b in ("kernel_q", "kernel_scale"))
+                continue
+            placed[name] = value.to(device=device, dtype=p.dtype, copy=trainable)
+        missing, unexpected = model.load_state_dict(placed, strict=False, assign=True)
+        if unexpected or set(missing) != held:
+            raise ValueError(f"state does not load: missing {sorted(set(missing) - held)[:4]}, "
+                             f"unexpected {unexpected[:4]}")
+        return model.train(trainable)
+
+    def variant(self, **changes):
+        """The same weights under a config with ``changes`` (e.g.
+        decode=True or plain_kernels=True): a shallow copy, so no
+        parameter or int8 kernel is duplicated (the pool's decode views
+        share the int8 modules)."""
+
+        v = copy.copy(self)
+        v.cfg = dataclasses.replace(self.cfg, **changes)
+        return v
+
+    def flax_path(self, name: str) -> str:
+        """The flax param path of a parameter name: the dots as "/", with
+        a norm's ``LayerNorm_0`` or ``RMSNorm_0`` scope put back."""
+
+        parts = name.split(".")
+        owner = self.get_submodule(".".join(parts[:-1]))
+        if isinstance(owner, (LayerNorm, RMSNorm)):
+            parts.insert(-1, f"{type(owner).__name__}_0")
+        return "/".join(parts)

@@ -21,6 +21,13 @@ once to its storage dtype, which gives the numbers flax's cast at use
 gives) or into a trainable one (float32 masters); a state_dict becomes
 a flat flax-path npz (:func:`save_npz`), the ``params.npz`` of the
 artifact ``serve_lm --artifact`` reads.
+
+The encoder families (BERT, T5, ViT) name their parameters by the flax
+path itself, joined by dots, less the norms' ``LayerNorm_0`` /
+``RMSNorm_0`` scope (``bert.layer_0.ln_attn.scale``):
+:func:`family_state_from_flax` bridges them (the model's ``flax_path``
+is the inverse, putting the scope back), and :func:`init_params` draws
+any family's state.
 """
 
 from __future__ import annotations
@@ -32,10 +39,11 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from tf_operator_tpu_torch.models.transformer import TransformerConfig
 from tf_operator_tpu_torch.ops.quant import QTensor, eligible, quantize_array
 
 _NORM = "RMSNorm_0"
+#: the scopes flax's norm modules put under the reference's LayerNorm wrapper
+_NORM_SCOPES = ("LayerNorm_0", "RMSNorm_0")
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, object]:
@@ -100,6 +108,16 @@ def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, object]:
     return tree
 
 
+def family_state_from_flax(tree) -> Dict[str, torch.Tensor]:
+    """An encoder family's flax params (nested dicts of arrays, boxed or
+    not) -> its state_dict of float tensors on the CPU: each path joined
+    by dots, the norms' scope dropped."""
+
+    return {".".join(p for p in path.split("/") if p not in _NORM_SCOPES):
+            torch.tensor(np.asarray(value))
+            for path, value in _flatten(tree).items()}
+
+
 def mnist_state_from_flax(params: Mapping) -> Dict[str, torch.Tensor]:
     """A flax ``MnistCNN``'s ``params`` as the port's ``MnistCNN``
     state_dict (models/mnist.py): the scope path joined by dots, each
@@ -142,12 +160,20 @@ def _lecun_fan_in(shape) -> int:
     return shape[-2] * receptive
 
 
-def init_params(cfg: TransformerConfig, seed: int, device, *,
-                trainable: bool = False, quantize: bool = False) -> Dict[str, object]:
-    """A seeded state_dict made directly on ``device`` at the flax
-    init scales: normal(0.02) for the embedding and lm_head,
-    lecun-normal (truncated at 2 sigma) for the projections, ones for
-    the norm scales, zeros for biases.  Draws in float32, stores in the
+#: the tables flax initialises at normal(0.02): the embeddings, learned
+#: positions and segments, T5's relative-position table (and llama's
+#: lm_head, named apart)
+_NORMAL_INIT = ("embedding", "pos_embed", "seg_embed", "rel_embedding")
+
+
+def init_params(cfg, seed: int, device, *, trainable: bool = False,
+                quantize: bool = False, family=None) -> Dict[str, object]:
+    """A seeded state_dict of ``family`` (default ``LlamaLM``) built on
+    ``cfg``, made directly on ``device`` at the flax init scales:
+    normal(0.02) for the embeddings, position and segment tables, T5's
+    relative-position table and llama's lm_head, lecun-normal (truncated
+    at 2 sigma) for the projections, ones for the norm scales, zeros for
+    biases.  Draws in float32, stores in the
     parameter's dtype.  The numbers differ from flax's (another
     generator); the scales do not.  ``trainable``: float32 everywhere,
     for a trainable model.  ``quantize``: each eligible kernel becomes a
@@ -155,20 +181,21 @@ def init_params(cfg: TransformerConfig, seed: int, device, *,
     (the draws, and so the float weights, are those of the unquantized
     call); a trainable model is never quantized."""
 
-    from tf_operator_tpu_torch.models.llama import LlamaLM
+    if family is None:
+        from tf_operator_tpu_torch.models.llama import LlamaLM as family
 
     if trainable and quantize:
         raise ValueError("a trainable (float32 master) model is not quantized: the JAX "
                          "package quantizes a model for serving only")
     g = torch.Generator(device=device).manual_seed(int(seed))
     state = {}
-    for name, p in LlamaLM(cfg, device="meta", trainable=trainable).named_parameters():
+    for name, p in family(cfg, device="meta", trainable=trainable).named_parameters():
         shape = tuple(p.shape)
         if name.endswith(".scale"):
             t = torch.ones(shape, dtype=torch.float32, device=device)
         elif name.endswith(".bias"):
             t = torch.zeros(shape, dtype=torch.float32, device=device)
-        elif name in ("tok_embed.embedding", "lm_head.kernel"):
+        elif name.split(".")[-1] in _NORMAL_INIT or name == "lm_head.kernel":
             t = torch.empty(shape, dtype=torch.float32, device=device)
             t.normal_(0.0, 0.02, generator=g)
         else:

@@ -10,11 +10,13 @@ mechanisms, as in the JAX package:
    models without logical axes (MnistCNN, ResNet): each parameter is
    split along its largest dimension that the fsdp size divides (ties to
    the last), in the flax layout; small parameters stay replicated;
-2. logical rules (:func:`logical_shardings`) for the llama family: each
-   parameter's logical axes (:data:`LLAMA_PARAM_AXES`, the reference's
-   ``param_with_axes`` sites) map through :data:`LOGICAL_RULES` to mesh
-   axes, by flax's ``logical_to_mesh_axes`` algorithm.  This is the
-   layout of the JAX ``Trainer(shardings="logical")``.
+2. logical rules (:func:`logical_shardings`) for the transformer
+   families: each parameter's logical axes (:data:`LLAMA_PARAM_AXES`,
+   then :data:`ENCODER_PARAM_AXES` for the BERT, T5 and ViT names; the
+   reference's ``param_with_axes`` sites) map through
+   :data:`LOGICAL_RULES` to mesh axes, by flax's
+   ``logical_to_mesh_axes`` algorithm.  This is the layout of the JAX
+   ``Trainer(shardings="logical")``.
 
 Where a port module keeps a tensor in another layout than flax's (the
 ResNet convolution kernels, OIHW against flax's HWIO), the module names
@@ -85,6 +87,31 @@ LLAMA_PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     (r"lm_head\.kernel", ("embed", "vocab")),
 )
 
+#: The logical axes of the encoder families' parameters (BERT, T5, ViT;
+#: port names, the flax paths joined by dots) that the llama table does
+#: not name: the embeddings and tables, the norms' biases, the encoder's
+#: and the cross-attention's projections, T5's relative-position table,
+#: BERT's MLM head, ViT's patch projection and head.
+ENCODER_PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
+    (r"(.*\.)?(tok_embed|shared_embed)\.embedding", ("vocab", "embed")),
+    (r"(.*\.)?pos_embed", ("seq", "embed")),
+    (r"(.*\.)?seg_embed", ("stack", "embed")),
+    (r"(.*\.)?(ln_\w+|mlm_ln)\.bias", ("norm",)),
+    (r".*\.(attn|cross_attn)\.(query|key|value)\.kernel", ("embed", "heads", "kv")),
+    (r".*\.(attn|cross_attn)\.(query|key|value)\.bias", ("heads", "kv")),
+    (r".*\.(attn|cross_attn)\.out\.kernel", ("heads", "kv", "embed")),
+    (r".*\.(attn|cross_attn)\.out\.bias", ("embed",)),
+    (r".*\.rel_embedding", ("relpos_buckets", "heads")),
+    (r".*\.mlm_transform\.kernel", ("embed", "embed2")),
+    (r".*\.mlm_transform\.bias", ("embed2",)),
+    (r".*\.mlm_decoder\.kernel", ("embed", "vocab")),
+    (r".*\.mlm_decoder\.bias", ("vocab",)),
+    (r"patch_embed\.proj\.kernel", ("stack", "embed")),
+    (r"patch_embed\.proj\.bias", ("embed",)),
+    (r"head\.kernel", ("embed", "vocab")),
+    (r"head\.bias", ("vocab",)),
+)
+
 Spec = Tuple[Any, ...]
 
 #: axes the port shards over; the others wait for the features named
@@ -103,6 +130,16 @@ def check_mesh(mesh: Mesh) -> None:
         raise NotImplementedError(
             "mesh axes " + ", ".join(f"{ax}={mesh.shape[ax]} ({_WAITING[ax]})" for ax in bad)
             + " are not ported yet: the port shards over dp, fsdp and sp only")
+
+
+def refuse_tensor_parallel(tp: int) -> None:
+    """An entry point's ``--tp``: 1 runs, anything above it waits for
+    tensor parallelism."""
+
+    if tp > 1:
+        raise NotImplementedError(
+            f"--tp {tp}: {_WAITING['tp']} is not ported yet: the port shards over dp, "
+            "fsdp and sp only (run with --tp 1)")
 
 
 def sequence_chunk(x, mesh: Mesh, rank: int, dim: int = 1):
@@ -196,17 +233,18 @@ def logical_to_mesh_axes(names: Sequence[Optional[str]]) -> Spec:
 
 
 def llama_param_axes(name: str) -> Tuple[str, ...]:
-    """The logical axes of a llama parameter (:data:`LLAMA_PARAM_AXES`)."""
+    """The logical axes of a transformer-family parameter
+    (:data:`LLAMA_PARAM_AXES`, then :data:`ENCODER_PARAM_AXES`)."""
 
-    for pattern, axes in LLAMA_PARAM_AXES:
+    for pattern, axes in LLAMA_PARAM_AXES + ENCODER_PARAM_AXES:
         if re.fullmatch(pattern, name):
             return axes
-    raise KeyError(f"no logical axes for the llama parameter {name!r}")
+    raise KeyError(f"no logical axes for the parameter {name!r}")
 
 
 def logical_shardings(shapes: Mapping[str, Sequence[int]], mesh: Mesh) -> Dict[str, Spec]:
-    """The spec of every llama tensor of ``shapes`` through its logical
-    axes and :data:`LOGICAL_RULES`.  A dimension that its mesh axes do
+    """The spec of every transformer-family tensor of ``shapes`` through
+    its logical axes and :data:`LOGICAL_RULES`.  A dimension that its mesh axes do
     not divide is refused, as the JAX trainer fails loudly at jit
     time."""
 

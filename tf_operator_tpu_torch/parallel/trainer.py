@@ -69,6 +69,16 @@ computes the same numbers:
 
 ``grad_norm`` in the step's metrics is the global norm of that step's
 gradients before clipping, as ``optax.global_norm(grads)`` is.
+
+Dropout: the trainer owns the generator of the model's dropout masks
+(``dropout_rng``, on the model's device), seeded from
+``TrainerConfig.dropout_seed`` and the rank, so that a run repeats and
+ranks draw different masks, and hands it to the model
+(``models/transformer.set_dropout_rng``).  A train step runs the model in
+train mode, so its loss makes a training forward (the losses pass
+``train=model.training``); ``eval_step`` runs it in eval mode, which
+draws no mask.  The JAX trainer folds its key with the step; here the
+generator's state moves on with every mask drawn.
 """
 
 from __future__ import annotations
@@ -103,6 +113,16 @@ class TrainerConfig:
     momentum: float = 0.9
     #: apply the optimizer every k train steps on the mean gradient
     accum_steps: int = 1
+    #: seeds the dropout generator (with the rank)
+    dropout_seed: int = 0
+
+
+def dropout_generator(seed: int, rank: int, device) -> torch.Generator:
+    """The dropout generator of rank ``rank`` of a run seeded ``seed``
+    (seeded by both, through numpy's SeedSequence), on ``device``."""
+
+    state = int(np.random.SeedSequence([int(seed), int(rank)]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(state)
 
 
 def learning_rate_at(cfg: TrainerConfig, count: int) -> float:
@@ -265,6 +285,12 @@ class Trainer:
         if not self.params:
             raise ValueError("the model has no trainable parameters; build it with trainable=True")
         self.device = self.params[0].device
+        from tf_operator_tpu_torch.models.transformer import set_dropout_rng
+        from tf_operator_tpu_torch.runtime.bootstrap import world
+
+        #: the generator of the model's dropout masks (module docstring)
+        self.dropout_rng = dropout_generator(cfg.dropout_seed, world()[0], self.device)
+        set_dropout_rng(model, self.dropout_rng)
         #: train steps run (host-side: reading a device counter would sync)
         self.host_step = 0
         self.grad_sync = self.grad_sync_plan = self.specs = None
