@@ -423,10 +423,40 @@ Phases, in order; any failure exits non-zero before the result line:
    128 targets and ViT's 32 images; beside them the same step in float32
    (what bf16 itself moves) and the plain forward with P rounded to bf16
    as K1 rounds it.
-15. the kernels line (K1, K2, K3 from the training paths: llama's and
-   the three encoders', each counted around its own run, with the
-   counts by path; K4 from the serving path, K7 from the int8 serving
-   path, K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
+15. the decoder zoo (``phase_zoo``, after phase 14): (a) K1, K2 and K3
+   causal at gpt_small's training shape [8, 12, 1024, 64] and at
+   moe_tiny's [8, 4, 128, 32] (``ZOO_FLASH``), and K7 at M 8 on gpt's
+   int8 projections (768 x 768, 768 x 3072, 3072 x 768), each against
+   its plain version at its phase 4 / 4b tolerance, timed beside its
+   bound and SDPA or the bf16 ``torch.matmul``; (b) gpt_small's widths
+   at vocab 256 (``CausalLM``, 12 layers, learned positions for 1,024),
+   ``ZOO_GPT_STEPS`` ``Trainer`` steps at seq 1024 x batch 8 on the byte
+   corpus (dropout 0.1), ``export_params``, then the artifact behind
+   ``serve_lm`` (phase 7's bodies that fit 1,024 positions): chunked
+   bf16 (no kernel launched, its first row equal to ``generate`` on the
+   trained weights), ``--batching 8`` (the fallback line naming
+   ``CausalLM``, the contiguous pool, one admission a request, rows
+   against the chunked rows, equal or a bf16 tie) and ``--quantize
+   int8`` chunked (K7 = 72 x (31 decode steps a request + prefill chunks
+   of <= 64 rows), the GEMM route 72 x the wider chunks, rows against
+   the same decoder with K7's plain version); (c) ``llama_pretrain
+   --family moe`` at the reference entry's defaults (moe_tiny, 4
+   experts, seq 128 x batch 8, 60 steps, export ``family: moe``, a
+   sample), then as a 2-rank job (``rank_moe``: dp 2, ep 1, gloo on the
+   card, dropout 0) whose losses must equal one process's on both
+   ranks' rows within ``DIST_LOSS_RTOL``; (d) ``MoeLM`` with 8 experts
+   at gpt_small's widths (~0.48 B parameters) for ``ZOO_MOE_STEPS``
+   steps at seq 1024 x batch 8, exported (``{"family": "moe", "moe":
+   ...}``) and served by ``serve_lm --batching 8`` (the contiguous pool)
+   against the chunked decoder's rows.  K1-K3 must launch layers x
+   steps in each training run and never in serving; no plain attention
+   and no plain int8 product runs; every loss must fall.  Prints each
+   family's step ms, tokens/s and peak memory.
+16. the kernels line (K1, K2, K3 from the training paths: llama's, the
+   three encoders' and the zoo's, each counted around its own run, with
+   the counts by path; K4 from the serving path, K7 from the int8
+   serving paths, 7B's pool and gpt_small's chunked decoder, by path;
+   K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
    no-residual class, where F.batch_norm computes the same function),
    the card line, and last ``{"ok": true, "device": {...}}``.
 
@@ -3808,6 +3838,431 @@ def phase_encoders(card):
     return flash, runs
 
 
+# -- phase 15: the decoder zoo ------------------------------------------------
+
+#: phase 15's attention shapes: gpt_small's training step (and the
+#: 8-expert moe's at its widths), and moe_tiny's as llama_pretrain
+#: --family moe trains it (batch 8 x seq 128)
+ZOO_FLASH = (
+    ("gpt_small_causal_b8_s1024_d64", dict(b=8, h=12, hkv=12, sq=1024, sk=1024, d=64)),
+    ("moe_tiny_causal_b8_s128_d32", dict(b=8, h=4, hkv=4, sq=128, sk=128, d=32)),
+)
+#: K7 at gpt_small's int8 projections, decode rows (M 8): q/k/v/out
+#: 768 x 768, wi 768 x 3072, wo 3072 x 768 (K x N)
+ZOO_K7 = ((768, 768), (768, 3072), (3072, 768))
+#: gpt's int8 projections a layer (q, k, v, out, wi, wo; the tied head
+#: stays bf16): K7 launches a forward = 6 x 12 at gpt_small
+GPT_INT8_PROJ = 6
+#: phase 15's training runs: rows x seq of a step, steps, and the
+#: optimizer (a short warmup, so that a few steps move the loss)
+ZOO_ROWS, ZOO_SEQ = 8, 1024
+ZOO_GPT_STEPS, ZOO_MOE_STEPS = 30, 12
+ZOO_TRAIN_CFG = dict(learning_rate=1e-3, warmup_steps=2)
+#: the 2-rank llama_pretrain --family moe job's steps (dropout 0, the
+#: one-process yardstick on both ranks' rows at once)
+ZOO_JOB_STEPS = 6
+#: the kernels line's K1-K3 paths of phase 15: (path, its run's key)
+ZOO_TRAIN_PATHS = (("gpt_small_train", "gpt_small_train"),
+                   ("llama_pretrain_moe", "moe_tiny"),
+                   ("moe_gpt_small_train", "moe_gpt_small_train"))
+
+
+def _zoo_bodies():
+    """Phase 7's requests whose prompt and 32 new bytes fit the learned
+    table's 1,024 positions."""
+
+    return [b for b in _main_bodies() if len(b["prompt"].encode()) + 32 <= ZOO_SEQ]
+
+
+def _zoo_train(name, family_cls, cfg, loss_fn, data_dir, steps):
+    """``steps`` Trainer steps of ``family_cls`` on ``cfg`` (seeded,
+    float32 masters, bf16 compute, dropout 0.1) at ``ZOO_ROWS`` x
+    ``ZOO_SEQ`` rows of the byte corpus.  Counts zeroed just before and
+    read just after: K1-K3 must each launch layers x steps times and the
+    plain attention never; the loss must fall.  Returns the record and
+    the trainer."""
+
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
+    from tf_operator_tpu_torch.models.weights import init_params
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    model = family_cls.from_state_dict(
+        cfg, init_params(cfg, 0, dev, trainable=True, family=family_cls), dev, trainable=True)
+    trainer = Trainer(model, TrainerConfig(**ZOO_TRAIN_CFG), loss_fn)
+    batches = iter(as_lm_batches(TextBatches(data_dir, ZOO_ROWS, seed=0)))
+    base = model.cfg
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fa.plain_calls.clear()
+    losses, stamps = [], []
+    for _ in range(steps):
+        out = trainer.train_step(next(batches))
+        losses.append(float(out["loss"]))  # resolves the step
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    launches = {k: _build.launches.get(k, 0) for k in FLASH_KERNELS}
+    plain = {k: v for k, v in fa.plain_calls.items() if v}
+    step_s = (stamps[-1] - stamps[0]) / (steps - 1)
+    tokens = ZOO_ROWS * ZOO_SEQ
+    rec = {"model": name, "layers": base.n_layers, "rows": ZOO_ROWS, "seq": ZOO_SEQ,
+           "steps": steps, "params": sum(p.numel() for p in trainer.params),
+           "dropout": base.dropout, "loss_first": losses[0],
+           "loss_last3": sum(losses[-3:]) / 3, "losses": [round(x, 4) for x in losses],
+           "launches": launches, "plain_calls": plain, "step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if "moe_aux_loss" in out:
+        rec["moe_aux_loss_last"] = float(out["moe_aux_loss"])
+    log(f"zoo train ({card_line()}) " + json.dumps(rec))
+    want = base.n_layers * steps
+    if any(n != want for n in launches.values()) or plain:
+        raise AssertionError(f"{name}: K1-K3 launched {launches} (want {want} each), "
+                             f"plain attention {plain}")
+    if not (all(math.isfinite(x) for x in losses) and rec["loss_last3"] < losses[0]):
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
+    return rec, trainer
+
+
+def _zoo_serve(model, flags, bodies, tag, at_once=False):
+    """``serve_lm`` built from ``flags`` around ``model`` answers
+    ``bodies`` over HTTP (one at a time, or all at once); counts zeroed
+    just before and read just after.  Returns (the decoder, the token
+    rows by body, the run's record)."""
+
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+    from tf_operator_tpu_torch.serve_lm import (
+        Server,
+        build_decoder,
+        build_parser,
+        model_label_of,
+    )
+
+    args = build_parser().parse_args(flags)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        decoder = build_decoder(model, args)
+    pool = getattr(decoder, "slots", None) is not None
+    rows = record_rows(decoder) if pool else collections.defaultdict(list)
+    if not pool:
+        generate = decoder.generate
+
+        def recording(prompt_ids, n, **kw):
+            got = generate(prompt_ids, n, **kw)
+            rows[bytes(prompt_ids[0].tolist())].append(got[0, prompt_ids.shape[1]:].tolist())
+            return got
+
+        decoder.generate = recording
+    server = Server(decoder, model_label=model_label_of(args)).start()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        fa.plain_calls.clear()
+        qm.plain_calls.clear()
+        t0 = time.perf_counter()
+        results = (_send_at_once if at_once else _send_each)(server.port, bodies)
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        plain = {k: v for k, v in list(fa.plain_calls.items()) + list(qm.plain_calls.items())
+                 if v}
+        if server.fatal:
+            raise AssertionError(f"{tag}: decode loop died: {server.fatal[0]}")
+        for i, r in enumerate(results):
+            if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+                raise AssertionError(f"{tag}: request {i} failed: {r}")
+    finally:
+        server.close()
+    if pool:
+        autopsies = [decoder.request_log.get(r[1]["request_id"]) for r in results]
+        got_rows = [rows[a["rid"]][a["prompt_tokens"]:].tolist() for a in autopsies]
+        seconds = decoder.ledger.seconds("step")
+        decode_tokens = sum(a["tokens"] - 1 for a in autopsies)
+    else:
+        got_rows = [rows[b["prompt"].encode()][0] for b in bodies]
+        seconds = decoder.ledger.seconds("decode")
+        decode_tokens = 31 * len(bodies)
+    rec = {"tag": tag, "flags": flags, "decoder": type(decoder).__name__,
+           "line": out.getvalue().strip(), "requests": len(bodies), "wall_s": wall,
+           "launches": launches, "plain_calls": plain,
+           "decode_tokens_per_s": decode_tokens / seconds,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    return decoder, got_rows, rec
+
+
+def _gpt_serving(export_dir, trainer, card):
+    """(b) the exported gpt_small artifact behind ``serve_lm``: bf16
+    chunked (``--batching 0``), ``--batching 8`` (the contiguous pool
+    after the fallback line) and ``--quantize int8`` (chunked; K7 =
+    ``GPT_INT8_PROJ`` x (decode steps + prefill chunks of <= 64 rows),
+    the GEMM route x the wider chunks), each request's greedy row against
+    the chunked bf16 rows (equal, or a bf16 tie), the int8 rows against
+    the same decoder with K7's plain version."""
+
+    from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder, generate
+    from tf_operator_tpu_torch.ops import quant_matmul as qm
+    from tf_operator_tpu_torch.serve_lm import load_model
+
+    dev = torch.device("cuda")
+    bodies = _zoo_bodies()
+    flags = ["--artifact", export_dir, "--max-len", str(ZOO_SEQ)]
+    model = load_model(dev, max_len=ZOO_SEQ, artifact=export_dir)
+    _, chunked_rows, chunked = _zoo_serve(model, flags, bodies, "gpt_small chunked bf16")
+    # the served rows against in-process generate on the trained weights
+    first = np.frombuffer(bodies[0]["prompt"].encode(), np.uint8).astype(np.int64)
+    in_process = generate(trainer.model, torch.as_tensor(first, device=dev)[None], 32)
+    chunked["first_row_equals_generate"] = in_process[0, first.size:].tolist() == chunked_rows[0]
+    pool, pool_rows, contiguous = _zoo_serve(model, flags + ["--batching", "8"], bodies,
+                                             "gpt_small contiguous bf16", at_once=True)
+    contiguous["against_chunked"] = _greedy_against(model, bodies, pool_rows, chunked_rows,
+                                                    "gpt_small contiguous")
+    contiguous["dispatches"] = {p: pool.ledger.count(p) for p in ("admission", "step")}
+    del pool
+    int8_model = load_model(dev, max_len=ZOO_SEQ, artifact=export_dir, quantize="int8")
+    _, int8_rows, int8 = _zoo_serve(int8_model, flags + ["--quantize", "int8"], bodies,
+                                    "gpt_small chunked int8")
+    plain = ChunkedServingDecoder(int8_model.variant(plain_kernels=True))
+    plain_rows = []
+    for b in bodies:
+        ids = torch.as_tensor(np.frombuffer(b["prompt"].encode(), np.uint8).astype(np.int64))
+        gen = None
+        if b.get("temperature"):
+            gen = torch.Generator(device=dev).manual_seed(b["seed"])
+        got = plain.generate(ids[None], 32, temperature=b.get("temperature", 0.0),
+                             top_k=b.get("top_k"), generator=gen)
+        plain_rows.append(got[0, ids.numel():].tolist())
+    int8["against_plain_k7"] = _greedy_against(int8_model, bodies, int8_rows, plain_rows,
+                                               "gpt_small int8")
+    counts = _chunk_counts(bodies)
+    steps = 31 * len(bodies)
+    n_proj = GPT_INT8_PROJ * int8_model.cfg.n_layers
+    int8["expected"] = {qm.KERNEL: n_proj * (steps + counts["short"]),
+                        qm.GEMM: n_proj * counts["long"]}
+    runs = {"chunked_bf16": chunked, "contiguous_bf16": contiguous, "chunked_int8": int8}
+    log(f"zoo gpt_small serving ({card}) " + json.dumps(runs))
+    line = contiguous["line"]
+    if (chunked["decoder"] != "ChunkedServingDecoder" or chunked["launches"]
+            or chunked["plain_calls"] or not chunked["first_row_equals_generate"]):
+        raise AssertionError(f"gpt_small chunked: {json.dumps(chunked)}")
+    if (contiguous["decoder"] != "ContinuousBatchingDecoder"
+            or not line.startswith("paged pool unavailable (CausalLM is not pageable")
+            or not line.endswith("; serving the contiguous slot pool")
+            or contiguous["launches"] or contiguous["plain_calls"]
+            or contiguous["dispatches"]["admission"] != len(bodies)):
+        raise AssertionError(f"gpt_small contiguous: {json.dumps(contiguous)}")
+    if int8["launches"] != {k: v for k, v in int8["expected"].items() if v} \
+            or int8["plain_calls"]:
+        raise AssertionError(f"gpt_small int8: K7 launches {int8['launches']}, want "
+                             f"{int8['expected']}, plain {int8['plain_calls']}")
+    del int8_model, plain, model
+    free_device_memory()
+    return runs
+
+
+def rank_moe(data_dir, rows):
+    """One rank of phase 15's ``llama_pretrain --family moe`` job (or the
+    one-process yardstick outside a job): dropout 0, ``ZOO_JOB_STEPS``
+    steps, K1-K3 launches and the tag line."""
+
+    from tf_operator_tpu_torch import llama_pretrain
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    args = llama_pretrain.parse_args([
+        "--family", "moe", "--batch-per-device", str(rows), "--steps", str(ZOO_JOB_STEPS),
+        "--steps-per-sync", "1", "--data-dir", data_dir, "--generate", "0"])
+    _build.launches.clear()
+    out = llama_pretrain.run(args, dropout=0.0)
+    torch.cuda.synchronize()
+    rank, n = world()
+    trainer = out["trainer"]
+    rec = {"rank": rank, "world": n, "losses": out["losses"],
+           "mesh": trainer.mesh.shape if trainer.mesh is not None else None,
+           "launches": {k: _build.launches.get(k, 0) for k in FLASH_KERNELS},
+           "step_ms": _steady_step_s(out["resolved_at"]) * 1e3}
+    print("RANK " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _moe_runs(tmp, card):
+    """(c) ``llama_pretrain --family moe`` at the reference entry's
+    defaults (moe_tiny, vocab 256, 4 experts, seq 128 x batch 8, 60
+    steps, dropout 0.1) through its ``run``, then sampling; then as a
+    2-rank job (dp 2, ep 1, gloo on the one card) at dropout 0 against
+    the same run in one process on both ranks' rows (each loss within
+    ``DIST_LOSS_RTOL``)."""
+
+    from tf_operator_tpu_torch import llama_pretrain
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    data_dir = os.path.join(tmp, "moe_text")
+    args = llama_pretrain.parse_args(["--family", "moe", "--data-dir", data_dir,
+                                      "--export-dir", os.path.join(tmp, "moe_tiny")])
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fa.plain_calls.clear()
+    out = llama_pretrain.run(args)
+    torch.cuda.synchronize()
+    launches = {k: _build.launches.get(k, 0) for k in FLASH_KERNELS}
+    losses = out["losses"]
+    cfg = out["trainer"].model.cfg
+    step_s = _steady_step_s(out["resolved_at"])
+    with open(os.path.join(tmp, "moe_tiny", "model.json")) as f:
+        family = json.load(f)["family"]
+    alone = {"model": "moe_tiny", "experts": args.experts, "rows": args.batch_per_device,
+             "seq": args.seq_len, "steps": args.steps, "dropout": cfg.dropout,
+             "loss_first": losses[0], "loss_last5": sum(losses[-5:]) / 5,
+             "launches": launches, "plain_calls": {k: v for k, v in fa.plain_calls.items()
+                                                   if v},
+             "exported_family": family, "sample": out["sample"], "step_ms": step_s * 1e3,
+             "tokens_per_s": args.batch_per_device * args.seq_len / step_s,
+             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"zoo llama_pretrain --family moe ({card}) " + json.dumps(alone))
+    want = cfg.n_layers * args.steps
+    if (any(n != want for n in launches.values()) or alone["plain_calls"]
+            or family != "moe" or not out["sample"]
+            or not alone["loss_last5"] < losses[0]):
+        raise AssertionError(f"llama_pretrain --family moe: {json.dumps(alone)}")
+    code = f"import chip_smoke as c; c.rank_moe({data_dir!r}, {args.batch_per_device})"
+    ranks = _run_ranks(2, code, "zoo moe job")
+    yardstick = rank_moe(data_dir, 2 * args.batch_per_device)
+    job = {"ranks": [{k: r[k] for k in ("rank", "world", "mesh", "losses", "launches",
+                                        "step_ms")} for r in ranks],
+           "tags": [any("[moe bytes dp=2 ep=1 E=4]" in ln for ln in r["lines"])
+                    for r in ranks],
+           "one_process_losses": yardstick["losses"],
+           "max_loss_rel": max(abs(a - b) / abs(b) for r in ranks
+                               for a, b in zip(r["losses"], yardstick["losses"])),
+           "tol": DIST_LOSS_RTOL}
+    log(f"zoo moe job ({card}) " + json.dumps(job))
+    if (not all(job["tags"]) or not job["max_loss_rel"] <= DIST_LOSS_RTOL
+            or any(r["mesh"] != {"pp": 1, "dp": 2, "fsdp": 1, "ep": 1, "sp": 1, "tp": 1}
+                   or r["launches"] != {k: cfg.n_layers * ZOO_JOB_STEPS
+                                        for k in FLASH_KERNELS} for r in ranks)):
+        raise AssertionError(f"zoo moe job: {json.dumps(job)}")
+    return alone, job
+
+
+def _moe_gpt_small_serving(moe_dir, card):
+    """(d)'s serving: the exported 8-expert artifact behind ``serve_lm
+    --batching 8`` (the contiguous pool after the fallback line naming
+    ``MoeLM``), each greedy row against the chunked decoder's on the same
+    model (equal, or a bf16 tie); no kernel launches in decode."""
+
+    from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
+    from tf_operator_tpu_torch.serve_lm import load_model
+
+    with open(os.path.join(moe_dir, "model.json")) as f:
+        desc = json.load(f)
+    model = load_model(torch.device("cuda"), max_len=ZOO_SEQ, artifact=moe_dir)
+    bodies = _zoo_bodies()
+    ref = ChunkedServingDecoder(model)
+    ref_rows = []
+    for b in bodies:
+        ids = torch.as_tensor(np.frombuffer(b["prompt"].encode(), np.uint8).astype(np.int64))
+        gen = None
+        if b.get("temperature"):
+            gen = torch.Generator(device=model.device).manual_seed(b["seed"])
+        got = ref.generate(ids[None], 32, temperature=b.get("temperature", 0.0),
+                           top_k=b.get("top_k"), generator=gen)
+        ref_rows.append(got[0, ids.numel():].tolist())
+    del ref
+    pool, rows, served = _zoo_serve(
+        model, ["--artifact", moe_dir, "--max-len", str(ZOO_SEQ), "--batching", "8"],
+        bodies, "moe_gpt_small contiguous bf16", at_once=True)
+    served["against_chunked"] = _greedy_against(model, bodies, rows, ref_rows,
+                                                "moe_gpt_small contiguous")
+    served["description"] = {k: desc[k] for k in ("family", "moe")}
+    log(f"zoo moe_gpt_small serving ({card}) " + json.dumps(served))
+    if (served["decoder"] != "ContinuousBatchingDecoder"
+            or not served["line"].startswith("paged pool unavailable (MoeLM is not")
+            or served["launches"] or served["plain_calls"]
+            or desc["family"] != "moe" or desc["moe"]["num_experts"] != 8):
+        raise AssertionError(f"moe_gpt_small serving: {json.dumps(served)}")
+    del pool, model
+    return served
+
+
+def phase_zoo(card):
+    """Phase 15: the decoder zoo at full width (module docstring).
+    Returns the flash and K7 records and the runs, with the phase's
+    walls by part."""
+
+    import tempfile
+
+    from tf_operator_tpu_torch.data.text import ensure_text
+    from tf_operator_tpu_torch.models.gpt import CausalLM, gpt_small, lm_loss
+    from tf_operator_tpu_torch.models.moe import MoeConfig, MoeLM, moe_lm_loss
+    from tf_operator_tpu_torch.parallel.checkpoint import export_params
+
+    t0 = time.perf_counter()
+    walls = {}
+
+    def mark(part):
+        walls[part] = round(time.perf_counter() - t0 - sum(walls.values()), 3)
+
+    flash = [flash_case(n, seed=150 + i, dtype=torch.bfloat16, causal=True, timed=True,
+                        queued=True, **kw) for i, (n, kw) in enumerate(ZOO_FLASH)]
+    log(f"zoo flash shapes ({card}) " + json.dumps(
+        {r["case"]: {**{k: {f: round(t[f], 5) for f in ("ms", "device_ms", "bound_ms",
+                                                         "plain_ms", "library_ms")}
+                        | {"bound_by": t["bound_by"]} for k, t in r["timing"].items()},
+                     "sdpa_device_ms": r["sdpa_device_ms"]} for r in flash}))
+    k7 = [k7_case(f"gpt_small_m8_k{k}_n{n}_bf16", m=8, k=k, n=n, dtype=torch.bfloat16,
+                  seed=150 + i, timed=True) for i, (k, n) in enumerate(ZOO_K7)]
+    free_device_memory()
+    mark("kernels")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    runs = {}
+    try:
+        data_dir = os.path.join(tmp, "text")
+        ensure_text(data_dir, seq_len=ZOO_SEQ)
+        gcfg = gpt_small(vocab_size=256, max_len=ZOO_SEQ)
+        runs["gpt_small_train"], trainer = _zoo_train("gpt_small", CausalLM, gcfg, lm_loss,
+                                                      data_dir, ZOO_GPT_STEPS)
+        export_dir = os.path.join(tmp, "gpt_small")
+        export_params(trainer, export_dir)
+        mark("gpt_small_train_export")
+        runs["gpt_small_serving"] = _gpt_serving(export_dir, trainer, card)
+        del trainer
+        free_device_memory()
+        mark("gpt_small_serving")
+        runs["moe_tiny"], runs["moe_tiny_job"] = _moe_runs(tmp, card)
+        free_device_memory()
+        mark("llama_pretrain_moe_and_job")
+        mcfg = MoeConfig(base=gpt_small(vocab_size=256, max_len=ZOO_SEQ), num_experts=8)
+        runs["moe_gpt_small_train"], trainer = _zoo_train(
+            "moe_gpt_small_e8", MoeLM, mcfg, moe_lm_loss, data_dir, ZOO_MOE_STEPS)
+        moe_dir = os.path.join(tmp, "moe_gpt_small")
+        export_params(trainer, moe_dir)
+        del trainer
+        free_device_memory()
+        mark("moe_gpt_small_train_export")
+        runs["moe_gpt_small_serving"] = _moe_gpt_small_serving(moe_dir, card)
+        mark("moe_gpt_small_serving")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_device_memory()
+    summary = {name: {k: r[k] for k in ("step_ms", "tokens_per_s", "max_memory_allocated_gib")}
+               for name, r in (("gpt_small", runs["gpt_small_train"]),
+                               ("moe_tiny", runs["moe_tiny"]),
+                               ("moe_gpt_small_e8", runs["moe_gpt_small_train"]))}
+    summary["wall_s"] = time.perf_counter() - t0
+    summary["walls_s"] = walls
+    log(f"zoo families ({card}) " + json.dumps(summary))
+    return flash, k7, runs
+
+
 #: phase 5b's llama-wide job: steps and rows a rank (the one-process
 #: yardstick trains on both ranks' rows at once); every step is resolved
 #: (K = 1), so the steady step wall is the resolves' slope after the
@@ -4937,6 +5392,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+
+    def done(what):
+        log(f"{what} done at {time.perf_counter() - t0:.1f} s")
+
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True,
                           timeout=60).stdout.strip().splitlines()[-1]
     log(f"card: {card}")
@@ -4979,6 +5438,8 @@ def main():
     log(f"training phases done at {time.perf_counter() - t0:.1f} s")
     _, encoder_runs = phase_encoders(card)
     log(f"encoder phase done at {time.perf_counter() - t0:.1f} s")
+    _, zoo_k7, zoo_runs = phase_zoo(card)
+    log(f"decoder zoo phase done at {time.perf_counter() - t0:.1f} s")
     phase_multiprocess(card)
     log(f"multi-process phase done at {time.perf_counter() - t0:.1f} s")
 
@@ -4991,21 +5452,28 @@ def main():
         f"{time.perf_counter() - t_init:.1f} s")
     main_stats, pool = phase_main_path(model)
     phase_decode_profile(pool)
+    done("phase 7")
     del pool
     free_device_memory()
     phase_plane_cost(model, card)
+    done("phase 7c")
     phase_pressure(model, card)
+    done("phase 7b")
     phase_end_to_end(model)
     # the int8 model serves as phase 7d's self-draft and then as phase
     # 9's model, so the weights are made and quantized once
     int8_model = load_int8_7b()
     phase_speculative(model, int8_model, card)
+    done("phases 8 and 7d")
     chunked = phase_chunked(model, card, main_stats, tag="chunked bf16")
+    done("phase 11")
     free_device_memory()
     phase_contiguous(model, card)
+    done("phase 12")
     free_device_memory()
     fleet = phase_fleet(model, card, main_stats)
     phase_disaggregated(model, card, fleet)
+    done("phases 13a and 13b")
     phase_fleet_http(card)
     free_device_memory()
     # the pool holds reference cycles (the prefix cache's callbacks), so
@@ -5038,17 +5506,26 @@ def main():
     for kname in FLASH_KERNELS:
         # each path's launches, counted from zero around its own run
         by_path = {"llama_pretrain": train_stats["launches"].get(kname, 0),
-                   **{path: r["launches"][kname] for path, r in encoder_runs.items()}}
+                   **{path: r["launches"][kname] for path, r in encoder_runs.items()},
+                   **{path: zoo_runs[key]["launches"][kname] for path, key in ZOO_TRAIN_PATHS},
+                   "llama_pretrain_moe_job": sum(r["launches"][kname]
+                                                 for r in zoo_runs["moe_tiny_job"]["ranks"])}
         entry = _kernel_entry(
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
             sum(by_path.values()), wide["max_abs_err"][errs[kname]], wide["timing"][kname])
         entry["launches_by_path"] = by_path
         kernels.insert(-1, entry)
     step = k7_decode_step(k7)
-    kernels.append(_kernel_entry(
+    k7_by_path = {"serve_lm_llama_7b_int8_pool": int8_stats["launches"].get("quant_matmul", 0),
+                  "serve_lm_gpt_small_int8_chunked":
+                  zoo_runs["gpt_small_serving"]["chunked_int8"]["launches"].get("quant_matmul",
+                                                                                0)}
+    entry = _kernel_entry(
         "quant_matmul", "tf_operator_tpu_torch/csrc/quant_matmul.cu",
-        "tf_operator_tpu/ops/quant_matmul.py:60", int8_stats["launches"].get("quant_matmul", 0),
-        step["max_abs_err"], step))
+        "tf_operator_tpu/ops/quant_matmul.py:60", sum(k7_by_path.values()),
+        max(step["max_abs_err"], *(r["max_abs_err"] for r in zoo_k7)), step)
+    entry["launches_by_path"] = k7_by_path
+    kernels.append(entry)
     line = bn_timed[BN_LINE_CLASS]
     for kname, line_no, err in (("fused_batchnorm_fwd", 166, "y"),
                                 ("fused_batchnorm_bwd", 250, "dx")):

@@ -566,6 +566,9 @@ def _jax_flags():
 
 #: the port's own flags, and the JAX server's flags it leaves out
 PORT_ONLY_FLAGS = {"--model", "--init-seed", "--steps-per-sync", "--device"}
+#: the seeded shapes of the port-only --model: llama's and the decoder zoo's
+PORT_ONLY_MODELS = ["llama-7b", "llama-tiny", "gpt-small", "gpt-tiny", "moe-tiny",
+                    "moe-gpt-small"]
 NOT_PORTED_FLAGS = {"--platform"}
 
 
@@ -580,6 +583,8 @@ def test_flags_match_the_reference_or_are_listed(capsys):
         assert port[flag] == jax_flags[flag], flag
     # --artifact is optional where the JAX server requires it
     assert parser.parse_args([]).artifact is None
+    model = next(a for a in parser._actions if a.option_strings == ["--model"])
+    assert list(model.choices) == PORT_ONLY_MODELS and model.default == "llama-tiny"
     for mode in ("auto", "on"):
         assert parser.parse_args(["--paged-kernel", mode]).paged_kernel == mode
     for mode in ("off", "interpret"):

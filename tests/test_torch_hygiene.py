@@ -70,7 +70,8 @@ def test_importing_every_module_loads_no_jax():
               "parallel.mesh", "parallel.sharding", "parallel.collectives", "models.mnist",
               "dist_psum", "dist_mnist", "dist_multislice", "ops.ring_attention",
               "ops.ulysses_attention", "models.bert", "models.t5", "models.vit",
-              "bert_pretrain", "t5_multihost", "vit_classify"):
+              "bert_pretrain", "t5_multihost", "vit_classify", "models.gpt", "models.moe",
+              "models.registry"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

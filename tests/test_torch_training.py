@@ -272,7 +272,7 @@ def test_export_serves_what_training_left(tmp_path):
     export_params(trainer, str(tmp_path))
     with open(tmp_path / "model.json") as f:
         desc = json.load(f)
-    assert model_from_description(desc) == cfg
+    assert model_from_description(desc) == (LlamaLM, cfg)
     served = load_model(torch.device("cpu"), max_len=64, artifact=str(tmp_path))
     flat = np.load(tmp_path / "params.npz")
     assert "layer_0/self_attn/query/kernel" in flat.files
@@ -288,7 +288,7 @@ def test_export_serves_what_training_left(tmp_path):
 def test_describe_model_round_trips_and_matches_jax(cfg):
     d = describe_model(LlamaLM(cfg, device="meta"))
     assert json.loads(json.dumps(d)) == d
-    assert model_from_description(d) == cfg
+    assert model_from_description(d) == (LlamaLM, cfg)
     if cfg.hidden == 128:
         jm = j_llama_tiny(vocab_size=VOCAB, max_len=64)
         assert j_describe_model(jm) == d
@@ -332,7 +332,10 @@ def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
     # sequence parallelism is ported: --sp must divide the sequence
     args = llama_pretrain.parse_args(argv + ["--sp", "2", "--sp-impl", "ulysses"])
     assert (args.sp, args.sp_impl) == (2, "ulysses")
-    for bad in (["--sp", "3"], ["--sp", "0"], ["--sp-impl", "tree"], ["--family", "moe"]):
+    # --family moe trains moe_tiny: beside a llama-only flag it is refused
+    assert llama_pretrain.parse_args(argv + ["--family", "moe"]).family == "moe"
+    for bad in (["--sp", "3"], ["--sp", "0"], ["--sp-impl", "tree"],
+                ["--family", "moe", "--sp", "2"], ["--family", "moe", "--model", "llama-wide"]):
         with pytest.raises(SystemExit):
             llama_pretrain.parse_args(argv + bad)
     # outside a job there is no sp line to split over

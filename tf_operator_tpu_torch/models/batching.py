@@ -4,11 +4,12 @@ pool built on it, ``PagedContinuousBatchingDecoder``.  The two share the
 records, the queue, ``submit``, ``result`` / ``result_wait``, ``run``,
 the SLO observations, spans and gauges, and the samplers.
 
-The contiguous pool (the JAX server's pool for a rolling-window model,
-which the paged pool refuses): every seat owns a row of one slot stack,
-per layer K/V [slots, Hkv, cache_len, D] with cache_len = max_len, or
-the window for a rolling cache, plus a per-slot write index and, for a
-rolling cache, per-slot slot positions.  Admission is FIFO into any free
+The contiguous pool (the JAX server's pool for a model the paged pool
+refuses: a rolling window, or a learned-position family, gpt and moe,
+whose seats read the table at their own positions): every seat owns a
+row of one slot stack, per layer K/V [slots, Hkv, cache_len, D] with
+cache_len = max_len, or the window for a rolling cache, plus a per-slot
+write index and, for a rolling cache, per-slot slot positions.  Admission is FIFO into any free
 slot:
 
 - without a rolling cache, one ``admission`` dispatch prefills the
@@ -176,6 +177,7 @@ import numpy as np
 import torch
 
 from tf_operator_tpu_torch.models.decode import (
+    check_pageable,
     decode_variant,
     gather_block_view,
     init_cache,
@@ -197,7 +199,7 @@ from tf_operator_tpu_torch.models.kv_blocks import (
 )
 from tf_operator_tpu_torch.models.llama import LlamaLM
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, chain_keys
-from tf_operator_tpu_torch.models.transformer import DecodeCache, PagedCache
+from tf_operator_tpu_torch.models.transformer import DecodeCache, Family, PagedCache
 from tf_operator_tpu_torch.ops import _build
 from tf_operator_tpu_torch.ops import paged_attention as _pa
 from tf_operator_tpu_torch.ops import quant_matmul as _qm
@@ -570,9 +572,10 @@ class _Request:
 
 class ContinuousBatchingDecoder:
     """Fixed seats over one contiguous slot stack: the port of the JAX
-    package's ``ContinuousBatchingDecoder``, the serving pool of a
-    rolling-window model (which the paged pool refuses) and the base of
-    :class:`PagedContinuousBatchingDecoder` (module docstring).
+    package's ``ContinuousBatchingDecoder``, the serving pool of a model
+    the paged pool refuses (a rolling window, the gpt and moe families)
+    and the base of :class:`PagedContinuousBatchingDecoder` (module
+    docstring).
 
     Thread-safe: ``submit`` may be called from request threads while
     one decode loop thread calls ``step``.  ``ledger`` counts (and
@@ -595,7 +598,7 @@ class ContinuousBatchingDecoder:
     role = "unified"
     fabric = None
 
-    def __init__(self, model: LlamaLM, slots: int = 8, steps_per_sync: int = 8,
+    def __init__(self, model: Family, slots: int = 8, steps_per_sync: int = 8,
                  ledger: Optional[DispatchLedger] = None, metrics=None,
                  model_label: str = "", replica_label: str = "", costplane=None):
         self.ledger = ledger if ledger is not None else DispatchLedger()
@@ -1190,6 +1193,9 @@ class PagedContinuousBatchingDecoder(ContinuousBatchingDecoder):
                  model_label: str = "", replica_label: str = "", role: str = "unified",
                  fabric=None, draft_model: Optional[LlamaLM] = None,
                  spec_k: int = 4, spec_tiers=("interactive",), costplane=None):
+        # before any state is made: a learned-position family or a
+        # rolling window raises NotPageableError here
+        check_pageable(model)
         if role not in REPLICA_ROLES:
             raise ValueError(f"role must be one of {REPLICA_ROLES}, got {role!r}")
         if role == "prefill" and fabric is None:

@@ -18,6 +18,13 @@ one request at a time, and the paged arena's helpers (the port of
   blocks over one pre-allocated tensor per layer, addressed through
   per-seat block tables.  Block 0 is scratch (models/kv_blocks.py).
 
+Every decoder family drives them: llama (rope), gpt and moe (learned
+positions, read at the cache's own positions; moe routes droplessly in
+decode).  Only llama is pageable: the paged helpers raise
+``NotPageableError`` for the learned-position families, as the JAX
+package's ``paged_arena`` does (their cache carries a position index
+the arena has no place for).
+
 Sampling draws from an explicit ``torch.Generator`` per request; the
 numbers differ from ``jax.random``'s, the law does not.
 """
@@ -29,11 +36,17 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from tf_operator_tpu_torch.models.gpt import CausalLM
 from tf_operator_tpu_torch.models.kv_blocks import NotPageableError
 from tf_operator_tpu_torch.models.llama import LlamaLM
+from tf_operator_tpu_torch.models.moe import MoeLM
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, exact_key
-from tf_operator_tpu_torch.models.transformer import DecodeCache
+from tf_operator_tpu_torch.models.transformer import DecodeCache, Family
 from tf_operator_tpu_torch.utils.metrics import DispatchLedger
+
+#: the families that decode autoregressively (the reference's
+#: ``SUPPORTS_DECODE``)
+DECODER_FAMILIES = (CausalLM, LlamaLM, MoeLM)
 
 
 def binary_chunks(n: int) -> list:
@@ -83,21 +96,37 @@ def set_cache_index(cache: DecodeCache, n) -> DecodeCache:
     return cache
 
 
-def decode_variant(model: LlamaLM) -> LlamaLM:
-    """The same model with decode=True (the weights are shared)."""
+def decode_variant(model: Family) -> Family:
+    """The same model with decode=True (the weights are shared); a
+    family that cannot decode (the encoders) is refused."""
 
+    if not isinstance(model, DECODER_FAMILIES):
+        raise NotImplementedError(
+            "decode is supported for the autoregressive decoder families (CausalLM, "
+            f"LlamaLM, MoeLM); got {type(model).__name__}")
     return model.variant(decode=True)
 
 
-def paged_decode_variant(model: LlamaLM) -> LlamaLM:
-    """The same model with the paged decode branch enabled."""
+def check_pageable(model: Family) -> None:
+    """Refuse a model the paged arena cannot hold: a learned-position
+    family, or a rolling-window cache."""
 
+    if not isinstance(model, LlamaLM):
+        raise NotPageableError(
+            f"{type(model).__name__} is not pageable (its learned position table is read "
+            "at a cache position index the block arena does not keep)")
     cfg = model.cfg
     if cfg.window is not None and cfg.window < cfg.max_len:
         raise NotPageableError(
             "rolling-window caches are not pageable (wrap state aliases "
             "positions); use ContinuousBatchingDecoder"
         )
+
+
+def paged_decode_variant(model: LlamaLM) -> LlamaLM:
+    """The same model with the paged decode branch enabled."""
+
+    check_pageable(model)
     return model.variant(decode=True, paged=True)
 
 
@@ -126,7 +155,7 @@ def _rolling(cfg) -> bool:
     return cfg.window is not None and cfg.window < cfg.max_len
 
 
-def init_cache(model: LlamaLM, batch_size: int,
+def init_cache(model: Family, batch_size: int,
                length: Optional[int] = None) -> DecodeCache:
     """Empty contiguous cache for ``batch_size`` rows: zeros
     [B, Hkv, length, D] per layer, index 0.  ``length`` defaults to
@@ -165,7 +194,7 @@ def _sampler(temperature: float, top_k: Optional[int],
     return sample
 
 
-def _decode_loop(dmodel: LlamaLM, cache: DecodeCache, last: torch.Tensor, n: int,
+def _decode_loop(dmodel: Family, cache: DecodeCache, last: torch.Tensor, n: int,
                  sample) -> torch.Tensor:
     """``n`` tokens [B, n] from the logits of the last prompt row ``last``
     [B, V]: each sampled token is fed back through the cache."""
@@ -180,7 +209,7 @@ def _decode_loop(dmodel: LlamaLM, cache: DecodeCache, last: torch.Tensor, n: int
 
 @torch.inference_mode()
 def generate(
-    model: LlamaLM,
+    model: Family,
     prompt_ids: torch.Tensor,
     max_new_tokens: int,
     *,
@@ -247,7 +276,7 @@ class ChunkedServingDecoder:
     its own cache, and the prompt cache and ledger take their own locks.
     """
 
-    def __init__(self, model: LlamaLM, prompt_cache: int = 0,
+    def __init__(self, model: Family, prompt_cache: int = 0,
                  ledger: Optional[DispatchLedger] = None):
         self.ledger = ledger if ledger is not None else DispatchLedger()
         self.dmodel = decode_variant(model)
@@ -349,12 +378,8 @@ def paged_arena(model: LlamaLM, num_blocks: int, block_size: int
     [num_blocks, Hkv, block_size, D] in cfg.dtype on the model's
     device."""
 
+    check_pageable(model)
     cfg = model.cfg
-    if cfg.window is not None and cfg.window < cfg.max_len:
-        raise NotPageableError(
-            "rolling-window caches are not pageable (wrap state aliases "
-            "positions); use ContinuousBatchingDecoder"
-        )
     if cfg.max_len % block_size:
         raise ValueError(
             f"max_len={cfg.max_len} must be a multiple of "

@@ -1,15 +1,24 @@
-"""Describe a model as a ``model.json`` and rebuild its config from one
-(the port of ``tf_operator_tpu/models/registry.py``, llama family
-only).  A description the port writes has the keys the JAX package's
-``describe_model`` writes, so either side can read the other's."""
+"""Describe a model as a ``model.json`` and rebuild its family and config
+from one (the port of ``tf_operator_tpu/models/registry.py``): the
+decoder families ``gpt``, ``llama`` and ``moe``.  A description the port
+writes has the keys the JAX package's ``describe_model`` writes, so
+either side can read the other's:
+
+    {"family": "gpt" | "llama", "config": {...}}
+    {"family": "moe", "moe": {"num_experts", "capacity_factor",
+     "aux_loss_weight", "z_loss_weight"}, "config": {...}}
+"""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from tf_operator_tpu_torch.models.gpt import CausalLM
+from tf_operator_tpu_torch.models.llama import LlamaLM
+from tf_operator_tpu_torch.models.moe import MoeConfig, MoeLM
 from tf_operator_tpu_torch.models.transformer import TransformerConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -19,33 +28,48 @@ _IGNORED = ("sp_impl", "paged", "decode", "plain_kernels")
 #: config fields of the port that a description leaves out (the mesh
 #: is the training job's, as the reference's description drops it)
 _PORT_ONLY = ("decode", "paged", "plain_kernels", "mesh")
+_FAMILIES = {"gpt": CausalLM, "llama": LlamaLM, "moe": MoeLM}
+
+
+def _cfg_to_dict(cfg: TransformerConfig) -> Dict[str, Any]:
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+         if f.name not in _PORT_ONLY}
+    d["dtype"] = {v: k for k, v in _DTYPES.items()}[cfg.dtype]
+    # the JAX config's field the port keeps apart, at its value for a
+    # model that does not serve through the paged pool
+    d["paged"] = None
+    return d
 
 
 def describe_model(model) -> Dict[str, Any]:
-    """JSON-safe ``{"family": "llama", "config": {...}}`` of a LlamaLM."""
+    """JSON-safe description of a gpt, llama or moe model."""
 
-    from tf_operator_tpu_torch.models.llama import LlamaLM
+    for name, cls in _FAMILIES.items():
+        if type(model) is cls:
+            break
+    else:
+        raise ValueError(f"no serving description for {type(model).__name__}; "
+                         f"families: {sorted(_FAMILIES)}")
+    d: Dict[str, Any] = {"family": name}
+    if name == "moe":
+        d["moe"] = {f.name: getattr(model.moe, f.name)
+                    for f in dataclasses.fields(model.moe) if f.name != "base"}
+    d["config"] = _cfg_to_dict(model.cfg)
+    return d
 
-    if not isinstance(model, LlamaLM):
-        raise ValueError(f"only the llama family is ported, got {type(model).__name__}")
-    cfg = {f.name: getattr(model.cfg, f.name) for f in dataclasses.fields(model.cfg)
-           if f.name not in _PORT_ONLY}
-    names = {v: k for k, v in _DTYPES.items()}
-    cfg["dtype"] = names[model.cfg.dtype]
-    # the JAX config's field the port keeps apart, at its value for a
-    # llama that does not serve through the paged pool
-    cfg["paged"] = None
-    return {"family": "llama", "config": cfg}
 
-
-def model_from_description(d: Dict[str, Any],
-                           max_len: Optional[int] = None) -> TransformerConfig:
-    """The TransformerConfig a ``{"family": "llama", "config": {...}}``
-    description names.  ``max_len`` overrides the cache length."""
+def model_from_description(d: Dict[str, Any], max_len: Optional[int] = None
+                           ) -> Tuple[type, Any]:
+    """(family class, config) of a description: the config is a
+    ``TransformerConfig``, a ``MoeConfig`` for the moe family; build the
+    model with ``cls.from_state_dict(config, state, device)``.
+    ``max_len`` overrides the cache length, and is refused above the
+    trained length for a family with a learned position table (decode
+    past its rows is undefined; the reference raises the same)."""
 
     family = d.get("family")
-    if family != "llama":
-        raise ValueError(f"unknown or unported model family {family!r}; known: ['llama']")
+    if family not in _FAMILIES:
+        raise ValueError(f"unknown model family {family!r}; known: {sorted(_FAMILIES)}")
     cfg_d = {k: v for k, v in d["config"].items() if k not in _IGNORED}
     known = {f.name for f in dataclasses.fields(TransformerConfig)}
     unknown = sorted(set(cfg_d) - known)
@@ -54,8 +78,16 @@ def model_from_description(d: Dict[str, Any],
     if cfg_d.get("dtype") not in _DTYPES:
         raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg_d.get('dtype')!r}")
     cfg_d["dtype"] = _DTYPES[cfg_d["dtype"]]
-    if not cfg_d.get("rope"):
+    if family == "llama" and not cfg_d.get("rope"):
         raise ValueError("the llama family uses rope; the description says rope=False")
     if max_len is not None:
+        if max_len > cfg_d["max_len"] and not cfg_d.get("rope"):
+            raise ValueError(
+                f"max_len={max_len} exceeds the trained length {cfg_d['max_len']} and "
+                f"family {family!r} uses a learned position table — extension is only "
+                "defined for rope models")
         cfg_d["max_len"] = int(max_len)
-    return TransformerConfig(**cfg_d)
+    cfg = TransformerConfig(**cfg_d)
+    if family == "moe":
+        return MoeLM, MoeConfig(base=cfg, **d["moe"])
+    return _FAMILIES[family], cfg

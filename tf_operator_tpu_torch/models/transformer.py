@@ -82,7 +82,7 @@ from torch import nn
 from tf_operator_tpu_torch.ops.attention import dot_product_attention
 from tf_operator_tpu_torch.ops.flash_attention import attention
 from tf_operator_tpu_torch.ops.paged_attention import paged_attention_multi
-from tf_operator_tpu_torch.ops.quant import QTensor
+from tf_operator_tpu_torch.ops.quant import QTensor, materialize_state
 from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul_2d
 from tf_operator_tpu_torch.ops.ring_attention import ring_attention
 from tf_operator_tpu_torch.ops.rotary import apply_rope
@@ -642,8 +642,8 @@ def _dropout_generator(model: nn.Module, train: bool) -> Optional[torch.Generato
 
 
 def refuse_sequence_parallel(cfg: TransformerConfig, family: str) -> None:
-    """The encoder families run without sequence parallelism: it is
-    ported for the llama family."""
+    """The encoder families, gpt and moe run without sequence
+    parallelism: it is ported for the llama family."""
 
     if cfg.sp_enabled:
         raise NotImplementedError(f"sequence parallelism is ported for the llama family; "
@@ -689,6 +689,10 @@ class Family(nn.Module):
     dropout_rng: Optional[torch.Generator] = None
     #: the batch axes' process group (None: this rank holds the batch)
     batch_group = None
+    #: a QTensor kernel is held as int8 (its products run the int8
+    #: matmul); False: an int8 state is dequantized to bf16 before it is
+    #: loaded (the reference's ``materialize_fn`` for such a family)
+    SUPPORTS_QTENSOR = True
 
     def dropout_generator(self, train: bool) -> Optional[torch.Generator]:
         return _dropout_generator(self, train)
@@ -710,8 +714,11 @@ class Family(nn.Module):
         (``DenseGeneral.hold_int8``), and is returned in eval mode; a
         trainable model copies every entry (the optimizer updates its
         parameters in place), refuses QTensors, and is returned in train
-        mode.  ``kw``: the family's other constructor arguments."""
+        mode.  ``kw``: the family's other constructor arguments.  A family
+        without ``SUPPORTS_QTENSOR`` dequantizes every QTensor first."""
 
+        if not cls.SUPPORTS_QTENSOR:
+            state = materialize_state(state)
         model = cls(cfg, device="meta", trainable=trainable, **kw)
         expected = dict(model.named_parameters())
         if set(state) != set(expected):

@@ -12,6 +12,15 @@ Flax paths (as ``llama_tiny`` produces them) and port names:
     ln_final/RMSNorm_0/scale                 ln_final.scale
     lm_head/kernel                           lm_head.kernel
 
+and, for the gpt and moe families, which name their parameters the
+same way (models/gpt.py, models/moe.py):
+
+    pos_embed                                pos_embed
+    layer_i/self_attn/{...}/bias             layers.i.self_attn.{...}.bias
+    layer_i/mlp/{wi,wo}/{kernel,bias}        layers.i.mlp.{wi,wo}.{...}
+    layer_i/moe/router/kernel                layers.i.moe.router.kernel
+    layer_i/moe/{wi,wo}                      layers.i.moe.{wi,wo}
+
 Shapes are unchanged (the port keeps the flax layout), so the bridge is
 a renaming, both ways at float32 (and one way for a tree that
 ``quantize_tree`` made: its ``QTensor`` leaves become the port's): a
@@ -39,7 +48,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from tf_operator_tpu_torch.ops.quant import QTensor, eligible, quantize_array
+from tf_operator_tpu_torch.ops.quant import QTensor, eligible, quantize_param
 
 _NORM = "RMSNorm_0"
 #: the scopes flax's norm modules put under the reference's LayerNorm wrapper
@@ -148,7 +157,7 @@ def load_npz(path: str, *, quantize: bool = False) -> Dict[str, object]:
         for key in f.files:
             name = flax_path_to_name(key)
             t = torch.from_numpy(f[key])
-            state[name] = quantize_array(t) if quantize and eligible(name, t.shape) else t
+            state[name] = quantize_param(name, t) if quantize and eligible(name, t.shape) else t
     return state
 
 
@@ -168,13 +177,15 @@ _NORMAL_INIT = ("embedding", "pos_embed", "seg_embed", "rel_embedding")
 
 def init_params(cfg, seed: int, device, *, trainable: bool = False,
                 quantize: bool = False, family=None) -> Dict[str, object]:
-    """A seeded state_dict of ``family`` (default ``LlamaLM``) built on
+    """A seeded state_dict of ``family`` (default ``LlamaLM``; the gpt
+    and moe families too, the latter on its ``MoeConfig``) built on
     ``cfg``, made directly on ``device`` at the flax init scales:
     normal(0.02) for the embeddings, position and segment tables, T5's
     relative-position table and llama's lm_head, lecun-normal (truncated
-    at 2 sigma) for the projections, ones for the norm scales, zeros for
-    biases.  Draws in float32, stores in the
-    parameter's dtype.  The numbers differ from flax's (another
+    at 2 sigma) for the projections and the moe router and expert
+    stacks (an [E, in, out] stack's fan-in counts E, flax's law), ones
+    for the norm scales, zeros for biases.  Draws in float32, stores in
+    the parameter's dtype.  The numbers differ from flax's (another
     generator); the scales do not.  ``trainable``: float32 everywhere,
     for a trainable model.  ``quantize``: each eligible kernel becomes a
     QTensor quantized from its float32 draw, before any storage cast
@@ -204,6 +215,6 @@ def init_params(cfg, seed: int, device, *, trainable: bool = False,
             std = math.sqrt(1.0 / _lecun_fan_in(shape)) / 0.87962566103423978
             t = torch.empty(shape, dtype=torch.float32, device=device)
             torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
-        state[name] = (quantize_array(t) if quantize and eligible(name, shape)
+        state[name] = (quantize_param(name, t) if quantize and eligible(name, shape)
                        else t.to(p.dtype))
     return state

@@ -12,7 +12,9 @@ mechanisms, as in the JAX package:
    the last), in the flax layout; small parameters stay replicated;
 2. logical rules (:func:`logical_shardings`) for the transformer
    families: each parameter's logical axes (:data:`LLAMA_PARAM_AXES`,
-   then :data:`ENCODER_PARAM_AXES` for the BERT, T5 and ViT names; the
+   which also names the gpt and moe families' layers, then
+   :data:`ENCODER_PARAM_AXES` for the BERT, T5 and ViT names and the
+   learned position table; the
    reference's ``param_with_axes`` sites) map through
    :data:`LOGICAL_RULES` to mesh axes, by flax's
    ``logical_to_mesh_axes`` algorithm.  This is the layout of the JAX
@@ -29,7 +31,8 @@ rows over ("dp", "fsdp"), the sequence ("seq") over sp
 (:func:`sequence_chunk`); the parameters are replicated over sp.
 
 dp, fsdp and sp are ported: :func:`check_mesh` refuses any other axis
-of size above 1.
+of size above 1.  An ep axis of size 1 (the moe job's mesh on one
+device a process) holds every expert on every rank.
 """
 
 from __future__ import annotations
@@ -85,6 +88,10 @@ LLAMA_PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     (r".*\.mlp\.wo\.kernel", ("mlp", "embed")),
     (r".*\.mlp\.wo\.bias", ("embed",)),
     (r"lm_head\.kernel", ("embed", "vocab")),
+    # the moe family's router and expert stacks (models/moe.py)
+    (r".*\.moe\.router\.kernel", ("embed", "expert")),
+    (r".*\.moe\.wi", ("expert", "embed", "mlp")),
+    (r".*\.moe\.wo", ("expert", "mlp", "embed")),
 )
 
 #: The logical axes of the encoder families' parameters (BERT, T5, ViT;
@@ -117,7 +124,9 @@ Spec = Tuple[Any, ...]
 #: axes the port shards over; the others wait for the features named
 _PORTED_AXES = ("dp", "fsdp", "sp")
 _WAITING = {"tp": "tensor parallelism",
-            "ep": "expert parallelism (the moe family)",
+            "ep": "expert parallelism (each rank holding its share of the experts, the "
+                  "tokens dispatched to them by an all-to-all over ep; with one device a "
+                  "process the moe job runs ep=1, every expert on every rank)",
             "pp": "pipeline parallelism (pipelined_lm)"}
 
 

@@ -15,9 +15,10 @@ The serving mode follows the JAX server's flags (``build_decoder``):
 - ``--batching SLOTS``: the paged pool (models/batching.py), driven by
   one decode loop thread;
 - ``--batching SLOTS`` on a model the paged pool refuses (a rolling
-  window shorter than max_len): it prints ``paged pool unavailable
-  (...); serving the contiguous slot pool`` and serves
-  ``ContinuousBatchingDecoder``; ``--speculative`` is refused there.
+  window shorter than max_len, or the gpt and moe families): it prints
+  ``paged pool unavailable (...); serving the contiguous slot pool`` and
+  serves ``ContinuousBatchingDecoder``; ``--speculative`` is refused
+  there.
 
 ``POST /generate`` takes ``prompt``, ``max_new_tokens`` (default 32),
 ``temperature`` (quantised to a 0.05 grid), ``top_k``, ``seed``,
@@ -123,14 +124,25 @@ unbounded); with both arenas full, requests wait in the queue or are
 parked without a copy rather than fail mid-decode (a cap that no
 victim fits can leave two parked requests waiting on each other).
 
-The weights come from a seed (``--model llama-7b|llama-tiny
---init-seed N``, made on the device) or from an ``export_params``
+The weights come from a seed (``--model NAME --init-seed N``, made on
+the device: ``llama-7b``, ``llama-tiny``, ``gpt-small``, ``gpt-tiny``,
+``moe-tiny`` or ``moe-gpt-small``) or from an ``export_params``
 directory (``--artifact DIR``: ``params.npz`` of flat flax-path keys,
-read with numpy, and ``model.json``).  ``--quantize int8`` holds the
-projection kernels (every ``kernel`` of >= 4096 elements; the embedding
-stays bf16) as int8 with per-output-channel scales, quantized from the
-float32 weights as they are made or read (ops/quant.py); their products
-then run the int8 matmul (the CUDA kernel K7 on the card).
+read with numpy, and ``model.json`` of any family, gpt, llama or moe,
+checked as the JAX server checks it: ``main`` exits on a vocab other
+than 256, a ``--max-len`` above the trained length is capped with its
+line, and the records' ``model`` label is the family).  A gpt or moe model is not
+pageable, so ``--batching SLOTS`` serves it through the contiguous slot
+pool after the fallback line, and ``--speculative`` and ``--roles``
+with a prefill replica fail with the JAX server's errors.
+``--quantize int8`` holds the projection kernels (every ``kernel`` of
+>= 4096 elements; the embedding stays bf16) as int8 with
+per-output-channel scales, quantized from the float32 weights as they
+are made or read (ops/quant.py); their products then run the int8
+matmul (the CUDA kernel K7 on the card).  The moe family's int8 weights
+(per-expert scales for the expert stacks) are dequantized to bf16 when
+the model is built, as the JAX package materializes them before each
+apply, so K7 is not on its path.
 
 The flags are the JAX server's but for these differences:
 ``--artifact`` is optional, ``--model``, ``--init-seed``,
@@ -165,13 +177,16 @@ from tf_operator_tpu_torch.models.batching import (
 )
 from tf_operator_tpu_torch.models.decode import ChunkedServingDecoder
 from tf_operator_tpu_torch.models.fabric_service import FabricServer, FleetFabric
+from tf_operator_tpu_torch.models.gpt import CausalLM, gpt_small, gpt_tiny
 from tf_operator_tpu_torch.models.kv_blocks import NotPageableError
 from tf_operator_tpu_torch.models.llama import LlamaLM, llama_7b_shape, llama_tiny
+from tf_operator_tpu_torch.models.moe import MoeConfig, MoeLM, moe_tiny
 from tf_operator_tpu_torch.models.pool_router import PoolRouter
 from tf_operator_tpu_torch.models.prefix_cache import PrefixFabric
 from tf_operator_tpu_torch.models.registry import model_from_description
+from tf_operator_tpu_torch.models.transformer import Family
 from tf_operator_tpu_torch.models.weights import init_params, load_npz
-from tf_operator_tpu_torch.ops.quant import state_bytes
+from tf_operator_tpu_torch.ops.quant import QTensor, state_bytes
 from tf_operator_tpu_torch.parallel.checkpoint import MODEL_FILE, PARAMS_FILE
 from tf_operator_tpu_torch.utils import flight
 from tf_operator_tpu_torch.utils.alerts import AlertEngine, default_rules
@@ -314,7 +329,7 @@ def parse_roles(spec: str) -> "list[str]":
     return roles
 
 
-def make_pool(model: LlamaLM, *, model_label: str = "unknown",
+def make_pool(model: Family, *, model_label: str = "unknown",
               metrics: Optional[Metrics] = None, tracer: Optional[Tracer] = None,
               pool_class=PagedContinuousBatchingDecoder, replicas: int = 1,
               roles: Optional[list] = None, fabric_peers: Optional[list] = None,
@@ -358,7 +373,7 @@ def make_pool(model: LlamaLM, *, model_label: str = "unknown",
     return pools[0] if n == 1 else PoolRouter(pools, tracer=ledger.tracer)
 
 
-def make_chunked(model: LlamaLM, *, prompt_cache: int = 0,
+def make_chunked(model: Family, *, prompt_cache: int = 0,
                  metrics: Optional[Metrics] = None,
                  tracer: Optional[Tracer] = None) -> ChunkedServingDecoder:
     """The chunked decoder with the server's records (``_records``): its
@@ -888,7 +903,7 @@ class Server:
 
 def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
                init_seed: int = 0, artifact: Optional[str] = None,
-               quantize: Optional[str] = None, what: str = "params") -> LlamaLM:
+               quantize: Optional[str] = None, what: str = "params") -> Family:
     """The model the flags name: the ``export_params`` directory
     ``artifact`` (``params.npz`` + ``model.json``) when given, else
     ``model``'s shape with weights made from ``init_seed`` on
@@ -901,24 +916,74 @@ def load_model(device: torch.device, *, max_len: int, model: str = "llama-tiny",
         raise ValueError(f"quantize must be None or 'int8', got {quantize!r}")
     int8 = quantize == "int8"
     if artifact:
-        with open(os.path.join(artifact, MODEL_FILE)) as f:
-            cfg = model_from_description(json.load(f), max_len=max_len)
+        cls, cfg = artifact_model(artifact, max_len)
         state = load_npz(os.path.join(artifact, PARAMS_FILE), quantize=int8)
     else:
-        if model == "llama-7b":
-            cfg = llama_7b_shape(max_len=max_len)
-        elif model == "llama-tiny":
-            # byte-level prompts: the tiny model's vocab is the 256 bytes
-            cfg = llama_tiny(vocab_size=256, max_len=max_len)
-        else:
-            raise ValueError(f"model must be llama-7b or llama-tiny, got {model!r}")
-        state = init_params(cfg, init_seed, device, quantize=int8)
-    lm = LlamaLM.from_state_dict(cfg, state, device)
+        if model not in SEEDED_MODELS:
+            raise ValueError(f"model must be one of {sorted(SEEDED_MODELS)}, got {model!r}")
+        cls, cfg = SEEDED_MODELS[model](max_len)
+        state = init_params(cfg, init_seed, device, quantize=int8, family=cls)
+    meta = cls(cfg, device="meta").state_dict() if int8 else None
+    if int8 and not cls.SUPPORTS_QTENSOR:
+        # the reference counts the quantized tree it then materializes
+        # at each apply; this family holds the materialized bf16 weights
+        after = state_bytes({n: state[n] if isinstance(state[n], QTensor) else t
+                             for n, t in meta.items()})
+    lm = cls.from_state_dict(cfg, state, device)
     if int8:
-        before = state_bytes(LlamaLM(cfg, device="meta").state_dict())
-        print(f"int8 weights-only quantization: {what} {before / 1e6:.1f} MB -> "
-              f"{state_bytes(lm.state_dict()) / 1e6:.1f} MB", flush=True)
+        if cls.SUPPORTS_QTENSOR:
+            after = state_bytes(lm.state_dict())
+        print(f"int8 weights-only quantization: {what} {state_bytes(meta) / 1e6:.1f} MB -> "
+              f"{after / 1e6:.1f} MB", flush=True)
     return lm
+
+
+def _description(artifact: str) -> dict:
+    with open(os.path.join(artifact, MODEL_FILE)) as f:
+        return json.load(f)
+
+
+def check_byte_level(artifact: str) -> None:
+    """The JAX server's first check of an artifact, before any weight is
+    read: this server is byte-level, so a vocab other than the 256 bytes
+    exits."""
+
+    vocab = _description(artifact)["config"]["vocab_size"]
+    if vocab != 256:
+        raise SystemExit(f"this server is byte-level (vocab 256); the artifact was "
+                         f"trained with vocab {vocab}")
+
+
+def artifact_model(artifact: str, max_len: int):
+    """(family class, config) of an ``export_params`` directory's
+    ``model.json``, a ``max_len`` above the trained length capped at it
+    with the JAX server's line."""
+
+    desc = _description(artifact)
+    trained = desc["config"]["max_len"]
+    if max_len > trained:
+        max_len = trained
+        print(f"capping --max-len to trained length {max_len}", flush=True)
+    return model_from_description(desc, max_len=max_len)
+
+
+def _moe_gpt_small(max_len: int) -> MoeConfig:
+    """Eight routed experts in every layer at gpt_small's widths."""
+
+    return MoeConfig(base=gpt_small(vocab_size=256, max_len=max_len), num_experts=8)
+
+
+#: ``--model``: (family class, config at a max_len) of each seeded shape;
+#: byte-level prompts, so every shape but llama-7b has the 256 bytes as
+#: its vocab
+SEEDED_MODELS = {
+    "llama-7b": lambda n: (LlamaLM, llama_7b_shape(max_len=n)),
+    "llama-tiny": lambda n: (LlamaLM, llama_tiny(vocab_size=256, max_len=n)),
+    "gpt-small": lambda n: (CausalLM, gpt_small(vocab_size=256, max_len=n)),
+    "gpt-tiny": lambda n: (CausalLM, gpt_tiny(vocab_size=256, max_len=n)),
+    "moe-tiny": lambda n: (MoeLM, moe_tiny(vocab_size=256, max_len=n)),
+    "moe-gpt-small": lambda n: (MoeLM, _moe_gpt_small(n)),
+}
 
 
 def _paged_kernel_mode(value: str) -> str:
@@ -934,7 +999,10 @@ def _paged_kernel_mode(value: str) -> str:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--model", choices=["llama-7b", "llama-tiny"], default="llama-tiny")
+    ap.add_argument("--model", choices=list(SEEDED_MODELS), default="llama-tiny",
+                    help="a seeded shape: llama-7b, llama-tiny, gpt-small (GPT-2 small "
+                    "widths), gpt-tiny, moe-tiny (4 experts) or moe-gpt-small (8 experts "
+                    "at gpt-small widths); every one but llama-7b at vocab 256")
     ap.add_argument("--init-seed", type=int, default=0)
     ap.add_argument("--artifact", default=None,
                     help="export_params directory (params.npz + model.json); "
@@ -949,8 +1017,8 @@ def build_parser() -> argparse.ArgumentParser:
                     "repeat prompt skips prefill; each entry holds the prompt's K/V")
     ap.add_argument("--batching", type=int, default=0, metavar="SLOTS",
                     help="serve through a continuous-batching pool of this many slots "
-                    "(the paged pool; the contiguous slot pool for a rolling-window "
-                    "model); 0 = one request at a time through the chunked decoder")
+                    "(the paged pool; the contiguous slot pool for a rolling-window, gpt "
+                    "or moe model); 0 = one request at a time through the chunked decoder")
     ap.add_argument("--replicas", type=int, default=1, metavar="N",
                     help="run N pool replicas behind one admission queue "
                     "(models/pool_router.py: least blocks in use; per-replica gauges on "
@@ -1006,8 +1074,7 @@ def model_label_of(args: argparse.Namespace) -> str:
     family, else the ``--model`` name."""
 
     if args.artifact:
-        with open(os.path.join(args.artifact, MODEL_FILE)) as f:
-            return json.load(f)["family"]
+        return _description(args.artifact)["family"]
     return args.model
 
 
@@ -1064,7 +1131,7 @@ def fleet_of(args: argparse.Namespace) -> dict:
             "fabric_peers": peers}
 
 
-def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
+def load_draft(model: Family, args: argparse.Namespace) -> Family:
     """The int8 self-draft of ``--speculative``: the served model when it
     already holds int8 kernels, else the same weights quantized from
     their float32 source (the artifact's npz, or the seed's draws), never
@@ -1078,9 +1145,9 @@ def load_draft(model: LlamaLM, args: argparse.Namespace) -> LlamaLM:
                       what="speculative draft")
 
 
-def build_pool(model: LlamaLM, args: argparse.Namespace,
+def build_pool(model: Family, args: argparse.Namespace,
                metrics: Optional[Metrics] = None,
-               draft: Optional[LlamaLM] = None, fleet: Optional[dict] = None):
+               draft: Optional[Family] = None, fleet: Optional[dict] = None):
     """The paged pool the flags describe (the JAX server's: lazy
     reservation), with its records (``make_pool``) on ``metrics``; a
     ``PoolRouter`` over the fleet of ``--replicas`` / ``--roles``, with
@@ -1109,13 +1176,14 @@ def build_pool(model: LlamaLM, args: argparse.Namespace,
     )
 
 
-def build_decoder(model: LlamaLM, args: argparse.Namespace,
-                  metrics: Optional[Metrics] = None, draft: Optional[LlamaLM] = None,
+def build_decoder(model: Family, args: argparse.Namespace,
+                  metrics: Optional[Metrics] = None, draft: Optional[Family] = None,
                   fleet: Optional[dict] = None):
     """The decoder the flags describe, as the JAX server places them:
     the chunked decoder for ``--batching 0``; the paged pool or fleet
     (``build_pool``) for more slots; and, where the paged pool refuses
-    the model (a rolling-window cache), the contiguous slot pool (as many
+    the model (a rolling-window cache, a gpt or moe model), the
+    contiguous slot pool (as many
     replicas, a label each) after the JAX server's line.
     ``--prompt-cache`` beside a pool, and ``--speculative``, a fabric or
     ``--roles`` on a model the paged pool refuses raise the JAX server's
@@ -1168,6 +1236,8 @@ def main(argv: Optional[list] = None) -> int:
     args = build_parser().parse_args(argv)
     refuse_speculative(args)
     fleet = fleet_of(args)  # the flag errors exit before the weights load
+    if args.artifact:
+        check_byte_level(args.artifact)
     device = resolve_device(args.device)
     model = load_model(
         device, max_len=args.max_len, model=args.model, init_seed=args.init_seed,
