@@ -127,13 +127,14 @@ Phases, in order; any failure exits non-zero before the result line:
    ``dist_psum`` on CUDA tensors (the reference's line), then
    ``psum_hierarchical`` over fsdp against the flat all-reduce on card
    tensors (``PSUM_ATOL``) and a 64 MiB sync probe.  (2) llama-wide at
-   full width (12 layers, seq 2048) through ``llama_pretrain``: one
+   full width (seq 2048; its depth cut to ``DIST_LAYERS`` of its 12
+   layers) through ``llama_pretrain``: one
    process on 8 rows (the yardstick), one process on 4 rows (memory
-   only), then 2 ranks over ``{"sp": 1, "fsdp": 2}`` at 4 rows each, 4
-   steps (``phase_llama_fsdp``); each rank's losses against the
+   only), then 2 ranks over ``{"sp": 1, "fsdp": 2}`` at 4 rows each,
+   ``DIST_STEPS`` steps (``phase_llama_fsdp``); each rank's losses against the
    yardstick's (``DIST_LOSS_RTOL``) and its gathered weights against
    the yardstick's leaf by leaf (``DIST_WEIGHT_RTOL``), K1, K2 and K3 =
-   12 x 4 launches a rank and no plain attention; prints per rank the
+   layers x steps launches a rank and no plain attention; prints per rank the
    step wall, the collectives' calls, bytes and host seconds by stage,
    the training state it holds between steps (``resident_bytes``) and
    ``max_memory_allocated`` beside the 4-row process's.  (3) ``dist_multislice`` as 2 slices x 2
@@ -157,11 +158,31 @@ Phases, in order; any failure exits non-zero before the result line:
    sequence), ``DIST_STEPS`` steps: each rank's losses against the
    yardstick's (``DIST_LOSS_RTOL``), rank 0's weights against the
    yardstick's leaf by leaf (``DIST_WEIGHT_RTOL``: the gradients' sum
-   over sp), K1-K3 launches = 12 x steps x (r
-   + 1) on rank r of the causal ring and 12 x steps under Ulysses, no
+   over sp), K1-K3 launches = layers x steps x (r
+   + 1) on rank r of the causal ring and layers x steps under Ulysses, no
    plain attention, no boundary block; prints per rank the step ms,
    the collectives' share of the wall and bytes by stage, and
    ``max_memory_allocated``.
+5d. the model-parallel jobs (``phase_model_parallel``): K1, K2 and K3
+   at the shapes a rank runs (``MP_FLASH``: T5-base's and ViT-B/16's
+   6 heads of 12 under tp 2, the 8-expert moe's 12 heads under ep 2)
+   against their plain versions, timed; then 2 ranks, each running in
+   turn (``rank_model_parallel``) ``t5_multihost --model t5_base --tp
+   2`` (batch 4, 64 / 32, dropout 0.1, ``MP_T5_STEPS`` steps),
+   ``vit_classify --model vit_b16 --tp 2`` (224 px x 32, 1000 classes,
+   ``MP_VIT_STEPS`` steps and its benchmark) and the 8-expert moe at
+   gpt_small's widths over ``{"ep": 2}`` through the ``Trainer`` (seq
+   1024 x 8, ``MP_MOE_STEPS`` steps, dropout 0.1; these two at learning
+   rate ``MP_LR``), against the same
+   three in this process on the same global batches (``--tp 1``, no
+   mesh): each rank's losses within ``DIST_LOSS_RTOL`` of one
+   process's, the ranks' ``loss a -> b`` lines and losses identical,
+   the parameters each keeps whole bitwise equal across the ranks,
+   K1-K3 = layers x the steps run a rank (T5: its cross-attentions,
+   and 24 plain biased self-attentions a step), no other plain
+   attention; prints per rank the step ms, the parameter bytes it holds
+   beside the whole model's, and the collectives' calls, bytes and host
+   seconds by stage.
 7. serving at full width: ``llama_7b_shape`` with seeded bf16
    weights, the paged pool (8 slots, max_len 2048, bs 16, 8 steps per
    sync) behind ``serve_lm``'s HTTP server on 127.0.0.1:0; 8 concurrent
@@ -206,7 +227,7 @@ Phases, in order; any failure exits non-zero before the result line:
 7c. what the records cost on the host: phase 7's nine requests, in this
    process, through a bare pool (no ledger, no metrics) and through the
    pool ``serve_lm.make_pool`` builds, in the order bare, plane, plane,
-   bare, bare, plane.  Each run: decode tokens/s, the median window ms
+   bare (two runs a side).  Each run: decode tokens/s, the median window ms
    (the ledger's step seconds: up to the window's fetch) and the median
    bookkeeping µs a window (``step()``'s wall less that, over windows
    that admitted nothing); K4 = 32 x the decode steps.  Then each
@@ -453,7 +474,8 @@ Phases, in order; any failure exits non-zero before the result line:
    and no plain int8 product runs; every loss must fall.  Prints each
    family's step ms, tokens/s and peak memory.
 16. the kernels line (K1, K2, K3 from the training paths: llama's, the
-   three encoders' and the zoo's, each counted around its own run, with
+   three encoders', the zoo's and phase 5d's 2-rank jobs (both ranks'),
+   each counted around its own run, with
    the counts by path; K4 from the serving path, K7 from the int8
    serving paths, 7B's pool and gpt_small's chunked decoder, by path;
    K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
@@ -2130,7 +2152,7 @@ def phase_fleet_http(card):
 
 
 #: phase 7c's runs, interleaved so that drift between them cancels
-PLANE_ORDER = ("bare", "plane", "plane", "bare", "bare", "plane")
+PLANE_ORDER = ("bare", "plane", "plane", "bare")
 #: what the records (the cost plane included) may add to a decode
 #: window's host work: the median bookkeeping, plane less bare
 PLANE_BOOKKEEPING_US = 1000.0
@@ -4267,8 +4289,12 @@ def phase_zoo(card):
 #: yardstick trains on both ranks' rows at once); every step is resolved
 #: (K = 1), so the steady step wall is the resolves' slope after the
 #: first step
-DIST_STEPS = 4
+DIST_STEPS = 3
 DIST_BATCH = 4
+#: their llama-wide's depth (of its 12 layers; width, sequence and rows
+#: as phase 5's): cut from 12, and the steps from 4, to give phase 5d
+#: the script's time
+DIST_LAYERS = 4
 #: phase 5b: each loss of the 2-rank fsdp run against the one-process
 #: run on the same global batch, relative.  bf16 compute: each rank's
 #: weight gradients are rounded to bf16 over its 4 rows where the one
@@ -4402,6 +4428,8 @@ def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
     the gathered weights against the ones written there, leaf by leaf;
     ``extra``: more flags (``--sp``, ``--sp-impl``)."""
 
+    import dataclasses
+
     from tf_operator_tpu_torch import llama_pretrain
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -4409,6 +4437,9 @@ def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
     from tf_operator_tpu_torch.runtime.bootstrap import world
     from tf_operator_tpu_torch.runtime.harness import gather_params
 
+    full_depth = llama_pretrain.model_config
+    llama_pretrain.model_config = lambda name, seq_len, **kw: dataclasses.replace(
+        full_depth(name, seq_len, **kw), n_layers=DIST_LAYERS)
     args = llama_pretrain.parse_args([
         "--model", "llama-wide", "--seq-len", "2048", "--batch-per-device",
         str(batch_per_device), "--steps", str(DIST_STEPS), "--steps-per-sync", "1",
@@ -4488,7 +4519,7 @@ def phase_llama_fsdp(tmp, card):
                       "llama-wide one process, 4 rows")[0]
     ranks = _run_ranks(2, LLAMA_RANK.format(data_dir, DIST_BATCH, None, yard, ()),
                        "llama-wide fsdp 2")
-    want = DIST_STEPS * 12
+    want = DIST_STEPS * DIST_LAYERS
     rows, bad = [], []
     for rec in ranks:
         rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], one["losses"])]
@@ -4636,7 +4667,7 @@ def phase_sp_llama(tmp, card, yardstick, impls=SP_IMPLS):
                            f"llama-wide sp 2 {impl}")
         rows = []
         for rec in ranks:
-            want = DIST_STEPS * 12 * (rec["rank"] + 1 if impl == "ring" else 1)
+            want = DIST_STEPS * DIST_LAYERS * (rec["rank"] + 1 if impl == "ring" else 1)
             rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], yardstick)]
             rows.append({k: rec[k] for k in ("rank", "launches", "step_ms", "wall_s",
                                             "collective_share", "collectives",
@@ -4720,6 +4751,259 @@ def phase_multiprocess(card):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return summary
+
+
+# -- phase 5d: the model-parallel jobs -----------------------------------------
+
+#: phase 5d's steps: t5_multihost (the loss guard needs 20 or more and is
+#: not asked for), vit_classify (then its benchmark's max(steps // 2, 5))
+#: and the 8-expert moe through the Trainer
+MP_T5_STEPS, MP_VIT_STEPS, MP_MOE_STEPS = 10, 6, 6
+#: vit_classify's benchmark steps after MP_VIT_STEPS
+MP_VIT_BENCH = max(MP_VIT_STEPS // 2, 5)
+#: the learning rate of phase 5d's ViT and moe runs (T5 keeps its
+#: entry's 1e-4 with a 10-update warmup).  The ranks' first losses read
+#: 1.5e-5 (ViT) and 3.1e-5 (moe) of one process's; at vit_classify's
+#: 3e-3 and the zoo's 1e-3 AdamW carries the bf16 rounding of the split
+#: products' partial sums to 2.4e-3 and 2.1e-3 within six steps, while
+#: in float32 at those rates the gaps are 3.2e-7 and 0
+#: (``chip_mp_witness.py``, which holds the entries' rates).  At 1e-5
+#: the bf16 gaps stay within ``DIST_LOSS_RTOL`` (3.0e-4 and 1.6e-4)
+MP_LR = 1e-5
+#: K1-K3 at the shapes one rank runs on phase 5d's paths (bf16, D 64):
+#: T5-base's cross-attention under tp 2 (its self-attentions carry the
+#: relative-position bias and run the plain attention; their shapes are
+#: held too), ViT-B/16's under tp 2, and the 8-expert moe's under ep 2
+#: (every head, the batch replicated)
+MP_FLASH = (
+    ("t5_base_tp2_cross_sq32_sk64_b4", dict(b=4, h=6, hkv=6, sq=32, sk=64, d=64, causal=False)),
+    ("t5_base_tp2_enc_s64_b4", dict(b=4, h=6, hkv=6, sq=64, sk=64, d=64, causal=False)),
+    ("t5_base_tp2_dec_s32_b4", dict(b=4, h=6, hkv=6, sq=32, sk=32, d=64, causal=True)),
+    ("vit_b16_tp2_s196_b32", dict(b=32, h=6, hkv=6, sq=196, sk=196, d=64, causal=False)),
+    ("moe_e8_ep2_causal_s1024_b8", dict(b=8, h=12, hkv=12, sq=1024, sk=1024, d=64,
+                                        causal=True)),
+)
+#: the kernels line's K1-K3 paths of phase 5d: (path, its run's key)
+MP_PATHS = (("t5_multihost_tp2", "t5"), ("vit_classify_tp2", "vit"), ("moe_ep2", "moe"))
+
+
+def _mp_record(kind, trainer, losses, step_s, wall_s, launches, plain, loss_line=None):
+    """One phase 5d run's record in this process: its losses, K1-K3
+    launches, plain attention calls, step ms, the parameter bytes it
+    holds (the masters) beside the whole model's and, of the leaves
+    split over a model axis, its shards' beside their whole; the
+    collectives by stage; a digest of each parameter it keeps whole."""
+
+    import hashlib
+
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    rank, n = world()
+    whole = {name: math.prod(shape) * 4 for name, shape in trainer.full_shapes.items()}
+    held = {name: m.numel() * m.element_size() for name, m in
+            zip(trainer.names, trainer.optimizer.params)}
+    split = [name for name, dims in zip(trainer.names, trainer._model_dims) if dims]
+    digest = hashlib.sha1()
+    for name, m, dims in zip(trainer.names, trainer.optimizer.params, trainer._model_dims):
+        if not dims:
+            digest.update(m.detach().cpu().numpy().tobytes())
+    rec = {"kind": kind, "rank": rank, "world": n, "losses": losses,
+           "mesh": dict(trainer.mesh.shape) if trainer.mesh is not None else None,
+           "launches": launches, "plain_calls": plain, "steps": trainer.host_step,
+           "step_ms": step_s * 1e3, "wall_s": wall_s, "layers": trainer.model.cfg.n_layers,
+           "param_bytes": {"held": sum(held.values()), "whole": sum(whole.values()),
+                           "split_held": sum(held[k] for k in split),
+                           "split_whole": sum(whole[k] for k in split), "split_leaves": len(split)},
+           "collectives": trainer.collective_stats.snapshot() if trainer.mesh is not None else {},
+           "whole_digest": digest.hexdigest(), "loss_line": loss_line,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    rec["collective_s"] = sum(v["seconds"] for v in rec["collectives"].values())
+    return rec
+
+
+def _mp_counts():
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    torch.cuda.synchronize()
+    return ({k: _build.launches.get(k, 0) for k in FLASH_KERNELS},
+            {k: v for k, v in fa.plain_calls.items() if v})
+
+
+def _mp_zero():
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fa.plain_calls.clear()
+
+
+def _loss_line(lines, tag):
+    """The ``loss a -> b`` of train_loop's summary line of the run ``tag``."""
+
+    import re
+
+    for ln in reversed(lines):
+        if f"[{tag}]" in ln:
+            m = re.search(r"loss ([\d.]+) -> ([\d.]+)", ln)
+            if m:
+                return list(m.groups())
+    return None
+
+
+def rank_model_parallel(data_dir, model_axis):
+    """One process of phase 5d (a rank of its 2-rank job, or the
+    one-process runs at ``model_axis`` 1): t5_multihost, vit_classify and
+    the 8-expert moe in turn (the ViT and the moe at ``MP_LR``), counts
+    zeroed just before each and read just after; prints ``RANK {...}``
+    with the three records."""
+
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch import t5_multihost, vit_classify
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
+    from tf_operator_tpu_torch.models.gpt import gpt_small
+    from tf_operator_tpu_torch.models.moe import MoeConfig, MoeLM, moe_lm_loss
+    from tf_operator_tpu_torch.models.weights import init_params
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
+    from tf_operator_tpu_torch.runtime.bootstrap import initialize, world
+
+    initialize("cuda")
+    _, n = world()
+    recs = {}
+    for kind, entry, argv, tag in (
+            ("t5", t5_multihost, ["--model", "t5_base", "--steps", str(MP_T5_STEPS)],
+             f"t5_base dp=1 tp={model_axis}"),
+            ("vit", vit_classify, ["--model", "vit_b16", "--image-size", "224", "--num-classes",
+                                   "1000", "--batch-per-device", "32", "--steps",
+                                   str(MP_VIT_STEPS), "--learning-rate", str(MP_LR)],
+             f"vit_b16 dp=1 tp={model_axis}")):
+        _mp_zero()
+        out_buf = io.StringIO()
+        with contextlib.redirect_stdout(out_buf):
+            out = entry.run(entry.parse_args(argv + ["--steps-per-sync", "1", "--tp",
+                                                     str(model_axis)]))
+        text = out_buf.getvalue()
+        print(text, end="", flush=True)
+        launches, plain = _mp_counts()
+        recs[kind] = _mp_record(kind, out["trainer"], out["losses"],
+                                _steady_step_s(out["resolved_at"]), out["wall_s"], launches,
+                                plain, _loss_line(text.splitlines(), tag))
+        if "benchmark" in out:
+            recs[kind]["benchmark"] = out["benchmark"]
+        del out
+    _mp_zero()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = MoeConfig(base=gpt_small(vocab_size=256, max_len=ZOO_SEQ), num_experts=8)
+    model = MoeLM.from_state_dict(cfg, init_params(cfg, 0, dev, trainable=True, family=MoeLM),
+                                  dev, trainable=True)
+    mesh = make_mesh({"ep": model_axis}) if n > 1 else None
+    trainer = Trainer(model, TrainerConfig(**dict(ZOO_TRAIN_CFG, learning_rate=MP_LR)),
+                      moe_lm_loss, mesh=mesh, shardings="logical")
+    batches = iter(as_lm_batches(TextBatches(data_dir, ZOO_ROWS, seed=0)))
+    losses, stamps = [], []
+    t0 = time.perf_counter()
+    for _ in range(MP_MOE_STEPS):
+        losses.append(float(trainer.train_step(trainer.shard_global_batch(next(batches)))["loss"]))
+        stamps.append(time.perf_counter())
+    launches, plain = _mp_counts()
+    recs["moe"] = _mp_record("moe", trainer, losses,
+                             (stamps[-1] - stamps[0]) / (MP_MOE_STEPS - 1),
+                             time.perf_counter() - t0, launches, plain)
+    del trainer, model
+    free_device_memory()
+    print("RANK " + json.dumps(recs), flush=True)
+    return recs
+
+
+def phase_model_parallel(card):
+    """Phase 5d (module docstring): K1-K3 at the ranks' shapes, then the
+    2-rank job against the one-process runs; raises with the readings if
+    a rank is off.  Returns the flash records and the job's records."""
+
+    import tempfile
+
+    from tf_operator_tpu_torch.data.text import ensure_text
+
+    t0 = time.perf_counter()
+    flash = [flash_case(name, seed=170 + i, dtype=torch.bfloat16, timed=True, queued=True,
+                        **kw) for i, (name, kw) in enumerate(MP_FLASH)]
+    log(f"model-parallel flash shapes ({card}) " + json.dumps(
+        {r["case"]: {**{k: {f: round(t[f], 5) for f in ("ms", "device_ms", "bound_ms",
+                                                         "plain_ms", "library_ms")}
+                        | {"bound_by": t["bound_by"]} for k, t in r["timing"].items()},
+                     "sdpa_device_ms": r["sdpa_device_ms"],
+                     "row_rel_max": max(r["row_rel"].values())} for r in flash}))
+    free_device_memory()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        data_dir = os.path.join(tmp, "text")
+        ensure_text(data_dir, seq_len=ZOO_SEQ)
+        code = f"import chip_smoke as c; c.rank_model_parallel({data_dir!r}, 2)"
+        ranks = _run_ranks(2, code, "model-parallel jobs")
+        t_one = time.perf_counter()
+        one = rank_model_parallel(data_dir, 1)
+        one_wall = time.perf_counter() - t_one
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_device_memory()
+    want_launches = {"t5": 12 * MP_T5_STEPS, "vit": 12 * (MP_VIT_STEPS + MP_VIT_BENCH),
+                     "moe": 12 * MP_MOE_STEPS}
+    want_plain = {"t5": {"dot_product_attention": T5_PLAIN_PER_FORWARD * MP_T5_STEPS},
+                  "vit": {}, "moe": {}}
+    want_mesh = {"t5": {"dp": 1, "tp": 2}, "vit": {"dp": 1, "tp": 2}, "moe": {"ep": 2}}
+    bad, summary = [], {}
+    for kind in ("t5", "vit", "moe"):
+        rows = []
+        for r, rec in enumerate(ranks):
+            run = rec[kind]
+            rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], one[kind]["losses"])]
+            rows.append({k: run[k] for k in ("rank", "world", "mesh", "launches", "plain_calls",
+                                            "step_ms", "wall_s", "param_bytes", "collectives",
+                                            "collective_s", "loss_line",
+                                            "max_memory_allocated_gib")}
+                        | {"loss_rel_max": max(rel), "losses": run["losses"]}
+                        | ({"benchmark": run["benchmark"]} if "benchmark" in run else {}))
+            mesh = {k: v for k, v in (run["mesh"] or {}).items() if v > 1}
+            if run["world"] != 2 or mesh != {k: v for k, v in want_mesh[kind].items() if v > 1}:
+                bad.append(f"{kind} rank {r}: world {run['world']}, mesh {run['mesh']}")
+            if run["launches"] != {k: want_launches[kind] for k in FLASH_KERNELS}:
+                bad.append(f"{kind} rank {r}: K1-K3 launched {run['launches']}, want "
+                           f"{want_launches[kind]} each")
+            if run["plain_calls"] != want_plain[kind]:
+                bad.append(f"{kind} rank {r}: plain attention {run['plain_calls']}, want "
+                           f"{want_plain[kind]}")
+            if not (len(run["losses"]) == len(one[kind]["losses"])
+                    and all(math.isfinite(x) for x in run["losses"])
+                    and max(rel) <= DIST_LOSS_RTOL):
+                bad.append(f"{kind} rank {r}: losses {run['losses']} against one process's "
+                           f"{one[kind]['losses']} ({max(rel):.3g} relative)")
+            pb = run["param_bytes"]
+            if not (pb["split_leaves"] and pb["split_held"] * 2 == pb["split_whole"]):
+                bad.append(f"{kind} rank {r}: holds {pb} (the split leaves' half)")
+        a, b = ranks[0][kind], ranks[1][kind]
+        if a["losses"] != b["losses"] or a["loss_line"] != b["loss_line"]:
+            bad.append(f"{kind}: the ranks' losses differ: {a['losses']} / {b['losses']}, "
+                       f"lines {a['loss_line']} / {b['loss_line']}")
+        if a["whole_digest"] != b["whole_digest"]:
+            bad.append(f"{kind}: the parameters the ranks keep whole differ")
+        one_row = {k: one[kind][k] for k in ("losses", "launches", "plain_calls", "step_ms",
+                                              "wall_s", "param_bytes", "loss_line",
+                                              "max_memory_allocated_gib")}
+        if one[kind]["launches"] != {k: want_launches[kind] for k in FLASH_KERNELS}:
+            bad.append(f"{kind} one process: K1-K3 launched {one[kind]['launches']}")
+        summary[kind] = {"one_process": one_row, "ranks": rows}
+    summary["loss_rtol"] = DIST_LOSS_RTOL
+    summary["one_process_wall_s"] = one_wall
+    summary["wall_s"] = time.perf_counter() - t0
+    log(f"model-parallel jobs ({card}) " + json.dumps(summary))
+    if bad:
+        raise AssertionError("model-parallel jobs: " + "; ".join(bad))
+    return flash, {"ranks": ranks, "one": one}
 
 
 def phase_serve_artifact(trainer, export_dir):
@@ -5380,7 +5664,11 @@ def main():
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on a GPU", file=sys.stderr)
         return 2
+    import faulthandler
     import tempfile
+
+    # a fatal signal prints every thread's Python stack to stderr
+    faulthandler.enable(all_threads=True)
 
     from tf_operator_tpu_torch import resolve_device
     from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
@@ -5442,6 +5730,8 @@ def main():
     log(f"decoder zoo phase done at {time.perf_counter() - t0:.1f} s")
     phase_multiprocess(card)
     log(f"multi-process phase done at {time.perf_counter() - t0:.1f} s")
+    _, mp_runs = phase_model_parallel(card)
+    log(f"model-parallel phase done at {time.perf_counter() - t0:.1f} s")
 
     dev = resolve_device()
     cfg = llama_7b_shape(max_len=2048)
@@ -5509,7 +5799,10 @@ def main():
                    **{path: r["launches"][kname] for path, r in encoder_runs.items()},
                    **{path: zoo_runs[key]["launches"][kname] for path, key in ZOO_TRAIN_PATHS},
                    "llama_pretrain_moe_job": sum(r["launches"][kname]
-                                                 for r in zoo_runs["moe_tiny_job"]["ranks"])}
+                                                 for r in zoo_runs["moe_tiny_job"]["ranks"]),
+                   # phase 5d's 2-rank jobs: both ranks' launches
+                   **{path: sum(r[key]["launches"][kname] for r in mp_runs["ranks"])
+                      for path, key in MP_PATHS}}
         entry = _kernel_entry(
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
             sum(by_path.values()), wide["max_abs_err"][errs[kname]], wide["timing"][kname])

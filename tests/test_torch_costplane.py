@@ -592,6 +592,86 @@ def test_the_decode_loop_keeps_stepping_while_a_capture_stops(tiny, tmp_path,  #
         server.close()
 
 
+def test_the_device_gate_quiets_its_workers_and_holds_new_ones_out():
+    """``quiet()`` waits for the workers inside ``work()`` and keeps a
+    worker that arrives meanwhile waiting until it ends."""
+
+    gate, order = serve_lm.DeviceGate(), []
+    inside, release = threading.Event(), threading.Event()
+
+    def worker():
+        with gate.work():
+            inside.set()
+            release.wait(10)
+            order.append("first worker out")
+
+    def quieter():
+        with gate.quiet():
+            order.append("quiet in")
+            time.sleep(0.2)
+            order.append("quiet out")
+
+    def late():
+        with gate.work():
+            order.append("late worker in")
+
+    threads = [threading.Thread(target=worker)]
+    threads[0].start()
+    assert inside.wait(10)
+    threads.append(threading.Thread(target=quieter))
+    threads[1].start()
+    deadline = time.monotonic() + 10
+    while not gate._waiting and time.monotonic() < deadline:
+        time.sleep(0.001)
+    threads.append(threading.Thread(target=late))
+    threads[2].start()
+    time.sleep(0.1)
+    assert order == []
+    release.set()
+    for t in threads:
+        t.join(10)
+    assert order == ["first worker out", "quiet in", "quiet out", "late worker in"]
+
+
+def test_a_card_capture_starts_and_stops_with_the_device_work_quiet(monkeypatch, tmp_path):
+    """On a card the profiler's start and stop each run inside
+    ``DEVICE_GATE.quiet()`` after a device synchronize, so a decode
+    window in flight finishes first; the recording lets workers in."""
+
+    marks = []
+
+    class Profiler:
+        def __enter__(self):
+            marks.append(("start", serve_lm.DEVICE_GATE._quiet))
+
+        def __exit__(self, *exc):
+            marks.append(("stop", serve_lm.DEVICE_GATE._quiet))
+
+        def export_chrome_trace(self, path):
+            open(path, "w").close()
+
+    monkeypatch.setattr(serve_lm, "_profiler", lambda device: Profiler())
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: marks.append("sync"))
+    window_out = threading.Event()
+
+    def window():
+        with serve_lm.DEVICE_GATE.work():
+            time.sleep(0.2)
+            marks.append("window out")
+        window_out.set()
+
+    t = threading.Thread(target=window)
+    t.start()
+    time.sleep(0.05)
+    capture = serve_lm.ProfileCapture(torch.device("cuda"))
+    capture.capture(0.3, str(tmp_path / "trace.json"))
+    t.join(10)
+    assert marks == ["window out", "sync", ("start", True), "sync", ("stop", True)]
+    assert not serve_lm.DEVICE_GATE._quiet
+    with serve_lm.DEVICE_GATE.work():  # the gate is open again
+        pass
+
+
 # -- a warmed pool records no compile event on new prompt widths ------------------
 
 

@@ -3,8 +3,9 @@
 
 - each entry trains its tiny model with ``--device cpu`` (its loss falls
   over 20 steps, or ``train_loop`` exits 1) and refuses the card it does
-  not have unless asked for the CPU; ``--tp 2`` raises and names tensor
-  parallelism;
+  not have unless asked for the CPU; a ``--tp`` below 1 fails to parse,
+  and one that does not divide the world (``--tp 2`` in one process) is
+  refused, as the reference's assert refuses it;
 - ``bert_pretrain --model bert_tiny`` as 2 ranks of one gloo world
   (``tests/torch_world.py``) over ``{"fsdp": 2}``, each on its own
   process's batch, against one process trained on both batches at once
@@ -79,7 +80,7 @@ def test_entry_trains_on_the_cpu(entry, argv, capsys):
 
 @pytest.mark.parametrize("entry", [t5_multihost, vit_classify], ids=["t5", "vit"])
 def test_tensor_parallelism_is_refused(entry):
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
+    with pytest.raises(ValueError, match="--tp 2 does not divide the job's 1 processes"):
         entry.run(entry.parse_args(["--device", "cpu", "--tp", "2"]))
     with pytest.raises(SystemExit):
         entry.parse_args(["--tp", "0"])

@@ -31,7 +31,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu")
 
 
 def _port_files():
-    out = [os.path.join(ROOT, "chip_smoke.py"), os.path.join(ROOT, "chip_fault_probe.py")]
+    out = [os.path.join(ROOT, f) for f in ("chip_smoke.py", "chip_fault_probe.py",
+                                           "chip_mp_witness.py", "chip_profile_probe.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -71,7 +72,7 @@ def test_importing_every_module_loads_no_jax():
               "dist_psum", "dist_mnist", "dist_multislice", "ops.ring_attention",
               "ops.ulysses_attention", "models.bert", "models.t5", "models.vit",
               "bert_pretrain", "t5_multihost", "vit_classify", "models.gpt", "models.moe",
-              "models.registry"):
+              "models.registry", "parallel.tensor_parallel"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"

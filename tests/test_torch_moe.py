@@ -271,7 +271,10 @@ def test_full_width_shapes_equal_the_jax_models():
     assert 0.47e9 < n < 0.49e9 and experts == 12 * 2 * 8 * 768 * 3072
 
 
-@pytest.mark.parametrize("fsdp", [2, 4])
+@pytest.mark.parametrize("fsdp", [2, 4, pytest.param({"tp": 2}, id="tp2"),
+                                  pytest.param({"ep": 2}, id="ep2"),
+                                  pytest.param({"dp": 2, "ep": 2}, id="dp2-ep2"),
+                                  pytest.param({"fsdp": 2, "ep": 2, "tp": 2}, id="fsdp2-ep2-tp2")])
 def test_logical_shardings_match_the_jax_trainer_layout(fsdp):
     zoo.logical_shardings_match("moe", fsdp)
 

@@ -179,18 +179,26 @@ def _jspec(sharding_or_spec, ndim):
 
 
 def logical_shardings_match(family, fsdp, **moe_kw):
-    jm = jmesh.make_mesh({"fsdp": fsdp}, devices=jax.devices()[:fsdp])
+    """The port's logical specs of ``family`` equal the JAX trainer's on a
+    mesh of ``fsdp`` ranks over fsdp, or of the shape ``fsdp`` names
+    (a dict: the tp and ep meshes too)."""
+
+    shape = fsdp if isinstance(fsdp, dict) else {"fsdp": fsdp}
+    n = int(np.prod(list(shape.values())))
+    jm = jmesh.make_mesh(shape, devices=jax.devices()[:n])
     jmodel = jax_model(family, mesh=jm, **moe_kw)
     abstract = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
-                                                  jnp.zeros((fsdp, 8), jnp.int32)))["params"]
+                                                  jnp.zeros((n, 8), jnp.int32)))["params"]
     with jm, fnn.logical_axis_rules(list(jsharding.LOGICAL_RULES)):
         sh = flax.traverse_util.flatten_dict(jsharding.logical_shardings(abstract, jm), sep="/")
     flat = flax.traverse_util.flatten_dict(abstract, sep="/")
     model = PORT_CLS[family](port_config(family, **moe_kw), device="meta", trainable=True)
     shapes = {n: p.shape for n, p in model.named_parameters()}
-    got = sharding.logical_shardings(shapes, mesh.make_mesh({"fsdp": fsdp}, world=fsdp))
+    got = sharding.logical_shardings(shapes, mesh.make_mesh(shape, world=n))
     assert {model.flax_path(n) for n in got} == set(flat)
-    for n, spec in got.items():
-        path = model.flax_path(n)
-        assert spec == _jspec(sh[path], len(flat[path].value.shape)), n
-    assert any("fsdp" in str(s) for s in got.values())
+    for name, spec in got.items():
+        path = model.flax_path(name)
+        assert spec == _jspec(sh[path], len(flat[path].value.shape)), name
+    for ax in shape:
+        if ax != "dp":
+            assert any(ax in str(s) for s in got.values()), ax

@@ -33,6 +33,7 @@ from tf_operator_tpu_torch.models.transformer import (
     global_count,
     refuse_sequence_parallel,
 )
+from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, copy_to, cross_entropy
 
 
 class Bert(Family):
@@ -80,7 +81,10 @@ class Bert(Family):
 
 class MlmHead(nn.Module):
     """The MLM head: transform, gelu, LayerNorm, decode to the vocab;
-    float32 logits."""
+    float32 logits (the rank's vocab columns under tp)."""
+
+    #: the tp line the decoder's vocab columns are split over
+    tp = None
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
@@ -91,7 +95,7 @@ class MlmHead(nn.Module):
 
     def forward(self, hidden: torch.Tensor, plain: bool = False) -> torch.Tensor:
         y = F.gelu(self.mlm_transform(hidden, plain), approximate="tanh")
-        return self.mlm_decoder(self.mlm_ln(y), plain).float()
+        return self.mlm_decoder(copy_to(self.mlm_ln(y), self.tp), plain).float()
 
 
 class BertForPretraining(Family):
@@ -138,10 +142,10 @@ def mlm_loss(model: BertForPretraining, batch: Mapping[str, torch.Tensor]
     labels = batch["labels"].long()
     valid = labels >= 0
     safe = torch.where(valid, labels, 0)
-    per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1),
-                              reduction="none").reshape(labels.shape)
+    per_tok = cross_entropy(logits.reshape(-1, logits.shape[-1]), safe.reshape(-1), model.tp,
+                            "none").reshape(labels.shape)
     total, ranks = global_count(model, valid.sum())
     denom = total.clamp_min(1)
     loss = torch.where(valid, per_tok, 0.0).sum() / denom * ranks
-    acc = (valid & (logits.detach().argmax(-1) == safe)).sum() / denom * ranks
+    acc = (valid & (argmax(logits.detach(), model.tp) == safe)).sum() / denom * ranks
     return loss, {"mlm_accuracy": acc}

@@ -8,7 +8,6 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from tf_operator_tpu_torch.models.transformer import (
@@ -22,6 +21,7 @@ from tf_operator_tpu_torch.models.transformer import (
     TransformerConfig,
     dropout,
 )
+from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, copy_to, cross_entropy
 
 
 class LlamaLM(Family):
@@ -78,7 +78,7 @@ class LlamaLM(Family):
             raise ValueError(f"mode must be full|hidden|head, got {mode!r}")
         cfg = self.cfg
         if mode == "head":
-            return self.lm_head(input_ids, cfg.plain_kernels).float()
+            return self.lm_head(copy_to(input_ids, self.tp), cfg.plain_kernels).float()
         if cfg.decode != (cache is not None):
             raise ValueError(
                 "a decode config needs a cache and a cache needs a decode "
@@ -102,7 +102,7 @@ class LlamaLM(Family):
         x = self.ln_final(x)
         if mode == "hidden":
             return x
-        return self.lm_head(x, cfg.plain_kernels).float()
+        return self.lm_head(copy_to(x, self.tp), cfg.plain_kernels).float()
 
 
 def llama_tiny(vocab_size: int = 1024, max_len: int = 256,
@@ -147,10 +147,12 @@ def llama_wide(vocab_size: int = 32000, max_len: int = 2048,
 Batch = Mapping[str, torch.Tensor]
 
 
-def _next_token(logits: torch.Tensor, targets: torch.Tensor, reduction: str):
+def _next_token(logits: torch.Tensor, targets: torch.Tensor, reduction: str, tp=None):
+    """Cross-entropy of ``logits`` [..., V] (vocab-split over ``tp``,
+    the model's line, where it has one) against ``targets`` [...]."""
+
     v = logits.shape[-1]
-    return F.cross_entropy(logits.reshape(-1, v), targets.reshape(-1).long(),
-                           reduction=reduction)
+    return cross_entropy(logits.reshape(-1, v), targets.reshape(-1), tp, reduction)
 
 
 def _sp_targets(model: LlamaLM, ids: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
@@ -195,8 +197,8 @@ def llama_loss(model: LlamaLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, to
         return loss, {"token_accuracy": acc}
     logits = model(ids, train=model.training)[:, :-1]
     targets = ids[:, 1:]
-    loss = _next_token(logits, targets, "mean")
-    acc = (logits.detach().argmax(-1) == targets).float().mean()
+    loss = _next_token(logits, targets, "mean", model.tp)
+    acc = (argmax(logits.detach(), model.tp) == targets).float().mean()
     return loss, {"token_accuracy": acc}
 
 
@@ -207,7 +209,8 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
     chunk's hidden states are kept for the backward and the full
     [B, S, V] float32 logits never exist.  The chunk count is the
     largest count <= ``n_chunks`` that divides S - 1 (the JAX rule).
-    The same math up to summation order.  Under sequence parallelism
+    The same math up to summation order.  Under tp each chunk's logits
+    are the rank's vocab shard.  Under sequence parallelism
     it takes :func:`llama_loss`'s shares: the chunk's targets, over the
     whole sequence's count, the chunk count dividing the positions that
     have a target."""
@@ -227,7 +230,8 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
 
     def one(hc, tc):
         logits = model(hc, mode="head")
-        return _next_token(logits, tc, "sum"), (logits.argmax(-1) == tc).sum()
+        return (_next_token(logits, tc, "sum", model.tp),
+                (argmax(logits.detach(), model.tp) == tc).sum())
 
     loss = h.new_zeros((), dtype=torch.float32)
     hits = torch.zeros((), dtype=torch.long, device=h.device)

@@ -33,6 +33,16 @@ trainer's ranks over dp) each is all-reduced, the mean probability
 through a differentiable all-reduce, so each rank's loss holds the
 global load-balance term and its gradient.
 
+Expert parallelism (a ``Trainer`` over a mesh with ep above 1, the
+ranks of an ep line each holding E / ep of the stacks and of the
+router's columns; ``set_model_axes`` hands the layer its lines): the
+router's float32 logits are gathered over ep in rank order before the
+softmax, so the routing, the capacity slots and the gates are computed
+whole and alike on every rank; each rank dispatches to and combines
+from its own experts, and the outputs are summed over the line
+(``parallel/tensor_parallel.py``).  Under tp the stacks' mlp dimension
+is split as well, and the sum runs over the ep and tp line together.
+
 Parameter names follow the llama family's (``layers.{i}.moe.router.kernel``,
 ``layers.{i}.moe.wi``, ``layers.{i}.moe.wo``), which the weight bridge
 maps to the flax paths unchanged.  An int8 state (``quantize_state``:
@@ -64,6 +74,13 @@ from tf_operator_tpu_torch.models.transformer import (
     _param,
     dropout,
     refuse_sequence_parallel,
+)
+from tf_operator_tpu_torch.parallel.tensor_parallel import (
+    ModelAxis,
+    argmax,
+    copy_to,
+    gather_last,
+    reduce_from,
 )
 
 
@@ -121,6 +138,13 @@ class MoeMlp(nn.Module):
     docstring).  ``forward`` returns (output [B, S, H], the layer's
     auxiliary loss)."""
 
+    #: the lines the experts (ep) and their mlp columns (tp) are split
+    #: over (None: whole)
+    tp: Optional[ModelAxis] = None
+    ep: Optional[ModelAxis] = None
+    #: the ep and tp lines together (both above 1)
+    ep_tp: Optional[ModelAxis] = None
+
     def __init__(self, moe: MoeConfig, device=None, trainable: bool = False):
         super().__init__()
         cfg = moe.base
@@ -136,12 +160,22 @@ class MoeMlp(nn.Module):
             return s
         return max(int(2 * s * self.moe.capacity_factor / self.moe.num_experts), 4)
 
+    def _experts_line(self) -> Optional[ModelAxis]:
+        """The line the experts' outputs are partial sums over: ep, tp,
+        or both together (their combined group)."""
+
+        if self.ep is None or self.tp is None:
+            return self.ep or self.tp
+        return self.ep_tp
+
     def forward(self, x: torch.Tensor, decode: bool = False, group=None,
                 rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         moe = self.moe
         dtype, n_exp = moe.base.dtype, moe.num_experts
         capacity = self.capacity(x.shape[1], decode)
-        logits = self.router(x.float())  # [B, S, E] float32
+        line = self._experts_line()
+        # [B, S, E] float32, every expert's column on every rank
+        logits = gather_last(self.router(copy_to(x, self.ep).float()), self.ep)
         probs = torch.softmax(logits, dim=-1)
         gate1, idx1 = probs.max(dim=-1)
         mask1 = _one_hot(idx1, n_exp)
@@ -162,18 +196,23 @@ class MoeMlp(nn.Module):
         keep1 = mask1 * (pos1 < capacity)
         keep2 = mask2 * (pos2 < capacity)
         denom = gate1 * keep1.sum(-1) + gate2 * keep2.sum(-1) + 1e-9
-        gate1, gate2 = gate1 / denom, gate2 / denom
-        combine = (gate1[..., None, None] * keep1[..., None]
+        gates = copy_to(torch.stack([gate1 / denom, gate2 / denom]), line)
+        # this rank's experts (all of them without ep)
+        local = self.wi.shape[0]
+        lo = 0 if self.ep is None else self.ep.index * local
+        pos1, pos2 = (p[..., lo:lo + local] for p in (pos1, pos2))
+        keep1, keep2 = (k[..., lo:lo + local] for k in (keep1, keep2))
+        combine = (gates[0][..., None, None] * keep1[..., None]
                    * _one_hot(pos1.to(torch.int32), capacity)
-                   + gate2[..., None, None] * keep2[..., None]
-                   * _one_hot(pos2.to(torch.int32), capacity))  # [B, S, E, C]
+                   + gates[1][..., None, None] * keep2[..., None]
+                   * _one_hot(pos2.to(torch.int32), capacity))  # [B, S, E_local, C]
         dispatch = (combine > 0.0).to(dtype)
 
-        expert_in = torch.einsum("bsec,bsh->ebch", dispatch, x.to(dtype))
+        expert_in = torch.einsum("bsec,bsh->ebch", dispatch, copy_to(x, line).to(dtype))
         hdn = torch.einsum("ebch,ehm->ebcm", expert_in, self.wi.to(dtype))
         hdn = F.gelu(hdn, approximate="tanh")
         expert_out = torch.einsum("ebcm,emh->ebch", hdn, self.wo.to(dtype))
-        out = torch.einsum("bsec,ebch->bsh", combine.to(dtype), expert_out)
+        out = reduce_from(torch.einsum("bsec,ebch->bsh", combine.to(dtype), expert_out), line)
         return dropout(out, moe.base.dropout, rng), aux_loss
 
 
@@ -281,7 +320,7 @@ def moe_lm_loss(model: MoeLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, tor
     ids = batch["input_ids"]
     logits, aux = model(ids, train=model.training, with_aux=True)
     logits, targets = logits[:, :-1], ids[:, 1:]
-    xent = _next_token(logits, targets, "mean")
-    acc = (logits.detach().argmax(-1) == targets).float().mean()
+    xent = _next_token(logits, targets, "mean", model.tp)
+    acc = (argmax(logits.detach(), model.tp) == targets).float().mean()
     return xent + aux, {"token_accuracy": acc, "moe_aux_loss": aux.detach(),
                         "xent": xent.detach()}

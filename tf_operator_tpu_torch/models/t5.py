@@ -16,7 +16,6 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from tf_operator_tpu_torch.models.transformer import (
     DecoderLayer,
@@ -30,6 +29,7 @@ from tf_operator_tpu_torch.models.transformer import (
     global_count,
     refuse_sequence_parallel,
 )
+from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, cross_entropy
 
 
 def relative_position_bucket(rel_pos: torch.Tensor, bidirectional: bool, num_buckets: int,
@@ -59,7 +59,8 @@ def relative_position_bucket(rel_pos: torch.Tensor, bidirectional: bool, num_buc
 
 class RelativePositionBias(nn.Module):
     """A float32 table [buckets, H]; ``(sq, sk)`` -> the bias [1, H, Sq,
-    Sk] of key position j for query position i, from bucket(j - i)."""
+    Sk] of key position j for query position i, from bucket(j - i).
+    Under tp the table holds the rank's heads, so it biases only them."""
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
                  bidirectional: bool = True, num_buckets: int = 32, max_distance: int = 128):
@@ -151,12 +152,12 @@ def seq2seq_loss(model: T5, batch: Mapping[str, torch.Tensor]
     logits = model(batch["encoder_ids"], batch["decoder_ids"],
                    encoder_mask=batch.get("encoder_mask"), train=model.training)
     targets = batch["targets"].long()
-    per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1),
-                              reduction="none").reshape(targets.shape)
+    per_tok = cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1), model.tp,
+                            "none").reshape(targets.shape)
     tmask = batch.get("target_mask")
     tmask = torch.ones_like(per_tok) if tmask is None else tmask.to(per_tok.dtype)
     total, ranks = global_count(model, tmask.sum())
     denom = total.clamp_min(1)
     loss = (per_tok * tmask).sum() / denom * ranks
-    acc = ((logits.detach().argmax(-1) == targets) * tmask).sum() / denom * ranks
+    acc = ((argmax(logits.detach(), model.tp) == targets) * tmask).sum() / denom * ranks
     return loss, {"token_accuracy": acc}

@@ -67,6 +67,16 @@ so that a paged step can differ from another in one kernel only.
 
 Caches are updated in place (PyTorch tensors are mutable; the JAX
 package returns new ones).
+
+Tensor parallelism (a ``Trainer`` over a mesh with tp above 1, which
+keeps each rank's shard of the parameters split over tp and hands the
+modules their line, :func:`set_model_axes`): the attention runs the
+rank's heads (q / k / v column-parallel, H / tp query and Hkv / tp K/V
+heads, so GQA keeps its group size; ``out`` row-parallel, its bias
+added once after the sum), the MLP its columns, and ``Embed`` its vocab
+rows (the lookup summed over the line; ``attend`` gives vocab-split
+logits), through ``parallel/tensor_parallel.py``.  Decoding under tp
+is not ported.
 """
 
 from __future__ import annotations
@@ -87,6 +97,7 @@ from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul_2d
 from tf_operator_tpu_torch.ops.ring_attention import ring_attention
 from tf_operator_tpu_torch.ops.rotary import apply_rope
 from tf_operator_tpu_torch.ops.ulysses_attention import ulysses_attention
+from tf_operator_tpu_torch.parallel.tensor_parallel import copy_to, reduce_from, vocab_embed
 
 #: flax's RMSNorm epsilon
 NORM_EPS = 1e-6
@@ -282,7 +293,18 @@ class DenseGeneral(nn.Module):
         self.register_buffer("kernel_q", qt.q.reshape(k_in, n))
         self.register_buffer("kernel_scale", scale.to(torch.float32).contiguous())
 
-    def forward(self, x: torch.Tensor, plain: bool = False) -> torch.Tensor:
+    def fit_kernel(self) -> None:
+        """Take the in and out shapes from the kernel's (after a trainer
+        replaced it by its tensor-parallel shard)."""
+
+        n_in = len(self.in_shape)
+        self.in_shape = tuple(self.kernel.shape[:n_in])
+        self.features = tuple(self.kernel.shape[n_in:])
+
+    def forward(self, x: torch.Tensor, plain: bool = False, reduce=None) -> torch.Tensor:
+        """``reduce``: a row-parallel product's line (a ``ModelAxis``):
+        the product is summed over it before the bias is added."""
+
         n_in = len(self.in_shape)
         lead = x.shape[: x.ndim - n_in]
         k_in = math.prod(self.in_shape)
@@ -293,7 +315,7 @@ class DenseGeneral(nn.Module):
         else:
             out = torch.matmul(x.to(self.dtype).reshape(*lead, k_in),
                                self.kernel.to(self.dtype).reshape(k_in, -1))
-        out = out.reshape(*lead, *self.features)
+        out = reduce_from(out.reshape(*lead, *self.features), reduce)
         if self.bias is not None:
             out = out + self.bias.to(self.dtype)
         return out
@@ -349,6 +371,9 @@ class Embed(nn.Module):
     (the same numbers as flax's cast of the whole table), and the tied
     head (:meth:`attend`)."""
 
+    #: the tp line the table's vocab rows are split over (None: whole)
+    tp = None
+
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
         self.dtype = cfg.dtype
@@ -357,20 +382,25 @@ class Embed(nn.Module):
     def forward(self, ids: torch.Tensor, attend: bool = False) -> torch.Tensor:
         if attend:
             # x [B, S, E] . table^T in x's dtype (``Embed.attend``)
-            return torch.matmul(ids, self.embedding.to(ids.dtype).t())
-        return self.embedding[ids.long()].to(self.dtype)
+            return torch.matmul(copy_to(ids, self.tp), self.embedding.to(ids.dtype).t())
+        return vocab_embed(self.embedding, ids, self.tp).to(self.dtype)
 
     def attend(self, x: torch.Tensor) -> torch.Tensor:
         """The tied head: logits [B, S, V] of hidden states ``x`` against
-        the table.  Through the module's call, so that a sharded trainer's
-        hooks gather the table for it."""
+        the table (this rank's vocab columns under tp).  Through the
+        module's call, so that a sharded trainer's hooks gather the table
+        for it."""
 
         return self(x, attend=True)
 
 
 class MultiHeadAttention(nn.Module):
     """Self- or cross-attention with rope and GQA: causal in a decoder,
-    not in an encoder (``causal``, as the reference's field)."""
+    not in an encoder (``causal``, as the reference's field).  Under tp
+    (``tp``, a ``ModelAxis``) it holds and runs the rank's heads."""
+
+    #: the tp line the heads are split over (None: every head)
+    tp = None
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
                  causal: bool = False):
@@ -395,7 +425,10 @@ class MultiHeadAttention(nn.Module):
 
         cfg = self.cfg
         is_self = kv is None
-        kv_in = x if is_self else kv
+        if self.tp is not None and cache is not None:
+            raise NotImplementedError("decoding under tensor parallelism is not ported")
+        x = copy_to(x, self.tp)
+        kv_in = x if is_self else copy_to(kv, self.tp)
         # [B, S, H, D] -> [B, H, S, D]
         q = self.query(x, plain).transpose(1, 2)
         k, v = (m(kv_in, plain).transpose(1, 2) for m in (self.key, self.value))
@@ -418,7 +451,7 @@ class MultiHeadAttention(nn.Module):
             out = attention(q, k, v, causal=self.causal, bias=bias, mask=mask,
                             window=cfg.window if self.causal and is_self else None,
                             impl="plain" if plain else None)
-        return dropout(self.out(out.transpose(1, 2), plain), cfg.dropout, rng)
+        return dropout(self.out(out.transpose(1, 2), plain, reduce=self.tp), cfg.dropout, rng)
 
     def _sequence_parallel(self, q, k, v, plain: bool):
         """This rank's chunk of the sequence: RoPE at the chunk's global
@@ -550,7 +583,10 @@ ACTIVATIONS = ("gelu", "relu", "swiglu")
 class MlpBlock(nn.Module):
     """The reference's MLP: llama's gated ``swiglu`` (silu(gate) * up, no
     biases), or a ``gelu`` (flax's, the tanh form) or ``relu`` MLP with
-    biases; dropout on its output."""
+    biases; dropout on its output.  Under tp the rank's columns."""
+
+    #: the tp line the columns are split over (None: every column)
+    tp = None
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False,
                  activation: str = "gelu"):
@@ -570,13 +606,14 @@ class MlpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, plain: bool = False,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = copy_to(x, self.tp)
         if self.activation == "swiglu":
             y = nn.functional.silu(self.wi_gate(x, plain)) * self.wi_up(x, plain)
         elif self.activation == "gelu":
             y = nn.functional.gelu(self.wi(x, plain), approximate="tanh")
         else:
             y = nn.functional.relu(self.wi(x, plain))
-        return dropout(self.wo(y, plain), self.rate, rng)
+        return dropout(self.wo(y, plain, reduce=self.tp), self.rate, rng)
 
 
 class EncoderLayer(nn.Module):
@@ -659,6 +696,21 @@ def set_dropout_rng(model: nn.Module, rng: Optional[torch.Generator]) -> None:
             m.dropout_rng = rng
 
 
+def set_model_axes(model: nn.Module, **lines) -> None:
+    """Hand the lines of the model axes (``tp=``, ``ep=``, ``ep_tp=``:
+    ``parallel/tensor_parallel.ModelAxis`` or None) to every module of
+    ``model`` that computes with one (a module with that attribute),
+    after the parameters split over them were replaced by this rank's
+    shards; each dense product takes its shapes from its kernel."""
+
+    for m in model.modules():
+        if isinstance(m, DenseGeneral) and not m.int8:
+            m.fit_kernel()
+        for name, line in lines.items():
+            if hasattr(m, name):
+                setattr(m, name, line)
+
+
 def global_count(model: nn.Module, count: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """A loss's denominator over the global batch: ``(total, ranks)``,
     ``count`` (the positions this rank's loss counts) summed over the
@@ -689,6 +741,9 @@ class Family(nn.Module):
     dropout_rng: Optional[torch.Generator] = None
     #: the batch axes' process group (None: this rank holds the batch)
     batch_group = None
+    #: the tp line (``set_model_axes``): the head's logits, and so the
+    #: loss's vocab, are split over it
+    tp = None
     #: a QTensor kernel is held as int8 (its products run the int8
     #: matmul); False: an int8 state is dequantized to bf16 before it is
     #: loaded (the reference's ``materialize_fn`` for such a family)

@@ -16,7 +16,6 @@ from typing import Dict, Mapping, Tuple
 
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from tf_operator_tpu_torch.models.transformer import (
     DenseGeneral,
@@ -28,6 +27,7 @@ from tf_operator_tpu_torch.models.transformer import (
     dropout,
     refuse_sequence_parallel,
 )
+from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, copy_to, cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +92,7 @@ class ViT(Family):
         for i in range(cfg.n_layers):
             x = getattr(self, f"layer_{i}")(x, None, None, plain, rng)
         x = self.ln_final(x).mean(dim=1)  # mean-pool over the patches
-        return self.head(x, plain).float()
+        return self.head(copy_to(x, self.tp), plain).float()
 
 
 def vit_b16(image_size: int = 224, n_classes: int = 1000, **kw) -> ViTConfig:
@@ -122,6 +122,6 @@ def vit_loss(model: ViT, batch: Mapping[str, torch.Tensor]
 
     logits = model(batch["image"], train=model.training)
     labels = batch["label"].long()
-    loss = F.cross_entropy(logits, labels)
-    acc = (logits.detach().argmax(-1) == labels).float().mean()
+    loss = cross_entropy(logits, labels, model.tp)
+    acc = (argmax(logits.detach(), model.tp) == labels).float().mean()
     return loss, {"accuracy": acc}

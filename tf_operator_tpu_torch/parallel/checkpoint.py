@@ -10,7 +10,8 @@ serving side rebuilds the exact architecture:
     python -m tf_operator_tpu_torch.serve_lm --artifact DIR
 
 A trainer over a mesh holds each rank's shard of the masters: the export
-gathers the full weights first (collective: every rank calls it), then
+gathers the whole weights first, over fsdp and across the tp and ep
+lines (``Trainer.full_params``; collective: every rank calls it), then
 process 0 writes and the other ranks wait for it at a barrier.
 """
 
@@ -33,14 +34,15 @@ def export_params(trainer, directory: str) -> str:
     from tf_operator_tpu_torch.runtime.bootstrap import world
 
     model = trainer.model
+    state = model.state_dict()
     if getattr(trainer, "mesh", None) is not None:
-        trainer.gather()
+        state.update(trainer.full_params())
     rank, n = world()
     if rank != 0:
         _barrier()
         return directory
     os.makedirs(directory, exist_ok=True)
-    save_npz(model.state_dict(), os.path.join(directory, PARAMS_FILE))
+    save_npz(state, os.path.join(directory, PARAMS_FILE))
     tmp = os.path.join(directory, f".{MODEL_FILE}.{os.getpid()}.tmp")
     with open(tmp, "w") as f:
         json.dump(describe_model(model), f, indent=1)

@@ -74,7 +74,13 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from tf_operator_tpu_torch.parallel.mesh import AXIS_DP, FABRIC_ICI, Mesh, mesh_axis_links
+from tf_operator_tpu_torch.parallel.mesh import (
+    AXIS_DP,
+    FABRIC_ICI,
+    MODEL_PARALLEL_AXES,
+    Mesh,
+    mesh_axis_links,
+)
 
 #: bucket capacity for the fused cross-slice all-reduces
 DEFAULT_BUCKET_BYTES = 4 << 20
@@ -118,15 +124,20 @@ def reduce_scatter(out: torch.Tensor, inp: torch.Tensor, group, stats: Collectiv
     return out
 
 
-def all_reduce(t: torch.Tensor, group, stats: CollectiveStats, stage: str) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; a no-op on a one-rank line."""
+def all_reduce(t: torch.Tensor, group, stats: CollectiveStats, stage: str,
+               op: str = "sum") -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (``op``: "sum", "max" or
+    "min"); a no-op on a one-rank line."""
 
     import torch.distributed as dist
 
     if group is None:
         return t
     t0 = time.perf_counter()
-    dist.all_reduce(t, group=group)
+    if op == "sum":
+        dist.all_reduce(t, group=group)
+    else:
+        dist.all_reduce(t, op=getattr(dist.ReduceOp, op.upper()), group=group)
     stats.add(stage, _nbytes(t), time.perf_counter() - t0)
     return t
 
@@ -312,8 +323,8 @@ class GradSyncPlan:
     dcn_axis: str
     ici: Tuple[str, ...]
     n_ici: int
-    #: per leaf: ("direct", divisor, dim, the ici axes it is split over)
-    #: or ("bucket", bucket, slot)
+    #: per leaf: ("direct", divisor, dim, the summed ici axes it is split
+    #: over along dim) or ("bucket", bucket, slot)
     routes: List[Tuple]
     buckets: List[_Bucket]
     flat_blind_dcn_bytes: int
@@ -323,6 +334,20 @@ class GradSyncPlan:
     dcn_collectives: int
     ici_collectives: int
     mode: str = "hierarchical"
+
+    @property
+    def summed(self) -> Tuple[str, ...]:
+        """The ici axes the gradients are summed over: all but the model
+        axes (tp, ep), whose ranks hold shards or equal gradients."""
+
+        return tuple(ax for ax in self.ici if ax not in MODEL_PARALLEL_AXES)
+
+    @property
+    def n_summed(self) -> int:
+        n = 1
+        for ax in self.summed:
+            n *= self.mesh.shape[ax]
+        return n
 
     @property
     def stats(self) -> CollectiveStats:
@@ -345,26 +370,30 @@ class GradSyncPlan:
         for route in self.routes:
             if route[0] == "direct":
                 self.mesh.group(route[3])
-                self.mesh.group((self.dcn_axis,) + tuple(ax for ax in self.ici
+                self.mesh.group((self.dcn_axis,) + tuple(ax for ax in self.summed
                                                          if ax not in route[3]))
 
     def _groups(self):
-        return (self.mesh.group(self.ici), self.mesh.group((self.dcn_axis,)),
-                self.mesh.group((self.dcn_axis,) + self.ici))
+        return (self.mesh.group(self.summed), self.mesh.group((self.dcn_axis,)),
+                self.mesh.group((self.dcn_axis,) + self.summed))
 
     def apply_leaf(self, i: int, grad: torch.Tensor) -> torch.Tensor:
         """Leaf ``i`` of the direct route summed over the batch axes:
         this rank's shard along its sharded dimension (an unsharded one
-        whole, reduced over dp)."""
+        whole, reduced over dp).  A leaf split over tp or ep comes as
+        this rank's shard of it and is summed over the other axes."""
 
-        _, div, dim, axes = self.routes[i]
+        _, _, dim, axes = self.routes[i]
         # stage 2 also sums over the ici axes the leaf is replicated over
         # (sp: every rank of a sequence-parallel line holds the weights)
-        rest = tuple(ax for ax in self.ici if ax not in axes)
+        rest = tuple(ax for ax in self.summed if ax not in axes)
         dcn = self.mesh.group((self.dcn_axis,) + rest)
-        if div == 1:
+        if not axes:
             return all_reduce(grad.clone(), dcn, self.stats, "stage2_all_reduce")
-        frag = scatter_dim(grad, dim, self.mesh.group(axes), div, self.stats,
+        n = 1
+        for ax in axes:
+            n *= self.mesh.shape[ax]
+        frag = scatter_dim(grad, dim, self.mesh.group(axes), n, self.stats,
                            "stage1_reduce_scatter")
         return all_reduce(frag, dcn, self.stats, "stage2_all_reduce").movedim(0, dim)
 
@@ -396,7 +425,7 @@ class GradSyncPlan:
             if self.mode == "flat":
                 all_reduce(flat, batch, st, "flat_all_reduce")
             else:
-                frag = flat.new_empty(bucket.padded // self.n_ici)
+                frag = flat.new_empty(bucket.padded // self.n_summed)
                 reduce_scatter(frag, flat, intra, st, "stage1_reduce_scatter")
                 all_reduce(frag, dcn, st, "stage2_all_reduce")
                 all_gather(flat, frag, intra, st, "stage3_all_gather")
@@ -433,8 +462,12 @@ def build_grad_sync_plan(leaves: Sequence[Tuple[Sequence[int], torch.dtype]],
     leaf's spec (``parallel/sharding``), or None to treat every leaf as
     replicated.  The plan's collectives count in ``mesh.stats``.
 
-    The sum runs over every ici axis, so over sp too: a sequence-parallel
-    rank holds every weight, and its gradient is its chunk's share."""
+    The sum runs over every ici axis but tp and ep, so over sp too: a
+    sequence-parallel rank holds every weight, and its gradient is its
+    chunk's share; a tensor- or expert-parallel rank holds its shard of
+    a leaf split over its line (whose gradient is its own) or the whole
+    of a replicated one (whose gradient is already the line's).  The
+    ledger is the JAX plan's, over every ici axis."""
 
     if mode not in ("hierarchical", "flat"):
         raise ValueError(f"mode must be hierarchical|flat, got {mode!r}")
@@ -458,6 +491,7 @@ def build_grad_sync_plan(leaves: Sequence[Tuple[Sequence[int], torch.dtype]],
             b.padded = -(-sum(b.sizes) // n_ici) * n_ici
             buckets.append(b)
 
+    summed = tuple(ax for ax in ici if ax not in MODEL_PARALLEL_AXES)
     for i, (shape, dtype) in enumerate(leaves):
         shape = tuple(int(d) for d in shape)
         size = 1
@@ -469,8 +503,8 @@ def build_grad_sync_plan(leaves: Sequence[Tuple[Sequence[int], torch.dtype]],
         div = _spec_divisor(specs[i], mesh, ici)
         flat_mesh_bytes += nbytes // div
         if div > 1 or not dtype.is_floating_point:
-            routes[i] = ("direct", div, _ici_dim(specs[i], ici) if div > 1 else None,
-                         _ici_split(specs[i], ici))
+            split = _ici_split(specs[i], summed)
+            routes[i] = ("direct", div, _ici_dim(specs[i], summed) if split else None, split)
             direct += 1
             dcn_bytes += nbytes // div
             continue

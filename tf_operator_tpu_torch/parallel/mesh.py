@@ -44,6 +44,11 @@ BATCH_AXES = (AXIS_DP, AXIS_FSDP)
 #: sync of parallel/collectives.py).
 MODEL_AXES = (AXIS_FSDP, AXIS_EP, AXIS_SP, AXIS_TP)
 
+#: The axes a model's parameters are split over (tensor and expert
+#: parallelism): the batch is replicated along them, and a gradient is
+#: never summed over them.
+MODEL_PARALLEL_AXES = (AXIS_EP, AXIS_TP)
+
 #: Fabric names mesh_axis_links reports: intra-slice links, and the
 #: network between slices.
 FABRIC_ICI = "ici"
@@ -101,6 +106,15 @@ class Mesh:
         axes, the batch shard it holds."""
 
         return self.line(axes, rank).index(rank)
+
+    def data_index(self, rank: int) -> int:
+        """``rank``'s coordinate on the axes that are not model-parallel
+        (pp, dp, fsdp, sp; row-major): the rank itself on a mesh with tp
+        and ep of 1, and one value for every rank of a tp or ep line,
+        which hold the same rows and draw the same dropout masks."""
+
+        return self.index(tuple(ax for ax in AXIS_ORDER if ax not in MODEL_PARALLEL_AXES),
+                          rank)
 
     def _make_groups(self, axes: Tuple[str, ...]) -> None:
         import torch.distributed as dist

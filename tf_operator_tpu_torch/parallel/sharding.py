@@ -30,9 +30,12 @@ The batch is laid out as the reference's logical rules lay it out:
 rows over ("dp", "fsdp"), the sequence ("seq") over sp
 (:func:`sequence_chunk`); the parameters are replicated over sp.
 
-dp, fsdp and sp are ported: :func:`check_mesh` refuses any other axis
-of size above 1.  An ep axis of size 1 (the moe job's mesh on one
-device a process) holds every expert on every rank.
+The model axes, tp ("heads", "mlp", "vocab") and ep ("expert"), split
+a parameter into local shards (:func:`model_axis_dims`,
+:func:`local_shard`): each rank of a tp or ep line holds its own shard
+and the batch is replicated along the line (parallel/tensor_parallel.py
+computes with them).  :func:`check_mesh` refuses pp, and sp together
+with tp or ep.
 """
 
 from __future__ import annotations
@@ -40,7 +43,15 @@ from __future__ import annotations
 import re
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
-from tf_operator_tpu_torch.parallel.mesh import AXIS_EP, AXIS_FSDP, AXIS_SP, AXIS_TP, Mesh
+from tf_operator_tpu_torch.parallel.mesh import (
+    AXIS_EP,
+    AXIS_FSDP,
+    AXIS_PP,
+    AXIS_SP,
+    AXIS_TP,
+    MODEL_PARALLEL_AXES,
+    Mesh,
+)
 
 #: Logical-axis -> mesh-axis rules for the transformer family: batch
 #: rides dp + fsdp; embed shards over fsdp (ZeRO-3 style); heads / mlp
@@ -121,34 +132,45 @@ ENCODER_PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 
 Spec = Tuple[Any, ...]
 
-#: axes the port shards over; the others wait for the features named
-_PORTED_AXES = ("dp", "fsdp", "sp")
-_WAITING = {"tp": "tensor parallelism",
-            "ep": "expert parallelism (each rank holding its share of the experts, the "
-                  "tokens dispatched to them by an all-to-all over ep; with one device a "
-                  "process the moe job runs ep=1, every expert on every rank)",
-            "pp": "pipeline parallelism (pipelined_lm)"}
-
-
 def check_mesh(mesh: Mesh) -> None:
-    """Refuse a mesh with an axis of size above 1 other than dp, fsdp
-    and sp."""
+    """Refuse the meshes the port does not shard over: a pp axis above 1
+    (pipeline parallelism, pipelined_lm), and sp above 1 together with tp
+    or ep (the reference's sequence-parallel attention over heads split
+    on tp, ``heads_axis="tp"``)."""
 
-    bad = [ax for ax, n in mesh.shape.items() if n > 1 and ax not in _PORTED_AXES]
-    if bad:
+    if mesh.shape[AXIS_PP] > 1:
+        raise NotImplementedError(f"mesh axis pp={mesh.shape[AXIS_PP]}: pipeline parallelism "
+                                  "(pipelined_lm) is not ported yet")
+    model = [ax for ax in MODEL_PARALLEL_AXES if mesh.shape[ax] > 1]
+    if mesh.shape[AXIS_SP] > 1 and model:
         raise NotImplementedError(
-            "mesh axes " + ", ".join(f"{ax}={mesh.shape[ax]} ({_WAITING[ax]})" for ax in bad)
-            + " are not ported yet: the port shards over dp, fsdp and sp only")
+            f"mesh axes sp={mesh.shape[AXIS_SP]} with "
+            + ", ".join(f"{ax}={mesh.shape[ax]}" for ax in model)
+            + ": sequence parallelism together with tensor or expert parallelism is not "
+            "ported yet")
 
 
-def refuse_tensor_parallel(tp: int) -> None:
-    """An entry point's ``--tp``: 1 runs, anything above it waits for
-    tensor parallelism."""
+def model_axis_dims(spec: Spec, mesh: Mesh) -> Dict[str, int]:
+    """``{axis: dimension}`` of the model axes (tp, ep) of size above 1
+    that ``spec`` splits a parameter over."""
 
-    if tp > 1:
-        raise NotImplementedError(
-            f"--tp {tp}: {_WAITING['tp']} is not ported yet: the port shards over dp, "
-            "fsdp and sp only (run with --tp 1)")
+    out = {}
+    for ax in MODEL_PARALLEL_AXES:
+        dim = sharded_dim(spec, mesh, ax)
+        if dim is not None:
+            out[ax] = dim
+    return out
+
+
+def local_shard(x, spec: Spec, mesh: Mesh, rank: int):
+    """``rank``'s shard of the whole parameter ``x`` over the model axes
+    of ``spec`` (the chunk at its coordinate on each tp or ep line along
+    that axis's dimension), a view; ``x`` itself where ``spec`` names
+    none."""
+
+    for ax, dim in model_axis_dims(spec, mesh).items():
+        x = x.chunk(mesh.shape[ax], dim)[mesh.index((ax,), rank)]
+    return x
 
 
 def sequence_chunk(x, mesh: Mesh, rank: int, dim: int = 1):

@@ -32,6 +32,17 @@ step does over a device mesh:
   slices (``"hierarchical"``; ``"auto"`` picks it when the mesh spans
   slices), then divided by the batch ranks: the mean over the global
   batch;
+- with tensor or expert parallelism (tp or ep above 1, under
+  ``shardings="logical"``) the ranks of a tp or ep line hold the same
+  rows, and each keeps only its own shard of a parameter split over
+  the line (its heads, MLP columns, vocab rows, experts: Megatron's
+  layout, ``parallel/tensor_parallel.py``), as its whole parameter:
+  fsdp then splits that shard, and its fsdp gather never crosses the
+  line.  The model computes with its shards (``set_model_axes``); a
+  gradient is never summed over tp or ep, and ``full_params`` gathers
+  the shards for an export.  Under ``shardings="fsdp"``, which splits
+  nothing over tp or ep, the ranks of such a line train whole replicas
+  of the model on the same rows, as the JAX trainer's devices do;
 - with sequence parallelism (an sp axis above 1, for a model built on
   the mesh: ``TransformerConfig(mesh=...)``) the ranks of an sp line
   hold the same rows and each its chunk of the sequence
@@ -39,7 +50,8 @@ step does over a device mesh:
   the loss of each rank is its chunk's share of its rows' mean
   (``models/llama.llama_loss``), so summing over sp gives the rows'
   gradient and metrics;
-- the clip's global norm sums the squares of every shard over fsdp, so
+- the clip's global norm sums the squares of every shard over the axes
+  it is split over (fsdp, tp, ep) and counts a replicated leaf once, so
   it is the one-device norm, and the clip keeps optax's (g / n) * c;
   the decay mask reads the unsharded ndim;
 - the step's loss and metrics are global means, all-reduced on the
@@ -72,8 +84,12 @@ gradients before clipping, as ``optax.global_norm(grads)`` is.
 
 Dropout: the trainer owns the generator of the model's dropout masks
 (``dropout_rng``, on the model's device), seeded from
-``TrainerConfig.dropout_seed`` and the rank, so that a run repeats and
-ranks draw different masks, and hands it to the model
+``TrainerConfig.dropout_seed`` and the rank (under a mesh its
+coordinate on the axes that are not model-parallel, ``Mesh.data_index``:
+the rank itself without tp and ep), so that a run repeats, ranks that
+hold other rows draw different masks and the ranks of a tp or ep line,
+whose dropout sites all act on replicated activations, draw the same
+ones; and hands it to the model
 (``models/transformer.set_dropout_rng``).  A train step runs the model in
 train mode, so its loss makes a training forward (the losses pass
 ``train=model.training``); ``eval_step`` runs it in eval mode, which
@@ -289,11 +305,17 @@ class Trainer:
         from tf_operator_tpu_torch.runtime.bootstrap import world
 
         #: the generator of the model's dropout masks (module docstring)
-        self.dropout_rng = dropout_generator(cfg.dropout_seed, world()[0], self.device)
+        rank = world()[0]
+        self.dropout_rng = dropout_generator(
+            cfg.dropout_seed, rank if mesh is None else mesh.data_index(rank), self.device)
         set_dropout_rng(model, self.dropout_rng)
         #: train steps run (host-side: reading a device counter would sync)
         self.host_step = 0
         self.grad_sync = self.grad_sync_plan = self.specs = None
+        #: each parameter's whole shape (a rank holds its shard under tp /
+        #: ep), and {model axis: the dimension split over it}
+        self.full_shapes = {n: tuple(p.shape) for n, p in zip(self.names, self.params)}
+        self._model_dims: List[Dict[str, int]] = [{} for _ in self.params]
         #: inside a train or eval step over a mesh (the weight hooks act)
         self._in_step = False
         if mesh is None:
@@ -303,10 +325,13 @@ class Trainer:
 
     # -- the mesh ----------------------------------------------------------
     def _init_sharded(self, shardings, grad_sync: str) -> None:
+        from tf_operator_tpu_torch.models.transformer import set_model_axes
         from tf_operator_tpu_torch.parallel.collectives import build_grad_sync_plan
         from tf_operator_tpu_torch.parallel.mesh import (
+            AXIS_EP,
             AXIS_FSDP,
             AXIS_SP,
+            AXIS_TP,
             BATCH_AXES,
             data_parallel_size,
             slice_count,
@@ -314,9 +339,12 @@ class Trainer:
         from tf_operator_tpu_torch.parallel.sharding import (
             check_mesh,
             fsdp_shardings,
+            local_shard,
             logical_shardings,
+            model_axis_dims,
             sharded_dim,
         )
+        from tf_operator_tpu_torch.parallel.tensor_parallel import model_axis
         from tf_operator_tpu_torch.runtime.bootstrap import world
 
         mesh = self.mesh
@@ -330,7 +358,7 @@ class Trainer:
                              "(TransformerConfig(mesh=..., sp_impl=...)): its loss must be "
                              "its sequence chunk's share")
         self._rank = rank
-        shapes = {n: tuple(p.shape) for n, p in zip(self.names, self.params)}
+        shapes = self.full_shapes
         if shardings == "fsdp":
             specs = fsdp_shardings(shapes, mesh, flax_orders=_flax_orders(self.model))
         elif shardings == "logical":
@@ -338,6 +366,22 @@ class Trainer:
         else:
             raise ValueError(f"shardings must be fsdp|logical, got {shardings!r}")
         self.specs = specs
+        self._model_dims = [model_axis_dims(specs[n], mesh) for n in self.names]
+        with torch.no_grad():
+            for p, n, dims in zip(self.params, self.names, self._model_dims):
+                if dims:
+                    p.data = local_shard(p.detach(), specs[n], mesh, rank).clone(
+                        memory_format=torch.contiguous_format)
+        # the model computes over a model axis only where some parameter
+        # is split over it: the fsdp rule splits none, and a tp or ep
+        # line then holds whole replicas (as the JAX trainer's does)
+        split = {ax for dims in self._model_dims for ax in dims}
+
+        def line(*axes):
+            return model_axis(mesh, [ax for ax in axes if ax in split], rank)
+
+        set_model_axes(self.model, tp=line(AXIS_TP), ep=line(AXIS_EP),
+                       ep_tp=line(AXIS_EP, AXIS_TP))
         self._dims = [sharded_dim(specs[n], mesh) for n in self.names]
         self._fsdp = mesh.shape[AXIS_FSDP]
         self._fsdp_group = mesh.group((AXIS_FSDP,))
@@ -354,6 +398,14 @@ class Trainer:
         self._batch_replicated = world_size > 1 and self.batch_ranks * self._sp < world_size
         #: the indices of the sharded parameters
         self._sharded = [i for i, d in enumerate(self._dims) if d is not None]
+        #: per parameter, the axes its squares are summed over in the
+        #: global norm (those it is split over), and each such set once
+        self._norm_axes = [tuple(ax for ax in mesh.axis_names
+                                 if (ax == AXIS_FSDP and d is not None) or ax in md)
+                           for d, md in zip(self._dims, self._model_dims)]
+        self._norm_sets = sorted(set(a for a in self._norm_axes if a) | {(AXIS_FSDP,)})
+        for axes in self._norm_sets:
+            mesh.group(axes)
         with torch.no_grad():
             #: the float32 masters the optimizer updates: a sharded
             #: parameter's shard (the only copy of its weights this rank
@@ -375,7 +427,7 @@ class Trainer:
         self._order = sorted(range(len(self.names)),
                              key=lambda i: _flax_key(self.model, self.names[i]))
         self._plan = build_grad_sync_plan(
-            [(self.params[i].shape, self.params[i].dtype) for i in self._order],
+            [(shapes[self.names[i]], self.params[i].dtype) for i in self._order],
             [specs[self.names[i]] for i in self._order], mesh, mode=grad_sync)
         #: the hierarchical plan (None under flat sync, as in the JAX trainer)
         self.grad_sync_plan = self._plan if grad_sync == "hierarchical" else None
@@ -405,17 +457,22 @@ class Trainer:
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of a list aligned with the masters: the squares
-        of the sharded entries summed over fsdp, plus the replicated."""
+        of each shard summed over the axes it is split over (fsdp, tp,
+        ep), plus the replicated leaves' once."""
 
         from tf_operator_tpu_torch.parallel.collectives import all_reduce
 
-        sharded = [g for g, d in zip(grads, self._dims) if d is not None]
-        rest = [g for g, d in zip(grads, self._dims) if d is None]
         zero = grads[0].new_zeros((), dtype=torch.float32)
-        sq = (torch.stack(torch._foreach_norm(sharded)).square().sum() if sharded else zero)
-        all_reduce(sq.reshape(1), self._fsdp_group, self.collective_stats, "norm_all_reduce")
-        if rest:
-            sq = sq + torch.stack(torch._foreach_norm(rest)).square().sum()
+
+        def squares(axes):
+            mine = [g for g, a in zip(grads, self._norm_axes) if a == axes]
+            return torch.stack(torch._foreach_norm(mine)).square().sum() if mine else zero
+
+        sq = squares(())
+        for axes in self._norm_sets:
+            part = squares(axes).reshape(1)
+            all_reduce(part, self.mesh.group(axes), self.collective_stats, "norm_all_reduce")
+            sq = sq + part[0]
         return torch.sqrt(sq)
 
     @torch.no_grad()
@@ -448,6 +505,26 @@ class Trainer:
 
         if self.mesh is not None:
             self._gather(self._sharded)
+
+    def full_params(self) -> Dict[str, torch.Tensor]:
+        """Every trainable parameter whole, by name (COLLECTIVE under a
+        mesh): the fsdp shards gathered into the model (``gather``),
+        then the shards of a parameter split over tp or ep gathered
+        across their lines."""
+
+        from tf_operator_tpu_torch.parallel.collectives import gather_dim
+        from tf_operator_tpu_torch.parallel.mesh import MODEL_PARALLEL_AXES
+
+        self.gather()
+        out = {}
+        for name, p, dims in zip(self.names, self.params, self._model_dims):
+            t = p.detach()
+            for ax in reversed(MODEL_PARALLEL_AXES):
+                if ax in dims:
+                    t = gather_dim(t, dims[ax], self.mesh.group((ax,)), self.mesh.shape[ax],
+                                   self.collective_stats, "gather_params")
+            out[name] = t
+        return out
 
     def release(self) -> None:
         """Free the storage of every sharded parameter's full weight (its

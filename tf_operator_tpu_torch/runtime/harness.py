@@ -43,10 +43,10 @@ def standard_parser(description: str, **defaults) -> argparse.ArgumentParser:
 def gather_params(trainer) -> Dict[str, torch.Tensor]:
     """The trained parameters, whole, by name.  COLLECTIVE under a mesh:
     every rank must call it (the fsdp shards are gathered into each
-    rank's model); afterwards every rank holds the full weights."""
+    rank's model, the tp and ep shards across their lines:
+    ``Trainer.full_params``); every rank gets the whole weights."""
 
-    trainer.gather()
-    return {n: p.detach() for n, p in zip(trainer.names, trainer.params)}
+    return trainer.full_params()
 
 
 def batch_sizes(batch_per_device: int, mesh=None):
@@ -55,15 +55,19 @@ def batch_sizes(batch_per_device: int, mesh=None):
     the reference's is a device.  The per-process rows are the global
     batch over the batch axes of ``mesh`` (dp x fsdp): the ranks of one
     sp line read the same rows (each keeps its chunk of the sequence).
-    Without a mesh every rank is a batch shard."""
+    The ranks of a tp or ep line hold the same rows and count once: the
+    global batch is ``batch_per_device`` a rank over tp x ep.  Without a
+    mesh every rank is a batch shard."""
 
     from tf_operator_tpu_torch.runtime.bootstrap import world
 
     global_batch = batch_per_device * world()[1]
     if mesh is None:
         return global_batch, max(batch_per_device, 1)
-    from tf_operator_tpu_torch.parallel.mesh import local_batch_size
+    from tf_operator_tpu_torch.parallel.mesh import MODEL_PARALLEL_AXES, local_batch_size
 
+    for ax in MODEL_PARALLEL_AXES:
+        global_batch //= mesh.shape[ax]
     return global_batch, local_batch_size(mesh, global_batch)
 
 

@@ -55,10 +55,11 @@ The serving plane's records (the JAX server's endpoints):
   ``torch.profiler`` over the live decode loop, started, stopped and
   exported on the request's thread (``ProfileCapture``).  The loop keeps
   stepping while it records; on a card the trace holds the CUDA
-  activity alone (no host ops), and the profiler's stop and the trace's
-  export hold the interpreter lock, so the one decode window they
-  overlap stalls for about as long as they take (seconds on a busy
-  card).  The answer names the artifact directory
+  activity alone (no host ops), the profiler starts and stops only
+  while no server thread is inside device work (``DEVICE_GATE``), and
+  its stop and the trace's export hold the interpreter lock, so the
+  loop pauses for about as long as they take (seconds on a busy card).
+  The answer names the artifact directory
   (``serve-profile-c<compiles>-...``, under ``$TPUJOB_PROFILE_DIR`` or
   the temporary directory) that holds ``trace.json``, a Chrome trace,
   and ``COSTPLANE.json``.  400 for a bad ``seconds``, 503 when a pool
@@ -156,6 +157,7 @@ kernel on the card.  The server runs on CUDA unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import tempfile
@@ -384,6 +386,57 @@ def make_chunked(model: Family, *, prompt_cache: int = 0,
                                  ledger=_records(metrics, tracer))
 
 
+class DeviceGate:
+    """Many workers, one quieter.  The server's threads that launch
+    device work (a pool's window, a request's staged prefill or fabric
+    publish, a chunked request) each hold ``work()`` around it, and may
+    run together; ``quiet()`` waits until none is inside, holds new ones
+    out (they wait, so a quieter is never starved) and runs alone.  A
+    worker must not enter ``work()`` again inside its own."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._workers = 0
+        self._quiet = False
+        self._waiting = 0
+
+    @contextlib.contextmanager
+    def work(self):
+        with self._cond:
+            while self._quiet or self._waiting:
+                self._cond.wait()
+            self._workers += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._workers -= 1
+                if self._workers == 0:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def quiet(self):
+        with self._cond:
+            self._waiting += 1
+            try:
+                while self._quiet or self._workers:
+                    self._cond.wait()
+            finally:
+                self._waiting -= 1
+            self._quiet = True
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._quiet = False
+                self._cond.notify_all()
+
+
+#: the process's gate (the profiler is process-wide state, and so are the
+#: threads it records)
+DEVICE_GATE = DeviceGate()
+
+
 class ProfileCapture:
     """``GET /debug/profile``'s capture, run on the request's thread, off
     the decode loop (a pool's driver thread, or the chunked mode's
@@ -391,10 +444,16 @@ class ProfileCapture:
     it records the CUDA activity alone, so the trace names kernels and no
     host ops: CUPTI records every kernel of the process, whichever thread
     launched it, where recording a host-bound loop's CPU ops slowed the
-    windows it covered.  There the profiler's stop and the export hold
-    the interpreter lock for their whole wall (seconds for a trace of a
-    busy 7B decode loop), so the decode window they overlap stalls that
-    long.  On the CPU it records the ops of every thread
+    windows it covered.  There the profiler starts and stops inside
+    ``DEVICE_GATE.quiet()`` with the device synchronized: started while
+    the driver thread launched a 7B decode window, the capture crashed
+    the process (SIGSEGV in a thread with no Python frame) in about one
+    of sixteen captures, and never with the gate.  So the start waits
+    for the window in flight (a chunked mode's start and stop for its
+    requests in flight), and the loop pauses for the stop, which holds
+    the interpreter lock for its whole wall (seconds for a trace of a
+    busy 7B decode loop); the export holds it too, so the window it
+    overlaps stalls that long.  On the CPU it records the ops of every thread
     (``profile_all_threads``, where this PyTorch has it).  ``busy`` admits
     one capture at a time (the profiler is process-wide state); ``last``
     holds the last capture's walls (start, recording, stop, export) and
@@ -405,19 +464,34 @@ class ProfileCapture:
         self.busy = threading.Lock()
         self.last: Optional[dict] = None
 
+    @contextlib.contextmanager
+    def _quiet(self):
+        """On a card: the gate held and the device idle; elsewhere
+        nothing (the CPU's profiler has no CUPTI, and the loop keeps
+        stepping through the stop there)."""
+
+        if self.device.type != "cuda":
+            yield
+            return
+        with DEVICE_GATE.quiet():
+            torch.cuda.synchronize(self.device)
+            yield
+
     def capture(self, seconds: float, path: str) -> None:
         """Record ``seconds`` and write the Chrome trace to ``path`` (the
         caller holds ``busy``)."""
 
         prof = _profiler(self.device)
         marks = [time.monotonic()]
-        prof.__enter__()
+        with self._quiet():
+            prof.__enter__()
         marks.append(time.monotonic())
         try:
             time.sleep(seconds)
         finally:
             marks.append(time.monotonic())
-            prof.__exit__(None, None, None)
+            with self._quiet():
+                prof.__exit__(None, None, None)
             marks.append(time.monotonic())
         prof.export_chrome_trace(path)
         marks.append(time.monotonic())
@@ -764,19 +838,21 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
                     # others find it and pull it).  A failed publish never
                     # fails the request: the admission recomputes
                     try:
-                        pub = pool.publish_to_fabric(
-                            ids.astype(np.int32), tier=tier, trace_id=span.trace_id,
-                            timeout=PUBLISH_TIMEOUT_S)
+                        with DEVICE_GATE.work():
+                            pub = pool.publish_to_fabric(
+                                ids.astype(np.int32), tier=tier, trace_id=span.trace_id,
+                                timeout=PUBLISH_TIMEOUT_S)
                         span.set_attribute("fabric_published", pub["published"])
                     except Exception as exc:
                         metrics.inc("serve_fabric_publish_failures_total",
                                     model=model_label)
                         span.set_attribute("fabric_publish_error", repr(exc))
-                rid = pool.submit(
-                    ids.astype(np.int32), n_new, temperature=temperature,
-                    top_k=top_k, generator=generator, tier=tier,
-                    trace_id=span.trace_id,
-                )
+                with DEVICE_GATE.work():  # a rolling cache prefills at submit
+                    rid = pool.submit(
+                        ids.astype(np.int32), n_new, temperature=temperature,
+                        top_k=top_k, generator=generator, tier=tier,
+                        trace_id=span.trace_id,
+                    )
                 span.set_attribute("rid", rid)
                 while True:
                     row = pool.result_wait(rid, timeout=0.5)
@@ -800,9 +876,10 @@ def build_handler(decoder, fatal: list, model_label: Optional[str] = None):
 
             span.set_attribute("mode", "chunked")
             t_gen = time.perf_counter()
-            out = decoder.generate(torch.as_tensor(ids.astype(np.int64))[None], n_new,
-                                   temperature=temperature, top_k=top_k,
-                                   generator=generator)
+            with DEVICE_GATE.work():
+                out = decoder.generate(torch.as_tensor(ids.astype(np.int64))[None], n_new,
+                                       temperature=temperature, top_k=top_k,
+                                       generator=generator)
             wall = time.perf_counter() - t_gen
             observe_slo(0.0, wall, wall / n_new, span.trace_id)
             sample = _cut(decode_bytes(out[0, len(ids):].numpy()), stop)
@@ -877,7 +954,9 @@ class Server:
             while not self._stop.is_set():
                 try:
                     hb.beat()
-                    if pool.step() == 0:
+                    with DEVICE_GATE.work():
+                        active = pool.step()
+                    if active == 0:
                         time.sleep(0.005)
                 except Exception as exc:  # a dead decode loop must surface as 500s
                     traceback.print_exc()

@@ -18,9 +18,12 @@ prints the losses and exits 1 if the loss did not fall over >= 20
 steps.
 
 Under the operator (the ``TPUJOB_*`` environment) the N ranks train over
-the mesh ``{"dp": N / tp, "tp": tp}`` with the logical shardings.
-``--tp`` above 1 (tensor parallelism) is not ported yet and raises.
-Weights are random from seed 0.
+the mesh ``{"dp": N / tp, "tp": tp}`` with the logical shardings: under
+``--tp`` above 1 the ranks of a tp line hold the same rows and each its
+share of the heads, MLP columns and vocab (parallel/tensor_parallel.py),
+and print the same losses.  A ``--tp`` that does not divide the world
+is refused, as the reference's assert refuses it.  Weights are random
+from seed 0.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ import numpy as np
 from tf_operator_tpu_torch.models.t5 import T5, seq2seq_loss, t5_base, t5_tiny
 from tf_operator_tpu_torch.models.weights import init_params
 from tf_operator_tpu_torch.parallel.mesh import make_mesh
-from tf_operator_tpu_torch.parallel.sharding import refuse_tensor_parallel
 from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
 from tf_operator_tpu_torch.runtime.bootstrap import entry_device, initialize, world
 from tf_operator_tpu_torch.runtime.harness import standard_parser, train_loop
@@ -79,9 +81,10 @@ def run(args: argparse.Namespace) -> Dict:
     losses, the wall, the resolve times and ``train_loop``'s ``stats``
     (``loop``)."""
 
-    refuse_tensor_parallel(args.tp)
     ctx = initialize(args.device)
     _, n = world()
+    if n % args.tp:
+        raise ValueError(f"--tp {args.tp} does not divide the job's {n} processes")
     device = entry_device(args.device, ctx)
     mesh = make_mesh({"dp": n // args.tp, "tp": args.tp}) if n > 1 else None
     build, vocab = MODELS[args.model]

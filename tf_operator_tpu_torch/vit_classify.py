@@ -6,10 +6,13 @@
     python -m tf_operator_tpu_torch.vit_classify --device cpu --model vit_tiny \\
         --batch-per-device 8 --steps 20
 
-Each process's fixed batch is drawn from
-``np.random.RandomState(process index)``: ``--batch-per-device`` float32
-images in [0, 1) of ``--image-size`` px and integer labels below
-``--num-classes``.  AdamW at ``--learning-rate`` (no warmup, as the
+Each process draws its batch shard from
+``np.random.RandomState(Trainer.batch_index)``: ``--batch-per-device``
+float32 images in [0, 1) of ``--image-size`` px and integer labels
+below ``--num-classes``.  Without tp the index is the process's, as the
+reference draws it; the ranks of a tp line draw the same shard, that of
+their coordinate on dp (the reference's process holds its tp devices
+itself).  AdamW at ``--learning-rate`` (no warmup, as the
 reference's) on float32 masters, bf16 compute, dropout 0.1 (the
 reference's default); attention runs the flash kernels on the card.
 ``train_loop`` (which exits 1 if the loss did not fall over >= 20
@@ -17,9 +20,11 @@ steps), then ``Trainer.benchmark`` over ``max(steps // 2, 5)`` more
 steps, printed as ``{tag}: {x:.1f} ex/s global``.
 
 Under the operator (the ``TPUJOB_*`` environment) the N ranks train over
-the mesh ``{"dp": N / tp, "tp": tp}`` with the logical shardings.
-``--tp`` above 1 (tensor parallelism) is not ported yet and raises.
-Weights are random from seed 0.
+the mesh ``{"dp": N / tp, "tp": tp}`` with the logical shardings: under
+``--tp`` above 1 each rank of a tp line holds its share of the heads,
+MLP columns and classes (parallel/tensor_parallel.py).  A ``--tp`` that
+does not divide the world is refused, as the reference's assert refuses
+it.  Weights are random from seed 0.
 """
 
 from __future__ import annotations
@@ -30,11 +35,11 @@ import time
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from tf_operator_tpu_torch.models.vit import ViT, vit_b16, vit_loss, vit_tiny
 from tf_operator_tpu_torch.models.weights import init_params
 from tf_operator_tpu_torch.parallel.mesh import make_mesh
-from tf_operator_tpu_torch.parallel.sharding import refuse_tensor_parallel
 from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
 from tf_operator_tpu_torch.runtime.bootstrap import entry_device, initialize, world
 from tf_operator_tpu_torch.runtime.harness import batch_sizes, standard_parser, train_loop
@@ -62,11 +67,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return args
 
 
-def make_batch(args: argparse.Namespace, rows: int, process_index: int = 0
+def make_batch(args: argparse.Namespace, rows: int, shard: int = 0
                ) -> Dict[str, np.ndarray]:
-    """The reference's fixed batch of one process (its ``RandomState``)."""
+    """The fixed rows of batch shard ``shard`` (the reference's batch of
+    the process of that index: its ``RandomState``)."""
 
-    rng = np.random.RandomState(process_index)
+    rng = np.random.RandomState(shard)
     s = args.image_size
     return {"image": rng.rand(rows, s, s, 3).astype(np.float32),
             "label": rng.randint(0, args.num_classes, size=(rows,)).astype(np.int32)}
@@ -77,9 +83,10 @@ def run(args: argparse.Namespace) -> Dict:
     batch, the losses, the wall, the resolve times, ``train_loop``'s
     ``stats`` (``loop``) and the benchmark's numbers."""
 
-    refuse_tensor_parallel(args.tp)
     ctx = initialize(args.device)
-    rank, n = world()
+    _, n = world()
+    if n % args.tp:
+        raise ValueError(f"--tp {args.tp} does not divide the job's {n} processes")
     device = entry_device(args.device, ctx)
     mesh = make_mesh({"dp": n // args.tp, "tp": args.tp}) if n > 1 else None
     vcfg = MODELS[args.model](image_size=args.image_size, n_classes=args.num_classes)
@@ -88,7 +95,11 @@ def run(args: argparse.Namespace) -> Dict:
     trainer = Trainer(model, TrainerConfig(optimizer="adamw", learning_rate=args.learning_rate),
                       vit_loss, mesh=mesh, shardings="logical")
     _, local_batch = batch_sizes(args.batch_per_device, mesh)
-    batch = trainer.shard_batch(make_batch(args, local_batch, rank))
+    # this rank's shard alone, straight to the device: the ranks of a tp
+    # line draw the same rows, which shard_batch's guard cannot know
+    shard = trainer.batch_index if mesh is not None else 0
+    batch = {k: torch.as_tensor(v).to(device)
+             for k, v in make_batch(args, local_batch, shard).items()}
     tag = f"{args.model} dp={n // args.tp} tp={args.tp}"
     stats: Dict = {}
     t0 = time.perf_counter()
