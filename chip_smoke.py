@@ -239,7 +239,7 @@ Phases, in order; any failure exits non-zero before the result line:
    ``serve_lm``'s server, the pool at 8 slots, max_len 2048, bs 16, 8
    steps per sync, in its default ``reserve="lazy"``.  Eight batch
    requests (prompts of 390..410 bytes, none a multiple of 16, so each
-   straddle block is private; 128 new tokens; one seeded temperature
+   straddle block is private; 80 new tokens; one seeded temperature
    request with top_k 40) at once, and after two windows one
    interactive request (700 bytes, 32 new tokens).  The arena is the
    eight batch commits (``_commit_blocks``) plus 24 blocks, below the
@@ -269,8 +269,8 @@ Phases, in order; any failure exits non-zero before the result line:
    resident) as its self-draft, behind ``serve_lm``'s server built from
    its flags (``--batching 8 --speculative --speculative-force --spec-k
    4``, phase 7's arena), against the same server without
-   ``--speculative``, in the order plain, spec, spec, plain, plain,
-   spec.  Phase 7's nine requests, six ``tier: interactive`` (the 64-,
+   ``--speculative``, in the order plain, spec, spec (two speculative
+   runs, whose seeded rows must agree, and one plain).  Phase 7's nine requests, six ``tier: interactive`` (the 64-,
    200- and 1500-byte prompts, both of the shared-prefix pair and the
    seeded request), three batch, which decode plainly in the same
    windows.  Counts zeroed just before and read just after each run.  On
@@ -296,7 +296,7 @@ Phases, in order; any failure exits non-zero before the result line:
    logits up to ``SPEC_SUPPORT_TOL``.  Then one speculative window of
    eight interactive seats under torch.profiler (busy share, K4 and K7
    shares of device time).  Prints, each side's median and
-   spread of 3 runs beside the card line: the interactive requests'
+   spread of its runs beside the card line: the interactive requests'
    decode tokens/s (median of tokens after the first over the time
    after the first) and TTFT, all requests' decode tokens/s over the
    decode dispatches' wall, the window's host wall; the speculative
@@ -333,7 +333,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``--batching`` and ``--prompt-cache 4`` (the chunked decoder, max_len
    2048), over HTTP: phase 7's nine bodies one at a time, then three new
    ones (100, 300 and 600 bytes, the last seeded) at once on their own
-   threads, then those three again one at a time.  Counts zeroed just
+   threads, then those three again one at a time, each of
+   ``SHORT_NEW_TOKENS`` (12) new tokens.  Counts zeroed just
    before and read just after.  Checks: every answer 200 with the JAX
    server's keys; the repeats' rows equal their first rows exactly;
    ``serve_prompt_cache_hits`` = 3 =
@@ -342,7 +343,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the 12 prompts that missed, ``{phase="decode"}`` = the 15 requests;
    15 TTFT observations under ``mode="chunked"``; no kernel launched
    (the contiguous decode branch reaches none in bf16); each greedy row
-   equals phase 7's paged row for the same body, or its first
+   equals the first 12 tokens of phase 7's paged row for the same body,
+   or its first
    divergence is a tie of the two paths (``_path_divergence``: the
    logits that chose that token computed again on each path as it ran,
    the chunked decoder's binary-chunk prefill and decode steps, and the
@@ -352,9 +354,9 @@ Phases, in order; any failure exits non-zero before the result line:
    two paths move those two logits, and the replays' difference within
    phase 8's bound).  Prints each
    request's HTTP latency (the JAX definition of its TTFT), the
-   sequential prefill and decode seconds, decode tokens/s (31 tokens a
+   sequential prefill and decode seconds, decode tokens/s (11 tokens a
    request over the decode dispatches' wall) and peak memory.
-9b. (run after phase 9) phase 11 on the int8 model: K7 = 225 x (31
+9b. (run after phase 9) phase 11 on the int8 model: K7 = 225 x (11
    steps a request + the prefill chunks of <= 64 rows), the GEMM route
    225 x the wider chunks, no K4 and no plain int8 matmul; greedy rows
    against phase 9's paged rows; decode tokens/s beside phase 11's.
@@ -365,7 +367,8 @@ Phases, in order; any failure exits non-zero before the result line:
    keep their own config; both are checked), behind ``serve_lm`` built
    from ``--batching 8``, which must print the JAX server's ``paged pool
    unavailable (...); serving the contiguous slot pool`` line.  Phase
-   7's nine bodies at once; the 1,500-byte prompt prefills in chunks
+   7's nine bodies at once, ``SHORT_NEW_TOKENS`` (12) new tokens each;
+   the 1,500-byte prompt prefills in chunks
    capped at 1,024 and its cache wraps.  Checks: the records
    (``check_records`` with the staged path's spans); dispatches
    ``prefill`` = the capped chunks, ``sample`` = ``scatter`` = 9,
@@ -473,10 +476,43 @@ Phases, in order; any failure exits non-zero before the result line:
    steps in each training run and never in serving; no plain attention
    and no plain int8 product runs; every loss must fall.  Prints each
    family's step ms, tokens/s and peak memory.
-16. the kernels line (K1, K2, K3 from the training paths: llama's, the
-   three encoders', the zoo's and phase 5d's 2-rank jobs (both ranks'),
-   each counted around its own run, with
-   the counts by path; K4 from the serving path, K7 from the int8
+16. LoRA fine-tuning and pipeline parallelism (``phase_lora_pipeline``,
+   after phase 6, on phase 5's export): K1, K2 and K3 causal at the LoRA
+   step's shape [8, 16 (Hkv 8), 128, 128] and a pipeline microbatch's at
+   gpt_small's widths [2, 12, 1024, 64] (``PHASE16_FLASH``), against
+   their plain versions, timed beside their bounds and SDPA; (a)
+   ``lora_finetune`` over the llama-wide export (``LORA_STEPS`` steps,
+   rank 8, batch 8 x seq 128): 9,205,760 adapter parameters over a
+   frozen 697,354,240, step 0's logits bit for bit the base's, the loss
+   falling, a digest of every base tensor unchanged, K1-K3 = 12 x steps
+   each (``generate`` launches none: the contiguous cache's plain
+   product), then the merged export behind ``serve_lm --batching 8``
+   (three greedy requests of 16 tokens, the paged pool, K4 = 12 x decode
+   steps), each row equal to ``generate`` on the merged model or first
+   off it at a bf16 tie; (b) ``PipelinedLM`` at gpt_small's widths
+   (vocab 256, 12 layers, relu) as 2 ranks over ``{"pp": 2}`` (gloo on
+   the card; 6 layers a stage), seq 1024 x 8 in 4 microbatches,
+   ``PP_STEPS`` steps of optax.adamw's form, against one process
+   training the same weights through the sequential
+   ``lm_reference_apply``: every loss within ``DIST_LOSS_RTOL``, both
+   ranks' equal, each leaf a rank holds (the replicated embedding, norm
+   and positions, and its stage's layers as that slice of the one
+   process's stack) against the one process's, its step-0 gradient
+   within ``PP_GRAD_RTOL`` and its weight after the steps within
+   ``PP_WEIGHT_RTOL`` (the gradients, because AdamW's update hides a
+   gradient's scale: ``chip_fault_probe.py pp_input pp_output``; the
+   leaves ``PP_ZERO_GRAD`` says are skipped), a
+   rank's stage bytes half the stack's, K1-K3 = 6 layers
+   x 4 microbatches a step on each rank (bubble ticks run nothing) and
+   12 a step in the one process; (c) ``gpt_pipeline --pp 2`` at its
+   defaults for ``--family gpt``, then ``--family llama``, run by (b)'s
+   two ranks after it (one world, so the processes start once),
+   ``PIPE_JOB_STEPS`` steps: the reference's tag line equal on both
+   ranks, the loss falling, K1-K3 = 2 x 4 a step.
+17. the kernels line (K1, K2, K3 from the training paths: llama's, the
+   three encoders', the zoo's, phase 5d's 2-rank jobs and phase 16's
+   (both ranks'), each counted around its own run, with
+   the counts by path, and phase 16's shapes; K4 from the serving path, K7 from the int8
    serving paths, 7B's pool and gpt_small's chunked decoder, by path;
    K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
    no-residual class, where F.batch_norm computes the same function),
@@ -1365,9 +1401,20 @@ def phase_main_path(model, tag="main path"):
 
 #: the chunked server's prompt cache (``--prompt-cache``)
 CHUNKED_PROMPT_CACHE = 4
+#: new tokens a request in phases 11, 9b and 12 (phase 7's bodies and
+#: phase 11's new ones, cut from 32 to keep the script inside its time;
+#: their greedy rows are held against the first as many of the paged
+#: pool's)
+SHORT_NEW_TOKENS = 12
 #: phase 11's three new bodies, sent at once and then repeated: greedy,
 #: greedy and seeded (their prompts are not among phase 7's)
 CHUNKED_NEW_LENGTHS = (100, 300, 600)
+
+
+def _short_bodies():
+    """Phase 7's nine bodies at ``SHORT_NEW_TOKENS`` new tokens each."""
+
+    return [dict(b, max_new_tokens=SHORT_NEW_TOKENS) for b in _main_bodies()]
 
 
 def _chunked_new_bodies():
@@ -1375,7 +1422,7 @@ def _chunked_new_bodies():
 
     rng = random.Random(11)
     bodies = [{"prompt": "".join(chr(rng.randrange(32, 127)) for _ in range(n)),
-               "max_new_tokens": 32} for n in CHUNKED_NEW_LENGTHS]
+               "max_new_tokens": SHORT_NEW_TOKENS} for n in CHUNKED_NEW_LENGTHS]
     bodies[-1].update(temperature=0.8, top_k=40, seed=99)
     return bodies
 
@@ -1444,9 +1491,9 @@ def _chunk_counts(bodies, max_chunk=None):
             "long": sum(1 for w in widths if w > MAX_GEMV_ROWS)}
 
 
-def _check_ok(results, tag):
+def _check_ok(results, tag, n_new=32):
     for i, r in enumerate(results):
-        if r is None or r[0] != 200 or len(r[1]["sample"]) != 32 \
+        if r is None or r[0] != 200 or len(r[1]["sample"]) != n_new \
                 or set(r[1]) != {"prompt", "sample", "seed"}:
             raise AssertionError(f"{tag}: request {i} failed: {r}")
 
@@ -1480,10 +1527,11 @@ def _greedy_against(model, bodies, got_rows, want_rows, tag, prefix_hits=None):
 def phase_chunked(model, card, paged, tag="chunked"):
     """Phase 11 (and, on the int8 model, phase 9b): ``serve_lm``'s default
     mode at 7B width over HTTP.  Phase 7's nine bodies one at a time, then
-    three new ones at once, then those three again.  Counts zeroed just
-    before and read just after.  Checks (module docstring), the greedy
-    rows against ``paged``, phase 7's (or 9's) stats: its rows and prefix
-    hits; returns the run's numbers."""
+    three new ones at once, then those three again, ``SHORT_NEW_TOKENS``
+    each.  Counts zeroed just before and read just after.  Checks (module
+    docstring), the greedy rows against the first as many of ``paged``'s,
+    phase 7's (or 9's) stats: its rows and prefix hits; returns the run's
+    numbers."""
 
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import quant_matmul as qm
@@ -1492,7 +1540,7 @@ def phase_chunked(model, card, paged, tag="chunked"):
     server, rows = _chunked_server(model)
     decoder = server.decoder
     try:
-        bodies, new = _main_bodies(), _chunked_new_bodies()
+        bodies, new = _short_bodies(), _chunked_new_bodies()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _build.launches.clear()
@@ -1508,14 +1556,15 @@ def phase_chunked(model, card, paged, tag="chunked"):
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for part, results in (("sequential", seq), ("at once", at_once),
                               ("repeats", repeats)):
-            _check_ok(results, f"{tag} {part}")
+            _check_ok(results, f"{tag} {part}", SHORT_NEW_TOKENS)
         _, raw = _get(server.port, "/metrics")
         text = raw.decode()
     finally:
         server.close()
     n_req = len(bodies) + 2 * len(new)
     counts = _chunk_counts(bodies + new)
-    steps = n_req * 31  # a request's first token comes from its prefill's logits
+    # a request's first token comes from its prefill's logits
+    steps = n_req * (SHORT_NEW_TOKENS - 1)
     n_proj = 7 * model.cfg.n_layers + 1
     want = {"prompt_cache_hits": 3.0, "prefix_cache_hits_chunked": 3.0,
             "prefill_dispatches": float(counts["chunks"]), "decode_dispatches": float(n_req),
@@ -1537,7 +1586,7 @@ def phase_chunked(model, card, paged, tag="chunked"):
     order = [rows[b["prompt"].encode()] for b in new]
     repeat_equal = all(len(r) == 2 and r[0] == r[1] for r in order)
     seq_rows = [rows[b["prompt"].encode()][0] for b in bodies]
-    decode_tokens = 31 * len(bodies)
+    decode_tokens = (SHORT_NEW_TOKENS - 1) * len(bodies)
     stats = {
         "tag": tag, "int8": int8, "requests": n_req, "wall_s": wall,
         "expected": want, "counted": got, "launches": launches,
@@ -1547,8 +1596,9 @@ def phase_chunked(model, card, paged, tag="chunked"):
         "decode_tokens_per_s": decode_tokens / seq_decode_s,
         "max_memory_allocated_gib": peak_gib,
     }
-    stats["against_paged_pool"] = _greedy_against(model, bodies, seq_rows, paged["rows"], tag,
-                                                   prefix_hits=paged["prefix_hits"])
+    stats["against_paged_pool"] = _greedy_against(
+        model, bodies, seq_rows, [r[:SHORT_NEW_TOKENS] for r in paged["rows"]], tag,
+        prefix_hits=paged["prefix_hits"])
     log(f"{tag} ({card}) " + json.dumps(stats))
     if got != want or not repeat_equal:
         raise AssertionError(f"{tag}: counts or repeats off: {json.dumps(stats)}")
@@ -1588,7 +1638,7 @@ def phase_contiguous(model, card):
                     "rebuilt": wmodel.layers[0].self_attn.cfg.window}
     if layer_window != {"variant": None, "rebuilt": WINDOW_7B} or not shared:
         raise AssertionError(f"contiguous: the windowed model {layer_window}, shared {shared}")
-    bodies = _main_bodies()
+    bodies = _short_bodies()
     # the reference rows: the chunked decoder on the same windowed model
     ref = ChunkedServingDecoder(wmodel)
     t_ref = time.perf_counter()
@@ -1598,7 +1648,7 @@ def phase_contiguous(model, card):
         gen = None
         if b.get("temperature"):
             gen = torch.Generator(device=dev).manual_seed(b["seed"])
-        out = ref.generate(ids[None], 32, temperature=b.get("temperature", 0.0),
+        out = ref.generate(ids[None], SHORT_NEW_TOKENS, temperature=b.get("temperature", 0.0),
                            top_k=b.get("top_k"), generator=gen)
         ref_rows.append(out[0, ids.numel():].tolist())
     ref_s = time.perf_counter() - t_ref
@@ -1637,7 +1687,7 @@ def phase_contiguous(model, card):
         if server.fatal:
             raise AssertionError(f"contiguous: decode loop died: {server.fatal[0]}")
         for i, r in enumerate(results):
-            if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+            if r is None or r[0] != 200 or len(r[1]["sample"]) != SHORT_NEW_TOKENS:
                 raise AssertionError(f"contiguous: request {i} failed: {r}")
         autopsies, text, _ = check_records(server.port, pool, results, "contiguous",
                                            spans=STAGED_SPANS)
@@ -1674,7 +1724,7 @@ def phase_contiguous(model, card):
     if (dispatches != want or launches or peak[0] != pool.slots
             or memory["kv_arena"] != slot_bytes
             or memory["weights"] != memory["expected_weights"]
-            or any(a["tokens"] != 32 for a in autopsies)):
+            or any(a["tokens"] != SHORT_NEW_TOKENS for a in autopsies)):
         raise AssertionError(f"contiguous: {json.dumps(stats)}")
     del pool, wmodel
     return stats
@@ -2301,11 +2351,14 @@ def phase_decode_profile(pool, tier="batch"):
 
 
 #: phase 7b: eight batch prompts in 390..410 bytes (none a multiple of
-#: 16, so each seat's straddle block is private), 128 new tokens each;
-#: the fourth is seeded temperature.  After two windows one interactive
-#: request of 700 bytes and 32 new tokens arrives
+#: 16, so each seat's straddle block is private), 80 new tokens each
+#: (cut from 128 to keep the script inside its time: the seats still
+#: outgrow the 24 spare blocks by 8, and the worst cases, 244 blocks,
+#: stay above the arena's 236); the fourth is seeded temperature.  After
+#: two windows one interactive request of 700 bytes and 32 new tokens
+#: arrives
 PRESSURE_LENGTHS = (390, 393, 397, 399, 403, 405, 407, 410)
-PRESSURE_BUDGET = 128
+PRESSURE_BUDGET = 80
 PRESSURE_INTERACTIVE = (700, 32)
 
 
@@ -2678,8 +2731,10 @@ def phase_end_to_end(model7b):
 #: windows
 SPEC_K = 4
 SPEC_INTERACTIVE = (0, 1, 3, 6, 7, 8)
-#: the runs of each side, interleaved so that drift between them cancels
-SPEC_ORDER = ("plain", "spec", "spec", "plain", "plain", "spec")
+#: the runs: one plain (the rows the speculative runs are held to, and
+#: the speedup's baseline) and two speculative (their seeded rows must
+#: agree)
+SPEC_ORDER = ("plain", "spec", "spec")
 #: a seeded token must lie within its top_k support of the replayed
 #: logits, up to this share of their largest magnitude (the replay runs
 #: the plain contiguous path, the served run K4 and other GEMM shapes)
@@ -3071,7 +3126,8 @@ def phase_speculative(model, draft, card):
         "date": time.strftime("%Y-%m-%d"), "artifact": "chip_smoke.py phase 7d",
         "config": f"llama_7b_shape bf16 target, int8 self-draft, spec_k {SPEC_K}, 8 slots, "
                   "6 interactive speculating + 3 batch plain, interactive decode tokens/s "
-                  "(median of 3 runs each side)"}}))
+                  f"(medians of {SPEC_ORDER.count('spec')} speculative runs and "
+                  f"{SPEC_ORDER.count('plain')} plain)"}}))
     if any(not d["tie"] for d in divergences):
         raise AssertionError(f"speculative greedy rows off the plain pool's: {divergences}")
     if len(seeded_samples) != 1 or any(m < -SPEC_SUPPORT_TOL for m in support.values()):
@@ -3949,11 +4005,11 @@ def _zoo_train(name, family_cls, cfg, loss_fn, data_dir, steps):
     return rec, trainer
 
 
-def _zoo_serve(model, flags, bodies, tag, at_once=False):
+def _zoo_serve(model, flags, bodies, tag, at_once=False, new_tokens=32):
     """``serve_lm`` built from ``flags`` around ``model`` answers
-    ``bodies`` over HTTP (one at a time, or all at once); counts zeroed
-    just before and read just after.  Returns (the decoder, the token
-    rows by body, the run's record)."""
+    ``bodies`` (``new_tokens`` each) over HTTP (one at a time, or all at
+    once); counts zeroed just before and read just after.  Returns (the
+    decoder, the token rows by body, the run's record)."""
 
     import contextlib
     import io
@@ -3999,7 +4055,7 @@ def _zoo_serve(model, flags, bodies, tag, at_once=False):
         if server.fatal:
             raise AssertionError(f"{tag}: decode loop died: {server.fatal[0]}")
         for i, r in enumerate(results):
-            if r is None or r[0] != 200 or len(r[1]["sample"]) != 32:
+            if r is None or r[0] != 200 or len(r[1]["sample"]) != new_tokens:
                 raise AssertionError(f"{tag}: request {i} failed: {r}")
     finally:
         server.close()
@@ -4011,7 +4067,7 @@ def _zoo_serve(model, flags, bodies, tag, at_once=False):
     else:
         got_rows = [rows[b["prompt"].encode()][0] for b in bodies]
         seconds = decoder.ledger.seconds("decode")
-        decode_tokens = 31 * len(bodies)
+        decode_tokens = (new_tokens - 1) * len(bodies)
     rec = {"tag": tag, "flags": flags, "decoder": type(decoder).__name__,
            "line": out.getvalue().strip(), "requests": len(bodies), "wall_s": wall,
            "launches": launches, "plain_calls": plain,
@@ -4283,6 +4339,415 @@ def phase_zoo(card):
     summary["walls_s"] = walls
     log(f"zoo families ({card}) " + json.dumps(summary))
     return flash, k7, runs
+
+
+# -- phase 16: LoRA fine-tuning and pipeline parallelism ----------------------
+
+#: (a) lora_finetune over phase 5's llama-wide export at the entry's
+#: defaults (batch 8, seq 128, rank 8, alpha 16, learning rate 1e-3)
+LORA_STEPS, LORA_RANK = 40, 8
+#: rank 8 over llama-wide: 7 kernels a layer x 12 and the lm_head (the
+#: query [2048, 16, 128] gets a [32768, 8], b [8, 128]), and the base
+LORA_ADAPTER_PARAMS, LORA_BASE_PARAMS = 9_205_760, 697_354_240
+#: the merged artifact behind serve_lm --batching 8: three greedy
+#: requests of LORA_NEW tokens each
+LORA_BODIES = ({"prompt": "the operator ", "max_new_tokens": 16},
+               {"prompt": "the sharded kernel gathers the ", "max_new_tokens": 16},
+               {"prompt": "the fused gradient reduces ", "max_new_tokens": 16})
+LORA_NEW = 16
+#: (b) PipelinedLM at gpt_small's widths (vocab 256), 2 stages of 6
+#: layers, relu, seq 1024 x 8 rows in 4 microbatches, PP_STEPS steps of
+#: optax.adamw's form at PP_LR, on one fixed batch of the byte corpus
+PP_ROWS, PP_SEQ, PP_MICROBATCHES, PP_STEPS, PP_LR = 8, 1024, 4, 6, 1e-3
+#: (b) each step-0 gradient leaf a rank holds against the one process's,
+#: |g - g_one| / |g_one| (L2 norms): the same bf16 arithmetic on 2-row
+#: microbatches where the one process runs 8 rows, so products tiled
+#: otherwise round otherwise.  Read 2.0e-3 on an H100 (a query bias);
+#: chip_fault_probe.py's pp_input read 1.0 (the other stage's
+#: positions), pp_output 1.0 (every stage's leaves)
+PP_GRAD_RTOL = 2e-2
+#: (b) each weight leaf after PP_STEPS steps, the same measure: in bf16
+#: Adam carries the step-0 differences on and amplifies them where a
+#: gradient is small.  Read 1.6e-2 / 2.0e-2 (key kernels); pp_input
+#: 0.16, pp_output 3.1e-2 / 4.1e-2, under the limit: AdamW's update
+#: hides a gradient's scale, so the gradients are held too
+PP_WEIGHT_RTOL = 5e-2
+#: (b) the leaves whose gradient is zero in exact arithmetic (a softmax
+#: does not see a bias shared by every key), so that both runs' values
+#: are rounding noise, far apart even in float32: both checks skip them.
+#: The weight check also skips every leaf that starts at zero (the
+#: biases): after PP_STEPS Adam steps such a leaf is all update, and in
+#: bf16 Adam's normalisation turns small differences of small gradients
+#: into whole steps of the learning rate; their gradients hold them
+PP_ZERO_GRAD = ".self_attn.key.bias"
+#: (c) gpt_pipeline --pp 2 at its defaults, each family as a 2-process job
+PIPE_JOB_STEPS = 10
+#: K1-K3 at phase 16's shapes: the LoRA step's attention (llama-wide,
+#: batch 8 x seq 128) and a pipeline microbatch at gpt_small's widths
+PHASE16_FLASH = (
+    ("lora_llama_wide_causal_b8_s128_d128", dict(b=8, h=16, hkv=8, sq=128, sk=128, d=128)),
+    ("pp_gpt_small_microbatch_causal_b2_s1024_d64",
+     dict(b=2, h=12, hkv=12, sq=1024, sk=1024, d=64)),
+)
+
+
+def _param_digest(model):
+    """{name: (sum of the int32 view, float64 sum of |x|)} of every
+    parameter, on the device: any write to a float32 tensor moves it."""
+
+    return {n: (int(p.detach().view(torch.int32).to(torch.int64).sum()),
+                float(p.detach().double().abs().sum())) for n, p in model.named_parameters()}
+
+
+def phase_lora(base_dir, card):
+    """(a) ``lora_finetune`` over phase 5's llama-wide export (module
+    docstring): the adapter count, step 0's logits bit for bit the
+    base's, the loss falling, every base tensor unchanged, K1-K3 = 12
+    layers x steps each (``generate`` decodes through the contiguous
+    cache's plain product: no launch); then the merged artifact behind
+    ``serve_lm --batching 8`` (the paged pool, K4 = 12 x decode steps),
+    its greedy rows against ``generate`` on the merged model (equal, or
+    a bf16 tie)."""
+
+    import contextlib
+    import io
+    import tempfile
+
+    from tf_operator_tpu_torch import lora_finetune
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
+    from tf_operator_tpu_torch.models.decode import generate
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.ops.paged_attention import KERNEL
+    from tf_operator_tpu_torch.serve_lm import load_model
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lora_")
+    try:
+        tuned = os.path.join(tmp, "tuned")
+        args = lora_finetune.parse_args([
+            "--base", base_dir, "--steps", str(LORA_STEPS), "--rank", str(LORA_RANK),
+            "--data-dir", os.path.join(tmp, "text"), "--export-dir", tuned])
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run = lora_finetune.setup(args)
+        lora, base = run["lora"], run["base"]
+        setup_s = time.perf_counter() - t0
+        before = _param_digest(base)
+        probe = next(iter(as_lm_batches(TextBatches(args.data_dir, args.batch, seed=99))))
+        ids = torch.as_tensor(probe["input_ids"], device="cuda").long()
+        with torch.no_grad():
+            step0_equal = bool(torch.equal(lora(ids), base(ids)))
+        del ids
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.launches.clear()
+        fa.plain_calls.clear()
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            lora_finetune.finish(args, run)
+        torch.cuda.synchronize()
+        finish_s = time.perf_counter() - t1
+        launches = {k: _build.launches.get(k, 0) for k in FLASH_KERNELS}
+        plain = {k: v for k, v in fa.plain_calls.items() if v}
+        unchanged = _param_digest(base) == before
+        lines = out.getvalue().splitlines()
+        losses = run["losses"]
+        steps_lines = [ln for ln in lines if ln.startswith("step ")]
+        rec = {"base": base_dir, "lines": lines[:2] + steps_lines[-1:] + lines[-2:],
+               "n_adapter": run["n_adapter"], "n_base": run["n_base"],
+               "step0_logits_equal_base": step0_equal, "base_unchanged": unchanged,
+               "loss_first": losses[0], "loss_last5": sum(losses[-5:]) / 5,
+               "losses": [round(x, 4) for x in losses], "launches": launches,
+               "plain_calls": plain, "sample": run["sample"],
+               "step_ms": _steady_step_s(run["resolved_at"]) * 1e3,
+               "setup_s": setup_s, "finish_s": finish_s,
+               "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+        want_line = (f"training {LORA_ADAPTER_PARAMS:,} adapter params over a frozen "
+                     f"{LORA_BASE_PARAMS:,}-param base "
+                     f"({LORA_ADAPTER_PARAMS / LORA_BASE_PARAMS:.2%})")
+        want = base.cfg.n_layers * LORA_STEPS
+        serving = run["serving"]
+        del run, lora, base
+        free_device_memory()
+        # the merged artifact behind serve_lm, against generate on the
+        # merged weights
+        bodies = list(LORA_BODIES)
+        want_rows = []
+        for b in bodies:
+            p = torch.as_tensor(np.frombuffer(b["prompt"].encode(), np.uint8).astype(np.int64))
+            want_rows.append(generate(serving, p[None].cuda(), LORA_NEW)[0, p.numel():]
+                             .tolist())
+        del serving
+        model = load_model(torch.device("cuda"), max_len=256, artifact=tuned)
+        pool, rows, served = _zoo_serve(
+            model, ["--artifact", tuned, "--max-len", "256", "--batching", "8"], bodies,
+            "lora merged paged bf16", at_once=True, new_tokens=LORA_NEW)
+        served["decode_steps"] = decode_steps(pool)
+        served["against_generate"] = _greedy_against(model, bodies, rows, want_rows,
+                                                     "lora merged")
+        served["k4_want"] = model.cfg.n_layers * served["decode_steps"]
+        rec["serving"] = served
+        rec["wall_s"] = time.perf_counter() - t0
+        log(f"lora ({card}) " + json.dumps(rec))
+        if (rec["n_adapter"], rec["n_base"]) != (LORA_ADAPTER_PARAMS, LORA_BASE_PARAMS) \
+                or want_line not in lines:
+            raise AssertionError(f"lora: adapter count: {json.dumps(rec)}")
+        if not (step0_equal and unchanged):
+            raise AssertionError(f"lora: step 0 off the base, or the base moved: "
+                                 f"{json.dumps(rec)}")
+        if (any(n != want for n in launches.values()) or plain
+                or not all(math.isfinite(x) for x in losses)
+                or not rec["loss_last5"] < losses[0]):
+            raise AssertionError(f"lora: K1-K3 {launches} (want {want} each), plain {plain}, "
+                                 f"losses {losses}")
+        k4 = served["launches"].get(KERNEL, 0)
+        if (served["decoder"] != "PagedContinuousBatchingDecoder" or k4 == 0
+                or k4 != served["k4_want"] or served["plain_calls"]
+                or any(k != KERNEL for k in served["launches"])):
+            raise AssertionError(f"lora merged serving: {json.dumps(served)}")
+        del pool, model
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    free_device_memory()
+    return rec
+
+
+def _pp_batch(data_dir):
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
+
+    batch = next(iter(as_lm_batches(TextBatches(data_dir, PP_ROWS, seed=0))))
+    return torch.as_tensor(batch["input_ids"], device="cuda").long()
+
+
+def _pp_leaves(model, grads=False):
+    """{name in the one-process stack: float32 CPU copy} of the weights
+    (or their gradients) that ``model``'s rank holds: stage layer j of
+    rank s is layer s x layers-a-stage + j of the stack."""
+
+    per = len(model.stages)
+    out = {}
+    for name, p in model.named_parameters():
+        if name.startswith("stages."):
+            _, j, rest = name.split(".", 2)
+            name = f"stages.{model.stage_index * per + int(j)}.{rest}"
+        out[name] = (p.grad if grads else p).detach().float().cpu().clone()
+    return out
+
+
+def _leaves_off(mine, theirs, skip):
+    """The largest relative L2 difference of ``mine``'s leaves from
+    ``theirs``' (the one process's), with its leaf, over the leaves not
+    in ``skip``; ``same_names`` when every leaf is there at its shape."""
+
+    same = all(k in theirs and theirs[k].shape == v.shape for k, v in mine.items())
+    rel = {k: float((v - theirs[k]).norm() / theirs[k].norm().clamp_min(1e-30))
+           for k, v in mine.items() if k not in skip and k in theirs
+           and theirs[k].shape == v.shape}
+    leaf = max(rel, key=rel.get)
+    return {"max_rel": rel[leaf], "leaf": leaf, "compared": len(rel),
+            "skipped": len(mine) - len(rel), "same_names": same}
+
+
+def rank_pipeline(data_dir, yardstick):
+    """One rank of (b)'s 2-rank job over ``{"pp": 2}`` (gloo, the ranks on
+    the one card), or outside a job the one-process yardstick: every
+    layer in one stage, trained through the sequential
+    ``lm_reference_apply``.  PP_STEPS steps of optax.adamw's form on one
+    fixed batch.  The yardstick writes its step-0 gradients and final
+    weights to ``yardstick``; a rank reads them and holds its own leaf
+    by leaf.  Returns losses, K1-K3 launches, the stage's bytes, step
+    ms, the collectives and (a rank) the leaves' readings."""
+
+    from tf_operator_tpu_torch.gpt_pipeline import _Loop
+    from tf_operator_tpu_torch.models.gpt import gpt_small
+    from tf_operator_tpu_torch.models.pipelined_lm import PipelinedLM, reference_loss
+    from tf_operator_tpu_torch.ops import _build
+    from tf_operator_tpu_torch.ops import flash_attention as fa
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.parallel.trainer import Optimizer, TrainerConfig
+    from tf_operator_tpu_torch.runtime.bootstrap import entry_device, initialize, world
+
+    ctx = initialize("cuda")
+    rank, n = world()
+    dev = entry_device("cuda", ctx)
+    mesh = make_mesh({"pp": n}) if n > 1 else None
+    model = PipelinedLM(gpt_small(vocab_size=256, max_len=PP_SEQ), mesh,
+                        microbatches=PP_MICROBATCHES, activation="relu",
+                        device=dev).init_params(0)
+    params = list(model.parameters())
+    loop = _Loop(model, Optimizer(TrainerConfig(learning_rate=PP_LR, weight_decay=1e-4,
+                                                grad_clip=0.0), params,
+                                  decay=[True] * len(params)))
+    if mesh is None:
+        model.loss = lambda ids: reference_loss(model, ids)
+    ids = _pp_batch(data_dir)
+    zero = {k for k, v in _pp_leaves(model).items() if not v.any()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.launches.clear()
+    fa.plain_calls.clear()
+    losses, stamps = [], []
+    for step in range(PP_STEPS):
+        losses.append(float(loop.train_step(ids)["loss"]))  # resolves the step
+        if step == 0:
+            grads = _pp_leaves(model, grads=True)
+        stamps.append(time.perf_counter())
+    torch.cuda.synchronize()
+    weights = _pp_leaves(model)
+    if mesh is None:
+        torch.save({"grads": grads, "weights": weights}, yardstick)
+        leaves = {"names": sorted(weights)}
+    else:
+        one = torch.load(yardstick, mmap=True)
+        noise = {k for k in grads if k.endswith(PP_ZERO_GRAD)}
+        leaves = {"grads": _leaves_off(grads, one["grads"], noise),
+                  "weights": _leaves_off(weights, one["weights"], zero | noise),
+                  "names": sorted(weights)}
+    del grads, weights
+    return {"rank": rank, "world": n, "stage": model.stage_index, "leaves": leaves,
+            "layers": len(model.stages), "losses": losses,
+            "launches": {k: _build.launches.get(k, 0) for k in FLASH_KERNELS},
+            "plain_calls": {k: v for k, v in fa.plain_calls.items() if v},
+            "stage_bytes": model.stage_bytes(),
+            "step_ms": (stamps[-1] - stamps[0]) / (PP_STEPS - 1) * 1e3,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "collectives": mesh.stats.snapshot() if mesh is not None else {}}
+
+
+def rank_gpt_pipeline(family):
+    """(c) on this rank: ``gpt_pipeline --pp 2`` at its defaults through
+    its ``run``; returns the losses, K1-K3 and the step ms."""
+
+    from tf_operator_tpu_torch import gpt_pipeline
+    from tf_operator_tpu_torch.ops import _build
+
+    _build.launches.clear()
+    out = gpt_pipeline.run(gpt_pipeline.parse_args([
+        "--pp", "2", "--family", family, "--steps", str(PIPE_JOB_STEPS),
+        "--steps-per-sync", "1"]))
+    torch.cuda.synchronize()
+    model = out["model"]
+    return {"family": family, "stage": model.stage_index, "layers": len(model.stages),
+            "microbatches": model.microbatches, "losses": out["losses"],
+            "launches": {k: _build.launches.get(k, 0) for k in FLASH_KERNELS},
+            "step_ms": _steady_step_s(out["loop"]["resolved_at"]) * 1e3}
+
+
+def rank_pipeline_jobs(data_dir, yardstick):
+    """One rank of phase 16's 2-process world: (b), then (c)'s two jobs,
+    one family after the other in the same world; prints ``RANK
+    {...}``."""
+
+    rec = {"pp": rank_pipeline(data_dir, yardstick),
+           **{family: rank_gpt_pipeline(family) for family in ("gpt", "llama")}}
+    print("RANK " + json.dumps(rec), flush=True)
+    return rec
+
+
+def phase_pipeline(card):
+    """(b) and (c) (module docstring): one process's sequential oracle,
+    then one 2-process world: the 2-rank PipelinedLM, then
+    gpt_pipeline's two families.  Returns the records."""
+
+    import tempfile
+
+    from tf_operator_tpu_torch.data.text import ensure_text
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pp_")
+    try:
+        data_dir = os.path.join(tmp, "text")
+        ensure_text(data_dir, seq_len=PP_SEQ)
+        yardstick = os.path.join(tmp, "yardstick.pt")
+        one = rank_pipeline(data_dir, yardstick)
+        free_device_memory()
+        world = _run_ranks(2, "import chip_smoke as c; "
+                              f"c.rank_pipeline_jobs({data_dir!r}, {yardstick!r})",
+                           "pp 2: PipelinedLM, then gpt_pipeline gpt and llama")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ranks = [r["pp"] for r in world]
+    rec = {"ranks": [{k: r[k] for k in ("rank", "stage", "layers", "losses", "launches",
+                                        "plain_calls", "stage_bytes", "step_ms",
+                                        "max_memory_allocated_gib", "collectives")}
+                     | {k: r["leaves"][k] for k in ("grads", "weights")}
+                     for r in ranks],
+           "one_process": {k: one[k] for k in ("layers", "losses", "launches", "stage_bytes",
+                                               "step_ms", "max_memory_allocated_gib")},
+           "max_loss_rel": max(abs(a - b) / abs(b) for r in ranks
+                               for a, b in zip(r["losses"], one["losses"])),
+           "tol": DIST_LOSS_RTOL, "grad_rtol": PP_GRAD_RTOL, "weight_rtol": PP_WEIGHT_RTOL,
+           "wall_s": time.perf_counter() - t0}
+    log(f"pipeline gpt_small pp 2 ({card}) " + json.dumps(rec))
+    bad = []
+    if not rec["max_loss_rel"] <= DIST_LOSS_RTOL:
+        bad.append(f"losses {rec['max_loss_rel']:.3g} relative")
+    for r in ranks:
+        for kind, tol in (("grads", PP_GRAD_RTOL), ("weights", PP_WEIGHT_RTOL)):
+            off = r["leaves"][kind]
+            if not (off["same_names"] and off["max_rel"] <= tol):
+                bad.append(f"rank {r['rank']} {kind} {off}")
+    if set(ranks[0]["leaves"]["names"]) | set(ranks[1]["leaves"]["names"]) != set(
+            one["leaves"]["names"]):
+        bad.append("the ranks' leaves are not the one process's")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        bad.append("the ranks' losses differ")
+    if bad:
+        raise AssertionError("pipeline pp 2 off the yardstick: " + "; ".join(bad))
+    want = PP_MICROBATCHES * 6 * PP_STEPS
+    if ([r["stage"] for r in ranks] != [0, 1]
+            or one["launches"] != {k: 12 * PP_STEPS for k in FLASH_KERNELS}
+            or any(2 * r["stage_bytes"] != one["stage_bytes"] or r["layers"] != 6
+                   or r["launches"] != {k: want for k in FLASH_KERNELS} or r["plain_calls"]
+                   for r in ranks)):
+        raise AssertionError(f"pipeline pp 2: {json.dumps(rec)}")
+    # (c): both families' jobs, run by the same ranks after (b)
+    entry = {}
+    for family in ("gpt", "llama"):
+        rs = [dict(r[family], lines=r["lines"]) for r in world]
+        tag = f"[{family} pp=2 dp=1 mb=4]: steps 0..{PIPE_JOB_STEPS} loss "
+        lines = [[ln for ln in r["lines"] if tag in ln] for r in rs]
+        entry[family] = {"lines": [ls[-1] if ls else None for ls in lines],
+                         **{k: [r.get(k) for r in rs] for k in ("losses", "launches",
+                                                                "step_ms", "layers")}}
+        # 2 layers a stage x 4 microbatches a step
+        want = {k: 2 * 4 * PIPE_JOB_STEPS for k in FLASH_KERNELS}
+        ok = (all(len(ls) == 1 for ls in lines)
+              and lines[0][0].split("]:")[1] == lines[1][0].split("]:")[1]
+              and rs[0]["losses"] == rs[1]["losses"]
+              and sum(rs[0]["losses"][-3:]) / 3 < rs[0]["losses"][0]
+              and all(r["launches"] == want for r in rs))
+        if not ok:
+            raise AssertionError(f"gpt_pipeline --family {family}: {json.dumps(entry[family])}")
+    log(f"gpt_pipeline --pp 2 jobs ({card}) " + json.dumps(entry))
+    rec["gpt_pipeline"] = entry
+    return rec
+
+
+def phase_lora_pipeline(base_dir, card):
+    """Phase 16: K1-K3 at its shapes, then (a) LoRA, (b) and (c) the
+    pipeline.  Returns the flash records and the runs, with the walls."""
+
+    t0 = time.perf_counter()
+    flash = [flash_case(n, seed=160 + i, dtype=torch.bfloat16, causal=True, timed=True,
+                        queued=True, **kw) for i, (n, kw) in enumerate(PHASE16_FLASH)]
+    log(f"phase 16 flash shapes ({card}) " + json.dumps(
+        {r["case"]: {**{k: {f: round(t[f], 5) for f in ("ms", "device_ms", "bound_ms",
+                                                         "plain_ms", "library_ms")}
+                        | {"bound_by": t["bound_by"]} for k, t in r["timing"].items()},
+                     "sdpa_device_ms": r["sdpa_device_ms"],
+                     "max_abs_err": r["max_abs_err"], "row_rel": r["row_rel"]}
+         for r in flash}))
+    free_device_memory()
+    walls = {"kernels": time.perf_counter() - t0}
+    runs = {"lora": phase_lora(base_dir, card)}
+    walls["lora"] = runs["lora"]["wall_s"]
+    runs["pipeline"] = phase_pipeline(card)
+    walls["pipeline"] = runs["pipeline"]["wall_s"]
+    walls["total"] = time.perf_counter() - t0
+    log(f"phase 16 walls ({card}) " + json.dumps(walls))
+    return flash, runs
 
 
 #: phase 5b's llama-wide job: steps and rows a rank (the one-process
@@ -5720,10 +6185,13 @@ def main():
         del trainer
         free_device_memory()
         phase_parity(args, batch)
+        log(f"training phases done at {time.perf_counter() - t0:.1f} s")
+        # phase 16 fine-tunes phase 5's export
+        pp_flash, pp_runs = phase_lora_pipeline(export_dir, card)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     free_device_memory()
-    log(f"training phases done at {time.perf_counter() - t0:.1f} s")
+    log(f"phase 16 done at {time.perf_counter() - t0:.1f} s")
     _, encoder_runs = phase_encoders(card)
     log(f"encoder phase done at {time.perf_counter() - t0:.1f} s")
     _, zoo_k7, zoo_runs = phase_zoo(card)
@@ -5802,11 +6270,28 @@ def main():
                                                  for r in zoo_runs["moe_tiny_job"]["ranks"]),
                    # phase 5d's 2-rank jobs: both ranks' launches
                    **{path: sum(r[key]["launches"][kname] for r in mp_runs["ranks"])
-                      for path, key in MP_PATHS}}
+                      for path, key in MP_PATHS},
+                   # phase 16: lora_finetune, and both ranks of each pp job
+                   "lora_finetune": pp_runs["lora"]["launches"][kname],
+                   "pipelined_lm_pp2": sum(r["launches"][kname]
+                                           for r in pp_runs["pipeline"]["ranks"]),
+                   **{f"gpt_pipeline_pp2_{family}": sum(
+                       pp_runs["pipeline"]["gpt_pipeline"][family]["launches"][i][kname]
+                       for i in range(2)) for family in ("gpt", "llama")}}
         entry = _kernel_entry(
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
             sum(by_path.values()), wide["max_abs_err"][errs[kname]], wide["timing"][kname])
         entry["launches_by_path"] = by_path
+        # phase 16's shapes: device (queued) and host-included ms, the
+        # bound, SDPA's device forward / backward
+        entry["phase16_shapes"] = {
+            r["case"]: {"device_ms": r["timing"][kname]["device_ms"],
+                        "ms": r["timing"][kname]["ms"],
+                        "bound_ms": r["timing"][kname]["bound_ms"],
+                        "bound_by": r["timing"][kname]["bound_by"],
+                        "plain_ms": r["timing"][kname]["plain_ms"],
+                        "max_abs_err": r["max_abs_err"][errs[kname]],
+                        "sdpa_device_ms": r["sdpa_device_ms"]} for r in pp_flash}
         kernels.insert(-1, entry)
     step = k7_decode_step(k7)
     k7_by_path = {"serve_lm_llama_7b_int8_pool": int8_stats["launches"].get("quant_matmul", 0),

@@ -72,7 +72,8 @@ def test_importing_every_module_loads_no_jax():
               "dist_psum", "dist_mnist", "dist_multislice", "ops.ring_attention",
               "ops.ulysses_attention", "models.bert", "models.t5", "models.vit",
               "bert_pretrain", "t5_multihost", "vit_classify", "models.gpt", "models.moe",
-              "models.registry", "parallel.tensor_parallel"):
+              "models.registry", "parallel.tensor_parallel", "models.lora",
+              "models.pipelined_lm", "parallel.pipeline", "lora_finetune", "gpt_pipeline"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -84,6 +85,18 @@ def test_importing_every_module_loads_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("entry,argv", [("lora_finetune", ["--base", "."]),
+                                        ("gpt_pipeline", ["--pp", "1", "--steps", "1"])])
+def test_the_lora_and_pipeline_entries_run_on_the_card_unless_asked(entry, argv):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-m", f"tf_operator_tpu_torch.{entry}", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert "loss" not in proc.stdout
 
 
 def _run_smoke(cwd):

@@ -309,6 +309,49 @@ def test_flight_recorder_copy_dumps_the_same_sections(monkeypatch, tmp_path, fli
     assert os.path.dirname(path) == want and path.endswith("-test.jsonl")
 
 
+def test_flight_dump_names_each_request_of_a_roles_fleet_once(monkeypatch):
+    """A roles fleet logs each request twice under one id (the prefill
+    replica's internal publish, then the decode replica's entry).  The
+    port's dump takes its tail over ids, the newest 16, and keeps every
+    entry of each, so all nine requests appear with both replicas'
+    entries; the reference's tail of 16 entries drops the request whose
+    two entries are the oldest (a deliberate difference).  Every entry
+    the reference dumps, the port dumps too, and where each request logs
+    once the two dumps are equal."""
+
+    clock = iter(range(1000))
+    monkeypatch.setattr(time, "time", lambda: 1.7e9 + next(clock))
+
+    def dump(rec, log_cls, roles):
+        prefill, decode = log_cls(), log_cls()
+        # request r-0's publish and its decode entry open before the
+        # other eight arrive at the prefill replica
+        for i in range(9):
+            if roles:
+                prefill.open(id=f"r-{i}", rid=i, replica="0", internal=True)
+            if i == 0:
+                decode.open(id="r-0", rid=0, replica="1")
+        for i in range(1, 9):
+            decode.open(id=f"r-{i}", rid=i, replica="1")
+        rec.attach_request_log(prefill)
+        rec.attach_request_log(decode)
+        return [r for r in rec.records() if r["type"] == "request"]
+
+    def entries(rows):
+        return sorted((r["id"], r["replica"]) for r in rows)
+
+    port = dump(flight.FlightRecorder(), RequestLog, roles=True)
+    jax_ = dump(j_flight.FlightRecorder(), JaxRequestLog, roles=True)
+    assert sorted({r["id"] for r in port}) == [f"r-{i}" for i in range(9)]
+    assert entries(port) == sorted((f"r-{i}", rep) for i in range(9) for rep in "01")
+    assert len(jax_) == 16 and "r-0" not in {r["id"] for r in jax_}
+    assert set(entries(jax_)) < set(entries(port))
+    # one entry a request: the same dump as the reference's
+    port = dump(flight.FlightRecorder(max_requests=4), RequestLog, roles=False)
+    jax_ = dump(j_flight.FlightRecorder(max_requests=4), JaxRequestLog, roles=False)
+    assert entries(port) == entries(jax_) == [(f"r-{i}", "1") for i in range(5, 9)]
+
+
 # -- the pools --------------------------------------------------------------
 
 VOCAB, MAX_LEN = 256, 64

@@ -202,19 +202,66 @@ def init_params(cfg, seed: int, device, *, trainable: bool = False,
     state = {}
     for name, p in family(cfg, device="meta", trainable=trainable).named_parameters():
         shape = tuple(p.shape)
-        if name.endswith(".scale"):
-            t = torch.ones(shape, dtype=torch.float32, device=device)
-        elif name.endswith(".bias"):
-            t = torch.zeros(shape, dtype=torch.float32, device=device)
-        elif name.split(".")[-1] in _NORMAL_INIT or name == "lm_head.kernel":
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            t.normal_(0.0, 0.02, generator=g)
-        else:
-            # flax lecun_normal: truncated normal, stddev corrected for
-            # the truncation at +-2
-            std = math.sqrt(1.0 / _lecun_fan_in(shape)) / 0.87962566103423978
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=g)
+        t = draw_param(name, shape, g, device)
         state[name] = (quantize_param(name, t) if quantize and eligible(name, shape)
                        else t.to(p.dtype))
     return state
+
+
+def draw_param(name: str, shape, generator: torch.Generator, device) -> torch.Tensor:
+    """One float32 parameter at its flax init scale (:func:`init_params`'
+    law, read from its name), drawn from ``generator`` on ``device``."""
+
+    shape = tuple(shape)
+    leaf = name.split(".")[-1]
+    if leaf == "scale":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if leaf == "bias":
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    t = torch.empty(shape, dtype=torch.float32, device=device)
+    if leaf in _NORMAL_INIT or name == "lm_head.kernel":
+        return t.normal_(0.0, 0.02, generator=generator)
+    # flax lecun_normal: truncated normal, stddev corrected for the
+    # truncation at +-2
+    std = math.sqrt(1.0 / _lecun_fan_in(shape)) / 0.87962566103423978
+    return torch.nn.init.trunc_normal_(t, 0.0, std, -2 * std, 2 * std, generator=generator)
+
+
+def lora_from_flax(adapters) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The JAX package's adapter tree ``{flax path: {"a", "b"}}`` (arrays)
+    -> the port's (``models/lora.py``: the same keys, float32 tensors on
+    the CPU)."""
+
+    return {path: {k: torch.tensor(np.asarray(ab[k], np.float32)) for k in ("a", "b")}
+            for path, ab in adapters.items()}
+
+
+def lora_to_flax(adapters) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`lora_from_flax`: numpy float32 arrays."""
+
+    return {path: {k: ab[k].detach().to("cpu", torch.float32).numpy() for k in ("a", "b")}
+            for path, ab in adapters.items()}
+
+
+def pipelined_state_from_flax(tree, stage: int, pp: int) -> Dict[str, torch.Tensor]:
+    """The JAX ``PipelinedLM``'s params (boxed or not) -> the state of
+    the port's ``PipelinedLM`` on stage ``stage`` of ``pp``: ``embed``,
+    ``ln`` and ``pos`` whole, and the stage's layers.  The reference
+    stacks each layer leaf [its pp, layers a stage, ...]; the stack is
+    cut anew into ``pp`` stages (any pp that divides the layers), and
+    layer j of this stage is ``stages.j``."""
+
+    out = {}
+    for path, value in _flatten(tree).items():
+        parts = [p for p in path.split("/") if p not in _NORM_SCOPES]
+        t = torch.tensor(np.asarray(value))
+        if parts[0] != "stages":
+            out[".".join(parts)] = t
+            continue
+        flat = t.reshape(-1, *t.shape[2:])
+        if flat.shape[0] % pp:
+            raise ValueError(f"{flat.shape[0]} layers do not split into {pp} stages")
+        per = flat.shape[0] // pp
+        for j in range(per):
+            out[".".join(["stages", str(j)] + parts[1:])] = flat[stage * per + j].clone()
+    return out

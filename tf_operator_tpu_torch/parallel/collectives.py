@@ -49,6 +49,10 @@ exception (:func:`host_staged`).  The route is fixed by the collective,
 the backend and the tensor's device before the call and recorded in the
 stats beside the stage.
 
+The pipeline (parallel/pipeline.py) moves activations with the
+ppermute without its wrap-around pair (``wrap=False``) and shares a
+stage's tensor over its line with :func:`broadcast`.
+
 Byte accounting (``ledger()``): the JAX plan's, payload bytes per rank per step: a stage-2 all-reduce of an
 F-byte fragment counts F toward dcn, a stage-3 gather counts (full -
 fragment) toward ici; the intra-slice reduction is not counted.  Two
@@ -157,6 +161,24 @@ def all_gather(out: torch.Tensor, inp: torch.Tensor, group, stats: CollectiveSta
     return out
 
 
+def broadcast(t: torch.Tensor, src_index: int, group, stats: CollectiveStats,
+              stage: str) -> torch.Tensor:
+    """Overwrite ``t`` in place with the ``t`` of the line's rank at
+    coordinate ``src_index``, byte for byte (sent as uint8, which every
+    backend takes whatever ``t``'s dtype); a no-op on a one-rank line.
+    ``t`` must be contiguous."""
+
+    import torch.distributed as dist
+
+    if group is None:
+        return t
+    src = dist.get_process_group_ranks(group)[src_index]
+    t0 = time.perf_counter()
+    dist.broadcast(t.view(torch.uint8), src=src, group=group)
+    stats.add(stage, _nbytes(t), time.perf_counter() - t0)
+    return t
+
+
 def host_staged(kind: str, backend: str, device_type: str) -> bool:
     """Whether a ``kind`` collective (``"ppermute"`` or ``"all_to_all"``)
     on ``backend`` copies tensors on ``device_type`` to the CPU for the
@@ -190,28 +212,39 @@ def _timed_call(call, t: torch.Tensor, group, kind: str, stats: CollectiveStats,
 
 
 def ppermute(t: torch.Tensor, group, stats: CollectiveStats, stage: str,
-             shift: int = 1) -> torch.Tensor:
+             shift: int = 1, wrap: bool = True) -> torch.Tensor:
     """``lax.ppermute`` over the ring of ``group`` (a mesh line, its
     ranks in coordinate order) with the permutation j -> (j + shift) % n:
     a new tensor holding the ``t`` of the rank ``shift`` places back.
-    One ``batch_isend_irecv`` (a send and a receive, posted together);
-    a one-rank line copies."""
+    ``wrap=False`` drops the pairs that cross the line's ends (the
+    pipeline's [(i, i + 1)]): a rank with no sender receives zeros, as
+    ``lax.ppermute`` gives it.  One ``batch_isend_irecv`` (the send and
+    the receive a rank has, posted together); a one-rank line copies
+    (zeros without wrap)."""
 
     import torch.distributed as dist
 
     if group is None:
-        return t.clone()
+        return t.clone() if wrap else torch.zeros_like(t)
     ranks = dist.get_process_group_ranks(group)
     me = ranks.index(dist.get_rank())
     n = len(ranks)
-    dst, src = ranks[(me + shift) % n], ranks[(me - shift) % n]
+    to, frm = me + shift, me - shift
+    dst = ranks[to % n] if wrap or 0 <= to < n else None
+    src = ranks[frm % n] if wrap or 0 <= frm < n else None
     t = t.contiguous()
 
     def call(send, recv):
-        ops = [dist.P2POp(dist.isend, send, dst, group),
-               dist.P2POp(dist.irecv, recv, src, group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        ops = []
+        if dst is not None:
+            ops.append(dist.P2POp(dist.isend, send, dst, group))
+        if src is not None:
+            ops.append(dist.P2POp(dist.irecv, recv, src, group))
+        else:
+            recv.zero_()
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
 
     return _timed_call(call, t, group, "ppermute", stats, stage)
 

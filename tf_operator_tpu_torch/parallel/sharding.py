@@ -133,14 +133,16 @@ ENCODER_PARAM_AXES: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
 Spec = Tuple[Any, ...]
 
 def check_mesh(mesh: Mesh) -> None:
-    """Refuse the meshes the port does not shard over: a pp axis above 1
-    (pipeline parallelism, pipelined_lm), and sp above 1 together with tp
-    or ep (the reference's sequence-parallel attention over heads split
-    on tp, ``heads_axis="tp"``)."""
+    """Refuse the meshes the trainer does not shard over: a pp axis above
+    1 (the JAX trainer has no pipeline either: pipeline parallelism runs
+    through ``models/pipelined_lm.PipelinedLM``), and sp above 1 together
+    with tp or ep (the reference's sequence-parallel attention over heads
+    split on tp, ``heads_axis="tp"``)."""
 
     if mesh.shape[AXIS_PP] > 1:
-        raise NotImplementedError(f"mesh axis pp={mesh.shape[AXIS_PP]}: pipeline parallelism "
-                                  "(pipelined_lm) is not ported yet")
+        raise NotImplementedError(f"mesh axis pp={mesh.shape[AXIS_PP]}: the trainer runs no "
+                                  "pipeline; pipeline parallelism runs through "
+                                  "models/pipelined_lm.PipelinedLM")
     model = [ax for ax in MODEL_PARALLEL_AXES if mesh.shape[ax] > 1]
     if mesh.shape[AXIS_SP] > 1 and model:
         raise NotImplementedError(

@@ -210,7 +210,13 @@ class FlightRecorder:
         # concatenation would let the last-attached replica's entries
         # crowd every other replica out of the K-slot tail
         requests.sort(key=lambda e: e.get("submit_unix", 0.0))
-        requests = requests[-self.max_requests:] if requests else []
+        # the tail is the newest K ids with every entry of each: a roles
+        # fleet logs each request on its prefill replica (the internal
+        # publish) and on its decode replica, and a tail of K entries
+        # would name K / 2 requests (the reference's does)
+        ids = set(list(dict.fromkeys(e.get("id") for e in reversed(requests)))
+                  [:self.max_requests])
+        requests = [e for e in requests if e.get("id") in ids]
         arenas: List[Dict[str, Any]] = []
         for tl in timelines if self.max_arena_samples > 0 else []:
             try:
