@@ -120,10 +120,18 @@ Phases, in order; any failure exits non-zero before the result line:
    together), and the one-step parity: the first step's loss and grad
    norm through the kernels against the same step with the plain
    attention, same weights and batch.
-5b. the operator's multi-process jobs (``phase_multiprocess``), each
+5b. the operator's multi-process jobs (``phase_multiprocess``, which
+   also runs 5c and 5e), each
    rank a process spawned here with the ``TPUJOB_*`` environment written
    here, all on the one card (so gloo: NCCL refuses two ranks on one
-   GPU); the kernels are phase 2's builds.  (1) 2 ranks:
+   GPU); the kernels are phase 2's builds.  One 2-rank world runs 5b's
+   2-rank jobs, 5c's and 5e's 2-rank jobs and 5d's in turn
+   (``rank_jobs``: the processes start once), one 4-rank world 5b's
+   multislice job and 5e's 4-rank jobs, this process every yardstick;
+   then each job's check.  The phase prints the walls of 5b + 5c and of
+   5e.  ``phase_multiprocess(card, jobs=...)`` runs some of the jobs
+   (``multiprocess_jobs`` names them) through the same worlds and
+   checks, as ``chip_fault_probe.py`` does.  (1) 2 ranks:
    ``dist_psum`` on CUDA tensors (the reference's line), then
    ``psum_hierarchical`` over fsdp against the flat all-reduce on card
    tensors (``PSUM_ATOL``) and a 64 MiB sync probe.  (2) llama-wide at
@@ -163,6 +171,32 @@ Phases, in order; any failure exits non-zero before the result line:
    plain attention, no boundary block; prints per rank the step ms,
    the collectives' share of the wall and bytes by stage, and
    ``max_memory_allocated``.
+5e. sequence parallelism over the decoder zoo and beside tp / ep
+   (``phase_sp_zoo``, inside phase 5b): K1, K2 and K3 at the shapes a
+   rank runs (``SP_ZOO_FLASH``: Ulysses' whole sequence at a tp 2 rank's
+   3 heads over sp 2, the ring's non-causal hop at 512 of 1,024)
+   against their plain versions, timed;
+   then gpt_small's widths (``CausalLM``, vocab 256, all 12 layers,
+   learned positions for 1,024) and the 8-expert moe at those widths
+   (0.48 B, capacity factor ``SP_ZOO_CAPACITY`` 0.5, so routes drop and
+   the slots' scan across the sp line decides which), dropout 0,
+   ``DIST_STEPS`` ``Trainer`` steps at seq 1024 x 8 of the byte corpus
+   (AdamW, the zoo's rate for gpt, ``MP_LR`` for the moe): one process
+   each (the yardsticks, here), then in 5b's 2-rank world gpt on the
+   ring and on Ulysses and the moe on the ring over ``{"sp": 2}``, and
+   in a 4-rank world gpt on Ulysses over ``{"sp": 2, "tp": 2}`` (12
+   heads, 6 a tp rank, 3 an sp shard) and the moe on the ring over
+   ``{"sp": 2, "ep": 2}`` (4 experts a rank), all at full width and
+   depth.  Each rank's losses within ``DIST_LOSS_RTOL`` of its family's
+   yardstick and equal on every rank, rank 0's gathered weights within
+   ``DIST_WEIGHT_RTOL`` leaf by leaf (the biases skipped:
+   ``SP_ZOO_SKIP``), each leaf's step-0 gradient norm within
+   ``SP_ZOO_GRAD_RTOL`` of one process's, K1-K3 = 12 x steps x (r + 1)
+   on sp rank r of the causal ring and 12 x steps under Ulysses, no
+   plain attention; prints per rank the step ms, the collectives by
+   stage, the bytes it holds and peak memory.  ``chip_fault_probe.py
+   moe_sp_prefix`` must see the moe check refuse the scan without the
+   earlier rank's counts.
 5d. the model-parallel jobs (``phase_model_parallel``): K1, K2 and K3
    at the shapes a rank runs (``MP_FLASH``: T5-base's and ViT-B/16's
    6 heads of 12 under tp 2, the 8-expert moe's 12 heads under ep 2)
@@ -510,9 +544,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``PIPE_JOB_STEPS`` steps: the reference's tag line equal on both
    ranks, the loss falling, K1-K3 = 2 x 4 a step.
 17. the kernels line (K1, K2, K3 from the training paths: llama's, the
-   three encoders', the zoo's, phase 5d's 2-rank jobs and phase 16's
-   (both ranks'), each counted around its own run, with
-   the counts by path, and phase 16's shapes; K4 from the serving path, K7 from the int8
+   three encoders', the zoo's, phase 5d's 2-rank jobs, phase 16's
+   (both ranks') and phase 5e's (every rank's), each counted around its
+   own run, with the counts by path, and phase 16's and 5e's shapes; K4 from the serving path, K7 from the int8
    serving paths, 7B's pool and gpt_small's chunked decoder, by path;
    K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
    no-residual class, where F.batch_norm computes the same function),
@@ -4791,28 +4825,39 @@ def _rank_env(rank, n, port, extra=None):
     return env
 
 
-def _run_ranks(n, code, tag, extra=None, timeout=600):
+def _run_ranks(n, code, tag, extra=None, timeout=900):
     """``python -c code`` as ranks 0..n-1 of one job (``n`` = 0: one
     process outside any job), all started together from the repo root;
-    returns each rank's ``RANK {...}`` record and its output lines."""
+    returns each rank's ``RANK {...}`` record and its output lines.  Each
+    rank writes to a file of its own, so that no rank waits on a full
+    pipe while another waits on it in a collective; ``timeout``: the
+    seconds the job may take."""
+
+    import tempfile
 
     here = os.path.dirname(os.path.abspath(__file__))
     port = _free_port()
     envs = ([_rank_env(r, n, port, extra) for r in range(n)] if n else
             [{k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}])
     t0 = time.perf_counter()
+    files = [tempfile.TemporaryFile(mode="w+") for _ in envs]
     procs = [subprocess.Popen([sys.executable, "-c", code], cwd=here, env=env, text=True,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-             for env in envs]
-    outs = []
+                              stdout=f, stderr=subprocess.STDOUT)
+             for env, f in zip(envs, files)]
     try:
         for p in procs:
-            outs.append(p.communicate(timeout=timeout)[0])
+            p.wait(timeout=max(1.0, t0 + timeout - time.perf_counter()))
+        outs = []
+        for f in files:
+            f.seek(0)
+            outs.append(f.read())
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait(timeout=60)
+        for f in files:
+            f.close()
     wall = time.perf_counter() - t0
     recs = []
     for r, (p, out) in enumerate(zip(procs, outs)):
@@ -4853,6 +4898,35 @@ def _check_psum(mesh, device, tag):
     return {"psum_max_abs_err": err, "sync_probe": probe}
 
 
+def rank_jobs(jobs):
+    """One process of a world (or one process outside any) that runs
+    ``jobs`` in turn, so that the processes start once: each ``(name,
+    function, kwargs)``, the function one of this module's ``rank_*``,
+    which returns its record; prints ``RANK {name: record}``, each with
+    the job's wall."""
+
+    recs = {}
+    for name, fn, kw in jobs:
+        t0 = time.perf_counter()
+        rec = globals()[fn](**kw)
+        torch.cuda.synchronize()
+        recs[name] = dict(rec, job_wall_s=time.perf_counter() - t0)
+        free_device_memory()
+    print("RANK " + json.dumps(recs), flush=True)
+    return recs
+
+
+def _jobs_code(jobs):
+    return f"import chip_smoke as c; c.rank_jobs({list(jobs)!r})"
+
+
+def _job(ranks, name):
+    """Each rank's record of the job ``name`` (``rank_jobs``), with the
+    rank's output lines."""
+
+    return [dict(r[name], lines=r["lines"]) for r in ranks]
+
+
 def rank_psum():
     """Phase 5b's 2-rank job: ``dist_psum`` on CUDA tensors, then
     ``psum_hierarchical`` over fsdp on card tensors."""
@@ -4864,9 +4938,8 @@ def rank_psum():
     assert dist_psum.main([]) == 0
     ctx = initialize("cuda")
     rec = _check_psum(make_mesh({"fsdp": -1}), ctx.device, "2-rank psum")
-    print("RANK " + json.dumps(dict(rec, rank=ctx.process_id, backend=ctx.backend,
-                                    device=str(ctx.device), job=from_env().job_name)),
-          flush=True)
+    return dict(rec, rank=ctx.process_id, backend=ctx.backend, device=str(ctx.device),
+                job=from_env().job_name)
 
 
 def rank_multislice():
@@ -4880,8 +4953,7 @@ def rank_multislice():
     ctx = initialize("cuda")
     rec = _check_psum(make_mesh({"dp": 2, "fsdp": -1}), ctx.device, "4-rank psum")
     assert dist_multislice.main([]) == 0
-    print("RANK " + json.dumps(dict(rec, rank=ctx.process_id, backend=ctx.backend)),
-          flush=True)
+    return dict(rec, rank=ctx.process_id, backend=ctx.backend)
 
 
 def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
@@ -4891,7 +4963,8 @@ def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
     training state it holds between steps, peak memory.  ``save``:
     write the weights after the run there; ``compare``: (rank 0) hold
     the gathered weights against the ones written there, leaf by leaf;
-    ``extra``: more flags (``--sp``, ``--sp-impl``)."""
+    ``extra``: more flags (``--sp``, ``--sp-impl``).  Returns the
+    record."""
 
     import dataclasses
 
@@ -4903,16 +4976,22 @@ def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
     from tf_operator_tpu_torch.runtime.harness import gather_params
 
     full_depth = llama_pretrain.model_config
-    llama_pretrain.model_config = lambda name, seq_len, **kw: dataclasses.replace(
-        full_depth(name, seq_len, **kw), n_layers=DIST_LAYERS)
     args = llama_pretrain.parse_args([
         "--model", "llama-wide", "--seq-len", "2048", "--batch-per-device",
         str(batch_per_device), "--steps", str(DIST_STEPS), "--steps-per-sync", "1",
         "--data-dir", data_dir, "--generate", "0", *extra])
+    free_device_memory()
+    torch.cuda.reset_peak_memory_stats()
     _build.launches.clear()
     fa.plain_calls.clear()
     ra.boundary_blocks.clear()
-    out = llama_pretrain.run(args)
+    # the depth cut, for this run only
+    llama_pretrain.model_config = lambda name, seq_len, **kw: dataclasses.replace(
+        full_depth(name, seq_len, **kw), n_layers=DIST_LAYERS)
+    try:
+        out = llama_pretrain.run(args)
+    finally:
+        llama_pretrain.model_config = full_depth
     torch.cuda.synchronize()
     launches, plain = dict(_build.launches), dict(fa.plain_calls)
     boundary = dict(ra.boundary_blocks)
@@ -4932,18 +5011,23 @@ def rank_llama(data_dir, batch_per_device, save=None, compare=None, extra=()):
     if save:
         torch.save({k: v.cpu() for k, v in params.items()}, save)
     if compare and rank == 0:
-        want = torch.load(compare)
-        rel = {k: float((params[k].float() - w.to(params[k].device)).norm()
-                        / w.to(params[k].device).norm()) for k, w in want.items()}
-        leaf = max(rel, key=rel.get)
-        rec["weights"] = {"leaves": len(rel), "same_names": sorted(rel) == sorted(params),
-                          "max_rel": rel[leaf], "max_leaf": leaf}
-    print("RANK " + json.dumps(rec), flush=True)
+        rec["weights"] = _leaves_against(params, torch.load(compare))
+    return rec
 
 
-#: one process of phases 5b and 5c's llama-wide runs: data dir, rows a
-#: process, save, compare, extra flags
-LLAMA_RANK = "import chip_smoke as c; c.rank_llama({!r}, {}, save={!r}, compare={!r}, extra={!r})"
+def _leaves_against(params, want, skip=None):
+    """``params`` against the weights ``want`` leaf by leaf: the largest
+    relative L2 difference and its leaf, the leaf count, whether the
+    names are the same.  ``skip``: a suffix of leaves left out (and
+    counted)."""
+
+    rel = {k: float((params[k].float() - w.to(params[k].device)).norm()
+                    / w.to(params[k].device).norm()) for k, w in want.items()
+           if k in params and not (skip and k.endswith(skip))}
+    leaf = max(rel, key=rel.get)
+    return {"leaves": len(rel), "skipped": len(want) - len(rel),
+            "same_names": sorted(want) == sorted(params), "max_rel": rel[leaf],
+            "max_leaf": leaf}
 
 
 def _llama_paths(tmp):
@@ -4952,14 +5036,24 @@ def _llama_paths(tmp):
     return os.path.join(tmp, "text"), os.path.join(tmp, "yardstick.pt")
 
 
-def llama_yardstick(tmp):
-    """Phases 5b and 5c's yardstick: llama-wide in one process on the
-    global batch (2 x ``DIST_BATCH`` rows), its weights written under
-    ``tmp``; its record."""
-
+def _llama_job(tmp, rows, save=False, compare=False, extra=()):
     data_dir, yard = _llama_paths(tmp)
-    return _run_ranks(0, LLAMA_RANK.format(data_dir, 2 * DIST_BATCH, yard, None, ()),
-                      "llama-wide yardstick")[0]
+    return ("rank_llama", {"data_dir": data_dir, "batch_per_device": rows,
+                           "save": yard if save else None, "compare": yard if compare else None,
+                           "extra": tuple(extra)})
+
+
+def llama_yardsticks(tmp):
+    """Phases 5b and 5c's yardstick, llama-wide in this process on the
+    global batch (2 x ``DIST_BATCH`` rows, its weights written under
+    ``tmp``), and then on 4 rows (memory only): their records."""
+
+    t0 = time.perf_counter()
+    recs = [rank_llama(**_llama_job(tmp, rows, save=rows > DIST_BATCH)[1])
+            for rows in (2 * DIST_BATCH, DIST_BATCH)]
+    free_device_memory()
+    log(f"llama-wide yardstick, then 4 rows: this process in {time.perf_counter() - t0:.1f} s")
+    return recs
 
 
 def _weights_off(rec, bad):
@@ -4973,17 +5067,13 @@ def _weights_off(rec, bad):
     return weights
 
 
-def phase_llama_fsdp(tmp, card):
-    """Phase 5b (2): llama-wide at full width, one process on the global
-    batch (the yardstick) and on 4 rows (memory), then 2 ranks over
-    fsdp 2; raises with the readings if a rank is off the yardstick."""
+def phase_llama_fsdp(card, one, one4, ranks):
+    """Phase 5b (2): the 2 ranks of llama-wide over fsdp 2 (their records
+    ``ranks``, from ``phase_multiprocess``'s world) against one process
+    on the global batch (``one``, the yardstick) and on 4 rows (``one4``,
+    memory only: ``llama_yardsticks``); raises with the readings if a
+    rank is off the yardstick."""
 
-    data_dir, yard = _llama_paths(tmp)
-    one = llama_yardstick(tmp)
-    one4 = _run_ranks(0, LLAMA_RANK.format(data_dir, DIST_BATCH, None, None, ()),
-                      "llama-wide one process, 4 rows")[0]
-    ranks = _run_ranks(2, LLAMA_RANK.format(data_dir, DIST_BATCH, None, yard, ()),
-                       "llama-wide fsdp 2")
     want = DIST_STEPS * DIST_LAYERS
     rows, bad = [], []
     for rec in ranks:
@@ -5041,7 +5131,8 @@ def _sp_reckon(impl, window, r):
 def rank_sp_attention():
     """Phase 5c(a), one rank of 2: each schedule on this rank's chunk of
     one seeded global input, forward and backward, against one
-    process's K1 forward and K2 / K3 backward on the whole sequence."""
+    process's K1 forward and K2 / K3 backward on the whole sequence;
+    returns the record."""
 
     from tf_operator_tpu_torch.ops import _build
     from tf_operator_tpu_torch.ops import flash_attention as fa
@@ -5088,15 +5179,14 @@ def rank_sp_attention():
                      "boundary_blocks": dict(ra.boundary_blocks), "ms": wall * 1e3,
                      "collectives": mesh.stats.snapshot(), "want": _sp_reckon(impl, window, rank)})
         del got, want, o
-    print("RANK " + json.dumps({"rank": rank, "cases": rows}), flush=True)
+    return {"rank": rank, "cases": rows}
 
 
-def phase_sp_attention(card):
+def phase_sp_attention(card, ranks):
     """Phase 5c(a) (module docstring): the sp attention at llama-wide's
-    attention shape against one process; raises with the readings if a
-    rank is off."""
+    attention shape against one process, the 2 ranks' records
+    ``ranks``; raises with the readings if a rank is off."""
 
-    ranks = _run_ranks(2, "import chip_smoke as c; c.rank_sp_attention()", "sp attention")
     bad = []
     for rec in ranks:
         for row in rec["cases"]:
@@ -5117,19 +5207,21 @@ def phase_sp_attention(card):
     return attention
 
 
-def phase_sp_llama(tmp, card, yardstick, impls=SP_IMPLS):
-    """Phase 5c(b) (module docstring): ``llama_pretrain --sp 2`` with
-    each schedule against the yardstick (``llama_yardstick``: its losses
-    ``yardstick``, its weights under ``tmp``) on the same global batch,
-    loss by loss and rank 0's weights leaf by leaf; raises with the
-    readings if a rank is off."""
+def _sp_llama_job(tmp, impl):
+    return (f"sp_{impl}", *_llama_job(tmp, DIST_BATCH, compare=True,
+                                      extra=("--sp", "2", "--sp-impl", impl)))
 
-    data_dir, yard = _llama_paths(tmp)
+
+def phase_sp_llama(card, yardstick, runs):
+    """Phase 5c(b) (module docstring): ``llama_pretrain --sp 2``, the
+    ranks' records ``runs`` by schedule, against the yardstick
+    (``llama_yardsticks``: its losses ``yardstick``; rank 0 held its
+    weights against the yardstick's) on the same global batch, loss by
+    loss and rank 0's weights leaf by leaf; raises with the readings if
+    a rank is off."""
+
     jobs, bad = {}, []
-    for impl in impls:
-        extra = ("--sp", "2", "--sp-impl", impl)
-        ranks = _run_ranks(2, LLAMA_RANK.format(data_dir, DIST_BATCH, None, yard, extra),
-                           f"llama-wide sp 2 {impl}")
+    for impl, ranks in runs.items():
         rows = []
         for rec in ranks:
             want = DIST_STEPS * DIST_LAYERS * (rec["rank"] + 1 if impl == "ring" else 1)
@@ -5161,60 +5253,386 @@ def phase_sp_llama(tmp, card, yardstick, impls=SP_IMPLS):
     return jobs
 
 
-def phase_multiprocess(card):
-    """Phase 5b: the operator's multi-process jobs on the one card, each
-    rank a process spawned here with the ``TPUJOB_*`` environment written
-    here (the kernels were built by phase 2; a rank loads them)."""
+# -- phase 5e: sequence parallelism over the decoder zoo -------------------------
+
+#: phase 5e's jobs: name -> (family, mesh, sp schedule); the 2-rank ones
+#: run in phase 5b's world, the 4-rank ones in a world of their own
+SP_ZOO_JOBS = {
+    "gpt_small_ring_sp2": ("gpt", {"sp": 2}, "ring"),
+    "gpt_small_ulysses_sp2": ("gpt", {"sp": 2}, "ulysses"),
+    "moe_gpt_small_ring_sp2": ("moe", {"sp": 2}, "ring"),
+    "gpt_small_ulysses_sp2_tp2": ("gpt", {"sp": 2, "tp": 2}, "ulysses"),
+    "moe_gpt_small_ring_sp2_ep2": ("moe", {"sp": 2, "ep": 2}, "ring"),
+}
+#: the 8-expert moe's capacity factor in phase 5e: 0.5, where a row's
+#: expert keeps 256 of its 2,048 routes, so routes drop and the slots'
+#: scan across the sp line decides which (at the default 2.0 nothing
+#: drops and the slots would not matter)
+SP_ZOO_CAPACITY = 0.5
+#: the leaves phase 5e's weight check skips: the biases, which start at
+#: zero, so that after two AdamW updates each is all update, and Adam's
+#: normalisation turns the bf16 rounding of a small gradient into a
+#: whole step of the learning rate (and the key biases' gradient is zero
+#: in exact arithmetic: PP_ZERO_GRAD).  Phase 16(b) skips them for the
+#: same reason
+SP_ZOO_SKIP = ".bias"
+#: phase 5e: each leaf's step-0 gradient norm (the gradients summed over
+#: sp and the batch axes, a split leaf's over its line) against one
+#: process's, relative.  AdamW's update hides a gradient's scale, and
+#: the moe's weights move at MP_LR, so the gradients are held too.  Read
+#: on an H100: gpt <= 1.9e-3, the moe <= 8.6e-3 (router kernels); moe's
+#: capacity scan without the earlier rank's counts (chip_fault_probe.py
+#: moe_sp_prefix) 0.96 on an expert stack, where its weights moved 6.2e-4
+#: (the key biases, zero in exact arithmetic, are skipped: PP_ZERO_GRAD)
+SP_ZOO_GRAD_RTOL = 0.1
+#: K1-K3 at the shapes a rank of phase 5e runs (bf16, D 64, gpt_small's
+#: 12 heads of 8 x 1024): Ulysses' whole sequence at a tp 2 rank's
+#: heads over sp 2 (3 heads), and the ring's visible hop at sp 2 (512
+#: of 1,024, non-causal)
+SP_ZOO_FLASH = (
+    ("gpt_small_ulysses_sp2_tp2_causal_b8_h3_s1024",
+     dict(b=8, h=3, hkv=3, sq=1024, sk=1024, d=64, causal=True)),
+    ("gpt_small_ring_sp2_hop_b8_h12_s512",
+     dict(b=8, h=12, hkv=12, sq=512, sk=512, d=64, causal=False)),
+)
+
+
+def _sp_zoo_model(family, mesh, sp_impl, dev):
+    """(model, loss) of phase 5e's ``family`` at gpt_small's widths
+    (vocab 256, 12 layers, 1,024 positions, dropout 0: an sp rank's
+    masks cannot be one process's), built on ``mesh`` where it has sp,
+    seeded weights (the same on every rank and in one process)."""
+
+    from tf_operator_tpu_torch.models.gpt import CausalLM, gpt_small, lm_loss
+    from tf_operator_tpu_torch.models.moe import MoeConfig, MoeLM, moe_lm_loss
+    from tf_operator_tpu_torch.models.weights import init_params
+
+    sp = mesh is not None and mesh.shape["sp"] > 1
+    base = gpt_small(vocab_size=256, max_len=ZOO_SEQ, dropout=0.0,
+                     **({"mesh": mesh, "sp_impl": sp_impl} if sp else {}))
+    if family == "gpt":
+        cls, cfg, loss = CausalLM, base, lm_loss
+    else:
+        cls, loss = MoeLM, moe_lm_loss
+        cfg = MoeConfig(base=base, num_experts=8, capacity_factor=SP_ZOO_CAPACITY)
+    model = cls.from_state_dict(cfg, init_params(cfg, 0, dev, trainable=True, family=cls), dev,
+                                trainable=True)
+    return model, loss
+
+
+def rank_sp_zoo(family, shape, sp_impl, data_dir, yard):
+    """One process of phase 5e: ``family`` (``_sp_zoo_model``) trained
+    ``DIST_STEPS`` ``Trainer`` steps on ``ZOO_ROWS`` x ``ZOO_SEQ`` rows of
+    the byte corpus, over a mesh of ``shape`` (a rank of its job), or
+    alone (``shape`` None: the yardstick, whose weights are written to
+    ``yard``; a rank 0 holds its gathered weights against them leaf by
+    leaf).  Counts zeroed just before the steps and read just after;
+    returns the record."""
+
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
+    from tf_operator_tpu_torch.ops import ring_attention as ra
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
+    from tf_operator_tpu_torch.runtime.bootstrap import entry_device, initialize, world
+
+    dev = entry_device("cuda", initialize("cuda"))
+    rank, n = world()
+    # one slice, also in the multislice job's world, which it shares
+    mesh = make_mesh(shape, slices=1) if shape else None
+    model, loss = _sp_zoo_model(family, mesh, sp_impl, dev)
+    # AdamW with ZOO_TRAIN_CFG's 2-update warmup, at the zoo's rate for
+    # gpt and at phase 5d's MP_LR for the moe, as there: an expert's
+    # stacks start at 0.0064 of scale (lecun over 3,072 x 8), and two
+    # updates at 1e-3 move them by a quarter of that, so Adam's whole
+    # steps on the bf16 rounding of small gradients (and on the routes a
+    # rounding moves past the capacity) reach the weight check
+    lr = MP_LR if family == "moe" else ZOO_TRAIN_CFG["learning_rate"]
+    trainer = Trainer(model, TrainerConfig(**dict(ZOO_TRAIN_CFG, learning_rate=lr)), loss,
+                      mesh=mesh, shardings="logical")
+    batches = iter(as_lm_batches(TextBatches(data_dir, ZOO_ROWS, seed=0)))
+    first_grads = {}
+    update = trainer.optimizer.step
+
+    def step(grads, norm=None):
+        if not first_grads:
+            first_grads.update(_leaf_grad_norms(trainer, grads))
+        return update(grads, norm=norm)
+
+    trainer.optimizer.step = step
+    _mp_zero()
+    ra.boundary_blocks.clear()
+    losses, stamps, grad_norms = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS):
+        batch = next(batches)
+        out = trainer.train_step(trainer.shard_global_batch(batch) if mesh else batch)
+        losses.append(float(out["loss"]))  # resolves the step
+        stamps.append(time.perf_counter())
+        grad_norms.append(float(out["grad_norm"]))
+    launches, plain = _mp_counts()
+    wall = time.perf_counter() - t0
+    rec = {"rank": rank, "world": n, "mesh": dict(mesh.shape) if mesh else None,
+           "sp_index": mesh.index(("sp",), rank) if mesh else 0,
+           "layers": model.cfg.n_layers, "losses": losses, "grad_norms": grad_norms,
+           "step0_leaf_grad_norms": first_grads,
+           "launches": launches, "plain_calls": plain,
+           "boundary_blocks": dict(ra.boundary_blocks),
+           "step_ms": (stamps[-1] - stamps[0]) / (DIST_STEPS - 1) * 1e3, "wall_s": wall,
+           "collectives": trainer.collective_stats.snapshot() if mesh else {},
+           "held_bytes": sum(m.numel() * m.element_size() for m in trainer.optimizer.params),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if family == "moe":
+        rec["moe_aux_loss_last"] = float(out["moe_aux_loss"])
+    rec["collective_s"] = sum(v["seconds"] for v in rec["collectives"].values())
+    params = trainer.full_params()
+    if mesh is None:
+        torch.save({k: v.cpu() for k, v in params.items()}, yard)
+    elif rank == 0:
+        rec["weights"] = _leaves_against(params, torch.load(yard), skip=SP_ZOO_SKIP)
+    del trainer, model, params
+    return rec
+
+
+def _leaf_grad_norms(trainer, grads):
+    """{name: the L2 norm of its gradient} of ``grads`` (the summed
+    gradients the optimizer takes, aligned with the trainer's masters):
+    a leaf split over tp or ep has its squares summed over its line
+    (collective under a mesh), so every rank reads the whole leaf's."""
+
+    from tf_operator_tpu_torch.parallel.collectives import all_reduce
+
+    sq = torch.stack([g.detach().float().square().sum() for g in grads])
+    if trainer.mesh is not None:
+        for axes in trainer._norm_sets:
+            pick = torch.tensor([a == axes for a in trainer._norm_axes], device=sq.device)
+            part = torch.where(pick, sq, torch.zeros_like(sq))
+            all_reduce(part, trainer.mesh.group(axes), trainer.collective_stats, "leaf_norms")
+            sq = torch.where(pick, part, sq)
+    return dict(zip(trainer.names, sq.sqrt().tolist()))
+
+
+def _sp_zoo_paths(tmp):
+    """Phase 5e's byte corpus and each family's yardstick weights."""
+
+    return (os.path.join(tmp, "zoo_text"),
+            {f: os.path.join(tmp, f"sp_zoo_{f}_yardstick.pt") for f in ("gpt", "moe")})
+
+
+def _sp_zoo_job(tmp, name):
+    family, shape, impl = SP_ZOO_JOBS[name]
+    data_dir, yards = _sp_zoo_paths(tmp)
+    return (name, "rank_sp_zoo", {"family": family, "shape": shape, "sp_impl": impl,
+                                  "data_dir": data_dir, "yard": yards[family]})
+
+
+def sp_zoo_yardsticks(tmp, names):
+    """Phase 5e's yardsticks, in this process: each family that a job of
+    ``names`` trains, alone on the global batch of the corpus under
+    ``tmp`` (its weights written there).  {family: record}."""
+
+    data_dir, yards = _sp_zoo_paths(tmp)
+    out = {}
+    for family in sorted({SP_ZOO_JOBS[n][0] for n in names}):
+        out[family] = rank_sp_zoo(family, None, "ring", data_dir, yards[family])
+        free_device_memory()
+    return out
+
+
+def phase_sp_zoo(card, yardsticks, runs):
+    """Phase 5e (module docstring) for the jobs of ``runs`` ({name: the
+    ranks' records}, from ``phase_multiprocess``'s worlds), against
+    ``yardsticks`` ({family: one process's record}, ``sp_zoo_yardsticks``):
+    each rank's losses against its family's yardstick
+    (``DIST_LOSS_RTOL``), the ranks' global losses equal, rank 0's
+    gathered weights against the yardstick's leaf by leaf
+    (``DIST_WEIGHT_RTOL``), K1-K3 launches = layers x steps x (r + 1) on
+    sp rank r of the causal ring and layers x steps under Ulysses, no
+    plain attention, no boundary block; raises with the readings if a
+    rank is off."""
+
+    bad, summary = [], {}
+    for name in runs:
+        family, shape, impl = SP_ZOO_JOBS[name]
+        one, ranks = yardsticks[family], runs[name]
+        rows = []
+        for rec in ranks:
+            want = rec["layers"] * DIST_STEPS * (rec["sp_index"] + 1 if impl == "ring" else 1)
+            rel = [abs(a - b) / abs(b) for a, b in zip(rec["losses"], one["losses"])]
+            rows.append({k: rec[k] for k in ("rank", "sp_index", "launches", "step_ms",
+                                            "wall_s", "job_wall_s", "collective_s",
+                                            "collectives", "held_bytes",
+                                            "max_memory_allocated_gib")}
+                        | {"loss_rel_max": max(rel), "losses": rec["losses"],
+                           "launches_reckoned": want})
+            mesh = {k: v for k, v in rec["mesh"].items() if v > 1}
+            if rec["world"] != math.prod(shape.values()) or mesh != shape:
+                bad.append(f"{name} rank {rec['rank']}: world {rec['world']}, mesh {mesh}")
+            if (any(rec["launches"][k] != want for k in FLASH_KERNELS) or rec["plain_calls"]
+                    or rec["boundary_blocks"]):
+                bad.append(f"{name} rank {rec['rank']} launched {rec['launches']} (want "
+                           f"{want} each), plain {rec['plain_calls']}, boundary "
+                           f"{rec['boundary_blocks']}")
+            if not (len(rec["losses"]) == DIST_STEPS and all(map(math.isfinite, rec["losses"]))
+                    and max(rel) <= DIST_LOSS_RTOL):
+                bad.append(f"{name} rank {rec['rank']} losses {rec['losses']} against "
+                           f"{one['losses']}: {max(rel):.3g} relative")
+            if rec["losses"] != ranks[0]["losses"]:
+                bad.append(f"{name}: the ranks' global losses differ")
+            grads = {k: abs(g - one["step0_leaf_grad_norms"][k]) / one["step0_leaf_grad_norms"][k]
+                     for k, g in rec["step0_leaf_grad_norms"].items()
+                     if not k.endswith(PP_ZERO_GRAD)}
+            leaf = max(grads, key=grads.get)
+            rows[-1]["step0_grad"] = {"max_rel": grads[leaf], "leaf": leaf,
+                                      "leaves": len(grads)}
+            if not (set(rec["step0_leaf_grad_norms"]) == set(one["step0_leaf_grad_norms"])
+                    and grads[leaf] <= SP_ZOO_GRAD_RTOL):
+                bad.append(f"{name} rank {rec['rank']}: step-0 gradient of {leaf} "
+                           f"{grads[leaf]:.3g} relative to one process's")
+        off = []
+        rows[0]["weights"] = _weights_off(ranks[0], off)
+        bad += [f"{name}: {msg}" for msg in off]
+        summary[name] = {"ranks": rows, "one_process": {
+            k: one[k] for k in ("losses", "step_ms", "wall_s", "held_bytes",
+                                "max_memory_allocated_gib")}}
+    summary.update(loss_rtol=DIST_LOSS_RTOL, weight_rtol=DIST_WEIGHT_RTOL,
+                   grad_rtol=SP_ZOO_GRAD_RTOL, capacity_factor=SP_ZOO_CAPACITY)
+    log(f"sp zoo ({card}) " + json.dumps(summary))
+    if bad:
+        raise AssertionError("sp zoo off the yardstick: " + "; ".join(bad))
+    return {"summary": summary, "runs": runs}
+
+
+def multiprocess_jobs(tmp):
+    """Every job of ``phase_multiprocess``, in the order its world runs
+    them: name -> (the ranks of its world, its ``rank_jobs`` entry), the
+    data and yardstick weights under ``tmp``."""
+
+    jobs = {"psum": (2, ("psum", "rank_psum", {})),
+            "fsdp": (2, ("fsdp", *_llama_job(tmp, DIST_BATCH, compare=True))),
+            "sp_attention": (2, ("sp_attention", "rank_sp_attention", {}))}
+    jobs.update({f"sp_{impl}": (2, _sp_llama_job(tmp, impl)) for impl in SP_IMPLS})
+    jobs["multislice"] = (4, ("multislice", "rank_multislice", {}))
+    jobs.update({n: (math.prod(shape.values()), _sp_zoo_job(tmp, n))
+                 for n, (_, shape, _) in SP_ZOO_JOBS.items()})
+    jobs["model_parallel"] = (2, _model_parallel_job(_sp_zoo_paths(tmp)[0]))
+    return jobs
+
+
+def _slice_env(r):
+    """Rank ``r`` of the 4-rank world as host r % 2 of slice r // 2."""
+
+    s, h = r // 2, r % 2
+    return {"MEGASCALE_NUM_SLICES": "2", "MEGASCALE_SLICE_ID": str(s), "TPU_WORKER_ID": str(h),
+            "TPU_WORKER_HOSTNAMES": f"slice{s}-host0,slice{s}-host1"}
+
+
+def _check_multislice(recs, card):
+    for r, rec in enumerate(recs):
+        want_line = f"process {r}/4: slice {r // 2}/2 worker {r % 2} megascale ok"
+        if not any(ln.startswith(want_line) for ln in rec["lines"]):
+            raise AssertionError(f"multislice: rank {r}: {rec['lines'][-20:]}")
+    ledger = json.loads([ln for ln in recs[0]["lines"]
+                         if ln.startswith("MULTISLICE_LEDGER ")][-1].split(" ", 1)[1])
+    intra = ledger["intra_slice_size"]
+    if not (ledger["grad_sync"] == "hierarchical" and intra == 2
+            and ledger["axis_fabric"] == {"dp": "dcn", "fsdp": "ici"}
+            and ledger["dcn_bytes_ratio"] <= 1 / intra + 1e-3):
+        raise AssertionError(f"multislice ledger {ledger}")
+    out = {"ledger": ledger, "ranks": [
+        {k: rec[k] for k in ("rank", "backend", "psum_max_abs_err", "sync_probe")}
+        for rec in recs]}
+    log(f"multislice 2x2 ({card}) " + json.dumps(out))
+    return out
+
+
+def phase_multiprocess(card, jobs=None):
+    """Phases 5b, 5c and 5e, and 5d's 2-rank job: the operator's
+    multi-process jobs on the one card, each rank a process spawned here
+    with the ``TPUJOB_*`` environment written here (the kernels were
+    built by phase 2; a rank loads them).  This process runs every
+    yardstick the jobs are held to; one 2-rank world runs, in turn, the
+    2-rank jobs (5b's psum and fsdp, 5c's, 5e's 2-rank ones, 5d's), and
+    one 4-rank world the multislice job (2 slices x 2 hosts) and 5e's
+    4-rank jobs (``multiprocess_jobs``); then each job's check.
+    ``jobs``: the names of the jobs to run (``chip_fault_probe.py`` runs
+    one); None: every job, and 5e's K1-K3 shapes first.  Returns the
+    summary, with 5e's records (``sp_zoo``) and 5d's job
+    (``model_parallel_ranks``, for ``phase_model_parallel``)."""
 
     import tempfile
 
+    from tf_operator_tpu_torch.data.text import ensure_text
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
-    summary = {}
+    table = multiprocess_jobs(tmp)
+    names = list(table) if jobs is None else [n for n in table if n in jobs]
+    if jobs is not None and len(names) != len(set(jobs)):
+        raise ValueError(f"unknown job(s) {sorted(set(jobs) - set(table))}")
+    zoo = [n for n in names if n in SP_ZOO_JOBS]
+    summary, walls, worlds = {}, {}, {}
+    t0 = time.perf_counter()
     try:
-        # 1. two ranks: dist_psum on CUDA tensors and the psum plan
-        recs = _run_ranks(2, "import chip_smoke as c; c.rank_psum()", "2-rank psum")
-        for r, rec in enumerate(recs):
-            line = f"process {r}/2: allgather ok -> [0.0, 1.0]"
-            if line not in rec["lines"] or rec["backend"] != "gloo":
-                raise AssertionError(f"2-rank psum: rank {r}: {rec['lines'][-20:]}")
-        summary["psum_2"] = [{k: rec[k] for k in ("backend", "device", "psum_max_abs_err",
-                                                  "sync_probe")} for rec in recs]
-        log(f"2-rank psum ({card}) " + json.dumps(summary["psum_2"]))
+        ensure_text(_sp_zoo_paths(tmp)[0], seq_len=ZOO_SEQ)
+        t5e = time.perf_counter()
+        if jobs is None:
+            sp_zoo_flash = [flash_case(name, seed=190 + i, dtype=torch.bfloat16, timed=True,
+                                       queued=True, **kw)
+                            for i, (name, kw) in enumerate(SP_ZOO_FLASH)]
+            log(f"sp zoo flash shapes ({card}) " + json.dumps(
+                {r["case"]: {**{k: {f: round(t[f], 5) for f in ("ms", "device_ms", "bound_ms",
+                                                                 "plain_ms", "library_ms")}
+                                | {"bound_by": t["bound_by"]} for k, t in r["timing"].items()},
+                             "sdpa_device_ms": r["sdpa_device_ms"],
+                             "row_rel_max": max(r["row_rel"].values())} for r in sp_zoo_flash}))
+            free_device_memory()
+        zoo_yards = sp_zoo_yardsticks(tmp, zoo)
+        walls["5e_flash_and_yardsticks_s"] = time.perf_counter() - t5e
+        if {"fsdp", "sp_ring", "sp_ulysses"} & set(names):
+            one, one4 = llama_yardsticks(tmp)
 
-        # 2. llama-wide at full width against one process
-        summary["llama_fsdp"] = phase_llama_fsdp(tmp, card)
+        for n_ranks, extra in ((2, None), (4, _slice_env)):
+            mine = [table[n][1] for n in names if table[n][0] == n_ranks]
+            if mine:
+                t_world = time.perf_counter()
+                worlds[n_ranks] = _run_ranks(n_ranks, _jobs_code(mine),
+                                             f"{n_ranks}-rank jobs", extra=extra)
+                walls[f"{n_ranks}_rank_world_s"] = time.perf_counter() - t_world
+        recs = {n: _job(worlds[table[n][0]], n) for n in names}
 
-        # 5c. sequence parallelism, against the same yardstick
-        summary["sp"] = {"attention": phase_sp_attention(card),
-                         "llama": phase_sp_llama(
-                             tmp, card, summary["llama_fsdp"]["yardstick"]["losses"])}
-
-        # 3. dist_multislice as 2 slices x 2 hosts
-        def slice_env(r):
-            s, h = r // 2, r % 2
-            return {"MEGASCALE_NUM_SLICES": "2", "MEGASCALE_SLICE_ID": str(s),
-                    "TPU_WORKER_ID": str(h),
-                    "TPU_WORKER_HOSTNAMES": f"slice{s}-host0,slice{s}-host1"}
-
-        recs = _run_ranks(4, "import chip_smoke as c; c.rank_multislice()", "multislice 2x2",
-                          extra=slice_env)
-        for r, rec in enumerate(recs):
-            want_line = f"process {r}/4: slice {r // 2}/2 worker {r % 2} megascale ok"
-            if not any(ln.startswith(want_line) for ln in rec["lines"]):
-                raise AssertionError(f"multislice: rank {r}: {rec['lines'][-20:]}")
-        ledger = json.loads([ln for ln in recs[0]["lines"]
-                             if ln.startswith("MULTISLICE_LEDGER ")][-1].split(" ", 1)[1])
-        intra = ledger["intra_slice_size"]
-        if not (ledger["grad_sync"] == "hierarchical" and intra == 2
-                and ledger["axis_fabric"] == {"dp": "dcn", "fsdp": "ici"}
-                and ledger["dcn_bytes_ratio"] <= 1 / intra + 1e-3):
-            raise AssertionError(f"multislice ledger {ledger}")
-        summary["multislice"] = {"ledger": ledger, "ranks": [
-            {k: rec[k] for k in ("rank", "backend", "psum_max_abs_err", "sync_probe")}
-            for rec in recs]}
-        log(f"multislice 2x2 ({card}) " + json.dumps(summary["multislice"]))
+        if "psum" in recs:
+            for r, rec in enumerate(recs["psum"]):
+                line = f"process {r}/2: allgather ok -> [0.0, 1.0]"
+                if line not in rec["lines"] or rec["backend"] != "gloo":
+                    raise AssertionError(f"2-rank psum: rank {r}: {rec['lines'][-20:]}")
+            summary["psum_2"] = [{k: rec[k] for k in ("backend", "device", "psum_max_abs_err",
+                                                      "sync_probe")} for rec in recs["psum"]]
+            log(f"2-rank psum ({card}) " + json.dumps(summary["psum_2"]))
+        if "fsdp" in recs:
+            summary["llama_fsdp"] = phase_llama_fsdp(card, one, one4, recs["fsdp"])
+        if "sp_attention" in recs:
+            summary["sp_attention"] = phase_sp_attention(card, recs["sp_attention"])
+        sp_runs = {impl: recs[f"sp_{impl}"] for impl in SP_IMPLS if f"sp_{impl}" in recs}
+        if sp_runs:
+            summary["sp_llama"] = phase_sp_llama(card, one["losses"], sp_runs)
+        if "multislice" in recs:
+            summary["multislice"] = _check_multislice(recs["multislice"], card)
+        if zoo:
+            summary["sp_zoo"] = phase_sp_zoo(card, zoo_yards, {n: recs[n] for n in zoo})
+            if jobs is None:
+                summary["sp_zoo"]["flash"] = sp_zoo_flash
+        summary["model_parallel_ranks"] = recs.get("model_parallel")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    # each job's wall: the slowest rank's
+    job_s = {n: max(r[n]["job_wall_s"] for r in w)
+             for w in worlds.values() for n in w[0] if n != "lines"}
+    walls["5e_s"] = walls["5e_flash_and_yardsticks_s"] + sum(job_s[n] for n in zoo)
+    walls["5d_job_s"] = job_s.get("model_parallel", 0.0)
+    walls["total_s"] = time.perf_counter() - t0
+    walls["5b_5c_s"] = walls["total_s"] - walls["5e_s"] - walls["5d_job_s"]
+    walls["jobs_s"] = job_s
+    summary["walls"] = walls
+    log(f"multi-process walls ({card}) " + json.dumps(walls))
     return summary
 
 
@@ -5322,8 +5740,8 @@ def rank_model_parallel(data_dir, model_axis):
     """One process of phase 5d (a rank of its 2-rank job, or the
     one-process runs at ``model_axis`` 1): t5_multihost, vit_classify and
     the 8-expert moe in turn (the ViT and the moe at ``MP_LR``), counts
-    zeroed just before each and read just after; prints ``RANK {...}``
-    with the three records."""
+    zeroed just before each and read just after; returns the three
+    records."""
 
     import contextlib
     import io
@@ -5381,14 +5799,19 @@ def rank_model_parallel(data_dir, model_axis):
                              time.perf_counter() - t0, launches, plain)
     del trainer, model
     free_device_memory()
-    print("RANK " + json.dumps(recs), flush=True)
     return recs
 
 
-def phase_model_parallel(card):
+def _model_parallel_job(data_dir):
+    return ("model_parallel", "rank_model_parallel", {"data_dir": data_dir, "model_axis": 2})
+
+
+def phase_model_parallel(card, ranks):
     """Phase 5d (module docstring): K1-K3 at the ranks' shapes, then the
-    2-rank job against the one-process runs; raises with the readings if
-    a rank is off.  Returns the flash records and the job's records."""
+    2-rank job's records ``ranks`` (run in ``phase_multiprocess``'s
+    2-rank world on the same corpus: ``ensure_text`` is seeded) against
+    the one-process runs; raises with the readings if a rank is off.
+    Returns the flash records and the job's records."""
 
     import tempfile
 
@@ -5408,8 +5831,6 @@ def phase_model_parallel(card):
     try:
         data_dir = os.path.join(tmp, "text")
         ensure_text(data_dir, seq_len=ZOO_SEQ)
-        code = f"import chip_smoke as c; c.rank_model_parallel({data_dir!r}, 2)"
-        ranks = _run_ranks(2, code, "model-parallel jobs")
         t_one = time.perf_counter()
         one = rank_model_parallel(data_dir, 1)
         one_wall = time.perf_counter() - t_one
@@ -6196,9 +6617,9 @@ def main():
     log(f"encoder phase done at {time.perf_counter() - t0:.1f} s")
     _, zoo_k7, zoo_runs = phase_zoo(card)
     log(f"decoder zoo phase done at {time.perf_counter() - t0:.1f} s")
-    phase_multiprocess(card)
-    log(f"multi-process phase done at {time.perf_counter() - t0:.1f} s")
-    _, mp_runs = phase_model_parallel(card)
+    multi = phase_multiprocess(card)
+    log(f"multi-process phases done at {time.perf_counter() - t0:.1f} s")
+    _, mp_runs = phase_model_parallel(card, ranks=multi["model_parallel_ranks"])
     log(f"model-parallel phase done at {time.perf_counter() - t0:.1f} s")
 
     dev = resolve_device()
@@ -6277,21 +6698,26 @@ def main():
                                            for r in pp_runs["pipeline"]["ranks"]),
                    **{f"gpt_pipeline_pp2_{family}": sum(
                        pp_runs["pipeline"]["gpt_pipeline"][family]["launches"][i][kname]
-                       for i in range(2)) for family in ("gpt", "llama")}}
+                       for i in range(2)) for family in ("gpt", "llama")},
+                   # phase 5e: every rank of each job
+                   **{path: sum(r["launches"][kname] for r in ranks)
+                      for path, ranks in multi["sp_zoo"]["runs"].items()}}
         entry = _kernel_entry(
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
             sum(by_path.values()), wide["max_abs_err"][errs[kname]], wide["timing"][kname])
         entry["launches_by_path"] = by_path
-        # phase 16's shapes: device (queued) and host-included ms, the
-        # bound, SDPA's device forward / backward
-        entry["phase16_shapes"] = {
-            r["case"]: {"device_ms": r["timing"][kname]["device_ms"],
-                        "ms": r["timing"][kname]["ms"],
-                        "bound_ms": r["timing"][kname]["bound_ms"],
-                        "bound_by": r["timing"][kname]["bound_by"],
-                        "plain_ms": r["timing"][kname]["plain_ms"],
-                        "max_abs_err": r["max_abs_err"][errs[kname]],
-                        "sdpa_device_ms": r["sdpa_device_ms"]} for r in pp_flash}
+        # phase 16's and phase 5e's shapes: device (queued) and
+        # host-included ms, the bound, SDPA's device forward / backward
+        for key, cases in (("phase16_shapes", pp_flash),
+                           ("phase5e_shapes", multi["sp_zoo"]["flash"])):
+            entry[key] = {
+                r["case"]: {"device_ms": r["timing"][kname]["device_ms"],
+                            "ms": r["timing"][kname]["ms"],
+                            "bound_ms": r["timing"][kname]["bound_ms"],
+                            "bound_by": r["timing"][kname]["bound_by"],
+                            "plain_ms": r["timing"][kname]["plain_ms"],
+                            "max_abs_err": r["max_abs_err"][errs[kname]],
+                            "sdpa_device_ms": r["sdpa_device_ms"]} for r in cases}
         kernels.insert(-1, entry)
     step = k7_decode_step(k7)
     k7_by_path = {"serve_lm_llama_7b_int8_pool": int8_stats["launches"].get("quant_matmul", 0),

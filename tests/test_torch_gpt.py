@@ -210,12 +210,20 @@ def test_logical_shardings_match_the_jax_trainer_layout(fsdp):
 
 
 def test_sequence_parallelism_is_refused():
+    """Sequence parallelism is ported for gpt (``tests/test_torch_sp_zoo.py``
+    trains it): ``CausalLM`` builds on an sp mesh, and the refusal is left
+    to the encoder families, whose message names the decoder families."""
+
+    from tf_operator_tpu_torch.models.bert import BertForPretraining
+
     class SpMesh:
         shape = {"sp": 2}
 
-    with pytest.raises(NotImplementedError, match="gpt runs with sp 1"):
-        gpt.CausalLM(TransformerConfig(**{**gpt.gpt_tiny().__dict__, "mesh": SpMesh()}),
-                     device="meta")
+    cfg = TransformerConfig(**{**gpt.gpt_tiny().__dict__, "mesh": SpMesh()})
+    assert gpt.CausalLM(cfg, device="meta").cfg.sp_enabled
+    with pytest.raises(NotImplementedError,
+                       match=r"decoder families \(llama, gpt, moe\); BERT runs with sp 1"):
+        BertForPretraining(cfg, device="meta")
 
 
 def test_init_params_draws_gpt_at_the_flax_scales():

@@ -280,11 +280,12 @@ def test_stage_collectives_are_fixed_per_backend(monkeypatch):
 
 
 def test_unported_axes_are_refused():
-    for shape, word in (({"sp": 2, "tp": 2}, "tensor or expert parallelism"),
-                        ({"sp": 2, "ep": 2}, "tensor or expert parallelism"),
-                        ({"pp": 2, "dp": 2}, "pipeline")):
+    for shape, word in (({"pp": 2, "dp": 2}, "pipeline"),):
         with pytest.raises(NotImplementedError, match=word):
             sharding.check_mesh(mesh.make_mesh(shape, world=4))
+    # sequence parallelism beside tensor or expert parallelism is ported
+    sharding.check_mesh(mesh.make_mesh({"sp": 2, "tp": 2}, world=4))
+    sharding.check_mesh(mesh.make_mesh({"sp": 2, "ep": 2}, world=4))
     sharding.check_mesh(mesh.make_mesh({"dp": 2, "fsdp": 2}, world=4))
     # tensor and expert parallelism are ported
     sharding.check_mesh(mesh.make_mesh({"fsdp": 2, "tp": 2}, world=4))

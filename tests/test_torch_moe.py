@@ -296,8 +296,13 @@ def test_sequence_parallelism_is_refused():
         shape = {"sp": 2}
 
     base = TransformerConfig(**{**moe.moe_tiny().base.__dict__, "mesh": SpMesh()})
-    with pytest.raises(NotImplementedError, match="moe runs with sp 1"):
-        moe.MoeLM(moe.MoeConfig(base=base), device="meta")
+    # ported (tests/test_torch_sp_zoo.py trains moe over sp): MoeLM builds
+    # on an sp mesh; the encoder families keep the refusal
+    assert moe.MoeLM(moe.MoeConfig(base=base), device="meta").cfg.sp_enabled
+    from tf_operator_tpu_torch.models.vit import ViT, ViTConfig
+
+    with pytest.raises(NotImplementedError, match="ViT runs with sp 1"):
+        ViT(ViTConfig(base=base), device="meta")
 
 
 # -- llama_pretrain --family moe ----------------------------------------------------

@@ -9,13 +9,17 @@ are held against (:func:`jax_run`, which imports JAX when called).
 A spec is a JSON list of runs: ``{"name", "family", "mesh", "state"
 (an npz of port names), "batches" (an npz of arrays [steps, rows, ...]),
 "dropout", "moe" (MoeConfig fields), "shardings" (the ``Trainer``'s
-rule, ``"logical"`` by default), "export", "guard", "out"}``.  Each
+rule, ``"logical"`` by default), "export", "guard", "out", "seq" (the
+decoder families' length, ``SEQ`` by default), "sp_impl" (the schedule
+of a mesh with sp above 1, whose model is built on it), "fault"
+(``"moe_sp_prefix"``: moe's capacity scan without the earlier sp ranks'
+counts, the planted fault its test must see)}``.  Each
 rank of a run writes ``{out}/{name}_rank{r}.json``: the step metrics, the
 shapes of the parameters it holds, a digest of each parameter it keeps
-whole (bitwise equality across a tp or ep line) and the collective
-stages; rank 0 also writes ``{name}_params.npz`` (``Trainer.full_params``)
-and, with ``export``, an ``export_params`` artifact under
-``{name}_artifact``."""
+whole (bitwise equality across a tp or ep line), the seed of its
+dropout generator and the collective stages; rank 0 also writes
+``{name}_params.npz`` (``Trainer.full_params``) and, with ``export``, an
+``export_params`` artifact under ``{name}_artifact``."""
 
 import hashlib
 import json
@@ -36,11 +40,12 @@ FAMILIES = ("llama", "gpt", "moe", "bert", "t5", "vit")
 #: each family's port class, config, loss and the batch keys of its
 #: forward's inputs
 PORT = {
-    "llama": (llama.LlamaLM, lambda d, **kw: llama.llama_tiny(VOCAB, SEQ, dtype=d, **kw),
+    "llama": (llama.LlamaLM,
+              lambda d, seq=SEQ, **kw: llama.llama_tiny(VOCAB, seq, dtype=d, **kw),
               llama.llama_loss),
-    "gpt": (gpt.CausalLM, lambda d, **kw: gpt.gpt_tiny(VOCAB, SEQ, dtype=d, **kw),
+    "gpt": (gpt.CausalLM, lambda d, seq=SEQ, **kw: gpt.gpt_tiny(VOCAB, seq, dtype=d, **kw),
             gpt.lm_loss),
-    "moe": (moe.MoeLM, lambda d, **kw: moe.moe_tiny(VOCAB, SEQ, dtype=d, **kw),
+    "moe": (moe.MoeLM, lambda d, seq=SEQ, **kw: moe.moe_tiny(VOCAB, seq, dtype=d, **kw),
             moe.moe_lm_loss),
     "bert": (bert.BertForPretraining, lambda d, **kw: bert.bert_tiny(VOCAB, SEQ, dtype=d, **kw),
              bert.mlm_loss),
@@ -51,13 +56,13 @@ INIT_KEYS = {"llama": ("input_ids",), "gpt": ("input_ids",), "moe": ("input_ids"
              "bert": ("input_ids",), "t5": ("encoder_ids", "decoder_ids"), "vit": ("image",)}
 
 
-def batches(family, rows, seed, steps=STEPS):
+def batches(family, rows, seed, steps=STEPS, seq=SEQ):
     """``steps`` seeded global batches of ``rows`` rows: {key: [steps,
-    rows, ...]}."""
+    rows, ...]} (the decoder families' of length ``seq``)."""
 
     r = np.random.default_rng(seed)
     if family in ("llama", "gpt", "moe"):
-        return {"input_ids": r.integers(0, VOCAB, (steps, rows, SEQ)).astype(np.int32)}
+        return {"input_ids": r.integers(0, VOCAB, (steps, rows, seq)).astype(np.int32)}
     if family == "bert":
         labels = np.where(r.random((steps, rows, SEQ)) < 0.3,
                           r.integers(0, VOCAB, (steps, rows, SEQ)), -100).astype(np.int32)
@@ -72,10 +77,23 @@ def batches(family, rows, seed, steps=STEPS):
             "label": r.integers(0, CLASSES, (steps, rows)).astype(np.int32)}
 
 
-def port_model(family, state, dropout=0.0, dtype=torch.float32, **moe_kw):
+def port_model(family, state, dropout=0.0, dtype=torch.float32, **kw):
+    """``kw``: the config's other fields (``seq``, MoeConfig fields, an
+    sp ``mesh`` and ``sp_impl``)."""
+
     cls, build, _ = PORT[family]
-    return cls.from_state_dict(build(dtype, dropout=dropout, **moe_kw), state, "cpu",
+    return cls.from_state_dict(build(dtype, dropout=dropout, **kw), state, "cpu",
                                trainable=True)
+
+
+def _no_prefix(counts, line):
+    """``moe.route_offsets`` with the earlier ranks' counts left out (the
+    planted fault ``moe_sp_prefix``)."""
+
+    return torch.zeros_like(counts), ORIGINAL_ROUTE_OFFSETS(counts, line)[1]
+
+
+ORIGINAL_ROUTE_OFFSETS = moe.route_offsets
 
 
 def save_state(state, path) -> None:
@@ -101,14 +119,19 @@ def _run(spec, out_dir):
 
     rank, n = world()
     family = spec["family"]
-    model = port_model(family, load_state(spec["state"]), spec.get("dropout", 0.0),
-                       **spec.get("moe", {}))
     mesh = make_mesh(spec["mesh"])
+    kw = dict(spec.get("moe", {}))
+    if family in ("llama", "gpt", "moe"):
+        kw["seq"] = spec.get("seq", SEQ)
+    if mesh.shape["sp"] > 1:
+        kw.update(mesh=mesh, sp_impl=spec.get("sp_impl", "ring"))
+    model = port_model(family, load_state(spec["state"]), spec.get("dropout", 0.0), **kw)
     trainer = Trainer(model, TrainerConfig(**TRAIN_CFG), PORT[family][2], mesh=mesh,
                       shardings=spec.get("shardings", "logical"))
     with np.load(spec["batches"]) as f:
         data = {k: f[k] for k in f.files}
-    rec = {"rank": rank, "world": n, "mesh": dict(mesh.shape)}
+    rec = {"rank": rank, "world": n, "mesh": dict(mesh.shape),
+           "dropout_seed": trainer.dropout_rng.initial_seed()}
     if spec.get("guard"):
         try:
             trainer.shard_batch({k: v[0] for k, v in data.items()})
@@ -116,9 +139,15 @@ def _run(spec, out_dir):
         except ValueError as e:
             rec["guard"] = str(e)
     metrics = []
-    for step in range(len(next(iter(data.values())))):
-        m = trainer.train_step(trainer.shard_global_batch({k: v[step] for k, v in data.items()}))
-        metrics.append({k: float(v) for k, v in m.items()})
+    if spec.get("fault") == "moe_sp_prefix":
+        moe.route_offsets = _no_prefix
+    try:
+        for step in range(len(next(iter(data.values())))):
+            m = trainer.train_step(trainer.shard_global_batch({k: v[step]
+                                                               for k, v in data.items()}))
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        moe.route_offsets = ORIGINAL_ROUTE_OFFSETS
     rec["metrics"] = metrics
     rec["shapes"] = {n_: list(p.shape) for n_, p in zip(trainer.names, trainer.params)}
     rec["masters"] = {n_: list(t.shape) for n_, t in zip(trainer.names, trainer.masters)}
@@ -135,7 +164,7 @@ def _run(spec, out_dir):
         json.dump(rec, f)
 
 
-def _jax_model(family, mesh, dropout=0.0, **moe_kw):
+def _jax_model(family, mesh, dropout=0.0, sp_impl="ring", seq=SEQ, **moe_kw):
     import dataclasses
 
     import jax.numpy as jnp
@@ -147,15 +176,16 @@ def _jax_model(family, mesh, dropout=0.0, **moe_kw):
     from tf_operator_tpu.models import t5 as jt5
     from tf_operator_tpu.models import vit as jvit
 
-    kw = dict(dtype=jnp.float32, dropout=dropout)
+    kw = dict(dtype=jnp.float32, dropout=dropout, sp_impl=sp_impl)
     if family == "llama":
         if dropout:
             raise ValueError("llama_tiny trains at dropout 0")
-        return jllama.llama_tiny(vocab_size=VOCAB, max_len=SEQ, mesh=mesh, dtype=jnp.float32)
+        return jllama.llama_tiny(vocab_size=VOCAB, max_len=seq, mesh=mesh, dtype=jnp.float32,
+                                 sp_impl=sp_impl)
     if family == "gpt":
-        return jgpt.gpt_tiny(vocab_size=VOCAB, max_len=SEQ, mesh=mesh, **kw)
+        return jgpt.gpt_tiny(vocab_size=VOCAB, max_len=seq, mesh=mesh, **kw)
     if family == "moe":
-        m = jmoe.moe_tiny(vocab_size=VOCAB, max_len=SEQ, mesh=mesh, **moe_kw)
+        m = jmoe.moe_tiny(vocab_size=VOCAB, max_len=seq, mesh=mesh, **moe_kw)
         return jmoe.MoeLM(dataclasses.replace(m.moe, base=dataclasses.replace(m.moe.base, **kw)))
     if family == "bert":
         return jbert.bert_tiny(vocab_size=VOCAB, max_len=SEQ, mesh=mesh, **kw)
@@ -186,15 +216,23 @@ def to_port(family, tree):
     return family_state_from_flax(tree)
 
 
-def jax_run(family, shape, data, **moe_kw):
+def jax_run(family, shape, data, sp_impl="ring", **moe_kw):
     """The JAX ``Trainer(shardings="logical")`` over a mesh of ``shape``
-    on the host devices, at dropout 0 and ``TRAIN_CFG``, through the
+    on the host devices, at dropout 0 and ``TRAIN_CFG`` (a decoder
+    family's length ``data``'s, its sp schedule ``sp_impl``), through the
     steps of ``data`` ({key: [steps, rows, ...]}): {"initial": its
     initial params as a port state, "metrics": a dict a step, "final":
     its params after the steps (port names, numpy), "shards": the shape
     of each param's shard on a device (port names)}."""
 
-    import flax
+    return jax_train(jax_trainer(family, shape, data, sp_impl, **moe_kw), data)
+
+
+def jax_trainer(family, shape, data, sp_impl="ring", **moe_kw):
+    """:func:`jax_run`'s trainer, built and initialised, before its steps:
+    {"trainer", "family", "initial", "shards"} (those two as
+    :func:`jax_run` gives them)."""
+
     import jax
 
     from tf_operator_tpu.parallel import Trainer as JTrainer
@@ -204,23 +242,40 @@ def jax_run(family, shape, data, **moe_kw):
     n = int(np.prod(list(shape.values())))
     mesh = j_make_mesh(shape, devices=jax.devices()[:n])
     first = {k: v[0] for k, v in data.items()}
-    jt = JTrainer(_jax_model(family, mesh, **moe_kw), JTrainerConfig(**TRAIN_CFG), mesh,
+    seq = {"seq": first["input_ids"].shape[-1]} if family in ("llama", "gpt", "moe") else {}
+    jt = JTrainer(_jax_model(family, mesh, sp_impl=sp_impl, **seq, **moe_kw),
+                  JTrainerConfig(**TRAIN_CFG), mesh,
                   jax_loss(family), first, init_args=tuple(first[k] for k in INIT_KEYS[family]),
                   shardings="logical")
-
-    def unbox(tree):
-        return jax.tree_util.tree_map(np.asarray, flax.core.meta.unbox(tree))
-
-    boxed = flax.core.meta.unbox(jt.state.params)
+    boxed = _boxed(jt)
     shards = jax.tree_util.tree_map(
         lambda leaf: np.empty(leaf.sharding.shard_shape(leaf.shape), np.float32), boxed)
-    out = {"initial": to_port(family, unbox(jt.state.params)),
-           "shards": {k: tuple(v.shape) for k, v in to_port(family, shards).items()}}
-    out["metrics"] = [{k: float(v) for k, v in jt.train_step(
+    return {"trainer": jt, "family": family, "initial": to_port(family, _unbox(jt)),
+            "shards": {k: tuple(v.shape) for k, v in to_port(family, shards).items()}}
+
+
+def _boxed(jt):
+    import flax
+
+    return flax.core.meta.unbox(jt.state.params)
+
+
+def _unbox(jt):
+    import jax
+
+    return jax.tree_util.tree_map(np.asarray, _boxed(jt))
+
+
+def jax_train(run, data):
+    """:func:`jax_trainer`'s ``run`` through the steps of ``data``: the run
+    with "metrics" and "final" added (:func:`jax_run`)."""
+
+    jt = run.pop("trainer")
+    run["metrics"] = [{k: float(v) for k, v in jt.train_step(
         jt.shard_batch({k: v[s] for k, v in data.items()})).items()}
         for s in range(len(next(iter(data.values()))))]
-    out["final"] = {k: v.numpy() for k, v in to_port(family, unbox(jt.state.params)).items()}
-    return out
+    run["final"] = {k: v.numpy() for k, v in to_port(run["family"], _unbox(jt)).items()}
+    return run
 
 
 def main(path):

@@ -8,7 +8,11 @@ Parameter names follow the llama family's (``tok_embed.embedding``,
 maps them to and from the flax tree's ``layer_{i}`` paths unchanged.
 
 The learned table has ``max_len`` rows.  A forward over the whole
-sequence adds its first S rows; a decode forward adds the rows of the
+sequence adds its first S rows; under sequence parallelism a rank adds
+its chunk's rows, from the chunk's global offset
+(``transformer.sequence_start``: the rank's sp coordinate times S / sp,
+where the reference's global array reads them for free).  A decode
+forward adds the rows of the
 cache's own positions (``DecodeCache.positions``: one shared index, or
 one per seat in the slot pool), where the reference keeps a
 ``pos_index`` cache leaf.  A shared index that would read past the
@@ -37,27 +41,30 @@ from tf_operator_tpu_torch.models.transformer import (
     TransformerConfig,
     _param,
     dropout,
-    refuse_sequence_parallel,
+    sequence_start,
 )
 
 #: the next-token loss of the gpt family: the reference's ``lm_loss`` is
 #: the one llama trains with (float32 cross-entropy of the head's logits
-#: over the B * (S - 1) targets, and the token accuracy)
+#: over the B * (S - 1) targets, and the token accuracy; under sequence
+#: parallelism the chunk's shares)
 lm_loss = llama_loss
 
 
 def learned_positions(table: torch.Tensor, s: int, cache: Optional[DecodeCache],
-                      dtype: torch.dtype) -> torch.Tensor:
+                      dtype: torch.dtype, start: int = 0) -> torch.Tensor:
     """The rows of the learned position ``table`` [L, E] for ``s`` new
-    positions, cast to ``dtype``: [1, S, E] from position 0 (no cache)
-    or from the cache's shared index, [B, S, E] at the seats' own
-    positions (module docstring: the clamp)."""
+    positions, cast to ``dtype``: [1, S, E] from position ``start`` (no
+    cache: 0, or a sequence-parallel chunk's offset) or from the cache's
+    shared index, [B, S, E] at the seats' own positions (module
+    docstring: the clamp)."""
 
     rows = table.shape[0]
     if cache is None:
-        if s > rows:
-            raise ValueError(f"sequence {s} exceeds the learned position table's {rows} rows")
-        return table[:s].to(dtype)[None]
+        if start + s > rows:
+            raise ValueError(f"sequence {start + s} exceeds the learned position table's "
+                             f"{rows} rows")
+        return table[start:start + s].to(dtype)[None]
     if isinstance(cache.index, torch.Tensor):
         pos = cache.positions(s, table.device).clamp(max=rows - 1)
         return table[pos].to(dtype)
@@ -93,7 +100,6 @@ class CausalLM(Family):
 
     def __init__(self, cfg: TransformerConfig, device=None, trainable: bool = False):
         super().__init__()
-        refuse_sequence_parallel(cfg, "gpt")
         self.cfg = cfg
         self.tok_embed = Embed(cfg, device, trainable)
         self.pos_embed = _param((cfg.max_len, cfg.hidden), cfg.dtype, device, trainable)
@@ -121,7 +127,8 @@ class CausalLM(Family):
         check_decode_call(cfg, cache, train)
         rng = self.dropout_generator(train)
         s = input_ids.shape[1]
-        x = self.tok_embed(input_ids) + learned_positions(self.pos_embed, s, cache, cfg.dtype)
+        x = self.tok_embed(input_ids) + learned_positions(self.pos_embed, s, cache, cfg.dtype,
+                                                          sequence_start(cfg, s))
         x = dropout(x, cfg.dropout, rng)
         for i, layer in enumerate(self.layers):
             x = layer(x, cache, i, cfg.plain_kernels, rng=rng)

@@ -20,8 +20,11 @@ from tf_operator_tpu_torch.models.transformer import (
     RMSNorm,
     TransformerConfig,
     dropout,
+    next_token_loss,
+    next_token_xent,
+    sp_targets,
 )
-from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, copy_to, cross_entropy
+from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, copy_to
 
 
 class LlamaLM(Family):
@@ -147,58 +150,16 @@ def llama_wide(vocab_size: int = 32000, max_len: int = 2048,
 Batch = Mapping[str, torch.Tensor]
 
 
-def _next_token(logits: torch.Tensor, targets: torch.Tensor, reduction: str, tp=None):
-    """Cross-entropy of ``logits`` [..., V] (vocab-split over ``tp``,
-    the model's line, where it has one) against ``targets`` [...]."""
-
-    v = logits.shape[-1]
-    return cross_entropy(logits.reshape(-1, v), targets.reshape(-1), tp, reduction)
-
-
-def _sp_targets(model: LlamaLM, ids: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
-    """Under sequence parallelism ``ids`` [B, S/n] is this rank's chunk
-    of the sequence: (the next-token targets of its positions, how many
-    of them have one, the B * (S - 1) targets of the whole sequence).
-    The target of the chunk's last position is the first token of the
-    next chunk, received from the next rank of the sp line (the halo
-    XLA exchanges for the reference's global ``ids[:, 1:]``); the last
-    chunk's last position has none."""
-
-    from tf_operator_tpu_torch.ops.ring_attention import sp_line
-    from tf_operator_tpu_torch.parallel.collectives import ppermute
-
-    line = sp_line(model.cfg.mesh)
-    b, s = ids.shape
-    first_of_next = ppermute(ids[:, :1], line.group, line.stats, "loss_halo", shift=-1)
-    targets = torch.cat([ids[:, 1:], first_of_next], dim=1)
-    valid = s - 1 if line.index == line.size - 1 else s
-    return targets, valid, b * (s * line.size - 1)
-
-
 def llama_loss(model: LlamaLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss on ``batch["input_ids"]`` [B, S]: float32
     cross-entropy of the head's logits (cast to float32), averaged over
     the B * (S - 1) targets, and the token accuracy (the counterpart of
-    ``lm_loss``).  Returns (loss, {"token_accuracy": ...}).
-
-    Under sequence parallelism (``model.cfg.sp_enabled``) ``input_ids``
-    is this rank's chunk and both values are its share of the whole
-    sequence's: its targets' sum over the whole sequence's B * (S - 1)
-    targets (:func:`_sp_targets`), so that their sum over the sp line
-    is the mean (the trainer sums them there)."""
+    ``lm_loss``; ``models/transformer.next_token_loss``).  Returns (loss,
+    {"token_accuracy": ...}); under sequence parallelism both are this
+    rank's chunk's shares, summed by the trainer over the sp line."""
 
     ids = batch["input_ids"]
-    if model.cfg.sp_enabled:
-        targets, valid, count = _sp_targets(model, ids)
-        logits = model(ids, train=model.training)[:, :valid]
-        targets = targets[:, :valid]
-        loss = _next_token(logits, targets, "sum") / count
-        acc = (logits.detach().argmax(-1) == targets).sum().float() / count
-        return loss, {"token_accuracy": acc}
-    logits = model(ids, train=model.training)[:, :-1]
-    targets = ids[:, 1:]
-    loss = _next_token(logits, targets, "mean", model.tp)
-    acc = (argmax(logits.detach(), model.tp) == targets).float().mean()
+    loss, acc = next_token_loss(model, ids, model(ids, train=model.training))
     return loss, {"token_accuracy": acc}
 
 
@@ -217,7 +178,7 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
 
     ids = batch["input_ids"]
     if model.cfg.sp_enabled:
-        tgt, valid, denom = _sp_targets(model, ids)
+        tgt, valid, denom = sp_targets(model.cfg.mesh, ids)
     else:
         tgt, valid, denom = ids[:, 1:], ids.shape[1] - 1, ids.shape[0] * (ids.shape[1] - 1)
     h = model(ids, mode="hidden", train=model.training)[:, :valid]
@@ -230,7 +191,7 @@ def llama_loss_chunked(model: LlamaLM, batch: Batch, n_chunks: int = 8
 
     def one(hc, tc):
         logits = model(hc, mode="head")
-        return (_next_token(logits, tc, "sum", model.tp),
+        return (next_token_xent(logits, tc, "sum", model.tp),
                 (argmax(logits.detach(), model.tp) == tc).sum())
 
     loss = h.new_zeros((), dtype=torch.float32)

@@ -29,9 +29,26 @@ router logits ^ 2), summed over the layers.  The forward returns it
 with ``with_aux=True`` and :func:`moe_lm_loss` adds it.  The two
 fractions are means over the global batch, as over the reference's
 global arrays: under a batch group (``Family.set_batch_group``, the
-trainer's ranks over dp) each is all-reduced, the mean probability
+trainer's ranks over dp, fsdp and sp) each is all-reduced, the mean probability
 through a differentiable all-reduce, so each rank's loss holds the
 global load-balance term and its gradient.
+
+Sequence parallelism (a ``cfg.mesh`` with sp above 1: each rank of an
+sp line holds a chunk of S / sp positions of the same rows) computes
+what the reference computes over its global sequence:
+
+- the capacity is taken from the global length S (training);
+- each route's slot is its position in the expert's queue along the
+  whole row: the local cumsum plus the count of the row's routes to
+  that expert on the earlier ranks of the line, and the second route
+  queues behind every first route of the whole row
+  (:func:`route_offsets`: the [B, E] counts gathered over the line,
+  forward only; the slots take no gradient);
+- the fractions and the z-loss are means over dp x sp (the fractions'
+  all-reduce runs over the batch group, which the trainer sets to the
+  batch axes and sp; a forward outside a trainer sets it itself), and
+  each rank returns its share of the auxiliary loss, 1 / sp of it, so
+  that the trainer's sum over the line is the whole.
 
 Expert parallelism (a ``Trainer`` over a mesh with ep above 1, the
 ranks of an ep line each holding E / ep of the stacks and of the
@@ -62,7 +79,6 @@ from torch import nn
 from torch.nn import functional as F
 
 from tf_operator_tpu_torch.models.gpt import check_decode_call, learned_positions
-from tf_operator_tpu_torch.models.llama import _next_token
 from tf_operator_tpu_torch.models.transformer import (
     DecodeCache,
     DenseGeneral,
@@ -73,11 +89,13 @@ from tf_operator_tpu_torch.models.transformer import (
     TransformerConfig,
     _param,
     dropout,
-    refuse_sequence_parallel,
+    next_token_loss,
+    sequence_start,
 )
+from tf_operator_tpu_torch.ops.ring_attention import SpLine, sp_line
+from tf_operator_tpu_torch.parallel.collectives import all_gather
 from tf_operator_tpu_torch.parallel.tensor_parallel import (
     ModelAxis,
-    argmax,
     copy_to,
     gather_last,
     reduce_from,
@@ -126,6 +144,22 @@ def batch_mean(x: torch.Tensor, group) -> torch.Tensor:
     return _AllReduceSum.apply(x, group) / dist.get_world_size(group)
 
 
+@torch.no_grad()
+def route_offsets(counts: torch.Tensor, line: Optional[SpLine]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the sum of ``counts`` over the ranks before this one on its sp
+    ``line``, their sum over the whole line): the routes to each expert
+    that queue ahead of this rank's chunk, and the row's total.  (0,
+    ``counts``) without a line."""
+
+    if line is None:
+        return torch.zeros_like(counts), counts
+    every = counts.new_empty((line.size * counts.shape[0],) + tuple(counts.shape[1:]))
+    all_gather(every, counts.contiguous(), line.group, line.stats, "moe_route_counts")
+    every = every.view((line.size,) + tuple(counts.shape))
+    return every[:line.index].sum(0), every.sum(0)
+
+
 def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """float32 one-hot of integer ``idx`` over ``n`` classes by
     comparison: an index outside [0, n) gives a row of zeros."""
@@ -169,10 +203,16 @@ class MoeMlp(nn.Module):
         return self.ep_tp
 
     def forward(self, x: torch.Tensor, decode: bool = False, group=None,
-                rng: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                rng: Optional[torch.Generator] = None, sp: Optional[SpLine] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``group``: the ranks the routing fractions are averaged over;
+        ``sp``: the sp line whose ranks hold the rest of the rows'
+        sequence (module docstring)."""
+
         moe = self.moe
         dtype, n_exp = moe.base.dtype, moe.num_experts
-        capacity = self.capacity(x.shape[1], decode)
+        n_sp = 1 if sp is None else sp.size
+        capacity = self.capacity(x.shape[1] * n_sp, decode)
         line = self._experts_line()
         # [B, S, E] float32, every expert's column on every rank
         logits = gather_last(self.router(copy_to(x, self.ep).float()), self.ep)
@@ -186,13 +226,14 @@ class MoeMlp(nn.Module):
         frac_probs = batch_mean(probs.mean(dim=(0, 1)), group)
         aux = n_exp * torch.sum(frac_tokens * frac_probs)
         z = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-        aux_loss = moe.aux_loss_weight * aux + moe.z_loss_weight * z
+        aux_loss = (moe.aux_loss_weight * aux + moe.z_loss_weight * z) / n_sp
 
-        # each token's slot in its expert, along its row; the second
-        # route queues behind every first route of the row
-        pos1 = torch.cumsum(mask1, dim=1) * mask1 - mask1
-        count1 = mask1.sum(dim=1, keepdim=True)
-        pos2 = (torch.cumsum(mask2, dim=1) + count1) * mask2 - mask2
+        # each token's slot in its expert, along its whole row; the
+        # second route queues behind every first route of the row
+        before, total = route_offsets(torch.stack([mask1.sum(dim=1), mask2.sum(dim=1)]), sp)
+        pos1 = (torch.cumsum(mask1, dim=1) + before[0][:, None]) * mask1 - mask1
+        count1 = total[0][:, None]
+        pos2 = (torch.cumsum(mask2, dim=1) + before[1][:, None] + count1) * mask2 - mask2
         keep1 = mask1 * (pos1 < capacity)
         keep2 = mask2 * (pos2 < capacity)
         denom = gate1 * keep1.sum(-1) + gate2 * keep2.sum(-1) + 1e-9
@@ -229,9 +270,10 @@ class MoeDecoderLayer(nn.Module):
         self.moe = MoeMlp(moe, device, trainable)
 
     def forward(self, x: torch.Tensor, cache=None, layer: int = 0, plain: bool = False,
-                decode: bool = False, group=None, rng: Optional[torch.Generator] = None):
+                decode: bool = False, group=None, rng: Optional[torch.Generator] = None,
+                sp: Optional[SpLine] = None):
         x = x + self.self_attn(self.ln_self(x), cache, layer, plain, rng=rng)
-        y, aux = self.moe(self.ln_mlp(x), decode, group, rng)
+        y, aux = self.moe(self.ln_mlp(x), decode, group, rng, sp)
         return x + y, aux
 
 
@@ -248,7 +290,6 @@ class MoeLM(Family):
     def __init__(self, moe: MoeConfig, device=None, trainable: bool = False):
         super().__init__()
         cfg = moe.base
-        refuse_sequence_parallel(cfg, "moe")
         self.moe = moe
         self.cfg = cfg
         self.tok_embed = Embed(cfg, device, trainable)
@@ -274,21 +315,25 @@ class MoeLM(Family):
 
     def forward(self, input_ids: torch.Tensor, *, cache: Optional[DecodeCache] = None,
                 train: bool = False, with_aux: bool = False):
-        """Logits, or (logits, the summed auxiliary loss) with
-        ``with_aux``.  ``cache`` (decode configs only: dropless routing)
-        is advanced by the new positions; ``train``: a training forward,
-        whose dropout draws from ``dropout_rng``."""
+        """Logits, or (logits, the summed auxiliary loss: under sequence
+        parallelism this rank's share) with ``with_aux``.  ``cache``
+        (decode configs only: dropless routing) is advanced by the new
+        positions; ``train``: a training forward, whose dropout draws
+        from ``dropout_rng``."""
 
         cfg = self.cfg
         check_decode_call(cfg, cache, train)
         rng = self.dropout_generator(train)
         s = input_ids.shape[1]
-        x = self.tok_embed(input_ids) + learned_positions(self.pos_embed, s, cache, cfg.dtype)
+        x = self.tok_embed(input_ids) + learned_positions(self.pos_embed, s, cache, cfg.dtype,
+                                                          sequence_start(cfg, s))
         x = dropout(x, cfg.dropout, rng)
         aux = x.new_zeros((), dtype=torch.float32)
+        # the rows' sequence spans the sp line: the slots queue along it
+        sp = sp_line(cfg.mesh) if cfg.sp_enabled and not cfg.decode else None
         for i, layer in enumerate(self.layers):
             x, layer_aux = layer(x, cache, i, cfg.plain_kernels, cfg.decode, self.batch_group,
-                                 rng)
+                                 rng, sp)
             aux = aux + layer_aux
         if cache is not None:
             cache.advance(s)
@@ -313,14 +358,14 @@ Batch = Mapping[str, torch.Tensor]
 
 def moe_lm_loss(model: MoeLM, batch: Batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token loss plus the layers' auxiliary losses: float32
-    cross-entropy over the B * (S - 1) targets (``xent``), plus the
-    summed auxiliary loss (``moe_aux_loss``); returns (loss, {
-    "token_accuracy", "moe_aux_loss", "xent"})."""
+    cross-entropy over the B * (S - 1) targets (``xent``,
+    ``transformer.next_token_loss``), plus the summed auxiliary loss
+    (``moe_aux_loss``); returns (loss, {"token_accuracy", "moe_aux_loss",
+    "xent"}).  Under sequence parallelism every term is this rank's
+    share, summed by the trainer over the sp line."""
 
     ids = batch["input_ids"]
     logits, aux = model(ids, train=model.training, with_aux=True)
-    logits, targets = logits[:, :-1], ids[:, 1:]
-    xent = _next_token(logits, targets, "mean", model.tp)
-    acc = (argmax(logits.detach(), model.tp) == targets).float().mean()
+    xent, acc = next_token_loss(model, ids, logits)
     return xent + aux, {"token_accuracy": acc, "moe_aux_loss": aux.detach(),
                         "xent": xent.detach()}

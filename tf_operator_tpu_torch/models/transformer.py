@@ -41,11 +41,13 @@ Attention has three branches, chosen by the cache passed in:
   card, their plain versions on the CPU; a ``mask`` or a ``bias`` sends
   it to the plain ``dot_product_attention``, as the reference's
   dispatcher sends it to XLA).  With sequence parallelism (a
-  ``cfg.mesh`` whose sp axis is above 1) each rank holds its chunk of
-  the sequence: RoPE takes the chunk's global positions and attention
-  runs ``ops/ring_attention`` or ``ops/ulysses_attention`` by
-  ``cfg.sp_impl``, as the reference's dispatch does for self-attention
-  with no mask or bias;
+  ``cfg.mesh`` whose sp axis is above 1; the decoder families llama,
+  gpt and moe, :func:`refuse_sequence_parallel`) each rank holds its
+  chunk of the sequence: RoPE (and a learned position table) takes the
+  chunk's global positions (:func:`sequence_start`) and attention runs
+  ``ops/ring_attention`` or ``ops/ulysses_attention`` by
+  ``cfg.sp_impl`` over the rank's heads (under tp its H / tp), as the
+  reference's dispatch does for self-attention with no mask or bias;
 - a :class:`DecodeCache`: the contiguous decode branch — new K/V are
   written at the running index (shared by the batch, or one per row
   for the slot pool), queries attend to every filled slot.  A model
@@ -97,7 +99,13 @@ from tf_operator_tpu_torch.ops.quant_matmul import quant_matmul_2d
 from tf_operator_tpu_torch.ops.ring_attention import ring_attention
 from tf_operator_tpu_torch.ops.rotary import apply_rope
 from tf_operator_tpu_torch.ops.ulysses_attention import ulysses_attention
-from tf_operator_tpu_torch.parallel.tensor_parallel import copy_to, reduce_from, vocab_embed
+from tf_operator_tpu_torch.parallel.tensor_parallel import (
+    argmax,
+    copy_to,
+    cross_entropy,
+    reduce_from,
+    vocab_embed,
+)
 
 #: flax's RMSNorm epsilon
 NORM_EPS = 1e-6
@@ -456,16 +464,15 @@ class MultiHeadAttention(nn.Module):
     def _sequence_parallel(self, q, k, v, plain: bool):
         """This rank's chunk of the sequence: RoPE at the chunk's global
         positions (the reference's arrays are global, so its positions
-        are global for free), then the sp schedule of ``cfg.sp_impl``.
+        are global for free), then the sp schedule of ``cfg.sp_impl``
+        over the rank's heads (all of them, or its H / tp under tp).
         K/V enter at Hkv width and travel that way.  Returns the
         attention's output [B, H, S, D]."""
-
-        from tf_operator_tpu_torch.runtime.bootstrap import world
 
         cfg = self.cfg
         s = q.shape[2]
         if cfg.rope:
-            start = cfg.mesh.index(("sp",), world()[0]) * s
+            start = sequence_start(cfg, s)
             q, k = apply_rope(q, k, positions=torch.arange(start, start + s, device=q.device),
                               theta=cfg.rope_theta)
         sp_attn = ulysses_attention if cfg.sp_impl == "ulysses" else ring_attention
@@ -679,12 +686,74 @@ def _dropout_generator(model: nn.Module, train: bool) -> Optional[torch.Generato
 
 
 def refuse_sequence_parallel(cfg: TransformerConfig, family: str) -> None:
-    """The encoder families, gpt and moe run without sequence
-    parallelism: it is ported for the llama family."""
+    """The encoder families (BERT, T5, ViT) run without sequence
+    parallelism: it is ported for the decoder families (llama, gpt and
+    moe)."""
 
     if cfg.sp_enabled:
-        raise NotImplementedError(f"sequence parallelism is ported for the llama family; "
-                                  f"{family} runs with sp 1")
+        raise NotImplementedError(f"sequence parallelism is ported for the decoder families "
+                                  f"(llama, gpt, moe); {family} runs with sp 1")
+
+
+def sequence_start(cfg: TransformerConfig, s: int) -> int:
+    """The global position of this rank's first row: its coordinate on
+    its sp line times its chunk's length ``s`` (0 without sp)."""
+
+    if not cfg.sp_enabled:
+        return 0
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    return cfg.mesh.index(("sp",), world()[0]) * s
+
+
+def next_token_xent(logits: torch.Tensor, targets: torch.Tensor, reduction: str, tp=None):
+    """Cross-entropy of ``logits`` [..., V] (vocab-split over ``tp``,
+    the model's line, where it has one) against ``targets`` [...]."""
+
+    v = logits.shape[-1]
+    return cross_entropy(logits.reshape(-1, v), targets.reshape(-1), tp, reduction)
+
+
+def sp_targets(mesh, ids: torch.Tensor) -> Tuple[torch.Tensor, int, int]:
+    """Under sequence parallelism ``ids`` [B, S/n] is this rank's chunk
+    of the sequence: (the next-token targets of its positions, how many
+    of them have one, the B * (S - 1) targets of the whole sequence).
+    The target of the chunk's last position is the first token of the
+    next chunk, received from the next rank of the sp line (the halo
+    XLA exchanges for the reference's global ``ids[:, 1:]``); the last
+    chunk's last position has none."""
+
+    from tf_operator_tpu_torch.ops.ring_attention import sp_line
+    from tf_operator_tpu_torch.parallel.collectives import ppermute
+
+    line = sp_line(mesh)
+    b, s = ids.shape
+    first_of_next = ppermute(ids[:, :1], line.group, line.stats, "loss_halo", shift=-1)
+    targets = torch.cat([ids[:, 1:], first_of_next], dim=1)
+    valid = s - 1 if line.index == line.size - 1 else s
+    return targets, valid, b * (s * line.size - 1)
+
+
+def next_token_loss(model: nn.Module, ids: torch.Tensor, logits: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(float32 cross-entropy averaged over the B * (S - 1) targets,
+    token accuracy) of a decoder family's ``logits`` [B, S, V] (split
+    over ``model.tp``'s vocab under tp) against the next tokens of
+    ``ids`` [B, S]: the reference's ``lm_loss``, shared by llama, gpt and
+    moe.  Under sequence parallelism (``model.cfg.sp_enabled``) ``ids``
+    is this rank's chunk and both values are its share of the whole
+    sequence's: its targets' sum (:func:`sp_targets`) over the whole
+    sequence's count, so that their sum over the sp line is the mean."""
+
+    if model.cfg.sp_enabled:
+        targets, valid, count = sp_targets(model.cfg.mesh, ids)
+        logits, targets = logits[:, :valid], targets[:, :valid]
+        loss = next_token_xent(logits, targets, "sum", model.tp) / count
+        hits = (argmax(logits.detach(), model.tp) == targets).sum()
+        return loss, hits.float() / count
+    logits, targets = logits[:, :-1], ids[:, 1:]
+    return (next_token_xent(logits, targets, "mean", model.tp),
+            (argmax(logits.detach(), model.tp) == targets).float().mean())
 
 
 def set_dropout_rng(model: nn.Module, rng: Optional[torch.Generator]) -> None:
@@ -754,8 +823,10 @@ class Family(nn.Module):
 
     def set_batch_group(self, group) -> None:
         """The ranks that hold the rest of the batch (the ``Trainer``
-        sets them under a mesh): a loss whose count differs between ranks
-        takes its denominator over them (:func:`global_count`)."""
+        sets them under a mesh: the batch axes and sp, whose ranks hold
+        the other chunks of the same rows): a loss whose count differs
+        between ranks takes its denominator over them
+        (:func:`global_count`), moe's routing fractions their mean."""
 
         self.batch_group = group
 

@@ -3,12 +3,15 @@
 
 Each rank of an sp line holds the queries, keys and values of its
 contiguous chunk of the sequence, [B, H, S/n, D] (keys and values at
-Hkv width: GQA travels the ring unexpanded).  The K/V block rotates
-around the line by :func:`collectives.ppermute`, one neighbour a hop, so
-no rank ever holds more than two chunks of K/V.  Rank ``my`` holds, after
-i hops, the block that started on rank (my - i) mod n; its global offset
-is that rank's chunk offset, so causal and window masks are exact across
-chunks.
+Hkv width: GQA travels the ring unexpanded), for the heads its tp rank
+holds (the reference's ``heads_axis="tp"``: H / tp query heads, and
+Hkv / tp KV heads or, where tp does not divide Hkv, K and V repeated to
+the full width and cut to the rank's heads, :func:`rank_kv_heads`).
+The K/V block rotates around the line by :func:`collectives.ppermute`,
+one neighbour a hop, so no rank ever holds more than two chunks of K/V.
+Rank ``my`` holds, after i hops, the block that started on rank
+(my - i) mod n; its global offset is that rank's chunk offset, so causal
+and window masks are exact across chunks.
 
 Two schedules, as in the reference:
 
@@ -85,6 +88,26 @@ def sp_line(mesh, axis_name: str = "sp") -> SpLine:
     rank = world()[0]
     return SpLine(mesh.group((axis_name,)), mesh.index((axis_name,), rank),
                   mesh.shape[axis_name], mesh.stats)
+
+
+def rank_kv_heads(q, k, v, mesh):
+    """K and V that hold every KV head (a head count the tp line does
+    not divide, replicated along it) cut to the query heads of this
+    rank, ``q`` [B, H / tp, S, D]: repeated to the full query width and
+    this rank's H / tp of them kept, as the reference goes to full width
+    before its shard_map.  Their gradients are this rank's share, to be
+    summed over the line."""
+
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    tp = mesh.shape.get("tp", 1)
+    local = q.shape[1]
+    if (local * tp) % k.shape[1]:
+        raise ValueError(f"q heads ({local * tp}) must be a multiple of kv heads ({k.shape[1]})")
+    group = local * tp // k.shape[1]
+    lo = (mesh.index(("tp",), world()[0]) if tp > 1 else 0) * local
+    return (repeat_kv_heads(k, group)[:, lo:lo + local],
+            repeat_kv_heads(v, group)[:, lo:lo + local])
 
 
 def band_hop_class(my: int, src: int, sq: int, window: int) -> Tuple[bool, bool]:
@@ -368,22 +391,32 @@ def ring_attention_plain(q, k, v, line: SpLine, causal: bool,
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
                    causal: bool = False, axis_name: str = "sp",
+                   kv_whole: bool = False,
                    use_flash: Optional[bool] = None,
                    window: Optional[int] = None) -> torch.Tensor:
     """Exact attention over a sequence split on ``axis_name``.
 
     q: this rank's [B, H, S/n, D] chunk (its rows of the batch, its
-    chunk of the sequence, every head: tp is not ported); k, v: [B, Hkv,
-    S/n, D] with H % Hkv == 0.  Every rank of the line passes chunks of
-    one length; the cut (``parallel/sharding.sequence_chunk``) refuses a
-    sequence that does not divide.  At sp 1 this is
-    ``flash_attention.attention`` on the whole sequence.
+    chunk of the sequence, the heads its rank of the tp axis holds:
+    H / tp of the model's); k, v: [B, Hkv, S/n, D] with H % Hkv == 0,
+    the rank's Hkv / tp KV heads, or with ``kv_whole`` every KV head of
+    the model (a count tp does not divide), which :func:`rank_kv_heads`
+    cuts to the rank's query heads at full width, as the reference
+    does.  ``kv_whole`` is the op's own capability: no model path
+    reaches it, because the trainer's sharding refuses an Hkv that tp
+    does not divide.  The ring runs within the rank's sp line, over its heads.
+    Every rank of the line passes chunks of one length; the cut
+    (``parallel/sharding.sequence_chunk``) refuses a sequence that does
+    not divide.  At sp 1 this is ``flash_attention.attention`` on the
+    whole sequence.
 
     ``use_flash``: the flash ring (the kernels for CUDA tensors, their
     plain versions for CPU ones); None = for CUDA tensors, the plain
     ring for CPU ones.  The kernels pick their own tiles, so the
     reference's block sizes and ``interpret`` have no counterpart."""
 
+    if kv_whole:
+        k, v = rank_kv_heads(q, k, v, mesh)
     h, hkv = q.shape[1], k.shape[1]
     if h % hkv:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({hkv})")

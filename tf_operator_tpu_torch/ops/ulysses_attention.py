@@ -14,10 +14,17 @@ moves the split back.
 Gradients flow through :class:`_AllToAll`, whose backward is the
 reverse all-to-all (the transpose of a tiled all-to-all).
 
-GQA: when the KV heads split over the line (``kv_native_a2a``), K and V
-ride the all-to-all at Hkv width and feed the GQA-native attention;
-otherwise they are expanded to H first.  The query heads a rank keeps
-must split over the line, or the call is refused.
+Under tp (the reference's ``heads_axis="tp"``) a rank holds H / tp of
+the query heads, and those local heads are what splits over the sp
+line; K and V come at Hkv / tp heads, or, where tp does not divide Hkv,
+every KV head, repeated to the full width and cut to the rank's query
+heads (``ring_attention.rank_kv_heads``).
+
+GQA: when the rank's KV heads split over the line (``kv_native_a2a``:
+(Hkv / tp) % sp == 0), K and V ride the all-to-all at that width and
+feed the GQA-native attention; otherwise they are expanded to the
+rank's query width first.  The query heads a rank keeps must split over
+the line, or the call is refused with the reference's message.
 
 The plain route (``use_flash=False``, the CPU's default) runs
 ``ops/attention.dot_product_attention`` on the gathered sequence and
@@ -36,7 +43,7 @@ from tf_operator_tpu_torch.ops.attention import (
     repeat_kv_heads,
     validate_window,
 )
-from tf_operator_tpu_torch.ops.ring_attention import sp_line
+from tf_operator_tpu_torch.ops.ring_attention import rank_kv_heads, sp_line
 from tf_operator_tpu_torch.parallel.collectives import all_to_all
 
 #: the CollectiveStats stage of the schedule's all-to-alls
@@ -89,17 +96,22 @@ def ulysses_local(q, k, v, line, *, causal: bool, use_flash: bool, group: int,
 
 def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mesh, *,
                       causal: bool = False, axis_name: str = "sp",
+                      kv_whole: bool = False,
                       use_flash: Optional[bool] = None,
                       window: Optional[int] = None) -> torch.Tensor:
     """Exact attention over a sequence split on ``axis_name`` by the
     all-to-all schedule: the drop-in of ``ring_attention`` (the same
-    arguments, the same per-rank chunks, the same result).
+    arguments, the same per-rank chunks, the rank's heads of the tp
+    axis, the same result; ``kv_whole`` as there, reached by no model
+    path).
 
-    Refused where the query heads do not split over the axis.
+    Refused where the rank's query heads do not split over the axis.
     ``use_flash``: the flash attention on the gathered sequence (the
     kernels for CUDA tensors, their plain versions for CPU ones); None =
     for CUDA tensors, the plain attention for CPU ones."""
 
+    if kv_whole:
+        k, v = rank_kv_heads(q, k, v, mesh)
     h, hkv = q.shape[1], k.shape[1]
     if h % hkv:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({hkv})")

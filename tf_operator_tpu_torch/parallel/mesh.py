@@ -111,7 +111,9 @@ class Mesh:
         """``rank``'s coordinate on the axes that are not model-parallel
         (pp, dp, fsdp, sp; row-major): the rank itself on a mesh with tp
         and ep of 1, and one value for every rank of a tp or ep line,
-        which hold the same rows and draw the same dropout masks."""
+        which hold the same rows (and the same sequence chunk under sp)
+        and draw the same dropout masks; the ranks of an sp line hold
+        other chunks and draw other masks."""
 
         return self.index(tuple(ax for ax in AXIS_ORDER if ax not in MODEL_PARALLEL_AXES),
                           rank)

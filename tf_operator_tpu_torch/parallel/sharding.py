@@ -28,14 +28,18 @@ dimension it would pick in the reference.
 
 The batch is laid out as the reference's logical rules lay it out:
 rows over ("dp", "fsdp"), the sequence ("seq") over sp
-(:func:`sequence_chunk`); the parameters are replicated over sp.
+(:func:`sequence_chunk`); the parameters are replicated over sp
+(:func:`replicated_over_sp`: the learned position table, whose "seq"
+axis the reference's rules split over sp, is held whole by every rank
+of an sp line, which reads its chunk's rows).
 
 The model axes, tp ("heads", "mlp", "vocab") and ep ("expert"), split
 a parameter into local shards (:func:`model_axis_dims`,
 :func:`local_shard`): each rank of a tp or ep line holds its own shard
 and the batch is replicated along the line (parallel/tensor_parallel.py
-computes with them).  :func:`check_mesh` refuses pp, and sp together
-with tp or ep.
+computes with them).  sp composes with both: the ranks of a tp or ep
+line hold the same sequence chunk, those of an sp line the same shards.
+:func:`check_mesh` refuses pp.
 """
 
 from __future__ import annotations
@@ -135,21 +139,25 @@ Spec = Tuple[Any, ...]
 def check_mesh(mesh: Mesh) -> None:
     """Refuse the meshes the trainer does not shard over: a pp axis above
     1 (the JAX trainer has no pipeline either: pipeline parallelism runs
-    through ``models/pipelined_lm.PipelinedLM``), and sp above 1 together
-    with tp or ep (the reference's sequence-parallel attention over heads
-    split on tp, ``heads_axis="tp"``)."""
+    through ``models/pipelined_lm.PipelinedLM``)."""
 
     if mesh.shape[AXIS_PP] > 1:
         raise NotImplementedError(f"mesh axis pp={mesh.shape[AXIS_PP]}: the trainer runs no "
                                   "pipeline; pipeline parallelism runs through "
                                   "models/pipelined_lm.PipelinedLM")
-    model = [ax for ax in MODEL_PARALLEL_AXES if mesh.shape[ax] > 1]
-    if mesh.shape[AXIS_SP] > 1 and model:
-        raise NotImplementedError(
-            f"mesh axes sp={mesh.shape[AXIS_SP]} with "
-            + ", ".join(f"{ax}={mesh.shape[ax]}" for ax in model)
-            + ": sequence parallelism together with tensor or expert parallelism is not "
-            "ported yet")
+
+
+def replicated_over_sp(spec: Spec) -> Spec:
+    """``spec`` with the sp axis taken out: every parameter is whole on
+    each rank of an sp line, and its gradient is summed over the line."""
+
+    def drop(entry):
+        if isinstance(entry, tuple):
+            kept = tuple(ax for ax in entry if ax != AXIS_SP)
+            return kept if len(kept) > 1 else (kept[0] if kept else None)
+        return None if entry == AXIS_SP else entry
+
+    return tuple(drop(entry) for entry in spec)
 
 
 def model_axis_dims(spec: Spec, mesh: Mesh) -> Dict[str, int]:

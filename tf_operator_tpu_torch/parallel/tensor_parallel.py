@@ -27,6 +27,11 @@ collectives make a line compute what one device computes:
   (:func:`cross_entropy`: the max, the sum of exponentials and the
   target's logit summed over the line) and its argmax (:func:`argmax`).
 
+Under sequence parallelism beside tp (a mesh with sp and tp above 1)
+each rank of a tp line holds the same chunk of the sequence: the lookup
+and the cross-entropy act on the chunk's rows as on any rows, and the
+loss's count is the whole sequence's (``models/transformer.next_token_loss``).
+
 Gradients of a parameter split over tp or ep are never summed over that
 axis, and those of a parameter replicated along it are already equal on
 every rank of the line (the trainer's grad-sync plan sums over the batch

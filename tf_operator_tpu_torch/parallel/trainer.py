@@ -46,19 +46,25 @@ step does over a device mesh:
 - with sequence parallelism (an sp axis above 1, for a model built on
   the mesh: ``TransformerConfig(mesh=...)``) the ranks of an sp line
   hold the same rows and each its chunk of the sequence
-  (``shard_batch`` cuts it); every weight is replicated over sp, and
-  the loss of each rank is its chunk's share of its rows' mean
-  (``models/llama.llama_loss``), so summing over sp gives the rows'
-  gradient and metrics;
+  (``shard_batch`` cuts it); every weight is replicated over sp (the
+  logical rules' "seq" split of a position table is taken out,
+  ``sharding.replicated_over_sp``), and the loss of each rank is its
+  chunk's share of its rows' mean (``models/transformer.next_token_loss``,
+  moe's auxiliary loss), so summing over sp gives the rows' gradient and
+  metrics.  sp composes with tp and ep: the ranks of a tp or ep line
+  hold the same chunk, and the gradients are summed over sp and the
+  batch axes, never over tp or ep;
 - the clip's global norm sums the squares of every shard over the axes
   it is split over (fsdp, tp, ep) and counts a replicated leaf once, so
   it is the one-device norm, and the clip keeps optax's (g / n) * c;
   the decay mask reads the unsharded ndim;
 - the step's loss and metrics are global means, all-reduced on the
   device over the whole mesh and left there;
-- a model with train-mode batch statistics (ResNet's BatchNorm) is
-  given the batch axes' group, so its statistics are the global
-  batch's (``set_batch_group``).
+- the model is given the group of the ranks that hold the rest of the
+  batch (``set_batch_group``): the batch axes and, for a model built on
+  an sp mesh, sp, whose ranks hold the other chunks of the same rows.
+  Statistics taken over it (ResNet's BatchNorm, moe's routing
+  fractions) are the global batch's.
 
 The optimizer is the JAX package's optax chain, written out so that it
 computes the same numbers:
@@ -342,6 +348,7 @@ class Trainer:
             local_shard,
             logical_shardings,
             model_axis_dims,
+            replicated_over_sp,
             sharded_dim,
         )
         from tf_operator_tpu_torch.parallel.tensor_parallel import model_axis
@@ -362,7 +369,8 @@ class Trainer:
         if shardings == "fsdp":
             specs = fsdp_shardings(shapes, mesh, flax_orders=_flax_orders(self.model))
         elif shardings == "logical":
-            specs = logical_shardings(shapes, mesh)
+            specs = {n: replicated_over_sp(spec)
+                     for n, spec in logical_shardings(shapes, mesh).items()}
         else:
             raise ValueError(f"shardings must be fsdp|logical, got {shardings!r}")
         self.specs = specs
@@ -389,8 +397,8 @@ class Trainer:
         #: the ranks the batch is split over, and this rank's shard
         self.batch_ranks = data_parallel_size(mesh)
         self.batch_index = mesh.index(BATCH_AXES, rank)
-        self._batch_group = mesh.group(BATCH_AXES)
-        #: the metrics' sum: over the batch ranks and the sp lines
+        #: the ranks of the rest of the batch, the batch ranks and the sp
+        #: lines: the metrics' sum, and the model's batch group
         self._metrics_group = mesh.group(BATCH_AXES + (AXIS_SP,))
         #: batch shards replicated across processes other than by sp (a
         #: mesh whose dp x fsdp x sp is below the world): disjoint
@@ -453,7 +461,7 @@ class Trainer:
         self.release()
         set_group = getattr(self.model, "set_batch_group", None)
         if set_group is not None:
-            set_group(self._batch_group)
+            set_group(self._metrics_group)
 
     def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """The global norm of a list aligned with the masters: the squares

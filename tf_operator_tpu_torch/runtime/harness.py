@@ -56,8 +56,9 @@ def batch_sizes(batch_per_device: int, mesh=None):
     batch over the batch axes of ``mesh`` (dp x fsdp): the ranks of one
     sp line read the same rows (each keeps its chunk of the sequence).
     The ranks of a tp or ep line hold the same rows and count once: the
-    global batch is ``batch_per_device`` a rank over tp x ep.  Without a
-    mesh every rank is a batch shard."""
+    global batch is ``batch_per_device`` a rank over tp x ep (beside sp
+    too: on ``{"sp": 2, "tp": 2}`` the four ranks read one row shard, each
+    keeping its chunk).  Without a mesh every rank is a batch shard."""
 
     from tf_operator_tpu_torch.runtime.bootstrap import world
 
