@@ -217,6 +217,34 @@ Phases, in order; any failure exits non-zero before the result line:
    attention; prints per rank the step ms, the parameter bytes it holds
    beside the whole model's, and the collectives' calls, bytes and host
    seconds by stage.
+5f. decoding over tp / ep shards and the MNIST jobs (``phase_sharded_decode``
+   and ``phase_mnist_jobs`` inside phase 5b's 2-rank world; the moe's
+   decode inside 5d's job): (1) llama-wide (``llama_wide``: all 12
+   layers, GQA 16 : 8 of 128, vocab 32000, seeded weights) over
+   ``{"tp": 2}`` through the ``Trainer``, ``DECODE_STEPS`` AdamW steps
+   on 2 x 1024 bytes (K1-K3 = 12 x steps a rank at 8 : 4 heads, no
+   plain attention), then ``Trainer.generate`` on the live shards:
+   ``DECODE_PROMPTS`` corpus prompts of ``DECODE_PROMPT`` bytes,
+   ``DECODE_NEW`` greedy tokens (timed: tokens/s on gloo), held against
+   ``models/decode.generate`` from the gathered copy on rank 0: both fed
+   the gathered run's tokens step by step, the logits within
+   ``DECODE_LOGIT_RTOL`` of each step's largest; the free-running ids
+   equal to the gathered run's up to the first position whose gathered
+   top-2 margin is below twice that (printed, with where they part);
+   both ranks' ids identical; no K1-K3 launch in the decode (it stays on
+   the plain attention, as the reference's stays on XLA).  5d's moe at
+   ep 2 decodes the same prompt shape after its steps under the same
+   checks, but its weights stay near random (5d trains at ``MP_LR``), so
+   its gathered top-2 margin is close from the first token on and the
+   free-running ids check cannot fail there: the moe's decode is held by
+   its forced logits, the ranks' ids and the launches alone.  (2) ``dist_mnist --data-dir`` as 2 ranks on the card:
+   process 0 writes the procedural MNIST, process 1 waits for its
+   commit record, each trains ``MNIST_DATA_STEPS`` steps on its shard
+   through the sharded loader and ``device_prefetch``: exit 0 with the
+   loss falling, the two first batches' record ids disjoint.  (3)
+   ``mnist_with_summaries`` at its defaults as 2 ranks: exit 0 with the
+   reference's line, and ``read_series`` gives each process's records
+   at steps 5..40 with ``steps_per_sec`` from the second on.
 7. serving at full width: ``llama_7b_shape`` with seeded bf16
    weights, the paged pool (8 slots, max_len 2048, bs 16, 8 steps per
    sync) behind ``serve_lm``'s HTTP server on 127.0.0.1:0; 8 concurrent
@@ -545,7 +573,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ranks, the loss falling, K1-K3 = 2 x 4 a step.
 17. the kernels line (K1, K2, K3 from the training paths: llama's, the
    three encoders', the zoo's, phase 5d's 2-rank jobs, phase 16's
-   (both ranks') and phase 5e's (every rank's), each counted around its
+   (both ranks'), phase 5e's (every rank's) and phase 5f's tp 2 steps
+   (both ranks'), each counted around its
    own run, with the counts by path, and phase 16's and 5e's shapes; K4 from the serving path, K7 from the int8
    serving paths, 7B's pool and gpt_small's chunked decoder, by path;
    K5 and K6 from the ResNet path, at the [200704, 256] no-ReLU,
@@ -5515,7 +5544,18 @@ def multiprocess_jobs(tmp):
     jobs.update({n: (math.prod(shape.values()), _sp_zoo_job(tmp, n))
                  for n, (_, shape, _) in SP_ZOO_JOBS.items()})
     jobs["model_parallel"] = (2, _model_parallel_job(_sp_zoo_paths(tmp)[0]))
+    jobs.update({name: (2, (name, fn, kw)) for name, fn, kw in _mnist_and_decode_jobs(tmp)})
     return jobs
+
+
+def _mnist_and_decode_jobs(tmp):
+    """Phase 5f's 2-rank jobs (``rank_jobs`` entries), their data under
+    ``tmp``."""
+
+    return (("sharded_decode", "rank_sharded_decode", {"data_dir": _sp_zoo_paths(tmp)[0]}),
+            ("dist_mnist_data", "rank_dist_mnist_data", {"data_dir": os.path.join(tmp, "mnist")}),
+            ("mnist_summaries", "rank_mnist_summaries",
+             {"summary_dir": os.path.join(tmp, "mnist_series")}))
 
 
 def _slice_env(r):
@@ -5546,12 +5586,12 @@ def _check_multislice(recs, card):
 
 
 def phase_multiprocess(card, jobs=None):
-    """Phases 5b, 5c and 5e, and 5d's 2-rank job: the operator's
+    """Phases 5b, 5c, 5e and 5f, and 5d's 2-rank job: the operator's
     multi-process jobs on the one card, each rank a process spawned here
     with the ``TPUJOB_*`` environment written here (the kernels were
     built by phase 2; a rank loads them).  This process runs every
     yardstick the jobs are held to; one 2-rank world runs, in turn, the
-    2-rank jobs (5b's psum and fsdp, 5c's, 5e's 2-rank ones, 5d's), and
+    2-rank jobs (5b's psum and fsdp, 5c's, 5e's 2-rank ones, 5d's, 5f's), and
     one 4-rank world the multislice job (2 slices x 2 hosts) and 5e's
     4-rank jobs (``multiprocess_jobs``); then each job's check.
     ``jobs``: the names of the jobs to run (``chip_fault_probe.py`` runs
@@ -5621,6 +5661,12 @@ def phase_multiprocess(card, jobs=None):
             if jobs is None:
                 summary["sp_zoo"]["flash"] = sp_zoo_flash
         summary["model_parallel_ranks"] = recs.get("model_parallel")
+        if "sharded_decode" in recs:
+            summary["sharded_decode"] = phase_sharded_decode(card, recs["sharded_decode"])
+        if {"dist_mnist_data", "mnist_summaries"} & set(recs):
+            summary["mnist"] = phase_mnist_jobs(
+                card, recs.get("dist_mnist_data"), os.path.join(tmp, "mnist"),
+                recs.get("mnist_summaries"), os.path.join(tmp, "mnist_series"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     # each job's wall: the slowest rank's
@@ -5628,8 +5674,9 @@ def phase_multiprocess(card, jobs=None):
              for w in worlds.values() for n in w[0] if n != "lines"}
     walls["5e_s"] = walls["5e_flash_and_yardsticks_s"] + sum(job_s[n] for n in zoo)
     walls["5d_job_s"] = job_s.get("model_parallel", 0.0)
+    walls["5f_s"] = sum(job_s.get(name, 0.0) for name, _, _ in _mnist_and_decode_jobs(tmp))
     walls["total_s"] = time.perf_counter() - t0
-    walls["5b_5c_s"] = walls["total_s"] - walls["5e_s"] - walls["5d_job_s"]
+    walls["5b_5c_s"] = walls["total_s"] - walls["5e_s"] - walls["5d_job_s"] - walls["5f_s"]
     walls["jobs_s"] = job_s
     summary["walls"] = walls
     log(f"multi-process walls ({card}) " + json.dumps(walls))
@@ -5797,6 +5844,12 @@ def rank_model_parallel(data_dir, model_axis):
     recs["moe"] = _mp_record("moe", trainer, losses,
                              (stamps[-1] - stamps[0]) / (MP_MOE_STEPS - 1),
                              time.perf_counter() - t0, launches, plain)
+    if n > 1:
+        # phase 5f: the ep-split moe decodes on its live shards
+        prompt = torch.as_tensor(next(batches)["input_ids"][:DECODE_PROMPTS, :DECODE_PROMPT])
+        recs["moe"]["decode"] = _held_decode(
+            trainer, lambda full: MoeLM.from_state_dict(cfg, full, dev), prompt.long(),
+            DECODE_NEW)
     del trainer, model
     free_device_memory()
     return recs
@@ -5883,6 +5936,10 @@ def phase_model_parallel(card, ranks):
         if one[kind]["launches"] != {k: want_launches[kind] for k in FLASH_KERNELS}:
             bad.append(f"{kind} one process: K1-K3 launched {one[kind]['launches']}")
         summary[kind] = {"one_process": one_row, "ranks": rows}
+    summary["moe"]["decode"] = _check_decode("moe ep 2 decode",
+                                             [r["moe"]["decode"] for r in ranks], bad)
+    log(f"moe ep 2 decode: {summary['moe']['decode']['tokens_per_s'][0]:.1f} tokens/s "
+        f"({DECODE_PROMPTS} prompts of {DECODE_PROMPT}, {DECODE_NEW} new, gloo) on {card}")
     summary["loss_rtol"] = DIST_LOSS_RTOL
     summary["one_process_wall_s"] = one_wall
     summary["wall_s"] = time.perf_counter() - t0
@@ -5890,6 +5947,311 @@ def phase_model_parallel(card, ranks):
     if bad:
         raise AssertionError("model-parallel jobs: " + "; ".join(bad))
     return flash, {"ranks": ranks, "one": one}
+
+
+# -- phase 5f: decoding over tp / ep shards, and the MNIST jobs ----------------
+
+#: phase 5f's llama-wide over {"tp": 2} (all 12 layers): DECODE_STEPS
+#: AdamW steps on DECODE_ROWS x DECODE_SEQ bytes (max_len DECODE_SEQ),
+#: then DECODE_PROMPTS prompts of DECODE_PROMPT bytes and DECODE_NEW
+#: greedy tokens; phase 5d's moe decodes the same prompt shape
+DECODE_STEPS, DECODE_ROWS, DECODE_SEQ = 2, 2, 1024
+DECODE_PROMPTS, DECODE_PROMPT, DECODE_NEW = 2, 64, 32
+#: the sharded decode's logits against the gathered copy's, step by step,
+#: both fed the gathered run's tokens: max |difference| over the step's
+#: largest |logit|.  bf16: a rank rounds its partial product of a
+#: row-parallel projection (attention out, MLP down; the experts'
+#: combine) to bf16 before the float32 sum over the line, where one
+#: process rounds the whole product once: one rounding apart per
+#: projection, amplified through 12 layers of near-random weights (the
+#: 7B paths one rounding apart a layer read 0.045 over 32 layers,
+#: ``LOGITS_REL_TOL``).  Two logits that each move by at most this can
+#: swap only where their margin is below twice it: the free-running ids
+#: must be equal up to the first position whose gathered top-2 margin is
+#: below twice this
+DECODE_LOGIT_RTOL = 5e-2
+#: phase 5f's 2-rank dist_mnist --data-dir steps (the reference's guard
+#: needs 20 or more) and mnist_with_summaries' defaults (40 steps, a
+#: record every 5)
+MNIST_DATA_STEPS = 30
+MNIST_SUMMARY_STEPS, MNIST_SUMMARY_EVERY = 40, 5
+
+
+def _forced_logits(dmodel, ids, prompt_len):
+    """float32 logits [B, N, V] of the decode model ``dmodel`` fed ``ids``
+    [B, P + N]: the prompt, then each later token but the last, a step at
+    a time; row j is what token P + j is chosen from.  A model whose vocab
+    is split over tp gives its rows gathered over the line."""
+
+    from tf_operator_tpu_torch.models.decode import init_cache
+    from tf_operator_tpu_torch.parallel.tensor_parallel import gather_last
+
+    cache = init_cache(dmodel, ids.shape[0])
+    rows = [dmodel(ids[:, :prompt_len], cache=cache)[:, -1]]
+    for t in range(prompt_len, ids.shape[1] - 1):
+        rows.append(dmodel(ids[:, t:t + 1], cache=cache)[:, 0])
+    return gather_last(torch.stack(rows, 1), dmodel.tp)
+
+
+def _held_decode(trainer, gathered_model, prompt, new):
+    """On every rank of a job: ``Trainer.generate`` (greedy) on the live
+    shards, timed; then rank 0 builds ``gathered_model(state)`` on the
+    gathered weights (``Trainer.full_params``) and runs
+    ``models/decode.generate`` on it in this one process, and both the
+    sharded model (every rank) and the gathered one (rank 0) are fed the
+    gathered run's tokens step by step (``_forced_logits``).  Returns the
+    rank's ids, tokens/s and K1-K3 launches during the decode; rank 0's
+    record adds the logits' error a step, the first position whose
+    gathered top-2 margin is below 2 x ``DECODE_LOGIT_RTOL`` of the
+    step's largest logit, and the first position the free-running ids
+    part."""
+
+    import torch.distributed as dist
+
+    from tf_operator_tpu_torch.models.decode import decode_variant, generate
+
+    rank = dist.get_rank()
+    prompt = prompt.to(trainer.device)
+    _mp_zero()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids = trainer.generate(prompt, new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = _mp_counts()
+    rec = {"rank": rank, "ids": ids.tolist(), "decode_s": wall,
+           "tokens_per_s": ids.shape[0] * new / wall, "launches": launches,
+           "plain_calls": plain, "max_memory_allocated_gib":
+           torch.cuda.max_memory_allocated() / 2**30}
+    full = trainer.full_params()
+    want = torch.empty_like(ids)
+    if rank == 0:
+        gmodel = gathered_model({k: v.detach().clone() for k, v in full.items()})
+        del full
+        trainer.release()
+        want.copy_(generate(gmodel, prompt, new))
+        with torch.inference_mode():
+            glog = _forced_logits(decode_variant(gmodel), want, prompt.shape[1])
+        del gmodel
+    else:
+        del full
+        trainer.release()
+    dist.broadcast(want, src=0)
+    with trainer.inference():
+        slog = _forced_logits(decode_variant(trainer.model), want, prompt.shape[1])
+    if rank == 0:
+        scale = glog.abs().amax(dim=(0, 2))  # [N]
+        err = ((slog - glog).abs().amax(dim=(0, 2)) / scale).tolist()
+        top2 = glog.topk(2, dim=-1).values
+        margin = (top2[..., 0] - top2[..., 1]).amin(dim=0) / scale  # [N]
+        close = (margin < 2 * DECODE_LOGIT_RTOL).nonzero()
+        parted = (ids[:, prompt.shape[1]:] != want[:, prompt.shape[1]:]).any(0).nonzero()
+        rec.update(logit_rel_err=err, logit_rel_max=max(err),
+                   first_close_margin=int(close[0]) if len(close) else new,
+                   first_parted=int(parted[0]) if len(parted) else new,
+                   min_margin_rel=float(margin.min()), gathered_ids=want.tolist())
+    free_device_memory()
+    return rec
+
+
+def _check_decode(tag, recs, bad):
+    """Phase 5f's checks of one sharded decode's records (``_held_decode``
+    on every rank), appending to ``bad``: every rank's ids the same, [B,
+    P + N] with the prompt's bytes first; rank 0's logits within
+    ``DECODE_LOGIT_RTOL`` and its free-running ids equal to the gathered
+    run's up to the first close margin; no K1-K3 launch in the decode.
+    Returns the summary row."""
+
+    head = recs[0]
+    if any(r["ids"] != head["ids"] for r in recs):
+        bad.append(f"{tag}: the ranks' ids differ")
+    if head["gathered_ids"] != head["ids"] and head["first_parted"] < head["first_close_margin"]:
+        bad.append(f"{tag}: the ids part from the gathered run's at {head['first_parted']}, "
+                   f"before the first close margin at {head['first_close_margin']}")
+    if not head["logit_rel_max"] <= DECODE_LOGIT_RTOL:
+        bad.append(f"{tag}: logits {head['logit_rel_max']:.3g} off the gathered copy's")
+    if any(sum(r["launches"].values()) for r in recs):
+        bad.append(f"{tag}: the decode launched K1-K3 {[r['launches'] for r in recs]}")
+    return {"logit_rel_max": head["logit_rel_max"], "logit_rtol": DECODE_LOGIT_RTOL,
+            "first_close_margin": head["first_close_margin"],
+            "first_parted": head["first_parted"], "min_margin_rel": head["min_margin_rel"],
+            "same_as_gathered": head["ids"] == head["gathered_ids"],
+            "tokens_per_s": [r["tokens_per_s"] for r in recs],
+            "decode_s": [r["decode_s"] for r in recs],
+            "max_memory_allocated_gib": [r["max_memory_allocated_gib"] for r in recs]}
+
+
+def rank_sharded_decode(data_dir):
+    """Phase 5f (1): one rank of llama-wide (all 12 layers, seeded
+    weights) over ``{"tp": 2}``: ``DECODE_STEPS`` AdamW steps through the
+    ``Trainer`` (K1-K3 at the rank's 8 : 4 heads, counts zeroed just
+    before and read just after), then ``_held_decode`` of
+    ``DECODE_PROMPTS`` corpus prompts.  Returns the record."""
+
+    from tf_operator_tpu_torch.data.text import TextBatches, as_lm_batches
+    from tf_operator_tpu_torch.models.llama import LlamaLM, llama_loss, llama_wide
+    from tf_operator_tpu_torch.models.weights import init_params
+    from tf_operator_tpu_torch.parallel.mesh import make_mesh
+    from tf_operator_tpu_torch.parallel.trainer import Trainer, TrainerConfig
+    from tf_operator_tpu_torch.runtime.bootstrap import initialize, world
+
+    dev = initialize("cuda").device
+    _, n = world()
+    cfg = llama_wide(max_len=DECODE_SEQ)
+    _mp_zero()
+    model = LlamaLM.from_state_dict(cfg, init_params(cfg, 0, dev, trainable=True), dev,
+                                    trainable=True)
+    trainer = Trainer(model, TrainerConfig(learning_rate=1e-3), llama_loss,
+                      mesh=make_mesh({"tp": n}), shardings="logical")
+    batches = iter(as_lm_batches(TextBatches(data_dir, DECODE_ROWS, seed=0)))
+    losses, stamps = [], []
+    t0 = time.perf_counter()
+    for _ in range(DECODE_STEPS):
+        losses.append(float(trainer.train_step(trainer.shard_global_batch(next(batches)))
+                            ["loss"]))
+        stamps.append(time.perf_counter())
+    launches, plain = _mp_counts()
+    heads = [tuple(trainer.model.layers[0].self_attn.query.kernel.shape),
+             tuple(trainer.model.layers[0].self_attn.key.kernel.shape)]
+    prompt = torch.as_tensor(next(batches)["input_ids"][:DECODE_PROMPTS, :DECODE_PROMPT])
+    decode = _held_decode(trainer, lambda full: LlamaLM.from_state_dict(cfg, full, dev),
+                          prompt.long(), DECODE_NEW)
+    rec = {"rank": decode["rank"], "world": n, "losses": losses, "launches": launches,
+           "plain_calls": plain, "train_s": stamps[-1] - t0, "query_key_shapes": heads,
+           "mesh": dict(trainer.mesh.shape), "decode": decode,
+           "collectives": trainer.collective_stats.snapshot()}
+    del trainer, model
+    free_device_memory()
+    return rec
+
+
+def phase_sharded_decode(card, ranks):
+    """Phase 5f (1)'s check (the 2-rank job's records ``ranks``): the
+    training steps' K1-K3 = 12 x ``DECODE_STEPS`` a rank and no plain
+    attention, the ranks' losses equal, each rank holding 8 query and 4
+    KV heads of 16 : 8, and the decode (``_check_decode``); prints the
+    readings with the decode's tokens/s; raises if a rank is off."""
+
+    bad = []
+    want = 12 * DECODE_STEPS
+    for rec in ranks:
+        if rec["launches"] != {k: want for k in FLASH_KERNELS} or rec["plain_calls"]:
+            bad.append(f"rank {rec['rank']}: K1-K3 {rec['launches']} (want {want} each), "
+                       f"plain {rec['plain_calls']}")
+        if [list(s) for s in rec["query_key_shapes"]] != [[2048, 8, 128], [2048, 4, 128]]:
+            bad.append(f"rank {rec['rank']}: q / k kernels {rec['query_key_shapes']}")
+        if not all(math.isfinite(x) for x in rec["losses"]):
+            bad.append(f"rank {rec['rank']}: losses {rec['losses']}")
+    if ranks[0]["losses"] != ranks[1]["losses"]:
+        bad.append(f"the ranks' losses differ: {[r['losses'] for r in ranks]}")
+    decode = _check_decode("llama-wide tp 2 decode", [r["decode"] for r in ranks], bad)
+    summary = {"decode": decode, "ranks": [
+        {k: r[k] for k in ("rank", "world", "mesh", "losses", "launches", "train_s")}
+        | {"tp_stages": {k: v for k, v in r["collectives"].items() if k.startswith("tp")}}
+        for r in ranks]}
+    log(f"llama-wide tp 2 sharded decode ({card}) " + json.dumps(summary))
+    log(f"llama-wide tp 2 decode: {decode['tokens_per_s'][0]:.1f} tokens/s ({DECODE_PROMPTS} "
+        f"prompts of {DECODE_PROMPT}, {DECODE_NEW} new, gloo) on {card}")
+    if bad:
+        raise AssertionError("llama-wide tp 2 sharded decode: " + "; ".join(bad))
+    return summary
+
+
+def rank_dist_mnist_data(data_dir):
+    """Phase 5f (2): one rank of ``dist_mnist --data-dir`` (process 0
+    writes the dataset, the other waits for it), ``MNIST_DATA_STEPS``
+    steps on the card; returns its exit code, its loss line and the
+    record ids of the first batch it trained on (``dist_mnist.run``'s)."""
+
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch import dist_mnist
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    args = dist_mnist.parse_args(["--data-dir", data_dir, "--steps", str(MNIST_DATA_STEPS)])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = dist_mnist.run(args)
+        rc = dist_mnist.report(args, out["losses"])
+    print(buf.getvalue(), end="", flush=True)
+    pid, n = world()
+    line = [ln for ln in buf.getvalue().splitlines() if ln.startswith(f"process {pid}/{n}:")]
+    return {"rank": pid, "world": n, "rc": rc, "line": line[-1] if line else None,
+            "first": out["first_ids"] or []}
+
+
+def rank_mnist_summaries(summary_dir):
+    """Phase 5f (3): one rank of ``mnist_with_summaries`` at its defaults
+    on the card, writing its series under ``summary_dir``."""
+
+    import contextlib
+    import io
+
+    from tf_operator_tpu_torch import mnist_with_summaries
+    from tf_operator_tpu_torch.runtime.bootstrap import world
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = mnist_with_summaries.main(["--summary-dir", summary_dir])
+    print(buf.getvalue(), end="", flush=True)
+    pid, n = world()
+    return {"rank": pid, "world": n, "rc": rc, "line": buf.getvalue().strip().splitlines()[-1]}
+
+
+def phase_mnist_jobs(card, data_recs, data_dir, summary_recs, summary_dir):
+    """Phase 5f (2) and (3)'s checks: ``dist_mnist --data-dir`` exited 0
+    on both ranks with the loss falling and the dataset's commit record
+    of the reference's parameters, the record ids of the first batch
+    each rank trained on disjoint and of its share of the global batch;
+    ``mnist_with_summaries`` exited 0 with the reference's line
+    on both ranks, and ``read_series`` gives each process's records at
+    steps 5, 10, ..., 40 with ``steps_per_sec`` from the second on and
+    finite losses.  Raises if one is off."""
+
+    from tf_operator_tpu_torch.data.synthetic import mnist_meta
+    from tf_operator_tpu_torch.utils.summaries import read_series
+
+    bad, out = [], {}
+    if data_recs is not None:
+        rows = []
+        for r, rec in enumerate(data_recs):
+            m = re.search(r"loss ([\d.]+) -> ([\d.]+)", rec["line"] or "")
+            if rec["rc"] != 0 or not m or not float(m.group(2)) < float(m.group(1)):
+                bad.append(f"dist_mnist --data-dir rank {r}: rc {rec['rc']}, {rec['line']!r}")
+            rows.append({k: rec[k] for k in ("rank", "rc", "line", "first")})
+        with open(os.path.join(data_dir, "meta.json")) as f:
+            if json.load(f) != mnist_meta():
+                bad.append("dist_mnist --data-dir: the dataset's meta is not mnist_meta()")
+        overlap = set(data_recs[0]["first"]) & set(data_recs[1]["first"])
+        per = 64 // len(data_recs)  # dist_mnist's default global batch over the ranks
+        if overlap or any(len(rec["first"]) != per for rec in data_recs):
+            sizes = [len(rec["first"]) for rec in data_recs]
+            bad.append(f"dist_mnist --data-dir: first batches of {sizes} ids (want {per}), "
+                       f"shared {sorted(overlap)}")
+        out["dist_mnist_data"] = {"ranks": rows, "first_batch_overlap": sorted(overlap)}
+    if summary_recs is not None:
+        series = read_series(summary_dir)
+        steps = list(range(MNIST_SUMMARY_EVERY, MNIST_SUMMARY_STEPS + 1, MNIST_SUMMARY_EVERY))
+        for r, rec in enumerate(summary_recs):
+            if rec["rc"] != 0 or not rec["line"].startswith(f"process {r}/2: final loss "):
+                bad.append(f"mnist_with_summaries rank {r}: rc {rec['rc']}, {rec['line']!r}")
+        got = sorted(rec["step"] for rec in series)
+        if got != sorted(steps * 2):
+            bad.append(f"mnist_with_summaries: series steps {got}")
+        rates = [rec.get("steps_per_sec") for rec in series if rec["step"] > steps[0]]
+        if not rates or not all(x and x > 0 for x in rates) or any(
+                rec["step"] == steps[0] and "steps_per_sec" in rec for rec in series):
+            bad.append(f"mnist_with_summaries: steps_per_sec {rates}")
+        if not all(math.isfinite(rec["loss"]) for rec in series):
+            bad.append("mnist_with_summaries: a loss is not finite")
+        out["mnist_summaries"] = {"lines": [rec["line"] for rec in summary_recs],
+                                  "records": len(series), "steps_per_sec": rates,
+                                  "losses": [rec["loss"] for rec in series]}
+    log(f"mnist jobs ({card}) " + json.dumps(out))
+    if bad:
+        raise AssertionError("mnist jobs: " + "; ".join(bad))
+    return out
 
 
 def phase_serve_artifact(trainer, export_dir):
@@ -6701,7 +7063,10 @@ def main():
                        for i in range(2)) for family in ("gpt", "llama")},
                    # phase 5e: every rank of each job
                    **{path: sum(r["launches"][kname] for r in ranks)
-                      for path, ranks in multi["sp_zoo"]["runs"].items()}}
+                      for path, ranks in multi["sp_zoo"]["runs"].items()},
+                   # phase 5f: both ranks of the llama-wide tp 2 job's steps
+                   "llama_wide_tp2_decode_job": sum(
+                       r["launches"][kname] for r in multi["sharded_decode"]["ranks"])}
         entry = _kernel_entry(
             kname, "tf_operator_tpu_torch/csrc/flash_attention.cu", replaces[kname],
             sum(by_path.values()), wide["max_abs_err"][errs[kname]], wide["timing"][kname])

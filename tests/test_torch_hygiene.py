@@ -1,8 +1,8 @@
 """Rules of the PyTorch port that hold for every module of it:
 
-- it imports torch and numpy, never jax, flax, optax, orbax or anything
-  of tf_operator_tpu (an AST scan of every file, and a fresh process
-  that imports every module and then looks at ``sys.modules``);
+- it imports torch and numpy, never jax, flax, optax, orbax, grain or
+  anything of tf_operator_tpu (an AST scan of every file, and a fresh
+  process that imports every module and then looks at ``sys.modules``);
 - ``chip_smoke.py`` refuses to run without a CUDA device and prints no
   result line;
 - the CUDA kernels' sources are in the package, name the TPU kernels
@@ -27,7 +27,7 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "tf_operator_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tf_operator_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "grain", "tf_operator_tpu")
 
 
 def _port_files():
@@ -73,7 +73,8 @@ def test_importing_every_module_loads_no_jax():
               "ops.ulysses_attention", "models.bert", "models.t5", "models.vit",
               "bert_pretrain", "t5_multihost", "vit_classify", "models.gpt", "models.moe",
               "models.registry", "parallel.tensor_parallel", "models.lora",
-              "models.pipelined_lm", "parallel.pipeline", "lora_finetune", "gpt_pipeline"):
+              "models.pipelined_lm", "parallel.pipeline", "lora_finetune", "gpt_pipeline",
+              "data.synthetic", "data.loader", "utils.summaries", "mnist_with_summaries"):
         assert f"tf_operator_tpu_torch.{m}" in mods
     code = (
         "import importlib, sys\n"
@@ -97,6 +98,20 @@ def test_the_lora_and_pipeline_entries_run_on_the_card_unless_asked(entry, argv)
     assert proc.returncode != 0
     assert "no CUDA device is available" in proc.stderr
     assert "loss" not in proc.stdout
+
+
+@pytest.mark.parametrize("entry,argv", [("dist_mnist", ["--data-dir", "D", "--steps", "1"]),
+                                        ("mnist_with_summaries", ["--summary-dir", "D"])])
+def test_the_mnist_entries_run_on_the_card_unless_asked(entry, argv, tmp_path):
+    env = {k: v for k, v in os.environ.items() if not k.startswith("TPUJOB_")}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    argv = [str(tmp_path / "d") if a == "D" else a for a in argv]
+    proc = subprocess.run([sys.executable, "-m", f"tf_operator_tpu_torch.{entry}", *argv],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0
+    assert "no CUDA device is available" in proc.stderr
+    assert "loss" not in proc.stdout
+    assert not os.path.exists(tmp_path / "d")
 
 
 def _run_smoke(cwd):

@@ -335,40 +335,53 @@ def test_llama_pretrain_family_moe_trains_exports_and_samples(tmp_path, capsys):
 
 
 def test_llama_pretrain_refuses_moe_with_llama_only_flags():
-    for extra in (["--model", "llama-wide"], ["--sp", "2"], ["--experts", "0"]):
+    for extra in (["--model", "llama-wide"], ["--experts", "0"]):
         with pytest.raises(SystemExit):
             llama_pretrain.parse_args(["--family", "moe"] + extra)
+    # --sp is not one of them: the moe family ignores it, as the reference's does,
+    # while the llama family still refuses an sp that does not divide the sequence
+    assert llama_pretrain.parse_args(["--family", "moe", "--sp", "2"]).sp == 2
+    with pytest.raises(SystemExit):
+        llama_pretrain.parse_args(["--family", "llama", "--sp", "3", "--seq-len", "64"])
     assert llama_pretrain.moe_mesh_shape(4, 2) == {"ep": 1, "dp": 2}
     assert llama_pretrain.moe_mesh_shape(8, 1) == {"ep": 1, "dp": 1}
 
 
-def worker(data_dir, out_dir):
+def worker(data_dir, out_dir, tag, *extra):
     from tf_operator_tpu_torch.runtime.bootstrap import world
 
-    out = llama_pretrain.run(llama_pretrain.parse_args(_argv(data_dir)), dropout=0.0)
+    out = llama_pretrain.run(llama_pretrain.parse_args(_argv(data_dir) + list(extra)),
+                             dropout=0.0)
     rank, n = world()
     trainer = out["trainer"]
     rec = {"losses": out["losses"], "world": [rank, n], "mesh": trainer.mesh.shape,
            "group": trainer.model.batch_group is not None}
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(out_dir, f"{tag}{rank}.json"), "w") as f:
         json.dump(rec, f)
 
 
-def test_moe_job_matches_one_process(tmp_path):
+@pytest.mark.parametrize("tag,extra", [("rank", []),
+                                       ("sp", ["--sp", "2", "--sp-impl", "ulysses"])])
+def test_moe_job_matches_one_process(tmp_path, tag, extra):
+    """A 2-rank moe job trains at the reference's ``{"ep": 1, "dp": 2}``
+    with the losses of one process on both ranks' rows, with or without
+    ``--sp`` (the reference's moe mesh does not read it)."""
+
     data = str(tmp_path / "text")
-    outs = run_world(2, [sys.executable, "-m", "tests.test_torch_moe", data, str(tmp_path)],
-                     timeout=300)
-    ranks = [json.loads((tmp_path / f"rank{i}.json").read_text()) for i in range(2)]
+    outs = run_world(2, [sys.executable, "-m", "tests.test_torch_moe", data, str(tmp_path),
+                         tag] + extra, timeout=300)
+    ranks = [json.loads((tmp_path / f"{tag}{i}.json").read_text()) for i in range(2)]
     # one process on both ranks' rows at once, from the same seeded weights
     want = llama_pretrain.run(llama_pretrain.parse_args(_argv(data, rows=2 * ROWS)),
                               dropout=0.0)["losses"]
     for i, rec in enumerate(ranks):
         assert rec["world"] == [i, 2], outs[i][-2000:]
         assert rec["mesh"]["ep"] == 1 and rec["mesh"]["dp"] == 2 and rec["group"]
+        assert {k: v for k, v in rec["mesh"].items() if v > 1} == {"dp": 2}
         assert "[moe bytes dp=2 ep=1 E=4]" in outs[i]
         np.testing.assert_allclose(rec["losses"], want, rtol=1e-3)
         assert rec["losses"] == ranks[0]["losses"]  # the global mean on every rank
 
 
 if __name__ == "__main__":
-    worker(sys.argv[1], sys.argv[2])
+    worker(*sys.argv[1:])

@@ -391,7 +391,7 @@ def test_dist_mnist_two_ranks_match_one_process_on_the_global_batch(tmp_path):
         np.testing.assert_allclose(got, one, rtol=1e-5)
         line = [ln for ln in outs[r].splitlines() if ln.startswith(f"process {r}/2: steps")]
         assert line and line[0].startswith(f"process {r}/2: steps 0..{MNIST_STEPS} loss "), outs[r]
-    for flag in ("--data-dir", "--checkpoint-dir", "--profile-dir"):
+    for flag in ("--checkpoint-dir", "--profile-dir"):
         with pytest.raises(SystemExit):
             dist_mnist.parse_args(argv + [flag, str(tmp_path)])
 

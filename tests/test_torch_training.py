@@ -332,10 +332,12 @@ def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
     # sequence parallelism is ported: --sp must divide the sequence
     args = llama_pretrain.parse_args(argv + ["--sp", "2", "--sp-impl", "ulysses"])
     assert (args.sp, args.sp_impl) == (2, "ulysses")
-    # --family moe trains moe_tiny: beside a llama-only flag it is refused
+    # --family moe trains moe_tiny: beside a llama shape it is refused, and
+    # it ignores --sp, as the reference does
     assert llama_pretrain.parse_args(argv + ["--family", "moe"]).family == "moe"
+    assert llama_pretrain.parse_args(argv + ["--family", "moe", "--sp", "3"]).family == "moe"
     for bad in (["--sp", "3"], ["--sp", "0"], ["--sp-impl", "tree"],
-                ["--family", "moe", "--sp", "2"], ["--family", "moe", "--model", "llama-wide"]):
+                ["--family", "moe", "--model", "llama-wide"]):
         with pytest.raises(SystemExit):
             llama_pretrain.parse_args(argv + bad)
     # outside a job there is no sp line to split over

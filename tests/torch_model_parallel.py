@@ -13,7 +13,11 @@ rule, ``"logical"`` by default), "export", "guard", "out", "seq" (the
 decoder families' length, ``SEQ`` by default), "sp_impl" (the schedule
 of a mesh with sp above 1, whose model is built on it), "fault"
 (``"moe_sp_prefix"``: moe's capacity scan without the earlier sp ranks'
-counts, the planted fault its test must see)}``.  Each
+counts, the planted fault its test must see), "window" (a decoder's
+sliding window), "generate" (after the steps, decode ``{"prompt": [B,
+P] ids, "new": N}`` with ``Trainer.generate`` on the live shards and
+with ``models/decode.generate`` from the gathered copy:
+:func:`_generate`)}``.  Each
 rank of a run writes ``{out}/{name}_rank{r}.json``: the step metrics, the
 shapes of the parameters it holds, a digest of each parameter it keeps
 whole (bitwise equality across a tp or ep line), the seed of its
@@ -123,6 +127,9 @@ def _run(spec, out_dir):
     kw = dict(spec.get("moe", {}))
     if family in ("llama", "gpt", "moe"):
         kw["seq"] = spec.get("seq", SEQ)
+    if spec.get("window"):
+        kw["window"] = spec["window"]
+    gathered_kw = dict(kw)
     if mesh.shape["sp"] > 1:
         kw.update(mesh=mesh, sp_impl=spec.get("sp_impl", "ring"))
     model = port_model(family, load_state(spec["state"]), spec.get("dropout", 0.0), **kw)
@@ -153,6 +160,8 @@ def _run(spec, out_dir):
     rec["masters"] = {n_: list(t.shape) for n_, t in zip(trainer.names, trainer.masters)}
     rec["whole"] = {n_: digest(t) for n_, t, dims in zip(trainer.names, trainer.masters,
                                                           trainer._model_dims) if not dims}
+    if spec.get("generate"):
+        rec["generate"] = _generate(trainer, family, gathered_kw, spec["generate"], rank)
     rec["stages"] = sorted(trainer.collective_stats.by_stage)
     full = trainer.full_params()
     if rank == 0:
@@ -276,6 +285,37 @@ def jax_train(run, data):
         for s in range(len(next(iter(data.values()))))]
     run["final"] = {k: v.numpy() for k, v in to_port(run["family"], _unbox(jt)).items()}
     return run
+
+
+def _generate(trainer, family, kw, gen, rank):
+    """Greedy ids of ``gen["prompt"]`` from ``Trainer.generate`` on the
+    live shards (``sharded``) and from ``models/decode.generate`` on a
+    float32 copy of the gathered weights (``gathered``); sampled ids
+    drawn from a generator seeded by the rank (``sampled``: the mesh's
+    first rank's draws on every rank); the refusal of sampling without a
+    generator; the K/V heads of the rank's cache."""
+
+    from tf_operator_tpu_torch.models import decode
+
+    prompt = torch.as_tensor(np.asarray(gen["prompt"], np.int64))
+    n = gen["new"]
+    sharded = trainer.generate(prompt, n)
+    sampled = trainer.generate(prompt, n, temperature=0.8, top_k=16,
+                               generator=torch.Generator().manual_seed(100 + rank))
+    try:
+        trainer.generate(prompt, 2, temperature=0.7)
+        raises = "did not raise"
+    except ValueError as e:
+        raises = str(e)
+    cache = decode.init_cache(decode.decode_variant(trainer.model), 1)
+    cls, build, _ = PORT[family]
+    full = {k: v.clone() for k, v in trainer.full_params().items()}
+    trainer.release()
+    gathered = decode.generate(cls.from_state_dict(build(torch.float32, **kw), full, "cpu"),
+                               prompt, n)
+    return {"sharded": sharded.tolist(), "gathered": gathered.tolist(),
+            "sampled": sampled.tolist(), "raises": raises,
+            "cache_heads": int(cache.layers[0][0].shape[1]), "dtype": str(sharded.dtype)}
 
 
 def main(path):

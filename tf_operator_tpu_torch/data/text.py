@@ -12,7 +12,8 @@ The JAX package reads it through a grain loader with per-process
 shards; the port reads it through :class:`TextBatches`, a seeded numpy
 iterator that shuffles the windows anew each epoch.  In a job of
 several processes the coordinator writes the corpus and the others wait
-for its commit record (:func:`wait_for_dataset`); every process draws
+for its commit record (``data/synthetic.wait_for_dataset``, which the
+corpus is committed through too); every process draws
 the same global batch and keeps its rows ``[i * local, (i + 1) * local)``
 (``shard=(i, n)``), so a one-process run on the global batch sees
 exactly the rows a job of n processes trains on together.  Under
@@ -23,14 +24,16 @@ cuts each its chunk of the sequence.
 
 from __future__ import annotations
 
-import json
 import os
-import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
-_META = "meta.json"
+from tf_operator_tpu_torch.data.synthetic import _exists, commit_arrays, wait_for_dataset
+
+__all__ = ["TextBatches", "as_lm_batches", "decode_bytes", "ensure_text", "text_meta",
+           "wait_for_dataset"]
+
 _NOUNS = (
     "operator worker slice tensor kernel gradient token shard mesh ring "
     "queue batch buffer device compiler schedule"
@@ -67,54 +70,6 @@ def _generate_corpus(n_chars: int, seed: int) -> str:
     return "".join(parts)[:n_chars]
 
 
-def _exists(directory: str, meta: dict) -> bool:
-    try:
-        with open(os.path.join(directory, _META)) as f:
-            return json.load(f) == meta
-    except (OSError, ValueError):
-        return False
-
-
-def _commit(directory: str, tokens: np.ndarray, meta: dict) -> None:
-    """Retract the meta record, write the data through tmp + rename,
-    land the meta record last (a reader never sees half a corpus)."""
-
-    os.makedirs(directory, exist_ok=True)
-    meta_path = os.path.join(directory, _META)
-    try:
-        os.remove(meta_path)
-    except FileNotFoundError:
-        pass
-    pid = os.getpid()
-    tmp = os.path.join(directory, f".tokens.{pid}.tmp.npy")
-    np.save(tmp, tokens)
-    os.replace(tmp, os.path.join(directory, "tokens.npy"))
-    tmp = os.path.join(directory, f".{_META}.{pid}.tmp")
-    with open(tmp, "w") as f:
-        json.dump(meta, f)
-    os.replace(tmp, meta_path)
-
-
-def wait_for_dataset(directory: str, timeout: float = 120.0,
-                     meta: Optional[dict] = None) -> str:
-    """Block until another process finishes generating ``directory``
-    (the copy of ``tf_operator_tpu/data/synthetic.wait_for_dataset``).
-    A job generates on the coordinator only; the others call this with
-    the coordinator's ``meta`` (``text_meta(...)``), so that a stale
-    corpus of other parameters does not satisfy the wait while the
-    coordinator rewrites it."""
-
-    deadline = time.time() + timeout
-    while time.time() < deadline:
-        if meta is not None:
-            if _exists(directory, meta):
-                return directory
-        elif os.path.exists(os.path.join(directory, _META)):
-            return directory
-        time.sleep(0.2)
-    raise TimeoutError(f"dataset never appeared at {directory}")
-
-
 def ensure_text(directory: str, n_chars: int = 1 << 20, seq_len: int = 256,
                 seed: int = 0) -> str:
     """Generate (idempotent) and return the corpus directory: windows
@@ -126,7 +81,9 @@ def ensure_text(directory: str, n_chars: int = 1 << 20, seq_len: int = 256,
     text = _generate_corpus(n_chars, seed)
     tokens = np.frombuffer(text.encode("ascii"), dtype=np.uint8)
     n_windows = len(tokens) // seq_len
-    _commit(directory, tokens[: n_windows * seq_len].reshape(n_windows, seq_len), meta)
+    commit_arrays(directory,
+                  {"tokens.npy": tokens[: n_windows * seq_len].reshape(n_windows, seq_len)},
+                  meta)
     return directory
 
 

@@ -37,8 +37,9 @@ In a job the mesh is the reference's ``{"ep": gcd(E, devices a process),
 train over dp with every expert on every rank, and the tag reads ``moe
 bytes dp=N ep=1 E=...`` (the reference's two-worker job shows ep=2
 because each of its workers holds two devices).  ``--family moe``
-beside ``--model llama-wide`` or ``--sp`` above 1 is refused at parse
-time.
+ignores ``--sp`` and ``--sp-impl``, as the reference does (its mesh is
+the same whatever ``--sp`` says); beside ``--model llama-wide`` it is
+refused at parse time.
 
 Weights are random from seed 0.
 """
@@ -94,7 +95,7 @@ def parser() -> argparse.ArgumentParser:
                         learning_rate=3e-3)
     p.add_argument("--family", choices=["llama", "moe"], default="llama",
                    help="llama (RoPE+GQA+SwiGLU over fsdp[/sp]) or moe (top-2 routed "
-                   "experts, moe_tiny at vocab 256, over dp x ep)")
+                   "experts, moe_tiny at vocab 256, over dp x ep; ignores --sp)")
     p.add_argument("--experts", type=int, default=4, help="moe family: expert count")
     p.add_argument("--model", choices=MODELS, default="llama-tiny",
                    help="llama-tiny (vocab 256) or llama-wide (~700M, vocab 32000); "
@@ -118,13 +119,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     args = p.parse_args(argv)
     if args.steps < 1 or args.batch_per_device < 1 or args.seq_len < 2:
         p.error("--steps, --batch-per-device must be >= 1 and --seq-len >= 2")
-    if args.sp < 1 or args.seq_len % args.sp:
+    if args.family == "llama" and (args.sp < 1 or args.seq_len % args.sp):
         p.error(f"--sp must be >= 1 and divide --seq-len ({args.seq_len})")
     if args.family == "moe":
         if args.model != "llama-tiny":
             p.error(f"--family moe trains moe_tiny; --model {args.model} is a llama shape")
-        if args.sp > 1:
-            p.error("--family moe runs without sequence parallelism (--sp 1)")
         if args.experts < 1:
             p.error("--experts must be >= 1")
     return args
@@ -182,7 +181,7 @@ def run(args: argparse.Namespace, dropout: Optional[float] = None) -> Dict:
 
     ctx = initialize(args.device)
     rank, n = world()
-    if n % args.sp:
+    if args.family == "llama" and n % args.sp:
         raise ValueError(f"--sp {args.sp} does not divide the job's {n} processes")
     device = entry_device(args.device, ctx)
     model, loss_fn, mesh, tag = build(args, device, n, dropout)

@@ -27,6 +27,13 @@ the arena has no place for).
 
 Sampling draws from an explicit ``torch.Generator`` per request; the
 numbers differ from ``jax.random``'s, the law does not.
+
+A model whose heads are split over tp (a rank's shards under a
+``Trainer``'s mesh, ``Family.tp``) decodes over a cache of its own heads
+(Hkv / tp) and its vocab columns of the logits: ``generate`` takes the
+greedy token through the split argmax and samples from the logits
+gathered over the line; its caller makes the ranks feed the same draws
+back (``share``: ``Trainer.generate`` broadcasts its first rank's).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from tf_operator_tpu_torch.models.llama import LlamaLM
 from tf_operator_tpu_torch.models.moe import MoeLM
 from tf_operator_tpu_torch.models.prefix_cache import PrefixCache, exact_key
 from tf_operator_tpu_torch.models.transformer import DecodeCache, Family
+from tf_operator_tpu_torch.parallel.tensor_parallel import argmax, gather_last
 from tf_operator_tpu_torch.utils.metrics import DispatchLedger
 
 #: the families that decode autoregressively (the reference's
@@ -158,16 +166,20 @@ def _rolling(cfg) -> bool:
 def init_cache(model: Family, batch_size: int,
                length: Optional[int] = None) -> DecodeCache:
     """Empty contiguous cache for ``batch_size`` rows: zeros
-    [B, Hkv, length, D] per layer, index 0.  ``length`` defaults to
-    max_len, or to the window for a rolling cache, whose slot positions
-    start at -1 (empty: 0 would admit an unwritten slot as position 0)."""
+    [B, Hkv, length, D] per layer (Hkv / tp, the rank's heads, for a
+    model split over tp), index 0.  ``length`` defaults to max_len, or to
+    the window for a rolling cache, whose slot positions start at -1
+    (empty: 0 would admit an unwritten slot as position 0)."""
 
     cfg = model.cfg
     rolling = _rolling(cfg)
     if length is None:
         length = cfg.window if rolling else cfg.max_len
     length = int(length)
-    shape = (batch_size, cfg.kv_heads, length, cfg.head_dim)
+    tp = 1 if model.tp is None else model.tp.size
+    if cfg.kv_heads % tp:
+        raise ValueError(f"{cfg.kv_heads} KV heads do not split over tp={tp}")
+    shape = (batch_size, cfg.kv_heads // tp, length, cfg.head_dim)
 
     def z():
         return torch.zeros(shape, dtype=cfg.dtype, device=model.device)
@@ -178,15 +190,16 @@ def init_cache(model: Family, batch_size: int,
 
 
 def _sampler(temperature: float, top_k: Optional[int],
-             generator: Optional[torch.Generator]):
+             generator: Optional[torch.Generator], tp=None):
     """Logits [B, V] -> tokens [B]: the argmax at temperature 0, else a
     draw over logits / temperature (truncated to the top_k) from
-    ``generator``."""
+    ``generator``.  ``tp``: the line the logits' vocab is split over (the
+    argmax over the split, or a draw over the gathered logits)."""
 
     def sample(logits):
         if temperature == 0.0:
-            return torch.argmax(logits, dim=-1)
-        logits = logits / temperature
+            return argmax(logits, tp)
+        logits = gather_last(logits, tp) / temperature
         if top_k is not None:
             logits = top_k_mask(logits, top_k)
         return sample_categorical(logits, generator)
@@ -216,6 +229,7 @@ def generate(
     temperature: float = 0.0,
     top_k: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
+    share=None,
 ) -> torch.Tensor:
     """Sample ``max_new_tokens`` continuations of prompt_ids [B, P].
     Returns [B, P + N] int64 ids.  temperature 0 = greedy; otherwise a
@@ -223,7 +237,9 @@ def generate(
     logits when given, from ``generator``.  A rolling cache takes a
     prompt longer than the window in window-sized chunks (the same
     cache as a one-shot prefill: the slots behind the band are dead
-    either way)."""
+    either way).  ``share``: applied to each step's tokens [B] before
+    they are kept and fed back (``Trainer.generate`` broadcasts its
+    mesh's first rank's)."""
 
     dmodel = decode_variant(model)
     cfg = dmodel.cfg
@@ -245,8 +261,9 @@ def generate(
     w = cfg.window if _rolling(cfg) and p > cfg.window else p
     for off in range(0, p, w):
         logits = dmodel(ids[:, off : off + w], cache=cache)
+    sample = _sampler(temperature, top_k, generator, dmodel.tp)
     toks = _decode_loop(dmodel, cache, logits[:, -1], max_new_tokens,
-                        _sampler(temperature, top_k, generator))
+                        sample if share is None else lambda lg: share(sample(lg)))
     return torch.cat([ids.long(), toks], dim=1)
 
 

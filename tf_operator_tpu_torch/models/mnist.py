@@ -7,22 +7,27 @@ logits.  Parameters are float32 masters cast to ``dtype`` at use, as
 flax's ``dtype=`` does, and keep the flax layout (convolution kernels
 HWIO, dense kernels ``[in, out]``), so the weight bridge
 (``models/weights.mnist_state_from_flax``) is a renaming.  The JAX
-module's dropout (0.5) acts only in a ``train=True`` forward, which
-neither JAX example trains with
-(``examples/dist_mnist.py`` and ``dist_multislice.py`` apply
-``train=False``); the port's forward is that deterministic one.
+module's dropout (0.5, after the 1024-wide layer) acts only in a
+``forward(x, train=True)``, with masks from the model's
+``dropout_rng`` (the ``Trainer`` sets it; flax's law,
+``models/transformer.dropout``): ``examples/dist_mnist.py`` and
+``dist_multislice.py`` apply ``train=False``, and so does this module's
+``cross_entropy_loss`` by default, while ``mnist_with_summaries`` trains
+through it with ``train=True``, as the JAX trainer's loss passes
+``train``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from tf_operator_tpu_torch.models.resnet import Dense
+from tf_operator_tpu_torch.models.transformer import dropout
 
 
 class ConvBias(nn.Module):
@@ -53,6 +58,11 @@ class MnistCNN(nn.Module):
     """The classic dist_mnist topology (module docstring); input
     ``[N, 28, 28, 1]``."""
 
+    #: the generator of a training forward's dropout masks
+    dropout_rng: Optional[torch.Generator] = None
+    #: a training forward's dropout rate (the reference's)
+    DROPOUT = 0.5
+
     def __init__(self, num_classes: int = 10, dtype: torch.dtype = torch.bfloat16,
                  device=None):
         super().__init__()
@@ -62,12 +72,17 @@ class MnistCNN(nn.Module):
         self.Dense_0 = Dense(7 * 7 * 64, 1024, dtype=dtype, device=device)
         self.Dense_1 = Dense(1024, num_classes, dtype=dtype, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         x = x.to(self.dtype)
         x = _max_pool(torch.relu(self.Conv_0(x)))
         x = _max_pool(torch.relu(self.Conv_1(x)))
         x = x.reshape(x.shape[0], -1)
         x = torch.relu(self.Dense_0(x))
+        if train:
+            if self.dropout_rng is None:
+                raise ValueError("a training forward draws its dropout masks from the "
+                                 "model's dropout_rng, and none is set (the Trainer sets it)")
+            x = dropout(x, self.DROPOUT, self.dropout_rng)
         return self.Dense_1(x).float()
 
 
@@ -89,11 +104,16 @@ def init_mnist(model: MnistCNN, seed: int) -> MnistCNN:
     return model
 
 
-def cross_entropy_loss(model: nn.Module, batch: Mapping[str, torch.Tensor]
-                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def cross_entropy_loss(model: nn.Module, batch: Mapping[str, torch.Tensor],
+                       train: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """optax's ``softmax_cross_entropy_with_integer_labels`` of the
-    model's float32 logits, mean over the batch; no other metric (the
-    JAX examples' loss)."""
+    model's float32 logits against the integer labels, mean over the
+    batch, and the batch's accuracy.  The default is the JAX examples'
+    ``train=False`` forward; ``train=True`` is the JAX trainer's
+    ``cross_entropy_loss``: the forward trains (its dropout acts) in a
+    train step and not in ``eval_step``, as the model's mode says."""
 
-    logits = model(batch["image"]).float()
-    return F.cross_entropy(logits, batch["label"].long()), {}
+    logits = model(batch["image"], train=train and model.training).float()
+    labels = batch["label"].long()
+    return F.cross_entropy(logits, labels), {
+        "accuracy": (logits.argmax(-1) == labels).float().mean()}

@@ -329,11 +329,13 @@ class MoeLM(Family):
                                                           sequence_start(cfg, s))
         x = dropout(x, cfg.dropout, rng)
         aux = x.new_zeros((), dtype=torch.float32)
-        # the rows' sequence spans the sp line: the slots queue along it
+        # the rows' sequence spans the sp line: the slots queue along it.
+        # A decode (sp ignored) keeps no auxiliary loss, so its fractions
+        # are this rank's own
         sp = sp_line(cfg.mesh) if cfg.sp_enabled and not cfg.decode else None
+        group = None if cfg.decode else self.batch_group
         for i, layer in enumerate(self.layers):
-            x, layer_aux = layer(x, cache, i, cfg.plain_kernels, cfg.decode, self.batch_group,
-                                 rng, sp)
+            x, layer_aux = layer(x, cache, i, cfg.plain_kernels, cfg.decode, group, rng, sp)
             aux = aux + layer_aux
         if cache is not None:
             cache.advance(s)

@@ -77,8 +77,10 @@ rank's heads (q / k / v column-parallel, H / tp query and Hkv / tp K/V
 heads, so GQA keeps its group size; ``out`` row-parallel, its bias
 added once after the sum), the MLP its columns, and ``Embed`` its vocab
 rows (the lookup summed over the line; ``attend`` gives vocab-split
-logits), through ``parallel/tensor_parallel.py``.  Decoding under tp
-is not ported.
+logits), through ``parallel/tensor_parallel.py``.  A decode under tp
+runs the rank's heads over a cache of them (H / tp query and Hkv / tp
+K/V heads; ``models/decode.init_cache``), and the ``out`` projection is
+summed over the line as in training.
 """
 
 from __future__ import annotations
@@ -433,8 +435,6 @@ class MultiHeadAttention(nn.Module):
 
         cfg = self.cfg
         is_self = kv is None
-        if self.tp is not None and cache is not None:
-            raise NotImplementedError("decoding under tensor parallelism is not ported")
         x = copy_to(x, self.tp)
         kv_in = x if is_self else copy_to(kv, self.tp)
         # [B, S, H, D] -> [B, H, S, D]
@@ -522,7 +522,7 @@ class MultiHeadAttention(nn.Module):
             out = dot_product_attention(
                 q, ck[:, :, :end], cv[:, :, :end], mask=vis[None, None]
             )
-            return self.out(out.transpose(1, 2), plain)
+            return self.out(out.transpose(1, 2), plain, reduce=self.tp)
         qpos = row_pos.expand(b, s_new)
         if rolling:
             # read [the buffer before the write, the new chunk]: the
@@ -549,7 +549,7 @@ class MultiHeadAttention(nn.Module):
         ck[rows, :, at] = k.transpose(1, 2).to(ck.dtype)
         cv[rows, :, at] = v.transpose(1, 2).to(cv.dtype)
         out = dot_product_attention(q, keys, vals, mask=vis[:, None])
-        return self.out(out.transpose(1, 2), plain)
+        return self.out(out.transpose(1, 2), plain, reduce=self.tp)
 
     def _paged(self, q, k, v, cache: PagedCache, layer: int, plain: bool):
         cfg = self.cfg
@@ -580,7 +580,7 @@ class MultiHeadAttention(nn.Module):
             q.transpose(1, 2).contiguous(), ak, av, tables, lengths + s_new,
             impl=cache.impl,
         )  # [S, K, H, D]
-        return self.out(out, plain)
+        return self.out(out, plain, reduce=self.tp)
 
 
 #: the MLP's activations (the reference's ``MlpBlock.activation``)
@@ -758,10 +758,11 @@ def next_token_loss(model: nn.Module, ids: torch.Tensor, logits: torch.Tensor
 
 def set_dropout_rng(model: nn.Module, rng: Optional[torch.Generator]) -> None:
     """Hand ``rng`` to every module of ``model`` that draws dropout masks
-    (each :class:`Family` in it)."""
+    (each one whose class declares a ``dropout_rng``: every
+    :class:`Family`, the MNIST CNN)."""
 
     for m in model.modules():
-        if isinstance(m, Family):
+        if hasattr(type(m), "dropout_rng"):
             m.dropout_rng = rng
 
 

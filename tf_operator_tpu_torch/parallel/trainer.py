@@ -101,6 +101,19 @@ train mode, so its loss makes a training forward (the losses pass
 ``train=model.training``); ``eval_step`` runs it in eval mode, which
 draws no mask.  The JAX trainer folds its key with the step; here the
 generator's state moves on with every mask drawn.
+
+With a ``summary_writer`` (utils/summaries.py) a train step writes the
+step series every ``cfg.summary_every`` host steps: the step's metrics,
+fetched through ``sync_ledger`` (the only fetch a step makes), and
+``steps_per_sec`` since the previous record (``train_steps`` parks its
+window's record for the next window, as the JAX trainer does).
+
+``generate`` decodes with the live weights (``inference``): a tp rank
+runs its heads over a cache of its heads and its vocab columns of the
+head (greedy tokens through the split argmax, sampled ones from the
+gathered logits), an ep rank its experts, and the fsdp shards are
+gathered a module at a time as in a step.  The JAX trainer jits and
+caches a program per prompt shape; the port runs eagerly and keeps none.
 """
 
 from __future__ import annotations
@@ -137,6 +150,9 @@ class TrainerConfig:
     accum_steps: int = 1
     #: seeds the dropout generator (with the rank)
     dropout_seed: int = 0
+    #: write the step-series metrics every N host steps when a
+    #: SummaryWriter is attached (utils/summaries.py)
+    summary_every: int = 10
 
 
 def dropout_generator(seed: int, rank: int, device) -> torch.Generator:
@@ -286,21 +302,37 @@ def _flax_key(model: torch.nn.Module, name: str) -> Tuple[str, ...]:
 
 
 class Trainer:
-    """``train_step`` / ``eval_step`` / ``benchmark`` over one model, on
-    one device (``mesh=None``), or one device a rank over ``mesh``
-    (module docstring).  ``loss_fn(model, batch)`` returns (loss,
-    metrics).  ``shardings``: ``"fsdp"`` or ``"logical"``; ``grad_sync``:
-    ``"auto"``, ``"flat"`` or ``"hierarchical"``.  A mesh needs the world it was made in
-    (``runtime/bootstrap.initialize``)."""
+    """``train_step`` / ``train_steps`` / ``eval_step`` / ``evaluate`` /
+    ``generate`` / ``benchmark`` over one model, on one device
+    (``mesh=None``), or one device a rank over ``mesh`` (module
+    docstring).  ``loss_fn(model, batch)`` returns (loss, metrics).
+    ``shardings``: ``"fsdp"`` or ``"logical"``; ``grad_sync``:
+    ``"auto"``, ``"flat"`` or ``"hierarchical"``; ``summary_writer``:
+    where the step series goes (``cfg.summary_every``).  A mesh needs
+    the world it was made in (``runtime/bootstrap.initialize``)."""
 
     def __init__(self, model: torch.nn.Module, cfg: TrainerConfig, loss_fn: LossFn,
-                 mesh=None, shardings="fsdp", grad_sync: str = "auto"):
+                 mesh=None, shardings="fsdp", grad_sync: str = "auto",
+                 summary_writer=None):
         if grad_sync not in ("auto", "flat", "hierarchical"):
             raise ValueError(f"grad_sync must be auto|flat|hierarchical, got {grad_sync!r}")
+        from tf_operator_tpu_torch.utils.metrics import StepSyncLedger, default_metrics
+
         self.model = model.train()
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.mesh = mesh
+        #: the step series' writer (utils/summaries.SummaryWriter), or None
+        self.summary_writer = summary_writer
+        #: every device-to-host fetch of the trainer's own (the summaries'
+        #: scalars) goes through this ledger's resolve; the harness's
+        #: train_loop points it at the loop's for a run
+        self.sync_ledger = StepSyncLedger(metrics=default_metrics)
+        self._last_summary_time: Optional[float] = None
+        self._last_summary_step = 0
+        #: (step, metrics) parked by train_steps at a summary boundary,
+        #: written when the next window starts
+        self._pending_summary: Optional[Tuple[int, Dict[str, torch.Tensor]]] = None
         named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
@@ -720,10 +752,7 @@ class Trainer:
         out["grad_norm"] = global_norm([p.grad for p in self.params])
         return out
 
-    def train_step(self, batch) -> Dict[str, torch.Tensor]:
-        """One step: loss, backward, optimizer update.  The metrics stay
-        on the device; the host does not wait for them."""
-
+    def _step(self, batch) -> Dict[str, torch.Tensor]:
         if self.mesh is None:
             metrics = self.compute_grads(batch)
             self.optimizer.step([p.grad for p in self.params])
@@ -743,6 +772,63 @@ class Trainer:
         self.host_step += 1
         return metrics
 
+    def train_step(self, batch) -> Dict[str, torch.Tensor]:
+        """One step: loss, backward, optimizer update.  The metrics stay
+        on the device; the host does not wait for them, except every
+        ``summary_every`` host steps when a summary writer is attached."""
+
+        metrics = self._step(batch)
+        if self.summary_writer is not None and not self.host_step % max(1, self.cfg.summary_every):
+            self._write_summary(metrics)
+        return metrics
+
+    def train_steps(self, batch, k: int) -> Dict[str, torch.Tensor]:
+        """``k`` steps on one batch; returns each metric of the k steps
+        stacked along a leading axis of length k, on the device.  A
+        summary falls at the window's end: when a ``summary_every``
+        boundary falls inside the window, its last step's metrics are
+        parked and written when the next window starts (the JAX trainer's
+        discipline: the fetch never waits on the window just issued; a
+        run's last parked summary is dropped if no window follows)."""
+
+        if k < 1:
+            raise ValueError(f"train_steps needs k >= 1, got {k}")
+        if self._pending_summary is not None:
+            at_step, pending = self._pending_summary
+            self._pending_summary = None
+            self._write_summary(pending, at_step=at_step)
+        steps = [self._step(batch) for _ in range(k)]
+        metrics = {key: torch.stack([m[key] for m in steps]) for key in steps[0]}
+        every = max(1, self.cfg.summary_every)
+        if (self.summary_writer is not None
+                and self.host_step // every != (self.host_step - k) // every):
+            self._pending_summary = (self.host_step, {key: v[-1] for key, v in metrics.items()})
+        return metrics
+
+    def _write_summary(self, metrics: Dict[str, torch.Tensor],
+                       at_step: Optional[int] = None) -> None:
+        """One record of the series at ``at_step`` (default the host
+        step): the metrics, fetched through the sync ledger (phase
+        ``summary``), ``steps_per_sec`` since the previous record, and
+        the checkpointer's durability stamp where the ledger's registry
+        has one."""
+
+        step = self.host_step if at_step is None else at_step
+        now = time.perf_counter()
+        # the writer leaves out what is not a scalar
+        scalars = dict(self.sync_ledger.resolve("summary", metrics))
+        if self._last_summary_time is not None:
+            scalars["steps_per_sec"] = ((step - self._last_summary_step)
+                                        / (now - self._last_summary_time))
+        registry = getattr(self.sync_ledger, "metrics", None)
+        if registry is not None:
+            stamp = registry.gauge("checkpoint_last_success_unix")
+            if stamp > 0:
+                scalars["checkpoint_time_unix"] = stamp
+        self._last_summary_time = now
+        self._last_summary_step = step
+        self.summary_writer.write(step, **scalars)
+
     @torch.no_grad()
     def eval_step(self, batch) -> Dict[str, torch.Tensor]:
         """Forward-only metrics on a held-out batch: no gradients, no
@@ -758,6 +844,68 @@ class Trainer:
         out = dict(metrics)
         out["loss"] = loss
         return out if self.mesh is None else self._global_means(out)
+
+    def evaluate(self, batches) -> Dict[str, float]:
+        """The mean of each ``eval_step`` metric over an iterable of
+        host-side batches: each this process's local shard where the batch
+        shards follow the processes, the identical global batch where the
+        mesh replicates them across processes."""
+
+        shard = (self.shard_global_batch if self.mesh is not None and self._batch_replicated
+                 else self.shard_batch)
+        totals: Dict[str, float] = {}
+        n = 0
+        for batch in batches:
+            for key, v in self.eval_step(shard(batch)).items():
+                totals[key] = totals.get(key, 0.0) + float(v)
+            n += 1
+        if not n:
+            raise ValueError("evaluate() got an empty batch iterable")
+        return {key: v / n for key, v in totals.items()}
+
+    @contextlib.contextmanager
+    def inference(self):
+        """Forwards of the model on the live weights, without gradients
+        (``torch.inference_mode``): under a mesh each module's fsdp shards
+        are gathered just before its forward and freed just after it, as
+        in a train step, and the shards split over tp or ep stay split."""
+
+        self._in_step = self.mesh is not None
+        try:
+            with torch.inference_mode():
+                yield
+        finally:
+            self._in_step = False
+            self.release()
+
+    def generate(self, prompt_ids, max_new_tokens: int, *, temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``models/decode.generate`` on the live weights (``inference``:
+        a tp rank decodes its heads and vocab columns over a cache of its
+        heads, an ep rank its experts; nothing is gathered but the fsdp
+        shards of the module running).  ``prompt_ids`` [B, P] is the same
+        on every rank, and so is the result, [B, P + N] int64: each step's
+        tokens are broadcast from the mesh's first rank.  Sampling
+        (``temperature`` > 0) draws from ``generator``, which it needs."""
+
+        from tf_operator_tpu_torch.models.decode import generate
+        from tf_operator_tpu_torch.parallel.collectives import broadcast
+
+        if temperature != 0.0 and generator is None:
+            raise ValueError("temperature sampling needs an explicit torch.Generator")
+        share = None
+        if self.mesh is not None:
+            group = self.mesh.group(self.mesh.axis_names)
+
+            def share(tok: torch.Tensor) -> torch.Tensor:
+                return broadcast(tok.contiguous(), 0, group, self.collective_stats,
+                                 "generate_broadcast")
+
+        with self.inference():
+            return generate(self.model, torch.as_tensor(prompt_ids), max_new_tokens,
+                            temperature=temperature, top_k=top_k, generator=generator,
+                            share=share)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
